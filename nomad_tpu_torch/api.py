@@ -1,0 +1,185 @@
+"""Public NOMAD scoring API of the port (counterpart of ``nomad_tpu.api``).
+
+``Nomad(device=None).predict(mode='dir'|'csv', nmr, deg, results_path)``
+embeds both file sets in one batched pass, computes the distance matrix on
+the device and writes the two reference-format CSVs. It returns the
+average and pairwise tables as ``ResultTable``s (labels + numpy values).
+
+  * Device: ``cuda`` unless the caller passes ``device='cpu'``; without
+    CUDA it raises rather than fall back to the CPU.
+  * Weights resolve lazily, after ``predict``'s argument checks: the JAX
+    package's ``pt-models/nomad_tpu_params.npz`` cache through the weight
+    bridge when present, else a seeded init with a loud warning (scores
+    then differ from the published model). ``.pt`` checkpoints are not
+    read yet.
+  * Precision: only ``'exact'``, f32 with TF32 off for both cuBLAS matmuls
+    and cuDNN convolutions (the cuDNN flag defaults to on and would reach
+    the conv frontend).
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .convert import jax_to_state_dict
+from .models import NomadModel, Wav2Vec2Config, init_weights
+from .ops import cdist
+from .scoring.csvio import build_result_tables, write_results
+from .scoring.engine import EmbeddingEngine, list_dir_files
+
+CACHE_FILENAME = "nomad_tpu_params.npz"
+PRECISIONS_LATER = ("balanced", "fast")
+
+
+def resolve_device(device: Optional[str] = None) -> torch.device:
+    """``None`` -> cuda. Raises when CUDA is asked for and missing."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: nomad_tpu_torch runs on the card and "
+                "does not fall back to the CPU; pass device='cpu' to run there"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"device {device!r} not supported: expected 'cuda' or 'cpu'")
+    return dev
+
+
+def set_exact_precision() -> None:
+    """f32 everywhere: no TF32 in cuBLAS matmuls nor cuDNN convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class Nomad:
+    def __init__(
+        self,
+        device: Optional[str] = None,
+        weights_dir: str = "pt-models",
+        config: Optional[Wav2Vec2Config] = None,
+        emb_dim: int = 256,
+        params: Optional[dict] = None,
+        precision: str = "exact",
+    ):
+        if precision in PRECISIONS_LATER:
+            raise ValueError(
+                f"precision {precision!r} is not ported yet (ROADMAP Queue 1, "
+                "'Precision modes on Hopper'); use 'exact'"
+            )
+        if precision != "exact":
+            raise ValueError(f"unknown precision {precision!r}: expected 'exact'")
+        self.device = resolve_device(device)
+        set_exact_precision()
+        self.config = config or Wav2Vec2Config.base()
+        self.emb_dim = emb_dim
+        self.weights_dir = weights_dir
+        self._params = params  # a port state_dict, or None: resolve lazily
+        self._model = None
+        self._engine = None
+        print(f"NOMAD running on: {self.device}")
+
+    # ---------------- weights ----------------
+
+    def _resolve_params(self) -> Optional[dict]:
+        cache = os.path.join(self.weights_dir, CACHE_FILENAME)
+        if os.path.isfile(cache):
+            with np.load(cache) as flat:
+                return jax_to_state_dict(dict(flat))
+        warnings.warn(
+            f"no weights found under {self.weights_dir!r}; using a seeded random "
+            "init. Scores will NOT match the published NOMAD model. Place the "
+            f"JAX package's {CACHE_FILENAME} there to use real weights."
+        )
+        return None
+
+    @property
+    def model(self) -> NomadModel:
+        if self._model is None:
+            model = NomadModel(self.config, emb_dim=self.emb_dim)
+            sd = self._params if self._params is not None else self._resolve_params()
+            if sd is None:
+                init_weights(model, seed=0)
+            else:
+                model.load_state_dict(sd, strict=True)
+            self._model = model.to(self.device).eval().requires_grad_(False)
+        return self._model
+
+    @property
+    def engine(self) -> EmbeddingEngine:
+        if self._engine is None:
+            self._engine = EmbeddingEngine(self.model, self.device)
+        return self._engine
+
+    # ---------------- scoring ----------------
+
+    def score_matrix(self, nmr_paths, test_paths) -> np.ndarray:
+        """Raw distances [len(test_paths), len(nmr_paths)], f32: one engine
+        pass over both sets, cdist on the device, one copy back."""
+        emb = self.engine.embed_files_device(list(nmr_paths) + list(test_paths))
+        nmr_emb = emb[: len(nmr_paths)]
+        test_emb = emb[len(nmr_paths):]
+        return cdist(test_emb, nmr_emb).cpu().numpy()
+
+    def predict(self, mode="dir", nmr="data/nmr-data", deg="data/test-data",
+                results_path=None):
+        if nmr is None:
+            raise Exception("missing nmr argument (non-matching reference path)")
+        if deg is None:
+            raise Exception("missing deg argument (test/degraded path)")
+        if mode == "dir":
+            if not os.path.isdir(nmr):
+                raise Exception(f"nmr directory not found: {nmr}")
+            if not os.path.isdir(deg):
+                raise Exception(f"deg directory not found: {deg}")
+        elif mode == "csv":
+            if not os.path.isfile(nmr):
+                raise Exception(f"nmr csv not found: {nmr}")
+            if not os.path.isfile(deg):
+                raise Exception(f"deg csv not found: {deg}")
+        else:
+            raise Exception(f"unknown mode {mode!r}: expected 'dir' or 'csv'")
+        # a given results_path is not created (reference contract): fail
+        # before any model or embedding work
+        if results_path is not None and not os.path.isdir(results_path):
+            raise Exception(f"results_path directory not found: {results_path}")
+
+        print(f"Compute non-matching reference embeddings from {nmr}")
+        nmr_paths = self._resolve_paths(nmr)
+        print(f"Compute degraded embeddings from {deg}")
+        test_paths = self._resolve_paths(deg)
+        distance_matrix = self.score_matrix(nmr_paths, test_paths)
+        avg, dm = build_result_tables(test_paths, nmr_paths, distance_matrix)
+        write_results(avg, dm, results_path)
+        return avg, dm
+
+    def _resolve_paths(self, path: str) -> list:
+        """Quirk Q3: dir mode follows os.listdir order; csv mode follows the
+        row order of its 'filename' column."""
+        if os.path.isdir(path):
+            return list_dir_files(path)
+        if os.path.isfile(path):
+            with open(path, newline="", encoding="utf-8") as f:
+                reader = csv.DictReader(f)
+                if "filename" not in (reader.fieldnames or []):
+                    raise Exception(
+                        f"csv {path} has no 'filename' column (expected one "
+                        "absolute wav path per row)"
+                    )
+                return [row["filename"] for row in reader]
+        raise Exception(f"Path {path} does not exist")
+
+
+_singleton: Optional[Nomad] = None
+
+
+def get_nomad(**kwargs) -> Nomad:
+    global _singleton
+    if _singleton is None:
+        _singleton = Nomad(**kwargs)
+    return _singleton

@@ -1,0 +1,299 @@
+"""wav2vec 2.0 BASE backbone in PyTorch (counterpart of
+``nomad_tpu.models.wav2vec2``), inference only.
+
+Architecture: a 7-layer strided conv feature encoder (512 channels, no
+bias, a GroupNorm(512) after layer 0 only, GELU after every layer; total
+stride 320), LayerNorm(512) + Linear 512->768, a grouped positional conv
+(k=128, groups=16) + GELU added to its input, LayerNorm, then 12 post-LN
+transformer blocks (d=768, 12 heads, FFN 3072, GELU).
+
+Exact masking, as in the JAX package: files are padded to bucket lengths
+and batched, and the padded compute stays equal to the unpadded one. Conv
+frame counts use the exact floor arithmetic, GroupNorm statistics are
+masked, padded frames are re-zeroed after every bias and norm, and
+attention skips padded keys. With ``lengths=None`` the padding takes part
+everywhere (the reference's training semantics, quirk Q6).
+
+Layout: modules take and return JAX's [B, T, C]; the conv stack runs in
+PyTorch's [B, C, T] inside ``ConvFeatureEncoder``. Attention and every
+LayerNorm go through ``ops`` with ``impl`` 'kernel' (the hand-written CUDA
+kernels on the card, their plain versions on the CPU) or 'ref'.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import mha
+from ..ops.layernorm import layer_norm
+
+IMPLS = ("kernel", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    conv_dim: Sequence[int] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_dim: int = 3072
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    layer_norm_eps: float = 1e-5
+    # 'kernel': the flash-attention / LayerNorm kernels (the card's only
+    # path; their plain versions on the CPU). 'ref': the plain versions
+    # everywhere, for holding the kernel path against them on the card.
+    attention_impl: str = "kernel"
+    layernorm_impl: str = "kernel"
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads:
+            raise ValueError(
+                f"hidden_size {self.hidden_size} not divisible by "
+                f"num_heads {self.num_heads}"
+            )
+        if not (len(self.conv_dim) == len(self.conv_kernel) == len(self.conv_stride)):
+            raise ValueError("conv_dim/conv_kernel/conv_stride length mismatch")
+        for name in ("attention_impl", "layernorm_impl"):
+            if getattr(self, name) not in IMPLS:
+                raise ValueError(f"{name} must be one of {IMPLS}, got {getattr(self, name)!r}")
+
+    @classmethod
+    def base(cls, **kw) -> "Wav2Vec2Config":
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "Wav2Vec2Config":
+        """Small config for unit tests (same topology, ~100x fewer params);
+        the same widths as ``nomad_tpu``'s ``Wav2Vec2Config.tiny``."""
+        defaults = dict(
+            conv_dim=(32, 32, 32),
+            conv_kernel=(10, 3, 2),
+            conv_stride=(5, 2, 2),
+            hidden_size=64,
+            num_layers=2,
+            num_heads=4,
+            ffn_dim=128,
+            pos_conv_kernel=16,
+            pos_conv_groups=4,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def feature_frame_lengths(lengths, config: Wav2Vec2Config):
+    """Sample lengths -> conv-encoder frame lengths (exact VALID-conv floor
+    arithmetic: l' = (l - k)//s + 1 per layer). Ints or integer tensors."""
+    l = lengths
+    for k, s in zip(config.conv_kernel, config.conv_stride):
+        l = (l - k) // s + 1
+    return l
+
+
+def _time_mask(length: int, lengths, dtype):
+    """[B, length, 1] validity mask from per-item lengths."""
+    idx = torch.arange(length, device=lengths.device)[None, :]
+    return (idx < lengths[:, None]).to(dtype)[:, :, None]
+
+
+def masked_mean(x, lengths=None):
+    """Mean over time of [B, T, C]. With lengths, pools only valid frames
+    (exact batch-1 parity); without, pools over the padded axis (quirk Q6)."""
+    if lengths is None:
+        return x.mean(dim=1)
+    mask = _time_mask(x.shape[1], lengths, x.dtype)
+    return (x * mask).sum(dim=1) / lengths[:, None].to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm through ``ops.layer_norm`` (kernel K5 or the plain
+    version); parameters named like ``nn.LayerNorm``'s."""
+
+    def __init__(self, features: int, eps: float = 1e-5, impl: str = "kernel"):
+        super().__init__()
+        self.eps = eps
+        self.impl = impl
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, eps=self.eps, impl=self.impl)
+
+
+class MaskedGroupNorm(nn.Module):
+    """GroupNorm with num_groups == channels (per-channel instance norm over
+    time) with masked statistics, so padded frames do not perturb valid
+    ones; biased variance, eps 1e-5. Not ``nn.GroupNorm``, which cannot
+    mask. Takes [B, C, T] (the conv stack's layout) and normalises it IN
+    PLACE: at the main-path shape it is 6.4 GB, and its caller owns it."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, lengths=None):
+        if lengths is None:
+            mean = x.mean(dim=-1, keepdim=True)
+            x.sub_(mean)
+            var = x.square().mean(dim=-1, keepdim=True)
+        else:
+            mask = _time_mask(x.shape[-1], lengths, x.dtype)  # [B, T, 1]
+            denom = lengths[:, None, None].to(x.dtype)
+            # masked sums over time as batched mat-vec products: no [B, C, T]
+            # temporary for x * mask
+            mean = torch.bmm(x, mask) / denom
+            x.sub_(mean)
+            var = torch.bmm(x.square(), mask) / denom
+        x.mul_(torch.rsqrt(var + self.eps))
+        x.mul_(self.weight[:, None]).add_(self.bias[:, None])
+        if lengths is not None:
+            x.mul_(mask.transpose(1, 2))
+        return x
+
+
+class ConvFeatureEncoder(nn.Module):
+    """fairseq ConvFeatureExtractionModel, mode='default'. [B, T] waveform
+    -> ([B, T', C] features, frame lengths)."""
+
+    def __init__(self, config: Wav2Vec2Config):
+        super().__init__()
+        self.config = config
+        c_in = 1
+        for i, (dim, k, s) in enumerate(
+            zip(config.conv_dim, config.conv_kernel, config.conv_stride)
+        ):
+            setattr(self, f"conv_{i}", nn.Conv1d(c_in, dim, k, stride=s, bias=False))
+            c_in = dim
+        self.group_norm = MaskedGroupNorm(config.conv_dim[0], eps=1e-5)
+
+    def forward(self, wav, lengths=None):
+        cfg = self.config
+        x = wav.to(torch.float32)[:, None, :]  # [B, 1, T]
+        l = lengths
+        for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+            x = getattr(self, f"conv_{i}")(x)
+            if l is not None:
+                l = (l - k) // s + 1
+            if i == 0:
+                x = self.group_norm(x, l)
+            x = F.gelu(x)
+            if l is not None:
+                x.mul_(_time_mask(x.shape[-1], l, x.dtype).transpose(1, 2))
+        return x.transpose(1, 2).contiguous(), l
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv positional embedding (the fairseq weight norm composed
+    into one kernel); SamePad drops the trailing frame for an even kernel."""
+
+    def __init__(self, config: Wav2Vec2Config):
+        super().__init__()
+        k = config.pos_conv_kernel
+        self.kernel = k
+        self.conv = nn.Conv1d(
+            config.hidden_size, config.hidden_size, k,
+            padding=k // 2, groups=config.pos_conv_groups, bias=True,
+        )
+
+    def forward(self, x):
+        y = self.conv(x.transpose(1, 2))
+        if self.kernel % 2 == 0:
+            y = y[:, :, :-1]
+        return F.gelu(y).transpose(1, 2)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN transformer block (fairseq TransformerSentenceEncoderLayer,
+    layer_norm_first=False); padded frames re-zeroed after the block."""
+
+    def __init__(self, config: Wav2Vec2Config):
+        super().__init__()
+        self.config = config
+        d = config.hidden_size
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+        self.fc1 = nn.Linear(d, config.ffn_dim)
+        self.fc2 = nn.Linear(config.ffn_dim, d)
+        eps, impl = config.layer_norm_eps, config.layernorm_impl
+        self.self_attn_layer_norm = LayerNorm(d, eps, impl)
+        self.final_layer_norm = LayerNorm(d, eps, impl)
+
+    def forward(self, x, key_mask=None):
+        cfg = self.config
+        b, t, d = x.shape
+        h = cfg.num_heads
+        q = self.q_proj(x).view(b, t, h, d // h)
+        k = self.k_proj(x).view(b, t, h, d // h)
+        v = self.v_proj(x).view(b, t, h, d // h)
+        attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
+        attn = self.out_proj(attn.reshape(b, t, d))
+        x = self.self_attn_layer_norm(x + attn)
+        y = self.fc2(F.gelu(self.fc1(x)))
+        x = self.final_layer_norm(x + y)
+        if key_mask is not None:
+            x = x * key_mask.to(x.dtype)[:, :, None]
+        return x
+
+
+class TransformerEncoder(nn.Module):
+    """pos-conv + LayerNorm + the post-LN blocks; returns the list of the
+    blocks' outputs, each [B, T, C] (fairseq ``layer_results``)."""
+
+    def __init__(self, config: Wav2Vec2Config):
+        super().__init__()
+        self.pos_conv = PositionalConvEmbedding(config)
+        self.layer_norm = LayerNorm(
+            config.hidden_size, config.layer_norm_eps, config.layernorm_impl
+        )
+        self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
+
+    def forward(self, x, frame_lengths=None):
+        key_mask = None
+        if frame_lengths is not None:
+            key_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_lengths[:, None]
+            x = x * key_mask.to(x.dtype)[:, :, None]
+        x = self.layer_norm(x + self.pos_conv(x))
+        if key_mask is not None:
+            x = x * key_mask.to(x.dtype)[:, :, None]
+        outs = []
+        for layer in self.layers:
+            x = layer(x, key_mask)
+            outs.append(x)
+        return outs
+
+
+class Wav2Vec2Model(nn.Module):
+    """Full backbone. Returns a dict with
+      'x'             — final block output [B, T', C] (== layers[-1])
+      'layers'        — list of the num_layers block outputs [B, T', C]
+      'frame_lengths' — [B] valid frame counts (None when lengths is None)
+    """
+
+    def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config()):
+        super().__init__()
+        self.config = config
+        self.feature_encoder = ConvFeatureEncoder(config)
+        self.feature_layer_norm = LayerNorm(
+            config.conv_dim[-1], config.layer_norm_eps, config.layernorm_impl
+        )
+        self.post_extract_proj = nn.Linear(config.conv_dim[-1], config.hidden_size)
+        self.encoder = TransformerEncoder(config)
+
+    def forward(self, wav, lengths=None):
+        feats, frame_lengths = self.feature_encoder(wav, lengths)
+        x = self.post_extract_proj(self.feature_layer_norm(feats))
+        if frame_lengths is not None:
+            x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)
+        layers = self.encoder(x, frame_lengths)
+        return {"x": layers[-1], "layers": layers, "frame_lengths": frame_lengths}

@@ -1,0 +1,17 @@
+"""Operators of the port: each kernel's wrapper beside its plain version."""
+
+from .attention import mha, mha_ref
+from .distance import cdist, cdist_diag
+from .flash_attention import flash_attention_ref, mha_flash
+from .layernorm import layer_norm, layer_norm_ref
+
+__all__ = [
+    "cdist",
+    "cdist_diag",
+    "flash_attention_ref",
+    "layer_norm",
+    "layer_norm_ref",
+    "mha",
+    "mha_flash",
+    "mha_ref",
+]

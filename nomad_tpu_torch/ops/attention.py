@@ -1,0 +1,50 @@
+"""Multi-head self-attention for the wav2vec2 encoder.
+
+Counterpart of ``nomad_tpu.ops.attention``. Two implementations behind
+one switch:
+
+  * ``kernel`` — the flash-attention forward (``ops/flash_attention.py``,
+                 kernel K1 on the card). The default, and on the card the
+                 only path the model takes.
+  * ``ref``    — the plain version of ``mha_xla``: einsum scores with an
+                 additive -1e9 key mask, softmax in f32. Kept so that a
+                 run can hold the kernel path against it.
+
+q is pre-scaled by 1/sqrt(head_dim) before QK^T, as in torch
+``F.multi_head_attention_forward``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .flash_attention import mha_flash
+
+NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
+
+
+def mha_ref(q, k, v, key_mask=None):
+    """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
+    valid key."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).to(torch.float32)
+    if key_mask is not None:
+        add = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
+        scores = scores + add[:, None, None, :]
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def mha(q, k, v, key_mask=None, impl: str = "kernel"):
+    """impl 'kernel' | 'ref'. The kernel reads key_mask as the prefix mask
+    the model builds (arange(T) < lengths), i.e. as valid key counts."""
+    if impl == "ref":
+        return mha_ref(q, k, v, key_mask)
+    if impl != "kernel":
+        raise ValueError(f"unknown attention impl {impl!r}: expected 'kernel' or 'ref'")
+    b, t = q.shape[:2]
+    if key_mask is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    else:
+        lengths = key_mask.sum(dim=-1, dtype=torch.int32)
+    return mha_flash(q, k, v, lengths)[0]

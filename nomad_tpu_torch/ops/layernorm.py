@@ -1,0 +1,83 @@
+"""LayerNorm over the last axis: plain PyTorch version and kernel K5.
+
+Counterpart of ``nomad_tpu.ops.layernorm``. ``layer_norm`` launches the
+CUDA kernel (``csrc/layernorm.cu``) on a CUDA tensor and computes the plain
+version on a CPU tensor. Forward only: on a CUDA tensor that needs a
+gradient it raises until the backward is ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# Launches of the kernel since the count was last set to 0.
+launches = 0
+
+
+def layer_norm_ref(x, scale, bias, eps: float = 1e-5):
+    """``layer_norm_xla``: f32 mean, biased variance as mean((x-mean)^2),
+    rsqrt(var + eps), scale + shift, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _lib():
+    lib = _build.load("layernorm")
+    fn = lib.nomad_layernorm_fwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _layer_norm_kernel(x, scale, bias, eps):
+    d = x.shape[-1]
+    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"layer_norm kernel: {name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"layer_norm kernel: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"layer_norm kernel: {name} must be contiguous and 16-byte aligned")
+    if scale.shape != (d,) or bias.shape != (d,):
+        raise ValueError(f"layer_norm kernel: scale/bias must be [{d}]")
+    if d % 4 or d > 1024:
+        raise ValueError(f"layer_norm kernel: width {d} must be a multiple of 4, <= 1024")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+        raise NotImplementedError(
+            "layer_norm kernel is forward-only: run under torch.inference_mode() "
+            "(the backward comes with the loss slice)"
+        )
+    y = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return y
+    lib = _lib()
+    err = lib.nomad_layernorm_fwd(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        rows, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "layernorm kernel launch")
+    global launches
+    launches += 1
+    return y
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5, impl: str = "kernel"):
+    """LayerNorm over the last axis. impl: 'kernel' (K5 on a CUDA tensor,
+    the plain version on a CPU tensor) | 'ref' (the plain version)."""
+    if impl == "ref" or (impl == "kernel" and x.device.type == "cpu"):
+        return layer_norm_ref(x, scale, bias, eps)
+    if impl != "kernel":
+        raise ValueError(f"unknown layernorm impl {impl!r}: expected 'kernel' or 'ref'")
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm kernel runs on CUDA tensors, got {x.device}")
+    return _layer_norm_kernel(x, scale, bias, eps)

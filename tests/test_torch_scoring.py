@@ -1,0 +1,215 @@
+"""The port's scoring path (engine, CSVs, API, CLI, host ingest) against
+the JAX package's, on the tiny config with bridged weights."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nomad_tpu.io as jio
+from nomad_tpu.api import Nomad as JaxNomad
+from nomad_tpu.models import NomadModel as JaxNomadModel
+from nomad_tpu.models import Wav2Vec2Config as JaxConfig
+from nomad_tpu.ops.distance import cdist as jax_cdist
+from nomad_tpu.scoring import csvio as jcsv
+from nomad_tpu.scoring import engine as jengine
+import nomad_tpu_torch.api as tapi
+import nomad_tpu_torch.io as tio
+from nomad_tpu_torch.__main__ import main
+from nomad_tpu_torch.convert import jax_to_state_dict
+from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
+from nomad_tpu_torch.scoring import csvio as tcsv
+from nomad_tpu_torch.scoring import engine as tengine
+
+torch.set_num_threads(2)
+
+EMB = 16
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    model = JaxNomadModel(JaxConfig.tiny(), emb_dim=EMB)
+    params = model.init(jax.random.key(1), jnp.zeros((1, 800)), method=JaxNomadModel.init_all)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def wav_dirs(tmp_path_factory):
+    """Seeded PCM16 wavs of ragged lengths (two buckets), plus one float32
+    44.1 kHz stereo file that takes the resampling path."""
+    root = tmp_path_factory.mktemp("wavs")
+    rng = np.random.default_rng(11)
+    nmr, deg = root / "nmr", root / "deg"
+    nmr.mkdir()
+    deg.mkdir()
+    for i, n in enumerate([3000, 5200, 4100]):
+        jio.write_wav(str(nmr / f"ref.{i}.wav"), 0.2 * rng.standard_normal(n), 16000)
+    for i, n in enumerate([2500, 4096, 6100, 900, 4500]):
+        jio.write_wav(str(deg / f"deg{i}.wav"), 0.3 * rng.standard_normal(n), 16000)
+    stereo = 0.25 * rng.standard_normal((2, 7000))
+    jio.write_wav(str(deg / "stereo44.wav"), stereo, 44100, bits=32)
+    return str(nmr), str(deg)
+
+
+def test_cli_scores_match_jax(tmp_path, tiny_params, wav_dirs):
+    nmr, deg = wav_dirs
+    jax_nomad = JaxNomad(config=JaxConfig.tiny(), emb_dim=EMB, params=tiny_params,
+                         precision="exact")
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    jax_nomad.predict("dir", nmr, deg, str(jdir))
+    j_paths = jax_nomad._resolve_paths(nmr), jax_nomad._resolve_paths(deg)
+    j_emb = jax_nomad.engine.embed_files(j_paths[0] + j_paths[1])
+    j_dm = np.asarray(jax_cdist(j_emb[len(j_paths[0]):], j_emb[: len(j_paths[0])]))
+
+    port = tapi.Nomad(device="cpu", config=Wav2Vec2Config.tiny(), emb_dim=EMB,
+                      params=jax_to_state_dict(tiny_params))
+    tdir = tmp_path / "port"
+    tdir.mkdir()
+    tapi._singleton = port
+    try:
+        main(["--mode", "dir", "--nmr", nmr, "--deg", deg, "--results_path", str(tdir),
+              "--device", "cpu"])
+    finally:
+        tapi._singleton = None
+    dm = port.score_matrix(*j_paths)
+    assert dm.shape == (6, 3) and np.isfinite(dm).all()
+    np.testing.assert_allclose(dm, j_dm, atol=1e-5, rtol=0)
+
+    for name in ("nomad_avg.csv", "nomad_scores.csv"):
+        ours = (tdir / name).read_text().splitlines()
+        ref = (jdir / name).read_text().splitlines()
+        assert len(ours) == len(ref)
+        assert ours[0] == ref[0]  # header
+        for a, b in zip(ours[1:], ref[1:]):
+            ca, cb = a.split(","), b.split(",")
+            assert ca[0] == cb[0]  # label (quirk Q2) and row order (Q3)
+            np.testing.assert_allclose(np.float64(ca[1:]), np.float64(cb[1:]), atol=1e-3, rtol=0)
+    assert "ref" in (tdir / "nomad_scores.csv").read_text().splitlines()[0]
+
+
+def test_csv_mode_follows_the_csv_rows(tmp_path, tiny_params, wav_dirs):
+    """Quirk Q3: csv mode scores the files of each csv's 'filename' column
+    in row order; the scores are those of dir mode for the same files."""
+    nmr, deg = wav_dirs
+    port = tapi.Nomad(device="cpu", config=Wav2Vec2Config.tiny(), emb_dim=EMB,
+                      params=jax_to_state_dict(tiny_params))
+    avg_dir, dm_dir = port.predict("dir", nmr, deg, str(tmp_path))
+    lists, order = {}, {}
+    for name, d in (("nmr", nmr), ("deg", deg)):
+        files = sorted(os.listdir(d), reverse=True)
+        order[name] = [os.listdir(d).index(f) for f in files]  # dir mode: listdir order
+        lists[name] = tmp_path / f"{name}.csv"
+        lists[name].write_text("filename,other\n" + "".join(f"{d}/{f},x\n" for f in files))
+    avg_csv, dm_csv = port.predict("csv", str(lists["nmr"]), str(lists["deg"]), str(tmp_path))
+    assert dm_csv.index == [f.split(".")[0] for f in sorted(os.listdir(deg), reverse=True)]
+    rows, cols = order["deg"], order["nmr"]
+    np.testing.assert_allclose(dm_csv.values, dm_dir.values[rows][:, cols], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(avg_csv.values, avg_dir.values[rows], atol=1e-3, rtol=0)
+    bad = tmp_path / "bad.csv"
+    bad.write_text("path\nx.wav\n")
+    with pytest.raises(Exception, match="filename"):
+        port.predict("csv", str(bad), str(lists["deg"]), str(tmp_path))
+
+
+def test_predict_checks_arguments_before_params(tmp_path):
+    """Argument errors surface before any weights resolve or model builds."""
+    n = tapi.Nomad(device="cpu", weights_dir=str(tmp_path / "nowhere"))
+    for args in (("dir", None, "x"), ("dir", "x", None), ("bogus", str(tmp_path), str(tmp_path)),
+                 ("dir", str(tmp_path / "missing"), str(tmp_path)),
+                 ("dir", str(tmp_path), str(tmp_path), str(tmp_path / "nope"))):
+        with pytest.raises(Exception):
+            n.predict(*args)
+    assert n._model is None
+    for p in ("balanced", "fast"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tapi.Nomad(device="cpu", precision=p)
+
+
+def test_write_results_byte_identical(tmp_path):
+    rng = np.random.default_rng(5)
+    dm = rng.uniform(0, 2, size=(7, 4)).astype(np.float32)
+    dm[0, 0], dm[1, 1], dm[2, 2], dm[3, 3] = 0.0, 1.0, 0.3336, 1.99951
+    test = [f"/a/b/t{i}.x.wav" for i in range(7)]
+    nmr = [f"/n/ref_{i}.wav" for i in range(4)]
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    jdir.mkdir()
+    tdir.mkdir()
+    jcsv.write_results(*jcsv.build_result_frames(test, nmr, dm), str(jdir))
+    tcsv.write_results(*tcsv.build_result_tables(test, nmr, dm), str(tdir))
+    for name in ("nomad_avg.csv", "nomad_scores.csv"):
+        assert (tdir / name).read_bytes() == (jdir / name).read_bytes()
+
+
+def test_batch_plan_matches_jax(tiny_params):
+    jeng = jengine.EmbeddingEngine(
+        JaxNomadModel(JaxConfig.base(attention_impl="pallas")), params={}
+    )
+    model = NomadModel(Wav2Vec2Config.tiny())
+    model.config = Wav2Vec2Config.base()  # only the config feeds the plan
+    teng = tengine.EmbeddingEngine(model, torch.device("cpu"))
+    for n in (1, 4096, 4097, 16000, 160000, 163840, 163841, 480000, 1310720):
+        assert tengine.bucket_length(n) == jengine.bucket_length(n)
+        blen = jengine.bucket_length(n)
+        assert teng.batch_size_for(blen) == jeng.batch_size_for(blen)
+        for left in (1, 2, 7, 31, 33, 95, 97, 200):
+            assert teng.batch_size_for(blen, remaining=left) == jeng.batch_size_for(blen, remaining=left)
+        for items in (1, 5, 96, 100, 250):
+            assert teng._chunk_batches(items, blen) == jeng._chunk_batches(items, blen)
+    assert teng.batch_size_for(163840) == 96
+    # the plain attention path caps long buckets by its [B, H, T', T'] buffers
+    model.config = Wav2Vec2Config.base(attention_impl="ref")
+    assert teng.batch_size_for(1310720) < teng.batch_size_for(163840) == 96
+
+
+def test_engine_pads_with_last_row_and_keeps_order():
+    rng = np.random.default_rng(9)
+    model = NomadModel(Wav2Vec2Config.tiny(), emb_dim=EMB)
+    init_weights(model, seed=1).eval()
+    eng = tengine.EmbeddingEngine(model, torch.device("cpu"), batch_sample_budget=4 * 4096)
+    waves = [(0.2 * rng.standard_normal(n)).astype(np.float32) for n in (900, 3000, 5000, 1200)]
+    waves[1] = np.rint(waves[1] * 32768).astype(np.int16)  # the int16 path
+    plan = eng.plan([len(w) for w in waves])
+    # bucket 4096: 3 files in a batch of 4 (one pad row); bucket 8192: 1
+    assert [(len(c), b) for c, b, _ in plan] == [(3, 4), (1, 1)]
+    emb = eng.embed_waves(waves)
+    with torch.inference_mode():
+        for i, w in enumerate(waves):
+            x = torch.from_numpy(w.astype(np.float32) / (32768.0 if w.dtype == np.int16 else 1.0))
+            np.testing.assert_allclose(emb[i], model(x[None]).numpy()[0], atol=1e-5, rtol=0)
+
+
+def test_wav_and_resample_copies_bit_identical(tmp_path):
+    rng = np.random.default_rng(3)
+    x = np.clip(0.4 * rng.standard_normal((2, 3001)), -1, 1).astype(np.float32)
+    for bits in (16, 32):
+        a, b = tmp_path / f"j{bits}.wav", tmp_path / f"t{bits}.wav"
+        jio.write_wav(str(a), x, 22050, bits=bits)
+        tio.write_wav(str(b), x, 22050, bits=bits)
+        assert a.read_bytes() == b.read_bytes()
+        ja, jsr = jio.read_wav(str(a))
+        ta, tsr = tio.read_wav(str(a))
+        assert jsr == tsr and ta.dtype == ja.dtype and np.array_equal(ta, ja)
+        for sr in (16000, 8000):
+            assert np.array_equal(tio.load_processing(str(a), target_sr=sr),
+                                  jio.load_processing(str(a), target_sr=sr))
+    mono = tmp_path / "m.wav"
+    jio.write_wav(str(mono), x[0], 16000)
+    assert np.array_equal(tio.read_wav_int16_mono(str(mono))[0], jio.read_wav_int16_mono(str(mono))[0])
+    for trim in (False, True):
+        assert np.array_equal(tio.load_for_scoring(str(mono), trim=trim),
+                              jio.load_for_scoring(str(mono), trim=trim))
+    for orig, new in ((44100, 16000), (8000, 16000), (48000, 16000)):
+        assert np.array_equal(tio.resample(x, orig, new), jio.resample(x, orig, new))
+        for a, b in zip(tio.sinc_resample_kernel(orig, new), jio.sinc_resample_kernel(orig, new)):
+            assert np.array_equal(a, b)
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"fLaC" + bytes(40))
+    with pytest.raises(tio.UnsupportedAudioError, match="FLAC"):
+        tio.load_for_scoring(str(bad))
+    bad.write_bytes(b"junk" * 10)
+    with pytest.raises(tio.UnsupportedAudioError):
+        tio.load_for_scoring(str(bad))

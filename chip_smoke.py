@@ -1,4 +1,5 @@
-"""Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score.
+"""Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
+differentiate.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,25 @@ Phases, each fatal on failure:
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc and
      print ptxas' registers, shared memory and spills;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time kernel, plain version and one PyTorch
-     call computing the same function (a yardstick the port never calls),
-     beside the least time the card could take (bound);
-  4. the main path at full wav2vec 2.0 BASE width with seeded weights:
+     paths' shapes, and time kernel, plain version and one PyTorch call
+     computing the same function (a yardstick the port never calls),
+     beside the least time the card could take (bound): K1 and K5 at the
+     scoring shapes, K2 and K3 (the attention backward) at the loss shape,
+     the triplet-training shape and a ragged long shape with NaN past the
+     bound;
+  4. the scoring path at full wav2vec 2.0 BASE width with seeded weights:
      ``python -m nomad_tpu_torch --mode dir`` on 8 + 100 seeded 10 s WAVs,
      then ``Nomad(device="cuda").predict`` in process with the kernel
      launch counts read around it; embeddings held against the plain path
      on the same card and against batch-1 runs; warm throughput, pass time
      and peak memory; one warm pass under torch.profiler (device time by
      kernel group, the device's idle share);
-  5. the kernels' JSON line, the card line, and the last line
+  5. the loss path at the same width: ``Nomad.forward(estimate, clean)``
+     and ``.backward()`` on 32 seeded 16,384-sample crops, with the launch
+     counts of one step; loss and d loss / d estimate held against the
+     plain path; forward(x, x) == 0; warm step time, peak memory and one
+     step under torch.profiler;
+  6. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
@@ -49,8 +58,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 SR = 16000
 N_NMR, N_DEG, SECONDS = 8, 100, 10.0
+# the SE demo's crop at its training batch (reference nomad_loss_test.py:196,
+# nomad_tpu/configs/se_config.yaml:12): T' = 50 frames
+LOSS_BATCH, LOSS_SAMPLES, LOSS_STEPS = 32, 16384, 7
 TOL_LN, TOL_FLASH = 1e-5, 2e-5  # f32, sums in another order than the plain version
+# K2/K3 on unit-scale inputs: 2e-5 up to T = 512 keys or queries summed,
+# growing as sqrt(T) beyond (rounding of a sum of T terms; at T = 4095 the
+# one-key row's dK, analytically 0, is a sum of 4095 rounding residuals),
+# plus 1e-5 relative: that row's dV sums every query's dO (|dV| ~ 30), one
+# row after another in the kernel
+TOL_FLASH_BWD, RTOL_FLASH_BWD = 2e-5, 1e-5
 TOL_REF_PATH, TOL_BATCH1 = 1e-4, 1e-5
+TOL_LOSS_REL, TOL_GRAD_REL = 1e-5, 1e-4  # loss relative; gradient relative to max|g|
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -179,6 +198,85 @@ def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
     return res
 
 
+def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor) -> dict:
+    """Per kernel: every (query row, valid key) pair costs K2 6*D FLOP (s,
+    dP, dQ) and K3 8*D (s, dP, dK, dV). Bytes: the valid keys' k and v,
+    q, dO, LSE and Di of the batch rows that have a key, and the outputs
+    (dQ; dK and dV), each once."""
+    lens = lengths.long()
+    keys, live = int(lens.sum()), int((lens > 0).sum())
+    pairs = t * keys
+    row = 4.0 * h * d
+    reads = 2 * keys * row + 2 * live * t * row + 2 * live * h * t * 4.0
+    return {"dq": bound(reads + b * t * row, 6.0 * h * d * pairs),
+            "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs)}
+
+
+def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
+    """K2 and K3 against flash_attention_bwd_ref on the card. NaN is written
+    into k and v past each row's bound; dK and dV must be exactly 0 there."""
+    h, d = 12, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    o, lse = flash_attention.mha_flash(q, k, v, lens)
+    do = torch.randn(b, t, h, d, generator=g).to(DEV)
+    do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+    dq = flash_attention._bwd_dq_kernel(q, k, v, do_, lse, di, lens_)
+    dk, dv = flash_attention._bwd_dkv_kernel(q, k, v, do_, lse, di, lens_)
+    torch.cuda.synchronize()
+    err = {"dq": 0.0, "dkv": 0.0}
+    atol = TOL_FLASH_BWD * max(1.0, (t / 512) ** 0.5)
+    excess = 0.0  # max of |d| - (atol + rtol |ref|): > 0 fails
+    for i in range(b):  # the plain version row by row: [1, H, T, T] at a time
+        sl = slice(i, i + 1)
+        rq, rk, rv = flash_attention.flash_attention_bwd_ref(
+            q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], lens[sl])
+        for key, ours, ref in (("dq", dq, rq), ("dkv", dk, rk), ("dkv", dv, rv)):
+            diff = (ours[sl] - ref).abs()
+            err[key] = max(err[key], diff.max().item())
+            excess = max(excess, (diff - atol - RTOL_FLASH_BWD * ref.abs()).max().item())
+    finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    zero_past = all(bool((dk[i, n:] == 0).all() and (dv[i, n:] == 0).all())
+                    for i, n in enumerate(lengths))
+    zero_rows = all(bool((dq[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+    if not (finite and zero_past and zero_rows) or excess > 0:
+        fail(f"flash bwd [{b}, {t}, {h}, {d}] finite={finite} zero past bound={zero_past} "
+             f"zero rows={zero_rows} max|d| {err} beyond {atol:.3g} + "
+             f"{RTOL_FLASH_BWD}|ref| by {excess:.3g}")
+    bounds = flash_bwd_bounds(b, t, h, d, lens)
+    iters = 10 if t > 1024 else 30
+    res = {"shape": [b, t, h, d], "lengths_sum": int(lens.sum()),
+           "tolerance": [atol, RTOL_FLASH_BWD]}
+    for key, fn in (("dq", lambda: flash_attention._bwd_dq_kernel(q, k, v, do_, lse, di, lens_)),
+                    ("dkv", lambda: flash_attention._bwd_dkv_kernel(q, k, v, do_, lse, di, lens_))):
+        res[key] = {"max_abs_err": err[key], "ms": time_ms(fn, iters),
+                    "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+    if timed:
+        # one plain call and one library call compute K2 and K3's outputs
+        # together: both times stand on both rows
+        plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, lens), 5)
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        mask = None
+        if int(lens.min()) < t:
+            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+        for key in ("dq", "dkv"):
+            res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+    print(f"  flash bwd [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
+          f"K2 dQ max|d| {err['dq']:.3g} {res['dq']['ms']:.4f} ms (bound {bounds['dq'][0]:.4f}); "
+          f"K3 dK/dV max|d| {err['dkv']:.3g} {res['dkv']['ms']:.4f} ms "
+          f"(bound {bounds['dkv'][0]:.4f}); plain pair {res['dq'].get('plain_ms', float('nan')):.4f} "
+          f"ms, sdpa grad {res['dq'].get('library_ms', float('nan')):.4f} ms", flush=True)
+    return res
+
+
 def check_kernels() -> None:
     g = torch.Generator().manual_seed(0)
     rows = 96 * 511  # batch 96 of the 10 s bucket's 511 frames
@@ -192,25 +290,43 @@ def check_kernels() -> None:
     fl_long = check_flash(8, 4095, [4095, 4000, 3001, 2048, 1025, 513, 64, 1], g, timed=False)
     report["kernels"]["layernorm_fwd"] = {"main": ln768, "d512": ln512}
     report["kernels"]["flash_attention_fwd"] = {"main": fl_main, "long": fl_long}
+    bwd = {
+        # the loss path: 32 crops of 16,384 samples, T' = 50, no padding
+        "main": check_flash_bwd(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
+        # triplet training: A/P/N of batch 8, 10 s trimmed to 160,000
+        # samples, T' = 499
+        "train": check_flash_bwd(24, 499, [499] * 24, g, timed=True),
+        "long": check_flash_bwd(8, 4095, [4095, 4000, 2047, 1025, 513, 64, 1, 0], g,
+                                timed=False),
+    }
+    for key, name in (("dq", "flash_attention_bwd_dq"), ("dkv", "flash_attention_bwd_dkv")):
+        report["kernels"][name] = {shape: r[key] | {"shape": r["shape"]} for shape, r in bwd.items()}
 
 
 # ---------------- phase 4: the main path ----------------
 
 
+def speech_like(rng: np.random.Generator, n: int, noise) -> np.ndarray:
+    """A voiced tone under a syllable-rate envelope plus white noise of
+    amplitude ``noise`` (a float, or a (low, high) range to draw it from)."""
+    t = np.arange(n) / SR
+    f0 = rng.uniform(90, 250)
+    env = np.clip(np.sin(2 * np.pi * rng.uniform(0.5, 2) * t), 0, 1)
+    x = 0.2 * np.sin(2 * np.pi * f0 * t) * env
+    x += (noise if isinstance(noise, float) else rng.uniform(*noise)) * rng.standard_normal(n)
+    return x.astype(np.float32)
+
+
 def write_wavs(root: Path) -> tuple[str, str]:
     rng = np.random.default_rng(1234)
     n = int(SECONDS * SR)
-    t = np.arange(n) / SR
     dirs = []
     for sub, count in (("nmr", N_NMR), ("deg", N_DEG)):
         p = root / sub
         p.mkdir()
         for i in range(count):
-            f0 = rng.uniform(90, 250)
-            env = np.clip(np.sin(2 * np.pi * rng.uniform(0.5, 2) * t), 0, 1)
-            x = 0.2 * np.sin(2 * np.pi * f0 * t) * env
-            x += (0.005 if sub == "nmr" else rng.uniform(0.01, 0.1)) * rng.standard_normal(n)
-            write_wav(str(p / f"{sub}_{i:03d}.wav"), x.astype(np.float32), SR, bits=16)
+            x = speech_like(rng, n, 0.005 if sub == "nmr" else (0.01, 0.1))
+            write_wav(str(p / f"{sub}_{i:03d}.wav"), x, SR, bits=16)
         dirs.append(str(p))
     return dirs[0], dirs[1]
 
@@ -238,20 +354,22 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("layernorm_fwd", ("layernorm_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
     ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere")),
 )
 
 
-def profile_pass(nomad: Nomad, waves: list) -> None:
-    """One warm device pass under torch.profiler: device time by kernel
-    group, and the device's busy share of the pass's wall time."""
+def profile_run(fn, key: str) -> None:
+    """One warm run of fn under torch.profiler: device time by kernel
+    group, and the device's busy share of the run's wall time, into
+    report[key]."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        nomad.engine.embed_waves_device(waves)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, groups, by_name = [], {}, {}
@@ -276,14 +394,26 @@ def profile_pass(nomad: Nomad, waves: list) -> None:
         "device_ms_by_group": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda x: -x[1])},
         "top_kernels_ms": {n[:160]: t / 1e3 for n, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]},
     }
-    report["profile"] = prof_info
+    report[key] = prof_info
     if not spans:
-        print("profile: the profiler recorded no device activity (idle share not measured)")
+        print(f"{key}: the profiler recorded no device activity (idle share not measured)")
         return
-    print(f"profile: pass {wall_us / 1e3:.1f} ms under the profiler, device busy {busy / 1e3:.1f} ms, "
+    print(f"{key}: run {wall_us / 1e3:.1f} ms under the profiler, device busy {busy / 1e3:.1f} ms, "
           f"idle share {prof_info['device_idle_share']:.3f}; device time by group: " + ", ".join(
               f"{g} {t:.1f} ms ({t * 1e3 / total:.1%})"
               for g, t in prof_info["device_ms_by_group"].items()), flush=True)
+
+
+def reset_launches() -> None:
+    flash_attention.launches = flash_attention.launches_bwd_dq = 0
+    flash_attention.launches_bwd_dkv = layernorm.launches = 0
+
+
+def read_launches() -> dict:
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention.launches_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention.launches_bwd_dkv,
+            "layernorm_fwd": layernorm.launches}
 
 
 def run_main_path(card: str) -> None:
@@ -312,20 +442,19 @@ def run_main_path(card: str) -> None:
         api_out.mkdir()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        layernorm.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         nomad.predict("dir", nmr, deg, str(api_out))
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        counts = {"flash_attention_fwd": flash_attention.launches,
-                  "layernorm_fwd": layernorm.launches}
+        counts = read_launches()
         batches = nomad.engine.batches
-        report["launches"] = counts
+        report["launches"] = {"scoring": counts}
         report["checks"]["batches_per_pass"] = batches
-        if counts["flash_attention_fwd"] != 12 * batches or counts["layernorm_fwd"] != 26 * batches \
-                or batches == 0:
-            fail(f"launch counts {counts} for {batches} batches (want 12 and 26 per batch)")
+        want = {"flash_attention_fwd": 12 * batches, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "layernorm_fwd": 26 * batches}
+        if counts != want or batches == 0:
+            fail(f"launch counts {counts} for {batches} batches (want {want})")
         api_dm = check_csvs(api_out, "API")
         if np.abs(api_dm - cli_dm).max() > 1e-3:
             fail(f"CLI and API scores differ by {np.abs(api_dm - cli_dm).max()}")
@@ -358,7 +487,7 @@ def run_main_path(card: str) -> None:
         print(f"main path: warm predict {pred_s:.3f} s = {total_s / pred_s:.1f} wav-s/s; "
               f"device pass {pass_s:.3f} s = {total_s / pass_s:.1f} wav-s/s; "
               f"peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
-        profile_pass(nomad, waves)
+        profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile")
 
         # the same weights on the plain path (plain attention and LayerNorm)
         ref = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="ref",
@@ -383,6 +512,106 @@ def run_main_path(card: str) -> None:
               f"batch-1 vs padded max|d| {d_b1:.3g} (<= {TOL_BATCH1})", flush=True)
 
 
+# ---------------- phase 5: the loss path ----------------
+
+
+def layer_signs(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor) -> list:
+    """sign(estimate layer - clean layer) for the 13 terms of the loss: the
+    subgradient of |.| that the path's backward takes."""
+    with torch.no_grad():
+        return [torch.sign(a - c) for a, c in zip(nomad.model.forward_layers(est),
+                                                  nomad.model.forward_layers(clean))]
+
+
+def run_loss_path(card: str) -> None:
+    rng = np.random.default_rng(4321)
+    clean_np = np.stack([speech_like(rng, LOSS_SAMPLES, 0.005) for _ in range(LOSS_BATCH)])
+    est_np = clean_np + (0.03 * rng.standard_normal(clean_np.shape)).astype(np.float32)
+    clean = torch.from_numpy(clean_np).to(DEV)
+    est = torch.from_numpy(est_np).to(DEV).requires_grad_()
+    nomad = Nomad(device="cuda")
+
+    def step() -> torch.Tensor:
+        est.grad = None
+        loss = nomad.forward(est, clean)
+        loss.backward()
+        return loss
+
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = step()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    report["launches"]["loss_step"] = counts
+    want = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 12,
+            "flash_attention_bwd_dkv": 12, "layernorm_fwd": 52}
+    if counts != want:
+        fail(f"loss step launch counts {counts} (want {want})")
+    grad = est.grad.detach().clone()
+    value = loss.item()
+    if not (np.isfinite(value) and bool(torch.isfinite(grad).all())) or grad.shape != est.shape:
+        fail(f"loss {value}, gradient finite={bool(torch.isfinite(grad).all())} "
+             f"shape {tuple(grad.shape)}")
+    gmax = grad.abs().max().item()
+    print(f"loss path: loss {value:.6g}, max|d loss/d est| {gmax:.4g}, launches {counts}",
+          flush=True)
+
+    # the same weights on the plain path
+    plain = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="ref",
+                                                              layernorm_impl="ref"))
+    est_p = est.detach().clone().requires_grad_()
+    loss_p = plain.forward(est_p, clean)
+    loss_p.backward()
+    d_loss = abs(loss_p.item() - value) / abs(loss_p.item())
+    d_grad = (est_p.grad - grad).abs().max().item() / est_p.grad.abs().max().item()
+    # an element of a layer difference within rounding of 0 can take the
+    # other sign of |.| on the other path, which alone moves the gradient
+    # by 2/numel of that element's Jacobian row: hold the plain path's
+    # gradient under the kernel path's signs
+    signs = layer_signs(nomad, est.detach(), clean)
+    flips = sum(int((s_ != p_).sum()) for s_, p_ in zip(signs, layer_signs(plain, est.detach(), clean)))
+    est_s = est.detach().clone().requires_grad_()
+    with torch.no_grad():
+        ref_clean = plain.model.forward_layers(clean)
+    sum((s_ * (a - c)).mean() for s_, a, c in zip(
+        signs, plain.model.forward_layers(est_s), ref_clean)).backward()
+    d_grad_signs = (est_s.grad - grad).abs().max().item() / est_s.grad.abs().max().item()
+    zero = nomad.forward(clean, clean).item()
+    report["loss_path"] = {
+        "shape": [LOSS_BATCH, LOSS_SAMPLES], "loss": value, "grad_max_abs": gmax,
+        "plain_loss": loss_p.item(), "loss_rel_diff": d_loss,
+        "grad_rel_diff_direct": d_grad, "grad_rel_diff_same_signs": d_grad_signs,
+        "sign_flips": flips, "identity_loss": zero,
+    }
+    print(f"loss path: vs plain path loss rel {d_loss:.3g} (<= {TOL_LOSS_REL}); gradient "
+          f"max|d|/max|g| {d_grad:.3g} direct, {d_grad_signs:.3g} under one sign pattern "
+          f"(<= {TOL_GRAD_REL}; {flips} layer elements change sign); forward(x, x) = {zero}",
+          flush=True)
+    if d_loss > TOL_LOSS_REL or d_grad_signs > TOL_GRAD_REL or (flips == 0 and d_grad > TOL_GRAD_REL):
+        fail(f"loss path vs plain path: loss rel {d_loss:.3g}, gradient {d_grad:.3g} direct / "
+             f"{d_grad_signs:.3g} same signs ({flips} flips)")
+    if zero != 0.0:
+        fail(f"forward(clean, clean) = {zero}, want exactly 0")
+    del plain, loss_p, est_p, est_s, ref_clean, signs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LOSS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(times))
+    report["loss_path"] |= {"step_s": times, "step_median_s": step_s, "peak_mem_gb": peak_gb,
+                            "card": card}
+    print(f"loss path: warm step (forward + backward) median {step_s * 1e3:.2f} ms over "
+          f"{LOSS_STEPS}, peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
+    profile_run(step, "profile_loss_step")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -392,18 +621,24 @@ def main() -> None:
     print("kernels vs plain versions on the card:", flush=True)
     check_kernels()
     run_main_path(card)
+    run_loss_path(card)
 
     rows = []
     for name, src, replaces in (
         ("flash_attention_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
+        ("flash_attention_bwd_dq", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+         "nomad_tpu/ops/flash_attention.py:182"),
+        ("flash_attention_bwd_dkv", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+         "nomad_tpu/ops/flash_attention.py:222"),
         ("layernorm_fwd", "nomad_tpu_torch/csrc/layernorm.cu", "nomad_tpu/ops/layernorm.py:31"),
     ):
         k = report["kernels"][name]
         m = k["main"]
+        by_path = {path: c[name] for path, c in report["launches"].items()}
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": report["launches"][name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(v["max_abs_err"] for v in k.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -1,9 +1,13 @@
-"""Public NOMAD scoring API of the port (counterpart of ``nomad_tpu.api``).
+"""Public NOMAD API of the port (counterpart of ``nomad_tpu.api``).
 
 ``Nomad(device=None).predict(mode='dir'|'csv', nmr, deg, results_path)``
 embeds both file sets in one batched pass, computes the distance matrix on
 the device and writes the two reference-format CSVs. It returns the
 average and pairwise tables as ``ResultTable``s (labels + numpy values).
+
+``Nomad.forward(estimate, clean)`` (= ``loss_fn``) is the differentiable
+NOMAD loss: a 0-dim f32 tensor through which autograd carries
+d loss / d estimate back to the caller's tensor. The weights stay frozen.
 
   * Device: ``cuda`` unless the caller passes ``device='cpu'``; without
     CUDA it raises rather than fall back to the CPU.
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from .convert import jax_to_state_dict
-from .models import NomadModel, Wav2Vec2Config, init_weights
+from .models import NomadModel, Wav2Vec2Config, init_weights, nomad_loss
 from .ops import cdist
 from .scoring.csvio import build_result_tables, write_results
 from .scoring.engine import EmbeddingEngine, list_dir_files
@@ -157,6 +161,35 @@ class Nomad:
         avg, dm = build_result_tables(test_paths, nmr_paths, distance_matrix)
         write_results(avg, dm, results_path)
         return avg, dm
+
+    # ---------------- differentiable loss ----------------
+
+    def _waves(self, x) -> torch.Tensor:
+        """[B, T] or [B, 1, T] waveforms (tensor or array) -> [B, T] f32 on
+        the Nomad's device; ``.to`` keeps the caller's tensor in the graph."""
+        x = torch.as_tensor(x)
+        if x.ndim == 3:
+            x = x.squeeze(1)
+        if x.ndim != 2:
+            raise ValueError(f"expected [B, T] or [B, 1, T] waveforms, got shape {tuple(x.shape)}")
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def loss_fn(self, estimate, clean, deterministic: bool = True) -> torch.Tensor:
+        """NOMAD perceptual loss: the sum of 13 per-layer L1 distances (12
+        block outputs + the lossnet embedding, quirk Q7) between the clean
+        and the estimate, with ``lengths=None`` (quirk Q6). Differentiable
+        w.r.t. estimate and clean; returns a 0-dim f32 tensor."""
+        if not deterministic:
+            raise NotImplementedError(
+                "deterministic=False needs attention dropout (mha_xla_dropout), "
+                "which is not ported yet: it comes with the training slice"
+            )
+        est, ref = self._waves(estimate), self._waves(clean)
+        return nomad_loss(self.model.forward_layers(ref), self.model.forward_layers(est))
+
+    def forward(self, estimate, clean) -> torch.Tensor:
+        """Reference ``nomad.py:142-146``: the loss of ``loss_fn``."""
+        return self.loss_fn(estimate, clean)
 
     def _resolve_paths(self, path: str) -> list:
         """Quirk Q3: dir mode follows os.listdir order; csv mode follows the

@@ -1,6 +1,6 @@
 """Models of the port: the wav2vec2 backbone and the NOMAD heads."""
 
-from .heads import NomadModel, init_weights, l2_normalize
+from .heads import NomadModel, init_weights, l2_normalize, nomad_loss
 from .wav2vec2 import (
     ConvFeatureEncoder,
     EncoderLayer,
@@ -26,4 +26,5 @@ __all__ = [
     "init_weights",
     "l2_normalize",
     "masked_mean",
+    "nomad_loss",
 ]

@@ -3,8 +3,8 @@
 
 ``NomadModel.forward`` is the scoring embedding: masked mean-pool over
 time -> ReLU -> Linear 768->256 -> L2 normalize. ``forward_layers`` returns
-the 12 block outputs plus the lossnet embedding, the 13 inputs of the
-NOMAD loss. Quirk Q7: the lossnet embedding is a separate Linear that the
+the 12 block outputs plus the lossnet embedding, the 13 inputs of
+``nomad_loss``. Quirk Q7: the lossnet embedding is a separate Linear that the
 NOMAD checkpoint never populates, as in the reference; both heads exist so
 that the weight bridge is complete and loads strictly.
 """
@@ -50,6 +50,23 @@ class NomadModel(nn.Module):
         res = self.backbone(wav, lengths)
         emb = self._embed(self.lossnet_embedding, res["x"], res["frame_lengths"])
         return list(res["layers"]) + [emb]
+
+
+def nomad_loss(ref_layers, test_layers, frame_lengths=None):
+    """Sum over layers of the mean absolute difference (reference
+    ``nomad.py:260-282``). Without frame_lengths every element counts,
+    padded frames included, as torch ``F.l1_loss`` does; with them the
+    [B, T, C] layers average over valid frames only."""
+    total = 0.0
+    for ref, test in zip(ref_layers, test_layers, strict=True):
+        diff = (test.to(torch.float32) - ref.to(torch.float32)).abs()
+        if frame_lengths is not None and diff.ndim == 3:
+            mask = (torch.arange(diff.shape[1], device=diff.device)[None, :]
+                    < frame_lengths[:, None]).to(diff.dtype)[:, :, None]
+            total = total + (diff * mask).sum() / (mask.sum() * diff.shape[-1])
+        else:
+            total = total + diff.mean()
+    return total
 
 
 @torch.no_grad()

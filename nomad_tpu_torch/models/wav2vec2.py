@@ -1,5 +1,5 @@
 """wav2vec 2.0 BASE backbone in PyTorch (counterpart of
-``nomad_tpu.models.wav2vec2``), inference only.
+``nomad_tpu.models.wav2vec2``), without dropout.
 
 Architecture: a 7-layer strided conv feature encoder (512 channels, no
 bias, a GroupNorm(512) after layer 0 only, GELU after every layer; total
@@ -131,8 +131,11 @@ class MaskedGroupNorm(nn.Module):
     """GroupNorm with num_groups == channels (per-channel instance norm over
     time) with masked statistics, so padded frames do not perturb valid
     ones; biased variance, eps 1e-5. Not ``nn.GroupNorm``, which cannot
-    mask. Takes [B, C, T] (the conv stack's layout) and normalises it IN
-    PLACE: at the main-path shape it is 6.4 GB, and its caller owns it."""
+    mask. Takes [B, C, T] (the conv stack's layout). Without autograd
+    (inference/no-grad mode, or nothing requiring a gradient) it
+    normalises x IN PLACE: at the scoring shape it is 6.4 GB, and its
+    caller owns it. When a gradient is wanted it computes out of place
+    with the same arithmetic, since autograd saved x for the products."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -141,9 +144,12 @@ class MaskedGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, lengths=None):
+        inplace = not torch.is_grad_enabled() or not (
+            x.requires_grad or self.weight.requires_grad or self.bias.requires_grad
+        )
         if lengths is None:
             mean = x.mean(dim=-1, keepdim=True)
-            x.sub_(mean)
+            x = x.sub_(mean) if inplace else x - mean
             var = x.square().mean(dim=-1, keepdim=True)
         else:
             mask = _time_mask(x.shape[-1], lengths, x.dtype)  # [B, T, 1]
@@ -151,13 +157,17 @@ class MaskedGroupNorm(nn.Module):
             # masked sums over time as batched mat-vec products: no [B, C, T]
             # temporary for x * mask
             mean = torch.bmm(x, mask) / denom
-            x.sub_(mean)
+            x = x.sub_(mean) if inplace else x - mean
             var = torch.bmm(x.square(), mask) / denom
-        x.mul_(torch.rsqrt(var + self.eps))
-        x.mul_(self.weight[:, None]).add_(self.bias[:, None])
-        if lengths is not None:
-            x.mul_(mask.transpose(1, 2))
-        return x
+        rstd = torch.rsqrt(var + self.eps)
+        w, b = self.weight[:, None], self.bias[:, None]
+        if inplace:
+            x.mul_(rstd).mul_(w).add_(b)
+            if lengths is not None:
+                x.mul_(mask.transpose(1, 2))
+            return x
+        x = x * rstd * w + b
+        return x if lengths is None else x * mask.transpose(1, 2)
 
 
 class ConvFeatureEncoder(nn.Module):

@@ -2,14 +2,24 @@
 
 from .attention import mha, mha_ref
 from .distance import cdist, cdist_diag
-from .flash_attention import flash_attention_ref, mha_flash
-from .layernorm import layer_norm, layer_norm_ref
+from .flash_attention import (
+    FlashAttention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+    mha_flash,
+)
+from .layernorm import layer_norm, layer_norm_bwd_ref, layer_norm_ref
 
 __all__ = [
+    "FlashAttention",
     "cdist",
     "cdist_diag",
+    "flash_attention_bwd",
+    "flash_attention_bwd_ref",
     "flash_attention_ref",
     "layer_norm",
+    "layer_norm_bwd_ref",
     "layer_norm_ref",
     "mha",
     "mha_flash",

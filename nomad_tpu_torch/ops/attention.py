@@ -3,8 +3,9 @@
 Counterpart of ``nomad_tpu.ops.attention``. Two implementations behind
 one switch:
 
-  * ``kernel`` — the flash-attention forward (``ops/flash_attention.py``,
-                 kernel K1 on the card). The default, and on the card the
+  * ``kernel`` — the differentiable flash attention
+                 (``ops/flash_attention.py``: kernel K1 forward, K2 + K3
+                 backward on the card). The default, and on the card the
                  only path the model takes.
   * ``ref``    — the plain version of ``mha_xla``: einsum scores with an
                  additive -1e9 key mask, softmax in f32. Kept so that a
@@ -18,14 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import mha_flash
+from .flash_attention import FlashAttention
 
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
 
 
 def mha_ref(q, k, v, key_mask=None):
     """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
-    valid key."""
+    valid key. Differentiable through plain autograd."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).to(torch.float32)
     if key_mask is not None:
@@ -47,4 +48,4 @@ def mha(q, k, v, key_mask=None, impl: str = "kernel"):
         lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
     else:
         lengths = key_mask.sum(dim=-1, dtype=torch.int32)
-    return mha_flash(q, k, v, lengths)[0]
+    return FlashAttention.apply(q, k, v, lengths)

@@ -1,13 +1,17 @@
-"""Masked attention forward with LSE: plain PyTorch version and kernel K1.
+"""Masked attention with LSE: kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
+beside their plain PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.flash_attention``. ``mha_flash`` launches
-the CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors and computes
-the plain version on CPU tensors. Both take q/k/v as [B, T, H, D] and the
-valid key count per batch row, and return O [B, T, H, D] and
-LSE = m + log(l) [B, H, T] in f32. Every query row is defined and finite,
-padded rows included; a row with no valid key gives O = 0, LSE = -1e30.
-Forward only: on CUDA tensors that need a gradient it raises until the
-backward kernels (TPU kernels K2, K3) are ported.
+K1 (``csrc/flash_attention.cu``) on CUDA tensors and computes the plain
+version on CPU tensors. Both take q/k/v as [B, T, H, D] and the valid key
+count per batch row, and return O [B, T, H, D] and LSE = m + log(l)
+[B, H, T] in f32. Every query row is defined and finite, padded rows
+included; a row with no valid key gives O = 0, LSE = -1e30.
+
+``flash_attention_bwd`` is the backward: K2 and K3
+(``csrc/flash_attention_bwd.cu``) on CUDA tensors, ``flash_attention_bwd_ref``
+on CPU tensors. ``FlashAttention`` is the differentiable form, one
+``torch.autograd.Function`` over both.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIM = 64  # the only head width the kernel takes
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of K1, K2 and K3 since each count was last set to 0.
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 
 def flash_attention_ref(q, k, v, lengths):
@@ -51,6 +57,33 @@ def flash_attention_ref(q, k, v, lengths):
     return o.to(q.dtype), lse
 
 
+def flash_attention_bwd_ref(q, k, v, o, lse, do, lengths):
+    """What ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` compute
+    together, unfolded: Di = rowsum(dO*O), P = exp(s - LSE) over keys
+    t < lengths[b] (0 elsewhere) with s = q.k/sqrt(D), dP = dO.V^T,
+    dS = P*(dP - Di); dQ = dS.K/sqrt(D), dK = dS^T.Q/sqrt(D), dV = P^T.dO.
+    Keys past the bound are zeroed before the products and get dK = dV = 0;
+    a row with no valid key gets zero gradients."""
+    b, t, h, d = q.shape
+    lengths = lengths.to(device=q.device, dtype=torch.int64).clamp(0, t)
+    valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]  # [B, T]
+    vk = valid[:, :, None, None]
+    scale = 1.0 / d**0.5
+    qf = q.to(torch.float32) * scale
+    kf = torch.where(vk, k.to(torch.float32), 0.0)
+    vf = torch.where(vk, v.to(torch.float32), 0.0)
+    dof = do.to(torch.float32)
+    di = (dof * o.to(torch.float32)).sum(dim=-1).transpose(1, 2)  # [B, H, T]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p = torch.exp(torch.where(valid[:, None, None, :], s - lse[..., None], NEG_INF))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", ds, qf), 0.0)
+    dv = torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", p, dof), 0.0)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.nomad_flash_attention_fwd
@@ -75,7 +108,7 @@ def _check_qkv(name, x, shape, device):
         )
 
 
-def _flash_kernel(q, k, v, lengths):
+def _check_inputs(q, k, v, lengths):
     b, t, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernel: head width {d} unsupported (only {HEAD_DIM})")
@@ -85,11 +118,11 @@ def _flash_kernel(q, k, v, lengths):
         _check_qkv(name, x, (b, t, h, d), q.device)
     if lengths.dtype != torch.int32 or lengths.shape != (b,) or lengths.device != q.device:
         raise ValueError(f"flash kernel: lengths must be int32 [{b}] on {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash kernel is forward-only: run under torch.inference_mode() "
-            "(the backward kernels come with the loss slice)"
-        )
+
+
+def _flash_kernel(q, k, v, lengths):
+    b, t, h, d = q.shape
+    _check_inputs(q, k, v, lengths)
     lengths = lengths.contiguous()
     o = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -117,3 +150,103 @@ def mha_flash(q, k, v, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
     return _flash_kernel(q, k, v, lengths)
+
+
+def _lib_bwd():
+    lib = _build.load("flash_attention_bwd")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, outs in ((lib.nomad_flash_attention_bwd_dq, 1), (lib.nomad_flash_attention_bwd_dkv, 2)):
+        if fn.argtypes is None:
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_args(q, k, v, o, lse, do, lengths):
+    """Checks shared by K2 and K3; returns their inputs in launch form:
+    dO as given when its strides suit the kernels (else a contiguous copy),
+    Di = rowsum(dO*O) [B, H, T] from one PyTorch reduction, lengths
+    contiguous."""
+    b, t, h, d = q.shape
+    _check_inputs(q, k, v, lengths)
+    _check_qkv("o", o, (b, t, h, d), q.device)
+    if do.dtype != torch.float32 or tuple(do.shape) != (b, t, h, d) or do.device != q.device:
+        raise ValueError(f"flash kernel: dO must be float32 [{b}, {t}, {h}, {d}] on {q.device}")
+    if do.stride(3) != 1 or any(s % 4 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash kernel: lse must be contiguous float32 [{b}, {h}, {t}]")
+    di = (do * o).sum(dim=-1).transpose(1, 2).contiguous()
+    return do, di, lengths.contiguous()
+
+
+def _launch_bwd(entry, q, k, v, do, lse, di, lengths, outs, what):
+    b, t, h, d = q.shape
+    lib = _lib_bwd()
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, what)
+
+
+def _bwd_dq_kernel(q, k, v, do, lse, di, lengths):
+    """K2 on arguments prepared by ``_bwd_args``: dQ [B, T, H, D]."""
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _launch_bwd("nomad_flash_attention_bwd_dq", q, k, v, do, lse, di, lengths, (dq,),
+                "flash attention dQ kernel launch")
+    global launches_bwd_dq
+    launches_bwd_dq += 1
+    return dq
+
+
+def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
+    """K3 on arguments prepared by ``_bwd_args``: (dK, dV) [B, T, H, D]."""
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch_bwd("nomad_flash_attention_bwd_dkv", q, k, v, do, lse, di, lengths, (dk, dv),
+                "flash attention dK/dV kernel launch")
+    global launches_bwd_dkv
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, lengths):
+    """Gradients (dQ, dK, dV) of ``mha_flash``'s O for the cotangent dO,
+    from the saved O and LSE. K2 and K3 on CUDA tensors, the plain version
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
+    do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
+    dq = _bwd_dq_kernel(q, k, v, do, lse, di, lengths)
+    dk, dv = _bwd_dkv_kernel(q, k, v, do, lse, di, lengths)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, lengths)`` -> O [B, T, H, D], masked
+    attention differentiable in q, k, v (lengths int32 [B] gets no
+    gradient): ``mha_flash`` forward (K1 on the card), ``flash_attention_bwd``
+    backward (K2 + K3 on the card); the plain versions of both on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        o, lse = mha_flash(q, k, v, lengths)
+        ctx.save_for_backward(q, k, v, o, lse, lengths)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths)
+        return dq, dk, dv, None

@@ -1,9 +1,10 @@
 """LayerNorm over the last axis: plain PyTorch version and kernel K5.
 
-Counterpart of ``nomad_tpu.ops.layernorm``. ``layer_norm`` launches the
-CUDA kernel (``csrc/layernorm.cu``) on a CUDA tensor and computes the plain
-version on a CPU tensor. Forward only: on a CUDA tensor that needs a
-gradient it raises until the backward is ported.
+Counterpart of ``nomad_tpu.ops.layernorm``. ``layer_norm`` is one
+``torch.autograd.Function``: its forward launches the CUDA kernel
+(``csrc/layernorm.cu``) on a CUDA tensor and computes the plain version on
+a CPU tensor; its backward is ``layer_norm_bwd_ref``, plain PyTorch on
+either device, as the JAX package hands its backward to XLA (``_ln_bwd``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,25 @@ def layer_norm_ref(x, scale, bias, eps: float = 1e-5):
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def layer_norm_bwd_ref(x, scale, g, eps: float = 1e-5):
+    """The vjp of ``layer_norm_ref`` (``layer_norm_xla``) for the cotangent
+    g: (dx, dscale, dbias), with x_hat = (x - mean) * rstd,
+    dx = rstd * (g*scale - mean(g*scale) - x_hat * mean(g*scale*x_hat))."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gs = gf * scale
+    dx = rstd * (gs - gs.mean(dim=-1, keepdim=True)
+                 - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    dscale = (gf * xhat).reshape(-1, d).sum(dim=0)
+    dbias = gf.reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
 
 
 def _lib():
@@ -51,11 +71,6 @@ def _layer_norm_kernel(x, scale, bias, eps):
         raise ValueError(f"layer_norm kernel: scale/bias must be [{d}]")
     if d % 4 or d > 1024:
         raise ValueError(f"layer_norm kernel: width {d} must be a multiple of 4, <= 1024")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
-        raise NotImplementedError(
-            "layer_norm kernel is forward-only: run under torch.inference_mode() "
-            "(the backward comes with the loss slice)"
-        )
     y = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -71,13 +86,36 @@ def _layer_norm_kernel(x, scale, bias, eps):
     return y
 
 
+class LayerNormFn(torch.autograd.Function):
+    """Forward: K5 on a CUDA tensor, the plain version on a CPU tensor.
+    Backward: ``layer_norm_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        if x.device.type == "cpu":
+            y = layer_norm_ref(x, scale, bias, eps)
+        elif x.device.type == "cuda":
+            y = _layer_norm_kernel(x, scale, bias, eps)
+        else:
+            raise ValueError(f"layer_norm kernel runs on CUDA tensors, got {x.device}")
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd_ref(x, scale, g, ctx.eps)
+        return dx, dscale, dbias, None
+
+
 def layer_norm(x, scale, bias, eps: float = 1e-5, impl: str = "kernel"):
-    """LayerNorm over the last axis. impl: 'kernel' (K5 on a CUDA tensor,
-    the plain version on a CPU tensor) | 'ref' (the plain version)."""
-    if impl == "ref" or (impl == "kernel" and x.device.type == "cpu"):
+    """Differentiable LayerNorm over the last axis. impl: 'kernel'
+    (``LayerNormFn``: K5 forward on a CUDA tensor, the plain version on a
+    CPU tensor) | 'ref' (the plain version under plain autograd)."""
+    if impl == "ref":
         return layer_norm_ref(x, scale, bias, eps)
     if impl != "kernel":
         raise ValueError(f"unknown layernorm impl {impl!r}: expected 'kernel' or 'ref'")
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm kernel runs on CUDA tensors, got {x.device}")
-    return _layer_norm_kernel(x, scale, bias, eps)
+    return LayerNormFn.apply(x, scale, bias, eps)

@@ -8,6 +8,7 @@ file imports nothing of JAX, so it runs on a machine without it:
 import pytest
 import torch
 
+from nomad_tpu_torch.api import Nomad
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
 from nomad_tpu_torch.ops import flash_attention, layernorm
 
@@ -73,8 +74,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         layernorm.layer_norm(x.t().contiguous().t(), w, b)
     with pytest.raises(TypeError, match="float32"):
         layernorm.layer_norm(x.double(), w, b)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        layernorm.layer_norm(x.requires_grad_(), w, b)
+    # gradients pass: K5 forward, the plain backward
+    xg = x.clone().requires_grad_()
+    g = torch.randn_like(x)
+    layernorm.layer_norm(xg, w, b).backward(g)
+    torch.testing.assert_close(xg.grad, layernorm.layer_norm_bwd_ref(x, w, g)[0],
+                               atol=1e-5, rtol=0)
     q = torch.randn(1, 10, 2, 32, device=cuda)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head width"):
@@ -82,8 +87,48 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 10, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="lengths"):
         flash_attention.mha_flash(q, q, q, lens.long())
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention.mha_flash(q.requires_grad_(), q, q, lens)
+    # gradients pass: K1 forward, K2 + K3 backward
+    qg = q.clone().requires_grad_()
+    before = (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv)
+    flash_attention.FlashAttention.apply(qg, q, q, lens).sum().backward()
+    assert (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(qg.grad).all()
+
+
+@pytest.mark.parametrize(
+    "t,lengths", [(300, [300, 129, 1, 0]), (77, [77, 64, 13, 0]), (50, [50, 50, 50, 50])],
+)
+def test_flash_backward_kernels_match_ref(cuda, t, lengths):
+    """K2 and K3 against the plain version: NaN in k and v past the bound
+    reaches nothing, dK = dV = 0 there, a length-0 row gets zero gradients,
+    and dO read through non-unit strides gives the same result."""
+    g = torch.Generator().manual_seed(t + 1)
+    b, h, d = len(lengths), 4, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(cuda)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens)
+    do = torch.randn(b, t, 2, h, d, generator=g).to(cuda)[:, :, 0]  # strided dO
+    before = (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv)
+    dq, dk, dv = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens)
+    for ours, theirs in zip((dq, dk, dv), ref):
+        assert torch.isfinite(ours).all()
+        torch.testing.assert_close(ours, theirs, atol=2e-5, rtol=2e-6)
+    for i, n in enumerate(lengths):
+        assert torch.all(dk[i, n:] == 0) and torch.all(dv[i, n:] == 0)
+        if n == 0:
+            assert torch.all(dq[i] == 0)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), lens)
+    for a, c in zip((dq, dk, dv), again):
+        assert torch.equal(a, c)
 
 
 def test_model_kernel_path_matches_plain_path(cuda):
@@ -108,3 +153,42 @@ def test_model_kernel_path_matches_plain_path(cuda):
         torch.testing.assert_close(emb, ref(wav, lengths), atol=1e-5, rtol=0)
         for i, n in enumerate(lengths.tolist()):
             torch.testing.assert_close(emb[i:i + 1], model(wav[i:i + 1, :n]), atol=1e-5, rtol=0)
+
+
+def test_loss_kernel_path_matches_plain_path(cuda):
+    """The NOMAD loss on a narrow model with 64-wide heads: value and
+    d loss / d estimate on the kernel path against the plain path, and
+    K1/K5 twice per forward pair, K2/K3 once per block in the backward."""
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    cfg = Wav2Vec2Config.tiny(**kw)
+    sd = init_weights(NomadModel(cfg, emb_dim=16), seed=0).state_dict()
+    nomad = Nomad(device="cuda", config=cfg, emb_dim=16, params=sd)
+    plain = Nomad(device="cuda", config=Wav2Vec2Config.tiny(
+        attention_impl="ref", layernorm_impl="ref", **kw), emb_dim=16, params=sd)
+    g = torch.Generator().manual_seed(3)
+    clean = 0.3 * torch.randn(4, 1, 4000, generator=g)
+    est = (clean + 0.05 * torch.randn(4, 1, 4000, generator=g)).requires_grad_()
+    flash_attention.launches = layernorm.launches = 0
+    flash_attention.launches_bwd_dq = flash_attention.launches_bwd_dkv = 0
+    loss = nomad.forward(est, clean)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, layernorm.launches) == (2 * 2, 2 * (2 * 2 + 2))
+    assert (flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv) == (2, 2)
+    assert est.grad.device.type == "cpu" and torch.isfinite(est.grad).all()
+    torch.testing.assert_close(loss, plain.forward(est, clean), rtol=1e-5, atol=0)
+    # the plain path's gradient under the kernel path's subgradient of |.|:
+    # an element of a layer difference within rounding of 0 may take the
+    # other sign on the other path, which alone moves the gradient by
+    # 2/numel of that element's Jacobian row
+    with torch.no_grad():
+        signs = [torch.sign(a - c) for a, c in zip(
+            nomad.model.forward_layers(nomad._waves(est)),
+            nomad.model.forward_layers(nomad._waves(clean)))]
+    est_ref = est.detach().clone().requires_grad_()
+    with torch.no_grad():
+        ref_clean = plain.model.forward_layers(plain._waves(clean))
+    sum((s_ * (a - c)).mean() for s_, a, c in zip(
+        signs, plain.model.forward_layers(plain._waves(est_ref)), ref_clean)).backward()
+    assert (est.grad - est_ref.grad).abs().max() <= 1e-4 * est_ref.grad.abs().max()
+    assert nomad.forward(clean, clean).item() == 0.0

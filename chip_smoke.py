@@ -13,19 +13,23 @@ Phases, each fatal on failure:
      beside the least time the card could take (bound): K1 and K5 at the
      scoring shapes, K2 and K3 (the attention backward) at the loss shape,
      the triplet-training shape and a ragged long shape with NaN past the
-     bound;
-  4. the scoring path at full wav2vec 2.0 BASE width with seeded weights:
+     bound, K4 (projection-fused attention) at the scoring and loss shapes
+     and a ragged [8, 1024] shape with garbage past each bound;
+  4. the scoring paths at full wav2vec 2.0 BASE width with seeded weights:
      ``python -m nomad_tpu_torch --mode dir`` on 8 + 100 seeded 10 s WAVs,
      then ``Nomad(device="cuda").predict`` in process with the kernel
      launch counts read around it; embeddings held against the plain path
      on the same card and against batch-1 runs; warm throughput, pass time
      and peak memory; one warm pass under torch.profiler (device time by
-     kernel group, the device's idle share);
-  5. the loss path at the same width: ``Nomad.forward(estimate, clean)``
-     and ``.backward()`` on 32 seeded 16,384-sample crops, with the launch
-     counts of one step; loss and d loss / d estimate held against the
-     plain path; forward(x, x) == 0; warm step time, peak memory and one
-     step under torch.profiler;
+     kernel group, the device's idle share). Then the same for the fused
+     path (``attention_impl="fused_qkv"``: K4, no K1), held against the
+     plain and K1 paths, and two single files on it: 300,000 samples
+     (T' = 1,023, K4) and 400,000 (T' = 1,433, past K4's limit: K1);
+  5. the loss paths at the same width, K1's and the fused one:
+     ``Nomad.forward(estimate, clean)`` and ``.backward()`` on 32 seeded
+     16,384-sample crops, with the launch counts of one step; loss and
+     d loss / d estimate held against the plain path; forward(x, x) == 0;
+     warm step time, peak memory and one step under torch.profiler;
   6. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -49,7 +53,7 @@ import torch.nn.functional as F
 from nomad_tpu_torch.api import Nomad, set_exact_precision
 from nomad_tpu_torch.io import write_wav
 from nomad_tpu_torch.models import Wav2Vec2Config
-from nomad_tpu_torch.ops import _build, flash_attention, layernorm
+from nomad_tpu_torch.ops import _build, flash_attention, fused_attention, layernorm
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (at the 700 W limit): HBM rate, f32 without
@@ -61,6 +65,9 @@ N_NMR, N_DEG, SECONDS = 8, 100, 10.0
 # the SE demo's crop at its training batch (reference nomad_loss_test.py:196,
 # nomad_tpu/configs/se_config.yaml:12): T' = 50 frames
 LOSS_BATCH, LOSS_SAMPLES, LOSS_STEPS = 32, 16384, 7
+# single files on the fused path: (samples, T' of their bucket); 1,023
+# frames is the longest bucket K4 takes, 1,433 is past MAX_FUSED_T
+FUSED_SINGLE_FILES = ((300_000, 1023), (400_000, 1433))
 TOL_LN, TOL_FLASH = 1e-5, 2e-5  # f32, sums in another order than the plain version
 # K2/K3 on unit-scale inputs: 2e-5 up to T = 512 keys or queries summed,
 # growing as sqrt(T) beyond (rounding of a sum of T terms; at T = 4095 the
@@ -68,6 +75,9 @@ TOL_LN, TOL_FLASH = 1e-5, 2e-5  # f32, sums in another order than the plain vers
 # plus 1e-5 relative: that row's dV sums every query's dO (|dV| ~ 30), one
 # row after another in the kernel
 TOL_FLASH_BWD, RTOL_FLASH_BWD = 2e-5, 1e-5
+# K4: K1's tolerance, plus 1e-5 relative for the projections' sums of 768
+# products, in another order than cuBLAS's
+TOL_FUSED, RTOL_FUSED = 2e-5, 1e-5
 TOL_REF_PATH, TOL_BATCH1 = 1e-4, 1e-5
 TOL_LOSS_REL, TOL_GRAD_REL = 1e-5, 1e-4  # loss relative; gradient relative to max|g|
 
@@ -277,6 +287,75 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
     return res
 
 
+def fused_bound(b: int, t: int, h: int, dm: int, lengths: torch.Tensor) -> tuple[float, str]:
+    """Q is projected for all T rows, K and V for the valid keys only, and
+    every query row attends the valid keys. Bytes: x, the three weights
+    and biases, lengths and O, each once."""
+    keys = int(lengths.long().sum())
+    flops = 2.0 * b * t * dm * dm + 4.0 * keys * dm * dm + 4.0 * h * 64 * t * keys
+    nbytes = 4.0 * (2 * b * t * dm + 3 * dm * dm + 3 * dm + b)
+    return bound(nbytes, flops)
+
+
+def check_fused(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
+    """K4 against fused_qkv_attention_ref on the card, x at unit scale and
+    the weights at the seeded init's (std 1/sqrt(768)). Where a row is
+    ragged, x is zero past its bound for the comparison, and the valid
+    rows of a call with 123.0 there must be the same bits."""
+    h, dm = 12, 768
+    x = torch.randn(b, t, dm, generator=g)
+    params = [a.to(DEV) for _ in range(3) for a in (
+        torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    o = fused_attention.fused_qkv_mha(x, *params, lens, h)
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, h)
+    torch.cuda.synchronize()
+    diff = (o - ref).abs()
+    err = diff.max().item()
+    excess = (diff - TOL_FUSED - RTOL_FUSED * ref.abs()).max().item()
+    garbage_ok = True
+    if min(lengths) < t:
+        x_bad = x.clone()
+        for i, n in enumerate(lengths):
+            x_bad[i, n:] = 123.0
+        o_bad = fused_attention.fused_qkv_mha(x_bad, *params, lens, h)
+        garbage_ok = bool(torch.isfinite(o_bad).all()) and all(
+            torch.equal(o_bad[i, :, :n], o[i, :, :n]) for i, n in enumerate(lengths))
+        del x_bad, o_bad
+    finite = bool(torch.isfinite(o).all())
+    if not (finite and garbage_ok) or excess > 0:
+        fail(f"fused [{b}, {t}, {dm}] finite={finite} garbage past bound ignored={garbage_ok} "
+             f"max|d| {err:.3g} beyond {TOL_FUSED} + {RTOL_FUSED}|ref| by {excess:.3g}")
+    del ref, diff
+    b_ms, b_by = fused_bound(b, t, h, dm, lens)
+    res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()), "max_abs_err": err,
+           "tolerance": [TOL_FUSED, RTOL_FUSED], "bound_ms": b_ms, "bound_by": b_by,
+           "ms": time_ms(lambda: fused_attention.fused_qkv_mha(x, *params, lens, h), 20)}
+    if timed:
+        # the yardstick: one product against the stacked [3 * 768, 768]
+        # weights, then SDPA with the key mask (two library calls)
+        wqkv, bqkv = torch.cat(params[0::2]), torch.cat(params[1::2])
+        mask = None
+        if int(lens.min()) < t:
+            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+        def library():
+            q, k, v = F.linear(x, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        res["plain_ms"] = time_ms(
+            lambda: fused_attention.fused_qkv_attention_ref(x, *params, lens, h), 5)
+        res["library_ms"] = time_ms(library, 10)
+    print(f"  fused [{b}, {t}, {dm}] keys {int(lens.sum())}: max|d| {err:.3g}  "
+          f"kernel {res['ms']:.4f} ms  plain {res.get('plain_ms', float('nan')):.4f}  "
+          f"F.linear + sdpa {res.get('library_ms', float('nan')):.4f}  "
+          f"bound {b_ms:.4f} ({b_by})", flush=True)
+    return res
+
+
 def check_kernels() -> None:
     g = torch.Generator().manual_seed(0)
     rows = 96 * 511  # batch 96 of the 10 s bucket's 511 frames
@@ -301,6 +380,13 @@ def check_kernels() -> None:
     }
     for key, name in (("dq", "flash_attention_bwd_dq"), ("dkv", "flash_attention_bwd_dkv")):
         report["kernels"][name] = {shape: r[key] | {"shape": r["shape"]} for shape, r in bwd.items()}
+    report["kernels"]["fused_qkv_attention_fwd"] = {
+        # the scoring path's 10 s bucket with its lengths, the loss crop,
+        # and the longest input K4 takes, ragged down to one key
+        "main": check_fused(96, 511, main_lens, g, timed=True),
+        "loss": check_fused(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
+        "ragged": check_fused(8, 1024, [1024, 1023, 777, 513, 512, 64, 2, 1], g, timed=False),
+    }
 
 
 # ---------------- phase 4: the main path ----------------
@@ -354,6 +440,7 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("layernorm_fwd", ("layernorm_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
@@ -393,6 +480,10 @@ def profile_run(fn, key: str) -> None:
         "device_idle_share": 1 - busy / wall_us if spans else None,
         "device_ms_by_group": {g: t / 1e3 for g, t in sorted(groups.items(), key=lambda x: -x[1])},
         "top_kernels_ms": {n[:160]: t / 1e3 for n, t in sorted(by_name.items(), key=lambda x: -x[1])[:12]},
+        # the host's side: CPU time by operator, its own time only
+        "top_host_ops_self_ms": {
+            e.key[:120]: e.self_cpu_time_total / 1e3 for e in sorted(
+                prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]},
     }
     report[key] = prof_info
     if not spans:
@@ -406,110 +497,196 @@ def profile_run(fn, key: str) -> None:
 
 def reset_launches() -> None:
     flash_attention.launches = flash_attention.launches_bwd_dq = 0
-    flash_attention.launches_bwd_dkv = layernorm.launches = 0
+    flash_attention.launches_bwd_dkv = layernorm.launches = fused_attention.launches = 0
 
 
 def read_launches() -> dict:
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_bwd_dq": flash_attention.launches_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention.launches_bwd_dkv,
+            "fused_qkv_attention_fwd": fused_attention.launches,
             "layernorm_fwd": layernorm.launches}
 
 
-def run_main_path(card: str) -> None:
+def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0) -> dict:
+    return {"flash_attention_fwd": k1, "flash_attention_bwd_dq": k2,
+            "flash_attention_bwd_dkv": k3, "fused_qkv_attention_fwd": k4, "layernorm_fwd": k5}
+
+
+def plain_config() -> Wav2Vec2Config:
+    return Wav2Vec2Config.base(attention_impl="ref", layernorm_impl="ref")
+
+
+def timed_passes(nomad: Nomad, waves: list) -> tuple[torch.Tensor, list]:
+    """Three warm device passes (embed on decoded waveforms): the last
+    embeddings and the pass times."""
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = nomad.engine.embed_waves_device(waves)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    return emb, passes
+
+
+def batch1_error(nomad: Nomad, waves: list, emb: torch.Tensor) -> float:
+    """Batch-1 vs the padded batches: two files of the full batch of 96,
+    two of the 12-file tail that runs padded to 16."""
+    n = len(waves)
+    return max((nomad.engine.embed_waves_device([waves[i]])[0] - emb[i]).abs().max().item()
+               for i in (0, n // 2, n - 2, n - 1))
+
+
+def run_main_path(card: str, tmp: Path, nmr: str, deg: str) -> tuple:
+    """The K1 scoring path; returns the decoded waves, its embeddings and
+    the plain path's."""
+    total_s = (N_NMR + N_DEG) * SECONDS
+    cli_out = tmp / "cli"
+    cli_out.mkdir()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch", "--mode", "dir", "--nmr", nmr, "--deg", deg,
+         "--results_path", str(cli_out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    report["checks"]["cli_s"] = time.perf_counter() - t0
+    if cli.returncode != 0:
+        fail(f"CLI exit {cli.returncode}:\n{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
+    cli_dm = check_csvs(cli_out, "CLI")
+    print(f"main path: CLI scored {N_DEG} x {N_NMR} files in {report['checks']['cli_s']:.1f} s "
+          "(cold process: start, build load, weights, first pass)", flush=True)
+
+    nomad = Nomad(device="cuda")
+    api_out = tmp / "api"
+    api_out.mkdir()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    nomad.predict("dir", nmr, deg, str(api_out))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = read_launches()
+    batches = nomad.engine.batches
+    report["launches"] = {"scoring": counts}
+    report["checks"]["batches_per_pass"] = batches
+    want = launches_want(k1=12 * batches, k5=26 * batches)
+    if counts != want or batches == 0:
+        fail(f"launch counts {counts} for {batches} batches (want {want})")
+    api_dm = check_csvs(api_out, "API")
+    if np.abs(api_dm - cli_dm).max() > 1e-3:
+        fail(f"CLI and API scores differ by {np.abs(api_dm - cli_dm).max()}")
+    print(f"main path: predict {cold_s:.2f} s cold, {batches} batches, launches {counts}",
+          flush=True)
+
+    # warm passes: whole predict (read + embed + cdist + CSVs), and the
+    # device pass alone on decoded waveforms
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nomad.predict("dir", nmr, deg, str(api_out))
+        warm.append(time.perf_counter() - t0)
+    paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+    waves = nomad.engine.load_waves([str(p) for p in paths])
+    emb, passes = timed_passes(nomad, waves)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pred_s, pass_s = float(np.median(warm)), float(np.median(passes))
+    report["main_path"] = {
+        "files": N_NMR + N_DEG, "audio_s": total_s, "predict_warm_s": warm,
+        "pass_s": passes, "wav_s_per_s_predict": total_s / pred_s,
+        "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb, "card": card,
+    }
+    print(f"main path: warm predict {pred_s:.3f} s = {total_s / pred_s:.1f} wav-s/s; "
+          f"device pass {pass_s:.3f} s = {total_s / pass_s:.1f} wav-s/s; "
+          f"peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
+    profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile")
+
+    # the same weights on the plain path (plain attention and LayerNorm)
+    plain_emb = Nomad(device="cuda", config=plain_config()).engine.embed_waves_device(waves)
+    d_ref = (emb - plain_emb).abs().max().item()
+    report["checks"]["kernel_vs_plain_path_emb"] = d_ref
+    if not torch.isfinite(emb).all() or d_ref > TOL_REF_PATH:
+        fail(f"kernel path vs plain path embeddings: max|d| {d_ref:.3g} > {TOL_REF_PATH}")
+    d_b1 = batch1_error(nomad, waves, emb)
+    report["checks"]["batch1_vs_padded_emb"] = d_b1
+    if d_b1 > TOL_BATCH1:
+        fail(f"batch-1 vs padded-batch embeddings: max|d| {d_b1:.3g} > {TOL_BATCH1}")
+    print(f"main path: kernel vs plain path max|d| {d_ref:.3g} (<= {TOL_REF_PATH}); "
+          f"batch-1 vs padded max|d| {d_b1:.3g} (<= {TOL_BATCH1})", flush=True)
+    return waves, emb, plain_emb
+
+
+def run_fused_scoring(card: str, tmp: Path, nmr: str, deg: str, waves: list,
+                      k1_emb: torch.Tensor, plain_emb: torch.Tensor) -> None:
+    """The fused path (``attention_impl="fused_qkv"``) on the same files:
+    K4 in every block, no K1; then one file at T' = 1,023 (K4) and one at
+    T' = 1,433 (past MAX_FUSED_T: K1), each against the plain path."""
+    total_s = (N_NMR + N_DEG) * SECONDS
+    nomad = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="fused_qkv"))
+    out = tmp / "fused"
+    out.mkdir()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    nomad.predict("dir", nmr, deg, str(out))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = nomad.engine.batches
+    report["launches"]["scoring_fused"] = counts
+    want = launches_want(k4=12 * batches, k5=26 * batches)
+    if counts != want or batches == 0:
+        fail(f"fused path: launch counts {counts} for {batches} batches (want {want})")
+    check_csvs(out, "fused API")
+    emb, passes = timed_passes(nomad, waves)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pass_s = float(np.median(passes))
+    d_plain = (emb - plain_emb).abs().max().item()
+    d_k1 = (emb - k1_emb).abs().max().item()
+    d_b1 = batch1_error(nomad, waves, emb)
+    report["fused_path"] = {
+        "files": N_NMR + N_DEG, "audio_s": total_s, "batches": batches, "pass_s": passes,
+        "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb, "card": card,
+        "vs_plain_path_emb": d_plain, "vs_k1_path_emb": d_k1, "batch1_vs_padded_emb": d_b1,
+    }
+    print(f"fused path: {batches} batches, launches {counts}; device pass {pass_s:.3f} s = "
+          f"{total_s / pass_s:.1f} wav-s/s; peak memory {peak_gb:.2f} GB  [{card}]; max|d| "
+          f"{d_plain:.3g} vs plain, {d_k1:.3g} vs K1 path (<= {TOL_REF_PATH}); batch-1 vs "
+          f"padded {d_b1:.3g} (<= {TOL_BATCH1})", flush=True)
+    if not torch.isfinite(emb).all() or max(d_plain, d_k1) > TOL_REF_PATH or d_b1 > TOL_BATCH1:
+        fail(f"fused path embeddings: {d_plain:.3g} vs plain, {d_k1:.3g} vs K1 path, "
+             f"{d_b1:.3g} batch-1 vs padded")
+    profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile_fused")
+
+    plain = Nomad(device="cuda", config=plain_config())
+    rng = np.random.default_rng(99)
+    for n, frames in FUSED_SINGLE_FILES:
+        if fused_attention.fused_supported(frames):
+            want = launches_want(k4=12, k5=26)
+        else:
+            want = launches_want(k1=12, k5=26)
+        wave = np.rint(np.clip(speech_like(rng, n, 0.02), -1, 1) * 32767).astype(np.int16)
+        reset_launches()
+        one = nomad.engine.embed_waves_device([wave])
+        torch.cuda.synchronize()
+        counts = read_launches()
+        key = f"fused_single_T{frames}"
+        report["launches"][key] = counts
+        d = (one - plain.engine.embed_waves_device([wave])).abs().max().item()
+        report["checks"][f"{key}_vs_plain_path_emb"] = d
+        print(f"fused path: one file of {n} samples (T' = {frames}): launches {counts}, "
+              f"max|d| {d:.3g} vs plain (<= {TOL_REF_PATH})", flush=True)
+        if counts != want or not torch.isfinite(one).all() or d > TOL_REF_PATH:
+            fail(f"fused path, one file of {n} samples: launches {counts} (want {want}), "
+                 f"max|d| {d:.3g} vs plain")
+
+
+def run_scoring_paths(card: str) -> None:
     with tempfile.TemporaryDirectory(prefix="nomad_smoke_") as tmp:
         tmp = Path(tmp)
         nmr, deg = write_wavs(tmp)
-        total_s = (N_NMR + N_DEG) * SECONDS
-
-        cli_out = tmp / "cli"
-        cli_out.mkdir()
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "nomad_tpu_torch", "--mode", "dir", "--nmr", nmr, "--deg", deg,
-             "--results_path", str(cli_out)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        report["checks"]["cli_s"] = time.perf_counter() - t0
-        if cli.returncode != 0:
-            fail(f"CLI exit {cli.returncode}:\n{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
-        cli_dm = check_csvs(cli_out, "CLI")
-        print(f"main path: CLI scored {N_DEG} x {N_NMR} files in {report['checks']['cli_s']:.1f} s "
-              "(cold process: start, build load, weights, first pass)", flush=True)
-
-        nomad = Nomad(device="cuda")
-        api_out = tmp / "api"
-        api_out.mkdir()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        nomad.predict("dir", nmr, deg, str(api_out))
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        counts = read_launches()
-        batches = nomad.engine.batches
-        report["launches"] = {"scoring": counts}
-        report["checks"]["batches_per_pass"] = batches
-        want = {"flash_attention_fwd": 12 * batches, "flash_attention_bwd_dq": 0,
-                "flash_attention_bwd_dkv": 0, "layernorm_fwd": 26 * batches}
-        if counts != want or batches == 0:
-            fail(f"launch counts {counts} for {batches} batches (want {want})")
-        api_dm = check_csvs(api_out, "API")
-        if np.abs(api_dm - cli_dm).max() > 1e-3:
-            fail(f"CLI and API scores differ by {np.abs(api_dm - cli_dm).max()}")
-        print(f"main path: predict {cold_s:.2f} s cold, {batches} batches, launches {counts}",
-              flush=True)
-
-        # warm passes: whole predict (read + embed + cdist + CSVs), and the
-        # device pass alone on decoded waveforms
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            nomad.predict("dir", nmr, deg, str(api_out))
-            warm.append(time.perf_counter() - t0)
-        paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
-        waves = nomad.engine.load_waves([str(p) for p in paths])
-        passes = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            emb = nomad.engine.embed_waves_device(waves)
-            torch.cuda.synchronize()
-            passes.append(time.perf_counter() - t0)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        pred_s, pass_s = float(np.median(warm)), float(np.median(passes))
-        report["main_path"] = {
-            "files": N_NMR + N_DEG, "audio_s": total_s, "predict_warm_s": warm,
-            "pass_s": passes, "wav_s_per_s_predict": total_s / pred_s,
-            "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb, "card": card,
-        }
-        print(f"main path: warm predict {pred_s:.3f} s = {total_s / pred_s:.1f} wav-s/s; "
-              f"device pass {pass_s:.3f} s = {total_s / pass_s:.1f} wav-s/s; "
-              f"peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
-        profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile")
-
-        # the same weights on the plain path (plain attention and LayerNorm)
-        ref = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="ref",
-                                                                layernorm_impl="ref"))
-        ref_emb = ref.engine.embed_waves_device(waves)
-        d_ref = (emb - ref_emb).abs().max().item()
-        report["checks"]["kernel_vs_plain_path_emb"] = d_ref
-        if not torch.isfinite(emb).all() or d_ref > TOL_REF_PATH:
-            fail(f"kernel path vs plain path embeddings: max|d| {d_ref:.3g} > {TOL_REF_PATH}")
-        del ref
-        # batch-1 vs the padded batches: two files of the full batch of 96,
-        # two of the 12-file tail that runs padded to 16
-        d_b1 = 0.0
-        n = len(waves)
-        for i in (0, n // 2, n - 2, n - 1):
-            one = nomad.engine.embed_waves_device([waves[i]])
-            d_b1 = max(d_b1, (one[0] - emb[i]).abs().max().item())
-        report["checks"]["batch1_vs_padded_emb"] = d_b1
-        if d_b1 > TOL_BATCH1:
-            fail(f"batch-1 vs padded-batch embeddings: max|d| {d_b1:.3g} > {TOL_BATCH1}")
-        print(f"main path: kernel vs plain path max|d| {d_ref:.3g} (<= {TOL_REF_PATH}); "
-              f"batch-1 vs padded max|d| {d_b1:.3g} (<= {TOL_BATCH1})", flush=True)
+        waves, k1_emb, plain_emb = run_main_path(card, tmp, nmr, deg)
+        run_fused_scoring(card, tmp, nmr, deg, waves, k1_emb, plain_emb)
 
 
 # ---------------- phase 5: the loss path ----------------
@@ -523,13 +700,17 @@ def layer_signs(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor) -> list:
                                                   nomad.model.forward_layers(clean))]
 
 
-def run_loss_path(card: str) -> None:
+def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict) -> None:
+    """One loss path: its launch counts per step (``want``), loss and
+    gradient against the plain path, forward(x, x) == 0, warm step time,
+    peak memory and one profiled step, under ``report[key]``."""
+    what, step_key = key.replace("_", " "), key.replace("path", "step")
     rng = np.random.default_rng(4321)
     clean_np = np.stack([speech_like(rng, LOSS_SAMPLES, 0.005) for _ in range(LOSS_BATCH)])
     est_np = clean_np + (0.03 * rng.standard_normal(clean_np.shape)).astype(np.float32)
     clean = torch.from_numpy(clean_np).to(DEV)
     est = torch.from_numpy(est_np).to(DEV).requires_grad_()
-    nomad = Nomad(device="cuda")
+    nomad = Nomad(device="cuda", config=config)
 
     def step() -> torch.Tensor:
         est.grad = None
@@ -542,23 +723,20 @@ def run_loss_path(card: str) -> None:
     loss = step()
     torch.cuda.synchronize()
     counts = read_launches()
-    report["launches"]["loss_step"] = counts
-    want = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 12,
-            "flash_attention_bwd_dkv": 12, "layernorm_fwd": 52}
+    report["launches"][step_key] = counts
     if counts != want:
-        fail(f"loss step launch counts {counts} (want {want})")
+        fail(f"{what}: launch counts of a step {counts} (want {want})")
     grad = est.grad.detach().clone()
     value = loss.item()
     if not (np.isfinite(value) and bool(torch.isfinite(grad).all())) or grad.shape != est.shape:
-        fail(f"loss {value}, gradient finite={bool(torch.isfinite(grad).all())} "
+        fail(f"{what}: loss {value}, gradient finite={bool(torch.isfinite(grad).all())} "
              f"shape {tuple(grad.shape)}")
     gmax = grad.abs().max().item()
-    print(f"loss path: loss {value:.6g}, max|d loss/d est| {gmax:.4g}, launches {counts}",
+    print(f"{what}: loss {value:.6g}, max|d loss/d est| {gmax:.4g}, launches {counts}",
           flush=True)
 
     # the same weights on the plain path
-    plain = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="ref",
-                                                              layernorm_impl="ref"))
+    plain = Nomad(device="cuda", config=plain_config())
     est_p = est.detach().clone().requires_grad_()
     loss_p = plain.forward(est_p, clean)
     loss_p.backward()
@@ -577,39 +755,41 @@ def run_loss_path(card: str) -> None:
         signs, plain.model.forward_layers(est_s), ref_clean)).backward()
     d_grad_signs = (est_s.grad - grad).abs().max().item() / est_s.grad.abs().max().item()
     zero = nomad.forward(clean, clean).item()
-    report["loss_path"] = {
+    report[key] = {
         "shape": [LOSS_BATCH, LOSS_SAMPLES], "loss": value, "grad_max_abs": gmax,
         "plain_loss": loss_p.item(), "loss_rel_diff": d_loss,
         "grad_rel_diff_direct": d_grad, "grad_rel_diff_same_signs": d_grad_signs,
         "sign_flips": flips, "identity_loss": zero,
     }
-    print(f"loss path: vs plain path loss rel {d_loss:.3g} (<= {TOL_LOSS_REL}); gradient "
+    print(f"{what}: vs plain path loss rel {d_loss:.3g} (<= {TOL_LOSS_REL}); gradient "
           f"max|d|/max|g| {d_grad:.3g} direct, {d_grad_signs:.3g} under one sign pattern "
           f"(<= {TOL_GRAD_REL}; {flips} layer elements change sign); forward(x, x) = {zero}",
           flush=True)
     if d_loss > TOL_LOSS_REL or d_grad_signs > TOL_GRAD_REL or (flips == 0 and d_grad > TOL_GRAD_REL):
-        fail(f"loss path vs plain path: loss rel {d_loss:.3g}, gradient {d_grad:.3g} direct / "
+        fail(f"{what} vs plain path: loss rel {d_loss:.3g}, gradient {d_grad:.3g} direct / "
              f"{d_grad_signs:.3g} same signs ({flips} flips)")
     if zero != 0.0:
-        fail(f"forward(clean, clean) = {zero}, want exactly 0")
+        fail(f"{what}: forward(clean, clean) = {zero}, want exactly 0")
     del plain, loss_p, est_p, est_s, ref_clean, signs
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, host = [], []
     for _ in range(LOSS_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
+        host.append(time.perf_counter() - t0)  # the host's enqueue, before the wait
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = float(np.median(times))
-    report["loss_path"] |= {"step_s": times, "step_median_s": step_s, "peak_mem_gb": peak_gb,
-                            "card": card}
-    print(f"loss path: warm step (forward + backward) median {step_s * 1e3:.2f} ms over "
-          f"{LOSS_STEPS}, peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
-    profile_run(step, "profile_loss_step")
+    report[key] |= {"step_s": times, "step_median_s": step_s, "host_enqueue_s": host,
+                    "peak_mem_gb": peak_gb, "card": card}
+    print(f"{what}: warm step (forward + backward) median {step_s * 1e3:.2f} ms over "
+          f"{LOSS_STEPS} (host enqueue median {np.median(host) * 1e3:.2f} ms), peak memory "
+          f"{peak_gb:.2f} GB  [{card}]", flush=True)
+    profile_run(step, f"profile_{step_key}")
 
 
 def main() -> None:
@@ -620,8 +800,13 @@ def main() -> None:
     build_kernels()
     print("kernels vs plain versions on the card:", flush=True)
     check_kernels()
-    run_main_path(card)
-    run_loss_path(card)
+    run_scoring_paths(card)
+    run_loss_path(card, "loss_path", Wav2Vec2Config.base(),
+                  launches_want(k1=24, k2=12, k3=12, k5=52))
+    # the fused path: K4 in both forwards, K1 + K2 + K3 in the backward's
+    # recompute of the estimate's blocks
+    run_loss_path(card, "loss_path_fused", Wav2Vec2Config.base(attention_impl="fused_qkv"),
+                  launches_want(k1=12, k2=12, k3=12, k4=24, k5=52))
 
     rows = []
     for name, src, replaces in (
@@ -631,6 +816,8 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:182"),
         ("flash_attention_bwd_dkv", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
          "nomad_tpu/ops/flash_attention.py:222"),
+        ("fused_qkv_attention_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
         ("layernorm_fwd", "nomad_tpu_torch/csrc/layernorm.cu", "nomad_tpu/ops/layernorm.py:31"),
     ):
         k = report["kernels"][name]

@@ -19,6 +19,10 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
   * Precision: only ``'exact'``, f32 with TF32 off for both cuBLAS matmuls
     and cuDNN convolutions (the cuDNN flag defaults to on and would reach
     the conv frontend).
+  * Attention: ``config=Wav2Vec2Config.base(attention_impl="fused_qkv")``
+    selects the projection-fused path (kernel K4 for inputs of up to
+    1,024 frames, ~20 s of audio) for both ``predict`` and ``forward``;
+    the default runs the projections as products and attention in K1.
 """
 
 from __future__ import annotations

@@ -16,17 +16,12 @@
 //     its in-model lead); O is written [B, T, H, D], LSE [B, H, T].
 //   * One block per (128-query tile, head, batch); one thread per query row,
 //     whose q (pre-scaled by 1/sqrt(D)) and output accumulator stay in
-//     registers. K and V pass through shared memory in 64-key tiles; every
-//     lane of a warp reads the same key row, so each 16-byte shared load is
-//     a broadcast that feeds 4 FMAs, and no [T, T] score tile exists at all.
-//   * Online softmax in steps of 16 keys: one rescale of the accumulator per
-//     step, not per key. expf/logf, not the fast intrinsics, to stay within
-//     f32 rounding of the plain version.
+//     registers, through the key loop of attention_tile.cuh (shared with
+//     K4): K and V in 64-key shared-memory tiles read as broadcasts, an
+//     online softmax in steps of 16 keys, no [T, T] score tile.
 //   * The key loop stops at lengths[b], so masked keys are never read: a
-//     NaN in a padded row of k or v cannot reach a valid row. Inside the
-//     last tile the keys past the bound are zero-filled in shared memory and
-//     get weight 0 by select (score -1e30), never by multiplying a loaded
-//     value. The same loop covers T = 511 and T = 4095.
+//     NaN in a padded row of k or v cannot reach a valid row. The same loop
+//     covers T = 511 and T = 4095. logf, not the fast intrinsic, for LSE.
 //   * Every query row t < T is written, finite, padded rows included (they
 //     attend over the valid keys like any row). A row with no valid key
 //     (lengths[b] == 0) gets O = 0 and LSE = -1e30.
@@ -34,14 +29,15 @@
 
 #include <cuda_runtime.h>
 
+#include "attention_tile.cuh"
+
 namespace {
 
-constexpr int kD = 64;       // head width
-constexpr int kD4 = kD / 4;  // float4 words per row
-constexpr int kBQ = 128;     // query rows per block (one per thread)
-constexpr int kBK = 64;      // keys per shared-memory tile
-constexpr int kCH = 16;      // keys per online-softmax step
-constexpr float kNegInf = -1e30f;
+using nomad::kBK;
+using nomad::kD;
+using nomad::kD4;
+using nomad::kNegInf;
+constexpr int kBQ = 128;  // query rows per block (one per thread)
 
 __global__ void __launch_bounds__(kBQ)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -77,77 +73,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = kNegInf;
   float l = 0.f;
 
-  const float* kbase = k + b * skb + h * skh;
-  const float* vbase = v + b * svb + h * svh;
-  for (int k0 = 0; k0 < len; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kBK * kD4; idx += kBQ) {
-      const int r = idx / kD4;
-      const int c = idx % kD4;
-      const int key = k0 + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (key < len) {
-        kv = reinterpret_cast<const float4*>(kbase + key * skt)[c];
-        vv = reinterpret_cast<const float4*>(vbase + key * svt)[c];
-      }
-      ks[r][c] = kv;
-      vs[r][c] = vv;
-    }
-    __syncthreads();
-
-    const int n = min(kBK, len - k0);
-    for (int j0 = 0; j0 < n; j0 += kCH) {
-      float s[kCH];
-#pragma unroll
-      for (int j = 0; j < kCH; ++j) s[j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kD4; ++i) {
-        const float4 a = qr[i];
-#pragma unroll
-        for (int j = 0; j < kCH; ++j) {
-          const float4 kk = ks[j0 + j][i];
-          s[j] = fmaf(a.x, kk.x, s[j]);
-          s[j] = fmaf(a.y, kk.y, s[j]);
-          s[j] = fmaf(a.z, kk.z, s[j]);
-          s[j] = fmaf(a.w, kk.w, s[j]);
-        }
-      }
-      float m_new = m;
-#pragma unroll
-      for (int j = 0; j < kCH; ++j) {
-        s[j] = j0 + j < n ? s[j] : kNegInf;
-        m_new = fmaxf(m_new, s[j]);
-      }
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < kD4; ++i) {
-        acc[i].x *= alpha;
-        acc[i].y *= alpha;
-        acc[i].z *= alpha;
-        acc[i].w *= alpha;
-      }
-#pragma unroll
-      for (int j = 0; j < kCH; ++j) {
-        s[j] = j0 + j < n ? expf(s[j] - m_new) : 0.f;
-        l += s[j];
-      }
-#pragma unroll
-      for (int j = 0; j < kCH; ++j) {
-        const float p = s[j];
-#pragma unroll
-        for (int i = 0; i < kD4; ++i) {
-          const float4 vv = vs[j0 + j][i];
-          acc[i].x = fmaf(p, vv.x, acc[i].x);
-          acc[i].y = fmaf(p, vv.y, acc[i].y);
-          acc[i].z = fmaf(p, vv.z, acc[i].z);
-          acc[i].w = fmaf(p, vv.w, acc[i].w);
-        }
-      }
-      m = m_new;
-    }
-  }
+  nomad::attend_keys<kBQ>(qr, acc, m, l, k + b * skb + h * skh, skt,
+                          v + b * svb + h * svh, svt, len, ks, vs);
 
   if (t < T) {
     const float inv = l > 0.f ? 1.f / l : 0.f;

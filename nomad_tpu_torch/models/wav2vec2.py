@@ -16,8 +16,20 @@ everywhere (the reference's training semantics, quirk Q6).
 
 Layout: modules take and return JAX's [B, T, C]; the conv stack runs in
 PyTorch's [B, C, T] inside ``ConvFeatureEncoder``. Attention and every
-LayerNorm go through ``ops`` with ``impl`` 'kernel' (the hand-written CUDA
-kernels on the card, their plain versions on the CPU) or 'ref'.
+LayerNorm go through ``ops`` (the hand-written CUDA kernels on the card,
+their plain versions on the CPU). Which kernel each ``attention_impl``
+takes on the card:
+
+  * 'kernel'    — projections by ``nn.Linear``, attention K1 forward
+                  (``csrc/flash_attention.cu``), K2 + K3 backward.
+  * 'fused_qkv' — projections and attention in K4 (``csrc/fused_attention.cu``)
+                  up to 1,024 frames, the out-projection one product; its
+                  backward recomputes through K1 + K2 + K3. Longer inputs
+                  take the 'kernel' path (the JAX package's shape rule).
+  * 'ref'       — the plain versions, for holding the others against.
+
+Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
+with 'ref'.
 """
 
 from __future__ import annotations
@@ -30,9 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import mha
+from ..ops.fused_attention import fused_qkv_attention
 from ..ops.layernorm import layer_norm
 
-IMPLS = ("kernel", "ref")
+ATTENTION_IMPLS = ("kernel", "fused_qkv", "ref")
+LAYERNORM_IMPLS = ("kernel", "ref")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +61,10 @@ class Wav2Vec2Config:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
-    # 'kernel': the flash-attention / LayerNorm kernels (the card's only
-    # path; their plain versions on the CPU). 'ref': the plain versions
-    # everywhere, for holding the kernel path against them on the card.
+    # 'kernel': the flash-attention / LayerNorm kernels (their plain
+    # versions on the CPU). 'fused_qkv' (attention only): the
+    # projection-fused kernel K4. 'ref': the plain versions everywhere, for
+    # holding the kernel paths against them on the card.
     attention_impl: str = "kernel"
     layernorm_impl: str = "kernel"
 
@@ -61,9 +76,10 @@ class Wav2Vec2Config:
             )
         if not (len(self.conv_dim) == len(self.conv_kernel) == len(self.conv_stride)):
             raise ValueError("conv_dim/conv_kernel/conv_stride length mismatch")
-        for name in ("attention_impl", "layernorm_impl"):
-            if getattr(self, name) not in IMPLS:
-                raise ValueError(f"{name} must be one of {IMPLS}, got {getattr(self, name)!r}")
+        for name, impls in (("attention_impl", ATTENTION_IMPLS),
+                            ("layernorm_impl", LAYERNORM_IMPLS)):
+            if getattr(self, name) not in impls:
+                raise ValueError(f"{name} must be one of {impls}, got {getattr(self, name)!r}")
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
@@ -243,11 +259,19 @@ class EncoderLayer(nn.Module):
         cfg = self.config
         b, t, d = x.shape
         h = cfg.num_heads
-        q = self.q_proj(x).view(b, t, h, d // h)
-        k = self.k_proj(x).view(b, t, h, d // h)
-        v = self.v_proj(x).view(b, t, h, d // h)
-        attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
-        attn = self.out_proj(attn.reshape(b, t, d))
+        if cfg.attention_impl == "fused_qkv":
+            # the same parameters as the unfused path: one state_dict loads both
+            attn = fused_qkv_attention(
+                x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
+                self.k_proj.bias, self.v_proj.weight, self.v_proj.bias,
+                self.out_proj.weight, self.out_proj.bias, key_mask=key_mask, heads=h,
+            )
+        else:
+            q = self.q_proj(x).view(b, t, h, d // h)
+            k = self.k_proj(x).view(b, t, h, d // h)
+            v = self.v_proj(x).view(b, t, h, d // h)
+            attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
+            attn = self.out_proj(attn.reshape(b, t, d))
         x = self.self_attn_layer_norm(x + attn)
         y = self.fc2(F.gelu(self.fc1(x)))
         x = self.final_layer_norm(x + y)

@@ -9,15 +9,25 @@ from .flash_attention import (
     flash_attention_ref,
     mha_flash,
 )
+from .fused_attention import (
+    FusedQKVAttention,
+    fused_qkv_attention,
+    fused_qkv_attention_ref,
+    fused_qkv_mha,
+)
 from .layernorm import layer_norm, layer_norm_bwd_ref, layer_norm_ref
 
 __all__ = [
     "FlashAttention",
+    "FusedQKVAttention",
     "cdist",
     "cdist_diag",
     "flash_attention_bwd",
     "flash_attention_bwd_ref",
     "flash_attention_ref",
+    "fused_qkv_attention",
+    "fused_qkv_attention_ref",
+    "fused_qkv_mha",
     "layer_norm",
     "layer_norm_bwd_ref",
     "layer_norm_ref",

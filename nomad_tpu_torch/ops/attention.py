@@ -5,8 +5,9 @@ one switch:
 
   * ``kernel`` — the differentiable flash attention
                  (``ops/flash_attention.py``: kernel K1 forward, K2 + K3
-                 backward on the card). The default, and on the card the
-                 only path the model takes.
+                 backward on the card). The default; the projection-fused
+                 path (``ops/fused_attention.py``, K4) is the model's other
+                 kernel path.
   * ``ref``    — the plain version of ``mha_xla``: einsum scores with an
                  additive -1e9 key mask, softmax in f32. Kept so that a
                  run can hold the kernel path against it.

@@ -44,8 +44,8 @@ IO_THREADS = 16  # host decode threads
 # The plain attention path ('ref') holds three [B, H, T', T'] f32 buffers
 # per block at once (scores, masked scores, softmax weights). Capped at
 # 20 GB of an 80 GB card: the conv frontend's largest activations at the
-# sample budget take ~13 GB, the weights 0.4 GB. The kernel path holds no
-# [T', T'] buffer and is not capped.
+# sample budget take ~13 GB, the weights 0.4 GB. The kernel paths ('kernel',
+# 'fused_qkv') hold no [T', T'] buffer and are not capped.
 REF_ATTN_SCORE_BYTES_BUDGET = 20 << 30
 
 
@@ -91,9 +91,9 @@ class EmbeddingEngine:
 
     def _attn_batch_cap(self, length: int) -> int:
         """Largest batch whose plain-path attention buffers fit the budget
-        (quadratic in frames); the kernel path is capped by samples only."""
+        (quadratic in frames); the kernel paths are capped by samples only."""
         cfg = self.model.config
-        if cfg.attention_impl == "kernel":
+        if cfg.attention_impl in ("kernel", "fused_qkv"):
             return MAX_BATCH
         frames = max(int(feature_frame_lengths(length, cfg)), 1)
         per_item = 3 * cfg.num_heads * frames * frames * 4

@@ -10,7 +10,7 @@ import torch
 
 from nomad_tpu_torch.api import Nomad
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
-from nomad_tpu_torch.ops import flash_attention, layernorm
+from nomad_tpu_torch.ops import flash_attention, fused_attention, layernorm
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -192,3 +192,113 @@ def test_loss_kernel_path_matches_plain_path(cuda):
         signs, plain.model.forward_layers(plain._waves(est_ref)), ref_clean)).backward()
     assert (est.grad - est_ref.grad).abs().max() <= 1e-4 * est_ref.grad.abs().max()
     assert nomad.forward(clean, clean).item() == 0.0
+
+
+def _fused_inputs(cuda, b, t, heads, seed):
+    """x and the q/k/v projections ([out, in]) at the model's scales."""
+    g = torch.Generator().manual_seed(seed)
+    dm = 64 * heads
+    x = torch.randn(b, t, dm, generator=g)
+    ws = [torch.randn(dm, dm, generator=g) / dm**0.5 for _ in range(3)]
+    bs = [0.1 * torch.randn(dm, generator=g) for _ in range(3)]
+    params = [a.to(cuda) for pair in zip(ws, bs) for a in pair]  # wq, bq, wk, bk, wv, bv
+    return x.to(cuda), params
+
+
+@pytest.mark.parametrize("t", [1, 50, 511, 1024])
+def test_fused_kernel_matches_ref(cuda, t):
+    """K4 against its plain version, every query row written, a length-0
+    row finite and 0, and one launch per call."""
+    lengths = [t, max(t // 2, 1), 0]
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, t)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = fused_attention.launches
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert o.shape == (3, 2, t, 64) and torch.isfinite(o).all()
+    assert torch.equal(o[2], torch.zeros_like(o[2]))
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2)
+    torch.testing.assert_close(o, ref, atol=2e-5, rtol=1e-5)
+
+
+def test_fused_kernel_ignores_garbage_past_the_bound(cuda):
+    lengths = [700, 64, 1]
+    x, params = _fused_inputs(cuda, 3, 770, 2, 5)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    clean = fused_attention.fused_qkv_mha(x, *params, lens, 2)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 123.0
+    dirty = fused_attention.fused_qkv_mha(x, *params, lens, 2)
+    assert torch.isfinite(dirty).all()
+    for i, n in enumerate(lengths):
+        assert torch.equal(dirty[i, :, :n], clean[i, :, :n])
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, params = _fused_inputs(cuda, 2, 40, 2, 7)
+    lens = torch.tensor([40, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        fused_attention.fused_qkv_mha(x, *params, lens, 4)
+    xl, pl = _fused_inputs(cuda, 1, 1025, 2, 8)
+    with pytest.raises(ValueError, match="1024"):
+        fused_attention.fused_qkv_mha(xl, *pl, lens[:1], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention.fused_qkv_mha(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                      *params, lens, 2)
+    with pytest.raises(TypeError, match="float32"):
+        fused_attention.fused_qkv_mha(x.double(), *params, lens, 2)
+    with pytest.raises(ValueError, match="lengths"):
+        fused_attention.fused_qkv_mha(x, *params, lens.long(), 2)
+    with pytest.raises(ValueError, match="is on"):
+        fused_attention.fused_qkv_mha(x, params[0].cpu(), *params[1:], lens, 2)
+
+
+def test_fused_gradient_matches_plain_autograd(cuda):
+    """FusedQKVAttention's backward (K1 + K2 + K3 on the recomputed
+    projections) against autograd through the plain version, for x and
+    every projection tensor."""
+    x, params = _fused_inputs(cuda, 3, 130, 2, 9)
+    lens = torch.tensor([130, 77, 1], dtype=torch.int32, device=cuda)
+    do = torch.randn(3, 2, 130, 64, generator=torch.Generator().manual_seed(10)).to(cuda)
+    ours = [a.clone().requires_grad_() for a in (x, *params)]
+    theirs = [a.clone().requires_grad_() for a in (x, *params)]
+    counts = lambda: (fused_attention.launches, flash_attention.launches,  # noqa: E731
+                      flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv)
+    before = counts()
+    o = fused_attention.FusedQKVAttention.apply(*ours, lens, 2)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    fused_attention.fused_qkv_attention_ref(*theirs, lens, 2).backward(do)
+    for a, r in zip(ours, theirs):
+        assert torch.isfinite(a.grad).all()
+        torch.testing.assert_close(a.grad, r.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_model_fused_path_matches_plain_path(cuda):
+    """The narrow model on the fused path: K4 once per block and no K1,
+    embeddings against the plain path and batch-1 against the padded
+    batch."""
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    model = init_weights(NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv", **kw),
+                                    emb_dim=16), seed=0)
+    ref = NomadModel(Wav2Vec2Config.tiny(attention_impl="ref", layernorm_impl="ref", **kw),
+                     emb_dim=16)
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.to(cuda).eval(), ref.to(cuda).eval()
+    g = torch.Generator().manual_seed(4)
+    lengths = torch.tensor([4000, 2500, 900])
+    wav = torch.zeros(3, 4000)
+    for i, n in enumerate(lengths):
+        wav[i, :n] = 0.3 * torch.randn(int(n), generator=g)
+    wav, lengths = wav.to(cuda), lengths.to(cuda)
+    fused_attention.launches = flash_attention.launches = 0
+    with torch.inference_mode():
+        emb = model(wav, lengths)
+        assert (fused_attention.launches, flash_attention.launches) == (2, 0)
+        torch.testing.assert_close(emb, ref(wav, lengths), atol=1e-5, rtol=0)
+        for i, n in enumerate(lengths.tolist()):
+            torch.testing.assert_close(emb[i:i + 1], model(wav[i:i + 1, :n]), atol=1e-5, rtol=0)

@@ -5,8 +5,9 @@ differentiate.
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc and
-     print ptxas' registers, shared memory and spills;
+  2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
+     print ptxas' registers, shared memory and spills, and the occupancy
+     (blocks per SM; K4's clusters on the card) of K1 and K4;
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
@@ -138,6 +139,18 @@ def build_kernels() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  ptxas[{name}]: {line.strip()}")
+    # resident blocks per SM (and K4's clusters on the card) at each
+    # kernel's shared memory, from the CUDA occupancy API
+    occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
+                                   "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
+    for t in (50, 65, 511, 1024):
+        plan = fused_attention.fused_launch_plan(t, 1, 12)
+        blocks, clusters = fused_attention.fused_occupancy(t)
+        occ[f"fused_qkv_attention_fwd_T{t}"] = {
+            "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
+            "blocks_per_sm": blocks, "clusters_on_card": clusters, "smem_bytes": plan.smem_bytes}
+    report["occupancy"] = occ
+    print("occupancy: " + "; ".join(f"{k} {v}" for k, v in occ.items()), flush=True)
 
 
 # ---------------- phase 3: kernels against their plain versions ----------------
@@ -387,6 +400,12 @@ def check_kernels() -> None:
         "loss": check_fused(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
         "ragged": check_fused(8, 1024, [1024, 1023, 777, 513, 512, 64, 2, 1], g, timed=False),
     }
+    # K1 at the loss crop (24 launches per loss step), and K4 where its
+    # cluster first spans two 64-row chunks, ragged down to no key
+    report["kernels"]["flash_attention_fwd"]["loss"] = check_flash(
+        LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True)
+    report["kernels"]["fused_qkv_attention_fwd"]["edge"] = check_fused(
+        16, 65, [65] * 12 + [64, 33, 1, 0], g, timed=False)
 
 
 # ---------------- phase 4: the main path ----------------

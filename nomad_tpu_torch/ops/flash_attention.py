@@ -25,6 +25,13 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIM = 64  # the only head width the kernel takes
 
+# K1's tiles (csrc/attention_tile.cuh): 64 query rows per block of 128
+# threads, 32-key K/V tiles double-buffered, rows padded to 68 floats.
+BLOCK_Q, BLOCK_K, THREADS = 64, 32, 128
+_LD, _LD_P = HEAD_DIM + 4, BLOCK_K + 8
+KEY_TILES_BYTES = 4 * (2 * 2 * BLOCK_K * _LD + BLOCK_Q * _LD_P)
+FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
+
 # Launches of K1, K2 and K3 since each count was last set to 0.
 launches = 0
 launches_bwd_dq = 0
@@ -84,14 +91,32 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, lengths):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_launch_plan(t: int, b: int, h: int) -> dict:
+    """K1's grid (one block per 64-query tile, head and batch row) and its
+    dynamic shared memory, which the C launcher checks against its own."""
+    return {"grid": (-(-t // BLOCK_Q), h, b), "threads": THREADS,
+            "rows_per_block": BLOCK_Q, "smem_bytes": FLASH_SMEM_BYTES}
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.nomad_flash_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
+        occ = lib.nomad_flash_attention_fwd_occupancy
+        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
+
+
+def flash_occupancy() -> int:
+    """Blocks of K1 resident on one SM at its shared memory (the card)."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(ctypes.byref(blocks)),
+                 "flash attention occupancy")
+    return blocks.value
 
 
 def _check_qkv(name, x, shape, device):
@@ -133,7 +158,8 @@ def _flash_kernel(q, k, v, lengths):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, flash_launch_plan(t, b, h)["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash attention kernel launch")
     global launches

@@ -21,18 +21,29 @@ with K1, the JAX package's own shape rule.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .attention import mha
-from .flash_attention import HEAD_DIM, NEG_INF, FlashAttention
+from .flash_attention import HEAD_DIM, KEY_TILES_BYTES, NEG_INF, THREADS, FlashAttention
 
 # The JAX kernel's single pass over the padded sequence had to fit VMEM, so
 # it takes round_up(T, 128) <= 1024 frames (~21 s of audio); K4 needs no
 # padding to 128 and takes T <= 1024, the same set of lengths.
 MAX_FUSED_T = 1024
+
+# K4's tiles (csrc/fused_attention.cu): 64-row chunks; in phase 1 two
+# model-axis slices in flight, 16 wide for Q, K and V and 32 for one
+# tensor; rows padded by 4 floats
+ROWS_PER_BLOCK = 64
+MAX_CLUSTER = MAX_FUSED_T // ROWS_PER_BLOCK  # 16, past the portable 8
+_SLOTS_BYTES = 4 * 3 * ROWS_PER_BLOCK * (HEAD_DIM + 4)
+_PROJ_BYTES = 4 * 2 * max((ROWS_PER_BLOCK + nt * HEAD_DIM) * (slice_ + 4)
+                          for nt, slice_ in ((3, 16), (1, 32)))
+FUSED_SMEM_BYTES = _SLOTS_BYTES + max(_PROJ_BYTES, KEY_TILES_BYTES)
 
 # Launches of K4 since the count was last set to 0.
 launches = 0
@@ -40,6 +51,52 @@ launches = 0
 
 def fused_supported(t: int) -> bool:
     return t <= MAX_FUSED_T
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """How K4 splits one (batch, head) over a thread-block cluster of
+    ``cluster`` blocks (grid x), for T frames. ``tensors_per_block`` 3: a
+    cluster along T, block r projects Q, K and V of rows 64r .. 64r + 63
+    and attends those query rows. 1 (T <= 64): block g projects tensor g
+    (Q, K, V) of all rows, and the blocks share the query rows by 16-row
+    warp tiles, warp tile w going to block w % 3."""
+
+    t: int
+    cluster: int
+    rows_per_block: int
+    tensors_per_block: int
+    grid: tuple
+    smem_bytes: int
+
+    def projects(self, rank: int) -> list:
+        """(tensor, first row, end row) that block ``rank`` projects when
+        every key is valid (Q: 0, K: 1, V: 2)."""
+        if self.tensors_per_block == 1:
+            return [(rank, 0, self.t)]
+        r0 = rank * self.rows_per_block
+        return [(g, r0, min(self.t, r0 + self.rows_per_block)) for g in range(3)]
+
+    def attends(self, rank: int) -> list:
+        """(first, end) query rows whose O block ``rank`` writes."""
+        if self.tensors_per_block == 1:
+            return [(16 * w, min(self.t, 16 * w + 16))
+                    for w in range(THREADS // 32) if w % 3 == rank and 16 * w < self.t]
+        r0 = rank * self.rows_per_block
+        return [(r0, min(self.t, r0 + self.rows_per_block))]
+
+
+def fused_launch_plan(t: int, b: int, h: int) -> FusedPlan:
+    """K4's launch for x [b, t, 64 h]: the cluster size, rows per block,
+    tensors per block, grid (cluster, h, b) and dynamic shared memory. The
+    C launcher checks each against the kernel's own rule."""
+    if not 1 <= t <= MAX_FUSED_T:
+        raise ValueError(f"fused kernel: T = {t} outside 1 .. {MAX_FUSED_T}")
+    if t <= ROWS_PER_BLOCK:
+        cluster, tensors = 3, 1
+    else:
+        cluster, tensors = -(-t // ROWS_PER_BLOCK), 3
+    return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), FUSED_SMEM_BYTES)
 
 
 def _qkv(x, wq, bq, wk, bk, wv, bv, heads):
@@ -77,9 +134,23 @@ def _lib():
     fn = lib.nomad_fused_qkv_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 3 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
+        occ = lib.nomad_fused_qkv_attention_fwd_occupancy
+        occ.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        occ.restype = ctypes.c_int
     return lib
+
+
+def fused_occupancy(t: int) -> tuple:
+    """(blocks of K4 resident on one SM, clusters resident on the card) for
+    the cluster size of T frames (the card)."""
+    lib = _lib()
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.nomad_fused_qkv_attention_fwd_occupancy(
+        fused_launch_plan(t, 1, 1).cluster, ctypes.byref(blocks), ctypes.byref(clusters))
+    _build.check(lib, err, "fused attention occupancy")
+    return blocks.value, clusters.value
 
 
 def _check_inputs(x, params, lengths, heads):
@@ -91,8 +162,8 @@ def _check_inputs(x, params, lengths, heads):
             f"fused kernel: head width {dm}/{heads} unsupported (only {HEAD_DIM})")
     if not fused_supported(t):
         raise ValueError(f"fused kernel: T = {t} frames > {MAX_FUSED_T}")
-    if b > 65535:
-        raise ValueError(f"fused kernel: grid limits exceeded (B={b})")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"fused kernel: grid limits exceeded (B={b}, H={heads})")
     for name, a in (("x", x), *params.items()):
         if a.dtype != torch.float32:
             raise TypeError(f"fused kernel: {name} must be float32, got {a.dtype}")
@@ -116,13 +187,14 @@ def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
     o = torch.empty((b, t, heads, HEAD_DIM), dtype=torch.float32, device=x.device)
     if o.numel() == 0:
         return o.transpose(1, 2)
-    ws = torch.empty((3, b, heads, t, HEAD_DIM), dtype=torch.float32, device=x.device)
     lengths = lengths.contiguous()
+    plan = fused_launch_plan(t, b, heads)
     lib = _lib()
     err = lib.nomad_fused_qkv_attention_fwd(
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
-        ws.data_ptr(), o.data_ptr(), b, t, heads, dm, *o.stride()[:3],
-        1.0 / HEAD_DIM**0.5, torch.cuda.current_stream(x.device).cuda_stream,
+        o.data_ptr(), b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
+        plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "fused attention kernel launch")
     global launches

@@ -302,3 +302,61 @@ def test_model_fused_path_matches_plain_path(cuda):
         torch.testing.assert_close(emb, ref(wav, lengths), atol=1e-5, rtol=0)
         for i, n in enumerate(lengths.tolist()):
             torch.testing.assert_close(emb[i:i + 1], model(wav[i:i + 1, :n]), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", [50, 511, 4095])
+def test_flash_kernel_tile_edges_with_nan_past_the_bound(cuda, t):
+    """K1's 64-query, 32-key tiles at the paths' lengths: ragged down to
+    one key and to none, NaN in k and v past each bound."""
+    lengths = [t, t // 2 + 1, 33, 32, 31, 1, 0]
+    g = torch.Generator().manual_seed(t + 7)
+    b, h, d = len(lengths), 2, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(cuda)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    for i in range(b):  # the plain version one batch row at a time
+        ro, rlse = flash_attention.flash_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i:i + 1])
+        torch.testing.assert_close(o[i:i + 1], ro, atol=2e-5, rtol=0)
+        torch.testing.assert_close(lse[i:i + 1], rlse, atol=2e-5, rtol=0)
+    assert torch.equal(o[-1], torch.zeros_like(o[-1]))
+    assert torch.all(lse[-1] == flash_attention.NEG_INF)
+
+
+@pytest.mark.parametrize("t", [1, 50, 63, 64, 65, 127, 128, 129, 511, 512, 1023, 1024])
+def test_fused_kernel_cluster_edges(cuda, t):
+    """K4 where its launch plan changes: one tensor per block up to 64
+    frames, a cluster of ceil(T / 64) chunks beyond (2 .. 16 blocks). Rows
+    ragged down to one key and to none; the valid rows of a call with
+    123.0 past each bound are the same bits as with zeros there."""
+    lengths = sorted({t, max(t // 2, 1), min(t, 65), min(t, 64), 1}, reverse=True) + [0]
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, 100 + t)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.equal(o[-1], torch.zeros_like(o[-1]))
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2)
+    torch.testing.assert_close(o, ref, atol=2e-5, rtol=1e-5)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 123.0
+    dirty = fused_attention.fused_qkv_mha(x, *params, lens, 2)
+    assert torch.isfinite(dirty).all()
+    for i, n in enumerate(lengths):
+        assert torch.equal(dirty[i, :, :n], o[i, :, :n])
+
+
+def test_kernel_occupancy(cuda):
+    """K1 keeps 3 blocks on an SM, K4 2, and every cluster size K4 uses
+    fits on the card."""
+    assert flash_attention.flash_occupancy() >= 3
+    for t in (50, 65, 511, 1024):
+        blocks, clusters = fused_attention.fused_occupancy(t)
+        assert blocks >= 2 and clusters >= 1

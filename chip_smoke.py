@@ -1,21 +1,24 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-loss]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
-     print ptxas' registers, shared memory and spills, and the occupancy
-     (blocks per SM; K4's clusters on the card) of K1 and K4;
+     print ptxas' registers, shared memory and spills (a spill fails), and
+     the occupancy (blocks per SM; K4's clusters on the card) of K1, K2,
+     K3 and K4;
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
      beside the least time the card could take (bound): K1 and K5 at the
      scoring shapes, K2 and K3 (the attention backward) at the loss shape,
-     the triplet-training shape and a ragged long shape with NaN past the
-     bound, K4 (projection-fused attention) at the scoring and loss shapes
-     and a ragged [8, 1024] shape with garbage past each bound;
+     the triplet-training shape and a ragged long shape, and untimed at
+     every edge of their tiles, with NaN past the bound and a rerun that
+     must give the same bits, K4 (projection-fused attention) at the
+     scoring and loss shapes and a ragged [8, 1024] shape with garbage
+     past each bound;
   4. the scoring paths at full wav2vec 2.0 BASE width with seeded weights:
      ``python -m nomad_tpu_torch --mode dir`` on 8 + 100 seeded 10 s WAVs,
      then ``Nomad(device="cuda").predict`` in process with the kernel
@@ -28,19 +31,26 @@ Phases, each fatal on failure:
      (T' = 1,023, K4) and 400,000 (T' = 1,433, past K4's limit: K1);
   5. the loss paths at the same width, K1's and the fused one:
      ``Nomad.forward(estimate, clean)`` and ``.backward()`` on 32 seeded
-     16,384-sample crops, with the launch counts of one step; loss and
-     d loss / d estimate held against the plain path; forward(x, x) == 0;
-     warm step time, peak memory and one step under torch.profiler;
+     16,384-sample crops, then K1's on 24 seeded 10 s clips (160,000
+     samples, T' = 499: the triplet batch's attention shape), with the
+     launch counts of one step; loss and d loss / d estimate held against
+     the plain path; forward(x, x) == 0; warm step time, host enqueue
+     time, peak memory and one step under torch.profiler;
   6. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
-JSON object on the line that starts with "report: ".
+JSON object on the line that starts with "report: ". ``--only-loss`` runs
+phases 1 and 5 alone and ends with the report line: the same loss steps
+timed over another checkout's package (the script uses no entry point
+newer than the loss path's).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,6 +76,9 @@ N_NMR, N_DEG, SECONDS = 8, 100, 10.0
 # the SE demo's crop at its training batch (reference nomad_loss_test.py:196,
 # nomad_tpu/configs/se_config.yaml:12): T' = 50 frames
 LOSS_BATCH, LOSS_SAMPLES, LOSS_STEPS = 32, 16384, 7
+# the loss on utterance-length clips: the triplet batch (A/P/N of batch 8)
+# of 10 s trimmed to 160,000 samples gives T' = 499
+LOSS10_BATCH, LOSS10_SAMPLES = 24, 160_000
 # single files on the fused path: (samples, T' of their bucket); 1,023
 # frames is the longest bucket K4 takes, 1,433 is past MAX_FUSED_T
 FUSED_SINGLE_FILES = ((300_000, 1023), (400_000, 1433))
@@ -104,6 +117,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn) -> dict:
+    """Device time (ms) by kernel name of one warm fn() under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            names[evt.name[:120]] = names.get(evt.name[:120], 0.0) + evt.time_range.elapsed_us() / 1e3
+    return dict(sorted(names.items(), key=lambda x: -x[1]))
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -135,14 +162,28 @@ def build_kernels() -> None:
     logs = _build.build()
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {len(logs)} kernel sources in {report['build_s']:.1f} s", flush=True)
+    spills = []
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  ptxas[{name}]: {line.strip()}")
+            spills += [f"{name}: {line.strip()}" for n in re.findall(r"(\d+) bytes spill", line)
+                       if int(n)]
+    if spills:
+        fail("ptxas spills registers: " + "; ".join(spills))
     # resident blocks per SM (and K4's clusters on the card) at each
     # kernel's shared memory, from the CUDA occupancy API
     occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
                                    "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
+    for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
+        for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
+            blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"])
+            occ[f"flash_attention_bwd_{kernel}_T{t}"] = {
+                "rows_per_block": plan["rows_per_block"], "blocks_per_sm": blocks,
+                "plan_blocks_per_sm": plan["blocks_per_sm"], "smem_bytes": plan["smem_bytes"]}
+            if blocks < plan["blocks_per_sm"]:
+                fail(f"K2/K3 {kernel} at T = {t}: {blocks} blocks per SM, the plan claims "
+                     f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         plan = fused_attention.fused_launch_plan(t, 1, 12)
         blocks, clusters = fused_attention.fused_occupancy(t)
@@ -235,9 +276,12 @@ def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor) -> d
             "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs)}
 
 
-def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
+def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                    kernel_times: bool = True) -> dict:
     """K2 and K3 against flash_attention_bwd_ref on the card. NaN is written
-    into k and v past each row's bound; dK and dV must be exactly 0 there."""
+    into k and v past each row's bound; dK and dV must be exactly 0 there,
+    and a second call must give the same bits. ``kernel_times``: time K2
+    and K3; ``timed``: the plain version and SDPA's gradient too."""
     h, d = 12, 64
     qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
     q, k, v = qkv.unbind(2)
@@ -259,25 +303,35 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
         rq, rk, rv = flash_attention.flash_attention_bwd_ref(
             q[sl], k[sl], v[sl], o[sl], lse[sl], do[sl], lens[sl])
         for key, ours, ref in (("dq", dq, rq), ("dkv", dk, rk), ("dkv", dv, rv)):
-            diff = (ours[sl] - ref).abs()
+            diff = (ours[sl] - ref).abs().nan_to_num(nan=float("inf"))  # a NaN fails
             err[key] = max(err[key], diff.max().item())
             excess = max(excess, (diff - atol - RTOL_FLASH_BWD * ref.abs()).max().item())
     finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
     zero_past = all(bool((dk[i, n:] == 0).all() and (dv[i, n:] == 0).all())
                     for i, n in enumerate(lengths))
     zero_rows = all(bool((dq[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
-    if not (finite and zero_past and zero_rows) or excess > 0:
+    again = (flash_attention._bwd_dq_kernel(q, k, v, do_, lse, di, lens_),
+             *flash_attention._bwd_dkv_kernel(q, k, v, do_, lse, di, lens_))
+    same_bits = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+    del again
+    if not (finite and zero_past and zero_rows and same_bits) or excess > 0:
         fail(f"flash bwd [{b}, {t}, {h}, {d}] finite={finite} zero past bound={zero_past} "
-             f"zero rows={zero_rows} max|d| {err} beyond {atol:.3g} + "
-             f"{RTOL_FLASH_BWD}|ref| by {excess:.3g}")
+             f"zero rows={zero_rows} rerun same bits={same_bits} max|d| {err} beyond "
+             f"{atol:.3g} + {RTOL_FLASH_BWD}|ref| by {excess:.3g}")
     bounds = flash_bwd_bounds(b, t, h, d, lens)
     iters = 10 if t > 1024 else 30
-    res = {"shape": [b, t, h, d], "lengths_sum": int(lens.sum()),
+    res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
            "tolerance": [atol, RTOL_FLASH_BWD]}
     for key, fn in (("dq", lambda: flash_attention._bwd_dq_kernel(q, k, v, do_, lse, di, lens_)),
                     ("dkv", lambda: flash_attention._bwd_dkv_kernel(q, k, v, do_, lse, di, lens_))):
-        res[key] = {"max_abs_err": err[key], "ms": time_ms(fn, iters),
-                    "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        res[key] = {"max_abs_err": err[key], "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        if kernel_times:
+            res[key]["ms"] = time_ms(fn, iters)
+    if not kernel_times:
+        print(f"  flash bwd [{b}, {t}, {h}, {d}] lengths {lengths}: K2 max|d| {err['dq']:.3g}, "
+              f"K3 max|d| {err['dkv']:.3g} (<= {atol:.3g} + {RTOL_FLASH_BWD}|ref|), "
+              "rerun same bits", flush=True)
+        return res
     if timed:
         # one plain call and one library call compute K2 and K3's outputs
         # together: both times stand on both rows
@@ -292,6 +346,11 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
         lib = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
         for key in ("dq", "dkv"):
             res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+        res["library_kernels_ms"] = device_kernels(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+    if "library_kernels_ms" in res:
+        print(f"  flash bwd [{b}, {t}, {h}, {d}]: SDPA's gradient launches "
+              + "; ".join(f"{n} {ms:.4f} ms" for n, ms in res["library_kernels_ms"].items()))
     print(f"  flash bwd [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
           f"K2 dQ max|d| {err['dq']:.3g} {res['dq']['ms']:.4f} ms (bound {bounds['dq'][0]:.4f}); "
           f"K3 dK/dV max|d| {err['dkv']:.3g} {res['dkv']['ms']:.4f} ms "
@@ -385,14 +444,21 @@ def check_kernels() -> None:
     bwd = {
         # the loss path: 32 crops of 16,384 samples, T' = 50, no padding
         "main": check_flash_bwd(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
-        # triplet training: A/P/N of batch 8, 10 s trimmed to 160,000
+        # triplet training and the loss on 10 s clips: 24 rows of 160,000
         # samples, T' = 499
-        "train": check_flash_bwd(24, 499, [499] * 24, g, timed=True),
+        "train": check_flash_bwd(LOSS10_BATCH, 499, [499] * LOSS10_BATCH, g, timed=True),
         "long": check_flash_bwd(8, 4095, [4095, 4000, 2047, 1025, 513, 64, 1, 0], g,
-                                timed=False),
+                                timed=True),
     }
+    # every edge of the tiles (32-row streamed tiles; 32-row blocks up to
+    # T = 64, 64-row beyond): a full row, a ragged one, 1 key and none
+    for t in (1, 31, 32, 33, 63, 64, 65, 499):
+        bwd[f"edge_T{t}"] = check_flash_bwd(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                            kernel_times=False)
     for key, name in (("dq", "flash_attention_bwd_dq"), ("dkv", "flash_attention_bwd_dkv")):
         report["kernels"][name] = {shape: r[key] | {"shape": r["shape"]} for shape, r in bwd.items()}
+    report["sdpa_grad_kernels_ms"] = {shape: r["library_kernels_ms"] for shape, r in bwd.items()
+                                      if "library_kernels_ms" in r}
     report["kernels"]["fused_qkv_attention_fwd"] = {
         # the scoring path's 10 s bucket with its lengths, the loss crop,
         # and the longest input K4 takes, ragged down to one key
@@ -719,13 +785,15 @@ def layer_signs(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor) -> list:
                                                   nomad.model.forward_layers(clean))]
 
 
-def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict) -> None:
-    """One loss path: its launch counts per step (``want``), loss and
-    gradient against the plain path, forward(x, x) == 0, warm step time,
-    peak memory and one profiled step, under ``report[key]``."""
+def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
+                  batch: int, samples: int) -> None:
+    """One loss path on ``batch`` seeded clips of ``samples`` samples: its
+    launch counts per step (``want``), loss and gradient against the plain
+    path, forward(x, x) == 0, warm step time, peak memory and one profiled
+    step, under ``report[key]``."""
     what, step_key = key.replace("_", " "), key.replace("path", "step")
     rng = np.random.default_rng(4321)
-    clean_np = np.stack([speech_like(rng, LOSS_SAMPLES, 0.005) for _ in range(LOSS_BATCH)])
+    clean_np = np.stack([speech_like(rng, samples, 0.005) for _ in range(batch)])
     est_np = clean_np + (0.03 * rng.standard_normal(clean_np.shape)).astype(np.float32)
     clean = torch.from_numpy(clean_np).to(DEV)
     est = torch.from_numpy(est_np).to(DEV).requires_grad_()
@@ -754,11 +822,16 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict) -> No
     print(f"{what}: loss {value:.6g}, max|d loss/d est| {gmax:.4g}, launches {counts}",
           flush=True)
 
-    # the same weights on the plain path
+    # the same weights on the plain path, which holds every layer's
+    # [B, 12, T', T'] probabilities for its backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     plain = Nomad(device="cuda", config=plain_config())
     est_p = est.detach().clone().requires_grad_()
     loss_p = plain.forward(est_p, clean)
     loss_p.backward()
+    torch.cuda.synchronize()
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     d_loss = abs(loss_p.item() - value) / abs(loss_p.item())
     d_grad = (est_p.grad - grad).abs().max().item() / est_p.grad.abs().max().item()
     # an element of a layer difference within rounding of 0 can take the
@@ -775,21 +848,22 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict) -> No
     d_grad_signs = (est_s.grad - grad).abs().max().item() / est_s.grad.abs().max().item()
     zero = nomad.forward(clean, clean).item()
     report[key] = {
-        "shape": [LOSS_BATCH, LOSS_SAMPLES], "loss": value, "grad_max_abs": gmax,
+        "shape": [batch, samples], "loss": value, "grad_max_abs": gmax,
         "plain_loss": loss_p.item(), "loss_rel_diff": d_loss,
         "grad_rel_diff_direct": d_grad, "grad_rel_diff_same_signs": d_grad_signs,
-        "sign_flips": flips, "identity_loss": zero,
+        "sign_flips": flips, "identity_loss": zero, "plain_path_peak_mem_gb": plain_peak_gb,
     }
     print(f"{what}: vs plain path loss rel {d_loss:.3g} (<= {TOL_LOSS_REL}); gradient "
           f"max|d|/max|g| {d_grad:.3g} direct, {d_grad_signs:.3g} under one sign pattern "
-          f"(<= {TOL_GRAD_REL}; {flips} layer elements change sign); forward(x, x) = {zero}",
-          flush=True)
+          f"(<= {TOL_GRAD_REL}; {flips} layer elements change sign); forward(x, x) = {zero}; "
+          f"plain path peak memory {plain_peak_gb:.2f} GB", flush=True)
     if d_loss > TOL_LOSS_REL or d_grad_signs > TOL_GRAD_REL or (flips == 0 and d_grad > TOL_GRAD_REL):
         fail(f"{what} vs plain path: loss rel {d_loss:.3g}, gradient {d_grad:.3g} direct / "
              f"{d_grad_signs:.3g} same signs ({flips} flips)")
     if zero != 0.0:
         fail(f"{what}: forward(clean, clean) = {zero}, want exactly 0")
     del plain, loss_p, est_p, est_s, ref_clean, signs
+    torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -811,21 +885,37 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict) -> No
     profile_run(step, f"profile_{step_key}")
 
 
+def run_loss_paths(card: str) -> None:
+    report.setdefault("launches", {})
+    run_loss_path(card, "loss_path", Wav2Vec2Config.base(),
+                  launches_want(k1=24, k2=12, k3=12, k5=52), LOSS_BATCH, LOSS_SAMPLES)
+    # the fused path: K4 in both forwards, K1 + K2 + K3 in the backward's
+    # recompute of the estimate's blocks
+    run_loss_path(card, "loss_path_fused", Wav2Vec2Config.base(attention_impl="fused_qkv"),
+                  launches_want(k1=12, k2=12, k3=12, k4=24, k5=52), LOSS_BATCH, LOSS_SAMPLES)
+    # 10 s clips: K2 and K3 at [24, 499, 12, 64]
+    run_loss_path(card, "loss_path_10s", Wav2Vec2Config.base(),
+                  launches_want(k1=24, k2=12, k3=12, k5=52), LOSS10_BATCH, LOSS10_SAMPLES)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
+    parser.add_argument("--only-loss", action="store_true",
+                        help="phases 1 and 5 only; ends with the report line")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
+    if args.only_loss:
+        run_loss_paths(card)
+        print("report: " + json.dumps(report, default=float))
+        return
     build_kernels()
     print("kernels vs plain versions on the card:", flush=True)
     check_kernels()
     run_scoring_paths(card)
-    run_loss_path(card, "loss_path", Wav2Vec2Config.base(),
-                  launches_want(k1=24, k2=12, k3=12, k5=52))
-    # the fused path: K4 in both forwards, K1 + K2 + K3 in the backward's
-    # recompute of the estimate's blocks
-    run_loss_path(card, "loss_path_fused", Wav2Vec2Config.base(attention_impl="fused_qkv"),
-                  launches_want(k1=12, k2=12, k3=12, k4=24, k5=52))
+    run_loss_paths(card)
 
     rows = []
     for name, src, replaces in (
@@ -842,13 +932,17 @@ def main() -> None:
         k = report["kernels"][name]
         m = k["main"]
         by_path = {path: c[name] for path, c in report["launches"].items()}
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(v["max_abs_err"] for v in k.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        })
+        }
+        if "train" in k:  # K2/K3: the loss crop above, [24, 499] (10 s clips) beside it
+            row |= {f"train_{f}": k["train"][f]
+                    for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        rows.append(row)
     print("report: " + json.dumps(report, default=float))
     print("kernels: " + "; ".join(
         f"{r['name']} max|d| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"

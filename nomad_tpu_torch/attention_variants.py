@@ -1,9 +1,11 @@
-"""Where K1 and K4 spend their time on the card: diagnostic variants.
+"""Where the attention kernels spend their time on the card: diagnostic
+variants.
 
     python -m nomad_tpu_torch.attention_variants
 
-Builds copies of ``csrc/fused_attention.cu`` and ``csrc/flash_attention.cu``
-with one part switched off, each by a text substitution that must match the
+Builds copies of ``csrc/fused_attention.cu``, ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu`` (and of the headers they include) with
+one part switched off, each by a text substitution that must match the
 current source, into ``build/nomad_tpu_torch/variants/`` (nvcc, as
 ``ops/_build.py`` builds the real kernels), and times each against the
 unchanged kernel at the paths' shapes with CUDA events:
@@ -14,7 +16,14 @@ unchanged kernel at the paths' shapes with CUDA events:
   attribute (implicit clusters of one block), which prices the cluster
   scheduling;
 * K1 ``two_blocks``: K1 held to 2 blocks per SM by its shared memory, K4's
-  occupancy.
+  occupancy;
+* K2 + K3 ``two_blocks``: both held to 2 blocks per SM by their shared
+  memory (the plan gives 3), which prices the occupancy;
+* K2 + K3 ``rows16``: 16-row blocks at the loss crop (the plan takes 32),
+  one row a thread: 2.9 waves of the card instead of 1.94;
+* K2 + K3 ``no_resident_loads``: the tile's loads of its resident rows
+  taken out of the column loop (wrong sums), which prices half of the
+  score loop's shared-memory loads.
 
 The variants compute nothing useful and are never loaded by the port.
 Prints one JSON object with the times (ms) and the card's name and power
@@ -47,25 +56,37 @@ VARIANTS = {
     "k1_two_blocks": ("flash_attention.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
         ("kSmemBytes = sizeof(Smem);", "kSmemBytes = 113664;")]),
+    "k23": ("flash_attention_bwd.cu", []),
+    "k23_two_blocks": ("flash_attention_bwd.cu", [
+        ("kMinBlocks = 3;", "kMinBlocks = 2;"),
+        ("sizeof(DqSmem<4>)", "113664"), ("sizeof(DkvSmem<4>)", "113664")]),
+    "k23_rows16": ("flash_attention_bwd.cu", [("kSmallRT = 2;", "kSmallRT = 1;")]),
+    # (header, old, new): a substitution in an included header
+    "k23_no_resident_loads": ("flash_attention_bwd.cu", [
+        ("attention_bwd_tile.cuh", "for (int d = 0; d < kD; d += 4) {\n    float4 a[RT];",
+         "float4 a[RT];\n  for (int d = 0; d < kD; d += 4) {"),
+        ("attention_bwd_tile.cuh", "      a[i] = *reinterpret_cast",
+         "      if (d == 0) a[i] = *reinterpret_cast")]),
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
+HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh")
 
 
 def build() -> dict:
     """Each variant's library, built in parallel."""
     root = _build.BUILD_DIR / "variants"
-    header = (_build.CSRC / "attention_tile.cuh").read_text()
     procs = {}
     for name, (src, subs) in VARIANTS.items():
-        text = (_build.CSRC / src).read_text()
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in csrc/{src}")
-            text = text.replace(old, new)
+        texts = {f: (_build.CSRC / f).read_text() for f in (src, *HEADERS)}
+        for sub in subs:
+            f, old, new = sub if len(sub) == 3 else (src, *sub)
+            if old not in texts[f]:
+                raise RuntimeError(f"variant {name}: {old!r} not in csrc/{f}")
+            texts[f] = texts[f].replace(old, new)
         d = root / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "attention_tile.cuh").write_text(header)
-        (d / src).write_text(text)
+        for f, text in texts.items():
+            (d / f).write_text(text)
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
@@ -139,6 +160,38 @@ def main() -> None:
         if fn(*args):
             raise RuntimeError(f"{name}: launch refused")
         out["ms"][f"{name} [{b}, {t}, {h}, 64]"] = time_ms(lambda: fn(*args))
+    # K2 + K3 at the 10 s clips' [24, 499] and the loss crop's [32, 50]
+    for b, t in ((24, 499), (32, 50)):
+        q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
+        lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
+        o, lse = flash_attention.mha_flash(q, k, v, lengths)
+        do, di, lengths = flash_attention._bwd_args(
+            q, k, v, o, lse, torch.randn(b, t, h, 64, generator=g).to(dev), lengths)
+        dq, dk, dv = (torch.empty(b, t, h, 64, device=dev) for _ in range(3))
+        plan = flash_attention.flash_bwd_launch_plan(t, b, h)["dq"]
+        for name in ("k23", "k23_two_blocks", "k23_rows16", "k23_no_resident_loads"):
+            rows, smem = plan["rows_per_block"], plan["smem_bytes"]
+            if name == "k23_two_blocks" and rows == 64:
+                smem = 113664
+            elif name == "k23_rows16" and rows < 64:
+                rows = 16  # resident rows, K/V or Q/dO tiles in flight, the slice
+                smem = 4 * (2 * rows * 64 + 2 * 2 * 32 * 68 + rows * 36)
+            elif name in ("k23_two_blocks", "k23_rows16"):
+                continue
+            total = 0.0
+            for entry, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
+                fn = getattr(libs[name], f"nomad_flash_attention_bwd_{entry}")
+                fn.argtypes = [p] * (7 + len(outs)) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs),
+                        b, t, h, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        *do.stride()[:3], 0.125, rows, smem, stream)
+                if fn(*args):
+                    raise RuntimeError(f"{name} {entry} [{b}, {t}]: launch refused")
+                ms = time_ms(lambda: fn(*args))
+                out["ms"][f"{name}_{entry} [{b}, {t}, {h}, 64]"] = ms
+                total += ms
+            out["ms"][f"{name}_pair [{b}, {t}, {h}, 64]"] = total
     print(json.dumps(out))
 
 

@@ -32,6 +32,15 @@ _LD, _LD_P = HEAD_DIM + 4, BLOCK_K + 8
 KEY_TILES_BYTES = 4 * (2 * 2 * BLOCK_K * _LD + BLOCK_Q * _LD_P)
 FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
 
+# K2's and K3's tiles (csrc/attention_bwd_tile.cuh): a block of 128 threads
+# holds 64 rows (32 when T <= BWD_SMALL_T, which fills the card at the loss
+# crop) of two operands, unpadded, and streams 32-row tiles of the other
+# two, double-buffered; P and dS pass through per-warp slices of 36-float
+# rows (K2: one for dS; K3: one for P, then dS). Blocks per SM: what the
+# kernels are compiled for (__launch_bounds__).
+BWD_SMALL_T, BWD_SMALL_ROWS, BWD_STAGES, BWD_BLOCKS_PER_SM = 64, 32, 2, 3
+_LD_S = BLOCK_K + 4
+
 # Launches of K1, K2 and K3 since each count was last set to 0.
 launches = 0
 launches_bwd_dq = 0
@@ -96,6 +105,21 @@ def flash_launch_plan(t: int, b: int, h: int) -> dict:
     dynamic shared memory, which the C launcher checks against its own."""
     return {"grid": (-(-t // BLOCK_Q), h, b), "threads": THREADS,
             "rows_per_block": BLOCK_Q, "smem_bytes": FLASH_SMEM_BYTES}
+
+
+def flash_bwd_launch_plan(t: int, b: int, h: int) -> dict:
+    """K2's and K3's launches ({"dq": ..., "dkv": ...}): each kernel's grid
+    (one block per tile of ``rows_per_block`` query rows for K2, key rows
+    for K3, per head and batch row), threads, dynamic shared memory and the
+    blocks per SM it is built for. The C launchers check rows and shared
+    memory against their own rule."""
+    rows = BWD_SMALL_ROWS if t <= BWD_SMALL_T else 64
+    # resident rows (K2: Q and dO; K3: K and V), the K/V (K2) or Q/dO (K3)
+    # tiles in flight, the slices: the same for both kernels
+    smem = 4 * (2 * rows * HEAD_DIM + BWD_STAGES * 2 * BLOCK_K * _LD + rows * _LD_S)
+    return {kernel: {"grid": (-(-t // rows), h, b), "threads": THREADS, "rows_per_block": rows,
+                     "smem_bytes": smem, "blocks_per_sm": BWD_BLOCKS_PER_SM}
+            for kernel in ("dq", "dkv")}
 
 
 def _lib():
@@ -183,9 +207,22 @@ def _lib_bwd():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, outs in ((lib.nomad_flash_attention_bwd_dq, 1), (lib.nomad_flash_attention_bwd_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
             fn.restype = ctypes.c_int
+    occ = lib.nomad_flash_attention_bwd_occupancy
+    if occ.argtypes is None:
+        occ.argtypes, occ.restype = [i, i, ctypes.POINTER(i)], ctypes.c_int
     return lib
+
+
+def flash_bwd_occupancy(kernel: str, rows_per_block: int) -> int:
+    """Blocks of K2 (``kernel="dq"``) or K3 (``"dkv"``) resident on one SM
+    for a plan of ``rows_per_block`` rows, at its shared memory (the card)."""
+    lib = _lib_bwd()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.nomad_flash_attention_bwd_occupancy(
+        int(kernel == "dkv"), rows_per_block, ctypes.byref(blocks)), "flash backward occupancy")
+    return blocks.value
 
 
 def _bwd_args(q, k, v, o, lse, do, lengths):
@@ -207,14 +244,16 @@ def _bwd_args(q, k, v, o, lse, do, lengths):
     return do, di, lengths.contiguous()
 
 
-def _launch_bwd(entry, q, k, v, do, lse, di, lengths, outs, what):
+def _launch_bwd(kernel, q, k, v, do, lse, di, lengths, outs, what):
     b, t, h, d = q.shape
+    plan = flash_bwd_launch_plan(t, b, h)[kernel]
     lib = _lib_bwd()
-    err = getattr(lib, entry)(
+    err = getattr(lib, f"nomad_flash_attention_bwd_{kernel}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, plan["rows_per_block"], plan["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, what)
 
@@ -224,7 +263,7 @@ def _bwd_dq_kernel(q, k, v, do, lse, di, lengths):
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
-    _launch_bwd("nomad_flash_attention_bwd_dq", q, k, v, do, lse, di, lengths, (dq,),
+    _launch_bwd("dq", q, k, v, do, lse, di, lengths, (dq,),
                 "flash attention dQ kernel launch")
     global launches_bwd_dq
     launches_bwd_dq += 1
@@ -237,7 +276,7 @@ def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
-    _launch_bwd("nomad_flash_attention_bwd_dkv", q, k, v, do, lse, di, lengths, (dk, dv),
+    _launch_bwd("dkv", q, k, v, do, lse, di, lengths, (dk, dv),
                 "flash attention dK/dV kernel launch")
     global launches_bwd_dkv
     launches_bwd_dkv += 1

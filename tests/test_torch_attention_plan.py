@@ -1,6 +1,7 @@
-"""The launch plans of the port's forward attention kernels, K1 and K4,
-held on the CPU: the plan is plain Python that the C launchers check
-against their own rules, so what it promises is what the card runs."""
+"""The launch plans of the port's attention kernels, K1 and K4 forward,
+K2 and K3 backward, held on the CPU: the plan is plain Python that the C
+launchers check against their own rules, so what it promises is what the
+card runs."""
 
 import pytest
 import torch
@@ -10,6 +11,7 @@ from nomad_tpu_torch.ops import flash_attention, fused_attention
 torch.set_num_threads(2)
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
+SMEM_PER_SM, SMEM_RESERVED, SMS = 228 * 1024, 1024, 132  # per SM, per block; SMs
 # the batch sizes of the paths: single files, the scoring tail and batch,
 # the triplet batch and the loss crop
 BATCHES = (1, 16, 24, 32, 96)
@@ -60,3 +62,41 @@ def test_flash_plan_covers_every_query_row(b):
         assert (tiles - 1) * plan["rows_per_block"] < t <= tiles * plan["rows_per_block"]
         # three blocks of K1 fit the H100's 228 KB of shared memory per SM
         assert 3 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_flash_bwd_plan_covers_every_row_once(b):
+    """K2's blocks own the query rows and K3's the key rows: each row of
+    every (head, batch) in exactly one block, within the shared memory a
+    block may use, and as many blocks per SM as the plan claims fit the
+    SM's 228 KB."""
+    for t in LENGTHS + [1433, 4095]:
+        plans = flash_attention.flash_bwd_launch_plan(t, b, 12)
+        assert set(plans) == {"dq", "dkv"}
+        for kernel, plan in plans.items():
+            tiles, h, bb = plan["grid"]
+            rows = plan["rows_per_block"]
+            assert (h, bb) == (12, b) and plan["threads"] == 128, (kernel, t)
+            owned = [0] * t
+            for x in range(tiles):
+                for r in range(x * rows, min(t, (x + 1) * rows)):
+                    owned[r] += 1
+            assert owned == [1] * t, (kernel, t)
+            assert (tiles - 1) * rows < t, (kernel, t)  # no block without a row
+            assert plan["smem_bytes"] <= SMEM_LIMIT, (kernel, t)
+            assert plan["blocks_per_sm"] * (plan["smem_bytes"] + SMEM_RESERVED) <= SMEM_PER_SM
+
+
+def test_flash_bwd_plan_fills_the_card_at_the_loss_crop():
+    """At the loss crop (32 crops, T' = 50, 12 heads) the grid is ~2 waves
+    of the card at the blocks per SM the plan claims: 32-row blocks, 3 per
+    SM, 768 blocks for 1.94 waves (64-row blocks would give 384 for 0.97).
+    16-row blocks would give 2.9 waves but were measured slower (PERF.md):
+    they read twice the shared-memory words per FMA."""
+    for kernel, plan in flash_attention.flash_bwd_launch_plan(50, 32, 12).items():
+        blocks = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+        waves = blocks / (plan["blocks_per_sm"] * SMS)
+        assert plan["rows_per_block"] == 32 and waves >= 1.9, (kernel, waves)
+    # 64-row blocks beyond T = 64, 3 to an SM
+    for kernel, plan in flash_attention.flash_bwd_launch_plan(499, 24, 12).items():
+        assert (plan["rows_per_block"], plan["blocks_per_sm"]) == (64, 3), kernel

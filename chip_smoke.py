@@ -1,7 +1,7 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py [--only-loss]
+    python3 chip_smoke.py [--only-loss | --only-train]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -36,19 +36,34 @@ Phases, each fatal on failure:
      launch counts of one step; loss and d loss / d estimate held against
      the plain path; forward(x, x) == 0; warm step time, host enqueue
      time, peak memory and one step under torch.profiler;
-  6. the kernels' JSON line, the card line, and the last line
+  6. the trainer, at the recipe of ``nomad_tpu/configs/train_triplet.yaml``
+     (8 triplets of seeded 10.5-12 s WAVs trimmed to 160,000 samples, the
+     conv frontend frozen, dropout 0.1) on the same seeded BASE weights:
+     ``Training(config, device="cuda")``'s train step with ``remat`` on
+     and off and with the dropout rates at 0, and its eval step, each with
+     its launch counts; frozen parameters bit-unchanged and trainable ones
+     moved; remat on and off the same loss; the rates-at-0 step on the
+     kernels held against the plain path (loss, gradients); warm step
+     time, host enqueue time and peak memory; one profiled step with the
+     plain dropout attention in a group of its own; then a 2-epoch
+     ``training_loop``, a resume from its state (parameters, Adam state,
+     LRs and epoch bit-equal) and ``eval_audio_quality`` on its
+     ``best_model.npz``;
+  7. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
 JSON object on the line that starts with "report: ". ``--only-loss`` runs
 phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
-newer than the loss path's).
+newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone
+and ends with the report line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -63,8 +78,11 @@ import torch.nn.functional as F
 
 from nomad_tpu_torch.api import Nomad, set_exact_precision
 from nomad_tpu_torch.io import write_wav
-from nomad_tpu_torch.models import Wav2Vec2Config
+from nomad_tpu_torch.models import Wav2Vec2Config, wav2vec2
 from nomad_tpu_torch.ops import _build, flash_attention, fused_attention, layernorm
+from nomad_tpu_torch.training import Training
+from nomad_tpu_torch.training import data as train_data
+from nomad_tpu_torch.utils import config as config_io
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (at the 700 W limit): HBM rate, f32 without
@@ -94,6 +112,17 @@ TOL_FLASH_BWD, RTOL_FLASH_BWD = 2e-5, 1e-5
 TOL_FUSED, RTOL_FUSED = 2e-5, 1e-5
 TOL_REF_PATH, TOL_BATCH1 = 1e-4, 1e-5
 TOL_LOSS_REL, TOL_GRAD_REL = 1e-5, 1e-4  # loss relative; gradient relative to max|g|
+# the trainer: the recipe's config, 24 utterances of 10.5-12 s (trimmed to
+# 160,000 samples: bucket 163,840, T' = 511 with 499 valid), 16 training
+# and 8 validation triplets (2 steps and 1 step of batch 8), 4 NMR files
+TRAIN_RECIPE = ROOT / "nomad_tpu" / "configs" / "train_triplet.yaml"
+TRAIN_FILES, TRAIN_TRIPLETS, VALID_TRIPLETS, TRAIN_NMR = 24, 16, 8, 4
+TRAIN_STEPS, TRAIN_SEED = 5, 6
+ZERO_RATES = {"dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0}
+PLAIN_ATTENTION = "plain_attention"  # the profiler range around the dropout attention
+# parameters whose gradient is 0 analytically (softmax does not see a
+# shift shared by every key): Adam may leave them where they are
+ZERO_GRAD_PARAMS = (".k_proj.bias",)
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -533,10 +562,17 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_run(fn, key: str) -> None:
+def kernel_group(name: str) -> str:
+    name = name.lower()
+    return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+                "memcpy/memset" if "memcpy" in name or "memset" in name else "elementwise/other")
+
+
+def profile_run(fn, key: str, split=None) -> None:
     """One warm run of fn under torch.profiler: device time by kernel
     group, and the device's busy share of the run's wall time, into
-    report[key]."""
+    report[key]. ``split(prof)`` -> (group name, {kernel name: us}, info)
+    moves those kernels' time out of their groups into one of its own."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -546,11 +582,10 @@ def profile_run(fn, key: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, groups, by_name = [], {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.time_range.elapsed_us() <= 0:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA or evt.time_range.elapsed_us() <= 0
+                or getattr(evt, "is_user_annotation", False)):  # a range, not a kernel
             continue
-        name = evt.name.lower()
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
-                     "memcpy/memset" if "memcpy" in name or "memset" in name else "elementwise/other")
+        group = kernel_group(evt.name)
         groups[group] = groups.get(group, 0.0) + evt.time_range.elapsed_us()
         by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
         spans.append((evt.time_range.start, evt.time_range.end))
@@ -559,6 +594,12 @@ def profile_run(fn, key: str) -> None:
         if e > end:
             busy += e - max(s, end)
             end = e
+    split_info = None
+    if split is not None:
+        split_group, kernels, split_info = split(prof)
+        for name, us in kernels.items():
+            groups[kernel_group(name)] -= us
+            groups[split_group] = groups.get(split_group, 0.0) + us
     total = sum(groups.values())
     prof_info = {
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -570,6 +611,8 @@ def profile_run(fn, key: str) -> None:
             e.key[:120]: e.self_cpu_time_total / 1e3 for e in sorted(
                 prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]},
     }
+    if split_info is not None:
+        prof_info["split"] = split_info
     report[key] = prof_info
     if not spans:
         print(f"{key}: the profiler recorded no device activity (idle share not measured)")
@@ -898,17 +941,314 @@ def run_loss_paths(card: str) -> None:
                   launches_want(k1=24, k2=12, k3=12, k5=52), LOSS10_BATCH, LOSS10_SAMPLES)
 
 
+# ---------------- phase 6: the trainer ----------------
+
+
+def write_train_tree(root: Path) -> dict:
+    """Seeded PCM16 utterances of 10.5-12 s, the triplet CSVs, NMR files and
+    a small quality test db; returns the recipe's config pointed at them."""
+    rng = np.random.default_rng(2468)
+    deg, nmr = root / "deg", root / "nmr"
+    deg.mkdir()
+    nmr.mkdir()
+    names = [f"utt_{i:02d}.wav" for i in range(TRAIN_FILES)]
+    for name in names:
+        write_wav(str(deg / name), speech_like(rng, int(rng.integers(168_000, 192_001)),
+                                               (0.01, 0.1)), SR, bits=16)
+    for i in range(TRAIN_NMR):
+        write_wav(str(nmr / f"nmr_{i}.wav"),
+                  speech_like(rng, int(rng.integers(168_000, 192_001)), 0.005), SR, bits=16)
+    for csv_name, count in (("train.csv", TRAIN_TRIPLETS), ("valid.csv", VALID_TRIPLETS)):
+        lines = ["db,Anchor,Positive,Negative,anc_pos_dist,anc_neg_dist"]
+        for j in range(count):
+            a, p, n = rng.choice(TRAIN_FILES, 3, replace=False)
+            lines.append(f"{1 + j % 2},{names[a]},{names[p]},{names[n]},0.1,0.3")
+        (root / csv_name).write_text("\n".join(lines) + "\n")
+    (root / "test_db.csv").write_text("db,filepath_deg,condition,mos\n" + "".join(
+        f"smoke,{names[j]},cond_{j // 2},{4.5 - 0.8 * (j // 2) + 0.1 * (j % 2)}\n"
+        for j in range(8)))
+    cfg = config_io.load(str(TRAIN_RECIPE))
+    cfg.update(
+        root=str(deg) + "/", train_df=str(root / "train.csv"), valid_df=str(root / "valid.csv"),
+        checkpoint_path=None, num_epochs=2, run_dir=str(root / "run"),
+        non_match_dir=str(nmr), test_db_file=str(root / "test_db.csv"), test_root_wav=str(deg),
+        nomad_model_path=str(root / "run" / "best_model.npz"), db=None, conds=None)
+    return cfg
+
+
+def plain_attention_kernels(prof) -> tuple:
+    """The kernels of the plain dropout attention in a profiled train step:
+    those launched under the ``PLAIN_ATTENTION`` range (the forward and,
+    under remat, its recompute) and by the backward nodes of the ops inside
+    that range (matched on the forward thread and autograd sequence
+    number). Returns (group, {kernel name: us}, info)."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def under_range(e) -> bool:
+        while e is not None:
+            if e.name == PLAIN_ATTENTION:
+                return True
+            e = e.cpu_parent
+        return False
+
+    fwd = {(e.thread, e.sequence_nr) for e in events
+           if e.sequence_nr >= 0 and "Backward" not in e.name and under_range(e)}
+    backward = {id(e) for e in events
+                if "Backward" in e.name and (e.fwd_thread, e.sequence_nr) in fwd}
+
+    def attention(e) -> bool:
+        while e is not None:
+            if e.name == PLAIN_ATTENTION or id(e) in backward:
+                return True
+            e = e.cpu_parent
+        return False
+
+    kernels: dict = {}
+    for e in events:
+        if e.kernels and attention(e):
+            for k in e.kernels:
+                kernels[k.name] = kernels.get(k.name, 0.0) + k.duration
+    info = {"forward_ops": len(fwd), "backward_events": len(backward),
+            "kernels_us": dict(sorted(kernels.items(), key=lambda x: -x[1])[:8])}
+    return "plain attention (products, softmax, dropout; fwd + bwd)", kernels, info
+
+
+@contextlib.contextmanager
+def annotated_dropout_attention():
+    """Wrap the model's ``mha_dropout`` in a profiler range."""
+    plain = wav2vec2.mha_dropout
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(PLAIN_ATTENTION):
+            return plain(*args, **kwargs)
+
+    wav2vec2.mha_dropout = annotated
+    try:
+        yield
+    finally:
+        wav2vec2.mha_dropout = plain
+
+
+def step_gen() -> torch.Generator:
+    return torch.Generator().manual_seed(TRAIN_SEED)
+
+
+def first_train_step(key: str, cfg: dict, batch, want: dict, params=None, **model_kw) -> tuple:
+    """A Training on the seeded weights (its own init, or ``params``, a copy
+    of them) and its first train step, with its launch counts checked:
+    (trainer, loss, the parameters before, the step's gradients)."""
+    tr = Training(cfg, device="cuda", params=params,
+                  model_config=Wav2Vec2Config.base(**model_kw))
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = tr.train_step(batch, step_gen()).item()
+    counts = read_launches()
+    if want is not None:
+        report["launches"][key] = counts
+        if counts != want:
+            fail(f"{key}: launch counts {counts} (want {want})")
+    if not np.isfinite(loss):
+        fail(f"{key}: loss {loss}")
+    grads = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
+             if p.grad is not None}
+    print(f"trainer: {key}: first-step loss {loss:.8g}, launches {counts}", flush=True)
+    return tr, loss, before, grads
+
+
+def time_train_steps(card: str, key: str, tr: Training, batch) -> dict:
+    """TRAIN_STEPS warm train steps: wall time to the device's end, the
+    host's enqueue time, peak memory."""
+    gen = step_gen()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch, gen)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"step_s": times, "step_median_s": float(np.median(times)), "host_enqueue_s": host,
+           "host_enqueue_median_s": float(np.median(host)),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    print(f"trainer: {key}: warm step median {res['step_median_s'] * 1e3:.2f} ms over "
+          f"{TRAIN_STEPS} (host enqueue median {res['host_enqueue_median_s'] * 1e3:.2f} ms), "
+          f"peak memory {res['peak_mem_gb']:.2f} GB  [{card}]", flush=True)
+    return res
+
+
+def check_frozen_and_moved(tr: Training, before: dict, grads: dict) -> dict:
+    """After a step: frozen parameters bit-unchanged, trainable ones moved
+    (but those with a 0 gradient, which Adam leaves)."""
+    frozen, moved, still = [], [], []
+    for n, p in tr.model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if tr.labels[n] == "frozen":
+            frozen.append(n)
+            if not same:
+                fail(f"trainer: frozen parameter {n} changed in a step")
+        elif same:
+            still.append(n)
+            zero = n not in grads or not bool(grads[n].any())
+            if not (zero or n.endswith(ZERO_GRAD_PARAMS)):
+                fail(f"trainer: trainable parameter {n} did not move in a step")
+        else:
+            moved.append(n)
+    if not any(n.startswith("backbone.feature_encoder.") for n in frozen) or not any(
+            n.startswith("lossnet_embedding.") for n in frozen):
+        fail(f"trainer: the recipe froze {len(frozen)} parameters, not the frontend and lossnet")
+    print(f"trainer: after a step {len(frozen)} frozen parameters bit-unchanged, {len(moved)} "
+          f"trainable moved, {len(still)} unmoved with a 0 gradient {still}", flush=True)
+    return {"frozen": len(frozen), "moved": len(moved), "unmoved_zero_grad": still}
+
+
+def release(tr: Training) -> None:
+    """Give the card back a trainer's parameters, gradients and Adam state
+    before the next phase (a lingering reference keeps only host memory)."""
+    tr.model.to("cpu")
+    tr.optimizer = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_trainer(card: str) -> None:
+    report.setdefault("launches", {})
+    out: dict = {"card": card}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nomad_train_") as tmp:
+        cfg = write_train_tree(Path(tmp))
+        ds = train_data.TripletDataset(cfg, "train_df", level=cfg["current_level"])
+        batch = train_data.collate_triplets([ds.load_item(i) for i in range(cfg["train_bs"])])
+        shape = (cfg["train_bs"], 163_840)
+        if batch.anchor.shape != shape or batch.anchor.dtype != np.int16 or not all(
+                (getattr(batch, f) == 160_000).all() for f in ("lengths_a", "lengths_p",
+                                                                "lengths_n")):
+            fail(f"trainer: batch {batch.anchor.shape} {batch.anchor.dtype}, want {shape} int16 "
+                 "of 160,000-sample files")
+        batch = train_data._pinned(batch)
+        out["batch"] = {"triplets": shape[0], "samples": 160_000, "padded": shape[1],
+                        "rows": 3 * shape[0]}
+
+        # the recipe: dropout 0.1, conv frozen, remat (on for Training)
+        tr, loss_remat, before, grads = first_train_step(
+            "train_step", cfg, batch, launches_want(k5=50))
+        out["frozen_moved"] = check_frozen_and_moved(tr, before, grads)
+        # the seeded init once (~10 s of host time for BASE): the other
+        # trainers start from a copy of it
+        init = {n: t.cpu() for n, t in before.items()}
+        del before, grads
+        out["train_step"] = time_train_steps(card, "train_step (dropout, remat)", tr, batch)
+        reset_launches()
+        tr.eval_step(batch)
+        counts = read_launches()
+        report["launches"]["eval_step"] = counts
+        if counts != launches_want(k1=12, k5=26):
+            fail(f"trainer: eval step launch counts {counts} (want K1 12, K5 26)")
+        out["eval_step_ms"] = time_ms(lambda: tr.eval_step(batch), TRAIN_STEPS, warmup=1)
+        print(f"trainer: eval step {out['eval_step_ms']:.2f} ms, launches {counts}  [{card}]",
+              flush=True)
+        with annotated_dropout_attention():
+            profile_run(lambda: tr.train_step(batch, step_gen()), "profile_train_step",
+                        split=plain_attention_kernels)
+        release(tr)
+
+        # dropout without remat: the same masks, so the same loss
+        tr, loss_plain_bwd, _, _ = first_train_step(
+            "train_step_no_remat", dict(cfg, remat=False), batch, launches_want(k5=26), init)
+        out["train_step_no_remat"] = time_train_steps(card, "train_step (dropout, no remat)",
+                                                      tr, batch)
+        release(tr)
+        d = abs(loss_remat - loss_plain_bwd) / abs(loss_remat)
+        out["remat_vs_no_remat_loss_rel"] = d
+        print(f"trainer: dropout on, remat on vs off: loss {loss_remat:.8g} vs "
+              f"{loss_plain_bwd:.8g} (rel {d:.3g})", flush=True)
+        if d > 1e-6:
+            fail(f"trainer: remat on and off give other losses for one seed (rel {d:.3g})")
+
+        # the dropout rates at 0: attention through K1 + K2 + K3
+        tr, _, _, _ = first_train_step("train_step_rates0", cfg, batch,
+                                       launches_want(k1=24, k2=12, k3=12, k5=50), init,
+                                       **ZERO_RATES)
+        out["train_step_rates0"] = time_train_steps(card, "train_step (rates at 0, remat)",
+                                                    tr, batch)
+        release(tr)
+        no_remat = dict(cfg, remat=False)
+        tr, loss_k, _, grads_k = first_train_step(
+            "train_step_rates0_no_remat", no_remat, batch,
+            launches_want(k1=12, k2=12, k3=12, k5=26), init, **ZERO_RATES)
+        release(tr)
+        tr, loss_p, _, grads_p = first_train_step(
+            "train_step_rates0_plain", no_remat, batch, None, init,
+            attention_impl="ref", layernorm_impl="ref", **ZERO_RATES)
+        release(tr)
+        gmax = max(g.abs().max().item() for g in grads_p.values())
+        d_loss = abs(loss_k - loss_p) / abs(loss_p)
+        d_grad = max((grads_k[n] - g).abs().max().item() for n, g in grads_p.items()) / gmax
+        out["rates0_kernel_vs_plain"] = {"loss": loss_k, "plain_loss": loss_p,
+                                         "loss_rel": d_loss, "grad_rel_to_max": d_grad}
+        print(f"trainer: rates at 0, kernel path vs plain path: loss rel {d_loss:.3g} "
+              f"(<= {TOL_LOSS_REL}), gradient max|d|/max|g| {d_grad:.3g} (<= {TOL_GRAD_REL})",
+              flush=True)
+        if grads_k.keys() != grads_p.keys() or d_loss > TOL_LOSS_REL or d_grad > TOL_GRAD_REL:
+            fail(f"trainer: rates-at-0 step vs plain path: loss rel {d_loss:.3g}, "
+                 f"gradient {d_grad:.3g}")
+        del grads_k, grads_p
+
+        # two epochs of the loop, a resume from its state, an eval
+        tr = Training(cfg, device="cuda", params=init)
+        t0 = time.perf_counter()
+        tr.training_loop()
+        out["training_loop_s"] = time.perf_counter() - t0
+        out["loop_last_epoch"] = tr.last_train_stats
+        best = Path(cfg["run_dir"]) / "best_model.npz"
+        if not best.is_file():
+            fail("trainer: training_loop wrote no best_model.npz")
+        resumed = Training(dict(cfg, resume=True), device="cuda", params=init)
+        state = resumed._load_resume_state()
+        if state is None or state[2] != cfg["num_epochs"]:
+            fail(f"trainer: resume state {state}, want the next epoch {cfg['num_epochs']}")
+        sd, sd_r = tr.model.state_dict(), resumed.model.state_dict()
+        opt, opt_r = tr.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+        same = (all(torch.equal(v, sd_r[k]) for k, v in sd.items())
+                and opt.keys() == opt_r.keys()
+                and all(torch.equal(v.cpu(), opt_r[i][k].cpu()) for i, s in opt.items()
+                        for k, v in s.items())
+                and (tr.lr_head, tr.lr_backbone) == (resumed.lr_head, resumed.lr_backbone))
+        out["resume"] = {"next_epoch": state[2], "bit_equal": same,
+                         "lrs": [resumed.lr_backbone, resumed.lr_head]}
+        if not same:
+            fail("trainer: the resumed parameters, Adam state or LRs differ from the run's")
+        release(resumed)
+        reset_launches()
+        quality = tr.eval_audio_quality(str(best), plot=False)
+        out["eval_audio_quality"] = quality
+        out["eval_audio_quality_launches"] = read_launches()
+        if not quality or not all(np.isfinite(v) for r in quality.values() for v in r.values()):
+            fail(f"trainer: eval_audio_quality {quality}")
+        print(f"trainer: 2-epoch loop {out['training_loop_s']:.1f} s, resume bit-equal at epoch "
+              f"{state[2]}, eval_audio_quality {quality}", flush=True)
+        release(tr)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"trainer: phase 6 took {out['phase_s']:.1f} s", flush=True)
+    report["train_path"] = out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
-    parser.add_argument("--only-loss", action="store_true",
-                        help="phases 1 and 5 only; ends with the report line")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-loss", action="store_true",
+                      help="phases 1 and 5 only; ends with the report line")
+    only.add_argument("--only-train", action="store_true",
+                      help="phases 1 and 6 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
-    if args.only_loss:
-        run_loss_paths(card)
+    if args.only_loss or args.only_train:
+        (run_loss_paths if args.only_loss else run_trainer)(card)
         print("report: " + json.dumps(report, default=float))
         return
     build_kernels()
@@ -916,6 +1256,7 @@ def main() -> None:
     check_kernels()
     run_scoring_paths(card)
     run_loss_paths(card)
+    run_trainer(card)
 
     rows = []
     for name, src, replaces in (

@@ -185,8 +185,10 @@ class Nomad:
         w.r.t. estimate and clean; returns a 0-dim f32 tensor."""
         if not deterministic:
             raise NotImplementedError(
-                "deterministic=False needs attention dropout (mha_xla_dropout), "
-                "which is not ported yet: it comes with the training slice"
+                "deterministic=False (the dropout loss, se_config.yaml's "
+                "loss_dropout) is not supported: the JAX package's loss_fn_p "
+                "passes no dropout rng and raises InvalidRngError too. It is "
+                "ROADMAP Queue 1 item 6 (SE), after the training slice"
             )
         est, ref = self._waves(estimate), self._waves(clean)
         return nomad_loss(self.model.forward_layers(ref), self.model.forward_layers(est))

@@ -4,7 +4,9 @@
 ``NomadModel.forward`` is the scoring embedding: masked mean-pool over
 time -> ReLU -> Linear 768->256 -> L2 normalize. ``forward_layers`` returns
 the 12 block outputs plus the lossnet embedding, the 13 inputs of
-``nomad_loss``. Quirk Q7: the lossnet embedding is a separate Linear that the
+``nomad_loss``. ``forward_features`` is Origw2v, the raw mean-pooled
+backbone features (the ``eval_w2v`` ablation). Each takes
+``deterministic``/``generator`` for training's dropout. Quirk Q7: the lossnet embedding is a separate Linear that the
 NOMAD checkpoint never populates, as in the reference; both heads exist so
 that the weight bridge is complete and loads strictly.
 """
@@ -26,30 +28,39 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
 
 
 class NomadModel(nn.Module):
-    def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config(), emb_dim: int = 256):
+    def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config(), emb_dim: int = 256,
+                 masked_pool: bool = True):
         super().__init__()
         self.config = config
         self.emb_dim = emb_dim
+        # with lengths, only valid frames pool, so padded batches match
+        # unpadded batch-1 inference; False (or lengths=None) pools over the
+        # padded axis (quirk Q6)
+        self.masked_pool = masked_pool
         self.backbone = Wav2Vec2Model(config)
         self.embedding = nn.Linear(config.hidden_size, emb_dim)
         self.lossnet_embedding = nn.Linear(config.hidden_size, emb_dim)
 
-    def _embed(self, head, x, frame_lengths):
-        # with lengths, only valid frames pool, so padded batches match
-        # unpadded batch-1 inference; without, the padded axis pools (Q6)
-        pooled = masked_mean(x.to(torch.float32), frame_lengths)
-        return l2_normalize(head(torch.relu(pooled)).to(torch.float32))
+    def _pool(self, res):
+        lengths = res["frame_lengths"] if self.masked_pool else None
+        return masked_mean(res["x"].to(torch.float32), lengths)
 
-    def forward(self, wav, lengths=None):
+    def _embed(self, head, res):
+        return l2_normalize(head(torch.relu(self._pool(res))).to(torch.float32))
+
+    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None):
         """[B, T] waveforms (+ [B] valid sample counts) -> [B, emb_dim]."""
-        res = self.backbone(wav, lengths)
-        return self._embed(self.embedding, res["x"], res["frame_lengths"])
+        res = self.backbone(wav, lengths, deterministic, generator)
+        return self._embed(self.embedding, res)
 
-    def forward_layers(self, wav, lengths=None):
+    def forward_layers(self, wav, lengths=None, deterministic: bool = True, generator=None):
         """The 12 block outputs [B, T', C] + the lossnet embedding [B, emb]."""
-        res = self.backbone(wav, lengths)
-        emb = self._embed(self.lossnet_embedding, res["x"], res["frame_lengths"])
-        return list(res["layers"]) + [emb]
+        res = self.backbone(wav, lengths, deterministic, generator)
+        return list(res["layers"]) + [self._embed(self.lossnet_embedding, res)]
+
+    def forward_features(self, wav, lengths=None, deterministic: bool = True, generator=None):
+        """Origw2v: the raw mean-pooled backbone features [B, hidden]."""
+        return self._pool(self.backbone(wav, lengths, deterministic, generator))
 
 
 def nomad_loss(ref_layers, test_layers, frame_lengths=None):

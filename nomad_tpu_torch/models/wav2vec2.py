@@ -1,5 +1,5 @@
 """wav2vec 2.0 BASE backbone in PyTorch (counterpart of
-``nomad_tpu.models.wav2vec2``), without dropout.
+``nomad_tpu.models.wav2vec2``).
 
 Architecture: a 7-layer strided conv feature encoder (512 channels, no
 bias, a GroupNorm(512) after layer 0 only, GELU after every layer; total
@@ -30,6 +30,16 @@ takes on the card:
 
 Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
 with 'ref'.
+
+Training (``deterministic=False``) applies dropout where the JAX package
+does: after ``post_extract_proj``, after the encoder LayerNorm, on the
+attention output, after the FFN's GELU (``activation_dropout``) and after
+``fc2``; with ``attention_dropout > 0`` attention runs the plain
+``mha_dropout`` on every ``attention_impl``, ``fused_qkv`` included. The
+masks come from a ``torch.Generator``: the model draws one seed for the
+frontend and one per block from it, and each block seeds its own
+generator on the device, so that a block recomputed under ``remat``
+(``torch.utils.checkpoint``) draws the masks it drew in the forward.
 """
 
 from __future__ import annotations
@@ -40,13 +50,16 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import mha
+from ..ops.attention import dropout, mha, mha_dropout
 from ..ops.fused_attention import fused_qkv_attention
 from ..ops.layernorm import layer_norm
 
 ATTENTION_IMPLS = ("kernel", "fused_qkv", "ref")
 LAYERNORM_IMPLS = ("kernel", "ref")
+REMAT_POLICIES = ("full", "dots")
+SEED_BOUND = 1 << 62  # seeds drawn for the frontend's and each block's masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +74,16 @@ class Wav2Vec2Config:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
+    dropout: float = 0.1  # residual and input dropout (fairseq ``dropout``)
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    # no autograd through the conv frontend (a frozen convnet): it runs
+    # under no_grad, its output detached
+    frontend_stop_gradient: bool = False
+    # recompute each encoder block in the backward (torch.utils.checkpoint);
+    # 'full' only: 'dots' (save the products' outputs) is not ported
+    remat: bool = False
+    remat_policy: str = "full"
     # 'kernel': the flash-attention / LayerNorm kernels (their plain
     # versions on the CPU). 'fused_qkv' (attention only): the
     # projection-fused kernel K4. 'ref': the plain versions everywhere, for
@@ -80,6 +103,17 @@ class Wav2Vec2Config:
                             ("layernorm_impl", LAYERNORM_IMPLS)):
             if getattr(self, name) not in impls:
                 raise ValueError(f"{name} must be one of {impls}, got {getattr(self, name)!r}")
+        for name in ("dropout", "attention_dropout", "activation_dropout"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise ValueError(f"{name} must lie in [0, 1), got {getattr(self, name)!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {REMAT_POLICIES}, got {self.remat_policy!r}"
+            )
+        if self.remat and self.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' is not ported yet (ROADMAP Queue 1 item 5); use 'full'"
+            )
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
@@ -237,9 +271,15 @@ class PositionalConvEmbedding(nn.Module):
         return F.gelu(y).transpose(1, 2)
 
 
+def _generator(seed, device):
+    """The device generator for one seed; None (deterministic) for None."""
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
 class EncoderLayer(nn.Module):
     """Post-LN transformer block (fairseq TransformerSentenceEncoderLayer,
-    layer_norm_first=False); padded frames re-zeroed after the block."""
+    layer_norm_first=False); padded frames re-zeroed after the block.
+    ``seed`` None is deterministic; an int seeds the block's dropout masks."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -255,11 +295,13 @@ class EncoderLayer(nn.Module):
         self.self_attn_layer_norm = LayerNorm(d, eps, impl)
         self.final_layer_norm = LayerNorm(d, eps, impl)
 
-    def forward(self, x, key_mask=None):
+    def forward(self, x, key_mask=None, seed=None):
         cfg = self.config
         b, t, d = x.shape
         h = cfg.num_heads
-        if cfg.attention_impl == "fused_qkv":
+        g = _generator(seed, x.device)
+        attn_dropout = g is not None and cfg.attention_dropout > 0.0
+        if cfg.attention_impl == "fused_qkv" and not attn_dropout:
             # the same parameters as the unfused path: one state_dict loads both
             attn = fused_qkv_attention(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
@@ -270,11 +312,14 @@ class EncoderLayer(nn.Module):
             q = self.q_proj(x).view(b, t, h, d // h)
             k = self.k_proj(x).view(b, t, h, d // h)
             v = self.v_proj(x).view(b, t, h, d // h)
-            attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
+            if attn_dropout:
+                attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g)
+            else:
+                attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
             attn = self.out_proj(attn.reshape(b, t, d))
-        x = self.self_attn_layer_norm(x + attn)
-        y = self.fc2(F.gelu(self.fc1(x)))
-        x = self.final_layer_norm(x + y)
+        x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g))
+        y = dropout(F.gelu(self.fc1(x)), cfg.activation_dropout, g)
+        x = self.final_layer_norm(x + dropout(self.fc2(y), cfg.dropout, g))
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
         return x
@@ -286,23 +331,34 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
+        self.config = config
         self.pos_conv = PositionalConvEmbedding(config)
         self.layer_norm = LayerNorm(
             config.hidden_size, config.layer_norm_eps, config.layernorm_impl
         )
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
 
-    def forward(self, x, frame_lengths=None):
+    def forward(self, x, frame_lengths=None, generator=None, seeds=None):
+        """``generator``: the input dropout's (None: deterministic);
+        ``seeds``: one per block, or None."""
         key_mask = None
         if frame_lengths is not None:
             key_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_lengths[:, None]
             x = x * key_mask.to(x.dtype)[:, :, None]
-        x = self.layer_norm(x + self.pos_conv(x))
+        x = dropout(self.layer_norm(x + self.pos_conv(x)), self.config.dropout, generator)
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
+        remat = self.config.remat and torch.is_grad_enabled()
         outs = []
-        for layer in self.layers:
-            x = layer(x, key_mask)
+        for i, layer in enumerate(self.layers):
+            seed = None if seeds is None else seeds[i]
+            if remat:
+                # the block seeds its own generator, so the recompute draws
+                # the same masks without the default generators' states
+                x = checkpoint(layer, x, key_mask, seed, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, key_mask, seed)
             outs.append(x)
         return outs
 
@@ -324,10 +380,24 @@ class Wav2Vec2Model(nn.Module):
         self.post_extract_proj = nn.Linear(config.conv_dim[-1], config.hidden_size)
         self.encoder = TransformerEncoder(config)
 
-    def forward(self, wav, lengths=None):
-        feats, frame_lengths = self.feature_encoder(wav, lengths)
+    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None):
+        """``deterministic=False`` applies dropout. ``generator``, a CPU
+        ``torch.Generator`` (None: torch's default one), gives the seeds of
+        the masks, which are drawn on the waveform's device."""
+        cfg = self.config
+        g = seeds = None
+        if not deterministic:
+            seeds = torch.randint(SEED_BOUND, (1 + cfg.num_layers,), generator=generator).tolist()
+            g = _generator(seeds.pop(0), wav.device)
+        if cfg.frontend_stop_gradient:
+            with torch.no_grad():
+                feats, frame_lengths = self.feature_encoder(wav, lengths)
+            feats = feats.detach()
+        else:
+            feats, frame_lengths = self.feature_encoder(wav, lengths)
         x = self.post_extract_proj(self.feature_layer_norm(feats))
+        x = dropout(x, cfg.dropout, g)
         if frame_lengths is not None:
             x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)
-        layers = self.encoder(x, frame_lengths)
+        layers = self.encoder(x, frame_lengths, g, seeds)
         return {"x": layers[-1], "layers": layers, "frame_lengths": frame_lengths}

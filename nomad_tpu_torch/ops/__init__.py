@@ -1,6 +1,6 @@
 """Operators of the port: each kernel's wrapper beside its plain version."""
 
-from .attention import mha, mha_ref
+from .attention import dropout, mha, mha_dropout, mha_ref
 from .distance import cdist, cdist_diag
 from .flash_attention import (
     FlashAttention,
@@ -22,6 +22,7 @@ __all__ = [
     "FusedQKVAttention",
     "cdist",
     "cdist_diag",
+    "dropout",
     "flash_attention_bwd",
     "flash_attention_bwd_ref",
     "flash_attention_ref",
@@ -32,6 +33,7 @@ __all__ = [
     "layer_norm_bwd_ref",
     "layer_norm_ref",
     "mha",
+    "mha_dropout",
     "mha_flash",
     "mha_ref",
 ]

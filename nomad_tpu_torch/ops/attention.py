@@ -12,6 +12,11 @@ one switch:
                  additive -1e9 key mask, softmax in f32. Kept so that a
                  run can hold the kernel path against it.
 
+``mha_dropout`` is the training path under attention dropout, the plain
+counterpart of the JAX package's ``mha_xla_dropout``: ``mha_ref`` with
+dropout on the softmax weights. The JAX package computes it outside any
+Pallas kernel, and so does the port.
+
 q is pre-scaled by 1/sqrt(head_dim) before QK^T, as in torch
 ``F.multi_head_attention_forward``.
 """
@@ -25,15 +30,37 @@ from .flash_attention import FlashAttention
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
 
 
-def mha_ref(q, k, v, key_mask=None):
-    """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
-    valid key. Differentiable through plain autograd."""
+def dropout(x, rate: float, generator=None):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate
+    and scale it by 1/(1 - rate), else 0; the identity with no generator
+    (deterministic) or at rate 0. The mask comes from ``generator``, on
+    x's device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _softmax_weights(q, k, key_mask):
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).to(torch.float32)
     if key_mask is not None:
         add = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         scores = scores + add[:, None, None, :]
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.softmax(scores, dim=-1)
+
+
+def mha_ref(q, k, v, key_mask=None):
+    """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
+    valid key. Differentiable through plain autograd."""
+    weights = _softmax_weights(q, k, key_mask).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def mha_dropout(q, k, v, key_mask, rate: float, generator):
+    """``mha_ref`` with dropout on the softmax weights after the key mask
+    (fairseq's placement): where(keep, w / (1 - rate), 0)."""
+    weights = dropout(_softmax_weights(q, k, key_mask), rate, generator).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 

@@ -83,10 +83,17 @@ class EmbeddingEngine:
         model: NomadModel,
         device: torch.device,
         batch_sample_budget: int = DEFAULT_BATCH_SAMPLE_BUDGET,
+        method: str = "forward",
     ):
+        """``method``: the model method that embeds a batch, ``forward``
+        (the NOMAD embedding) or ``forward_features`` (the raw pooled
+        features of the ``eval_w2v`` ablation)."""
+        if method not in ("forward", "forward_features"):
+            raise ValueError(f"method must be 'forward' or 'forward_features', got {method!r}")
         self.model = model
         self.device = torch.device(device)
         self.batch_sample_budget = batch_sample_budget
+        self.method = method
         self.batches = 0  # forward passes run, for launch-count checks
 
     def _attn_batch_cap(self, length: int) -> int:
@@ -170,8 +177,11 @@ class EmbeddingEngine:
         """Embed 1-D waveforms (int16 or float32) -> [N, emb_dim] f32 on the
         device, in input order."""
         n = len(waves)
+        embed = getattr(self.model, self.method)
         if n == 0:
-            return torch.zeros((0, self.model.emb_dim), device=self.device)
+            width = (self.model.emb_dim if self.method == "forward"
+                     else self.model.config.hidden_size)
+            return torch.zeros((0, width), device=self.device)
         chunks = self.plan([len(w) for w in waves])
         with ThreadPoolExecutor(max_workers=8) as ex:
             i16able = list(ex.map(wave_i16able, waves))
@@ -185,7 +195,7 @@ class EmbeddingEngine:
                 wav = host.to(self.device, non_blocking=True)
                 if wav.dtype == torch.int16:
                     wav = wav.to(torch.float32) / PCM16_SCALE
-                emb = self.model(wav, lengths.to(self.device))
+                emb = embed(wav, lengths.to(self.device))
                 self.batches += 1
                 outs.append(emb[: len(chunk)])
             perm = torch.tensor([i for c, _, _ in chunks for i in c], device=self.device)

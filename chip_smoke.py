@@ -1,7 +1,7 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py [--only-loss | --only-train]
+    python3 chip_smoke.py [--only-loss | --only-train | --only-se]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -49,15 +49,29 @@ Phases, each fatal on failure:
      ``training_loop``, a resume from its state (parameters, Adam state,
      LRs and epoch bit-equal) and ``eval_audio_quality`` on its
      ``best_model.npz``;
-  7. the kernels' JSON line, the card line, and the last line
+  7. the speech-enhancement demo at the recipe of
+     ``nomad_tpu/configs/se_config.yaml`` (the full-width Wave-U-Net, 12
+     levels of interval 24, on 32 x 16,384-sample crops of seeded PCM16
+     pairs; the seeded BASE lossnet; MSE + 0.001 NOMAD; Adam 1e-4):
+     ``SpeechEnhancement(config, device="cuda")``'s train step with its
+     launch counts (K1 24, K2 12, K3 12, K5 52), the first step held
+     against the plain path (loss, U-Net gradients under one sign pattern,
+     running statistics), every U-Net tensor moved and the lossnet
+     bit-unchanged; warm step time (CUDA events), host enqueue and peak
+     memory, the same for a U-Net-alone step (MSE + Adam), one profiled
+     step with the U-Net (forward and backward) in a group of its own;
+     the eval step on the valid batch of 100 (K1 24, K5 52); ``test()``'s
+     PESQ-WB and its host time; a 2-epoch ``training_loop`` whose
+     ``best_model.npz``, reloaded, enhances the same bits;
+  8. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
 JSON object on the line that starts with "report: ". ``--only-loss`` runs
 phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
-newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone
-and ends with the report line.
+newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
+``--only-se`` phases 1 and 7, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -80,7 +95,7 @@ from nomad_tpu_torch.api import Nomad, set_exact_precision
 from nomad_tpu_torch.io import write_wav
 from nomad_tpu_torch.models import Wav2Vec2Config, wav2vec2
 from nomad_tpu_torch.ops import _build, flash_attention, fused_attention, layernorm
-from nomad_tpu_torch.training import Training
+from nomad_tpu_torch.training import SpeechEnhancement, Training
 from nomad_tpu_torch.training import data as train_data
 from nomad_tpu_torch.utils import config as config_io
 
@@ -123,6 +138,15 @@ PLAIN_ATTENTION = "plain_attention"  # the profiler range around the dropout att
 # parameters whose gradient is 0 analytically (softmax does not see a
 # shift shared by every key): Adam may leave them where they are
 ZERO_GRAD_PARAMS = (".k_proj.bias",)
+# the SE demo: the recipe of se_config.yaml; 64 training pairs (2 steps of
+# 32), one validation batch of 100, 16 test pairs
+SE_RECIPE = ROOT / "nomad_tpu" / "configs" / "se_config.yaml"
+SE_TRAIN, SE_VALID, SE_TEST, SE_STEPS = 64, 100, 16, 7
+UNET_RANGE = "wave_unet_forward"  # the profiler range around the U-Net's forward
+TOL_SE_STATS = 1e-5  # running statistics after a step, kernel vs plain path
+# conv biases ahead of a batch norm: their gradient is 0 analytically, so
+# Adam may leave them where they are
+SE_PRE_BN_BIAS = ".conv.bias"
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -976,17 +1000,20 @@ def write_train_tree(root: Path) -> dict:
     return cfg
 
 
-def plain_attention_kernels(prof) -> tuple:
-    """The kernels of the plain dropout attention in a profiled train step:
-    those launched under the ``PLAIN_ATTENTION`` range (the forward and,
-    under remat, its recompute) and by the backward nodes of the ops inside
-    that range (matched on the forward thread and autograd sequence
-    number). Returns (group, {kernel name: us}, info)."""
+def ranged_kernels(range_name: str, group: str):
+    """A ``profile_run`` split: the kernels launched under the profiler
+    range ``range_name`` (a forward and, under remat, its recompute) and by
+    the backward nodes of the ops inside that range (matched on the forward
+    thread and autograd sequence number), as the group ``group``."""
+    return lambda prof: _ranged_kernels(prof, range_name, group)
+
+
+def _ranged_kernels(prof, range_name: str, group: str) -> tuple:
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
 
     def under_range(e) -> bool:
         while e is not None:
-            if e.name == PLAIN_ATTENTION:
+            if e.name == range_name:
                 return True
             e = e.cpu_parent
         return False
@@ -996,37 +1023,42 @@ def plain_attention_kernels(prof) -> tuple:
     backward = {id(e) for e in events
                 if "Backward" in e.name and (e.fwd_thread, e.sequence_nr) in fwd}
 
-    def attention(e) -> bool:
+    def inside(e) -> bool:
         while e is not None:
-            if e.name == PLAIN_ATTENTION or id(e) in backward:
+            if e.name == range_name or id(e) in backward:
                 return True
             e = e.cpu_parent
         return False
 
     kernels: dict = {}
     for e in events:
-        if e.kernels and attention(e):
+        if e.kernels and inside(e):
             for k in e.kernels:
                 kernels[k.name] = kernels.get(k.name, 0.0) + k.duration
     info = {"forward_ops": len(fwd), "backward_events": len(backward),
             "kernels_us": dict(sorted(kernels.items(), key=lambda x: -x[1])[:8])}
-    return "plain attention (products, softmax, dropout; fwd + bwd)", kernels, info
+    return group, kernels, info
 
 
 @contextlib.contextmanager
-def annotated_dropout_attention():
-    """Wrap the model's ``mha_dropout`` in a profiler range."""
-    plain = wav2vec2.mha_dropout
+def profiler_range(owner, attr: str, name: str):
+    """Run ``owner.attr`` (a function of a module, or a method of an
+    object) inside a profiler range called ``name``."""
+    plain = getattr(owner, attr)
+    own = attr in vars(owner)
 
     def annotated(*args, **kwargs):
-        with torch.profiler.record_function(PLAIN_ATTENTION):
+        with torch.profiler.record_function(name):
             return plain(*args, **kwargs)
 
-    wav2vec2.mha_dropout = annotated
+    setattr(owner, attr, annotated)
     try:
         yield
     finally:
-        wav2vec2.mha_dropout = plain
+        if own:
+            setattr(owner, attr, plain)
+        else:
+            delattr(owner, attr)
 
 
 def step_gen() -> torch.Generator:
@@ -1056,27 +1088,38 @@ def first_train_step(key: str, cfg: dict, batch, want: dict, params=None, **mode
     return tr, loss, before, grads
 
 
-def time_train_steps(card: str, key: str, tr: Training, batch) -> dict:
-    """TRAIN_STEPS warm train steps: wall time to the device's end, the
-    host's enqueue time, peak memory."""
-    gen = step_gen()
+def time_steps(step, n: int, card: str, what: str) -> dict:
+    """n warm steps: each one's device time (CUDA events around it), its
+    wall time to the device's end and the host's enqueue time; peak
+    memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, host = [], []
-    for _ in range(TRAIN_STEPS):
+    dev, wall, host = [], [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.train_step(batch, gen)
-        host.append(time.perf_counter() - t0)
+        start.record()
+        step()
+        end.record()
+        host.append(time.perf_counter() - t0)  # the host's enqueue, before the wait
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    res = {"step_s": times, "step_median_s": float(np.median(times)), "host_enqueue_s": host,
+        wall.append(time.perf_counter() - t0)
+        dev.append(start.elapsed_time(end))
+    res = {"events_ms": dev, "events_median_ms": float(np.median(dev)), "step_s": wall,
+           "step_median_s": float(np.median(wall)), "host_enqueue_s": host,
            "host_enqueue_median_s": float(np.median(host)),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
-    print(f"trainer: {key}: warm step median {res['step_median_s'] * 1e3:.2f} ms over "
-          f"{TRAIN_STEPS} (host enqueue median {res['host_enqueue_median_s'] * 1e3:.2f} ms), "
-          f"peak memory {res['peak_mem_gb']:.2f} GB  [{card}]", flush=True)
+    print(f"{what}: warm step median {res['events_median_ms']:.2f} ms (CUDA events), "
+          f"{res['step_median_s'] * 1e3:.2f} ms wall over {n} (host enqueue median "
+          f"{res['host_enqueue_median_s'] * 1e3:.2f} ms), peak memory {res['peak_mem_gb']:.2f} GB"
+          f"  [{card}]", flush=True)
     return res
+
+
+def time_train_steps(card: str, key: str, tr: Training, batch) -> dict:
+    gen = step_gen()
+    return time_steps(lambda: tr.train_step(batch, gen), TRAIN_STEPS, card, f"trainer: {key}")
 
 
 def check_frozen_and_moved(tr: Training, before: dict, grads: dict) -> dict:
@@ -1149,9 +1192,10 @@ def run_trainer(card: str) -> None:
         out["eval_step_ms"] = time_ms(lambda: tr.eval_step(batch), TRAIN_STEPS, warmup=1)
         print(f"trainer: eval step {out['eval_step_ms']:.2f} ms, launches {counts}  [{card}]",
               flush=True)
-        with annotated_dropout_attention():
+        with profiler_range(wav2vec2, "mha_dropout", PLAIN_ATTENTION):
             profile_run(lambda: tr.train_step(batch, step_gen()), "profile_train_step",
-                        split=plain_attention_kernels)
+                        split=ranged_kernels(PLAIN_ATTENTION, "plain attention (products, "
+                                             "softmax, dropout; fwd + bwd)"))
         release(tr)
 
         # dropout without remat: the same masks, so the same loss
@@ -1235,6 +1279,216 @@ def run_trainer(card: str) -> None:
     report["train_path"] = out
 
 
+# ---------------- phase 7: the speech-enhancement demo ----------------
+
+
+def write_se_tree(root: Path) -> dict:
+    """Seeded PCM16 Valentini-like pairs: clean speech_like clips of
+    1.5-3 s, noisy = clean + white noise at 0-15 dB SNR; returns the
+    recipe's config pointed at them."""
+    rng = np.random.default_rng(1357)
+    cfg = config_io.load(str(SE_RECIPE))
+    for split, count in (("train", SE_TRAIN), ("valid", SE_VALID), ("test", SE_TEST)):
+        for kind in ("noisy", "clean"):
+            (root / f"{kind}_{split}").mkdir()
+            cfg[f"{kind}_{split}_dir"] = str(root / f"{kind}_{split}")
+        for i in range(count):
+            clean = speech_like(rng, int(rng.integers(24_000, 48_001)), 0.002)
+            noise = rng.standard_normal(clean.shape)
+            snr_db = rng.uniform(0, 15)
+            noise *= np.sqrt(np.mean(clean**2) / np.mean(noise**2)) / 10 ** (snr_db / 20)
+            noisy = np.clip(clean + noise, -1, 1).astype(np.float32)
+            write_wav(str(root / f"clean_{split}" / f"p{i:03d}.wav"), clean, SR, bits=16)
+            write_wav(str(root / f"noisy_{split}" / f"p{i:03d}.wav"), noisy, SR, bits=16)
+    cfg["num_epochs"] = 2
+    return cfg
+
+
+def se_first_step(se: SpeechEnhancement, init: dict, noisy, clean, want) -> tuple:
+    """The SE's first train step from the U-Net state ``init``: (loss, U-Net
+    gradients, running statistics after it, launch counts)."""
+    se.unet.load_state_dict(init)
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = se.train_step(noisy, clean).item()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    if want is not None and counts != want:
+        fail(f"SE: train step launch counts {counts} (want {want})")
+    if not np.isfinite(loss):
+        fail(f"SE: first-step loss {loss}")
+    grads = {n: p.grad.detach().clone() for n, p in se.unet.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in se.unet.named_buffers()}
+    return loss, grads, stats, counts
+
+
+def se_signed_grads(se: SpeechEnhancement, init: dict, signs: list, noisy, clean) -> dict:
+    """The U-Net gradients of the SE objective with the L1 terms' signs fixed
+    to ``signs`` (one subgradient for both paths), from the state ``init``."""
+    se.unet.load_state_dict(init)
+    se.unet.train()
+    se.optimizer.zero_grad(set_to_none=True)
+    clean_t = torch.from_numpy(clean).to(DEV)
+    est = se.unet(torch.from_numpy(noisy).to(DEV))
+    with torch.no_grad():
+        ref = se.nomad.model.forward_layers(clean_t)
+    terms = sum((s_ * (a - c)).mean() for s_, a, c in zip(
+        signs, se.nomad.model.forward_layers(est), ref))
+    (torch.mean((est - clean_t) ** 2) + se.nomad_weight * terms).backward()
+    return {n: p.grad.detach().clone() for n, p in se.unet.named_parameters()}
+
+
+def run_se(card: str) -> None:
+    """The SE demo at the recipe of se_config.yaml: the full-width
+    Wave-U-Net (12 levels, interval 24) on 32 x 16,384-sample crops, the
+    seeded BASE lossnet, MSE + 0.001 NOMAD, Adam 1e-4."""
+    report.setdefault("launches", {})
+    out: dict = {"card": card}
+    t_phase = time.perf_counter()
+    cwd = Path.cwd()
+    with tempfile.TemporaryDirectory(prefix="nomad_se_") as tmp:
+        tmp = Path(tmp)
+        cfg = write_se_tree(tmp)
+        nomad = Nomad(device="cuda")
+        se = SpeechEnhancement(cfg, device="cuda", nomad=nomad)
+        if se.nomad_weight != 0.001 or int(cfg["train_bs"]) != 32 or cfg["loss_dropout"]:
+            fail(f"SE: the recipe reads {cfg}")
+        lossnet = {k: v.clone() for k, v in nomad.model.state_dict().items()}
+        noisy, clean = next(se.train_set.batches(int(cfg["train_bs"]), shuffle=False))
+        if noisy.shape != (32, 16384):
+            fail(f"SE: train batch {noisy.shape}, want (32, 16384)")
+        init = {k: v.clone() for k, v in se.unet.state_dict().items()}
+
+        # the first step on the kernels, then on the plain path (plain
+        # attention and LayerNorm) from the same U-Net state and batch
+        want = launches_want(k1=24, k2=12, k3=12, k5=52)
+        loss_k, grads_k, stats_k, counts = se_first_step(se, init, noisy, clean, want)
+        report["launches"]["se_train_step"] = counts
+        plain = SpeechEnhancement(cfg, device="cuda", nomad=Nomad(
+            device="cuda", config=plain_config(), params=nomad.model.state_dict()))
+        loss_p, grads_p, stats_p, _ = se_first_step(plain, init, noisy, clean, None)
+        se.unet.load_state_dict(init)
+        se.unet.train()
+        with torch.no_grad():
+            est = se.unet(torch.from_numpy(noisy).to(DEV))
+        clean_t = torch.from_numpy(clean).to(DEV)
+        signs = layer_signs(nomad, est, clean_t)
+        flips = sum(int((a != b).sum()) for a, b in zip(signs, layer_signs(plain.nomad, est,
+                                                                          clean_t)))
+        grads_s = se_signed_grads(plain, init, signs, noisy, clean)
+        del est, clean_t, plain
+        gmax = max(g.abs().max().item() for g in grads_s.values())
+        d_loss = abs(loss_k - loss_p) / abs(loss_p)
+        d_direct = max((grads_k[n] - g).abs().max().item() for n, g in grads_p.items()) / gmax
+        d_signs = max((grads_k[n] - g).abs().max().item() for n, g in grads_s.items()) / gmax
+        d_stats = max((stats_k[n] - b).abs().max().item() for n, b in stats_p.items())
+        out["first_step"] = {"loss": loss_k, "plain_loss": loss_p, "loss_rel": d_loss,
+                             "grad_rel_direct": d_direct, "grad_rel_same_signs": d_signs,
+                             "sign_flips": flips, "running_stats_max_abs": d_stats}
+        print(f"SE: first step, launches {counts}; kernel vs plain path: loss {loss_k:.8g} vs "
+              f"{loss_p:.8g} (rel {d_loss:.3g} <= {TOL_LOSS_REL}), U-Net gradients max|d|/max|g| "
+              f"{d_direct:.3g} direct, {d_signs:.3g} under one sign pattern (<= {TOL_GRAD_REL}; "
+              f"{flips} layer elements change sign), running statistics max|d| {d_stats:.3g} "
+              f"(<= {TOL_SE_STATS})", flush=True)
+        if d_loss > TOL_LOSS_REL or d_signs > TOL_GRAD_REL or d_stats > TOL_SE_STATS or (
+                flips == 0 and d_direct > TOL_GRAD_REL):
+            fail(f"SE: kernel step vs plain path: loss rel {d_loss:.3g}, gradients {d_direct:.3g} "
+                 f"direct / {d_signs:.3g} same signs, running statistics {d_stats:.3g}")
+        del grads_k, grads_p, grads_s, stats_k, stats_p
+        torch.cuda.empty_cache()
+
+        # warm train steps from the first step's state on, then what moved
+        se.unet.load_state_dict(init)
+        out["train_step"] = time_steps(lambda: se.train_step(noisy, clean), SE_STEPS, card,
+                                       "SE: train step (U-Net + lossnet + Adam)")
+        unmoved = [n for n, v in se.unet.state_dict().items() if torch.equal(v, init[n])]
+        if any(not n.endswith(SE_PRE_BN_BIAS) for n in unmoved):
+            fail(f"SE: U-Net tensors unmoved by the steps: {unmoved}")
+        changed = [k for k, v in nomad.model.state_dict().items() if not torch.equal(v, lossnet[k])]
+        if changed:
+            fail(f"SE: the steps changed the lossnet: {changed[:5]}")
+        out["moved"] = {"unet_tensors": len(init), "unmoved": unmoved, "lossnet_bit_unchanged":
+                        len(lossnet)}
+        print(f"SE: after {SE_STEPS + 2} steps {len(init) - len(unmoved)} of {len(init)} U-Net "
+              f"tensors moved (unmoved: {unmoved}); the {len(lossnet)} lossnet tensors "
+              "bit-unchanged", flush=True)
+        with profiler_range(se.unet, "forward", UNET_RANGE):
+            profile_run(lambda: se.train_step(noisy, clean), "profile_se_train_step",
+                        split=ranged_kernels(UNET_RANGE, "Wave-U-Net (fwd + bwd)"))
+
+        # the U-Net alone: forward, MSE, backward, Adam
+        noisy_t, clean_t = torch.from_numpy(noisy).to(DEV), torch.from_numpy(clean).to(DEV)
+
+        def unet_step():
+            se.unet.train()
+            loss = torch.mean((se.unet(noisy_t) - clean_t) ** 2)
+            se.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            se.optimizer.step()
+
+        reset_launches()
+        out["unet_step"] = time_steps(unet_step, SE_STEPS, card,
+                                      "SE: U-Net-alone step (MSE + Adam)")
+        report["launches"]["se_unet_step"] = read_launches()
+        out["lossnet_share_ms"] = (out["train_step"]["events_median_ms"]
+                                   - out["unet_step"]["events_median_ms"])
+
+        # the eval step on the recipe's valid batch of 100
+        v_noisy, v_clean = next(se.valid_set.batches(int(cfg["valid_bs"]), shuffle=False))
+        reset_launches()
+        se.eval_step(v_noisy, v_clean)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        report["launches"]["se_eval_step"] = counts
+        if v_noisy.shape != (100, 16384) or counts != launches_want(k1=24, k5=52):
+            fail(f"SE: eval step on {v_noisy.shape}: launch counts {counts} (want K1 24, K5 52)")
+        out["eval_step_ms"] = time_ms(lambda: se.eval_step(v_noisy, v_clean), SE_STEPS, warmup=1)
+        t0 = time.perf_counter()
+        quality = se.test()
+        out["test"] = quality | {"host_s": time.perf_counter() - t0, "pairs": SE_TEST}
+        if quality["metric"] != "pesq_wb" or not np.isfinite(quality["value"]):
+            fail(f"SE: test() gave {quality}")
+        print(f"SE: eval step (100 x 16,384) {out['eval_step_ms']:.2f} ms, launches {counts}; "
+              f"test() {quality['metric']} {quality['value']:.4f} on {SE_TEST} pairs in "
+              f"{out['test']['host_s']:.2f} s  [{card}]", flush=True)
+        del se
+        torch.cuda.empty_cache()
+
+        # two epochs of the loop in a working directory of its own, then its
+        # best_model.npz into a new SpeechEnhancement: enhance the same bits
+        loop = SpeechEnhancement(cfg, device="cuda", nomad=nomad)
+        probe = noisy[:8]
+        saved: dict = {}
+        save = loop.save
+
+        def save_and_probe(path):
+            save(path)
+            saved["path"], saved["enhanced"] = path, loop.enhance(probe).clone()
+
+        loop.save = save_and_probe
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            loop.training_loop()
+            out["training_loop_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        best = tmp / saved["path"]
+        if not best.is_file() or not (best.parent / "config.yaml").is_file():
+            fail(f"SE: training_loop wrote no {saved.get('path')} or config.yaml")
+        reloaded = SpeechEnhancement(cfg, device="cuda", nomad=nomad)
+        reloaded.load(str(best))
+        same = torch.equal(reloaded.enhance(probe), saved["enhanced"])
+        out["reload_bit_equal"] = same
+        print(f"SE: 2-epoch training_loop {out['training_loop_s']:.1f} s; {best.name} reloaded "
+              f"enhances the same bits: {same}", flush=True)
+        if not same:
+            fail("SE: the reloaded best_model.npz enhances other bits")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"SE: phase 7 took {out['phase_s']:.1f} s", flush=True)
+    report["se_path"] = out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
@@ -1242,21 +1496,26 @@ def main() -> None:
                       help="phases 1 and 5 only; ends with the report line")
     only.add_argument("--only-train", action="store_true",
                       help="phases 1 and 6 only; ends with the report line")
+    only.add_argument("--only-se", action="store_true",
+                      help="phases 1 and 7 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
-    if args.only_loss or args.only_train:
-        (run_loss_paths if args.only_loss else run_trainer)(card)
-        print("report: " + json.dumps(report, default=float))
-        return
+    alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se}
+    for flag, phase in alone.items():
+        if getattr(args, flag):
+            phase(card)
+            print("report: " + json.dumps(report, default=float))
+            return
     build_kernels()
     print("kernels vs plain versions on the card:", flush=True)
     check_kernels()
     run_scoring_paths(card)
     run_loss_paths(card)
     run_trainer(card)
+    run_se(card)
 
     rows = []
     for name, src, replaces in (

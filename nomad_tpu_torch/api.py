@@ -187,8 +187,8 @@ class Nomad:
             raise NotImplementedError(
                 "deterministic=False (the dropout loss, se_config.yaml's "
                 "loss_dropout) is not supported: the JAX package's loss_fn_p "
-                "passes no dropout rng and raises InvalidRngError too. It is "
-                "ROADMAP Queue 1 item 6 (SE), after the training slice"
+                "passes no dropout rng and raises InvalidRngError too (ROADMAP "
+                "Queue 3)"
             )
         est, ref = self._waves(estimate), self._waves(clean)
         return nomad_loss(self.model.forward_layers(ref), self.model.forward_layers(est))

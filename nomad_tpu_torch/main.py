@@ -9,7 +9,10 @@ Training -> ``training_loop``; quality_nmr -> ``eval_audio_quality``;
 valid_rank -> ``eval_degr_level``; intensity ->
 ``eval_degradation_intensity``; quality_fr -> ``eval_full_reference``.
 The JAX package's and the reference's module paths of the triplet trainer
-map to ``nomad_tpu_torch.training.triplet``. Runs on ``cuda`` unless
+map to ``nomad_tpu_torch.training.triplet``; those of the speech-enhancement
+demo (``nomad_tpu.training.se``, ``src.nomad_audio.nomad_loss_test``) run
+``SpeechEnhancement(config).training_loop()`` whatever the experiment
+name, as the JAX package's dispatcher does. Runs on ``cuda`` unless
 ``--device cpu``.
 """
 
@@ -23,13 +26,14 @@ from typing import Optional
 from .utils import config as config_io
 
 TRIPLET = "nomad_tpu_torch.training.triplet"
+SE = "nomad_tpu_torch.training.se"
 SCRIPT_ALIASES = {
     "nomad_tpu.training.triplet": TRIPLET,
     "src.training.train_triplet": TRIPLET,
+    "nomad_tpu.training.se": SE,
+    "src.nomad_audio.nomad_loss_test": SE,
 }
 NOT_PORTED = {
-    "nomad_tpu.training.se": "the speech-enhancement demo (ROADMAP Queue 1 item 6)",
-    "src.nomad_audio.nomad_loss_test": "the speech-enhancement demo (ROADMAP Queue 1 item 6)",
     "nomad_tpu.smoke": "the smoke runner (ROADMAP Queue 1 item 9)",
     "src.nomad_ar.nomad_score_test": "the smoke runner (ROADMAP Queue 1 item 9)",
     "src.nomad_audio.nomad_score_test": "the smoke runner (ROADMAP Queue 1 item 9)",
@@ -48,7 +52,11 @@ def run(config_file: str, device: Optional[str] = None) -> None:
     if script in NOT_PORTED:
         raise NotImplementedError(f"training_script {script!r}: {NOT_PORTED[script]} "
                                   "is not ported to nomad_tpu_torch yet")
-    module = importlib.import_module(SCRIPT_ALIASES.get(script, script))
+    module_name = SCRIPT_ALIASES.get(script, script)
+    module = importlib.import_module(module_name)
+    if module_name == SE:
+        module.SpeechEnhancement(config_file, device=device).training_loop()
+        return
     experiment = config.get("experiment_name")
     train_obj = module.Training(config_file, device=device)
     if experiment == "Training":

@@ -1,6 +1,9 @@
-"""Triplet training and its four evals (counterpart of
-``nomad_tpu.training``): ``Training``, its data, losses and checkpoints."""
+"""Triplet training and its four evals, and the speech-enhancement demo
+(counterpart of ``nomad_tpu.training``): ``Training``,
+``SpeechEnhancement``, their data, losses and checkpoints."""
 
+from .data import PairedAudioDataset
+from .se import SpeechEnhancement
 from .triplet import Training, param_labels
 
-__all__ = ["Training", "param_labels"]
+__all__ = ["PairedAudioDataset", "SpeechEnhancement", "Training", "param_labels"]

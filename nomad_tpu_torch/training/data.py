@@ -16,12 +16,14 @@ the stdlib ``csv`` module.
   * ``TripletLoader`` shuffles with ``default_rng(seed + epoch)`` and
     decodes the next batch in a thread pool while the device steps; with
     ``pin_memory`` the host batch is pinned for an asynchronous copy.
+  * ``PairedAudioDataset``: the SE demo's noisy/clean pairs.
 """
 
 from __future__ import annotations
 
 import csv
 import math
+import os
 import queue
 import re
 import threading
@@ -213,3 +215,46 @@ class TripletLoader:
         finally:
             stop.set()
             thread.join(timeout=60)
+
+
+class PairedAudioDataset:
+    """Noisy/clean pairs of the SE demo (reference ``AudioDataset``,
+    ``nomad_loss_test.py:158-207``): the noisy directory's files in sorted
+    order, each matched by name in the clean directory, cropped or
+    zero-padded to ``FIXED_LEN`` samples."""
+
+    FIXED_LEN = 16384
+
+    def __init__(self, noisy_dir: str, clean_dir: str, target_sr: int = 16000):
+        self.noisy_dir = noisy_dir
+        self.clean_dir = clean_dir
+        self.noisy = sorted(os.listdir(noisy_dir))
+        self.target_sr = target_sr
+
+    def __len__(self) -> int:
+        return len(self.noisy)
+
+    def load_item(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        name = self.noisy[idx]
+        clean_path = os.path.join(self.clean_dir, name)
+        if not os.path.isfile(clean_path):
+            raise AssertionError(f"clean file missing for {name}")
+        noisy = load_processing(os.path.join(self.noisy_dir, name), target_sr=self.target_sr)[0]
+        clean = load_processing(clean_path, target_sr=self.target_sr)[0]
+        return self._fix(noisy), self._fix(clean)
+
+    def _fix(self, w: np.ndarray) -> np.ndarray:
+        if len(w) < self.FIXED_LEN:
+            return np.pad(w, (0, self.FIXED_LEN - len(w)))
+        return w[: self.FIXED_LEN]
+
+    def batches(self, batch_size: int, shuffle: bool, seed: int = 0):
+        """(noisy, clean) [B, FIXED_LEN] f32 batches; shuffled with
+        ``default_rng(seed)``, decoded in a pool of 8 threads."""
+        idx = np.arange(len(self))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            for s in range(0, len(idx), batch_size):
+                items = list(ex.map(self.load_item, idx[s : s + batch_size]))
+                yield np.stack([n for n, _ in items]), np.stack([c for _, c in items])

@@ -1,8 +1,9 @@
 """Training losses with torch's semantics (counterpart of
-``nomad_tpu.training.losses``)."""
+``nomad_tpu.training.losses``), and the epoch mean of step losses."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -19,3 +20,12 @@ def triplet_margin_loss(anchor, positive, negative, margin: float = 0.2):
     d_ap = pairwise_distance(anchor, positive)
     d_an = pairwise_distance(anchor, negative)
     return torch.clamp(d_ap - d_an + margin, min=0.0).mean()
+
+
+def epoch_mean(losses: list) -> float:
+    """The mean of an epoch's 0-dim step losses, still on the device: one
+    copy to the host at the end, summed in float64 as the JAX package sums
+    its Python floats; 0.0 for no step."""
+    if not losses:
+        return 0.0
+    return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))

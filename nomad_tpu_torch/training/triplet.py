@@ -59,7 +59,7 @@ from ..utils import config as config_io
 from ..utils.metrics import correlation_report, fit_order_three, srcc
 from .checkpoint import CheckpointManager
 from .data import TripletBatch, TripletDataset, TripletLoader, read_table
-from .losses import triplet_margin_loss
+from .losses import epoch_mean, triplet_margin_loss
 
 
 def param_labels(model: NomadModel, freeze_convnet: bool, freeze_all: bool) -> dict:
@@ -247,12 +247,6 @@ class Training:
         with torch.inference_mode():
             return self.triplet_loss(batch, True)
 
-    @staticmethod
-    def _mean(losses: list) -> float:
-        if not losses:
-            return 0.0
-        return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
-
     def train(self, loader=None, rng_seed: int = 0) -> float:
         """One epoch; dropout masks from a generator seeded with rng_seed."""
         loader = loader or self.train_loader
@@ -270,7 +264,7 @@ class Training:
                 break
             wait_s += time.perf_counter() - t0  # the loader's prefetch fell behind
             losses.append(self.train_step(batch, generator))
-        mean = self._mean(losses)  # waits for the device
+        mean = epoch_mean(losses)  # waits for the device
         wall = time.perf_counter() - wall0
         self.last_train_stats = {
             "steps": len(losses),
@@ -282,7 +276,7 @@ class Training:
 
     def eval(self, loader=None) -> float:
         loader = loader or self.valid_loader
-        return self._mean([self.eval_step(batch) for batch in loader])
+        return epoch_mean([self.eval_step(batch) for batch in loader])
 
     def training_loop(self) -> None:
         cfg = self.config

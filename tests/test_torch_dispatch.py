@@ -41,6 +41,16 @@ def test_config_reader_equals_yaml_safe_load(path):
     assert config_io.loads(text) == ours == yaml.safe_load(text)
 
 
+def test_config_dump_writes_every_key_of_the_se_recipe(tmp_path):
+    recipe = config_io.load(str(ROOT / "nomad_tpu" / "configs" / "se_config.yaml"))
+    path = str(tmp_path / "config.yaml")
+    config_io.dump(recipe, path)
+    back = config_io.load(path)
+    assert back == recipe == yaml.safe_load(open(path))
+    assert sorted(back) == sorted(yaml.safe_load(open(ROOT / "nomad_tpu" / "configs"
+                                                      / "se_config.yaml")))
+
+
 def test_config_reader_scalars_and_refusals():
     text = ("a: 1e-05\nb: 1.5e-05\nc: 'it''s # not a comment'\nd: x#y  # comment\n"
             "e: [1, \"a,b\", null, -2.5]\nf:\ng: ~\nh: .5\ni: off\nj:\n  - 1\n  -\n")
@@ -91,6 +101,37 @@ def test_dispatcher_refuses_the_scripts_not_ported(tmp_path, script):
     config_io.dump({"experiment_name": "Test pip", "training_script": script}, path)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         dispatch.run(path)
+
+
+@pytest.mark.parametrize("script", ["nomad_tpu.training.se", "src.nomad_audio.nomad_loss_test"])
+def test_dispatcher_runs_the_se_demo(tmp_path, monkeypatch, script):
+    """The SE scripts train the port's Wave-U-Net for an epoch, tiny NOMAD,
+    on the CPU: ``se_models/<time>/`` gets the config and the best model."""
+    rng = np.random.default_rng(8)
+    cfg = {"training_script": script, "experiment_name": "Test pip", "model_size": "tiny",
+           "n_layers": 3, "num_epochs": 1, "train_bs": 2, "valid_bs": 2, "test_bs": 2,
+           "lr": 1e-3, "nomad_weight": 0.001, "patience": 5, "test_every": 10,
+           "loss_dropout": False}
+    for split in ("train", "valid", "test"):
+        for kind in ("noisy", "clean"):
+            d = tmp_path / f"{kind}_{split}"
+            d.mkdir()
+            cfg[f"{kind}_{split}_dir"] = str(d)
+        for i in range(2):
+            clean = (0.2 * rng.standard_normal(9000)).astype(np.float32)
+            write_wav(str(tmp_path / f"clean_{split}" / f"p{i}.wav"), clean, 16000, bits=16)
+            write_wav(str(tmp_path / f"noisy_{split}" / f"p{i}.wav"),
+                      clean + (0.05 * rng.standard_normal(9000)).astype(np.float32), 16000,
+                      bits=16)
+    path = str(tmp_path / "se.yaml")
+    config_io.dump(cfg, path)
+    monkeypatch.chdir(tmp_path)
+    dispatch.run(path, device="cpu")
+    runs = glob.glob(str(tmp_path / "se_models" / "*"))
+    assert len(runs) == 1
+    assert config_io.load(os.path.join(runs[0], "config.yaml")) == cfg
+    with np.load(os.path.join(runs[0], "best_model.npz")) as best:
+        assert "params/out_conv/kernel" in best.files and "batch_stats/middle/bn/var" in best.files
 
 
 def test_dispatcher_unknown_experiment_runs_nothing(tmp_path, monkeypatch, capsys):

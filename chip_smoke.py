@@ -1,14 +1,14 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py [--only-loss | --only-train | --only-se]
+    python3 chip_smoke.py [--only-loss | --only-train | --only-se | --only-serve]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
      print ptxas' registers, shared memory and spills (a spill fails), and
      the occupancy (blocks per SM; K4's clusters on the card) of K1, K2,
-     K3 and K4;
+     K3 and K4; build the native C++ ingest library (``native/``, g++);
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
@@ -63,7 +63,24 @@ Phases, each fatal on failure:
      the eval step on the valid batch of 100 (K1 24, K5 52); ``test()``'s
      PESQ-WB and its host time; a 2-epoch ``training_loop`` whose
      ``best_model.npz``, reloaded, enhances the same bits;
-  8. the kernels' JSON line, the card line, and the last line
+  8. the scoring service at full BASE width, its weights loaded from a
+     seeded fairseq-named ``pt-models/nomad_best_model.pt`` (written with
+     ``convert.fairseq_synth``) on phase 4's 108 WAVs plus FLAC twins of 4
+     of them: three processes of ``python -m nomad_tpu_torch.serve`` (from
+     the .pt with ``--warm 10``, from the npz cache it wrote with and
+     without ``--warm``), each sent ping, score, the same score, embed (16
+     cached files and 4 new ones), loss (4 x 16,384 samples), stats and
+     shutdown: every stdout line JSON, exit 0, every batch through the
+     native C++ ingest, the repeated score from the cache, the scores of
+     the three processes the same; cold start and each request's wall
+     time; then the server in this process with its launch counts (cold
+     score K1 24, K5 52; repeated score none; embed with 4 misses K1 12,
+     K5 26; loss K1 24, K5 52), its peak memory (at most phase 4's), its
+     embeddings against the served ones and a cache-less engine's, the
+     FLAC twins against their WAVs, the loss against the plain path, the
+     .pt-loaded weights against the npz-loaded ones, and one profiled
+     cold score;
+  9. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
@@ -71,19 +88,23 @@ JSON object on the line that starts with "report: ". ``--only-loss`` runs
 phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
 newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
-``--only-se`` phases 1 and 7, each ending with the report line.
+``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8, each ending
+with the report line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -91,10 +112,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nomad_tpu_torch.api import Nomad, set_exact_precision
-from nomad_tpu_torch.io import write_wav
-from nomad_tpu_torch.models import Wav2Vec2Config, wav2vec2
+from nomad_tpu_torch.api import CACHE_FILENAME, NOMAD_FILENAME, Nomad, set_exact_precision
+from nomad_tpu_torch.convert.fairseq_synth import write_nomad_checkpoint
+from nomad_tpu_torch.io import native, read_wav, write_wav
+from nomad_tpu_torch.io.flac_encode import write_flac
+from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights, wav2vec2
 from nomad_tpu_torch.ops import _build, flash_attention, fused_attention, layernorm
+from nomad_tpu_torch.scoring.engine import EmbeddingEngine, EmbeddingLRU
+from nomad_tpu_torch.serve import NomadServer
 from nomad_tpu_torch.training import SpeechEnhancement, Training
 from nomad_tpu_torch.training import data as train_data
 from nomad_tpu_torch.utils import config as config_io
@@ -147,6 +172,16 @@ TOL_SE_STATS = 1e-5  # running statistics after a step, kernel vs plain path
 # conv biases ahead of a batch norm: their gradient is 0 analytically, so
 # Adam may leave them where they are
 SE_PRE_BN_BIAS = ".conv.bias"
+# the scoring service: FLAC twins of 4 degraded files (112 files, a batch of
+# 96 and a tail of 16), 4 new files and 16 cached ones in the embed request,
+# the loss of 4 crops; the .pt's weights seed; phase 4's own scoring peak
+# as PERF.md gives it, the service's bound when phase 4 does not run
+# (--only-serve)
+SERVE_TWINS, SERVE_NEW, SERVE_LOSS_BATCH, SERVE_SEED = (3, 10, 50, 97), 4, 4, 8
+N_SERVE = N_NMR + N_DEG + len(SERVE_TWINS)
+SERVE_KEYS = ("ping", "score", "score_repeat", "embed", "loss", "stats", "shutdown")
+SERVE_TIMEOUT_S = 600
+PEAK_SCORING_GB = 13.375
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -154,6 +189,16 @@ report: dict = {"kernels": {}, "checks": {}}
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def settled_allocated_gb() -> float:
+    """What is still allocated on the card once garbage is collected and
+    the cuBLAS workspaces are released (every thread that ran a GEMM keeps
+    one, the backward's too): what a phase inherits from the ones before."""
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -215,6 +260,12 @@ def build_kernels() -> None:
     logs = _build.build()
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {len(logs)} kernel sources in {report['build_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    if not native.available():  # the C++ ingest library every scoring path reads files with
+        fail(f"the native ingest library did not build: {native.build_error()}")
+    report["native_build_s"] = time.perf_counter() - t0
+    print(f"build: native ingest library {native.library_path().name} in "
+          f"{report['native_build_s']:.1f} s", flush=True)
     spills = []
     for name, log in logs.items():
         for line in log.splitlines():
@@ -709,6 +760,7 @@ def run_main_path(card: str, tmp: Path, nmr: str, deg: str) -> tuple:
     print(f"main path: CLI scored {N_DEG} x {N_NMR} files in {report['checks']['cli_s']:.1f} s "
           "(cold process: start, build load, weights, first pass)", flush=True)
 
+    leftover_gb = settled_allocated_gb()  # left by earlier phases: not this path's
     nomad = Nomad(device="cuda")
     api_out = tmp / "api"
     api_out.mkdir()
@@ -747,11 +799,13 @@ def run_main_path(card: str, tmp: Path, nmr: str, deg: str) -> tuple:
     report["main_path"] = {
         "files": N_NMR + N_DEG, "audio_s": total_s, "predict_warm_s": warm,
         "pass_s": passes, "wav_s_per_s_predict": total_s / pred_s,
-        "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb, "card": card,
+        "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb,
+        "leftover_mem_gb": leftover_gb, "card": card,
     }
     print(f"main path: warm predict {pred_s:.3f} s = {total_s / pred_s:.1f} wav-s/s; "
           f"device pass {pass_s:.3f} s = {total_s / pass_s:.1f} wav-s/s; "
-          f"peak memory {peak_gb:.2f} GB  [{card}]", flush=True)
+          f"peak memory {peak_gb:.5f} GB, {leftover_gb:.5f} GB of it left by earlier phases"
+          f"  [{card}]", flush=True)
     profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile")
 
     # the same weights on the plain path (plain attention and LayerNorm)
@@ -1489,6 +1543,278 @@ def run_se(card: str) -> None:
     report["se_path"] = out
 
 
+# ---------------- phase 8: the scoring service ----------------
+
+
+def write_serve_tree(root: Path) -> dict:
+    """Phase 4's 8 NMR + 100 degraded 10 s PCM16 WAVs (the same seed),
+    FLAC twins of 4 degraded files (112 files: a batch of 96 and a tail of
+    16), 4 new 10 s WAVs for the embed request, and a seeded BASE
+    ``pt-models/nomad_best_model.pt`` in fairseq's key layout."""
+    nmr, deg = write_wavs(root)
+    twins = []
+    for i in SERVE_TWINS:
+        wav_path = Path(deg) / f"deg_{i:03d}.wav"
+        wave, sr = read_wav(str(wav_path))
+        flac_path = Path(deg) / f"deg_{i:03d}_flac.flac"  # a stem of its own
+        write_flac(str(flac_path), wave, sr)
+        twins.append((str(flac_path), str(wav_path)))
+    rng = np.random.default_rng(2468)
+    new = root / "new"
+    new.mkdir()
+    new_paths = []
+    for i in range(SERVE_NEW):
+        new_paths.append(str(new / f"new_{i}.wav"))
+        write_wav(new_paths[-1], speech_like(rng, int(SECONDS * SR), 0.05), SR, bits=16)
+    weights = root / "pt-models"
+    weights.mkdir()
+    model = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=SERVE_SEED)
+    t0 = time.perf_counter()
+    write_nomad_checkpoint(model, str(weights / NOMAD_FILENAME))
+    write_s = time.perf_counter() - t0
+    cached = sorted(str(p) for p in Path(nmr).iterdir())[:8] + \
+        sorted(str(p) for p in Path(deg).iterdir())[:8]
+    clean = np.stack([speech_like(rng, LOSS_SAMPLES, 0.005) for _ in range(SERVE_LOSS_BATCH)])
+    est = clean + (0.03 * rng.standard_normal(clean.shape)).astype(np.float32)
+    return {"nmr": nmr, "deg": deg, "twins": twins, "new": new_paths, "cached": cached,
+            "weights": weights, "model": model, "pt_write_s": write_s,
+            "pt_bytes": (weights / NOMAD_FILENAME).stat().st_size,
+            "loss": (est.astype(np.float32), clean.astype(np.float32))}
+
+
+def serve_requests(tree: dict, out: Path) -> list:
+    score = {"op": "score", "nmr": tree["nmr"], "deg": tree["deg"], "results_path": str(out)}
+    est, clean = tree["loss"]
+    return [{"op": "ping"}, score, score, {"op": "embed", "paths": tree["cached"] + tree["new"]},
+            {"op": "loss", "estimate": est.tolist(), "clean": clean.tolist()},
+            {"op": "stats"}, {"op": "shutdown"}]
+
+
+def serve_process(tree: dict, root: Path, tag: str, warm: bool) -> dict:
+    """``python -m nomad_tpu_torch.serve`` in ``root`` (weights from
+    ``pt-models/`` there), one request at a time: every stdout line must
+    parse as JSON, every response be ok, and the process exit 0 after
+    ``shutdown``. The ping, sent at once, is answered when the server is
+    ready: its wall time from the start is the cold start."""
+    out = root / f"results_{tag}"
+    out.mkdir()
+    cmd = [sys.executable, "-m", "nomad_tpu_torch.serve"] + (["--warm", "10"] if warm else [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    err_path = root / f"serve_{tag}.stderr"
+    with open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+        watchdog = threading.Timer(SERVE_TIMEOUT_S, proc.kill)
+        watchdog.start()
+        try:
+            resps, walls = [], []
+            for req in serve_requests(tree, out):
+                t = time.perf_counter()
+                proc.stdin.write(json.dumps(req) + "\n")
+                proc.stdin.flush()
+                line = proc.stdout.readline()
+                walls.append(time.perf_counter() - (t0 if req["op"] == "ping" else t))
+                if not line:
+                    fail(f"serve {tag}: no answer to {req['op']}; stderr:\n"
+                         f"{err_path.read_text()[-3000:]}")
+                try:
+                    resp = json.loads(line)
+                except json.JSONDecodeError:
+                    fail(f"serve {tag}: a stdout line is not JSON: {line[:200]!r}")
+                if not resp.get("ok"):
+                    fail(f"serve {tag}: {req['op']} failed: {resp}")
+                resps.append(resp)
+            rest = proc.stdout.read()
+            rc = proc.wait(timeout=60)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0 or rest.strip():
+        fail(f"serve {tag}: exit {rc}, stdout after shutdown {rest[:200]!r}; stderr:\n"
+             f"{err_path.read_text()[-3000:]}")
+    named = dict(zip(SERVE_KEYS, resps))
+    wall = dict(zip(SERVE_KEYS, walls))
+    t = named["stats"]["transfer"]
+    if t["native_batches"] != t["batches"] or t["python_batches"] != 0:
+        fail(f"serve {tag}: not every batch came through the native ingest: {t}")
+    hits = named["stats"]["embed_cache"]["hits"]
+    if named["score"] != named["score_repeat"] or hits != N_SERVE + len(tree["cached"]):
+        fail(f"serve {tag}: the repeated score differs, or cache hits {hits} "
+             f"(want {N_SERVE + len(tree['cached'])})")
+    # the server logs its --warm time to stderr
+    warmed = [json.loads(ln)["warmed_s"] for ln in err_path.read_text().splitlines()
+              if ln.startswith('{"warmed_s"')]
+    print(f"serve {tag}: " + ", ".join(f"{k} {v:.3f} s" for k, v in wall.items())
+          + f" (ping: from the process's start); warm {warmed}; transfer {t}", flush=True)
+    return {"resps": named, "wall_s": wall, "stats": named["stats"], "warmed_s": warmed}
+
+
+def run_serve(card: str) -> None:
+    """The scoring service at full BASE width on weights loaded from a
+    fairseq-named ``nomad_best_model.pt``: three processes of ``python -m
+    nomad_tpu_torch.serve`` (from the .pt with ``--warm 10``; from the npz
+    cache the first wrote, with and without ``--warm``), then the server
+    in this process for the launch counts and the checks."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    _build.build()  # every kernel, in parallel, before any process times its start
+    if not native.available():
+        fail(f"the native ingest library did not build: {native.build_error()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_serve_") as tmp:
+        root = Path(tmp)
+        tree = write_serve_tree(root)
+        out |= {"pt_write_s": tree["pt_write_s"], "pt_bytes": tree["pt_bytes"]}
+        cache = tree["weights"] / CACHE_FILENAME
+        processes = {"pt_warm": serve_process(tree, root, "pt_warm", warm=True)}
+        if not cache.is_file():
+            fail(f"serve: no {CACHE_FILENAME} after loading the .pt")
+        processes["npz_warm"] = serve_process(tree, root, "npz_warm", warm=True)
+        processes["npz_cold"] = serve_process(tree, root, "npz_cold", warm=False)
+        base = processes["pt_warm"]["resps"]
+        emb_base = np.asarray(base["embed"]["embeddings"])
+        for tag in ("npz_warm", "npz_cold"):
+            resps = processes[tag]["resps"]
+            if resps["score"] != base["score"]:
+                fail(f"serve {tag}: score records differ from the .pt process's")
+            d = float(np.abs(np.asarray(resps["embed"]["embeddings"]) - emb_base).max())
+            out[f"{tag}_vs_pt_embed_max_abs"] = d
+            if d > TOL_BATCH1:
+                fail(f"serve {tag}: embeddings {d:.3g} from the .pt process's (> {TOL_BATCH1})")
+        out["processes"] = {k: {"wall_s": v["wall_s"], "stats": v["stats"],
+                               "warmed_s": v["warmed_s"]} for k, v in processes.items()}
+        out["cold_start_pt_s"] = processes["pt_warm"]["wall_s"]["ping"]
+        out["cold_start_npz_s"] = processes["npz_warm"]["wall_s"]["ping"]
+        out["first_score_warm_s"] = processes["npz_warm"]["wall_s"]["score"]
+        out["first_score_no_warm_s"] = processes["npz_cold"]["wall_s"]["score"]
+        out["cold_start_npz_no_warm_s"] = processes["npz_cold"]["wall_s"]["ping"]
+        print(f"serve: cold start {out['cold_start_pt_s']:.2f} s from the .pt "
+              f"({out['pt_bytes'] / 1e6:.0f} MB, written in {out['pt_write_s']:.2f} s), "
+              f"{out['cold_start_npz_s']:.2f} s from the npz (both with --warm 10; "
+              f"{out['cold_start_npz_no_warm_s']:.2f} s without); first score "
+              f"{out['first_score_warm_s']:.3f} s warmed vs {out['first_score_no_warm_s']:.3f} s "
+              f"not  [{card}]", flush=True)
+        run_serve_in_process(card, tree, root, base, out)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve: phase 8 took {out['phase_s']:.1f} s", flush=True)
+    report["serve_path"] = out
+
+
+def serve_step(server: NomadServer, req: dict, key: str, want: dict) -> dict:
+    """One request in process with its launch counts."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    resp = server.handle(req)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    report["launches"][key] = counts
+    if not resp.get("ok") or counts != want:
+        fail(f"serve in process, {key}: ok={resp.get('ok')}, launches {counts} (want {want})")
+    print(f"serve in process: {key} {wall:.3f} s, launches {counts}", flush=True)
+    return resp
+
+
+def run_serve_in_process(card: str, tree: dict, root: Path, base: dict, out: dict) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # cuBLAS workspaces included
+    leftover_gb = settled_allocated_gb()  # left by earlier phases: not the service's
+    nomad = Nomad(device="cuda", weights_dir=str(tree["weights"]))  # the npz cache
+    server = NomadServer(nomad)
+    out["in_process_warm"] = server.handle({"op": "warm", "seconds": [SECONDS]})
+    eng = nomad.engine
+    reqs = {r["op"]: r for r in serve_requests(tree, root / "results_in_process")}
+    (root / "results_in_process").mkdir()
+    torch.cuda.reset_peak_memory_stats()
+    hits0 = eng.cache_hits
+    cold = serve_step(server, reqs["score"], "serve_score_cold", launches_want(k1=24, k5=52))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    repeat = serve_step(server, reqs["score"], "serve_score_repeat", launches_want())
+    repeat_hits = eng.cache_hits - hits0
+    emb = serve_step(server, reqs["embed"], "serve_embed", launches_want(k1=12, k5=26))
+    loss = serve_step(server, reqs["loss"], "serve_loss", launches_want(k1=24, k5=52))
+    if repeat != cold or cold != base["score"] or repeat_hits != N_SERVE:
+        fail(f"serve in process: repeated score equal {repeat == cold}, equal to the served "
+             f"one {cold == base['score']}, hits {repeat_hits} (want {N_SERVE})")
+    # the service's own peak against phase 4's own in this run (the same
+    # 96-row batch), plus the cache's rows the service holds besides
+    own_gb = peak_gb - leftover_gb
+    main = report.get("main_path")
+    phase4_gb = main["peak_mem_gb"] - main["leftover_mem_gb"] if main else PEAK_SCORING_GB
+    cache_gb = N_SERVE * nomad.model.emb_dim * 4 / 1e9
+    if own_gb > phase4_gb + cache_gb:
+        fail(f"serve in process: own peak {own_gb:.5f} GB over phase 4's {phase4_gb:.5f} GB "
+             f"+ the cache's {cache_gb:.6f} GB")
+    t = eng.transfer_stats()
+    if t["native_batches"] != t["batches"] or t["python_batches"] != 0:
+        fail(f"serve in process: not every batch came through the native ingest: {t}")
+    # the served embeddings: the subprocess's and a cache-less engine's
+    emb = np.asarray(emb["embeddings"], np.float32)
+    d_served = float(np.abs(emb - np.asarray(base["embed"]["embeddings"])).max())
+    paths = reqs["embed"]["paths"]
+    fresh = EmbeddingEngine(nomad.model, DEV).embed_files(paths)
+    d_fresh = float(np.abs(emb - fresh).max())
+    # FLAC twins, from the cache the cold score filled (no launch)
+    twins = eng.embed_files_device([p for pair in tree["twins"] for p in pair])
+    d_twins = float((twins[0::2] - twins[1::2]).abs().max())
+    # the loss op against the plain path on the same weights
+    est, clean = tree["loss"]
+    plain = Nomad(device="cuda", config=plain_config(), params=nomad.model.state_dict())
+    with torch.no_grad():
+        loss_plain = plain.forward(est, clean).item()
+    d_loss = abs(loss["loss"] - loss_plain) / abs(loss_plain)
+    del plain
+    # the .pt-loaded weights against the npz-loaded ones, and against the
+    # model the .pt was written from
+    pt_only = root / "pt_only"
+    pt_only.mkdir()
+    shutil.copy(tree["weights"] / NOMAD_FILENAME, pt_only / NOMAD_FILENAME)
+    t0 = time.perf_counter()
+    from_pt = Nomad(device="cuda", weights_dir=str(pt_only)).model.state_dict()
+    pt_load_s = time.perf_counter() - t0
+    from_npz = nomad.model.state_dict()
+    pt_vs_npz = [k for k in from_npz if not torch.equal(from_pt[k].cpu(), from_npz[k].cpu())]
+    written = tree["model"].state_dict()
+    d_written = max(float((from_pt[k].cpu() - written[k]).abs().max() /
+                          written[k].abs().max().clamp_min(1e-30))
+                    for k in written if not k.startswith("lossnet_embedding"))
+    out["in_process"] = {
+        "peak_mem_gb": peak_gb, "own_peak_mem_gb": own_gb, "leftover_mem_gb": leftover_gb,
+        "held_before_release_gb": held_gb, "phase4_own_peak_mem_gb": phase4_gb,
+        "repeat_cache_hits": repeat_hits, "transfer": t,
+        "embed_vs_served_max_abs": d_served, "embed_vs_cacheless_engine_max_abs": d_fresh,
+        "flac_twins_vs_wav_max_abs": d_twins, "loss": loss["loss"], "plain_loss": loss_plain,
+        "loss_rel_diff": d_loss, "pt_vs_npz_state_dict_differ": pt_vs_npz,
+        "pt_vs_written_max_rel": d_written, "pt_load_convert_s": pt_load_s,
+        "stats": server.handle({"op": "stats"}),
+    }
+    print(f"serve in process: own peak {own_gb:.5f} GB (<= phase 4's {phase4_gb:.5f} + the "
+          f"cache's {cache_gb:.6f}; earlier phases left {held_gb:.5f} GB allocated, "
+          f"{leftover_gb:.5f} GB after releasing the cuBLAS workspaces); repeated score "
+          f"{repeat_hits} hits; embeddings vs the served ones max|d| {d_served:.3g}, vs a "
+          f"cache-less engine {d_fresh:.3g} (<= {TOL_BATCH1}); FLAC twins vs WAVs {d_twins:.3g}; "
+          f"loss {loss['loss']:.6g} vs plain {loss_plain:.6g} (rel {d_loss:.3g} <= "
+          f"{TOL_LOSS_REL}); .pt vs npz weights: {len(pt_vs_npz)} tensors differ; .pt vs the "
+          f"written model max rel {d_written:.3g}; .pt load + convert {pt_load_s:.2f} s; "
+          f"transfer {t}  [{card}]", flush=True)
+    if max(d_served, d_fresh, d_twins) > TOL_BATCH1 or d_loss > TOL_LOSS_REL or pt_vs_npz \
+            or d_written > 1e-6:
+        fail("serve in process: a check failed (see the line above)")
+    # one profiled cold score: an empty cache, so every file is embedded
+    def cold_score():
+        server.nomad.engine.file_cache = EmbeddingLRU()
+        server.handle(reqs["score"])
+
+    profile_run(cold_score, "profile_serve_score")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
@@ -1498,12 +1824,15 @@ def main() -> None:
                       help="phases 1 and 6 only; ends with the report line")
     only.add_argument("--only-se", action="store_true",
                       help="phases 1 and 7 only; ends with the report line")
+    only.add_argument("--only-serve", action="store_true",
+                      help="phases 1 and 8 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
-    alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se}
+    alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se,
+             "only_serve": run_serve}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -1516,6 +1845,7 @@ def main() -> None:
     run_loss_paths(card)
     run_trainer(card)
     run_se(card)
+    run_serve(card)
 
     rows = []
     for name, src, replaces in (

@@ -8,14 +8,18 @@ average and pairwise tables as ``ResultTable``s (labels + numpy values).
 ``Nomad.forward(estimate, clean)`` (= ``loss_fn``) is the differentiable
 NOMAD loss: a 0-dim f32 tensor through which autograd carries
 d loss / d estimate back to the caller's tensor. The weights stay frozen.
+``get_embeddings(path)`` / ``get_embeddings_csv(file_names, root)`` return
+``ResultTable``s of a 'filename' column and one column per dimension.
 
   * Device: ``cuda`` unless the caller passes ``device='cpu'``; without
     CUDA it raises rather than fall back to the CPU.
-  * Weights resolve lazily, after ``predict``'s argument checks: the JAX
-    package's ``pt-models/nomad_tpu_params.npz`` cache through the weight
-    bridge when present, else a seeded init with a loud warning (scores
-    then differ from the published model). ``.pt`` checkpoints are not
-    read yet.
+  * Weights resolve lazily, after ``predict``'s argument checks, in the
+    JAX package's order: the ``pt-models/nomad_tpu_params.npz`` cache
+    (either package's: the flat JAX layout, through the weight bridge);
+    else ``nomad_best_model.pt``; else ``wav2vec_small.pt`` with a warning
+    that the scoring head is random; else a seeded init with a loud warning
+    (scores then differ from the published model). After a ``.pt`` load
+    the cache is written, in the JAX layout, so either package reads it.
   * Precision: only ``'exact'``, f32 with TF32 off for both cuBLAS matmuls
     and cuDNN convolutions (the cuDNN flag defaults to on and would reach
     the conv frontend).
@@ -35,12 +39,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .convert import jax_to_state_dict
+from .convert import convert_checkpoint, jax_to_state_dict, merge_into, state_dict_to_jax
 from .models import NomadModel, Wav2Vec2Config, init_weights, nomad_loss
 from .ops import cdist
-from .scoring.csvio import build_result_tables, write_results
+from .scoring.csvio import ResultTable, build_result_tables, write_results
 from .scoring.engine import EmbeddingEngine, list_dir_files
 
+W2V_FILENAME = "wav2vec_small.pt"
+NOMAD_FILENAME = "nomad_best_model.pt"
 CACHE_FILENAME = "nomad_tpu_params.npz"
 PRECISIONS_LATER = ("balanced", "fast")
 
@@ -94,27 +100,47 @@ class Nomad:
 
     # ---------------- weights ----------------
 
-    def _resolve_params(self) -> Optional[dict]:
+    def _resolve_params(self, model: NomadModel) -> dict:
+        """The weights for ``model`` (a fresh ``NomadModel``), in the JAX
+        package's order: the npz cache, ``nomad_best_model.pt``,
+        ``wav2vec_small.pt``, a seeded init. A ``.pt`` overlays the seeded
+        init (the lossnet head, quirk Q7, keeps it) and writes the cache."""
         cache = os.path.join(self.weights_dir, CACHE_FILENAME)
         if os.path.isfile(cache):
             with np.load(cache) as flat:
                 return jax_to_state_dict(dict(flat))
-        warnings.warn(
-            f"no weights found under {self.weights_dir!r}; using a seeded random "
-            "init. Scores will NOT match the published NOMAD model. Place the "
-            f"JAX package's {CACHE_FILENAME} there to use real weights."
-        )
-        return None
+        init_weights(model, seed=0)
+        nomad_path = os.path.join(self.weights_dir, NOMAD_FILENAME)
+        w2v_path = os.path.join(self.weights_dir, W2V_FILENAME)
+        ckpt = next((p for p in (nomad_path, w2v_path) if os.path.isfile(p)), None)
+        if ckpt is None:
+            warnings.warn(
+                f"no checkpoints found under {self.weights_dir!r}; using a seeded "
+                "random init. Scores will NOT match the published NOMAD model. Place "
+                f"{W2V_FILENAME} + {NOMAD_FILENAME} (or {CACHE_FILENAME}) there to "
+                "use real weights."
+            )
+            return model.state_dict()
+        converted = convert_checkpoint(ckpt, self.config.num_layers, len(self.config.conv_dim))
+        sd = merge_into(model.state_dict(), converted)
+        if ckpt == w2v_path:
+            warnings.warn(
+                f"loaded {W2V_FILENAME} but {NOMAD_FILENAME} is missing: scoring head is "
+                "randomly initialized"
+            )
+        try:
+            os.makedirs(self.weights_dir, exist_ok=True)
+            np.savez(cache, **state_dict_to_jax(sd))
+        except OSError:
+            pass  # a read-only weights dir: the next process converts again
+        return sd
 
     @property
     def model(self) -> NomadModel:
         if self._model is None:
             model = NomadModel(self.config, emb_dim=self.emb_dim)
-            sd = self._params if self._params is not None else self._resolve_params()
-            if sd is None:
-                init_weights(model, seed=0)
-            else:
-                model.load_state_dict(sd, strict=True)
+            sd = self._params if self._params is not None else self._resolve_params(model)
+            model.load_state_dict(sd, strict=True)
             self._model = model.to(self.device).eval().requires_grad_(False)
         return self._model
 
@@ -196,6 +222,25 @@ class Nomad:
     def forward(self, estimate, clean) -> torch.Tensor:
         """Reference ``nomad.py:142-146``: the loss of ``loss_fn``."""
         return self.loss_fn(estimate, clean)
+
+    def get_embeddings(self, path: str) -> ResultTable:
+        """Reference ``nomad.py:148-164``: a 'filename' column (the files of
+        a directory, in ``os.listdir`` order, or of a csv's 'filename'
+        column) and one column per embedding dimension."""
+        paths = self._resolve_paths(path)
+        emb = self.engine.embed_files(paths)
+        return ResultTable(paths, list(range(emb.shape[1])), emb, index_name="filename")
+
+    def get_embeddings_csv(self, file_names, root=False) -> ResultTable:
+        """Reference ``nomad.py:166-189``: embeddings of ``file_names``
+        (joined to ``root`` when given); the first column is named after
+        ``file_names.name`` when it has one, else 'filename', and holds the
+        names as given."""
+        names = list(file_names)
+        paths = [os.path.join(root, f) if root else f for f in names]
+        emb = self.engine.embed_files(paths)
+        col = getattr(file_names, "name", None) or "filename"
+        return ResultTable(names, list(range(emb.shape[1])), emb, index_name=col)
 
     def _resolve_paths(self, path: str) -> list:
         """Quirk Q3: dir mode follows os.listdir order; csv mode follows the

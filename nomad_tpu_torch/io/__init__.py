@@ -3,14 +3,16 @@
 The counterpart of ``nomad_tpu.io``: ``load_processing`` averages channels
 0 and 1 of a multichannel file (quirk Q4: channels beyond the second are
 dropped), resamples to 16 kHz with the torchaudio-default sinc filter and
-optionally trims to 10 s. WAV only: FLAC and the native C++ ingest are not
-ported yet, and any other file raises ``UnsupportedAudioError``.
+optionally trims to 10 s. WAV and FLAC (by magic); any other file raises
+``UnsupportedAudioError``. ``io.native`` binds the C++ twin of this path
+(``native/``), which the scoring engine takes when it builds.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .flac import FlacFormatError, read_flac
 from .resample import resample, sinc_resample_kernel
 from .wav import WavFormatError, read_wav, read_wav_int16_mono, write_wav
 
@@ -22,14 +24,11 @@ class UnsupportedAudioError(ValueError):
 
 
 def read_audio(filepath: str) -> tuple[np.ndarray, int]:
-    """Decode a WAV file -> (float32 [channels, samples], sr)."""
+    """Decode a WAV or FLAC file (by magic) -> (float32 [channels, samples], sr)."""
     with open(filepath, "rb") as f:
         head = f.read(4)
     if head == b"fLaC":
-        raise UnsupportedAudioError(
-            f"{filepath}: FLAC is not supported by nomad_tpu_torch yet "
-            "(convert to WAV, or score it with nomad_tpu)"
-        )
+        return read_flac(filepath)
     try:
         return read_wav(filepath)
     except WavFormatError as e:
@@ -41,7 +40,7 @@ def load_processing(
     target_sr: int = TARGET_SR,
     trim: bool = False,
 ) -> np.ndarray:
-    """Load a WAV file -> float32 [1, samples] at ``target_sr``."""
+    """Load a WAV or FLAC file -> float32 [1, samples] at ``target_sr``."""
     wave, sr = read_audio(filepath)
     if wave.shape[0] > 1:
         wave = ((wave[0, :] + wave[1, :]) / 2.0)[None, :]
@@ -70,11 +69,13 @@ def load_for_scoring(filepath: str, target_sr: int = TARGET_SR, trim: bool = Fal
 
 
 __all__ = [
+    "FlacFormatError",
     "TARGET_SR",
     "UnsupportedAudioError",
     "load_for_scoring",
     "load_processing",
     "read_audio",
+    "read_flac",
     "read_wav",
     "read_wav_int16_mono",
     "resample",

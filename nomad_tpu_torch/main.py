@@ -11,9 +11,11 @@ valid_rank -> ``eval_degr_level``; intensity ->
 The JAX package's and the reference's module paths of the triplet trainer
 map to ``nomad_tpu_torch.training.triplet``; those of the speech-enhancement
 demo (``nomad_tpu.training.se``, ``src.nomad_audio.nomad_loss_test``) run
-``SpeechEnhancement(config).training_loop()`` whatever the experiment
-name, as the JAX package's dispatcher does. Runs on ``cuda`` unless
-``--device cpu``.
+``SpeechEnhancement(config).training_loop()`` and those of the smoke runner
+(``nomad_tpu.smoke``, ``src.nomad_ar.nomad_score_test``,
+``src.nomad_audio.nomad_score_test``) ``smoke.run(config)``, whatever the
+experiment name, as the JAX package's dispatcher does. Runs on ``cuda``
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,16 +29,15 @@ from .utils import config as config_io
 
 TRIPLET = "nomad_tpu_torch.training.triplet"
 SE = "nomad_tpu_torch.training.se"
+SMOKE = "nomad_tpu_torch.smoke"
 SCRIPT_ALIASES = {
     "nomad_tpu.training.triplet": TRIPLET,
     "src.training.train_triplet": TRIPLET,
     "nomad_tpu.training.se": SE,
     "src.nomad_audio.nomad_loss_test": SE,
-}
-NOT_PORTED = {
-    "nomad_tpu.smoke": "the smoke runner (ROADMAP Queue 1 item 9)",
-    "src.nomad_ar.nomad_score_test": "the smoke runner (ROADMAP Queue 1 item 9)",
-    "src.nomad_audio.nomad_score_test": "the smoke runner (ROADMAP Queue 1 item 9)",
+    "nomad_tpu.smoke": SMOKE,
+    "src.nomad_ar.nomad_score_test": SMOKE,
+    "src.nomad_audio.nomad_score_test": SMOKE,
 }
 EXPERIMENTS = {
     "quality_nmr": "eval_audio_quality",
@@ -49,13 +50,13 @@ EXPERIMENTS = {
 def run(config_file: str, device: Optional[str] = None) -> None:
     config = config_io.load(config_file)
     script = config.get("training_script", TRIPLET)
-    if script in NOT_PORTED:
-        raise NotImplementedError(f"training_script {script!r}: {NOT_PORTED[script]} "
-                                  "is not ported to nomad_tpu_torch yet")
     module_name = SCRIPT_ALIASES.get(script, script)
     module = importlib.import_module(module_name)
     if module_name == SE:
         module.SpeechEnhancement(config_file, device=device).training_loop()
+        return
+    if module_name == SMOKE:
+        module.run(config, device=device)
         return
     experiment = config.get("experiment_name")
     train_obj = module.Training(config_file, device=device)

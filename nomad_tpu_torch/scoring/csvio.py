@@ -32,17 +32,26 @@ def file_label(path: str) -> str:
 @dataclass
 class ResultTable:
     """A labelled 2-D table: the port's stand-in for the JAX package's
-    DataFrames (rows ``index``, columns ``columns``, ``values`` rounded)."""
+    DataFrames (rows ``index`` under the name ``index_name``, columns
+    ``columns``, ``values``; scores come rounded)."""
 
     index: list
     columns: list
     values: np.ndarray
+    index_name: str = INDEX_NAME
 
     def rows(self):
         """Header, then one row per index label, as CSV cells."""
-        yield [INDEX_NAME] + list(self.columns)
+        yield [self.index_name] + list(self.columns)
         for label, row in zip(self.index, self.values):
             yield [label] + [_cell(v) for v in row]
+
+    def records(self) -> list[dict]:
+        """One dict per row, ``{index_name: label, column: value, ...}`` with
+        Python floats: the shape of pandas' ``reset_index().to_dict(
+        orient="records")`` of the JAX package's frame."""
+        return [{self.index_name: label, **{c: float(v) for c, v in zip(self.columns, row)}}
+                for label, row in zip(self.index, self.values)]
 
     def head(self, n: int = 5) -> str:
         lines = [",".join(map(str, r)) for r in self.rows()]

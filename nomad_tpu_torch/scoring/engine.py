@@ -13,26 +13,37 @@
     device, exactly. Embeddings stay on the device: ``embed_waves_device``
     returns them there, so the scorer's ``cdist`` runs on the device and
     one device-to-host copy per pass brings back the distance matrix.
+  * Files: when the native C++ ingest library builds (``io.native``), a
+    batch's files are decoded, folded, resampled and padded by its thread
+    pool straight into the pinned host batch; mono PCM16 files at 16 kHz
+    ride its int16 loader. Otherwise (or for a file it cannot probe) the
+    Python decoder runs, with the same samples.
+  * ``file_cache`` (an :class:`EmbeddingLRU`, or None for off): an
+    unchanged file (same path, mtime and size) reuses its embedding,
+    a 1 KB row kept on the device, so a hit costs no decode, no copy to the
+    device and no forward.
 
 The JAX engine's relay machinery (transfer-mode probes, the wire codec,
-AOT prewarm, padding to compiled shapes) answers a TPU host link and
+AOT compiles, padding to compiled shapes) answers a TPU host link and
 XLA's compile-per-shape; PyTorch runs eagerly on a local card, so none of
-it is carried over.
+it is carried over. ``prewarm`` stands in for the compile ladder.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..io import load_for_scoring
+from ..io import TARGET_SR, load_for_scoring, load_processing, native, sinc_resample_kernel
 from ..models.heads import NomadModel
 from ..models.wav2vec2 import feature_frame_lengths
+from ..utils.profiling import timed
 
 MIN_BUCKET = 4096  # samples (~0.26 s); below this, padding waste is noise
 # ~96 files x 10 s per batch: the JAX package's steady batch for the 10 s
@@ -47,6 +58,59 @@ IO_THREADS = 16  # host decode threads
 # sample budget take ~13 GB, the weights 0.4 GB. The kernel paths ('kernel',
 # 'fused_qkv') hold no [T', T'] buffer and are not capped.
 REF_ATTN_SCORE_BYTES_BUDGET = 20 << 30
+PREWARM_TAILS = (1, 8, 32)  # tail batch sizes prewarm runs besides each full batch
+
+
+class EmbeddingLRU:
+    """Bounded embedding cache for long-lived servers (the dict protocol
+    subset the engine uses), as ``nomad_tpu.scoring.engine.EmbeddingLRU``:
+    evicts least-recently-used entries beyond ``maxsize``, and drops the
+    stale entry of a path the moment a key with a new mtime/size replaces
+    it. Keys are ``EmbeddingEngine._cache_key`` tuples."""
+
+    def __init__(self, maxsize: int = 65536):
+        self.maxsize = int(maxsize)
+        self._d: OrderedDict = OrderedDict()
+        self._by_path: dict[str, tuple] = {}  # abspath -> its current key
+        self.evictions = 0
+        self.stale_evictions = 0
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __getitem__(self, key):
+        self._d.move_to_end(key)
+        return self._d[key]
+
+    def __setitem__(self, key, value) -> None:
+        old = self._by_path.get(key[0])
+        if old is not None and old != key and old in self._d:
+            del self._d[old]
+            self.stale_evictions += 1
+        self._by_path[key[0]] = key
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            victim, _ = self._d.popitem(last=False)
+            self._by_path.pop(victim[0], None)
+            self.evictions += 1
+
+    def stats(self) -> dict:
+        return {"entries": len(self._d), "maxsize": self.maxsize,
+                "evictions": self.evictions, "stale_evictions": self.stale_evictions}
+
+
+def predicted_length(sr: int, frames: int) -> int:
+    """Samples at 16 kHz of a file of ``frames`` samples at ``sr`` after
+    resampling (torchaudio's ceil(new * n / orig)): the length a batch is
+    planned for before it is decoded."""
+    if sr == TARGET_SR:
+        return frames
+    _k, _w, orig_g, new_g = sinc_resample_kernel(sr, TARGET_SR)
+    return int(math.ceil(new_g * frames / orig_g))
 
 
 def bucket_length(
@@ -87,14 +151,23 @@ class EmbeddingEngine:
     ):
         """``method``: the model method that embeds a batch, ``forward``
         (the NOMAD embedding) or ``forward_features`` (the raw pooled
-        features of the ``eval_w2v`` ablation)."""
+        features of the ``eval_w2v`` ablation). ``file_cache`` starts off
+        (None), as the reference recomputes every file; a server sets it."""
         if method not in ("forward", "forward_features"):
             raise ValueError(f"method must be 'forward' or 'forward_features', got {method!r}")
         self.model = model
         self.device = torch.device(device)
         self.batch_sample_budget = batch_sample_budget
         self.method = method
+        self.file_cache: Optional[EmbeddingLRU] = None
+        self.cache_hits = 0
         self.batches = 0  # forward passes run, for launch-count checks
+        self.transfer = dict.fromkeys(
+            ("h2d_bytes_int16", "h2d_bytes_f32", "native_batches", "python_batches"), 0)
+
+    def transfer_stats(self) -> dict:
+        """Host-to-device bytes by dtype, and batches by ingest path."""
+        return {"batches": self.batches, **self.transfer}
 
     def _attn_batch_cap(self, length: int) -> int:
         """Largest batch whose plain-path attention buffers fit the budget
@@ -134,15 +207,18 @@ class EmbeddingEngine:
             left -= min(b, left)
         return sizes
 
-    def plan(self, lengths: Sequence[int]) -> list:
+    def plan(self, lengths: Sequence[int], groups: Optional[Sequence] = None) -> list:
         """[(indices, padded batch size, bucket length)] in run order:
-        buckets shortest first, files sorted by length inside them."""
+        buckets shortest first, files sorted by length inside them. With
+        ``groups`` (one key per file), files of different keys never share
+        a batch."""
         order = sorted(range(len(lengths)), key=lambda i: lengths[i])
-        groups: dict[int, list[int]] = {}
+        buckets: dict[tuple, list[int]] = {}
         for i in order:
-            groups.setdefault(bucket_length(lengths[i]), []).append(i)
+            key = (bucket_length(lengths[i]), groups[i] if groups is not None else 0)
+            buckets.setdefault(key, []).append(i)
         chunks = []
-        for blen, idxs in sorted(groups.items()):
+        for (blen, _), idxs in sorted(buckets.items()):
             start = 0
             for bsz in self._chunk_batches(len(idxs), blen):
                 take = min(bsz, len(idxs) - start)
@@ -150,16 +226,19 @@ class EmbeddingEngine:
                 start += take
         return chunks
 
+    def _host_batch(self, bsz: int, blen: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """Empty host batch and lengths, pinned when the device is CUDA."""
+        pin = self.device.type == "cuda"
+        return (torch.empty((bsz, blen), dtype=dtype, pin_memory=pin),
+                torch.empty((bsz,), dtype=torch.int64, pin_memory=pin))
+
     def _assemble(self, waves, i16able, chunk, bsz, blen):
-        """Padded host batch (pinned when the device is CUDA) + lengths;
-        pad rows repeat the last file."""
+        """Padded host batch + lengths from decoded waveforms; pad rows
+        repeat the last file."""
         is_i16 = all(i16able[i] for i in chunk)
-        dtype = torch.int16 if is_i16 else torch.float32
-        host = torch.zeros(
-            (bsz, blen), dtype=dtype, pin_memory=self.device.type == "cuda"
-        )
-        batch = host.numpy()
-        lengths = np.empty((bsz,), np.int64)
+        host, lengths_t = self._host_batch(bsz, blen, torch.int16 if is_i16 else torch.float32)
+        batch, lengths = host.numpy(), lengths_t.numpy()
+        batch.fill(0)
         for row, i in enumerate(chunk):
             w = waves[i]
             if is_i16 and w.dtype != np.int16:
@@ -168,20 +247,47 @@ class EmbeddingEngine:
                 w = w.astype(np.float32) / PCM16_SCALE
             batch[row, : len(w)] = w
             lengths[row] = len(w)
-        for row in range(len(chunk), bsz):
-            batch[row] = batch[len(chunk) - 1]
-            lengths[row] = lengths[len(chunk) - 1]
-        return host, torch.from_numpy(lengths)
+        batch[len(chunk):] = batch[len(chunk) - 1]
+        lengths[len(chunk):] = lengths[len(chunk) - 1]
+        return host, lengths_t
+
+    def _submit(self, host: torch.Tensor, lengths: torch.Tensor, rows: int,
+                native_ingest: bool) -> torch.Tensor:
+        """Copy a host batch to the device and embed it; the first ``rows``
+        embeddings (the rest are padding)."""
+        nbytes = host.numel() * host.element_size()
+        with timed("engine.submit", items=rows, nbytes=nbytes):
+            wav = host.to(self.device, non_blocking=True)
+            if wav.dtype == torch.int16:
+                wav = wav.to(torch.float32) / PCM16_SCALE
+            emb = getattr(self.model, self.method)(wav, lengths.to(self.device, non_blocking=True))
+        self.batches += 1
+        self.transfer["h2d_bytes_int16" if host.dtype == torch.int16 else "h2d_bytes_f32"] += nbytes
+        self.transfer["native_batches" if native_ingest else "python_batches"] += 1
+        return emb[:rows]
+
+    def _collect(self, chunks, outs: list, n: int) -> torch.Tensor:
+        """The batches' embeddings back in input order: one stack of row
+        views queued on the device, with no index to copy over (a copy to
+        the device would wait for the forward). The caller's copy to the
+        host waits for the device."""
+        with timed("engine.collect", items=n):
+            rows = [None] * n
+            for (chunk, _, _), emb in zip(chunks, outs):
+                for i, row in zip(chunk, emb.unbind(0)):
+                    rows[i] = row
+            return torch.stack(rows)
+
+    def _empty(self) -> torch.Tensor:
+        width = self.model.emb_dim if self.method == "forward" else self.model.config.hidden_size
+        return torch.zeros((0, width), device=self.device)
 
     def embed_waves_device(self, waves: Sequence[np.ndarray]) -> torch.Tensor:
         """Embed 1-D waveforms (int16 or float32) -> [N, emb_dim] f32 on the
         device, in input order."""
         n = len(waves)
-        embed = getattr(self.model, self.method)
         if n == 0:
-            width = (self.model.emb_dim if self.method == "forward"
-                     else self.model.config.hidden_size)
-            return torch.zeros((0, width), device=self.device)
+            return self._empty()
         chunks = self.plan([len(w) for w in waves])
         with ThreadPoolExecutor(max_workers=8) as ex:
             i16able = list(ex.map(wave_i16able, waves))
@@ -192,16 +298,8 @@ class EmbeddingEngine:
             ]
             for (chunk, _bsz, _blen), fut in zip(chunks, futures):
                 host, lengths = fut.result()
-                wav = host.to(self.device, non_blocking=True)
-                if wav.dtype == torch.int16:
-                    wav = wav.to(torch.float32) / PCM16_SCALE
-                emb = embed(wav, lengths.to(self.device))
-                self.batches += 1
-                outs.append(emb[: len(chunk)])
-            perm = torch.tensor([i for c, _, _ in chunks for i in c], device=self.device)
-            inv = torch.empty_like(perm)
-            inv[perm] = torch.arange(n, device=self.device)
-            return torch.cat(outs).index_select(0, inv)
+                outs.append(self._submit(host, lengths, len(chunk), native_ingest=False))
+            return self._collect(chunks, outs, n)
 
     def embed_waves(self, waves: Sequence[np.ndarray]) -> np.ndarray:
         return self.embed_waves_device(waves).cpu().numpy()
@@ -210,11 +308,119 @@ class EmbeddingEngine:
         with ThreadPoolExecutor(max_workers=IO_THREADS) as ex:
             return list(ex.map(load_for_scoring, paths))
 
+    def prewarm(self, durations: Sequence[float] = (10.0,)) -> None:
+        """Embed one zero batch at each duration's full batch shape and at
+        tails of 1, 8 and 32 rows: loads the kernels (a kernel's first launch
+        in a process waits for the device), settles cuDNN's plans and the
+        allocator's pools before the first request. Counts no batch."""
+        with torch.inference_mode():
+            for sec in durations:
+                blen = bucket_length(int(round(float(sec) * TARGET_SR)))
+                full = self.batch_size_for(blen)
+                for bsz in sorted({full} | {min(t, full) for t in PREWARM_TAILS}):
+                    wav = torch.zeros((bsz, blen), device=self.device)
+                    lengths = torch.full((bsz,), blen, dtype=torch.int64, device=self.device)
+                    emb = getattr(self.model, self.method)(wav, lengths)
+                    torch.stack(emb.unbind(0))  # _collect's kernel, loaded before a request
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---------------- files ----------------
+
+    def _cache_key(self, path: str):
+        try:
+            st = os.stat(path)
+        except OSError:
+            return None  # unstatable: let the embed path report the error
+        return (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+
     def embed_files_device(self, paths: Sequence[str]) -> torch.Tensor:
-        return self.embed_waves_device(self.load_waves(paths))
+        """Files -> [N, emb_dim] f32 on the device, in input order. With
+        ``file_cache``, unchanged files reuse their earlier embedding (the
+        same bits: the forward is deterministic per file and batch shape);
+        only the misses are decoded and embedded, in batches of their own."""
+        paths = list(paths)
+        if self.file_cache is None or not paths:
+            return self._embed_files_uncached(paths)
+        keys = [self._cache_key(p) for p in paths]
+        # snapshot the hits before inserting: the inserts below may evict
+        # this request's own hits from a bounded cache
+        hits = {i: self.file_cache[k] for i, k in enumerate(keys)
+                if k is not None and k in self.file_cache}
+        self.cache_hits += len(hits)
+        missing = [i for i in range(len(paths)) if i not in hits]
+        fresh = {}
+        if missing:
+            emb = self._embed_files_uncached([paths[i] for i in missing])
+            for row, i in enumerate(missing):
+                fresh[i] = emb[row]
+                if keys[i] is not None:
+                    # a row of its own, so an evicted entry frees its memory
+                    self.file_cache[keys[i]] = emb[row].clone()
+        return torch.stack([hits[i] if i in hits else fresh[i] for i in range(len(paths))])
 
     def embed_files(self, paths: Sequence[str]) -> np.ndarray:
         return self.embed_files_device(paths).cpu().numpy()
+
+    def _embed_files_uncached(self, paths: list) -> torch.Tensor:
+        if not paths:
+            return self._empty()
+        emb = self._embed_files_native(paths)
+        if emb is not None:
+            return emb
+        return self.embed_waves_device(self.load_waves(paths))
+
+    def _embed_files_native(self, paths: list) -> Optional[torch.Tensor]:
+        """The native ingest path (counterpart of the JAX engine's
+        ``_embed_files_native``): probe every file, plan batches by the
+        predicted length at 16 kHz, keep files of other rates in batches of
+        their own (one resampling kernel bank per batch), and decode each
+        batch in the C++ thread pool into its pinned host batch: int16 when
+        every file of the batch is mono PCM16 at 16 kHz, f32 otherwise (a
+        FLAC file turns its batch f32). None when the library is
+        unavailable or a file cannot be probed: the Python path runs."""
+        if not native.available():
+            return None
+        infos = [native.native_probe(p) for p in paths]
+        if any(info is None for info in infos):
+            return None
+        rates = [info[0] for info in infos]
+        i16 = [sr == TARGET_SR and ch == 1 and bits == 16 and not is_float and not is_flac
+               for sr, _frames, ch, bits, is_float, is_flac in infos]
+        chunks = self.plan([predicted_length(sr, frames) for sr, frames, *_ in infos],
+                           groups=rates)
+        outs = []
+        with torch.inference_mode():
+            for chunk, bsz, blen in chunks:
+                k = len(chunk)
+                is_i16 = all(i16[i] for i in chunk)
+                host, lengths_t = self._host_batch(bsz, blen,
+                                                   torch.int16 if is_i16 else torch.float32)
+                batch, lengths = host.numpy(), lengths_t.numpy()
+                chunk_paths = [paths[i] for i in chunk]
+                with timed("engine.native_ingest", items=k):
+                    if is_i16:
+                        _, _, errs = native.native_load_batch_i16(
+                            chunk_paths, blen, TARGET_SR, IO_THREADS,
+                            out=batch[:k], lengths=lengths[:k])
+                    else:
+                        sr = rates[chunk[0]]
+                        _, _, errs = native.native_load_batch(
+                            chunk_paths, blen, TARGET_SR,
+                            expect_sr=0 if sr == TARGET_SR else sr, num_threads=IO_THREADS,
+                            out=batch[:k], lengths=lengths[:k])
+                for row, i in enumerate(chunk):
+                    if errs[row] != 0:  # a file the C++ path refused: decode it in Python
+                        w = load_processing(paths[i])[0][:blen]
+                        if is_i16:
+                            w = np.clip(np.round(w * PCM16_SCALE), -32768, 32767).astype(np.int16)
+                        batch[row] = 0
+                        batch[row, : len(w)] = w
+                        lengths[row] = len(w)
+                batch[k:] = batch[k - 1]
+                lengths[k:] = lengths[k - 1]
+                outs.append(self._submit(host, lengths_t, k, native_ingest=True))
+            return self._collect(chunks, outs, len(paths))
 
 
 def list_dir_files(path: str) -> list[str]:

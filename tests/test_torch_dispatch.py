@@ -95,12 +95,25 @@ def test_dispatcher_routes_experiments_and_aliases(tmp_path, monkeypatch, script
     assert FakeTraining.calls == [("init", path, "cpu"), (method,) + args]
 
 
-@pytest.mark.parametrize("script", sorted(dispatch.NOT_PORTED))
-def test_dispatcher_refuses_the_scripts_not_ported(tmp_path, script):
+SMOKE_SCRIPTS = ["nomad_tpu.smoke", "src.nomad_ar.nomad_score_test",
+                 "src.nomad_audio.nomad_score_test"]
+
+
+@pytest.mark.parametrize("script", SMOKE_SCRIPTS)
+def test_dispatcher_refuses_the_scripts_not_ported(tmp_path, monkeypatch, script):
+    """The smoke scripts, once refused as not ported, now run the port's
+    smoke runner with the config and the device, as the JAX dispatcher runs
+    ``nomad_tpu.smoke.run(config)``; no script is refused any more."""
+    from nomad_tpu_torch import smoke
+
+    calls = []
+    monkeypatch.setattr(smoke, "run", lambda config, device=None: calls.append((config, device)))
+    cfg = {"experiment_name": "Test pip", "training_script": script}
     path = str(tmp_path / "c.yaml")
-    config_io.dump({"experiment_name": "Test pip", "training_script": script}, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        dispatch.run(path)
+    config_io.dump(cfg, path)
+    dispatch.run(path, device="cpu")
+    assert calls == [(cfg, "cpu")]
+    assert not hasattr(dispatch, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("script", ["nomad_tpu.training.se", "src.nomad_audio.nomad_loss_test"])

@@ -208,8 +208,11 @@ def test_wav_and_resample_copies_bit_identical(tmp_path):
             assert np.array_equal(a, b)
     bad = tmp_path / "bad.wav"
     bad.write_bytes(b"fLaC" + bytes(40))
-    with pytest.raises(tio.UnsupportedAudioError, match="FLAC"):
+    # FLAC decodes now: a truncated stream fails as it does in the JAX package
+    with pytest.raises(tio.FlacFormatError, match="unexpected end"):
         tio.load_for_scoring(str(bad))
+    with pytest.raises(ValueError, match="unexpected end"):
+        jio.load_for_scoring(str(bad))
     bad.write_bytes(b"junk" * 10)
     with pytest.raises(tio.UnsupportedAudioError):
         tio.load_for_scoring(str(bad))

@@ -1,7 +1,8 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py [--only-loss | --only-train | --only-se | --only-serve]
+    python3 chip_smoke.py [--only-loss | --only-train | --only-se | --only-serve |
+                           --only-precision]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -80,7 +81,23 @@ Phases, each fatal on failure:
      FLAC twins against their WAVs, the loss against the plain path, the
      .pt-loaded weights against the npz-loaded ones, and one profiled
      cold score;
-  9. the kernels' JSON line, the card line, and the last line
+  9. the precision modes: K1b (the "default" flavour of K1: bf16
+     products on the tensor cores, f32 softmax) against its plain version
+     at [96, 511] (lengths to 499), [32, 50], a ragged [8, 4095] and every
+     tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}, with NaN past each
+     bound and a 0-key row, held to exact attention in float64 and timed
+     beside SDPA on bf16 tensors; then ``Nomad(precision=...)`` in
+     "exact", "balanced" and "fast" on the same seeded BASE weights over
+     phase 4's 108 files (launches: K1 24 or K1b 24, K5 52), each mode's
+     pairwise delta against "exact" there and on a pause-heavy stress set
+     of 48 + 16 10 s files, warm predict and device pass throughput, peak
+     memory, one profiled pass per mode; the card's routes of a bf16
+     island (fc1, the positional conv) at full width against their plain
+     versions and a float64 sum; each mode's embeddings of 4 stress files
+     on the card against the same mode on the CPU, with the kernels and
+     with the plain attention; and one ``serve --precision balanced``
+     process;
+ 10. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
@@ -88,8 +105,8 @@ JSON object on the line that starts with "report: ". ``--only-loss`` runs
 phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
 newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
-``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8, each ending
-with the report line.
+``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
+``--only-precision`` phases 1, 2 and 9, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -117,7 +134,8 @@ from nomad_tpu_torch.convert.fairseq_synth import write_nomad_checkpoint
 from nomad_tpu_torch.io import native, read_wav, write_wav
 from nomad_tpu_torch.io.flac_encode import write_flac
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights, wav2vec2
-from nomad_tpu_torch.ops import _build, flash_attention, fused_attention, layernorm
+from nomad_tpu_torch.ops import _build, cdist, flash_attention, fused_attention, layernorm
+from nomad_tpu_torch.ops import precision as prec_ops
 from nomad_tpu_torch.scoring.engine import EmbeddingEngine, EmbeddingLRU
 from nomad_tpu_torch.serve import NomadServer
 from nomad_tpu_torch.training import SpeechEnhancement, Training
@@ -126,9 +144,10 @@ from nomad_tpu_torch.utils import config as config_io
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (at the 700 W limit): HBM rate, f32 without
-# tensor cores ("exact" forbids TF32)
+# tensor cores ("exact" forbids TF32), dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SR = 16000
 N_NMR, N_DEG, SECONDS = 8, 100, 10.0
 # the SE demo's crop at its training batch (reference nomad_loss_test.py:196,
@@ -182,6 +201,19 @@ N_SERVE = N_NMR + N_DEG + len(SERVE_TWINS)
 SERVE_KEYS = ("ping", "score", "score_repeat", "embed", "loss", "stats", "shutdown")
 SERVE_TIMEOUT_S = 600
 PEAK_SCORING_GB = 13.375
+# the precision modes: the pairwise score delta against "exact" is
+# reported against the scores' 1e-3 budget (BASELINE.md) and fails beyond
+# ten times it, which only a fault can reach on seeded weights; the peak
+# memory of a mode may exceed "exact"'s by 0.1 GB; the stress set of the
+# JAX package's precision studies (scripts/precision_ladder.py)
+MODES = ("exact", "balanced", "fast")
+DELTA_BUDGET, DELTA_FAULT, MODE_PEAK_SLACK_GB = 1e-3, 1e-2, 0.1
+# a "default" island's card route vs the float64 sum of its bf16 operands,
+# relative to max |y|: f32 sums of <= 6,144 products; the stress files
+# whose embeddings each mode compares on the card and on the CPU, and the
+# share of a mode's distance to "exact" that the two may differ by
+ROUTE_TOL, MODES_VS_PLAIN_FILES, MODE_PLAIN_FRAC = 1e-5, 4, 0.5
+STRESS_DEG, STRESS_NMR = 48, 16
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -229,8 +261,8 @@ def device_kernels(fn) -> dict:
     return dict(sorted(names.items(), key=lambda x: -x[1]))
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -278,7 +310,8 @@ def build_kernels() -> None:
     # resident blocks per SM (and K4's clusters on the card) at each
     # kernel's shared memory, from the CUDA occupancy API
     occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
-                                   "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
+                                   "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
+           "flash_attention_bf16_fwd": {"blocks_per_sm": flash_attention.flash_bf16_occupancy()}}
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
             blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"])
@@ -326,12 +359,13 @@ def check_layernorm(rows: int, width: int, g: torch.Generator) -> dict:
     return res
 
 
-def flash_bound(b: int, t: int, h: int, d: int, lengths: torch.Tensor) -> tuple[float, str]:
+def flash_bound(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
+                peak_flops: float = F32_FLOPS) -> tuple[float, str]:
     """All T query rows are written; keys past lengths[b] are never read."""
     keys = int(lengths.sum())
     flops = 4.0 * h * d * t * keys
     nbytes = 4.0 * (2 * b * t * h * d + 2 * keys * h * d + b * h * t + b)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, peak_flops)
 
 
 def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
@@ -629,11 +663,12 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
+    ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("layernorm_fwd", ("layernorm_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
-    ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere", "nvjet")),
 )
 
 
@@ -701,19 +736,22 @@ def profile_run(fn, key: str, split=None) -> None:
 def reset_launches() -> None:
     flash_attention.launches = flash_attention.launches_bwd_dq = 0
     flash_attention.launches_bwd_dkv = layernorm.launches = fused_attention.launches = 0
+    flash_attention.launches_bf16 = 0
 
 
 def read_launches() -> dict:
     return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bf16_fwd": flash_attention.launches_bf16,
             "flash_attention_bwd_dq": flash_attention.launches_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention.launches_bwd_dkv,
             "fused_qkv_attention_fwd": fused_attention.launches,
             "layernorm_fwd": layernorm.launches}
 
 
-def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0) -> dict:
-    return {"flash_attention_fwd": k1, "flash_attention_bwd_dq": k2,
-            "flash_attention_bwd_dkv": k3, "fused_qkv_attention_fwd": k4, "layernorm_fwd": k5}
+def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0) -> dict:
+    return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
+            "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
+            "fused_qkv_attention_fwd": k4, "layernorm_fwd": k5}
 
 
 def plain_config() -> Wav2Vec2Config:
@@ -1815,6 +1853,340 @@ def run_serve_in_process(card: str, tree: dict, root: Path, base: dict, out: dic
     profile_run(cold_score, "profile_serve_score")
 
 
+# ---------------- phase 9: the precision modes ----------------
+
+
+def attention_f64(q, k, v, lengths):
+    """Exact masked attention in float64, the oracle of K1b and of its
+    plain version: keys past each bound ignored, a row with no key 0."""
+    t, d = q.shape[1], q.shape[3]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]
+    kd = torch.where(valid[:, :, None, None], k, 0.0).double()
+    vd = torch.where(valid[:, :, None, None], v, 0.0).double()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() / d**0.5, kd)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vd)
+
+
+def check_flash_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                     kernel_time: bool = True) -> dict:
+    """K1b against flash_attention_ref(..., "default") on the card, NaN in k
+    and v past each bound: every row finite; LSE within K1's tolerance of
+    the plain one; O no further from exact float64 attention than 1.5 x the
+    plain version's distance + 1e-6 (the kernel rounds p against the
+    running maximum, the plain version against the final one: the same
+    bf16 error class, other bits) and no nearer than half of it (it does
+    round); a 0-key row O = 0, LSE = -1e30; a rerun the same bits. ``timed``: the plain version and SDPA on bf16 copies of
+    q, k, v (the yardstick) too."""
+    h, d = 12, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    torch.cuda.synchronize()
+    err = err_f64 = err_plain_f64 = err_lse = 0.0
+    excess = float("-inf")  # max of |O - O_f64| - (1.5 |O_plain - O_f64| + 1e-6): > 0 fails
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        ro, rlse = flash_attention.flash_attention_ref(q[sl], k[sl], v[sl], lens[sl], "default")
+        exact = attention_f64(q[sl], k[sl], v[sl], lens[sl])
+        e = (o[sl].double() - exact).abs().max().item()
+        ep = (ro.double() - exact).abs().max().item()
+        excess = max(excess, e - (1.5 * ep + 1e-6))
+        err = max(err, (o[sl] - ro).abs().max().item())
+        err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
+        err_lse = max(err_lse, (lse[sl] - rlse).abs().max().item())
+        del ro, rlse, exact
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    empty_ok = all(bool((o[i] == 0).all() and (lse[i] == flash_attention.NEG_INF).all())
+                   for i, n in enumerate(lengths) if n == 0)
+    again = flash_attention.mha_flash(q, k, v, lens, "default")
+    same_bits = torch.equal(again[0], o) and torch.equal(again[1], lse)
+    del again
+    rounds = err_f64 >= 0.5 * err_plain_f64
+    if not (finite and empty_ok and same_bits and rounds) or excess > 0 or err_lse > TOL_FLASH:
+        fail(f"flash bf16 [{b}, {t}, {h}, {d}] finite={finite} 0-key rows={empty_ok} rerun same "
+             f"bits={same_bits}; max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
+             f"{err_plain_f64:.3g} + 1e-6 by {excess:.3g}, or under half of it; LSE max|d| "
+             f"{err_lse:.3g} (<= {TOL_FLASH})")
+    b_ms, b_by = flash_bound(b, t, h, d, lens, BF16_FLOPS)
+    res = {"shape": [b, t, h, d], "lengths_sum": int(lens.sum()), "max_abs_err": err,
+           "max_abs_err_vs_f64": err_f64, "plain_max_abs_err_vs_f64": err_plain_f64,
+           "lse_max_abs_err": err_lse, "bound_ms": b_ms, "bound_by": b_by}
+    if kernel_time:
+        res["ms"] = time_ms(lambda: flash_attention.mha_flash(q, k, v, lens, "default"),
+                            10 if t > 1024 else 30)
+    if timed:
+        mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+        qb, kb, vb = (x.nan_to_num(0.0).transpose(1, 2).to(torch.bfloat16) for x in (q, k, v))
+        res["plain_ms"] = time_ms(
+            lambda: flash_attention.flash_attention_ref(q, k, v, lens, "default"), 5)
+        res["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), 10)
+    print(f"  flash bf16 [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: vs plain max|d| {err:.3g}, "
+          f"vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}), LSE {err_lse:.3g}; kernel "
+          f"{res.get('ms', float('nan')):.4f} ms  plain {res.get('plain_ms', float('nan')):.4f}  "
+          f"sdpa bf16 {res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})",
+          flush=True)
+    return res
+
+
+def check_flash_bf16_shapes() -> None:
+    g = torch.Generator().manual_seed(9)
+    rng = np.random.default_rng(9)
+    # the scoring shape as phase 3 holds K1 there: 499 valid frames of 511,
+    # a few rows ragged down to 1 key, one full row, one row with no key
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    res = {"main": check_flash_bf16(96, 511, main_lens, g, timed=True),
+           "loss": check_flash_bf16(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
+           "long": check_flash_bf16(8, 4095, [4095, 4000, 3001, 2048, 1025, 513, 64, 0], g,
+                                    timed=False)}
+    # every edge of the 16-row warp tiles, 64-row blocks and 64-key tiles
+    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+        res[f"edge_T{t}"] = check_flash_bf16(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                             kernel_time=False)
+    report["kernels"]["flash_attention_bf16_fwd"] = res
+
+
+def speechish(n: int, seed: int) -> list:
+    """Pause-heavy pitch-modulated harmonics, 10 s each (a copy of
+    ``scripts/precision_ladder.py::speechish``, unpadded): the material on
+    which the JAX package's precision studies found mixed-precision error
+    largest."""
+    out = []
+    t = np.arange(int(SR * SECONDS)) / SR
+    for i in range(n):
+        r = np.random.default_rng(seed * 1000 + i)
+        f0 = 90 + 80 * r.random()
+        ph = np.cumsum(2 * np.pi * f0 * (1 + 0.08 * np.sin(2 * np.pi * 2.7 * t)) / SR)
+        x = sum(np.sin(k * ph) / k for k in range(1, 5))
+        env = np.clip(np.sin(2 * np.pi * (0.6 + 0.6 * r.random()) * t + 6 * r.random()), 0, 1)
+        out.append((0.2 * x * env + 0.01 * r.standard_normal(t.shape)).astype(np.float32))
+    return out
+
+
+def pairwise_delta(emb: torch.Tensor, exact: torch.Tensor, test: slice, nmr: slice) -> float:
+    """max |d| of the degraded x NMR distance matrix against "exact"'s: the
+    metric of ``bench.py``'s parity leg."""
+    return (cdist(emb[test], emb[nmr]) - cdist(exact[test], exact[nmr])).abs().max().item()
+
+
+def routes_vs_plain(sd: dict) -> dict:
+    """The card's routes of a "default" island (ops/precision.py) at full
+    width on the seeded BASE weights, against the plain version on the CPU
+    and a float64 sum of the same bf16-rounded operands: fc1 of block 0 on
+    4,096 rows and the positional conv on [2, 768, 511]. Each is one bf16
+    pass with f32 sums, so the card's and the plain version's distance to
+    the float64 sum, relative to its max |y|, is f32 summation order and
+    fails beyond ROUTE_TOL; an output rounded to bf16 would be ~1e-3."""
+    g = torch.Generator().manual_seed(5)
+    w1, b1 = (sd[f"backbone.encoder.layers.0.fc1.{n}"] for n in ("weight", "bias"))
+    wc, bc = (sd[f"backbone.encoder.pos_conv.conv.{n}"] for n in ("weight", "bias"))
+    x1, xc = torch.randn(4096, 768, generator=g), torch.randn(2, 768, 511, generator=g)
+    kw = {"padding": wc.shape[-1] // 2, "groups": 768 // wc.shape[1]}
+
+    def f64(t):
+        return prec_ops.round_bf16(t).double()
+
+    cases = {
+        "linear_fc1": (lambda dev: prec_ops.linear(x1.to(dev), w1.to(dev), b1.to(dev), "default"),
+                       lambda: F.linear(f64(x1), f64(w1), b1.double())),
+        "conv1d_posconv": (
+            lambda dev: prec_ops.conv1d(xc.to(dev), wc.to(dev), bc.to(dev), "default", **kw),
+            lambda: F.conv1d(f64(xc), f64(wc), bc.double(), **kw)),
+    }
+    res = {}
+    for name, (route, oracle) in cases.items():
+        exact = oracle()
+        scale = exact.abs().max().item()
+        card = (route(DEV).cpu().double() - exact).abs().max().item() / scale
+        plain = (route(torch.device("cpu")).double() - exact).abs().max().item() / scale
+        res[name] = {"card_rel_err": card, "plain_rel_err": plain}
+        print(f"precision route {name}: max|y - y_f64| / max|y_f64| card {card:.3g}, plain "
+              f"(CPU) {plain:.3g} (<= {ROUTE_TOL})", flush=True)
+        if max(card, plain) > ROUTE_TOL:
+            fail(f"precision route {name}: card {card:.3g} or plain {plain:.3g} from the float64 "
+                 f"sum of the bf16 operands (> {ROUTE_TOL} of max|y|)")
+    return res
+
+
+def modes_vs_plain(sd: dict, waves: list) -> dict:
+    """Each mode's embeddings of a few stress files on the card against the
+    same mode's plain version on the CPU (the same state dict and
+    ``attention_impl``): with the card's kernels ('kernel': K1 or K1b, K5)
+    and with the plain attention and LayerNorm on the card ('ref': only
+    ops/precision.py's card routes differ from the CPU). "exact" differs by
+    f32 summation order and fails beyond 1e-6. In a bf16 mode an operand
+    that f32 order moves across a rounding boundary rounds the other way,
+    and the next blocks carry that on, so a mode fails beyond
+    MODE_PLAIN_FRAC of its own distance to "exact" on the card: what a
+    misplaced or missing island would move."""
+    wav = torch.from_numpy(np.stack(waves))
+    lengths = torch.full((len(waves),), wav.shape[1])
+    res, card_emb = {}, {}
+    for mode in MODES:
+        for impl in ("kernel", "ref"):
+            cfg = getattr(Wav2Vec2Config, "base" if mode == "exact" else mode)(attention_impl=impl)
+            model = NomadModel(cfg, emb_dim=256)
+            model.load_state_dict(sd)
+            with torch.inference_mode():
+                cpu = model.eval()(wav, lengths)
+                card = model.to(DEV)(wav.to(DEV), lengths.to(DEV)).cpu()
+            del model
+            card_emb[mode, impl] = card
+            res[f"{mode}_{impl}"] = {"card_vs_plain": (card - cpu).abs().max().item()}
+    for (mode, impl), emb in card_emb.items():
+        r = res[f"{mode}_{impl}"]
+        r["card_vs_exact"] = (emb - card_emb["exact", impl]).abs().max().item()
+        limit = 1e-6 if mode == "exact" else MODE_PLAIN_FRAC * r["card_vs_exact"]
+        print(f"precision modes: {mode} ({impl}) on {len(waves)} stress files: card vs plain "
+              f"(CPU) max|d emb| {r['card_vs_plain']:.3g} (<= {limit:.3g}); vs exact on the "
+              f"card {r['card_vs_exact']:.3g}", flush=True)
+        if not r["card_vs_plain"] <= limit:
+            fail(f"{mode} ({impl}): card vs plain embeddings {r['card_vs_plain']:.3g} > {limit:.3g}")
+    return res
+
+
+def run_mode(card: str, mode: str, sd: dict, tmp: Path, nmr: str, deg: str,
+             stress: list) -> dict:
+    """One mode on phase 4's files: ``predict`` with its launch counts,
+    three warm predicts, three device passes, the stress set, peak memory
+    and one profiled pass. Returns its embeddings and numbers."""
+    total_s = (N_NMR + N_DEG) * SECONDS
+    leftover_gb = settled_allocated_gb()
+    nomad = Nomad(device="cuda", precision=mode, params=sd)
+    out = tmp / f"results_{mode}"
+    out.mkdir()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, dm = nomad.predict("dir", nmr, deg, str(out))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = nomad.engine.batches
+    report["launches"][f"scoring_{mode}"] = counts
+    blocks = 12 * batches
+    want = launches_want(k5=26 * batches, **({"k1": blocks} if mode == "exact" else {"k1b": blocks}))
+    if counts != want or batches == 0:
+        fail(f"{mode}: launch counts {counts} for {batches} batches (want {want})")
+    check_csvs(out, f"{mode} API")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nomad.predict("dir", nmr, deg, str(out))
+        warm.append(time.perf_counter() - t0)
+    paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+    waves = nomad.engine.load_waves([str(p) for p in paths])
+    emb, passes = timed_passes(nomad, waves)
+    stress_emb = nomad.engine.embed_waves_device(stress)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pred_s, pass_s = float(np.median(warm)), float(np.median(passes))
+    res = {"files": N_NMR + N_DEG, "batches": batches, "predict_warm_s": warm, "pass_s": passes,
+           "wav_s_per_s_predict": total_s / pred_s, "wav_s_per_s_pass": total_s / pass_s,
+           "peak_mem_gb": peak_gb, "leftover_mem_gb": leftover_gb,
+           "own_peak_mem_gb": peak_gb - leftover_gb, "card": card}
+    finite = bool(torch.isfinite(emb).all() and torch.isfinite(stress_emb).all()) and bool(
+        np.isfinite(dm.values).all())
+    if not finite:
+        fail(f"{mode}: non-finite embeddings or scores")
+    print(f"{mode}: launches {counts}; warm predict {pred_s:.3f} s = {total_s / pred_s:.1f} "
+          f"wav-s/s; device pass {pass_s:.3f} s = {total_s / pass_s:.1f} wav-s/s; own peak "
+          f"memory {res['own_peak_mem_gb']:.5f} GB  [{card}]", flush=True)
+    profile_run(lambda: nomad.engine.embed_waves_device(waves), f"profile_{mode}")
+    res["scores"] = dm.values
+    del nomad
+    return res | {"emb": emb, "stress_emb": stress_emb}
+
+
+def serve_in_mode(tmp: Path, nmr: str, deg: str, mode: str) -> dict:
+    """One ``python -m nomad_tpu_torch.serve --precision <mode>`` process
+    (the seeded init, as in this phase) sent ping, score, stats and
+    shutdown: every stdout line JSON, every answer ok, exit 0, ``stats``
+    naming the mode."""
+    reqs = [{"op": "ping"}, {"op": "score", "nmr": nmr, "deg": deg, "results_path": None},
+            {"op": "stats"}, {"op": "shutdown"}]
+    cwd = tmp / f"serve_{mode}"
+    cwd.mkdir()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu_torch.serve", "--precision", mode],
+        input="\n".join(json.dumps(r) for r in reqs) + "\n", capture_output=True, text=True,
+        timeout=SERVE_TIMEOUT_S, cwd=cwd, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall = time.perf_counter() - t0
+    try:
+        resps = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    except json.JSONDecodeError:
+        fail(f"serve --precision {mode}: a stdout line is not JSON:\n{proc.stdout[:2000]}")
+    if proc.returncode != 0 or [r.get("ok") for r in resps] != [True] * len(reqs) \
+            or resps[2].get("precision") != mode:
+        fail(f"serve --precision {mode}: exit {proc.returncode}, answers "
+             f"{[str(r)[:200] for r in resps]}; stderr:\n{proc.stderr[-3000:]}")
+    print(f"serve --precision {mode}: {len(resps)} JSON answers, stats precision "
+          f"{resps[2]['precision']!r}, exit 0, {wall:.1f} s", flush=True)
+    return {"wall_s": wall, "scores": np.array([[r[c] for c in r if c != "Test File"]
+                                                for r in resps[1]["pairwise"]])}
+
+
+def run_precision(card: str) -> None:
+    """Phase 9: K1b against its plain version at its shapes, then scoring
+    in the three modes on one set of seeded BASE weights, then the
+    service in "balanced"."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    print("precision modes: K1b vs its plain version on the card:", flush=True)
+    check_flash_bf16_shapes()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_modes_") as tmp:
+        tmp = Path(tmp)
+        nmr, deg = write_wavs(tmp)
+        stress = speechish(STRESS_DEG, 1) + speechish(STRESS_NMR, 2)
+        weights = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0)
+        sd = weights.state_dict()  # Nomad's own seeded init, once for the three modes
+        del weights
+        out["routes_vs_plain"] = routes_vs_plain(sd)
+        res = {mode: run_mode(card, mode, sd, tmp, nmr, deg, stress) for mode in MODES}
+        exact = res["exact"]
+        for mode in MODES:
+            r = res[mode]
+            # phase 4's files are NMR first; the stress set degraded first
+            r["pairwise_delta"] = pairwise_delta(r["emb"], exact["emb"], slice(N_NMR, None),
+                                                 slice(0, N_NMR))
+            r["stress_pairwise_delta"] = pairwise_delta(
+                r["stress_emb"], exact["stress_emb"], slice(0, STRESS_DEG),
+                slice(STRESS_DEG, None))
+            r["in_budget"] = max(r["pairwise_delta"], r["stress_pairwise_delta"]) <= DELTA_BUDGET
+        out["modes_vs_plain"] = modes_vs_plain(sd, stress[:MODES_VS_PLAIN_FILES])
+        served = serve_in_mode(tmp, nmr, deg, "balanced")
+        d_served = float(np.abs(served["scores"] - res["balanced"]["scores"]).max())
+        out["serve_balanced"] = {"wall_s": served["wall_s"], "vs_in_process_max_abs": d_served}
+    for mode in MODES:
+        r = res[mode]
+        out[mode] = {k: v for k, v in r.items() if k not in ("emb", "stress_emb", "scores")}
+        print(f"{mode}: pairwise delta vs exact {r['pairwise_delta']:.3g} (108 files), "
+              f"{r['stress_pairwise_delta']:.3g} (stress set); in budget (<= {DELTA_BUDGET}): "
+              f"{r['in_budget']}; {r['wav_s_per_s_pass']:.1f} wav-s/s device pass, "
+              f"{r['wav_s_per_s_predict']:.1f} warm predict; own peak "
+              f"{r['own_peak_mem_gb']:.5f} GB  [{card}]", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["precision_modes"] = out
+    print(f"precision modes: served balanced scores vs in process max|d| {d_served:.3g}; "
+          f"phase 9 took {out['phase_s']:.1f} s", flush=True)
+    worst = max(max(res[m]["pairwise_delta"], res[m]["stress_pairwise_delta"]) for m in MODES)
+    if worst > DELTA_FAULT:
+        fail(f"a mode's pairwise delta vs exact {worst:.3g} > {DELTA_FAULT}")
+    if d_served > 1e-3:  # one step of the CSVs' 3-decimal rounding
+        fail(f"serve --precision balanced: scores {d_served:.3g} from the in-process ones")
+    for mode in ("balanced", "fast"):
+        over = res[mode]["own_peak_mem_gb"] - exact["own_peak_mem_gb"]
+        if over > MODE_PEAK_SLACK_GB:
+            fail(f"{mode}: own peak memory {over:.3f} GB over exact's (> {MODE_PEAK_SLACK_GB})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
@@ -1826,13 +2198,16 @@ def main() -> None:
                       help="phases 1 and 7 only; ends with the report line")
     only.add_argument("--only-serve", action="store_true",
                       help="phases 1 and 8 only; ends with the report line")
+    only.add_argument("--only-precision", action="store_true",
+                      help="phases 1, 2 and 9 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
     alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se,
-             "only_serve": run_serve}
+             "only_serve": run_serve,
+             "only_precision": lambda card: (build_kernels(), run_precision(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -1846,10 +2221,13 @@ def main() -> None:
     run_trainer(card)
     run_se(card)
     run_serve(card)
+    run_precision(card)
 
     rows = []
     for name, src, replaces in (
         ("flash_attention_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
+         "nomad_tpu/ops/flash_attention.py:37"),
+        ("flash_attention_bf16_fwd", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
         ("flash_attention_bwd_dq", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
          "nomad_tpu/ops/flash_attention.py:182"),

@@ -20,9 +20,17 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
     that the scoring head is random; else a seeded init with a loud warning
     (scores then differ from the published model). After a ``.pt`` load
     the cache is written, in the JAX layout, so either package reads it.
-  * Precision: only ``'exact'``, f32 with TF32 off for both cuBLAS matmuls
-    and cuDNN convolutions (the cuDNN flag defaults to on and would reach
-    the conv frontend).
+  * Precision: ``'exact'`` (the default), f32 with TF32 off for both
+    cuBLAS matmuls and cuDNN convolutions (the cuDNN flag defaults to on
+    and would reach the conv frontend). ``'balanced'`` and ``'fast'`` build
+    ``Wav2Vec2Config.balanced()`` and ``.fast()``, the JAX package's
+    recipes: one bf16 pass (bf16 operands, f32 accumulation) on their
+    islands (``ops/precision.py``), the attention products in kernel K1b.
+    They serve scoring, embeddings and the forward-only loss; a loss that
+    needs a gradient raises. An explicit ``config`` wins over
+    ``precision``, as in the JAX package. The JAX package defaults to
+    ``'balanced'``; the port keeps ``'exact'``, its parity anchor, until
+    a benchmark cell can judge the switch (ROADMAP).
   * Attention: ``config=Wav2Vec2Config.base(attention_impl="fused_qkv")``
     selects the projection-fused path (kernel K4 for inputs of up to
     1,024 frames, ~20 s of audio) for both ``predict`` and ``forward``;
@@ -41,6 +49,7 @@ import torch
 
 from .convert import convert_checkpoint, jax_to_state_dict, merge_into, state_dict_to_jax
 from .models import NomadModel, Wav2Vec2Config, init_weights, nomad_loss
+from .models.wav2vec2 import PRECISION_ISLANDS
 from .ops import cdist
 from .scoring.csvio import ResultTable, build_result_tables, write_results
 from .scoring.engine import EmbeddingEngine, list_dir_files
@@ -48,7 +57,6 @@ from .scoring.engine import EmbeddingEngine, list_dir_files
 W2V_FILENAME = "wav2vec_small.pt"
 NOMAD_FILENAME = "nomad_best_model.pt"
 CACHE_FILENAME = "nomad_tpu_params.npz"
-PRECISIONS_LATER = ("balanced", "fast")
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -66,9 +74,18 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
 
 
 def set_exact_precision() -> None:
-    """f32 everywhere: no TF32 in cuBLAS matmuls nor cuDNN convolutions."""
+    """f32 where an island asks for f32: no TF32 in cuBLAS matmuls nor
+    cuDNN convolutions, in every mode; and bf16 products (the "default"
+    islands) reduce in f32, never in bf16, across split-K."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISION_ISLANDS:
+        raise ValueError(
+            f"unknown precision {precision!r}: expected one of {tuple(PRECISION_ISLANDS)}")
 
 
 class Nomad:
@@ -81,16 +98,10 @@ class Nomad:
         params: Optional[dict] = None,
         precision: str = "exact",
     ):
-        if precision in PRECISIONS_LATER:
-            raise ValueError(
-                f"precision {precision!r} is not ported yet (ROADMAP Queue 1, "
-                "'Precision modes on Hopper'); use 'exact'"
-            )
-        if precision != "exact":
-            raise ValueError(f"unknown precision {precision!r}: expected 'exact'")
+        check_precision(precision)
         self.device = resolve_device(device)
         set_exact_precision()
-        self.config = config or Wav2Vec2Config.base()
+        self.config = config or Wav2Vec2Config.base(**PRECISION_ISLANDS[precision])
         self.emb_dim = emb_dim
         self.weights_dir = weights_dir
         self._params = params  # a port state_dict, or None: resolve lazily

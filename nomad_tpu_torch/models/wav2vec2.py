@@ -31,6 +31,17 @@ takes on the card:
 Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
 with 'ref'.
 
+Precision islands, as the JAX package places them: the conv frontend
+and ``post_extract_proj`` at ``frontend_prec``, the positional conv at
+``posconv_prec``; in each block the attention products at
+``attn_score_prec`` (K1b on the card at "default"), fc1 at ``ffn1_prec``,
+the q/k/v/out projections and fc2 at ``encoder_prec``.
+``ops/precision.py`` says what each value means on the card; "high" and
+"highest" are today's f32 ("exact"), bit for bit.
+``Wav2Vec2Config.balanced()`` and ``.fast()`` are the JAX package's
+recipes. A bf16 island is forward-only (scoring and the forward-only
+loss): dropout and gradients under one raise.
+
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
 attention output, after the FFN's GELU (``activation_dropout``) and after
@@ -52,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import precision as prec_ops
 from ..ops.attention import dropout, mha, mha_dropout
 from ..ops.fused_attention import fused_qkv_attention
 from ..ops.layernorm import layer_norm
@@ -60,6 +72,17 @@ ATTENTION_IMPLS = ("kernel", "fused_qkv", "ref")
 LAYERNORM_IMPLS = ("kernel", "ref")
 REMAT_POLICIES = ("full", "dots")
 SEED_BOUND = 1 << 62  # seeds drawn for the frontend's and each block's masks
+# the islands' fields, outermost first
+ISLAND_FIELDS = ("frontend_precision", "encoder_precision", "attn_score_precision",
+                 "ffn1_precision", "posconv_precision")
+# the JAX package's recipes (nomad_tpu/models/wav2vec2.py:191-226):
+# "balanced" (round-4 recipe C1) runs the positional conv, the attention
+# products and fc1 in one bf16 pass; "fast" the whole encoder, with the
+# frontend at "high"
+BALANCED_ISLANDS = {"posconv_precision": "default", "attn_score_precision": "default",
+                    "ffn1_precision": "default"}
+FAST_ISLANDS = {"frontend_precision": "high", "encoder_precision": "default"}
+PRECISION_ISLANDS = {"exact": {}, "balanced": BALANCED_ISLANDS, "fast": FAST_ISLANDS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +113,42 @@ class Wav2Vec2Config:
     # holding the kernel paths against them on the card.
     attention_impl: str = "kernel"
     layernorm_impl: str = "kernel"
+    # precision of the products and convolutions, per island as in the JAX
+    # package: "highest" | "high" (f32 on the card) | "default" (one bf16
+    # pass); ops/precision.py maps them. None inherits the enclosing
+    # island; the frontend and the encoder are "high". The islands that
+    # the "balanced" and "fast" recipes set, and only those, are ported.
+    frontend_precision: str | None = None  # conv frontend, feature projection, pos-conv
+    encoder_precision: str | None = None  # every product of the blocks
+    attn_score_precision: str | None = None  # the attention's two products
+    ffn1_precision: str | None = None
+    posconv_precision: str | None = None
+
+    @property
+    def frontend_prec(self):
+        return self.frontend_precision or "high"
+
+    @property
+    def encoder_prec(self):
+        return self.encoder_precision or "high"
+
+    @property
+    def attn_score_prec(self):
+        return self.attn_score_precision or self.encoder_prec
+
+    @property
+    def ffn1_prec(self):
+        return self.ffn1_precision or self.encoder_prec
+
+    @property
+    def posconv_prec(self):
+        return self.posconv_precision or self.frontend_prec
+
+    @property
+    def any_bf16(self) -> bool:
+        """Whether any product runs in the single bf16 pass ("default")."""
+        return "default" in (self.frontend_prec, self.encoder_prec, self.attn_score_prec,
+                             self.ffn1_prec, self.posconv_prec)
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -114,10 +173,26 @@ class Wav2Vec2Config:
             raise NotImplementedError(
                 "remat_policy='dots' is not ported yet (ROADMAP Queue 1 item 5); use 'full'"
             )
+        for name in ISLAND_FIELDS:
+            prec_ops.check(getattr(self, name), name, allow_none=True)
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
         return cls(**kw)
+
+    @classmethod
+    def balanced(cls, **kw) -> "Wav2Vec2Config":
+        """The JAX package's scoring default (round-4 recipe C1): one bf16
+        pass on the positional conv, the attention products and fc1; f32
+        ("high") everywhere else."""
+        return cls(**(BALANCED_ISLANDS | kw))
+
+    @classmethod
+    def fast(cls, **kw) -> "Wav2Vec2Config":
+        """The JAX package's round-2 recipe: one bf16 pass on every product
+        of the encoder (the positional conv stays with the frontend at
+        "high")."""
+        return cls(**(FAST_ISLANDS | kw))
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -240,7 +315,8 @@ class ConvFeatureEncoder(nn.Module):
         x = wav.to(torch.float32)[:, None, :]  # [B, 1, T]
         l = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
-            x = getattr(self, f"conv_{i}")(x)
+            conv = getattr(self, f"conv_{i}")
+            x = prec_ops.conv1d(x, conv.weight, None, cfg.frontend_prec, stride=s)
             if l is not None:
                 l = (l - k) // s + 1
             if i == 0:
@@ -259,13 +335,16 @@ class PositionalConvEmbedding(nn.Module):
         super().__init__()
         k = config.pos_conv_kernel
         self.kernel = k
+        self.prec = config.posconv_prec
         self.conv = nn.Conv1d(
             config.hidden_size, config.hidden_size, k,
             padding=k // 2, groups=config.pos_conv_groups, bias=True,
         )
 
     def forward(self, x):
-        y = self.conv(x.transpose(1, 2))
+        c = self.conv
+        y = prec_ops.conv1d(x.transpose(1, 2), c.weight, c.bias, self.prec,
+                            padding=c.padding, groups=c.groups)
         if self.kernel % 2 == 0:
             y = y[:, :, :-1]
         return F.gelu(y).transpose(1, 2)
@@ -302,6 +381,15 @@ class EncoderLayer(nn.Module):
         g = _generator(seed, x.device)
         attn_dropout = g is not None and cfg.attention_dropout > 0.0
         if cfg.attention_impl == "fused_qkv" and not attn_dropout:
+            # K4 has one mode for the whole block, from the projections'
+            # island as in the JAX package: "high" and "highest" are its f32
+            # (the card's "high3"); its bf16 mode is not ported
+            if prec_ops.is_bf16(cfg.encoder_prec):
+                raise NotImplementedError(
+                    "attention_impl='fused_qkv' at encoder precision 'default' (K4's bf16 "
+                    "mode) is not ported yet (ROADMAP Queue 2, 'K4's default mode'); use "
+                    "attention_impl='kernel'"
+                )
             # the same parameters as the unfused path: one state_dict loads both
             attn = fused_qkv_attention(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
@@ -309,17 +397,20 @@ class EncoderLayer(nn.Module):
                 self.out_proj.weight, self.out_proj.bias, key_mask=key_mask, heads=h,
             )
         else:
-            q = self.q_proj(x).view(b, t, h, d // h)
-            k = self.k_proj(x).view(b, t, h, d // h)
-            v = self.v_proj(x).view(b, t, h, d // h)
+            q, k, v = (prec_ops.linear(x, p.weight, p.bias, cfg.encoder_prec).view(b, t, h, d // h)
+                       for p in (self.q_proj, self.k_proj, self.v_proj))
             if attn_dropout:
                 attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g)
             else:
-                attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl)
-            attn = self.out_proj(attn.reshape(b, t, d))
+                attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
+                           precision=cfg.attn_score_prec)
+            attn = prec_ops.linear(attn.reshape(b, t, d), self.out_proj.weight,
+                                   self.out_proj.bias, cfg.encoder_prec)
         x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g))
-        y = dropout(F.gelu(self.fc1(x)), cfg.activation_dropout, g)
-        x = self.final_layer_norm(x + dropout(self.fc2(y), cfg.dropout, g))
+        y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, cfg.ffn1_prec)
+        y = dropout(F.gelu(y), cfg.activation_dropout, g)
+        y = prec_ops.linear(y, self.fc2.weight, self.fc2.bias, cfg.encoder_prec)
+        x = self.final_layer_norm(x + dropout(y, cfg.dropout, g))
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
         return x
@@ -387,6 +478,11 @@ class Wav2Vec2Model(nn.Module):
         cfg = self.config
         g = seeds = None
         if not deterministic:
+            if cfg.any_bf16:
+                raise NotImplementedError(
+                    "dropout (training) under a bf16 precision island is not ported yet "
+                    "(ROADMAP Queue 2, 'the DEFAULT flavours of K2/K3'); train at 'exact'"
+                )
             seeds = torch.randint(SEED_BOUND, (1 + cfg.num_layers,), generator=generator).tolist()
             g = _generator(seeds.pop(0), wav.device)
         if cfg.frontend_stop_gradient:
@@ -395,7 +491,8 @@ class Wav2Vec2Model(nn.Module):
             feats = feats.detach()
         else:
             feats, frame_lengths = self.feature_encoder(wav, lengths)
-        x = self.post_extract_proj(self.feature_layer_norm(feats))
+        p = self.post_extract_proj
+        x = prec_ops.linear(self.feature_layer_norm(feats), p.weight, p.bias, cfg.frontend_prec)
         x = dropout(x, cfg.dropout, g)
         if frame_lengths is not None:
             x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)

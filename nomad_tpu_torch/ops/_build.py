@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "fused_attention", "layernorm")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bf16", "flash_attention_bwd",
+                  "fused_attention", "layernorm")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

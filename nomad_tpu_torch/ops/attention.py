@@ -4,13 +4,17 @@ Counterpart of ``nomad_tpu.ops.attention``. Two implementations behind
 one switch:
 
   * ``kernel`` — the differentiable flash attention
-                 (``ops/flash_attention.py``: kernel K1 forward, K2 + K3
-                 backward on the card). The default; the projection-fused
-                 path (``ops/fused_attention.py``, K4) is the model's other
+                 (``ops/flash_attention.py``: kernel K1 forward, K1b at
+                 precision "default", K2 + K3 backward on the card). The
+                 default; the projection-fused path
+                 (``ops/fused_attention.py``, K4) is the model's other
                  kernel path.
   * ``ref``    — the plain version of ``mha_xla``: einsum scores with an
                  additive -1e9 key mask, softmax in f32. Kept so that a
-                 run can hold the kernel path against it.
+                 run can hold the kernel path against it. At precision
+                 "default" both einsums take bf16-rounded operands, as
+                 ``mha_xla`` under ``jax.default_matmul_precision("default")``
+                 (the normalised weights are rounded, not exp(s - m)).
 
 ``mha_dropout`` is the training path under attention dropout, the plain
 counterpart of the JAX package's ``mha_xla_dropout``: ``mha_ref`` with
@@ -26,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import FlashAttention
+from .precision import is_bf16, round_bf16
 
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
 
@@ -41,20 +46,22 @@ def dropout(x, rate: float, generator=None):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _softmax_weights(q, k, key_mask):
+def _softmax_weights(q, k, key_mask, rnd=lambda x: x):
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).to(torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", rnd(q * scale), rnd(k)).to(torch.float32)
     if key_mask is not None:
         add = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         scores = scores + add[:, None, None, :]
     return torch.softmax(scores, dim=-1)
 
 
-def mha_ref(q, k, v, key_mask=None):
+def mha_ref(q, k, v, key_mask=None, precision="highest"):
     """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
-    valid key. Differentiable through plain autograd."""
-    weights = _softmax_weights(q, k, key_mask).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    valid key. Differentiable through plain autograd. precision "default"
+    rounds the operands of both products to bf16."""
+    rnd = round_bf16 if is_bf16(precision) else (lambda x: x)
+    weights = _softmax_weights(q, k, key_mask, rnd).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", rnd(weights), rnd(v))
 
 
 def mha_dropout(q, k, v, key_mask, rate: float, generator):
@@ -64,11 +71,13 @@ def mha_dropout(q, k, v, key_mask, rate: float, generator):
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def mha(q, k, v, key_mask=None, impl: str = "kernel"):
-    """impl 'kernel' | 'ref'. The kernel reads key_mask as the prefix mask
-    the model builds (arange(T) < lengths), i.e. as valid key counts."""
+def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest"):
+    """impl 'kernel' | 'ref'; precision 'highest' | 'high' (f32) | 'default'
+    (bf16 products: K1b on the card). The kernel reads key_mask as the
+    prefix mask the model builds (arange(T) < lengths), i.e. as valid key
+    counts."""
     if impl == "ref":
-        return mha_ref(q, k, v, key_mask)
+        return mha_ref(q, k, v, key_mask, precision)
     if impl != "kernel":
         raise ValueError(f"unknown attention impl {impl!r}: expected 'kernel' or 'ref'")
     b, t = q.shape[:2]
@@ -76,4 +85,4 @@ def mha(q, k, v, key_mask=None, impl: str = "kernel"):
         lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
     else:
         lengths = key_mask.sum(dim=-1, dtype=torch.int32)
-    return FlashAttention.apply(q, k, v, lengths)
+    return FlashAttention.apply(q, k, v, lengths, precision)

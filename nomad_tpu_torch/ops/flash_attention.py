@@ -1,12 +1,15 @@
-"""Masked attention with LSE: kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
-beside their plain PyTorch versions.
+"""Masked attention with LSE: kernels K1 and K1b (forward), K2 (dQ) and K3
+(dK, dV) beside their plain PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.flash_attention``. ``mha_flash`` launches
-K1 (``csrc/flash_attention.cu``) on CUDA tensors and computes the plain
-version on CPU tensors. Both take q/k/v as [B, T, H, D] and the valid key
-count per batch row, and return O [B, T, H, D] and LSE = m + log(l)
-[B, H, T] in f32. Every query row is defined and finite, padded rows
-included; a row with no valid key gives O = 0, LSE = -1e30.
+K1 (``csrc/flash_attention.cu``, f32: the "highest" and "high" flavours)
+or K1b (``csrc/flash_attention_bf16.cu``, the TPU kernel's own "default"
+flavour: bf16 products, f32 accumulation and softmax) on CUDA tensors and
+computes the plain version of the same flavour on CPU tensors. Both take
+q/k/v as [B, T, H, D] and the valid key count per batch row, and return O
+[B, T, H, D] and LSE = m + log(l) [B, H, T] in f32. Every query row is
+defined and finite, padded rows included; a row with no valid key gives
+O = 0, LSE = -1e30.
 
 ``flash_attention_bwd`` is the backward: K2 and K3
 (``csrc/flash_attention_bwd.cu``) on CUDA tensors, ``flash_attention_bwd_ref``
@@ -21,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from .precision import is_bf16, round_bf16
 
 NEG_INF = -1e30
 HEAD_DIM = 64  # the only head width the kernel takes
@@ -41,29 +45,37 @@ FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
 BWD_SMALL_T, BWD_SMALL_ROWS, BWD_STAGES, BWD_BLOCKS_PER_SM = 64, 32, 2, 3
 _LD_S = BLOCK_K + 4
 
-# Launches of K1, K2 and K3 since each count was last set to 0.
+# Launches of K1, K1b, K2 and K3 since each count was last set to 0.
 launches = 0
+launches_bf16 = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 
 
-def flash_attention_ref(q, k, v, lengths):
+def flash_attention_ref(q, k, v, lengths, precision="highest"):
     """What ``_flash_kernel`` computes, unfolded: scores of q/sqrt(D)
     against keys t < lengths[b] (the others set to -1e30, never added to),
-    softmax in f32, O = P.V and LSE = m + log(l). Keys past the bound are
-    zeroed before the product, so a NaN there cannot reach O."""
+    softmax in f32, O = P.V / l and LSE = m + log(l). Keys past the bound
+    are zeroed before the product, so a NaN there cannot reach O.
+
+    ``precision`` "highest" or "high": f32 products. "default", the TPU
+    kernel's single pass (``nomad_tpu/ops/flash_attention.py:63-77``):
+    s = bf16(q/sqrt(D)) . bf16(k) in f32 (the scale 1/8 is exact),
+    p = exp(s - m) in f32, l the sum of the unrounded p, and
+    O = bf16(p) . bf16(v) / l."""
+    rnd = round_bf16 if is_bf16(precision) else (lambda x: x)
     b, t, h, d = q.shape
     lengths = lengths.to(device=q.device, dtype=torch.int64).clamp(0, t)
     valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]  # [B, T]
-    qf = q.to(torch.float32) * (1.0 / d**0.5)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32))
+    qf = rnd(q.to(torch.float32) * (1.0 / d**0.5))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, rnd(k.to(torch.float32)))
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(valid[:, None, None, :], p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
     vf = torch.where(valid[:, :, None, None], v.to(torch.float32), 0.0)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    o = torch.einsum("bhqk,bkhd->bqhd", rnd(p), rnd(vf))
     has_key = lengths > 0
     inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))  # [B, H, T, 1]
     o = o * inv.permute(0, 2, 1, 3)
@@ -169,6 +181,50 @@ def _check_inputs(q, k, v, lengths):
         raise ValueError(f"flash kernel: lengths must be int32 [{b}] on {q.device}")
 
 
+def _lib_bf16():
+    lib = _build.load("flash_attention_bf16")
+    fn = lib.nomad_flash_attention_bf16_fwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        occ = lib.nomad_flash_attention_bf16_fwd_occupancy
+        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    return lib
+
+
+def flash_bf16_occupancy() -> int:
+    """Blocks of K1b resident on one SM (the card)."""
+    lib = _lib_bf16()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.nomad_flash_attention_bf16_fwd_occupancy(ctypes.byref(blocks)),
+                 "bf16 flash attention occupancy")
+    return blocks.value
+
+
+def _flash_bf16_kernel(q, k, v, lengths):
+    """K1b: the "default" flavour on the tensor cores (bf16 operands, f32
+    accumulation and softmax), the same inputs and outputs as K1."""
+    b, t, h, d = q.shape
+    _check_inputs(q, k, v, lengths)
+    lengths = lengths.contiguous()
+    o = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = _lib_bf16()
+    err = lib.nomad_flash_attention_bf16_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, t, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "bf16 flash attention kernel launch")
+    global launches_bf16
+    launches_bf16 += 1
+    return o, lse
+
+
 def _flash_kernel(q, k, v, lengths):
     b, t, h, d = q.shape
     _check_inputs(q, k, v, lengths)
@@ -191,14 +247,17 @@ def _flash_kernel(q, k, v, lengths):
     return o, lse
 
 
-def mha_flash(q, k, v, lengths):
+def mha_flash(q, k, v, lengths, precision="highest"):
     """Attention on [B, T, H, D] with lengths int32 [B] valid keys per
-    batch row -> (O [B, T, H, D], LSE f32 [B, H, T]). K1 on CUDA tensors,
-    the plain version on CPU tensors."""
+    batch row -> (O [B, T, H, D], LSE f32 [B, H, T]). On CUDA tensors K1
+    ("highest", "high") or K1b ("default"), on CPU tensors the plain
+    version of the same flavour."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, lengths)
+        return flash_attention_ref(q, k, v, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
+    if is_bf16(precision):
+        return _flash_bf16_kernel(q, k, v, lengths)
     return _flash_kernel(q, k, v, lengths)
 
 
@@ -298,20 +357,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, lengths):
 
 
 class FlashAttention(torch.autograd.Function):
-    """``FlashAttention.apply(q, k, v, lengths)`` -> O [B, T, H, D], masked
-    attention differentiable in q, k, v (lengths int32 [B] gets no
-    gradient): ``mha_flash`` forward (K1 on the card), ``flash_attention_bwd``
-    backward (K2 + K3 on the card); the plain versions of both on the CPU."""
+    """``FlashAttention.apply(q, k, v, lengths, precision="highest")`` -> O
+    [B, T, H, D], masked attention differentiable in q, k, v (lengths int32
+    [B] gets no gradient): ``mha_flash`` forward (K1, or K1b for
+    "default", on the card), ``flash_attention_bwd`` backward (K2 + K3 on
+    the card); the plain versions of both on the CPU. The backward exists
+    for the f32 flavours only: K2 and K3 at "default" are not ported."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths):
-        o, lse = mha_flash(q, k, v, lengths)
+    def forward(ctx, q, k, v, lengths, precision="highest"):
+        o, lse = mha_flash(q, k, v, lengths, precision)
         ctx.save_for_backward(q, k, v, o, lse, lengths)
+        ctx.precision = precision
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
+        if is_bf16(ctx.precision):
+            raise NotImplementedError(
+                "the gradient of attention at precision 'default' (K2/K3's bf16 "
+                "flavour) is not ported yet (ROADMAP Queue 2, 'the DEFAULT flavours of "
+                "K2/K3'); use precision 'exact' for a loss that needs a gradient"
+            )
         q, k, v, o, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None

@@ -20,8 +20,11 @@ embedding across requests (``--no-cache`` turns it off); the cache is an
 LRU of ``--cache-size`` entries, ~1 KB each, kept on the device.
 
 Run: ``python -m nomad_tpu_torch.serve [--model base|tiny] [--warm 10 30]
-[--device cuda|cpu]``. stdout carries only the JSON responses: the API's
-banners go to stderr. Runs on ``cuda`` unless ``--device cpu``.
+[--device cuda|cpu] [--precision exact|balanced|fast]``. stdout carries
+only the JSON responses: the API's banners go to stderr. Runs on ``cuda``
+unless ``--device cpu``. ``--precision`` picks the model's islands (the
+tiny model's too) and ``stats`` reports it; the embedding cache belongs
+to the server's one model.
 """
 
 from __future__ import annotations
@@ -38,15 +41,16 @@ class NomadServer:
                  cache_size: int = 65536, precision: str = "exact",
                  device: Optional[str] = None):
         if nomad is None:
-            from .api import Nomad
-            from .models import Wav2Vec2Config
+            from .api import Nomad, check_precision
+            from .models.wav2vec2 import PRECISION_ISLANDS, Wav2Vec2Config
 
+            config = None
             if model == "tiny":
-                nomad = Nomad(device=device, config=Wav2Vec2Config.tiny(), emb_dim=16)
-                self.precision = "exact"
-            else:
-                nomad = Nomad(device=device, emb_dim=256, precision=precision)
-                self.precision = precision
+                check_precision(precision)
+                config = Wav2Vec2Config.tiny(**PRECISION_ISLANDS[precision])
+            nomad = Nomad(device=device, config=config, emb_dim=16 if config else 256,
+                          precision=precision)
+            self.precision = precision
         else:
             self.precision = "custom"  # the caller's model and weights
         self.nomad = nomad
@@ -130,8 +134,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m nomad_tpu_torch.serve")
     ap.add_argument("--model", default="base", choices=["base", "tiny"])
     ap.add_argument("--precision", default="exact", choices=["balanced", "exact", "fast"],
-                    help="matmul precision; only 'exact' (f32, TF32 off) is ported, "
-                    "the others raise")
+                    help="exact (f32, TF32 off; the default) or the JAX package's recipes "
+                    "balanced and fast (one bf16 pass on their islands)")
     ap.add_argument("--warm", type=float, nargs="*", default=None, metavar="SECONDS",
                     help="run one zero batch per batch shape of these file durations at "
                     "startup (e.g. --warm 10 30)")

@@ -50,7 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..api import PRECISIONS_LATER, resolve_device, set_exact_precision
+from ..api import resolve_device, set_exact_precision
 from ..convert import jax_to_state_dict, state_dict_to_jax
 from ..models import NomadModel, Wav2Vec2Config, init_weights
 from ..ops import cdist, cdist_diag
@@ -125,10 +125,10 @@ class Training:
             self.config = config_io.load(config_file_or_dict)
         cfg = self.config
         prec = cfg.get("precision", "exact")
-        if prec in PRECISIONS_LATER + ("fast_bf16",):
+        if prec in ("balanced", "fast", "fast_bf16"):
             raise ValueError(
-                f"training precision {prec!r} is not ported yet (ROADMAP Queue 1, "
-                "'Precision modes on Hopper'); use 'exact'"
+                f"training precision {prec!r} is not ported yet (ROADMAP Queue 2, "
+                "'the DEFAULT flavours of K2/K3'); use 'exact'"
             )
         if prec != "exact":
             raise ValueError(f"unknown training precision {prec!r}: expected 'exact'")

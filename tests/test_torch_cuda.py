@@ -11,6 +11,7 @@ import torch
 from nomad_tpu_torch.api import Nomad
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
 from nomad_tpu_torch.ops import flash_attention, fused_attention, layernorm
+from nomad_tpu_torch.ops import precision as prec_ops
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -373,3 +374,119 @@ def test_kernel_occupancy(cuda):
     for t in (50, 65, 511, 1024):
         blocks, clusters = fused_attention.fused_occupancy(t)
         assert blocks >= 2 and clusters >= 1
+
+
+def attention_f64(q, k, v, lengths):
+    """Exact masked attention in float64 (the oracle of K1b and of its plain
+    version): keys past each bound ignored, a row with no key 0."""
+    b, t, h, d = q.shape
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]
+    kd = torch.where(valid[:, :, None, None], k, 0.0).double()
+    vd = torch.where(valid[:, :, None, None], v, 0.0).double()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() / d**0.5, kd)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vd)
+
+
+def check_bf16_flash(cuda, lengths, t, h, seed):
+    """K1b against its plain version ("default"): every row finite, LSE
+    within K1's 2e-5 of the plain one, O no further from exact f64
+    attention than 1.5 x the plain version's distance + 1e-6 and no nearer
+    than half of it (it does round), NaN past
+    each bound reaching nothing, a 0-key row O = 0 and LSE = -1e30, and a
+    rerun the same bits."""
+    g = torch.Generator().manual_seed(seed)
+    b, d = len(lengths), 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(cuda)
+    q, k, v = qkv.unbind(2)  # strided views, as the model hands them over
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (flash_attention.launches, flash_attention.launches_bf16)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, precision="default")
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_bf16) == (before[0], before[1] + 1)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    worst = worst_plain = 0.0
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in f64
+        sl = slice(i, i + 1)
+        ro, rlse = flash_attention.flash_attention_ref(q[sl], k[sl], v[sl], lens[sl], "default")
+        exact = attention_f64(q[sl], k[sl], v[sl], lens[sl])
+        err = (o[sl].double() - exact).abs().max().item()
+        err_plain = (ro.double() - exact).abs().max().item()
+        assert err <= 1.5 * err_plain + 1e-6, (i, err, err_plain)
+        worst, worst_plain = max(worst, err), max(worst_plain, err_plain)
+        torch.testing.assert_close(lse[sl], rlse, atol=2e-5, rtol=0)
+    assert worst >= 0.5 * worst_plain, (worst, worst_plain)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(o[i], torch.zeros_like(o[i]))
+            assert torch.all(lse[i] == flash_attention.NEG_INF)
+    again = flash_attention.mha_flash(q, k, v, lens, precision="default")
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 511])
+def test_bf16_flash_kernel_tile_edges(cuda, t):
+    """K1b at every edge of its 16-row warp tiles, 64-row blocks and 64-key
+    tiles: a full row, a ragged one, 1 key and none."""
+    check_bf16_flash(cuda, [t, max(t // 2, 1), 1, 0], t, 4, 300 + t)
+
+
+@pytest.mark.parametrize("b,t,lengths", [(32, 50, [50] * 32),
+                                          (8, 4095, [4095, 4000, 3001, 2048, 1025, 513, 64, 1])])
+def test_bf16_flash_kernel_at_path_shapes(cuda, b, t, lengths):
+    check_bf16_flash(cuda, lengths, t, 12 if t < 1000 else 2, b + t)
+
+
+def test_bf16_precision_ops_and_refusals_on_the_card(cuda):
+    """ops.precision's card routes (cuBLAS bf16 with f32 out; cuDNN f32 on
+    bf16-rounded operands) against their plain versions on the CPU, within
+    f32 summation order: the convolution's output is not rounded to bf16;
+    a gradient through K1b raises."""
+    g = torch.Generator().manual_seed(9)
+    x, w, b = torch.randn(3, 37, 96, generator=g), torch.randn(80, 96, generator=g), torch.randn(80)
+    y = prec_ops.linear(x.to(cuda), w.to(cuda), b.to(cuda), "default")
+    torch.testing.assert_close(y.cpu(), prec_ops.linear(x, w, b, "default"), atol=2e-5, rtol=1e-5)
+    xc, wc = torch.randn(2, 32, 70, generator=g), torch.randn(32, 8, 16, generator=g)
+    kw = dict(padding=8, groups=4)
+    yc = prec_ops.conv1d(xc.to(cuda), wc.to(cuda), None, "default", **kw).cpu()
+    ref = prec_ops.conv1d(xc, wc, None, "default", **kw)
+    torch.testing.assert_close(yc, ref, atol=2e-5, rtol=1e-5)
+    assert not prec_ops.round_bf16(yc).equal(yc)  # an f32 output, as the TPU's
+    q = torch.randn(1, 10, 2, 64, device=cuda, requires_grad=True)
+    lens = torch.tensor([10], dtype=torch.int32, device=cuda)
+    out = flash_attention.FlashAttention.apply(q, q, q, lens, "default")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+def test_model_balanced_and_fast_launch_k1b(cuda):
+    """A narrow model with 64-wide heads in "balanced" and "fast": K1b in
+    every block and no K1, finite embeddings that differ from "exact" by
+    bf16 rounding, not more."""
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    g = torch.Generator().manual_seed(5)
+    lengths = torch.tensor([4000, 2500]).to(cuda)
+    wav = (0.3 * torch.randn(2, 4000, generator=g)).to(cuda)
+    sd = init_weights(NomadModel(Wav2Vec2Config.base(**kw), emb_dim=16), seed=2).state_dict()
+    embs = {}
+    for mode, cfg in (("exact", Wav2Vec2Config.base(**kw)),
+                      ("balanced", Wav2Vec2Config.balanced(**kw)),
+                      ("fast", Wav2Vec2Config.fast(**kw))):
+        model = NomadModel(cfg, emb_dim=16)
+        model.load_state_dict(sd)
+        model = model.to(cuda).eval()
+        before = (flash_attention.launches, flash_attention.launches_bf16)
+        with torch.inference_mode():
+            embs[mode] = model(wav, lengths)
+        torch.cuda.synchronize()
+        bf16 = mode != "exact"
+        assert (flash_attention.launches - before[0], flash_attention.launches_bf16 - before[1]) == (
+            (0, 12) if bf16 else (12, 0))
+        assert torch.isfinite(embs[mode]).all()
+    for mode in ("balanced", "fast"):
+        d = (embs[mode] - embs["exact"]).abs().max().item()
+        assert 0 < d < 1e-2, (mode, d)

@@ -124,9 +124,13 @@ def test_predict_checks_arguments_before_params(tmp_path):
         with pytest.raises(Exception):
             n.predict(*args)
     assert n._model is None
+    # the modes build their configs and resolve nothing either; an unknown
+    # one raises
     for p in ("balanced", "fast"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            tapi.Nomad(device="cpu", precision=p)
+        m = tapi.Nomad(device="cpu", precision=p, weights_dir=str(tmp_path / "nowhere"))
+        assert m.config.attn_score_prec == "default" and m._model is None
+    with pytest.raises(ValueError, match="unknown precision"):
+        tapi.Nomad(device="cpu", precision="turbo")
 
 
 def test_write_results_byte_identical(tmp_path):

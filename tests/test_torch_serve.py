@@ -224,11 +224,19 @@ def test_mixed_hit_miss_request_survives_lru_eviction(tiny_params, tmp_path):
 
 
 def test_default_device_and_precision_refusals(monkeypatch):
+    """No CPU fallback; an unknown precision raises; "balanced" is served
+    (the tiny model takes its islands) and ``stats`` reports it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NomadServer(model="tiny")
-    with pytest.raises(ValueError, match="not ported"):
-        NomadServer(precision="balanced", device="cpu")
+    for model in ("tiny", "base"):
+        with pytest.raises(ValueError, match="unknown precision"):
+            NomadServer(model=model, precision="turbo", device="cpu")
+    srv = NomadServer(model="tiny", precision="balanced", device="cpu")
+    assert srv.nomad.config == Wav2Vec2Config.tiny(posconv_precision="default",
+                                                   attn_score_precision="default",
+                                                   ffn1_precision="default")
+    assert roundtrip(srv, [{"op": "stats"}])[0]["precision"] == "balanced"
 
 
 def test_protocol_stream_carries_only_json(tmp_path, tree):

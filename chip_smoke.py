@@ -2,7 +2,7 @@
 differentiate.
 
     python3 chip_smoke.py [--only-loss | --only-train | --only-se | --only-serve |
-                           --only-precision]
+                           --only-precision | --only-grad-modes]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -97,7 +97,31 @@ Phases, each fatal on failure:
      on the card against the same mode on the CPU, with the kernels and
      with the plain attention; and one ``serve --precision balanced``
      process;
- 10. the kernels' JSON line, the card line, and the last line
+ 10. gradients in the precision modes: K2b and K3b (the "default" flavour
+     of K2 and K3: bf16 products on the tensor cores, f32 accumulation,
+     exp and masks), through ``flash_attention_bwd``, from K1b's O and LSE
+     against their plain version at [32, 50], [24, 499], [24, 511] (499
+     valid), a ragged [8, 4095] and every tile edge T in {1, 15, 16, 17,
+     63, 64, 65, 511}, each with a full, a ragged, a 1-key and a 0-key row
+     and NaN past each bound: within BWD_BF16_PLAIN_REL of the plain
+     version's max |g|, and held to the exact float64 gradient
+     (|g - g_f64| <= 1.5 x the plain version's + 1e-6, and >= half of it),
+     dK = dV = 0 past each bound, a rerun the same bits, timed beside
+     SDPA's gradient on bf16 tensors; the backward of the card's bf16
+     product and convolution against float64 transposes; then on one
+     seeded BASE state dict the loss with its gradient in "balanced" and
+     "fast" at 32 x 16,384 and 24 x 160,000 samples (K1b 24, K2b 12, K3b
+     12, K5 52 a step; the step's attention backward calls against their
+     plain version on the same inputs; phase 5's checks against the same
+     mode's plain path, within GRAD_MODE_FRAC times that plain path's
+     distance to the "exact" plain path); the triplet recipe with
+     ``precision:`` fast and balanced (remat on): the recipe's step
+     (plain bf16 dropout attention, K5 50), its eval step (K1b 12, K5 26),
+     the rates-at-0 step (K1b 24, K2b 12, K3b 12, K5 50), whose
+     embeddings and gradients are held to the mode's plain path the same
+     way, step times, peak memory and profiles; one SE step with a
+     "balanced" lossnet;
+ 11. the kernels' JSON line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
@@ -106,7 +130,8 @@ phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
 newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
-``--only-precision`` phases 1, 2 and 9, each ending with the report line.
+``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
+and 10, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -134,12 +159,14 @@ from nomad_tpu_torch.convert.fairseq_synth import write_nomad_checkpoint
 from nomad_tpu_torch.io import native, read_wav, write_wav
 from nomad_tpu_torch.io.flac_encode import write_flac
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights, wav2vec2
+from nomad_tpu_torch.models.wav2vec2 import PRECISION_ISLANDS
 from nomad_tpu_torch.ops import _build, cdist, flash_attention, fused_attention, layernorm
 from nomad_tpu_torch.ops import precision as prec_ops
 from nomad_tpu_torch.scoring.engine import EmbeddingEngine, EmbeddingLRU
 from nomad_tpu_torch.serve import NomadServer
 from nomad_tpu_torch.training import SpeechEnhancement, Training
 from nomad_tpu_torch.training import data as train_data
+from nomad_tpu_torch.training.losses import pairwise_distance, triplet_margin_loss
 from nomad_tpu_torch.utils import config as config_io
 
 ROOT = Path(__file__).resolve().parent
@@ -213,6 +240,27 @@ DELTA_BUDGET, DELTA_FAULT, MODE_PEAK_SLACK_GB = 1e-3, 1e-2, 0.1
 # whose embeddings each mode compares on the card and on the CPU, and the
 # share of a mode's distance to "exact" that the two may differ by
 ROUTE_TOL, MODES_VS_PLAIN_FILES, MODE_PLAIN_FRAC = 1e-5, 4, 0.5
+# a bf16 mode's loss step or train step on the kernels (K) against the
+# same mode's plain path (P). Two f32 orders round some bf16 operand the
+# other way and the next islands carry that on, so K and P are two bf16
+# realizations of one mode, each about the mode's own distance D from
+# "exact": by the triangle inequality up to ~2 D apart. D is taken from
+# code that is not under test: P against the "exact" plain path (EP), on
+# the same inputs, so a fault in K cannot widen its own tolerance. A
+# fault smaller than D (a kernel output off by 1 %) hides in that
+# spread; the path's own attention backward calls, recorded on the way
+# and held to their plain version on the same inputs, catch those.
+GRAD_MODE_FRAC = 2.0
+# K2b/K3b (through flash_attention_bwd) against their plain version on the
+# same inputs, for each of dQ, dK and dV: max |d| / max |g| (on the kernel
+# checks' random inputs; on a path's own calls) and ||d|| / ||g||. Both
+# round the same operands to bf16, so what differs is f32 summation order
+# and the bf16 roundings of P and dS that it flips: a flip moves a few
+# elements by up to 2^-8 of their largest term, where a fault (a 1 %
+# scale, a swap) moves them all. Measured on an H100: max 1.22e-3 on
+# random inputs, 3.74e-3 on the loss and train steps' calls; norm 3.6e-5
+# and 2.78e-4; ~3x those. dQ scaled by 1.01 gives 1e-2 in both.
+BWD_BF16_PLAIN_REL, BWD_BF16_PATH_REL, BWD_BF16_PLAIN_NORM = 3.5e-3, 1e-2, 1e-3
 STRESS_DEG, STRESS_NMR = 48, 16
 
 DEV = torch.device("cuda")
@@ -321,6 +369,14 @@ def build_kernels() -> None:
             if blocks < plan["blocks_per_sm"]:
                 fail(f"K2/K3 {kernel} at T = {t}: {blocks} blocks per SM, the plan claims "
                      f"{plan['blocks_per_sm']}")
+    for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 1, 12).items():
+        blocks = flash_attention.flash_bwd_bf16_occupancy(kernel)
+        occ[f"flash_attention_bwd_{kernel}_bf16"] = {
+            "blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
+            "smem_bytes": plan["smem_bytes"]}
+        if blocks < plan["blocks_per_sm"]:
+            fail(f"K2b/K3b {kernel}: {blocks} blocks per SM, the plan claims "
+                 f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         plan = fused_attention.fused_launch_plan(t, 1, 12)
         blocks, clusters = fused_attention.fused_occupancy(t)
@@ -400,7 +456,8 @@ def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
     return res
 
 
-def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor) -> dict:
+def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
+                     peak_flops: float = F32_FLOPS) -> dict:
     """Per kernel: every (query row, valid key) pair costs K2 6*D FLOP (s,
     dP, dQ) and K3 8*D (s, dP, dK, dV). Bytes: the valid keys' k and v,
     q, dO, LSE and Di of the batch rows that have a key, and the outputs
@@ -410,8 +467,8 @@ def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor) -> d
     pairs = t * keys
     row = 4.0 * h * d
     reads = 2 * keys * row + 2 * live * t * row + 2 * live * h * t * 4.0
-    return {"dq": bound(reads + b * t * row, 6.0 * h * d * pairs),
-            "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs)}
+    return {"dq": bound(reads + b * t * row, 6.0 * h * d * pairs, peak_flops),
+            "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs, peak_flops)}
 
 
 def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
@@ -666,6 +723,7 @@ KERNEL_GROUPS = (
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")),
     ("layernorm_fwd", ("layernorm_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
     ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere", "nvjet")),
@@ -737,6 +795,7 @@ def reset_launches() -> None:
     flash_attention.launches = flash_attention.launches_bwd_dq = 0
     flash_attention.launches_bwd_dkv = layernorm.launches = fused_attention.launches = 0
     flash_attention.launches_bf16 = 0
+    flash_attention.launches_bwd_dq_bf16 = flash_attention.launches_bwd_dkv_bf16 = 0
 
 
 def read_launches() -> dict:
@@ -744,18 +803,97 @@ def read_launches() -> dict:
             "flash_attention_bf16_fwd": flash_attention.launches_bf16,
             "flash_attention_bwd_dq": flash_attention.launches_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention.launches_bwd_dkv,
+            "flash_attention_bwd_dq_bf16": flash_attention.launches_bwd_dq_bf16,
+            "flash_attention_bwd_dkv_bf16": flash_attention.launches_bwd_dkv_bf16,
             "fused_qkv_attention_fwd": fused_attention.launches,
             "layernorm_fwd": layernorm.launches}
 
 
-def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0) -> dict:
+def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0) -> dict:
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
+            "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
             "fused_qkv_attention_fwd": k4, "layernorm_fwd": k5}
 
 
-def plain_config() -> Wav2Vec2Config:
-    return Wav2Vec2Config.base(attention_impl="ref", layernorm_impl="ref")
+def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
+    """BASE with a precision mode's islands (``Nomad(precision=mode)``'s)."""
+    return Wav2Vec2Config.base(**(PRECISION_ISLANDS[mode] | kw))
+
+
+def plain_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
+    """The plain path of ``mode``: attention and LayerNorm in plain PyTorch.
+    At "exact" the plain attention is ``mha_ref``. A bf16 mode keeps
+    ``attention_impl="kernel"`` and runs it under ``plain_flash()``: its
+    attention rounds where K1b, K2b and K3b round (p before the
+    normalisation), which ``mha_ref`` does not, so their own plain
+    versions are its plain path."""
+    if mode == "exact":
+        return mode_config(attention_impl="ref", layernorm_impl="ref", **kw)
+    return mode_config(mode, layernorm_impl="ref", **kw)
+
+
+@contextlib.contextmanager
+def plain_flash(mode: str = "default", forward: bool = True):
+    """``FlashAttention`` through ``flash_attention_ref`` (unless not
+    ``forward``) and ``flash_attention_bwd_ref`` on CUDA tensors, for a
+    bf16 ``mode``; a no-op at "exact"."""
+    saved = flash_attention.mha_flash, flash_attention.flash_attention_bwd
+    if mode != "exact":
+        if forward:
+            flash_attention.mha_flash = flash_attention.flash_attention_ref
+        flash_attention.flash_attention_bwd = flash_attention.flash_attention_bwd_ref
+    try:
+        yield
+    finally:
+        flash_attention.mha_flash, flash_attention.flash_attention_bwd = saved
+
+
+@contextlib.contextmanager
+def recorded_flash_bwd():
+    """Record every ``flash_attention_bwd`` call of the path run inside:
+    its inputs and outputs, cloned, for ``check_recorded_flash_bwd``."""
+    calls, real = [], flash_attention.flash_attention_bwd
+
+    def record(*args):
+        outs = real(*args)
+        calls.append((tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args),
+                      tuple(o.detach().clone() for o in outs)))
+        return outs
+
+    flash_attention.flash_attention_bwd = record
+    try:
+        yield calls
+    finally:
+        flash_attention.flash_attention_bwd = real
+
+
+def bwd_rel_err(outs, ref) -> dict:
+    """Over dQ, dK and dV: the largest max |out - ref| / max |ref| and
+    ||out - ref|| / ||ref||."""
+    res = {"max": 0.0, "norm": 0.0}
+    for o, r in zip(outs, ref):
+        d = (o - r).nan_to_num(nan=float("inf"))
+        res["max"] = max(res["max"], d.abs().max().item() / max(r.abs().max().item(), 1e-30))
+        res["norm"] = max(res["norm"], d.norm().item() / max(r.norm().item(), 1e-30))
+    return res
+
+
+def check_recorded_flash_bwd(calls: list, what: str) -> dict:
+    """The path's own attention backward calls (K2b + K3b through
+    ``flash_attention_bwd``) against ``flash_attention_bwd_ref`` on the
+    same inputs: within BWD_BF16_PATH_REL of each output's max |g|, and
+    BWD_BF16_PLAIN_NORM of its norm."""
+    worst = {"max": 0.0, "norm": 0.0}
+    for args, outs in calls:
+        err = bwd_rel_err(outs, flash_attention.flash_attention_bwd_ref(*args))
+        worst = {k: max(worst[k], err[k]) for k in worst}
+    print(f"{what}: the path's {len(calls)} attention backward calls vs their plain version "
+          f"on the same inputs max|d|/max|g| {worst['max']:.3g} (<= {BWD_BF16_PATH_REL}), "
+          f"||d||/||g|| {worst['norm']:.3g} (<= {BWD_BF16_PLAIN_NORM})", flush=True)
+    if not calls or worst["max"] > BWD_BF16_PATH_REL or worst["norm"] > BWD_BF16_PLAIN_NORM:
+        fail(f"{what}: {len(calls)} attention backward calls, vs plain {worst}")
+    return worst
 
 
 def timed_passes(nomad: Nomad, waves: list) -> tuple[torch.Tensor, list]:
@@ -944,19 +1082,39 @@ def layer_signs(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor) -> list:
                                                   nomad.model.forward_layers(clean))]
 
 
+def signed_grad(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor,
+                signs: list) -> torch.Tensor:
+    """The gradient in ``est`` of the loss's 13 L1 terms taken under the
+    sign pattern ``signs``: the loss's gradient where its own signs agree."""
+    e = est.detach().clone().requires_grad_()
+    with torch.no_grad():
+        ref = nomad.model.forward_layers(clean)
+    sum((s * (a - c)).mean() for s, a, c in zip(signs, nomad.model.forward_layers(e),
+                                                 ref)).backward()
+    return e.grad
+
+
 def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
-                  batch: int, samples: int) -> None:
+                  batch: int, samples: int, mode: str = "exact", params=None) -> None:
     """One loss path on ``batch`` seeded clips of ``samples`` samples: its
     launch counts per step (``want``), loss and gradient against the plain
-    path, forward(x, x) == 0, warm step time, peak memory and one profiled
-    step, under ``report[key]``."""
+    path of the same precision ``mode``, forward(x, x) == 0, warm step
+    time, peak memory and one profiled step, under ``report[key]``. In a
+    bf16 mode the two paths are two bf16 realizations (a rounding that
+    f32 order flips, the next blocks carry on), so they may differ by up
+    to GRAD_MODE_FRAC times the plain path's distance to the "exact" plain
+    path on the same inputs, on top of the f32 tolerances; the first
+    step's attention backward calls are held to their plain version on
+    the same inputs, and the gap with K2b/K3b alone swapped for their
+    plain version is reported. ``params``: the weights (a state dict),
+    else Nomad's seeded init."""
     what, step_key = key.replace("_", " "), key.replace("path", "step")
     rng = np.random.default_rng(4321)
     clean_np = np.stack([speech_like(rng, samples, 0.005) for _ in range(batch)])
     est_np = clean_np + (0.03 * rng.standard_normal(clean_np.shape)).astype(np.float32)
     clean = torch.from_numpy(clean_np).to(DEV)
     est = torch.from_numpy(est_np).to(DEV).requires_grad_()
-    nomad = Nomad(device="cuda", config=config)
+    nomad = Nomad(device="cuda", config=config, params=params)
 
     def step() -> torch.Tensor:
         est.grad = None
@@ -966,7 +1124,8 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
 
     torch.cuda.synchronize()
     reset_launches()
-    loss = step()
+    with recorded_flash_bwd() if mode != "exact" else contextlib.nullcontext() as calls:
+        loss = step()
     torch.cuda.synchronize()
     counts = read_launches()
     report["launches"][step_key] = counts
@@ -980,48 +1139,84 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     gmax = grad.abs().max().item()
     print(f"{what}: loss {value:.6g}, max|d loss/d est| {gmax:.4g}, launches {counts}",
           flush=True)
+    mode_checks = None
+    if mode != "exact":
+        mode_checks = {"attention_bwd_calls_vs_plain": check_recorded_flash_bwd(calls, what)}
+    del calls
+
+    def rel(g, ref):
+        return (g - ref).abs().max().item() / ref.abs().max().item()
 
     # the same weights on the plain path, which holds every layer's
     # [B, 12, T', T'] probabilities for its backward
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    plain = Nomad(device="cuda", config=plain_config())
-    est_p = est.detach().clone().requires_grad_()
-    loss_p = plain.forward(est_p, clean)
-    loss_p.backward()
-    torch.cuda.synchronize()
-    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    d_loss = abs(loss_p.item() - value) / abs(loss_p.item())
-    d_grad = (est_p.grad - grad).abs().max().item() / est_p.grad.abs().max().item()
-    # an element of a layer difference within rounding of 0 can take the
-    # other sign of |.| on the other path, which alone moves the gradient
-    # by 2/numel of that element's Jacobian row: hold the plain path's
-    # gradient under the kernel path's signs
+    sd = nomad.model.state_dict()
     signs = layer_signs(nomad, est.detach(), clean)
-    flips = sum(int((s_ != p_).sum()) for s_, p_ in zip(signs, layer_signs(plain, est.detach(), clean)))
-    est_s = est.detach().clone().requires_grad_()
-    with torch.no_grad():
-        ref_clean = plain.model.forward_layers(clean)
-    sum((s_ * (a - c)).mean() for s_, a, c in zip(
-        signs, plain.model.forward_layers(est_s), ref_clean)).backward()
-    d_grad_signs = (est_s.grad - grad).abs().max().item() / est_s.grad.abs().max().item()
+    plain = Nomad(device="cuda", config=plain_config(mode), params=sd)
+    with plain_flash(mode):
+        est_p = est.detach().clone().requires_grad_()
+        loss_p = plain.forward(est_p, clean)
+        loss_p.backward()
+        torch.cuda.synchronize()
+        plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        d_loss = abs(loss_p.item() - value) / abs(loss_p.item())
+        d_grad = rel(grad, est_p.grad)
+        # an element of a layer difference within rounding of 0 can take the
+        # other sign of |.| on the other path, which alone moves the gradient
+        # by 2/numel of that element's Jacobian row: hold the plain path's
+        # gradient under the kernel path's signs
+        flips = sum(int((s_ != p_).sum()) for s_, p_ in zip(
+            signs, layer_signs(plain, est.detach(), clean)))
+        grad_s = signed_grad(plain, est, clean, signs)
+    d_grad_signs = rel(grad, grad_s)
+    tol_loss, tol_grad = TOL_LOSS_REL, TOL_GRAD_REL
+    if mode != "exact":
+        # D from the plain paths alone: this mode's against "exact"'s, under
+        # the same signs; and, for the record, the kernel path's own
+        # distance to "exact" and its gap with K2b/K3b alone swapped
+        exact_plain = Nomad(device="cuda", config=plain_config(), params=sd)
+        with torch.no_grad():
+            loss_ep = exact_plain.forward(est.detach(), clean).item()
+        grad_ep = signed_grad(exact_plain, est, clean, signs)
+        del exact_plain
+        exact = Nomad(device="cuda", config=mode_config(), params=sd)
+        with torch.no_grad():
+            loss_e = exact.forward(est.detach(), clean).item()
+        grad_e = signed_grad(exact, est, clean, signs)
+        del exact
+        with plain_flash(mode, forward=False):
+            grad_kp = signed_grad(nomad, est, clean, signs)
+        d_plain = {"loss_rel": abs(loss_p.item() - loss_ep) / abs(loss_ep),
+                   "grad_rel_to_max": rel(grad_s, grad_ep)}
+        tol_loss += GRAD_MODE_FRAC * d_plain["loss_rel"]
+        tol_grad += GRAD_MODE_FRAC * d_plain["grad_rel_to_max"]
+        mode_checks |= {
+            "plain_vs_exact_plain": d_plain,
+            "kernel_vs_exact_kernel": {"loss_rel": abs(value - loss_e) / abs(loss_e),
+                                       "grad_rel_to_max": rel(grad, grad_e)},
+            "k2b_k3b_swapped": {"vs_kernel_path": rel(grad_kp, grad),
+                                "vs_plain_path": rel(grad_kp, grad_s)}}
+        del grad_ep, grad_e, grad_kp
     zero = nomad.forward(clean, clean).item()
     report[key] = {
         "shape": [batch, samples], "loss": value, "grad_max_abs": gmax,
         "plain_loss": loss_p.item(), "loss_rel_diff": d_loss,
         "grad_rel_diff_direct": d_grad, "grad_rel_diff_same_signs": d_grad_signs,
         "sign_flips": flips, "identity_loss": zero, "plain_path_peak_mem_gb": plain_peak_gb,
+        "mode": mode, "tolerance": [tol_loss, tol_grad], "mode_checks": mode_checks,
     }
-    print(f"{what}: vs plain path loss rel {d_loss:.3g} (<= {TOL_LOSS_REL}); gradient "
+    print(f"{what}: vs plain path loss rel {d_loss:.3g} (<= {tol_loss:.3g}); gradient "
           f"max|d|/max|g| {d_grad:.3g} direct, {d_grad_signs:.3g} under one sign pattern "
-          f"(<= {TOL_GRAD_REL}; {flips} layer elements change sign); forward(x, x) = {zero}; "
-          f"plain path peak memory {plain_peak_gb:.2f} GB", flush=True)
-    if d_loss > TOL_LOSS_REL or d_grad_signs > TOL_GRAD_REL or (flips == 0 and d_grad > TOL_GRAD_REL):
+          f"(<= {tol_grad:.3g}; {flips} layer elements change sign); forward(x, x) = {zero}; "
+          f"plain path peak memory {plain_peak_gb:.2f} GB"
+          + (f"; {mode_checks}" if mode_checks else ""), flush=True)
+    if d_loss > tol_loss or d_grad_signs > tol_grad or (flips == 0 and d_grad > tol_grad):
         fail(f"{what} vs plain path: loss rel {d_loss:.3g}, gradient {d_grad:.3g} direct / "
              f"{d_grad_signs:.3g} same signs ({flips} flips)")
     if zero != 0.0:
         fail(f"{what}: forward(clean, clean) = {zero}, want exactly 0")
-    del plain, loss_p, est_p, est_s, ref_clean, signs
+    del plain, loss_p, est_p, grad_s, signs
     torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
@@ -1157,12 +1352,13 @@ def step_gen() -> torch.Generator:
     return torch.Generator().manual_seed(TRAIN_SEED)
 
 
-def first_train_step(key: str, cfg: dict, batch, want: dict, params=None, **model_kw) -> tuple:
+def first_train_step(key: str, cfg: dict, batch, want: dict, params=None,
+                     model_config=None) -> tuple:
     """A Training on the seeded weights (its own init, or ``params``, a copy
     of them) and its first train step, with its launch counts checked:
-    (trainer, loss, the parameters before, the step's gradients)."""
-    tr = Training(cfg, device="cuda", params=params,
-                  model_config=Wav2Vec2Config.base(**model_kw))
+    (trainer, loss, the parameters before, the step's gradients).
+    ``model_config`` None: Training resolves it from ``cfg``."""
+    tr = Training(cfg, device="cuda", params=params, model_config=model_config)
     before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
     torch.cuda.synchronize()
     reset_launches()
@@ -1306,18 +1502,18 @@ def run_trainer(card: str) -> None:
         # the dropout rates at 0: attention through K1 + K2 + K3
         tr, _, _, _ = first_train_step("train_step_rates0", cfg, batch,
                                        launches_want(k1=24, k2=12, k3=12, k5=50), init,
-                                       **ZERO_RATES)
+                                       mode_config(**ZERO_RATES))
         out["train_step_rates0"] = time_train_steps(card, "train_step (rates at 0, remat)",
                                                     tr, batch)
         release(tr)
         no_remat = dict(cfg, remat=False)
         tr, loss_k, _, grads_k = first_train_step(
             "train_step_rates0_no_remat", no_remat, batch,
-            launches_want(k1=12, k2=12, k3=12, k5=26), init, **ZERO_RATES)
+            launches_want(k1=12, k2=12, k3=12, k5=26), init, mode_config(**ZERO_RATES))
         release(tr)
         tr, loss_p, _, grads_p = first_train_step(
             "train_step_rates0_plain", no_remat, batch, None, init,
-            attention_impl="ref", layernorm_impl="ref", **ZERO_RATES)
+            plain_config(**ZERO_RATES))
         release(tr)
         gmax = max(g.abs().max().item() for g in grads_p.values())
         d_loss = abs(loss_k - loss_p) / abs(loss_p)
@@ -1374,13 +1570,13 @@ def run_trainer(card: str) -> None:
 # ---------------- phase 7: the speech-enhancement demo ----------------
 
 
-def write_se_tree(root: Path) -> dict:
-    """Seeded PCM16 Valentini-like pairs: clean speech_like clips of
-    1.5-3 s, noisy = clean + white noise at 0-15 dB SNR; returns the
-    recipe's config pointed at them."""
+def write_se_tree(root: Path, counts=(SE_TRAIN, SE_VALID, SE_TEST)) -> dict:
+    """Seeded PCM16 Valentini-like pairs (``counts``: train, valid, test):
+    clean speech_like clips of 1.5-3 s, noisy = clean + white noise at
+    0-15 dB SNR; returns the recipe's config pointed at them."""
     rng = np.random.default_rng(1357)
     cfg = config_io.load(str(SE_RECIPE))
-    for split, count in (("train", SE_TRAIN), ("valid", SE_VALID), ("test", SE_TEST)):
+    for split, count in zip(("train", "valid", "test"), counts):
         for kind in ("noisy", "clean"):
             (root / f"{kind}_{split}").mkdir()
             cfg[f"{kind}_{split}_dir"] = str(root / f"{kind}_{split}")
@@ -2187,6 +2383,420 @@ def run_precision(card: str) -> None:
             fail(f"{mode}: own peak memory {over:.3f} GB over exact's (> {MODE_PEAK_SLACK_GB})")
 
 
+# ---------------- phase 10: gradients in the precision modes ----------------
+
+
+def attention_bwd_f64(q, k, v, do, lengths):
+    """The exact gradient (dQ, dK, dV) of masked attention for the
+    cotangent dO in float64, the oracle of K2b/K3b and of their plain
+    version: keys past each bound take no part and get dK = dV = 0, a row
+    with no key gets zero gradients."""
+    t, d = q.shape[1], q.shape[3]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]
+    vk = valid[:, :, None, None]
+    qd, dod = q.double(), do.double()
+    kd, vd = (torch.where(vk, x, 0.0).double() for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d**0.5
+    p = torch.softmax(s.masked_fill(~valid[:, None, None, :], float("-inf")), dim=-1)
+    p = p.nan_to_num(0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kd) / d**0.5
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd) / d**0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dod)
+    return dq, torch.where(vk, dk, 0.0), torch.where(vk, dv, 0.0)
+
+
+def grad_routes_vs_plain(sd: dict) -> dict:
+    """The backward of a "default" island's card routes (ops/precision.py)
+    at full width on the seeded BASE weights, against the plain version on
+    the CPU and float64 sums of the bf16-rounded cotangent and operands
+    (JAX's DEFAULT transposes): fc1 of block 0 on 4,096 rows (dX, dW, db),
+    the positional conv on [2, 768, 511] and one attention-shaped product
+    [2, 12, 511, 64] . [2, 12, 64, 511] (cuBLAS ``bmm.dtype``). Each
+    gradient, relative to its max, fails beyond ROUTE_TOL: f32 summation
+    order; a cotangent left unrounded would be ~1e-3."""
+    g = torch.Generator().manual_seed(6)
+    w1, b1 = (sd[f"backbone.encoder.layers.0.fc1.{n}"] for n in ("weight", "bias"))
+    wc, bc = (sd[f"backbone.encoder.pos_conv.conv.{n}"] for n in ("weight", "bias"))
+    kw = {"padding": wc.shape[-1] // 2, "groups": 768 // wc.shape[1]}
+    ins = {"linear_fc1": (torch.randn(4096, 768, generator=g), w1, b1),
+           "conv1d_posconv": (torch.randn(2, 768, 511, generator=g), wc, bc),
+           "matmul_attention": (torch.randn(2, 12, 511, 64, generator=g),
+                                torch.randn(2, 12, 64, 511, generator=g))}
+    fns = {"linear_fc1": lambda x, w, b: prec_ops.linear(x, w, b, "default"),
+           "conv1d_posconv": lambda x, w, b: prec_ops.conv1d(x, w, b, "default", **kw),
+           "matmul_attention": prec_ops.matmul_bf16}
+
+    def r64(t):
+        return prec_ops.round_bf16(t.to(DEV)).double()
+
+    def oracle(name, dy, x, w, b=None):
+        dyr = r64(dy)
+        if name == "linear_fc1":
+            return dyr @ r64(w), dyr.t() @ r64(x), dy.to(DEV).double().sum(0)
+        if name == "conv1d_posconv":
+            return (torch.nn.grad.conv1d_input(x.shape, r64(w), dyr, **kw),
+                    torch.nn.grad.conv1d_weight(r64(x), w.shape, dyr, **kw),
+                    dy.to(DEV).double().sum((0, 2)))
+        return dyr @ r64(w).transpose(-1, -2), r64(x).transpose(-1, -2) @ dyr
+
+    res = {}
+    for name, args in ins.items():
+        dy = torch.randn(fns[name](*args).shape, generator=g)
+        exact = oracle(name, dy, *args)
+        errs = {}
+        for dev in ("card", "plain"):
+            xs = [t.to(DEV if dev == "card" else "cpu").clone().requires_grad_() for t in args]
+            fns[name](*xs).backward(dy.to(xs[0].device))
+            errs[dev] = max((x.grad.to(DEV).double() - e).abs().max().item()
+                            / e.abs().max().item() for x, e in zip(xs, exact))
+        res[name] = {"card_rel_err": errs["card"], "plain_rel_err": errs["plain"]}
+        print(f"precision route {name} backward: max|g - g_f64| / max|g_f64| card "
+              f"{errs['card']:.3g}, plain (CPU) {errs['plain']:.3g} (<= {ROUTE_TOL})", flush=True)
+        if max(errs.values()) > ROUTE_TOL:
+            fail(f"precision route {name} backward: card {errs['card']:.3g} or plain "
+                 f"{errs['plain']:.3g} from the float64 transposes (> {ROUTE_TOL} of max|g|)")
+    return res
+
+
+def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                         kernel_times: bool = True) -> dict:
+    """K2b and K3b, through ``flash_attention_bwd``, against
+    flash_attention_bwd_ref(..., "default") on the card, from K1b's O and
+    LSE, NaN in k and v past each bound: every output finite; dK = dV = 0
+    past each bound and every gradient 0 for a row with no key; dQ, dK and
+    dV each within BWD_BF16_PLAIN_REL of the plain version's max |g| and
+    BWD_BF16_PLAIN_NORM of its norm from it, no further from the exact float64 gradient than 1.5 x the plain
+    version's distance + 1e-6, and no nearer than half of it (they do
+    round: bf16 operands everywhere, f32 sums in another order); a rerun
+    the same bits. ``kernel_times``: time K2b and K3b; ``timed``: the plain
+    version and SDPA's gradient on bf16 copies of q, k, v and dO (the
+    yardstick) too."""
+    h, d = 12, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    do = torch.randn(b, t, h, d, generator=g).to(DEV)
+    do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+
+    def kernels():
+        return flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
+
+    outs = kernels()
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    err, err_f64, plain_f64, gmax, sq_err, sq_ref = ({n: 0.0 for n in names} for _ in range(6))
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        ref = flash_attention.flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], lse[sl],
+                                                      do[sl], lens[sl], "default")
+        exact = attention_bwd_f64(q[sl], k[sl], v[sl], do[sl], lens[sl])
+        for n, ours, r, x in zip(names, outs, ref, exact):
+            err[n] = max(err[n], (ours[sl] - r).abs().nan_to_num(nan=float("inf")).max().item())
+            err_f64[n] = max(err_f64[n], (ours[sl].double() - x).abs().nan_to_num(
+                nan=float("inf")).max().item())
+            plain_f64[n] = max(plain_f64[n], (r.double() - x).abs().max().item())
+            gmax[n] = max(gmax[n], r.abs().max().item())
+            sq_err[n] += (ours[sl] - r).nan_to_num(nan=float("inf")).square().sum().item()
+            sq_ref[n] += r.square().sum().item()
+        del ref, exact
+    dq, dk, dv = outs
+    finite = all(bool(torch.isfinite(x).all()) for x in outs)
+    zero_past = all(bool((dk[i, n:] == 0).all() and (dv[i, n:] == 0).all())
+                    for i, n in enumerate(lengths))
+    zero_rows = all(bool((dq[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+    same_bits = all(torch.equal(x, y) for x, y in zip(outs, kernels()))
+    excess = max(err_f64[n] - (1.5 * plain_f64[n] + 1e-6) for n in names)
+    rounds = all(err_f64[n] >= 0.5 * plain_f64[n] for n in names)
+    err_rel = {n: err[n] / max(gmax[n], 1e-30) for n in names}
+    err_norm = {n: (sq_err[n] / max(sq_ref[n], 1e-60)) ** 0.5 for n in names}
+    if (not (finite and zero_past and zero_rows and same_bits and rounds) or excess > 0
+            or max(err_rel.values()) > BWD_BF16_PLAIN_REL
+            or max(err_norm.values()) > BWD_BF16_PLAIN_NORM):
+        fail(f"flash bwd bf16 [{b}, {t}, {h}, {d}] lengths {lengths}: finite={finite} zero past "
+             f"bound={zero_past} zero rows={zero_rows} rerun same bits={same_bits}; vs plain "
+             f"max|d|/max|g| {err_rel} (<= {BWD_BF16_PLAIN_REL}), ||d||/||g|| {err_norm} "
+             f"(<= {BWD_BF16_PLAIN_NORM}); max|g - g_f64| {err_f64} "
+             f"beyond 1.5 x the plain version's {plain_f64} + 1e-6 by {excess:.3g}, or under "
+             f"half of it")
+    bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS)
+    res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum())}
+    for key, parts in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        res[key] = {"max_abs_err": max(err[n] for n in parts),
+                    "max_rel_err": max(err_rel[n] for n in parts),
+                    "norm_rel_err": max(err_norm[n] for n in parts),
+                    "max_abs_err_vs_f64": {n: err_f64[n] for n in parts},
+                    "plain_max_abs_err_vs_f64": {n: plain_f64[n] for n in parts},
+                    "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        if kernel_times:
+            res[key]["ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
+                key, q, k, v, do_, lse, di, lens_), 10 if t > 1024 else 30)
+    if timed:
+        # one plain call and one library call compute K2b and K3b's outputs
+        # together: both times stand on both rows
+        plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, lens, "default"), 5)
+        qb, kb, vb = (x.detach().nan_to_num(0.0).transpose(1, 2).to(torch.bfloat16)
+                      .contiguous().requires_grad_() for x in (q, k, v))
+        mask = None
+        if int(lens.min()) < t:
+            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+        out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+        dob = do.transpose(1, 2).to(torch.bfloat16)
+        lib = time_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), dob, retain_graph=True), 10)
+        for key in ("dq", "dkv"):
+            res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+    print(f"  flash bwd bf16 [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: vs plain max|d| "
+          f"K2b {err['dq']:.3g}, K3b {max(err['dk'], err['dv']):.3g} (/max|g| "
+          + ", ".join(f"{n} {err_rel[n]:.3g}" for n in names) + "; ||d||/||g|| "
+          + ", ".join(f"{n} {err_norm[n]:.3g}" for n in names) + "); vs f64 "
+          + ", ".join(f"{n} {err_f64[n]:.3g} (plain {plain_f64[n]:.3g})" for n in names)
+          + (f"; K2b {res['dq']['ms']:.4f} ms (bound {bounds['dq'][0]:.4f}), K3b "
+             f"{res['dkv']['ms']:.4f} ms (bound {bounds['dkv'][0]:.4f})" if kernel_times else "")
+          + (f"; plain pair {res['dq']['plain_ms']:.4f} ms, sdpa bf16 grad "
+             f"{res['dq']['library_ms']:.4f} ms" if timed else ""), flush=True)
+    return res
+
+
+def check_flash_bwd_bf16_shapes() -> None:
+    """K2b and K3b at the paths' shapes, each with a full, a ragged, a
+    1-key and a 0-key row: the loss crop [32, 50], 10 s clips [24, 499],
+    the triplet batch's bucket [24, 511] (499 valid frames), a ragged
+    [8, 4095]; untimed at every edge of the 16-row warp tiles, 64-row
+    blocks and 64-row streamed tiles."""
+    g = torch.Generator().manual_seed(10)
+
+    def rows(b, t, n=None):
+        return [t, t // 2, 1, 0] + [n or t] * (b - 4)
+
+    res = {"main": check_flash_bwd_bf16(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True),
+           "train": check_flash_bwd_bf16(LOSS10_BATCH, 499, rows(LOSS10_BATCH, 499), g,
+                                         timed=True),
+           "bucket": check_flash_bwd_bf16(LOSS10_BATCH, 511, rows(LOSS10_BATCH, 511, 499), g,
+                                          timed=False),
+           "long": check_flash_bwd_bf16(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
+                                        timed=True)}
+    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+        res[f"edge_T{t}"] = check_flash_bwd_bf16(4, t, [t, max(t // 2, 1), 1, 0], g,
+                                                 timed=False, kernel_times=False)
+    for key, name in (("dq", "flash_attention_bwd_dq_bf16"),
+                      ("dkv", "flash_attention_bwd_dkv_bf16")):
+        report["kernels"][name] = {shape: r[key] | {"shape": r["shape"]}
+                                   for shape, r in res.items()}
+
+
+def triplet_probe(cfg: dict, batch, init: dict, model_config, direction,
+                  active=None) -> dict:
+    """One deterministic forward over [A; P; N] on a Training from ``init``
+    (no optimizer step): the embeddings, the margin loss, the hinge
+    pattern (d(a, p) - d(a, n) + margin > 0 per triplet; ``active``, else
+    its own) and two sets of parameter gradients: of the margin loss taken
+    under that pattern ("margin") and of <embeddings, direction>
+    ("probe"). The margin loss's gradient is the difference of those of
+    d(a, p) and d(a, n), nearly equal at seeded weights; the smooth probe
+    drives the same backward without that cancellation."""
+    tr = Training(dict(cfg, remat=False), device="cuda", params=init, model_config=model_config)
+    wav, lengths = tr._device_batch(batch)
+    emb = tr.model(wav, lengths if tr.masked_pool else None, deterministic=True)
+    b = len(batch.lengths_a)
+    a, p, n = emb[:b], emb[b:2 * b], emb[2 * b:]
+    loss = triplet_margin_loss(a, p, n, tr.margin).item()
+    gap = pairwise_distance(a, p) - pairwise_distance(a, n)
+    if active is None:
+        active = gap + tr.margin > 0
+    names, params = zip(*((n_, p_) for n_, p_ in tr.model.named_parameters()
+                          if p_.requires_grad))
+    margin = torch.autograd.grad((active * gap).sum() / b, params, retain_graph=True,
+                                 allow_unused=True)
+    probe = torch.autograd.grad((emb * direction).sum(), params, allow_unused=True)
+    res = {"emb": emb.detach(), "loss": loss, "active": active,
+           **{key: {n_: g_ for n_, g_ in zip(names, grads) if g_ is not None}
+              for key, grads in (("margin", margin), ("probe", probe))}}
+    release(tr)
+    return res
+
+
+def grads_rel(grads: dict, ref: dict, zero_grad: bool = False) -> tuple[float, str]:
+    """max |d| / max |g| over the parameters whose gradient is 0
+    analytically (``zero_grad``), or over the others, both relative to the
+    others' max |g|; and the parameter where the max |d| lies."""
+    names = [n for n in ref if n.endswith(ZERO_GRAD_PARAMS) == zero_grad]
+    gmax = max(g.abs().max().item() for n, g in ref.items()
+               if not n.endswith(ZERO_GRAD_PARAMS))
+    worst = max(names, key=lambda n: (grads[n] - ref[n]).abs().max().item())
+    return (grads[worst] - ref[worst]).abs().max().item() / gmax, worst
+
+
+def probe_distance(x: dict, ref: dict) -> dict:
+    """Two ``triplet_probe`` results apart: embeddings relative to the
+    reference's max, both gradient sets relative to their max (with the
+    parameter where the gap lies), the analytically-zero k_proj biases
+    apart, and the margin loss."""
+    out = {"emb_rel_to_max": (x["emb"] - ref["emb"]).abs().max().item()
+           / ref["emb"].abs().max().item(), "loss_abs": abs(x["loss"] - ref["loss"])}
+    for key in ("probe", "margin"):
+        out[f"{key}_grad_rel_to_max"], out[f"{key}_grad_worst_param"] = grads_rel(
+            x[key], ref[key])
+    out["zero_grad_params_rel_to_max"] = grads_rel(x["probe"], ref["probe"], True)[0]
+    return out
+
+
+def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict) -> dict:
+    """The triplet recipe in ``mode`` (``precision:`` in the config, remat
+    on, dropout 0.1): the recipe's step (the plain dropout attention at
+    bf16, K5 only) and its eval step (K1b); the dropout rates at 0 (K1b +
+    K2b + K3b); then, from ``init`` with the rates at 0, ``triplet_probe``
+    on the kernel path (K), whose attention backward calls are held to
+    their plain version on the same inputs, against the same mode's plain
+    path (P): the embeddings and both gradient sets within GRAD_MODE_FRAC
+    times P's distance to the "exact" plain path (EP), the margin loss
+    within what the embeddings' distance allows (each triplet's
+    d(a, p) - d(a, n) moves at most 4 max_i ||d emb_i||). Reported beside
+    them: K against the "exact" kernel path (E), and the path with K2b and
+    K3b alone swapped for their plain version (KP) against K and P."""
+    out: dict = {}
+    tr, loss, before, grads = first_train_step(
+        f"train_step_{mode}", dict(cfg, precision=mode), batch, launches_want(k5=50), init)
+    want_cfg = mode_config(mode, frontend_stop_gradient=True, remat=True)
+    if tr.model_config != want_cfg:
+        fail(f"trainer {mode}: precision resolved to {tr.model_config}, want {want_cfg}")
+    out["frozen_moved"] = check_frozen_and_moved(tr, before, grads)
+    del before, grads
+    out["train_step"] = time_train_steps(card, f"train_step {mode} (dropout, remat)", tr, batch)
+    with profiler_range(wav2vec2, "mha_dropout", PLAIN_ATTENTION):
+        profile_run(lambda: tr.train_step(batch, step_gen()), f"profile_train_step_{mode}",
+                    split=ranged_kernels(PLAIN_ATTENTION, "plain attention (products, "
+                                         "softmax, dropout; fwd + bwd)"))
+    reset_launches()
+    tr.eval_step(batch)
+    counts = read_launches()
+    report["launches"][f"eval_step_{mode}"] = counts
+    if counts != launches_want(k1b=12, k5=26):
+        fail(f"trainer {mode}: eval step launch counts {counts} (want K1b 12, K5 26)")
+    out["eval_step_ms"] = time_ms(lambda: tr.eval_step(batch), TRAIN_STEPS, warmup=1)
+    release(tr)
+
+    tr, _, _, _ = first_train_step(
+        f"train_step_rates0_{mode}", cfg, batch,
+        launches_want(k1b=24, k2b=12, k3b=12, k5=50), init, mode_config(mode, **ZERO_RATES))
+    out["train_step_rates0"] = time_train_steps(card, f"train_step {mode} (rates at 0, remat)",
+                                                tr, batch)
+    profile_run(lambda: tr.train_step(batch, step_gen()), f"profile_train_step_rates0_{mode}")
+    emb_dim = tr.emb_dim
+    release(tr)
+    out["rates0_kernel_vs_plain"] = rates0_vs_plain(mode, cfg, batch, init, emb_dim)
+    print(f"trainer {mode}: recipe step loss {loss:.8g}; eval step {out['eval_step_ms']:.2f} ms"
+          f"  [{card}]", flush=True)
+    return out
+
+
+def rates0_vs_plain(mode: str, cfg: dict, batch, init: dict, emb_dim: int) -> dict:
+    """``mode_train_steps``' comparison of the kernel path with the plain
+    path at the rates at 0, from ``init``."""
+    g = torch.Generator().manual_seed(TRAIN_SEED)
+    direction = torch.randn(3 * len(batch.lengths_a), emb_dim, generator=g).to(DEV)
+
+    def probe(config, active=None):
+        return triplet_probe(cfg, batch, init, config, direction, active)
+
+    what = f"trainer {mode}"
+    with recorded_flash_bwd() as calls:
+        k = probe(mode_config(mode, **ZERO_RATES))
+    calls_vs_plain = check_recorded_flash_bwd(calls, f"{what}, rates at 0")
+    del calls
+    active = k["active"]
+    with plain_flash(mode):
+        p = probe(plain_config(mode, **ZERO_RATES), active)
+    with plain_flash(mode, forward=False):
+        kp = probe(mode_config(mode, **ZERO_RATES), active)
+    ep = probe(plain_config(**ZERO_RATES), active)
+    e = probe(mode_config(**ZERO_RATES), active)
+    d, d_plain = probe_distance(k, p), probe_distance(p, ep)
+    keys = ("emb_rel_to_max", "probe_grad_rel_to_max", "margin_grad_rel_to_max")
+    tol = {key: TOL_GRAD_REL + GRAD_MODE_FRAC * d_plain[key] for key in keys}
+    tol["loss_abs"] = 4 * (k["emb"] - p["emb"]).norm(dim=-1).max().item() + 1e-6
+    res = {"loss": k["loss"], "plain_loss": p["loss"], "active_triplets": int(active.sum()),
+           "vs_plain": d, "plain_vs_exact_plain": d_plain,
+           "vs_exact_kernel": probe_distance(k, e),
+           "k2b_k3b_swapped_vs_kernel": probe_distance(kp, k),
+           "k2b_k3b_swapped_vs_plain": probe_distance(kp, p),
+           "attention_bwd_calls_vs_plain": calls_vs_plain, "tolerance": tol}
+    print(f"{what}: rates at 0, kernel path vs the {mode} plain path {d} (tolerance {tol}); "
+          f"the {mode} plain path vs the exact plain path {d_plain}; kernel path vs exact "
+          f"{res['vs_exact_kernel']}; K2b/K3b swapped for plain vs kernel path "
+          f"{res['k2b_k3b_swapped_vs_kernel']}, vs plain path {res['k2b_k3b_swapped_vs_plain']}",
+          flush=True)
+    if k["probe"].keys() != p["probe"].keys() or any(d[key] > tol[key] for key in tol):
+        fail(f"{what}: rates-at-0 kernel path vs plain path {d} beyond {tol}")
+    return res
+
+
+def mode_se_step(card: str, tmp: Path, sd: dict) -> dict:
+    """One SE train step at the recipe with the lossnet at "balanced" (the
+    JAX SE's own default): K1b 24, K2b 12, K3b 12, K5 52; a finite loss,
+    every U-Net tensor but the pre-batch-norm biases moved, the lossnet
+    unchanged; warm step time."""
+    cfg = write_se_tree(tmp, counts=(32, 1, 1))
+    nomad = Nomad(device="cuda", precision="balanced", params=sd)
+    se = SpeechEnhancement(cfg, device="cuda", nomad=nomad)
+    noisy, clean = next(se.train_set.batches(int(cfg["train_bs"]), shuffle=False))
+    init = {k: v.clone() for k, v in se.unet.state_dict().items()}
+    lossnet = {k: v.clone() for k, v in nomad.model.state_dict().items()}
+    loss, _, _, counts = se_first_step(se, init, noisy, clean,
+                                       launches_want(k1b=24, k2b=12, k3b=12, k5=52))
+    report["launches"]["se_train_step_balanced"] = counts
+    unmoved = [n for n, v in se.unet.state_dict().items()
+               if torch.equal(v, init[n]) and not n.endswith(SE_PRE_BN_BIAS)]
+    changed = [k for k, v in nomad.model.state_dict().items() if not torch.equal(v, lossnet[k])]
+    if unmoved or changed:
+        fail(f"SE balanced: U-Net tensors unmoved {unmoved}, lossnet tensors changed {changed[:5]}")
+    out = {"loss": loss, "train_step": time_steps(lambda: se.train_step(noisy, clean), 3, card,
+                                                  "SE: train step, lossnet balanced")}
+    print(f"SE balanced: first-step loss {loss:.8g}, launches {counts}", flush=True)
+    del se, nomad
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_grad_modes(card: str) -> None:
+    """Phase 10: K2b and K3b against their plain version and float64, then
+    the loss with its gradient in "balanced" and "fast" at the SE crop and
+    on 10 s clips, the triplet recipe in both modes, and one SE step with
+    a "balanced" lossnet, all on one seeded BASE state dict."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    print("gradient modes: K2b and K3b vs their plain version on the card:", flush=True)
+    check_flash_bwd_bf16_shapes()
+    sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    report["grad_routes"] = grad_routes_vs_plain(sd)
+    want = launches_want(k1b=24, k2b=12, k3b=12, k5=52)
+    for mode in ("balanced", "fast"):
+        run_loss_path(card, f"loss_path_{mode}", mode_config(mode), want, LOSS_BATCH,
+                      LOSS_SAMPLES, mode, sd)
+        run_loss_path(card, f"loss_path_10s_{mode}", mode_config(mode), want, LOSS10_BATCH,
+                      LOSS10_SAMPLES, mode, sd)
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_grad_modes_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "train").mkdir()
+        cfg = write_train_tree(tmp / "train")
+        ds = train_data.TripletDataset(cfg, "train_df", level=cfg["current_level"])
+        batch = train_data._pinned(train_data.collate_triplets(
+            [ds.load_item(i) for i in range(cfg["train_bs"])]))
+        for mode in ("fast", "balanced"):
+            out[mode] = mode_train_steps(card, mode, cfg, batch, sd)
+        (tmp / "se").mkdir()
+        out["se_balanced"] = mode_se_step(card, tmp / "se", sd)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["grad_modes"] = out
+    print(f"gradient modes: phase 10 took {out['phase_s']:.1f} s", flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
@@ -2200,6 +2810,8 @@ def main() -> None:
                       help="phases 1 and 8 only; ends with the report line")
     only.add_argument("--only-precision", action="store_true",
                       help="phases 1, 2 and 9 only; ends with the report line")
+    only.add_argument("--only-grad-modes", action="store_true",
+                      help="phases 1, 2 and 10 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -2207,7 +2819,8 @@ def main() -> None:
     card = card_info()
     alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se,
              "only_serve": run_serve,
-             "only_precision": lambda card: (build_kernels(), run_precision(card))}
+             "only_precision": lambda card: (build_kernels(), run_precision(card)),
+             "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -2222,6 +2835,7 @@ def main() -> None:
     run_se(card)
     run_serve(card)
     run_precision(card)
+    run_grad_modes(card)
 
     rows = []
     for name, src, replaces in (
@@ -2232,6 +2846,10 @@ def main() -> None:
         ("flash_attention_bwd_dq", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
          "nomad_tpu/ops/flash_attention.py:182"),
         ("flash_attention_bwd_dkv", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+         "nomad_tpu/ops/flash_attention.py:222"),
+        ("flash_attention_bwd_dq_bf16", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:182"),
+        ("flash_attention_bwd_dkv_bf16", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:222"),
         ("fused_qkv_attention_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
@@ -2247,7 +2865,7 @@ def main() -> None:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         }
-        if "train" in k:  # K2/K3: the loss crop above, [24, 499] (10 s clips) beside it
+        if "train" in k:  # K2/K3, K2b/K3b: the loss crop above, [24, 499] (10 s clips) beside it
             row |= {f"train_{f}": k["train"][f]
                     for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         rows.append(row)

@@ -26,8 +26,9 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
     ``Wav2Vec2Config.balanced()`` and ``.fast()``, the JAX package's
     recipes: one bf16 pass (bf16 operands, f32 accumulation) on their
     islands (``ops/precision.py``), the attention products in kernel K1b.
-    They serve scoring, embeddings and the forward-only loss; a loss that
-    needs a gradient raises. An explicit ``config`` wins over
+    They serve scoring, embeddings and the loss with its gradient, whose
+    products round their operands as JAX transposes a DEFAULT product (the
+    attention's backward in K2b + K3b). An explicit ``config`` wins over
     ``precision``, as in the JAX package. The JAX package defaults to
     ``'balanced'``; the port keeps ``'exact'``, its parity anchor, until
     a benchmark cell can judge the switch (ROADMAP).

@@ -21,7 +21,8 @@ their plain versions on the CPU). Which kernel each ``attention_impl``
 takes on the card:
 
   * 'kernel'    — projections by ``nn.Linear``, attention K1 forward
-                  (``csrc/flash_attention.cu``), K2 + K3 backward.
+                  (``csrc/flash_attention.cu``), K2 + K3 backward; at an
+                  attention island of "default" K1b, K2b + K3b.
   * 'fused_qkv' — projections and attention in K4 (``csrc/fused_attention.cu``)
                   up to 1,024 frames, the out-projection one product; its
                   backward recomputes through K1 + K2 + K3. Longer inputs
@@ -39,8 +40,10 @@ the q/k/v/out projections and fc2 at ``encoder_prec``.
 ``ops/precision.py`` says what each value means on the card; "high" and
 "highest" are today's f32 ("exact"), bit for bit.
 ``Wav2Vec2Config.balanced()`` and ``.fast()`` are the JAX package's
-recipes. A bf16 island is forward-only (scoring and the forward-only
-loss): dropout and gradients under one raise.
+recipes. Gradients and dropout work under every island: a bf16 island's
+backward rounds the operands of its products as JAX transposes them
+(``ops/precision.py``), and the attention's backward at "default" is
+K2b + K3b on the card.
 
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
@@ -143,12 +146,6 @@ class Wav2Vec2Config:
     @property
     def posconv_prec(self):
         return self.posconv_precision or self.frontend_prec
-
-    @property
-    def any_bf16(self) -> bool:
-        """Whether any product runs in the single bf16 pass ("default")."""
-        return "default" in (self.frontend_prec, self.encoder_prec, self.attn_score_prec,
-                             self.ffn1_prec, self.posconv_prec)
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -383,12 +380,12 @@ class EncoderLayer(nn.Module):
         if cfg.attention_impl == "fused_qkv" and not attn_dropout:
             # K4 has one mode for the whole block, from the projections'
             # island as in the JAX package: "high" and "highest" are its f32
-            # (the card's "high3"); its bf16 mode is not ported
+            # (the card's "high3"); its bf16 mode, K4b, is not ported
             if prec_ops.is_bf16(cfg.encoder_prec):
                 raise NotImplementedError(
                     "attention_impl='fused_qkv' at encoder precision 'default' (K4's bf16 "
-                    "mode) is not ported yet (ROADMAP Queue 2, 'K4's default mode'); use "
-                    "attention_impl='kernel'"
+                    "mode, K4b) is not ported yet (ROADMAP Queue 2, 'K4b', the next "
+                    "slice); use attention_impl='kernel'"
                 )
             # the same parameters as the unfused path: one state_dict loads both
             attn = fused_qkv_attention(
@@ -400,7 +397,8 @@ class EncoderLayer(nn.Module):
             q, k, v = (prec_ops.linear(x, p.weight, p.bias, cfg.encoder_prec).view(b, t, h, d // h)
                        for p in (self.q_proj, self.k_proj, self.v_proj))
             if attn_dropout:
-                attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g)
+                attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g,
+                                   precision=cfg.attn_score_prec)
             else:
                 attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
                            precision=cfg.attn_score_prec)
@@ -478,11 +476,6 @@ class Wav2Vec2Model(nn.Module):
         cfg = self.config
         g = seeds = None
         if not deterministic:
-            if cfg.any_bf16:
-                raise NotImplementedError(
-                    "dropout (training) under a bf16 precision island is not ported yet "
-                    "(ROADMAP Queue 2, 'the DEFAULT flavours of K2/K3'); train at 'exact'"
-                )
             seeds = torch.randint(SEED_BOUND, (1 + cfg.num_layers,), generator=generator).tolist()
             g = _generator(seeds.pop(0), wav.device)
         if cfg.frontend_stop_gradient:

@@ -14,12 +14,16 @@ one switch:
                  run can hold the kernel path against it. At precision
                  "default" both einsums take bf16-rounded operands, as
                  ``mha_xla`` under ``jax.default_matmul_precision("default")``
-                 (the normalised weights are rounded, not exp(s - m)).
+                 (the normalised weights are rounded, not exp(s - m)), and
+                 their gradients are the products of the rounded cotangent
+                 and operands, as JAX transposes a DEFAULT product
+                 (``precision.matmul_bf16``).
 
 ``mha_dropout`` is the training path under attention dropout, the plain
 counterpart of the JAX package's ``mha_xla_dropout``: ``mha_ref`` with
-dropout on the softmax weights. The JAX package computes it outside any
-Pallas kernel, and so does the port.
+dropout on the softmax weights, at the same precisions (the dropped and
+rescaled weights are rounded at "default"). The JAX package computes it
+outside any Pallas kernel, and so does the port.
 
 q is pre-scaled by 1/sqrt(head_dim) before QK^T, as in torch
 ``F.multi_head_attention_forward``.
@@ -30,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import FlashAttention
-from .precision import is_bf16, round_bf16
+from .precision import is_bf16, matmul_bf16
 
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
 
@@ -46,9 +50,23 @@ def dropout(x, rate: float, generator=None):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _softmax_weights(q, k, key_mask, rnd=lambda x: x):
+def _scores(q, k, precision):
+    """q [B, T, H, D] . k [B, T, H, D]^T -> [B, H, T, T]."""
+    if is_bf16(precision):
+        return matmul_bf16(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+    return torch.einsum("bqhd,bkhd->bhqk", q, k)
+
+
+def _attend(weights, v, precision):
+    """weights [B, H, T, T] . v [B, T, H, D] -> [B, T, H, D]."""
+    if is_bf16(precision):
+        return matmul_bf16(weights, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def _softmax_weights(q, k, key_mask, precision):
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bqhd,bkhd->bhqk", rnd(q * scale), rnd(k)).to(torch.float32)
+    scores = _scores(q * scale, k, precision).to(torch.float32)
     if key_mask is not None:
         add = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         scores = scores + add[:, None, None, :]
@@ -57,18 +75,17 @@ def _softmax_weights(q, k, key_mask, rnd=lambda x: x):
 
 def mha_ref(q, k, v, key_mask=None, precision="highest"):
     """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
-    valid key. Differentiable through plain autograd. precision "default"
-    rounds the operands of both products to bf16."""
-    rnd = round_bf16 if is_bf16(precision) else (lambda x: x)
-    weights = _softmax_weights(q, k, key_mask, rnd).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", rnd(weights), rnd(v))
+    valid key. Differentiable. precision "default" rounds the operands of
+    both products to bf16, and those of their gradients' products."""
+    weights = _softmax_weights(q, k, key_mask, precision).to(v.dtype)
+    return _attend(weights, v, precision)
 
 
-def mha_dropout(q, k, v, key_mask, rate: float, generator):
+def mha_dropout(q, k, v, key_mask, rate: float, generator, precision="highest"):
     """``mha_ref`` with dropout on the softmax weights after the key mask
     (fairseq's placement): where(keep, w / (1 - rate), 0)."""
-    weights = dropout(_softmax_weights(q, k, key_mask), rate, generator).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    weights = dropout(_softmax_weights(q, k, key_mask, precision), rate, generator).to(v.dtype)
+    return _attend(weights, v, precision)
 
 
 def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest"):

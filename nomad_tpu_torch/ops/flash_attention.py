@@ -12,8 +12,11 @@ defined and finite, padded rows included; a row with no valid key gives
 O = 0, LSE = -1e30.
 
 ``flash_attention_bwd`` is the backward: K2 and K3
-(``csrc/flash_attention_bwd.cu``) on CUDA tensors, ``flash_attention_bwd_ref``
-on CPU tensors. ``FlashAttention`` is the differentiable form, one
+(``csrc/flash_attention_bwd.cu``, f32) or K2b and K3b
+(``csrc/flash_attention_bwd_bf16.cu``, the TPU kernels' own "default"
+flavour: bf16 products, f32 accumulation, exp and masks) on CUDA tensors,
+``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
+``FlashAttention`` is the differentiable form, one
 ``torch.autograd.Function`` over both.
 """
 
@@ -45,11 +48,20 @@ FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
 BWD_SMALL_T, BWD_SMALL_ROWS, BWD_STAGES, BWD_BLOCKS_PER_SM = 64, 32, 2, 3
 _LD_S = BLOCK_K + 4
 
-# Launches of K1, K1b, K2 and K3 since each count was last set to 0.
+# K2b's and K3b's tiles (csrc/flash_attention_bwd_bf16.cu): a block of 4
+# warps owns 64 rows (16 a warp) as bf16 mma fragments in registers and
+# streams 64-row tiles of the other two operands as bf16 in static shared
+# memory (rows padded to 72); K3b's tile also carries the 64 rows' LSE and
+# Di in f32. Blocks per SM: what the kernels are compiled for.
+BWD_BF16_ROWS, BWD_BF16_LD, BWD_BF16_BLOCKS_PER_SM = 64, HEAD_DIM + 8, 2
+
+# Launches of K1, K1b, K2, K3, K2b and K3b since each count was last set to 0.
 launches = 0
 launches_bf16 = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_bwd_dq_bf16 = 0
+launches_bwd_dkv_bf16 = 0
 
 
 def flash_attention_ref(q, k, v, lengths, precision="highest"):
@@ -85,29 +97,43 @@ def flash_attention_ref(q, k, v, lengths, precision="highest"):
     return o.to(q.dtype), lse
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, lengths):
+def flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision="highest"):
     """What ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` compute
     together, unfolded: Di = rowsum(dO*O), P = exp(s - LSE) over keys
     t < lengths[b] (0 elsewhere) with s = q.k/sqrt(D), dP = dO.V^T,
     dS = P*(dP - Di); dQ = dS.K/sqrt(D), dK = dS^T.Q/sqrt(D), dV = P^T.dO.
     Keys past the bound are zeroed before the products and get dK = dV = 0;
-    a row with no valid key gets zero gradients."""
+    a row with no valid key gets zero gradients.
+
+    ``precision`` "highest" or "high": f32 products. "default", the TPU
+    kernels' single pass (``nomad_tpu/ops/flash_attention.py:200-219``,
+    ``:239-264``): every product takes operands rounded to bf16 (P and dS
+    included) and sums in f32, s = (bf16(q) . bf16(k)) / sqrt(D) (the scale
+    1/8 is exact), exp, the mask, Di and LSE stay f32."""
     b, t, h, d = q.shape
     lengths = lengths.to(device=q.device, dtype=torch.int64).clamp(0, t)
     valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]  # [B, T]
     vk = valid[:, :, None, None]
     scale = 1.0 / d**0.5
-    qf = q.to(torch.float32) * scale
     kf = torch.where(vk, k.to(torch.float32), 0.0)
     vf = torch.where(vk, v.to(torch.float32), 0.0)
     dof = do.to(torch.float32)
     di = (dof * o.to(torch.float32)).sum(dim=-1).transpose(1, 2)  # [B, H, T]
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    bf16 = is_bf16(precision)
+    if bf16:  # q unscaled: the kernels scale the product
+        qf, kf, vf, dof = (round_bf16(x) for x in (q.to(torch.float32), kf, vf, dof))
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    else:
+        qf = q.to(torch.float32) * scale
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     p = torch.exp(torch.where(valid[:, None, None, :], s - lse[..., None], NEG_INF))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - di[..., None])
+    if bf16:
+        ds, p = round_bf16(ds), round_bf16(p)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
-    dk = torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", ds, qf), 0.0)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk = torch.where(vk, dk * scale if bf16 else dk, 0.0)
     dv = torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", p, dof), 0.0)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -131,6 +157,20 @@ def flash_bwd_launch_plan(t: int, b: int, h: int) -> dict:
     smem = 4 * (2 * rows * HEAD_DIM + BWD_STAGES * 2 * BLOCK_K * _LD + rows * _LD_S)
     return {kernel: {"grid": (-(-t // rows), h, b), "threads": THREADS, "rows_per_block": rows,
                      "smem_bytes": smem, "blocks_per_sm": BWD_BLOCKS_PER_SM}
+            for kernel in ("dq", "dkv")}
+
+
+def flash_bwd_bf16_launch_plan(t: int, b: int, h: int) -> dict:
+    """K2b's and K3b's launches ({"dq": ..., "dkv": ...}): one block of 128
+    threads per 64-row tile (K2b: query rows, K3b: key rows), head and
+    batch row; static shared memory (K2b: the K and V tiles; K3b: the Q
+    and dO tiles plus their LSE and Di) and the blocks per SM they are
+    built for."""
+    tile = 2 * BWD_BF16_ROWS * BWD_BF16_LD * 2
+    smem = {"dq": tile, "dkv": tile + 2 * BWD_BF16_ROWS * 4}
+    return {kernel: {"grid": (-(-t // BWD_BF16_ROWS), h, b), "threads": THREADS,
+                     "rows_per_block": BWD_BF16_ROWS, "smem_bytes": smem[kernel],
+                     "blocks_per_sm": BWD_BF16_BLOCKS_PER_SM}
             for kernel in ("dq", "dkv")}
 
 
@@ -342,15 +382,69 @@ def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, lengths):
+def _lib_bwd_bf16():
+    lib = _build.load("flash_attention_bwd_bf16")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, outs in ((lib.nomad_flash_attention_bwd_bf16_dq, 1),
+                     (lib.nomad_flash_attention_bwd_bf16_dkv, 2)):
+        if fn.argtypes is None:
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+            fn.restype = ctypes.c_int
+    occ = lib.nomad_flash_attention_bwd_bf16_occupancy
+    if occ.argtypes is None:
+        occ.argtypes, occ.restype = [i, ctypes.POINTER(i)], ctypes.c_int
+    return lib
+
+
+def flash_bwd_bf16_occupancy(kernel: str) -> int:
+    """Blocks of K2b (``kernel="dq"``) or K3b (``"dkv"``) resident on one
+    SM (the card)."""
+    lib = _lib_bwd_bf16()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.nomad_flash_attention_bwd_bf16_occupancy(
+        int(kernel == "dkv"), ctypes.byref(blocks)), "bf16 flash backward occupancy")
+    return blocks.value
+
+
+def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
+    """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) on
+    arguments prepared by ``_bwd_args``; outputs f32 [B, T, H, D]."""
+    b, t, h, d = q.shape
+    outs = tuple(torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                 for _ in range(1 if kernel == "dq" else 2))
+    if q.numel() == 0:
+        return outs
+    lib = _lib_bwd_bf16()
+    err = getattr(lib, f"nomad_flash_attention_bwd_bf16_{kernel}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, f"bf16 flash attention {'dQ' if kernel == 'dq' else 'dK/dV'} "
+                 "kernel launch")
+    global launches_bwd_dq_bf16, launches_bwd_dkv_bf16
+    if kernel == "dq":
+        launches_bwd_dq_bf16 += 1
+    else:
+        launches_bwd_dkv_bf16 += 1
+    return outs
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, lengths, precision="highest"):
     """Gradients (dQ, dK, dV) of ``mha_flash``'s O for the cotangent dO,
-    from the saved O and LSE. K2 and K3 on CUDA tensors, the plain version
-    on CPU tensors."""
+    from the saved O and LSE. On CUDA tensors K2 and K3 ("highest",
+    "high") or K2b and K3b ("default"), on CPU tensors the plain version of
+    the same flavour."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths)
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
     do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
+    if is_bf16(precision):
+        (dq,) = _bwd_bf16_kernel("dq", q, k, v, do, lse, di, lengths)
+        dk, dv = _bwd_bf16_kernel("dkv", q, k, v, do, lse, di, lengths)
+        return dq, dk, dv
     dq = _bwd_dq_kernel(q, k, v, do, lse, di, lengths)
     dk, dv = _bwd_dkv_kernel(q, k, v, do, lse, di, lengths)
     return dq, dk, dv
@@ -360,9 +454,9 @@ class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, lengths, precision="highest")`` -> O
     [B, T, H, D], masked attention differentiable in q, k, v (lengths int32
     [B] gets no gradient): ``mha_flash`` forward (K1, or K1b for
-    "default", on the card), ``flash_attention_bwd`` backward (K2 + K3 on
-    the card); the plain versions of both on the CPU. The backward exists
-    for the f32 flavours only: K2 and K3 at "default" are not ported."""
+    "default", on the card), ``flash_attention_bwd`` backward (K2 + K3, or
+    K2b + K3b for "default", on the card); the plain versions of both on
+    the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, precision="highest"):
@@ -374,12 +468,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        if is_bf16(ctx.precision):
-            raise NotImplementedError(
-                "the gradient of attention at precision 'default' (K2/K3's bf16 "
-                "flavour) is not ported yet (ROADMAP Queue 2, 'the DEFAULT flavours of "
-                "K2/K3'); use precision 'exact' for a loss that needs a gradient"
-            )
         q, k, v, o, lse, lengths = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths, ctx.precision)
         return dq, dk, dv, None, None

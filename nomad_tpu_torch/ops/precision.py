@@ -9,9 +9,11 @@ The JAX package sets a TPU matrix-unit precision per island
     FMA with TF32 off, on either device. The card has no cheap counterpart
     of bf16 x 3, so "high" is f32, bit for bit today's "exact".
   * ``"default"`` (one bf16 pass: operands rounded to bf16, products
-    exact, f32 accumulation, f32 out). A product: on the card ``torch.mm``
-    of bf16 operands with an f32 output (``aten::mm.dtype``, cuBLAS) plus
-    the bias in f32; the plain version, for CPU tensors, rounds the
+    exact, f32 accumulation, f32 out). A product (``matmul_bf16``: a
+    linear layer's, and the plain and dropout attention's two einsums): on
+    the card ``torch.mm``/``torch.bmm`` of bf16 operands with an f32
+    output (``aten::mm.dtype``/``bmm.dtype``, cuBLAS), a linear layer's
+    bias added in f32; the plain version, for CPU tensors, rounds the
     operands to bf16 (round to nearest even) and runs the f32 product. A
     convolution, on either device: the f32 convolution of the operands
     rounded to bf16. The product of two bf16 values is exact in f32, so
@@ -21,9 +23,20 @@ The JAX package sets a TPU matrix-unit precision per island
 
 A product's route follows the tensor's device, as ``ops/layernorm.py``
 chooses: the card's library route for a CUDA tensor, the plain version
-for a CPU one. TF32 stays off in every mode (``api.set_exact_precision``). A bf16
-island is forward-only: a call that would need its gradient raises
-(training in a mode is ROADMAP Queue 2 work).
+for a CPU one. TF32 stays off in every mode (``api.set_exact_precision``).
+
+Gradients through a "default" island follow JAX's transposes: JAX turns
+a DEFAULT product into DEFAULT products and a DEFAULT convolution into
+DEFAULT convolutions, so the backward rounds the operands of each of its
+products, the cotangent included: dX = bf16(dY) . bf16(W) and dW =
+bf16(dY)^T . bf16(X), f32 out; db = the f32 sum of dY (autograd's, of
+the f32 bias add). A convolution's input and weight gradients are the
+f32 convolutions of the rounded operands, as its forward is. Autograd
+through ``round_bf16`` would round the gradients the backward products
+hand back instead, so the product and the convolution are each a
+``torch.autograd.Function`` with that backward written out, on the card
+and in the plain version alike; each keeps the bf16 copies of its
+operands for the backward.
 """
 
 from __future__ import annotations
@@ -54,15 +67,6 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(x.dtype)
 
 
-def _refuse_gradient(what: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} at precision 'default' (bf16) is forward-only: its gradient, "
-            "training in a precision mode, is not ported yet (ROADMAP Queue 2, "
-            "'the DEFAULT flavours of K2/K3'); use precision 'exact'"
-        )
-
-
 def _device_route(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
@@ -71,25 +75,91 @@ def _device_route(x: torch.Tensor) -> bool:
     raise ValueError(f"precision ops run on CUDA or CPU tensors, got {x.device}")
 
 
+def _matmul(a, b):
+    """a [..., m, k] . b [..., k, n] of bf16 operands with the same leading
+    dims, f32 accumulation and an f32 result: cuBLAS ``mm.dtype`` or
+    ``bmm.dtype`` on the card, the f32 product of the (exactly converted)
+    operands on the CPU."""
+    if not _device_route(a):
+        return torch.matmul(a.float(), b.float())
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    lead, (m, k), n = a.shape[:-2], a.shape[-2:], b.shape[-1]
+    y = torch.bmm(a.reshape(-1, m, k), b.reshape(-1, k, n), out_dtype=torch.float32)
+    return y.view(*lead, m, n)
+
+
+class _MatmulBF16(torch.autograd.Function):
+    """``a @ b`` in one bf16 pass (a [..., m, k], b [..., k, n], the same
+    leading dims), differentiable as JAX transposes a DEFAULT product:
+    da = bf16(g) . bf16(b)^T and db = bf16(a)^T . bf16(g), f32 out."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(ab if ctx.needs_input_grad[1] else None,
+                              bb if ctx.needs_input_grad[0] else None)
+        return _matmul(ab, bb)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ab, bb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        da = _matmul(gb, bb.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        db = _matmul(ab.transpose(-1, -2), gb) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def matmul_bf16(a, b):
+    """``a @ b`` at precision "default": a [..., m, k], b [..., k, n] with
+    the same leading dims, f32 out."""
+    return _MatmulBF16.apply(a, b)
+
+
+class _Conv1dBF16(torch.autograd.Function):
+    """``F.conv1d`` of the bf16-rounded operands, f32 sums and output; its
+    input and weight gradients the f32 convolutions of the rounded
+    cotangent and operands."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        xb, wb = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb if ctx.needs_input_grad[1] else None,
+                              wb if ctx.needs_input_grad[0] else None)
+        ctx.conv = (stride, padding, 1, groups)
+        ctx.shapes = (x.shape, weight.shape)
+        ctx.has_bias = bias is not None
+        return F.conv1d(xb.float(), wb.float(), bias, stride, padding, 1, groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        xb, wb = ctx.saved_tensors
+        dyq = round_bf16(dy)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv1d_input(ctx.shapes[0], wb.float(), dyq, *ctx.conv)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv1d_weight(xb.float(), ctx.shapes[1], dyq, *ctx.conv)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.sum(dim=(0, 2))
+        return dx, dw, db, None, None, None
+
+
 def linear(x, weight, bias, prec):
     """``F.linear`` at island precision ``prec``: x [..., in], weight
     [out, in], bias [out] or None."""
     if not is_bf16(prec):
         return F.linear(x, weight, bias)
-    _refuse_gradient("a product", x, weight, bias)
-    if not _device_route(x):
-        return F.linear(round_bf16(x), round_bf16(weight), bias)
-    y = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), weight.to(torch.bfloat16).t(),
-                 out_dtype=torch.float32)
-    if bias is not None:
-        y.add_(bias)
-    return y.view(*x.shape[:-1], weight.shape[0])
+    y = matmul_bf16(x.reshape(-1, x.shape[-1]), weight.t())
+    y = y.view(*x.shape[:-1], weight.shape[0])
+    return y if bias is None else y + bias
 
 
-def conv1d(x, weight, bias, prec, **conv_kw):
-    """``F.conv1d`` at island precision ``prec``: x [B, C, T]; conv_kw are
-    F.conv1d's stride, padding, groups."""
+def conv1d(x, weight, bias, prec, stride=1, padding=0, groups=1):
+    """``F.conv1d`` at island precision ``prec``: x [B, C, T]; stride,
+    padding and groups as F.conv1d's."""
     if not is_bf16(prec):
-        return F.conv1d(x, weight, bias, **conv_kw)
-    _refuse_gradient("a convolution", x, weight, bias)
-    return F.conv1d(round_bf16(x), round_bf16(weight), bias, **conv_kw)
+        return F.conv1d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+    return _Conv1dBF16.apply(x, weight, bias, stride, padding, groups)

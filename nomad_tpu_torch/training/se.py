@@ -16,8 +16,10 @@ perceptual loss (counterpart of ``nomad_tpu.training.se``; reference
     nomad.loss_fn(est, clean)``, backward into the U-Net alone and one
     ``torch.optim.Adam(lr)`` step (β 0.9/0.999, eps 1e-8: ``optax.adam``).
     On the card the lossnet's forwards run K1 and K5 and its backward K2
-    and K3; the clean forward records no graph, since neither its input
-    nor the frozen lossnet needs a gradient.
+    and K3 (K1b, K2b and K3b for a lossnet in "balanced" or "fast", e.g.
+    ``nomad=Nomad(precision="balanced")``, the JAX SE's own default); the
+    clean forward records no graph, since neither its input nor the
+    frozen lossnet needs a gradient.
   * The eval step, ``loss_components`` and ``enhance`` run the U-Net in
     ``eval()`` mode under ``no_grad``. ``test``/``quality`` score PESQ-WB:
     pip's ``pesq`` where installed, else the port's copy

@@ -13,6 +13,9 @@
     require a gradient and stay out of the optimizer, ``torch.optim.Adam``
     (β 0.9/0.999, eps 1e-8 outside the square root: optax's
     ``scale_by_adam`` and a scale of −lr).
+  * ``precision: exact | balanced | fast`` (with no ``model_config``)
+    picks the model's precision islands as the JAX trainer does
+    (``resolve_model_config``); the train and eval steps run in them.
   * ``experiment_name: Training`` maps ``freeze_convnet`` to
     ``frontend_stop_gradient`` (no autograd through the frozen frontend)
     and turns on ``remat`` (``remat: false`` turns it off), as the JAX
@@ -53,6 +56,7 @@ import torch
 from ..api import resolve_device, set_exact_precision
 from ..convert import jax_to_state_dict, state_dict_to_jax
 from ..models import NomadModel, Wav2Vec2Config, init_weights
+from ..models.wav2vec2 import FAST_ISLANDS
 from ..ops import cdist, cdist_diag
 from ..scoring.engine import PCM16_SCALE, EmbeddingEngine
 from ..utils import config as config_io
@@ -112,6 +116,34 @@ def _group_means(rows: list, by: str, cols) -> tuple[list, dict]:
     return keys, {c: np.asarray(v) for c, v in out.items()}
 
 
+def resolve_model_config(cfg: dict) -> Wav2Vec2Config:
+    """The model of ``model_size`` (``base`` | ``tiny``) at the config's
+    training ``precision``, as the JAX trainer resolves it
+    (``nomad_tpu/training/triplet.py:116-146``): ``exact`` leaves it f32;
+    ``fast`` runs every encoder product in one bf16 pass with the frontend
+    at "high", at any size; ``balanced`` is ``Wav2Vec2Config.balanced()``
+    for ``base`` only and leaves ``tiny`` as it is (the JAX trainer's own
+    rule, kept). ``fast_bf16``'s bf16 activations are not ported."""
+    size = cfg.get("model_size", "base")
+    model_config = Wav2Vec2Config.tiny() if size == "tiny" else Wav2Vec2Config.base()
+    prec = cfg.get("precision", "exact")
+    if prec == "fast":
+        return dataclasses.replace(model_config, **FAST_ISLANDS)
+    if prec == "balanced" and size == "base":
+        return Wav2Vec2Config.balanced()
+    if prec == "fast_bf16":
+        raise NotImplementedError(
+            "training precision 'fast_bf16' (bf16 activations in the block stack) is not "
+            "ported yet (ROADMAP Queue 2, after K4b); use 'fast'"
+        )
+    if prec not in ("exact", "balanced"):
+        raise ValueError(
+            f"unknown training precision {prec!r}: expected 'exact', 'balanced', 'fast' "
+            "or 'fast_bf16'"
+        )
+    return model_config
+
+
 class Training:
     """Config-compatible with the reference ``train_triplet.yaml`` and
     ``eval_triplet.yaml``."""
@@ -124,21 +156,12 @@ class Training:
         else:
             self.config = config_io.load(config_file_or_dict)
         cfg = self.config
-        prec = cfg.get("precision", "exact")
-        if prec in ("balanced", "fast", "fast_bf16"):
-            raise ValueError(
-                f"training precision {prec!r} is not ported yet (ROADMAP Queue 2, "
-                "'the DEFAULT flavours of K2/K3'); use 'exact'"
-            )
-        if prec != "exact":
-            raise ValueError(f"unknown training precision {prec!r}: expected 'exact'")
         self.device = resolve_device(device)
         set_exact_precision()
         print(f"Device: {self.device}")
 
         if model_config is None:
-            tiny = cfg.get("model_size", "base") == "tiny"
-            model_config = Wav2Vec2Config.tiny() if tiny else Wav2Vec2Config.base()
+            model_config = resolve_model_config(cfg)
         training = cfg.get("experiment_name") == "Training"
         if training and cfg.get("freeze_convnet", False):
             model_config = dataclasses.replace(model_config, frontend_stop_gradient=True)

@@ -100,3 +100,19 @@ def test_flash_bwd_plan_fills_the_card_at_the_loss_crop():
     # 64-row blocks beyond T = 64, 3 to an SM
     for kernel, plan in flash_attention.flash_bwd_launch_plan(499, 24, 12).items():
         assert (plan["rows_per_block"], plan["blocks_per_sm"]) == (64, 3), kernel
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_flash_bwd_bf16_plan_covers_every_row_once(b):
+    """K2b's blocks own 64 query rows and K3b's 64 key rows: each row of
+    every (head, batch) in exactly one block; the static shared memory the
+    kernels declare (two 64 x 72 bf16 tiles; K3b also the tile's LSE and
+    Di in f32) and the blocks per SM they are built for fit an SM."""
+    for t in LENGTHS + [1433, 4095]:
+        plans = flash_attention.flash_bwd_bf16_launch_plan(t, b, 12)
+        assert {k: p["smem_bytes"] for k, p in plans.items()} == {"dq": 18_432, "dkv": 18_944}
+        for kernel, plan in plans.items():
+            tiles, h, bb = plan["grid"]
+            assert (h, bb, plan["threads"], plan["rows_per_block"]) == (12, b, 128, 64)
+            assert (tiles - 1) * 64 < t <= tiles * 64, (kernel, t)
+            assert plan["blocks_per_sm"] * (plan["smem_bytes"] + SMEM_RESERVED) <= SMEM_PER_SM

@@ -10,6 +10,7 @@ import torch
 
 from nomad_tpu_torch.api import Nomad
 from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
+from nomad_tpu_torch.models.wav2vec2 import PRECISION_ISLANDS
 from nomad_tpu_torch.ops import flash_attention, fused_attention, layernorm
 from nomad_tpu_torch.ops import precision as prec_ops
 
@@ -445,7 +446,8 @@ def test_bf16_precision_ops_and_refusals_on_the_card(cuda):
     """ops.precision's card routes (cuBLAS bf16 with f32 out; cuDNN f32 on
     bf16-rounded operands) against their plain versions on the CPU, within
     f32 summation order: the convolution's output is not rounded to bf16;
-    a gradient through K1b raises."""
+    their gradients too (JAX's DEFAULT transposes); a gradient through K1b
+    runs K2b and K3b (it was refused before they were ported)."""
     g = torch.Generator().manual_seed(9)
     x, w, b = torch.randn(3, 37, 96, generator=g), torch.randn(80, 96, generator=g), torch.randn(80)
     y = prec_ops.linear(x.to(cuda), w.to(cuda), b.to(cuda), "default")
@@ -456,11 +458,131 @@ def test_bf16_precision_ops_and_refusals_on_the_card(cuda):
     ref = prec_ops.conv1d(xc, wc, None, "default", **kw)
     torch.testing.assert_close(yc, ref, atol=2e-5, rtol=1e-5)
     assert not prec_ops.round_bf16(yc).equal(yc)  # an f32 output, as the TPU's
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        prec_ops.linear(*xs, "default").square().sum().backward()
+        grads.append([t.grad.cpu() for t in xs])
+    for ours, theirs in zip(*grads):
+        torch.testing.assert_close(ours, theirs, atol=1e-4, rtol=1e-5)
+    # the attention-shaped product: cuBLAS bmm of bf16 operands, f32 out
+    a, c = torch.randn(2, 3, 37, 64, generator=g), torch.randn(2, 3, 64, 29, generator=g)
+    dy = torch.randn(2, 3, 37, 29, generator=g)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        xs = [t.to(dev).requires_grad_() for t in (a, c)]
+        y = prec_ops.matmul_bf16(*xs)
+        y.backward(dy.to(dev))
+        outs.append([y.detach().cpu()] + [t.grad.cpu() for t in xs])
+    for ours, theirs in zip(*outs):
+        assert ours.dtype == torch.float32
+        torch.testing.assert_close(ours, theirs, atol=2e-5, rtol=1e-5)
     q = torch.randn(1, 10, 2, 64, device=cuda, requires_grad=True)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
     out = flash_attention.FlashAttention.apply(q, q, q, lens, "default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    before = (flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bwd_dq_bf16 - before[0],
+            flash_attention.launches_bwd_dkv_bf16 - before[1]) == (1, 1)
+    assert torch.isfinite(q.grad).all()
+
+
+def attention_bwd_f64(q, k, v, do, lengths):
+    """The exact gradient of masked attention in float64."""
+    t, d = q.shape[1], q.shape[3]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]
+    vk = valid[:, :, None, None]
+    qd, dod = q.double(), do.double()
+    kd, vd = (torch.where(vk, x, 0.0).double() for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / d**0.5
+    p = torch.softmax(s.masked_fill(~valid[:, None, None, :], float("-inf")), dim=-1)
+    p = p.nan_to_num(0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd) / d**0.5,
+            torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", ds, qd) / d**0.5, 0.0),
+            torch.where(vk, torch.einsum("bhqk,bqhd->bkhd", p, dod), 0.0))
+
+
+# K2b/K3b against their plain version on the same inputs, for each output:
+# max |d| relative to the plain version's max |g|, and ||d|| to its norm
+# (chip_smoke.py's bounds: ~3x what an H100 gives on random inputs)
+BWD_BF16_PLAIN_REL, BWD_BF16_PLAIN_NORM = 3.5e-3, 1e-3
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 511])
+def test_bf16_flash_backward_kernels_tile_edges(cuda, t):
+    """K2b and K3b (the "default" flavour of K2/K3) against their plain
+    version at every edge of their 16-row warp tiles and 64-row blocks and
+    tiles, a full, a ragged, a 1-key and a 0-key row, NaN in k and v past
+    each bound: dQ, dK and dV each within BWD_BF16_PLAIN_REL of the plain
+    version's max |g| and BWD_BF16_PLAIN_NORM of its norm from it, and no
+    further from the exact float64 gradient than 1.5 x the plain version's
+    distance + 1e-6 (both round their operands to bf16; the sums differ in
+    order); dK = dV = 0 past the bound, zero gradients for the 0-key row,
+    a rerun the same bits."""
+    lengths = [t, max(t // 2, 1), 1, 0]
+    g = torch.Generator().manual_seed(t + 7)
+    b, h, d = len(lengths), 4, 64
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(cuda)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    do = torch.randn(b, t, h, d, generator=g).to(cuda)
+    before = [flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16,
+              flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv]
+    ours = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
+    torch.cuda.synchronize()
+    assert [flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16,
+            flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv] == [
+        before[0] + 1, before[1] + 1, before[2], before[3]]
+    plain = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens, "default")
+    exact = attention_bwd_f64(q, k, v, do, lens)
+    for a, p, e in zip(ours, plain, exact):
+        assert torch.isfinite(a).all()
+        assert (a - p).abs().max() <= BWD_BF16_PLAIN_REL * p.abs().max()
+        assert (a - p).norm() <= BWD_BF16_PLAIN_NORM * p.norm()
+        err, err_plain = (a.double() - e).abs().max().item(), (p.double() - e).abs().max().item()
+        assert err <= 1.5 * err_plain + 1e-6, (err, err_plain)
+    dq, dk, dv = ours
+    for i, n in enumerate(lengths):
+        assert torch.all(dk[i, n:] == 0) and torch.all(dv[i, n:] == 0)
+    assert torch.all(dq[3] == 0)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
+    assert all(torch.equal(a, c) for a, c in zip(ours, again))
+
+
+def test_loss_balanced_launches_k2b_k3b(cuda):
+    """The loss in "balanced" on a narrow model with 64-wide heads: K1b in
+    both forwards, K2b and K3b once per block in the backward, none of the
+    f32 K1/K2/K3; a finite gradient that differs from "exact"'s."""
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    sd = init_weights(NomadModel(Wav2Vec2Config.tiny(**kw), emb_dim=16), seed=0).state_dict()
+    g = torch.Generator().manual_seed(4)
+    clean = 0.3 * torch.randn(4, 4000, generator=g)
+    est = clean + 0.05 * torch.randn(4, 4000, generator=g)
+    grads = {}
+    for mode in ("exact", "balanced"):
+        cfg = Wav2Vec2Config.tiny(**PRECISION_ISLANDS[mode], **kw)
+        nomad = Nomad(device="cuda", config=cfg, emb_dim=16, params=sd)
+        e = est.clone().requires_grad_()
+        counts = [flash_attention.launches, flash_attention.launches_bf16,
+                  flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv,
+                  flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16]
+        nomad.forward(e, clean).backward()
+        torch.cuda.synchronize()
+        now = [flash_attention.launches, flash_attention.launches_bf16,
+               flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv,
+               flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16]
+        delta = [a - b for a, b in zip(now, counts)]
+        assert delta == ([4, 0, 2, 2, 0, 0] if mode == "exact" else [0, 4, 0, 0, 2, 2]), delta
+        assert torch.isfinite(e.grad).all()
+        grads[mode] = e.grad
+    assert (grads["balanced"] - grads["exact"]).abs().max() > 0
 
 
 def test_model_balanced_and_fast_launch_k1b(cuda):

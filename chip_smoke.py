@@ -1,15 +1,17 @@
 """Smoke run of nomad_tpu_torch on one CUDA card: build, check, time, score,
 differentiate.
 
-    python3 chip_smoke.py [--only-loss | --only-train | --only-se | --only-serve |
-                           --only-precision | --only-grad-modes]
+    python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
+                           --only-serve | --only-precision | --only-grad-modes |
+                           --only-fused-modes]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
      print ptxas' registers, shared memory and spills (a spill fails), and
-     the occupancy (blocks per SM; K4's clusters on the card) of K1, K2,
-     K3 and K4; build the native C++ ingest library (``native/``, g++);
+     the occupancy (blocks per SM; K4's and K4b's clusters on the card) of
+     K1, K2, K3, K4 and K4b; build the native C++ ingest library
+     (``native/``, g++);
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
@@ -121,17 +123,41 @@ Phases, each fatal on failure:
      embeddings and gradients are held to the mode's plain path the same
      way, step times, peak memory and profiles; one SE step with a
      "balanced" lossnet;
- 11. the kernels' JSON line, the card line, and the last line
-     ``{"ok": true, "device": {...}}``.
+ 12. the fused path in the modes: K4b (the "default" flavour of K4: its
+     five products in one bf16 pass on the tensor cores, f32
+     accumulation and softmax) against its plain version at [96, 511]
+     (lengths to 499, a 0-key row), [32, 50], a ragged [8, 1024] and
+     every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511, 1023, 1024},
+     held to float64 attention of the bf16-rounded operands (|O - O_f64|
+     <= 1.5 x the plain version's + 1e-6) and to K1b fed by the port's
+     "default" projections (no further apart than their plain versions
+     are), NaN past each bound changing no valid row, 123.0 there leaving
+     every row finite, a rerun the same bits, timed beside ``F.linear`` +
+     SDPA on bf16 copies; then on phase 9's seeded BASE state dict
+     ``Nomad(precision="fast", config=Wav2Vec2Config.fast(
+     attention_impl="fused_qkv"))`` on phase 4's 108 files (K4b 24, K5 52,
+     no K1, K1b or K4), held to the "fast" plain path within
+     GRAD_MODE_FRAC times that plain path's distance to the "exact" plain
+     path, its pairwise delta against "exact", device pass, peak and one
+     profiled pass, two single files (T' = 1,023: K4b; T' = 1,433: K1b);
+     the fused "fast" loss at 32 x 16,384 and 24 x 160,000 samples (K4b
+     24, K1b 12, K2b 12, K3b 12, K5 52 a step) with phase 10's checks;
+     and "balanced" with ``fused_qkv`` (K4 24, no K4b: the fused kernel
+     takes the projections' island);
+and last (phase 11) the kernels' JSON line, the card line, and the last
+line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
 checkout of the repository. Every measurement is also printed as one
-JSON object on the line that starts with "report: ". ``--only-loss`` runs
+JSON object on the line that starts with "report: ". ``--only-scoring``
+runs phases 1 and 4's K1 path alone (the pass time of two checkouts in
+one call: copy the script into the other). ``--only-loss`` runs
 phases 1 and 5 alone and ends with the report line: the same loss steps
 timed over another checkout's package (the script uses no entry point
 newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
 ``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
-and 10, each ending with the report line.
+and 10, ``--only-fused-modes`` phases 1, 2 and 12, each ending with the
+report line.
 """
 
 from __future__ import annotations
@@ -262,9 +288,14 @@ GRAD_MODE_FRAC = 2.0
 # and 2.78e-4; ~3x those. dQ scaled by 1.01 gives 1e-2 in both.
 BWD_BF16_PLAIN_REL, BWD_BF16_PATH_REL, BWD_BF16_PLAIN_NORM = 3.5e-3, 1e-2, 1e-3
 STRESS_DEG, STRESS_NMR = 48, 16
+# K4b against K1b fed by the port's "default" projections, on the same
+# inputs: no further apart than their two plain versions are (measured on
+# an H100: K4b and K1b give the same bits there), plus 1e-6
+FUSED_BF16_VS_K1B = 1.0
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
+SHARED: dict = {}  # phase 9's seeded BASE state dict, for phase 12
 
 
 def fail(msg: str) -> None:
@@ -378,11 +409,14 @@ def build_kernels() -> None:
             fail(f"K2b/K3b {kernel}: {blocks} blocks per SM, the plan claims "
                  f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
-        plan = fused_attention.fused_launch_plan(t, 1, 12)
-        blocks, clusters = fused_attention.fused_occupancy(t)
-        occ[f"fused_qkv_attention_fwd_T{t}"] = {
-            "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
-            "blocks_per_sm": blocks, "clusters_on_card": clusters, "smem_bytes": plan.smem_bytes}
+        for prec, name in (("highest", "fused_qkv_attention_fwd"),
+                           ("default", "fused_qkv_attention_bf16_fwd")):
+            plan = fused_attention.fused_launch_plan(t, 1, 12, prec)
+            blocks, clusters = fused_attention.fused_occupancy(t, prec)
+            occ[f"{name}_T{t}"] = {
+                "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
+                "blocks_per_sm": blocks, "clusters_on_card": clusters,
+                "smem_bytes": plan.smem_bytes}
     report["occupancy"] = occ
     print("occupancy: " + "; ".join(f"{k} {v}" for k, v in occ.items()), flush=True)
 
@@ -554,14 +588,15 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
     return res
 
 
-def fused_bound(b: int, t: int, h: int, dm: int, lengths: torch.Tensor) -> tuple[float, str]:
+def fused_bound(b: int, t: int, h: int, dm: int, lengths: torch.Tensor,
+                peak_flops: float = F32_FLOPS) -> tuple[float, str]:
     """Q is projected for all T rows, K and V for the valid keys only, and
     every query row attends the valid keys. Bytes: x, the three weights
     and biases, lengths and O, each once."""
     keys = int(lengths.long().sum())
     flops = 2.0 * b * t * dm * dm + 4.0 * keys * dm * dm + 4.0 * h * 64 * t * keys
     nbytes = 4.0 * (2 * b * t * dm + 3 * dm * dm + 3 * dm + b)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, peak_flops)
 
 
 def check_fused(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
@@ -721,6 +756,7 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 KERNEL_GROUPS = (
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
+    ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel",)),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")),
@@ -794,7 +830,7 @@ def profile_run(fn, key: str, split=None) -> None:
 def reset_launches() -> None:
     flash_attention.launches = flash_attention.launches_bwd_dq = 0
     flash_attention.launches_bwd_dkv = layernorm.launches = fused_attention.launches = 0
-    flash_attention.launches_bf16 = 0
+    flash_attention.launches_bf16 = fused_attention.launches_bf16 = 0
     flash_attention.launches_bwd_dq_bf16 = flash_attention.launches_bwd_dkv_bf16 = 0
 
 
@@ -806,14 +842,16 @@ def read_launches() -> dict:
             "flash_attention_bwd_dq_bf16": flash_attention.launches_bwd_dq_bf16,
             "flash_attention_bwd_dkv_bf16": flash_attention.launches_bwd_dkv_bf16,
             "fused_qkv_attention_fwd": fused_attention.launches,
+            "fused_qkv_attention_bf16_fwd": fused_attention.launches_bf16,
             "layernorm_fwd": layernorm.launches}
 
 
-def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0) -> dict:
+def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0) -> dict:
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
-            "fused_qkv_attention_fwd": k4, "layernorm_fwd": k5}
+            "fused_qkv_attention_fwd": k4, "fused_qkv_attention_bf16_fwd": k4b,
+            "layernorm_fwd": k5}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
@@ -2343,6 +2381,7 @@ def run_precision(card: str) -> None:
         stress = speechish(STRESS_DEG, 1) + speechish(STRESS_NMR, 2)
         weights = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0)
         sd = weights.state_dict()  # Nomad's own seeded init, once for the three modes
+        SHARED["sd"] = sd
         del weights
         out["routes_vs_plain"] = routes_vs_plain(sd)
         res = {mode: run_mode(card, mode, sd, tmp, nmr, deg, stress) for mode in MODES}
@@ -2797,9 +2836,297 @@ def run_grad_modes(card: str) -> None:
     print(f"gradient modes: phase 10 took {out['phase_s']:.1f} s", flush=True)
 
 
+# ---------------- phase 12: the fused path in the modes ----------------
+
+
+def fused_f64(x, params, lengths, heads: int = 12) -> torch.Tensor:
+    """K4b's oracle: the projections in float64 of the bf16-rounded x and
+    weights plus the biases, then exact masked attention in float64
+    (``attention_f64``); head-major [B, H, T, 64] like the kernel's O."""
+    b, t, dm = x.shape
+    xd = prec_ops.round_bf16(x).double()
+    q, k, v = (F.linear(xd, prec_ops.round_bf16(w).double(), bias.double()).view(b, t, heads, -1)
+               for w, bias in zip(params[0::2], params[1::2]))
+    return attention_f64(q, k, v, lengths).transpose(1, 2)
+
+
+def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                     kernel_time: bool = True) -> dict:
+    """K4b against fused_qkv_attention_ref(..., "default") on the card, x at
+    unit scale and zero past each bound, the weights at the seeded init's
+    scale: every row finite; O no further from float64 attention of the
+    bf16-rounded operands (``fused_f64``) than 1.5 x the plain version's
+    distance + 1e-6, and no nearer than half of it (it does round); a
+    0-key row O = 0; against K1b fed by the port's "default" projections
+    of the same x no further than FUSED_BF16_VS_K1B times the two plain
+    versions' own distance + 1e-6; NaN past each bound the same bits in
+    every valid row (a padded query row takes its Q from x, as the TPU
+    kernel's does), 123.0 there every row finite and the valid rows the
+    same bits; a rerun the same bits. ``timed``: the plain version and
+    ``F.linear`` + SDPA on bf16 copies (the yardstick) too."""
+    h, dm = 12, 768
+    x = torch.randn(b, t, dm, generator=g)
+    params = [a.to(DEV) for _ in range(3) for a in (
+        torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+
+    def kernel(xx=x):
+        return fused_attention.fused_qkv_mha(xx, *params, lens, h, "default")
+
+    o = kernel()
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, h, "default")
+    torch.cuda.synchronize()
+    err = (o - ref).abs().max().item()
+    err_f64 = err_plain_f64 = 0.0
+    excess = float("-inf")
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        exact = fused_f64(x[sl], params, lens[sl], h)
+        e = (o[sl].double() - exact).abs().max().item()
+        ep = (ref[sl].double() - exact).abs().max().item()
+        excess = max(excess, e - (1.5 * ep + 1e-6))
+        err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
+        del exact
+    q, k, v = (prec_ops.linear(x, w, bias, "default").view(b, t, h, 64)
+               for w, bias in zip(params[0::2], params[1::2]))
+    o_k1b = flash_attention.mha_flash(q, k, v, lens, "default")[0].transpose(1, 2)
+    o_pair = flash_attention.flash_attention_ref(q, k, v, lens, "default")[0].transpose(1, 2)
+    d_k1b = (o - o_k1b).abs().max().item()
+    d_pair = (ref - o_pair).abs().max().item()
+    del q, k, v, o_k1b, o_pair
+    finite = bool(torch.isfinite(o).all())
+    empty_ok = all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
+    same_bits = torch.equal(kernel(), o)
+    garbage_ok = True
+    if min(lengths) < t:
+        for fill, whole in ((float("nan"), False), (123.0, True)):
+            x_bad = x.clone()
+            for i, n in enumerate(lengths):
+                x_bad[i, n:] = fill
+            o_bad = kernel(x_bad)
+            garbage_ok &= all(torch.equal(o_bad[i, :, :n], o[i, :, :n])
+                              for i, n in enumerate(lengths))
+            if whole:
+                garbage_ok &= bool(torch.isfinite(o_bad).all())
+            del x_bad, o_bad
+    rounds = err_f64 >= 0.5 * err_plain_f64
+    vs_k1b_ok = d_k1b <= FUSED_BF16_VS_K1B * d_pair + 1e-6
+    if not (finite and empty_ok and same_bits and garbage_ok and rounds and vs_k1b_ok) \
+            or excess > 0:
+        fail(f"fused bf16 [{b}, {t}, {dm}] lengths {lengths[:8]}: finite={finite} 0-key "
+             f"rows={empty_ok} rerun same bits={same_bits} garbage past bound={garbage_ok}; "
+             f"max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
+             f"{err_plain_f64:.3g} + 1e-6 by {excess:.3g}, or under half of it; vs K1b "
+             f"{d_k1b:.3g} (plain pair {d_pair:.3g}, <= {FUSED_BF16_VS_K1B} x + 1e-6)")
+    del ref
+    b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS)
+    res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()),
+           "max_abs_err": err, "max_abs_err_vs_f64": err_f64,
+           "plain_max_abs_err_vs_f64": err_plain_f64, "vs_k1b_max_abs": d_k1b,
+           "plain_pair_max_abs": d_pair, "bound_ms": b_ms, "bound_by": b_by}
+    if kernel_time:
+        res["ms"] = time_ms(kernel, 20)
+    if timed:
+        # the yardstick: one bf16 product against the stacked [3 * 768, 768]
+        # weights, then SDPA on bf16 with the key mask (two library calls)
+        xb = x.to(torch.bfloat16)
+        wqkv = torch.cat(params[0::2]).to(torch.bfloat16)
+        bqkv = torch.cat(params[1::2]).to(torch.bfloat16)
+        mask = None
+        if int(lens.min()) < t:
+            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+        def library():
+            qq, kk, vv = F.linear(xb, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+        res["plain_ms"] = time_ms(lambda: fused_attention.fused_qkv_attention_ref(
+            x, *params, lens, h, "default"), 5)
+        res["library_ms"] = time_ms(library, 10)
+    print(f"  fused bf16 [{b}, {t}, {dm}] keys {int(lens.sum())}: vs plain max|d| {err:.3g}, "
+          f"vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}), vs K1b {d_k1b:.3g} (plain pair "
+          f"{d_pair:.3g}); kernel {res.get('ms', float('nan')):.4f} ms  plain "
+          f"{res.get('plain_ms', float('nan')):.4f}  F.linear + sdpa bf16 "
+          f"{res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})", flush=True)
+    return res
+
+
+def check_fused_bf16_shapes() -> None:
+    g = torch.Generator().manual_seed(12)
+    rng = np.random.default_rng(12)
+    # the scoring shape: 499 valid frames of 511, a few rows ragged down to
+    # 1 key, one full row, one row with no key
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    res = {"main": check_fused_bf16(96, 511, main_lens, g, timed=True),
+           "loss": check_fused_bf16(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
+           "ragged": check_fused_bf16(8, 1024, [1024, 1023, 777, 513, 512, 64, 2, 1], g,
+                                      timed=False)}
+    # every edge of the plan: one tensor per block up to 64 rows (16-row
+    # warp tiles), then a cluster of 64-row chunks up to 16 of them
+    for t in (1, 15, 16, 17, 63, 64, 65, 511, 1023, 1024):
+        res[f"edge_T{t}"] = check_fused_bf16(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                             kernel_time=False)
+    report["kernels"]["fused_qkv_attention_bf16_fwd"] = res
+
+
+def fast_plain_paths(sd: dict, waves: list) -> tuple:
+    """The "fast" plain path's embeddings (K1b's own plain version, plain
+    LayerNorm) and the "exact" plain path's on the same waves."""
+    with plain_flash("fast"):
+        fast = Nomad(device="cuda", config=plain_config("fast"), params=sd)
+        fast_emb = fast.engine.embed_waves_device(waves)
+    del fast
+    exact = Nomad(device="cuda", config=plain_config(), params=sd)
+    exact_emb = exact.engine.embed_waves_device(waves)
+    del exact
+    return fast_emb, exact_emb
+
+
+def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -> dict:
+    """``Nomad(precision="fast", config=Wav2Vec2Config.fast(
+    attention_impl="fused_qkv"))`` on phase 4's files: launch counts of a
+    predict (K4b 12 per batch, K5 26), warm device passes, own peak, one
+    profiled pass; its embeddings against the "fast" plain path within
+    TOL_REF_PATH + GRAD_MODE_FRAC times that path's distance to the
+    "exact" plain path, and, reported, against the "fast" K1b path and
+    its pairwise delta against "exact" (the K1 path); then two single
+    files, T' = 1,023 (K4b) and T' = 1,433 (past MAX_FUSED_T: K1b)."""
+    total_s = (N_NMR + N_DEG) * SECONDS
+    leftover_gb = settled_allocated_gb()
+    nomad = Nomad(device="cuda", precision="fast", params=sd,
+                  config=mode_config("fast", attention_impl="fused_qkv"))
+    out = tmp / "fused_fast"
+    out.mkdir()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    nomad.predict("dir", nmr, deg, str(out))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = nomad.engine.batches
+    report["launches"]["scoring_fused_fast"] = counts
+    want = launches_want(k4b=12 * batches, k5=26 * batches)
+    if counts != want or batches == 0:
+        fail(f"fused fast: launch counts {counts} for {batches} batches (want {want})")
+    check_csvs(out, "fused fast API")
+    paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+    waves = nomad.engine.load_waves([str(p) for p in paths])
+    emb, passes = timed_passes(nomad, waves)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile_fused_fast")
+    pass_s = float(np.median(passes))
+    k1b_emb = Nomad(device="cuda", precision="fast", params=sd).engine.embed_waves_device(waves)
+    exact_emb = Nomad(device="cuda", params=sd).engine.embed_waves_device(waves)
+    plain_fast, plain_exact = fast_plain_paths(sd, waves)
+    d_plain = (plain_fast - plain_exact).abs().max().item()
+    tol = TOL_REF_PATH + GRAD_MODE_FRAC * d_plain
+    res = {"files": N_NMR + N_DEG, "batches": batches, "pass_s": passes,
+           "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb,
+           "leftover_mem_gb": leftover_gb, "own_peak_mem_gb": peak_gb - leftover_gb,
+           "vs_fast_plain_path_emb": (emb - plain_fast).abs().max().item(),
+           "fast_plain_vs_exact_plain_emb": d_plain, "tolerance": tol,
+           "vs_fast_k1b_path_emb": (emb - k1b_emb).abs().max().item(),
+           "vs_exact_k1_path_emb": (emb - exact_emb).abs().max().item(),
+           "pairwise_delta": pairwise_delta(emb, exact_emb, slice(N_NMR, None),
+                                            slice(0, N_NMR)),
+           "card": card}
+    print(f"fused fast: {batches} batches, launches {counts}; device pass {pass_s:.3f} s = "
+          f"{total_s / pass_s:.1f} wav-s/s; own peak {res['own_peak_mem_gb']:.5f} GB  [{card}]; "
+          f"max|d emb| vs the fast plain path {res['vs_fast_plain_path_emb']:.3g} (<= {tol:.3g}: "
+          f"{TOL_REF_PATH} + {GRAD_MODE_FRAC} x {d_plain:.3g}), vs the fast K1b path "
+          f"{res['vs_fast_k1b_path_emb']:.3g}; pairwise delta vs exact "
+          f"{res['pairwise_delta']:.3g}", flush=True)
+    if not torch.isfinite(emb).all() or res["vs_fast_plain_path_emb"] > tol:
+        fail(f"fused fast embeddings vs the fast plain path {res['vs_fast_plain_path_emb']:.3g} "
+             f"> {tol:.3g}")
+    del k1b_emb, exact_emb, plain_fast, plain_exact
+
+    rng = np.random.default_rng(99)
+    for n, frames in FUSED_SINGLE_FILES:
+        if fused_attention.fused_supported(frames):
+            want = launches_want(k4b=12, k5=26)
+        else:
+            want = launches_want(k1b=12, k5=26)
+        wave = np.rint(np.clip(speech_like(rng, n, 0.02), -1, 1) * 32767).astype(np.int16)
+        reset_launches()
+        one = nomad.engine.embed_waves_device([wave])
+        torch.cuda.synchronize()
+        counts = read_launches()
+        key = f"fused_fast_single_T{frames}"
+        report["launches"][key] = counts
+        p_fast, p_exact = fast_plain_paths(sd, [wave])
+        d, d_p = (one - p_fast).abs().max().item(), (p_fast - p_exact).abs().max().item()
+        tol = TOL_REF_PATH + GRAD_MODE_FRAC * d_p
+        res[f"single_T{frames}"] = {"vs_fast_plain_path_emb": d,
+                                    "fast_plain_vs_exact_plain_emb": d_p, "tolerance": tol}
+        print(f"fused fast: one file of {n} samples (T' = {frames}): launches {counts}, "
+              f"max|d| {d:.3g} vs the fast plain path (<= {tol:.3g})", flush=True)
+        if counts != want or not torch.isfinite(one).all() or d > tol:
+            fail(f"fused fast, one file of {n} samples: launches {counts} (want {want}), "
+                 f"max|d| {d:.3g} vs the fast plain path (> {tol:.3g}?)")
+    del nomad
+
+    # "balanced" keeps the f32 K4: the fused kernel takes the projections'
+    # island ("high"), not the attention products' ("default")
+    balanced = Nomad(device="cuda", precision="balanced", params=sd,
+                     config=mode_config("balanced", attention_impl="fused_qkv"))
+    reset_launches()
+    bal_emb = balanced.engine.embed_waves_device(waves)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    report["launches"]["scoring_fused_balanced"] = counts
+    want = launches_want(k4=12 * batches, k5=26 * batches)
+    print(f"fused balanced: launches {counts} (want {want})", flush=True)
+    if counts != want or not torch.isfinite(bal_emb).all():
+        fail(f"fused balanced: launch counts {counts} (want {want})")
+    del balanced
+    return res
+
+
+def run_fused_modes(card: str) -> None:
+    """Phase 12: K4b against its plain version at its shapes, then the
+    fused path in "fast" (scoring, single files, the loss at both shapes)
+    and "balanced" (K4) on phase 9's seeded BASE state dict."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    print("fused modes: K4b vs its plain version on the card:", flush=True)
+    check_fused_bf16_shapes()
+    sd = SHARED.get("sd")
+    if sd is None:  # phase 12 alone: Nomad's seeded init, as phase 9 makes it
+        sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_fused_modes_") as tmp:
+        tmp = Path(tmp)
+        nmr, deg = write_wavs(tmp)
+        out["scoring_fast"] = run_fused_fast_scoring(card, sd, tmp, nmr, deg)
+    want = launches_want(k4b=24, k1b=12, k2b=12, k3b=12, k5=52)
+    config = mode_config("fast", attention_impl="fused_qkv")
+    run_loss_path(card, "loss_path_fused_fast", config, want, LOSS_BATCH, LOSS_SAMPLES, "fast",
+                  sd)
+    run_loss_path(card, "loss_path_10s_fused_fast", config, want, LOSS10_BATCH, LOSS10_SAMPLES,
+                  "fast", sd)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["fused_modes"] = out
+    print(f"fused modes: phase 12 took {out['phase_s']:.1f} s", flush=True)
+
+
+def run_scoring_k1(card: str) -> None:
+    """Phase 4's K1 path alone (``--only-scoring``)."""
+    report.setdefault("launches", {})
+    with tempfile.TemporaryDirectory(prefix="nomad_smoke_") as tmp:
+        tmp = Path(tmp)
+        nmr, deg = write_wavs(tmp)
+        run_main_path(card, tmp, nmr, deg)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
+    only.add_argument("--only-scoring", action="store_true",
+                      help="phases 1 and 4's K1 path only; ends with the report line")
     only.add_argument("--only-loss", action="store_true",
                       help="phases 1 and 5 only; ends with the report line")
     only.add_argument("--only-train", action="store_true",
@@ -2812,15 +3139,19 @@ def main() -> None:
                       help="phases 1, 2 and 9 only; ends with the report line")
     only.add_argument("--only-grad-modes", action="store_true",
                       help="phases 1, 2 and 10 only; ends with the report line")
+    only.add_argument("--only-fused-modes", action="store_true",
+                      help="phases 1, 2 and 12 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
     set_exact_precision()
     card = card_info()
-    alone = {"only_loss": run_loss_paths, "only_train": run_trainer, "only_se": run_se,
+    alone = {"only_scoring": run_scoring_k1, "only_loss": run_loss_paths,
+             "only_train": run_trainer, "only_se": run_se,
              "only_serve": run_serve,
              "only_precision": lambda card: (build_kernels(), run_precision(card)),
-             "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card))}
+             "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card)),
+             "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -2836,6 +3167,7 @@ def main() -> None:
     run_serve(card)
     run_precision(card)
     run_grad_modes(card)
+    run_fused_modes(card)
 
     rows = []
     for name, src, replaces in (
@@ -2852,6 +3184,8 @@ def main() -> None:
         ("flash_attention_bwd_dkv_bf16", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:222"),
         ("fused_qkv_attention_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
+        ("fused_qkv_attention_bf16_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("layernorm_fwd", "nomad_tpu_torch/csrc/layernorm.cu", "nomad_tpu/ops/layernorm.py:31"),
     ):

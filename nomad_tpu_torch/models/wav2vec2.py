@@ -25,8 +25,11 @@ takes on the card:
                   attention island of "default" K1b, K2b + K3b.
   * 'fused_qkv' — projections and attention in K4 (``csrc/fused_attention.cu``)
                   up to 1,024 frames, the out-projection one product; its
-                  backward recomputes through K1 + K2 + K3. Longer inputs
-                  take the 'kernel' path (the JAX package's shape rule).
+                  backward recomputes through K1 + K2 + K3. At an encoder
+                  island of "default" ("fast") K4b
+                  (``csrc/fused_attention_bf16.cu``), the backward through
+                  K1b + K2b + K3b. Longer inputs take the 'kernel' path
+                  at the same precision (the JAX package's shape rule).
   * 'ref'       — the plain versions, for holding the others against.
 
 Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
@@ -36,7 +39,10 @@ Precision islands, as the JAX package places them: the conv frontend
 and ``post_extract_proj`` at ``frontend_prec``, the positional conv at
 ``posconv_prec``; in each block the attention products at
 ``attn_score_prec`` (K1b on the card at "default"), fc1 at ``ffn1_prec``,
-the q/k/v/out projections and fc2 at ``encoder_prec``.
+the q/k/v/out projections and fc2 at ``encoder_prec``. The fused path
+runs its whole attention sublayer (projections, both attention products,
+out-projection) at ``encoder_prec``, as the JAX package's fused kernel
+has one mode ("balanced" keeps the f32 K4).
 ``ops/precision.py`` says what each value means on the card; "high" and
 "highest" are today's f32 ("exact"), bit for bit.
 ``Wav2Vec2Config.balanced()`` and ``.fast()`` are the JAX package's
@@ -112,8 +118,9 @@ class Wav2Vec2Config:
     remat_policy: str = "full"
     # 'kernel': the flash-attention / LayerNorm kernels (their plain
     # versions on the CPU). 'fused_qkv' (attention only): the
-    # projection-fused kernel K4. 'ref': the plain versions everywhere, for
-    # holding the kernel paths against them on the card.
+    # projection-fused kernel K4 (K4b at a "default" encoder island).
+    # 'ref': the plain versions everywhere, for holding the kernel paths
+    # against them on the card.
     attention_impl: str = "kernel"
     layernorm_impl: str = "kernel"
     # precision of the products and convolutions, per island as in the JAX
@@ -343,7 +350,7 @@ class PositionalConvEmbedding(nn.Module):
         y = prec_ops.conv1d(x.transpose(1, 2), c.weight, c.bias, self.prec,
                             padding=c.padding, groups=c.groups)
         if self.kernel % 2 == 0:
-            y = y[:, :, :-1]
+            y = y[:, :, :-1].contiguous()
         return F.gelu(y).transpose(1, 2)
 
 
@@ -378,20 +385,16 @@ class EncoderLayer(nn.Module):
         g = _generator(seed, x.device)
         attn_dropout = g is not None and cfg.attention_dropout > 0.0
         if cfg.attention_impl == "fused_qkv" and not attn_dropout:
-            # K4 has one mode for the whole block, from the projections'
-            # island as in the JAX package: "high" and "highest" are its f32
-            # (the card's "high3"); its bf16 mode, K4b, is not ported
-            if prec_ops.is_bf16(cfg.encoder_prec):
-                raise NotImplementedError(
-                    "attention_impl='fused_qkv' at encoder precision 'default' (K4's bf16 "
-                    "mode, K4b) is not ported yet (ROADMAP Queue 2, 'K4b', the next "
-                    "slice); use attention_impl='kernel'"
-                )
-            # the same parameters as the unfused path: one state_dict loads both
+            # the fused kernel has one mode for the whole attention
+            # sublayer, from the projections' island as in the JAX package
+            # (attn_score_prec does not subdivide it): "default" is K4b,
+            # "high" and "highest" the f32 K4 (the card's "high3"). The same
+            # parameters as the unfused path: one state_dict loads both
             attn = fused_qkv_attention(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
                 self.k_proj.bias, self.v_proj.weight, self.v_proj.bias,
                 self.out_proj.weight, self.out_proj.bias, key_mask=key_mask, heads=h,
+                precision=cfg.encoder_prec,
             )
         else:
             q, k, v = (prec_ops.linear(x, p.weight, p.bias, cfg.encoder_prec).view(b, t, h, d // h)

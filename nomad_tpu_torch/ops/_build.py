@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bf16", "flash_attention_bwd",
-                  "flash_attention_bwd_bf16", "fused_attention", "layernorm")
+                  "flash_attention_bwd_bf16", "fused_attention", "fused_attention_bf16",
+                  "layernorm")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,21 +1,26 @@
-"""Projection-fused attention: kernel K4 beside its plain PyTorch version.
+"""Projection-fused attention: kernels K4 and K4b beside their plain
+PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.fused_attention``. ``fused_qkv_mha``
-launches K4 (``csrc/fused_attention.cu``) on CUDA tensors and computes the
-plain version on CPU tensors: the q/k/v projections of every head and
-masked softmax attention in one call, from the hidden states
-x [B, T, D_model] and the projections' weights in ``nn.Linear``'s
+launches K4 (``csrc/fused_attention.cu``, f32: the TPU kernel's "highest"
+and "high3" modes) or K4b (``csrc/fused_attention_bf16.cu``, its
+"default" mode: each of the five products in one bf16 pass with f32
+accumulation, an f32 softmax) on CUDA tensors and computes the plain
+version of the same precision on CPU tensors: the q/k/v projections of
+every head and masked softmax attention in one call, from the hidden
+states x [B, T, D_model] and the projections' weights in ``nn.Linear``'s
 [out, in] layout, returning O head-major [B, H, T, hd]. Every query row
-is defined and finite, padded rows included; a row with no valid key
-gives O = 0.
+is defined, padded rows included; a row with no valid key gives O = 0.
 
 ``FusedQKVAttention`` is the differentiable form. Its backward is the vjp
-of the unfused composition, as the JAX package's is (``_fused_bwd``): the
-projections are recomputed as products and the attention goes through
+of the unfused composition at the same precision, as the JAX package's is
+(``_fused_bwd``): the projections are recomputed through
+``precision.linear`` and the attention goes through
 ``flash_attention.FlashAttention`` (K1 forward, K2 + K3 backward on the
-card). ``fused_qkv_attention`` is the whole sublayer, out-projection
-included; beyond ``MAX_FUSED_T`` frames it takes the unfused composition
-with K1, the JAX package's own shape rule.
+card; K1b, K2b + K3b at "default"). ``fused_qkv_attention`` is the whole
+sublayer, out-projection included (``precision.linear``); beyond
+``MAX_FUSED_T`` frames it takes the unfused composition with K1 or K1b,
+the JAX package's own shape rule.
 """
 
 from __future__ import annotations
@@ -24,9 +29,9 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
+from . import precision as prec_ops
 from .attention import mha
 from .flash_attention import HEAD_DIM, KEY_TILES_BYTES, NEG_INF, THREADS, FlashAttention
 
@@ -45,8 +50,19 @@ _PROJ_BYTES = 4 * 2 * max((ROWS_PER_BLOCK + nt * HEAD_DIM) * (slice_ + 4)
                           for nt, slice_ in ((3, 16), (1, 32)))
 FUSED_SMEM_BYTES = _SLOTS_BYTES + max(_PROJ_BYTES, KEY_TILES_BYTES)
 
-# Launches of K4 since the count was last set to 0.
+# K4b's (csrc/fused_attention_bf16.cu): Q, K and V as bf16 rows padded to
+# 72; in phase 1 two f32 slices of 16 model-axis values in flight (x and
+# the weight rows of up to 3 tensors) and the slice in flight rounded to
+# bf16, rows of 24; in phase 2 one bf16 K and V tile of 64 keys
+_BF16_LD, _BF16_SLICE = HEAD_DIM + 8, 16
+_BF16_STAGE_ROWS = ROWS_PER_BLOCK + 3 * HEAD_DIM
+FUSED_BF16_SMEM_BYTES = 2 * 3 * ROWS_PER_BLOCK * _BF16_LD + max(
+    4 * 2 * _BF16_STAGE_ROWS * _BF16_SLICE + 2 * _BF16_STAGE_ROWS * (_BF16_SLICE + 8),
+    2 * 2 * ROWS_PER_BLOCK * _BF16_LD)
+
+# Launches of K4 and of K4b since each count was last set to 0.
 launches = 0
+launches_bf16 = 0
 
 
 def fused_supported(t: int) -> bool:
@@ -86,69 +102,90 @@ class FusedPlan:
         return [(r0, min(self.t, r0 + self.rows_per_block))]
 
 
-def fused_launch_plan(t: int, b: int, h: int) -> FusedPlan:
-    """K4's launch for x [b, t, 64 h]: the cluster size, rows per block,
-    tensors per block, grid (cluster, h, b) and dynamic shared memory. The
-    C launcher checks each against the kernel's own rule."""
+def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> FusedPlan:
+    """The launch of K4 (or of K4b, at ``precision`` "default") for x
+    [b, t, 64 h]: the cluster size, rows per block, tensors per block,
+    grid (cluster, h, b) and dynamic shared memory. The two kernels split
+    a (batch, head) alike and differ in shared memory. The C launcher
+    checks each against the kernel's own rule."""
     if not 1 <= t <= MAX_FUSED_T:
         raise ValueError(f"fused kernel: T = {t} outside 1 .. {MAX_FUSED_T}")
     if t <= ROWS_PER_BLOCK:
         cluster, tensors = 3, 1
     else:
         cluster, tensors = -(-t // ROWS_PER_BLOCK), 3
-    return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), FUSED_SMEM_BYTES)
+    smem = FUSED_BF16_SMEM_BYTES if prec_ops.is_bf16(precision) else FUSED_SMEM_BYTES
+    return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem)
 
 
-def _qkv(x, wq, bq, wk, bk, wv, bv, heads):
-    """The three projections as [B, T, H, hd] views of [B, T, D] products."""
+def _qkv(x, wq, bq, wk, bk, wv, bv, heads, precision="highest"):
+    """The three projections at ``precision`` (``precision.linear``) as
+    [B, T, H, hd] views of [B, T, D] products."""
     b, t, dm = x.shape
-    return tuple(F.linear(x, w, bias).view(b, t, heads, dm // heads)
+    return tuple(prec_ops.linear(x, w, bias, precision).view(b, t, heads, dm // heads)
                  for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
 
 
-def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads):
+def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
     """What ``_fused_kernel`` computes, unfolded: Q = (x.Wq^T + bq)/sqrt(hd),
     K and V likewise; scores against keys t < lengths[b] (the others set to
-    -1e30, never added to), softmax in f32, O = P.V, returned head-major
-    [B, H, T, hd]. Values past the bound are zeroed before the product, so
-    a NaN there cannot reach O."""
+    -1e30, never added to), softmax in f32, O = P.V / l, returned
+    head-major [B, H, T, hd]. Values past the bound are zeroed before the
+    product, so a NaN there cannot reach O.
+
+    ``precision`` "highest" or "high": f32 products. "default", the TPU
+    kernel's ``_dot`` at DEFAULT (``nomad_tpu/ops/fused_attention.py:65-87``):
+    the operands of all five products rounded to bf16 (``round_bf16``), f32
+    sums, each bias added in f32 after its product; the scale 1/sqrt(hd) is
+    exact, so q is rounded after it, and p = exp(s - m) is rounded against
+    the row's final maximum with l the sum of the unrounded p."""
     b, t, dm = x.shape
     hd = dm // heads
-    q, k, v = (y.to(torch.float32).transpose(1, 2)
-               for y in _qkv(x, wq, bq, wk, bk, wv, bv, heads))  # [B, H, T, hd]
+    rnd = prec_ops.round_bf16 if prec_ops.is_bf16(precision) else (lambda y: y)
+    xr = rnd(x.to(torch.float32))
+    q, k, v = ((torch.matmul(xr, rnd(w).t()) + bias).view(b, t, heads, hd).transpose(1, 2)
+               for w, bias in ((wq, bq), (wk, bk), (wv, bv)))  # [B, H, T, hd]
     lengths = lengths.to(device=x.device, dtype=torch.int64).clamp(0, t)
     valid = torch.arange(t, device=x.device)[None, :] < lengths[:, None]  # [B, T]
-    s = torch.matmul(q * (1.0 / hd**0.5), k.transpose(-1, -2))
+    s = torch.matmul(rnd(q * (1.0 / hd**0.5)), rnd(k).transpose(-1, -2))
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(valid[:, None, None, :], p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, torch.where(valid[:, None, :, None], v, 0.0))
+    o = torch.matmul(rnd(p), rnd(torch.where(valid[:, None, :, None], v, 0.0)))
     o = o * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
     return o.to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("fused_attention")
-    fn = lib.nomad_fused_qkv_attention_fwd
+# the library and C entry of each precision's kernel: K4 (f32), K4b (bf16)
+_KERNELS = {False: ("fused_attention", "nomad_fused_qkv_attention_fwd"),
+            True: ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
+
+
+def _lib(bf16: bool = False):
+    source, entry = _KERNELS[bf16]
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
-        occ = lib.nomad_fused_qkv_attention_fwd_occupancy
+        occ = getattr(lib, f"{entry}_occupancy")
         occ.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
         occ.restype = ctypes.c_int
     return lib
 
 
-def fused_occupancy(t: int) -> tuple:
-    """(blocks of K4 resident on one SM, clusters resident on the card) for
-    the cluster size of T frames (the card)."""
-    lib = _lib()
+def fused_occupancy(t: int, precision: str = "highest") -> tuple:
+    """(blocks of K4, or of K4b at "default", resident on one SM, clusters
+    resident on the card) for the cluster size of T frames (the card)."""
+    bf16 = prec_ops.is_bf16(precision)
+    lib = _lib(bf16)
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.nomad_fused_qkv_attention_fwd_occupancy(
-        fused_launch_plan(t, 1, 1).cluster, ctypes.byref(blocks), ctypes.byref(clusters))
+    err = getattr(lib, f"{_KERNELS[bf16][1]}_occupancy")(
+        fused_launch_plan(t, 1, 1, precision).cluster, ctypes.byref(blocks),
+        ctypes.byref(clusters))
     _build.check(lib, err, "fused attention occupancy")
     return blocks.value, clusters.value
 
@@ -178,53 +215,75 @@ def _check_inputs(x, params, lengths, heads):
         raise ValueError(f"fused kernel: lengths must be int32 [{b}] on {x.device}")
 
 
-def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
+def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads):
+    """K4 or K4b on inputs that pass ``_check_inputs``: O [B, T, H, hd]
+    written through its strides and handed out head-major as a view, so
+    the out-projection reads it as [B, T, D] with no copy."""
     params = {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv}
     _check_inputs(x, params, lengths, heads)
     b, t, dm = x.shape
-    # O is written [B, T, H, hd] and handed out head-major as a view: the
-    # out-projection then reads it as [B, T, D] with no copy
     o = torch.empty((b, t, heads, HEAD_DIM), dtype=torch.float32, device=x.device)
     if o.numel() == 0:
         return o.transpose(1, 2)
     lengths = lengths.contiguous()
-    plan = fused_launch_plan(t, b, heads)
-    lib = _lib()
-    err = lib.nomad_fused_qkv_attention_fwd(
+    plan = fused_launch_plan(t, b, heads, "default" if bf16 else "highest")
+    lib = _lib(bf16)
+    err = getattr(lib, _KERNELS[bf16][1])(
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
         o.data_ptr(), b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
         plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, err, "fused attention kernel launch")
-    global launches
-    launches += 1
+    _build.check(lib, err, f"{'bf16 ' if bf16 else ''}fused attention kernel launch")
     return o.transpose(1, 2)
 
 
-def fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads):
+def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
+    """K4: the f32 flavour ("highest", "high")."""
+    o = _launch(False, x, wq, bq, wk, bk, wv, bv, lengths, heads)
+    global launches
+    launches += 1
+    return o
+
+
+def _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
+    """K4b: the "default" flavour on the tensor cores; f32 inputs (rounded
+    inside the kernel) and output, as K4's."""
+    o = _launch(True, x, wq, bq, wk, bk, wv, bv, lengths, heads)
+    global launches_bf16
+    launches_bf16 += 1
+    return o
+
+
+def fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
     """Projections + attention of x [B, T, D] with lengths int32 [B] valid
-    keys per batch row -> O head-major [B, H, T, hd]. K4 on CUDA tensors,
-    the plain version on CPU tensors."""
+    keys per batch row -> O head-major [B, H, T, hd]. On CUDA tensors K4
+    ("highest", "high") or K4b ("default"), on CPU tensors the plain
+    version of the same precision."""
     if x.device.type == "cpu":
-        return fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads)
+        return fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
     if x.device.type != "cuda":
         raise ValueError(f"fused kernel runs on CUDA tensors, got {x.device}")
+    if prec_ops.is_bf16(precision):
+        return _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads)
     return _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads)
 
 
 class FusedQKVAttention(torch.autograd.Function):
-    """``FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads)``
-    -> O head-major [B, H, T, hd], differentiable in x and the projections
-    (lengths and heads get no gradient): ``fused_qkv_mha`` forward (K4 on
-    the card), the vjp of the unfused composition backward (products and
-    ``FlashAttention``: K1 + K2 + K3 on the card)."""
+    """``FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads,
+    precision="highest")`` -> O head-major [B, H, T, hd], differentiable in
+    x and the projections (lengths, heads and precision get no gradient):
+    ``fused_qkv_mha`` forward (K4, or K4b at "default", on the card), the
+    vjp of the unfused composition at the same precision backward
+    (``precision.linear``, whose backward at "default" rounds as JAX
+    transposes a DEFAULT product, and ``FlashAttention``: K1 + K2 + K3 on
+    the card, K1b + K2b + K3b at "default")."""
 
     @staticmethod
-    def forward(ctx, x, wq, bq, wk, bk, wv, bv, lengths, heads):
+    def forward(ctx, x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
         ctx.save_for_backward(x, wq, bq, wk, bk, wv, bv, lengths)
-        ctx.heads = heads
-        return fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads)
+        ctx.heads, ctx.precision = heads, precision
+        return fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -233,30 +292,34 @@ class FusedQKVAttention(torch.autograd.Function):
         needs = ctx.needs_input_grad[:7]
         inputs = [a.detach().requires_grad_(n) for a, n in zip(saved, needs)]
         with torch.enable_grad():
-            q, k, v = _qkv(*inputs, ctx.heads)
-            o = FlashAttention.apply(q, k, v, lengths).transpose(1, 2)
+            q, k, v = _qkv(*inputs, ctx.heads, ctx.precision)
+            o = FlashAttention.apply(q, k, v, lengths, ctx.precision).transpose(1, 2)
             grads = iter(torch.autograd.grad(o, [a for a, n in zip(inputs, needs) if n], do))
-        return (*(next(grads) if n else None for n in needs), None, None)
+        return (*(next(grads) if n else None for n in needs), None, None, None)
 
 
-def fused_qkv_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, key_mask=None, heads: int = 12):
-    """The attention sublayer on hidden states x [B, T, D]: q/k/v
-    projections and masked softmax attention in K4 (``FusedQKVAttention``),
-    then the out-projection as one product of the head-major output.
+def fused_qkv_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, key_mask=None, heads: int = 12,
+                        precision: str = "highest"):
+    """The attention sublayer on hidden states x [B, T, D] at one
+    ``precision`` for the whole block, as the JAX kernel has one mode:
+    q/k/v projections and masked softmax attention in K4, or K4b at
+    "default" (``FusedQKVAttention``), then the out-projection
+    (``precision.linear``) as one product of the head-major output.
     key_mask: optional bool [B, T] prefix mask, True = valid key. Weights
     in ``nn.Linear``'s [out, in] layout. Returns [B, T, D].
 
-    Beyond ``MAX_FUSED_T`` frames it computes the unfused composition,
-    attention through ``mha(impl="kernel")`` (K1 on the card), as the JAX
-    package falls back to its unfused path."""
+    Beyond ``MAX_FUSED_T`` frames it computes the unfused composition at
+    the same precision, attention through ``mha(impl="kernel")`` (K1, or
+    K1b at "default", on the card), as the JAX package falls back to its
+    ``_unfused_ref``."""
     b, t, dm = x.shape
     if not fused_supported(t):
-        q, k, v = _qkv(x, wq, bq, wk, bk, wv, bv, heads)
-        attn = mha(q, k, v, key_mask=key_mask, impl="kernel")
-        return F.linear(attn.reshape(b, t, dm), wo, bo)
+        q, k, v = _qkv(x, wq, bq, wk, bk, wv, bv, heads, precision)
+        attn = mha(q, k, v, key_mask=key_mask, impl="kernel", precision=precision)
+        return prec_ops.linear(attn.reshape(b, t, dm), wo, bo, precision)
     if key_mask is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
     else:
         lengths = key_mask.sum(dim=-1, dtype=torch.int32)
-    o = FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    return F.linear(o.transpose(1, 2).reshape(b, t, dm), wo, bo)
+    o = FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
+    return prec_ops.linear(o.transpose(1, 2).reshape(b, t, dm), wo, bo, precision)

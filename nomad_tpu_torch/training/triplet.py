@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..api import resolve_device, set_exact_precision
-from ..convert import jax_to_state_dict, state_dict_to_jax
+from ..convert import convert_checkpoint, jax_to_state_dict, merge_into, state_dict_to_jax
 from ..models import NomadModel, Wav2Vec2Config, init_weights
 from ..models.wav2vec2 import FAST_ISLANDS
 from ..ops import cdist, cdist_diag
@@ -134,7 +134,7 @@ def resolve_model_config(cfg: dict) -> Wav2Vec2Config:
     if prec == "fast_bf16":
         raise NotImplementedError(
             "training precision 'fast_bf16' (bf16 activations in the block stack) is not "
-            "ported yet (ROADMAP Queue 2, after K4b); use 'fast'"
+            "ported yet (ROADMAP Queue 2 item 2, the bf16-I/O kernel flavours); use 'fast'"
         )
     if prec not in ("exact", "balanced"):
         raise ValueError(
@@ -354,13 +354,20 @@ class Training:
         np.savez(path, **state_dict_to_jax(self.model.state_dict()))
 
     def load_checkpoint(self, path: str) -> None:
-        if not path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{path}: fairseq .pt checkpoints are not read yet (ROADMAP Queue 1 "
-                "item 1); convert it to the JAX package's .npz"
-            )
-        with np.load(path) as flat:
-            self.model.load_state_dict(jax_to_state_dict(dict(flat)), strict=True)
+        """The JAX package's flat-key npz, or a fairseq or NOMAD ``.pt``
+        over a fresh seeded init, as the JAX trainer reads one: the file's
+        tensors (``convert/from_fairseq.py``) replace the init's, and what
+        the file lacks (the lossnet head) keeps the init."""
+        if path.endswith(".npz"):
+            with np.load(path) as flat:
+                sd = jax_to_state_dict(dict(flat))
+        else:
+            cfg = self.model_config
+            base = init_weights(NomadModel(cfg, emb_dim=self.emb_dim,
+                                           masked_pool=self.masked_pool), seed=0)
+            sd = merge_into(base.state_dict(),
+                            convert_checkpoint(path, cfg.num_layers, len(cfg.conv_dim)))
+        self.model.load_state_dict(sd, strict=True)
 
     def _ckpt_manager(self) -> Optional[CheckpointManager]:
         base = getattr(self, "PATH_DIR", None) or self.config.get("run_dir")

@@ -1,7 +1,7 @@
-"""The launch plans of the port's attention kernels, K1 and K4 forward,
-K2 and K3 backward, held on the CPU: the plan is plain Python that the C
-launchers check against their own rules, so what it promises is what the
-card runs."""
+"""The launch plans of the port's attention kernels, K1, K4 and K4b
+forward, K2 and K3 backward, held on the CPU: the plan is plain Python
+that the C launchers check against their own rules, so what it promises
+is what the card runs."""
 
 import pytest
 import torch
@@ -51,6 +51,33 @@ def test_fused_plan_covers_every_row_and_chunk_once(b):
 def test_fused_plan_refuses_what_the_kernel_does_not_take(t):
     with pytest.raises(ValueError, match="outside"):
         fused_attention.fused_launch_plan(t, 1, 12)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_fused_bf16_plan_splits_as_k4_and_fits_the_sm(b):
+    """K4b's plan (precision "default") splits every (batch, head) as K4's
+    does, so the row coverage above holds for it too, and asks for the
+    dynamic shared memory the kernel declares: Q, K and V as bf16 rows of
+    72, then the union of phase 1's two f32 slices of 16 (x and 192 weight
+    rows) with their bf16 copy, and phase 2's bf16 K and V tile. The 2
+    blocks per SM it is built for fit the SM's 228 KB (3 would, too);
+    "high" and "highest" keep K4's plan."""
+    for t in LENGTHS + list(range(1, 1025, 37)):
+        plan = fused_attention.fused_launch_plan(t, b, 12, "default")
+        f32 = fused_attention.fused_launch_plan(t, b, 12)
+        assert (plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.grid) == (
+            f32.cluster, f32.rows_per_block, f32.tensors_per_block, f32.grid), t
+        assert plan.smem_bytes == fused_attention.FUSED_BF16_SMEM_BYTES == 72_704
+        assert 3 * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
+        assert fused_attention.fused_launch_plan(t, b, 12, "high") == f32
+
+
+@pytest.mark.parametrize("t", [0, 1025])
+def test_fused_bf16_plan_refuses_what_the_kernel_does_not_take(t):
+    with pytest.raises(ValueError, match="outside"):
+        fused_attention.fused_launch_plan(t, 1, 12, "default")
+    with pytest.raises(ValueError, match="precision"):
+        fused_attention.fused_launch_plan(100, 1, 12, "bf16")
 
 
 @pytest.mark.parametrize("b", BATCHES)

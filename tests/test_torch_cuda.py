@@ -612,3 +612,147 @@ def test_model_balanced_and_fast_launch_k1b(cuda):
     for mode in ("balanced", "fast"):
         d = (embs[mode] - embs["exact"]).abs().max().item()
         assert 0 < d < 1e-2, (mode, d)
+
+
+# ---------------- K4b: the fused path at "default" ----------------
+
+
+def fused_f64(x, params, lengths, heads):
+    """K4b's oracle: float64 projections of the bf16-rounded x and weights
+    plus the biases, then exact attention in float64; head-major."""
+    b, t, _ = x.shape
+    xd = prec_ops.round_bf16(x).double()
+    q, k, v = (torch.nn.functional.linear(xd, prec_ops.round_bf16(w).double(), bias.double())
+               .view(b, t, heads, 64) for w, bias in zip(params[0::2], params[1::2]))
+    return attention_f64(q, k, v, lengths).transpose(1, 2)
+
+
+@pytest.mark.parametrize("t", [1, 15, 17, 64, 65, 511, 1023, 1024])
+def test_bf16_fused_kernel_matches_ref(cuda, t):
+    """K4b against its plain version at "default": one launch (and no K4),
+    every row finite, a 0-key row 0, O no further from ``fused_f64`` than
+    1.5 x the plain version's distance + 1e-6, K1b fed by the "default"
+    projections of the same x no further from K4b than the two plain
+    versions are from each other (+ 1e-6), a rerun the same bits; NaN past
+    each bound changes no valid row, 123.0 there leaves every row finite."""
+    lengths = [t, max(t // 2, 1), 1, 0]
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, 200 + t)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (fused_attention.launches, fused_attention.launches_bf16)
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2, "default")
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention.launches_bf16) == (before[0], before[1] + 1)
+    assert o.shape == (4, 2, t, 64) and torch.isfinite(o).all()
+    assert torch.equal(o[3], torch.zeros_like(o[3]))
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2, "default")
+    exact = fused_f64(x, params, lens, 2)
+    err, err_plain = ((a.double() - exact).abs().max().item() for a in (o, ref))
+    assert err <= 1.5 * err_plain + 1e-6, (err, err_plain)
+    q, k, v = (prec_ops.linear(x, w, bias, "default").view(4, t, 2, 64)
+               for w, bias in zip(params[0::2], params[1::2]))
+    o_k1b = flash_attention.mha_flash(q, k, v, lens, "default")[0].transpose(1, 2)
+    o_pair = flash_attention.flash_attention_ref(q, k, v, lens, "default")[0].transpose(1, 2)
+    assert (o - o_k1b).abs().max() <= (ref - o_pair).abs().max() + 1e-6
+    assert torch.equal(fused_attention.fused_qkv_mha(x, *params, lens, 2, "default"), o)
+    for fill, whole in ((float("nan"), False), (123.0, True)):
+        dirty = x.clone()
+        for i, n in enumerate(lengths):
+            dirty[i, n:] = fill
+        got = fused_attention.fused_qkv_mha(dirty, *params, lens, 2, "default")
+        assert not whole or torch.isfinite(got).all()
+        for i, n in enumerate(lengths):
+            assert torch.equal(got[i, :, :n], o[i, :, :n]), (fill, i)
+
+
+def test_bf16_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """At "default" a CUDA tensor launches K4b or raises: never K4, never
+    the plain version."""
+    x, params = _fused_inputs(cuda, 2, 40, 2, 17)
+    lens = torch.tensor([40, 20], dtype=torch.int32, device=cuda)
+    before = (fused_attention.launches, fused_attention.launches_bf16)
+    with pytest.raises(ValueError, match="head width"):
+        fused_attention.fused_qkv_mha(x, *params, lens, 4, "default")
+    xl, pl = _fused_inputs(cuda, 1, 1025, 2, 18)
+    with pytest.raises(ValueError, match="1024"):
+        fused_attention.fused_qkv_mha(xl, *pl, lens[:1], 2, "default")
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention.fused_qkv_mha(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                      *params, lens, 2, "default")
+    with pytest.raises(TypeError, match="float32"):
+        fused_attention.fused_qkv_mha(x.to(torch.bfloat16), *params, lens, 2, "default")
+    with pytest.raises(ValueError, match="lengths"):
+        fused_attention.fused_qkv_mha(x, *params, lens.long(), 2, "default")
+    with pytest.raises(ValueError, match="is on"):
+        fused_attention.fused_qkv_mha(x, params[0].cpu(), *params[1:], lens, 2, "default")
+    with pytest.raises(ValueError, match="precision"):
+        fused_attention.fused_qkv_mha(x, *params, lens, 2, "bf16")
+    assert (fused_attention.launches, fused_attention.launches_bf16) == before
+
+
+def test_bf16_fused_gradient_matches_the_unfused_default_autograd(cuda):
+    """FusedQKVAttention at "default" (K4b forward; K1b recompute, K2b +
+    K3b backward) against autograd through the unfused "default"
+    composition on the card, ``precision.linear`` + ``FlashAttention``:
+    the backward recomputes the same products, so the gradients agree to
+    f32 order."""
+    x, params = _fused_inputs(cuda, 3, 130, 2, 19)
+    lens = torch.tensor([130, 77, 1], dtype=torch.int32, device=cuda)
+    do = torch.randn(3, 2, 130, 64, generator=torch.Generator().manual_seed(20)).to(cuda)
+    ours = [a.clone().requires_grad_() for a in (x, *params)]
+    theirs = [a.clone().requires_grad_() for a in (x, *params)]
+    counts = lambda: (fused_attention.launches_bf16, flash_attention.launches_bf16,  # noqa: E731
+                      flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16,
+                      fused_attention.launches, flash_attention.launches)
+    before = counts()
+    o = fused_attention.FusedQKVAttention.apply(*ours, lens, 2, "default")
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before[:4]) + before[4:]
+    q, k, v = (prec_ops.linear(theirs[0], theirs[i], theirs[i + 1], "default").view(3, 130, 2, 64)
+               for i in (1, 3, 5))
+    flash_attention.FlashAttention.apply(q, k, v, lens, "default").transpose(1, 2).backward(do)
+    for a, r in zip(ours, theirs):
+        assert torch.isfinite(a.grad).all()
+        torch.testing.assert_close(a.grad, r.grad, atol=1e-5 * r.grad.abs().max().item(), rtol=0)
+
+
+def test_model_fast_fused_path_launches_k4b(cuda):
+    """A narrow model with 64-wide heads in "fast" with ``fused_qkv``: K4b
+    in every block and no K1b, K1 or K4; embeddings no further from the
+    "fast" K1b path than half of that path's distance to "exact" (the
+    same bf16 roundings); "balanced" with ``fused_qkv`` keeps K4."""
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    g = torch.Generator().manual_seed(6)
+    lengths = torch.tensor([4000, 2500]).to(cuda)
+    wav = (0.3 * torch.randn(2, 4000, generator=g)).to(cuda)
+    sd = init_weights(NomadModel(Wav2Vec2Config.base(**kw), emb_dim=16), seed=3).state_dict()
+    embs, launched = {}, {}
+    for name, cfg in (("exact", Wav2Vec2Config.base(**kw)),
+                      ("fast", Wav2Vec2Config.fast(**kw)),
+                      ("fast_fused", Wav2Vec2Config.fast(attention_impl="fused_qkv", **kw)),
+                      ("balanced_fused", Wav2Vec2Config.balanced(attention_impl="fused_qkv", **kw))):
+        model = NomadModel(cfg, emb_dim=16)
+        model.load_state_dict(sd)
+        model = model.to(cuda).eval()
+        counters = (lambda: (fused_attention.launches_bf16, fused_attention.launches,  # noqa: E731
+                             flash_attention.launches_bf16, flash_attention.launches))
+        before = counters()
+        with torch.inference_mode():
+            embs[name] = model(wav, lengths)
+        torch.cuda.synchronize()
+        launched[name] = tuple(a - b for a, b in zip(counters(), before))
+        assert torch.isfinite(embs[name]).all()
+    assert launched["fast_fused"] == (12, 0, 0, 0)
+    assert launched["balanced_fused"] == (0, 12, 0, 0)
+    d = (embs["fast_fused"] - embs["fast"]).abs().max().item()
+    assert d <= 0.5 * (embs["fast"] - embs["exact"]).abs().max().item(), d
+
+
+def test_bf16_fused_occupancy(cuda):
+    """K4b keeps at least the 2 blocks per SM it is built for, at every
+    cluster size of its plan, and each cluster size fits on the card."""
+    for t in (50, 65, 511, 1024):
+        blocks, clusters = fused_attention.fused_occupancy(t, "default")
+        assert blocks >= 2 and clusters >= 1, (t, blocks, clusters)

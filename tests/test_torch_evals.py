@@ -167,8 +167,9 @@ def test_port_written_checkpoint_reloads_and_plots(eval_tree, tmp_path):
     tr2.eval_degr_level(eval_tree["ckpt"], plot=True)
     assert os.path.isfile(tmp_path / "dbA_embeddings.png")
     assert os.path.isfile(tmp_path / "validset_embeddings.png")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tr2.load_checkpoint("model.pt")
+    # a .pt is read now (tests/test_torch_training.py); a missing one raises
+    with pytest.raises(FileNotFoundError):
+        tr2.load_checkpoint(str(tmp_path / "missing.pt"))
 
 
 @pytest.mark.parametrize("n", [3, 6])

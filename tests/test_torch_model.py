@@ -120,3 +120,21 @@ def test_seeded_init_is_deterministic():
 def test_config_rejects_unknown_impl():
     with pytest.raises(ValueError, match="attention_impl"):
         Wav2Vec2Config.tiny(attention_impl="pallas")
+
+
+def test_identical_rows_embed_to_the_same_bits_under_three_threads():
+    """A file's embedding does not depend on its row in the batch: two
+    identical rows give the same bits under ``torch.set_num_threads(3)``.
+    The positional conv's SamePad trim is made contiguous before GELU; on
+    a strided view torch's CPU GELU split the rows between its vector and
+    scalar paths unevenly, and the rows differed by ~5e-8."""
+    model = init_weights(NomadModel(Wav2Vec2Config.tiny(), emb_dim=EMB), seed=2).eval()
+    wave = (0.2 * np.random.default_rng(3).standard_normal(3000)).astype(np.float32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        with torch.inference_mode():
+            emb = model(torch.from_numpy(np.stack([wave, wave])), torch.tensor([3000, 3000]))
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(emb[0], emb[1])

@@ -10,7 +10,8 @@ emulation of one bf16 pass (operands rounded to nearest even by bit
 manipulation, products and sums in float64); (d) the port's "balanced"
 and "fast" embeddings against the JAX package's, which XLA on the CPU
 computes in f32 (it ignores dot precision); (e) what the modes refuse,
-each refusal naming ROADMAP; and the API and the service in a mode.
+each refusal naming ROADMAP, and ``fused_qkv`` at a bf16 island, which
+no longer refuses; and the API and the service in a mode.
 """
 
 import dataclasses
@@ -308,25 +309,26 @@ def test_modes_against_jax(bridged, mode):
 
 
 def test_refusals_name_roadmap(bridged):
-    """What the modes still refuse: ``fused_qkv`` under a "default" encoder
-    island (K4's bf16 mode, K4b) and the trainer's ``fast_bf16``. The
-    gradients and dropout under a bf16 island work now
-    (``tests/test_torch_grad_modes.py``)."""
+    """What the modes still refuse: the trainer's ``fast_bf16``, naming
+    ROADMAP. ``fused_qkv`` under a "default" encoder island (K4's bf16
+    mode, K4b) runs now and gives finite embeddings that round
+    (``tests/test_torch_fused_modes.py`` holds it to the JAX package);
+    "high" keeps the f32 K4 (the card's high3). The gradients and dropout
+    under a bf16 island work too (``tests/test_torch_grad_modes.py``)."""
     _, sd, wav, lengths = bridged
     wave = torch.from_numpy(wav[:1, :800])
-    fused = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv", encoder_precision="default"),
-                       emb_dim=EMB)
-    fused.load_state_dict(sd)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP.*K4b|K4b.*ROADMAP"):
-        fused(wave)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Training({"experiment_name": "quality_nmr", "model_size": "tiny",
                   "precision": "fast_bf16"}, device="cpu")
-    # "high" keeps the f32 K4 (the card's high3)
-    with torch.no_grad():
-        fused_high = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv"), emb_dim=EMB)
-        fused_high.load_state_dict(sd)
-        assert torch.isfinite(fused_high(wave)).all()
+    embs = {}
+    for prec in ("default", "high"):
+        fused = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv",
+                                               encoder_precision=prec), emb_dim=EMB)
+        fused.load_state_dict(sd)
+        with torch.no_grad():
+            embs[prec] = fused(wave)
+        assert torch.isfinite(embs[prec]).all()
+    assert (embs["default"] - embs["high"]).abs().max() > 1e-5
 
 
 # ---------------- the API and the service in a mode ----------------

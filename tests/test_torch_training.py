@@ -19,8 +19,9 @@ from nomad_tpu.training import data as jdata
 from nomad_tpu.training.losses import triplet_margin_loss as jax_triplet_margin_loss
 from nomad_tpu.training.triplet import param_labels as jax_param_labels
 from nomad_tpu_torch.convert import jax_name, jax_to_state_dict, state_dict_to_jax
+from nomad_tpu_torch.convert.fairseq_synth import write_nomad_checkpoint
 from nomad_tpu_torch.io import write_wav
-from nomad_tpu_torch.models import Wav2Vec2Config
+from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights
 from nomad_tpu_torch.training import Training, data, param_labels
 from nomad_tpu_torch.training.losses import triplet_margin_loss
 
@@ -270,3 +271,40 @@ def test_resume_is_bit_exact(tree, jax_params, tmp_path):
         for k, v in s.items():
             assert torch.equal(got[1][i][k], v), (i, k)
     assert os.path.isfile(tmp_path / "b" / "best_model.npz")
+
+
+def test_load_checkpoint_reads_a_pt_as_the_jax_trainer_does(tree, jax_params, tmp_path):
+    """``Training.load_checkpoint`` on a NOMAD-layout ``.pt`` (written by
+    ``convert.fairseq_synth.write_nomad_checkpoint``): every tensor the
+    file holds equals the JAX trainer's load of the same file, through
+    the bridge (both compose the positional conv's weight norm in
+    float64); the lossnet head, which the file lacks, keeps each package's
+    seeded init (quirk Q7). An npz the trainer saved still loads."""
+    src = init_weights(NomadModel(Wav2Vec2Config.tiny(), emb_dim=EMB), seed=7)
+    with torch.no_grad():  # a positional conv whose norm is not 1 at every tap
+        src.backbone.encoder.pos_conv.conv.weight.mul_(
+            torch.linspace(0.5, 2.0, src.config.pos_conv_kernel))
+    pt = str(tmp_path / "nomad_best_model.pt")
+    write_nomad_checkpoint(src, pt)
+    tr = Training(train_config(tree), device="cpu", params=jax_to_state_dict(jax_params),
+                  model_config=Wav2Vec2Config.tiny(**ZERO_RATES))
+    tr.load_checkpoint(pt)
+    jtr = _jax_training(tree, jax_params)
+    jtr.load_checkpoint(pt)
+    ours = tr.model.state_dict()
+    theirs = jax_to_state_dict(_flatten(jax.device_get(jtr.params["params"])))
+    assert sorted(ours) == sorted(theirs)
+    head = ("lossnet_embedding.weight", "lossnet_embedding.bias")
+    seeded = init_weights(NomadModel(Wav2Vec2Config.tiny(), emb_dim=EMB), seed=0).state_dict()
+    for k, v in ours.items():
+        if k in head:
+            assert torch.equal(v, seeded[k]), k
+        else:
+            assert torch.equal(v, theirs[k]), k
+            assert torch.equal(v, src.state_dict()[k]) or k.endswith("pos_conv.conv.weight"), k
+    npz = str(tmp_path / "saved.npz")
+    tr.save_checkpoint(npz)
+    again = Training(train_config(tree), device="cpu", params=seeded,
+                     model_config=Wav2Vec2Config.tiny(**ZERO_RATES))
+    again.load_checkpoint(npz)
+    assert all(torch.equal(v, ours[k]) for k, v in again.model.state_dict().items())

@@ -3,7 +3,7 @@ differentiate.
 
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
-                           --only-fused-modes]
+                           --only-fused-modes | --only-fast-bf16]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -144,6 +144,26 @@ Phases, each fatal on failure:
      24, K1b 12, K2b 12, K3b 12, K5 52 a step) with phase 10's checks;
      and "balanced" with ``fused_qkv`` (K4 24, no K4b: the fused kernel
      takes the projections' island);
+ 13. the trainer's ``fast_bf16`` (bf16 activations in the block stack):
+     the bf16-I/O flavours of K5 (at [49056, 768] and [11976, 768]), K1b
+     (at [96, 511] with lengths to 499, [24, 499], a ragged [8, 4095] and
+     every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}) and K2b + K3b
+     (at [32, 50], [24, 499], [8, 4095] and the same edges), each case with
+     a full, a ragged, a 1-key and a 0-key row: bit-equal to their f32-I/O
+     flavour on the upcast inputs rounded once, held to their plain
+     version and to float64 (phases 9 and 10's rules, plus one bf16 ulp of
+     the output), NaN past each bound changing no row, a rerun the same
+     bits, timed beside the f32-I/O flavour, the plain version and the
+     PyTorch call on the same bf16 tensors; then phase 10's triplet recipe
+     on phase 10's seeded BASE state dict with ``precision: fast_bf16``:
+     the recipe's step with remat on and off (K5 2, K5-bf16 48 with remat,
+     24 without), its eval step (K1b-bf16 12, K5 2, K5-bf16 24), the
+     rates-at-0 step (K1b-bf16 24, K2b-bf16 12, K3b-bf16 12, K5 2, K5-bf16
+     48) held to the fast_bf16 plain path by phase 10's rule; the evals'
+     engine on the recipe's utterances (K1b-bf16 12, K5 2, K5-bf16 24 a
+     batch; embeddings held to the plain path by phase 12's rule) and
+     ``eval_audio_quality``; step times, enqueue, peak memory and profiles
+     beside "fast"'s in the same run;
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -156,8 +176,8 @@ timed over another checkout's package (the script uses no entry point
 newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
 ``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
-and 10, ``--only-fused-modes`` phases 1, 2 and 12, each ending with the
-report line.
+and 10, ``--only-fused-modes`` phases 1, 2 and 12, ``--only-fast-bf16``
+phases 1, 2 and 13, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -292,10 +312,16 @@ STRESS_DEG, STRESS_NMR = 48, 16
 # inputs: no further apart than their two plain versions are (measured on
 # an H100: K4b and K1b give the same bits there), plus 1e-6
 FUSED_BF16_VS_K1B = 1.0
+# phase 13's bf16-I/O flavours (bf16 in and out) against their plain
+# version and float64: phases 9 and 10's rules plus one bf16 step of the
+# output, relative to the largest value (two roundings of f32 values that
+# lie close may fall on either side of a bf16 boundary)
+BF16_ULP_REL = 2.0 ** -7
+BWD_NOISE = 1e-4
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
-SHARED: dict = {}  # phase 9's seeded BASE state dict, for phase 12
+SHARED: dict = {}  # phase 9's and phase 10's seeded BASE state dicts, for phases 12 and 13
 
 
 def fail(msg: str) -> None:
@@ -390,7 +416,9 @@ def build_kernels() -> None:
     # kernel's shared memory, from the CUDA occupancy API
     occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
                                    "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
-           "flash_attention_bf16_fwd": {"blocks_per_sm": flash_attention.flash_bf16_occupancy()}}
+           "flash_attention_bf16_fwd": {"blocks_per_sm": flash_attention.flash_bf16_occupancy()},
+           "flash_attention_bf16io_fwd": {
+               "blocks_per_sm": flash_attention.flash_bf16_occupancy(bf16_io=True)}}
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
             blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"])
@@ -401,13 +429,14 @@ def build_kernels() -> None:
                 fail(f"K2/K3 {kernel} at T = {t}: {blocks} blocks per SM, the plan claims "
                      f"{plan['blocks_per_sm']}")
     for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 1, 12).items():
-        blocks = flash_attention.flash_bwd_bf16_occupancy(kernel)
-        occ[f"flash_attention_bwd_{kernel}_bf16"] = {
-            "blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
-            "smem_bytes": plan["smem_bytes"]}
-        if blocks < plan["blocks_per_sm"]:
-            fail(f"K2b/K3b {kernel}: {blocks} blocks per SM, the plan claims "
-                 f"{plan['blocks_per_sm']}")
+        for io, tag in ((False, "bf16"), (True, "bf16io")):
+            blocks = flash_attention.flash_bwd_bf16_occupancy(kernel, bf16_io=io)
+            occ[f"flash_attention_bwd_{kernel}_{tag}"] = {
+                "blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
+                "smem_bytes": plan["smem_bytes"]}
+            if blocks < plan["blocks_per_sm"]:
+                fail(f"K2b/K3b {kernel} ({tag}): {blocks} blocks per SM, the plan claims "
+                     f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         for prec, name in (("highest", "fused_qkv_attention_fwd"),
                            ("default", "fused_qkv_attention_bf16_fwd")):
@@ -450,11 +479,12 @@ def check_layernorm(rows: int, width: int, g: torch.Generator) -> dict:
 
 
 def flash_bound(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
-                peak_flops: float = F32_FLOPS) -> tuple[float, str]:
-    """All T query rows are written; keys past lengths[b] are never read."""
+                peak_flops: float = F32_FLOPS, io_bytes: int = 4) -> tuple[float, str]:
+    """All T query rows are written; keys past lengths[b] are never read.
+    q, k, v and O take ``io_bytes`` an element, LSE and lengths 4."""
     keys = int(lengths.sum())
     flops = 4.0 * h * d * t * keys
-    nbytes = 4.0 * (2 * b * t * h * d + 2 * keys * h * d + b * h * t + b)
+    nbytes = io_bytes * (2 * b * t * h * d + 2 * keys * h * d) + 4.0 * (b * h * t + b)
     return bound(nbytes, flops, peak_flops)
 
 
@@ -491,15 +521,16 @@ def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
 
 
 def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
-                     peak_flops: float = F32_FLOPS) -> dict:
+                     peak_flops: float = F32_FLOPS, io_bytes: int = 4) -> dict:
     """Per kernel: every (query row, valid key) pair costs K2 6*D FLOP (s,
     dP, dQ) and K3 8*D (s, dP, dK, dV). Bytes: the valid keys' k and v,
     q, dO, LSE and Di of the batch rows that have a key, and the outputs
-    (dQ; dK and dV), each once."""
+    (dQ; dK and dV), each once; q, k, v, dO and the outputs ``io_bytes``
+    an element, LSE and Di 4."""
     lens = lengths.long()
     keys, live = int(lens.sum()), int((lens > 0).sum())
     pairs = t * keys
-    row = 4.0 * h * d
+    row = float(io_bytes) * h * d
     reads = 2 * keys * row + 2 * live * t * row + 2 * live * h * t * 4.0
     return {"dq": bound(reads + b * t * row, 6.0 * h * d * pairs, peak_flops),
             "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs, peak_flops)}
@@ -754,6 +785,10 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # kernel name -> layer of the model, first match wins (cuDNN's implicit-GEMM
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
+    ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",)),
+    ("flash_attention_bwd_bf16io", ("flash_bwd_dq_bf16_kernel<__nv_bfloat16",
+                                    "flash_bwd_dkv_bf16_kernel<__nv_bfloat16")),
+    ("layernorm_fwd_bf16io", ("layernorm_fwd_kernel<__nv_bfloat16",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
     ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel",)),
@@ -832,6 +867,8 @@ def reset_launches() -> None:
     flash_attention.launches_bwd_dkv = layernorm.launches = fused_attention.launches = 0
     flash_attention.launches_bf16 = fused_attention.launches_bf16 = 0
     flash_attention.launches_bwd_dq_bf16 = flash_attention.launches_bwd_dkv_bf16 = 0
+    flash_attention.launches_bf16_io = layernorm.launches_bf16_io = 0
+    flash_attention.launches_bwd_dq_bf16_io = flash_attention.launches_bwd_dkv_bf16_io = 0
 
 
 def read_launches() -> dict:
@@ -843,19 +880,31 @@ def read_launches() -> dict:
             "flash_attention_bwd_dkv_bf16": flash_attention.launches_bwd_dkv_bf16,
             "fused_qkv_attention_fwd": fused_attention.launches,
             "fused_qkv_attention_bf16_fwd": fused_attention.launches_bf16,
-            "layernorm_fwd": layernorm.launches}
+            "layernorm_fwd": layernorm.launches,
+            "flash_attention_bf16io_fwd": flash_attention.launches_bf16_io,
+            "flash_attention_bwd_dq_bf16io": flash_attention.launches_bwd_dq_bf16_io,
+            "flash_attention_bwd_dkv_bf16io": flash_attention.launches_bwd_dkv_bf16_io,
+            "layernorm_fwd_bf16io": layernorm.launches_bf16_io}
 
 
-def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0) -> dict:
+def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
+                  k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0) -> dict:
+    """Launch counts by kernel; ``*_io``: the bf16-I/O flavours."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
             "fused_qkv_attention_fwd": k4, "fused_qkv_attention_bf16_fwd": k4b,
-            "layernorm_fwd": k5}
+            "layernorm_fwd": k5, "flash_attention_bf16io_fwd": k1b_io,
+            "flash_attention_bwd_dq_bf16io": k2b_io, "flash_attention_bwd_dkv_bf16io": k3b_io,
+            "layernorm_fwd_bf16io": k5_io}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
-    """BASE with a precision mode's islands (``Nomad(precision=mode)``'s)."""
+    """BASE with a precision mode's islands (``Nomad(precision=mode)``'s);
+    "fast_bf16" is the trainer's: "fast"'s islands on bf16 activations."""
+    if mode == "fast_bf16":
+        return Wav2Vec2Config.base(**(PRECISION_ISLANDS["fast"] | kw),
+                                   encoder_dtype=torch.bfloat16)
     return Wav2Vec2Config.base(**(PRECISION_ISLANDS[mode] | kw))
 
 
@@ -908,9 +957,10 @@ def recorded_flash_bwd():
 
 def bwd_rel_err(outs, ref) -> dict:
     """Over dQ, dK and dV: the largest max |out - ref| / max |ref| and
-    ||out - ref|| / ||ref||."""
+    ||out - ref|| / ||ref||, in f32."""
     res = {"max": 0.0, "norm": 0.0}
     for o, r in zip(outs, ref):
+        o, r = o.float(), r.float()
         d = (o - r).nan_to_num(nan=float("inf"))
         res["max"] = max(res["max"], d.abs().max().item() / max(r.abs().max().item(), 1e-30))
         res["norm"] = max(res["norm"], d.norm().item() / max(r.norm().item(), 1e-30))
@@ -921,15 +971,18 @@ def check_recorded_flash_bwd(calls: list, what: str) -> dict:
     """The path's own attention backward calls (K2b + K3b through
     ``flash_attention_bwd``) against ``flash_attention_bwd_ref`` on the
     same inputs: within BWD_BF16_PATH_REL of each output's max |g|, and
-    BWD_BF16_PLAIN_NORM of its norm."""
+    BWD_BF16_PLAIN_NORM of its norm; for bf16 outputs (the bf16-I/O
+    flavours) plus one bf16 step at the max, and half of one in the norm."""
     worst = {"max": 0.0, "norm": 0.0}
     for args, outs in calls:
         err = bwd_rel_err(outs, flash_attention.flash_attention_bwd_ref(*args))
         worst = {k: max(worst[k], err[k]) for k in worst}
+    ulp = BF16_ULP_REL if calls and calls[0][1][0].dtype == torch.bfloat16 else 0.0
+    tol_max, tol_norm = BWD_BF16_PATH_REL + ulp, BWD_BF16_PLAIN_NORM + ulp / 2
     print(f"{what}: the path's {len(calls)} attention backward calls vs their plain version "
-          f"on the same inputs max|d|/max|g| {worst['max']:.3g} (<= {BWD_BF16_PATH_REL}), "
-          f"||d||/||g|| {worst['norm']:.3g} (<= {BWD_BF16_PLAIN_NORM})", flush=True)
-    if not calls or worst["max"] > BWD_BF16_PATH_REL or worst["norm"] > BWD_BF16_PLAIN_NORM:
+          f"on the same inputs max|d|/max|g| {worst['max']:.3g} (<= {tol_max:.3g}), "
+          f"||d||/||g|| {worst['norm']:.3g} (<= {tol_norm:.3g})", flush=True)
+    if not calls or worst["max"] > tol_max or worst["norm"] > tol_norm:
         fail(f"{what}: {len(calls)} attention backward calls, vs plain {worst}")
     return worst
 
@@ -2685,11 +2738,19 @@ def probe_distance(x: dict, ref: dict) -> dict:
     return out
 
 
-def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict) -> dict:
+MODE_STEP_LAUNCHES = {"train_step": launches_want(k5=50),
+                      "eval_step": launches_want(k1b=12, k5=26),
+                      "train_step_rates0": launches_want(k1b=24, k2b=12, k3b=12, k5=50)}
+
+
+def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict,
+                     want: dict = MODE_STEP_LAUNCHES) -> dict:
     """The triplet recipe in ``mode`` (``precision:`` in the config, remat
     on, dropout 0.1): the recipe's step (the plain dropout attention at
     bf16, K5 only) and its eval step (K1b); the dropout rates at 0 (K1b +
-    K2b + K3b); then, from ``init`` with the rates at 0, ``triplet_probe``
+    K2b + K3b), each with the launch counts ``want`` gives (a bf16 block
+    stack launches the bf16-I/O flavours); then, from ``init`` with the
+    rates at 0, ``triplet_probe``
     on the kernel path (K), whose attention backward calls are held to
     their plain version on the same inputs, against the same mode's plain
     path (P): the embeddings and both gradient sets within GRAD_MODE_FRAC
@@ -2700,7 +2761,8 @@ def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict) -> dict
     K3b alone swapped for their plain version (KP) against K and P."""
     out: dict = {}
     tr, loss, before, grads = first_train_step(
-        f"train_step_{mode}", dict(cfg, precision=mode), batch, launches_want(k5=50), init)
+        f"train_step_{mode}", dict(cfg, precision=mode), batch, want["train_step"], init)
+    out["loss"] = loss
     want_cfg = mode_config(mode, frontend_stop_gradient=True, remat=True)
     if tr.model_config != want_cfg:
         fail(f"trainer {mode}: precision resolved to {tr.model_config}, want {want_cfg}")
@@ -2715,14 +2777,16 @@ def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict) -> dict
     tr.eval_step(batch)
     counts = read_launches()
     report["launches"][f"eval_step_{mode}"] = counts
-    if counts != launches_want(k1b=12, k5=26):
-        fail(f"trainer {mode}: eval step launch counts {counts} (want K1b 12, K5 26)")
-    out["eval_step_ms"] = time_ms(lambda: tr.eval_step(batch), TRAIN_STEPS, warmup=1)
+    if counts != want["eval_step"]:
+        fail(f"trainer {mode}: eval step launch counts {counts} (want {want['eval_step']})")
+    out["eval_step"] = time_steps(lambda: tr.eval_step(batch), TRAIN_STEPS, card,
+                                  f"trainer: eval_step {mode}")
+    out["eval_step_ms"] = out["eval_step"]["events_median_ms"]
     release(tr)
 
     tr, _, _, _ = first_train_step(
-        f"train_step_rates0_{mode}", cfg, batch,
-        launches_want(k1b=24, k2b=12, k3b=12, k5=50), init, mode_config(mode, **ZERO_RATES))
+        f"train_step_rates0_{mode}", cfg, batch, want["train_step_rates0"], init,
+        mode_config(mode, **ZERO_RATES))
     out["train_step_rates0"] = time_train_steps(card, f"train_step {mode} (rates at 0, remat)",
                                                 tr, batch)
     profile_run(lambda: tr.train_step(batch, step_gen()), f"profile_train_step_rates0_{mode}")
@@ -2812,6 +2876,7 @@ def run_grad_modes(card: str) -> None:
     print("gradient modes: K2b and K3b vs their plain version on the card:", flush=True)
     check_flash_bwd_bf16_shapes()
     sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    SHARED["sd10"] = sd
     report["grad_routes"] = grad_routes_vs_plain(sd)
     want = launches_want(k1b=24, k2b=12, k3b=12, k5=52)
     for mode in ("balanced", "fast"):
@@ -3113,6 +3178,411 @@ def run_fused_modes(card: str) -> None:
     print(f"fused modes: phase 12 took {out['phase_s']:.1f} s", flush=True)
 
 
+# ---------------- phase 13: the trainer's fast_bf16, the bf16-I/O flavours ----------------
+
+
+def bf16_ulp_of(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each |x| (8 significant bits), in f32."""
+    mag = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_layernorm_bf16io(rows: int, width: int, g: torch.Generator) -> dict:
+    """K5's bf16-I/O flavour: bit-equal to its f32 flavour on the upcast
+    rows, rounded once; within K5's f32 tolerance TOL_LN plus one bf16 step
+    of its plain version on the same bf16 rows, element by element (both
+    round f32 values at most TOL_LN apart; an output near 0 is a sum that
+    cancelled, whose f32 error is that of its terms); a rerun the same
+    bits; timed beside the f32 flavour, the plain version and
+    ``F.layer_norm`` on bf16."""
+    x = (3 * torch.randn(rows, width, generator=g) + 1).to(DEV).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(width, generator=g)).to(DEV)
+    b = (0.1 * torch.randn(width, generator=g)).to(DEV)
+    x32 = x.float()
+    out = layernorm.layer_norm(x, w, b)
+    twin = layernorm.layer_norm(x32, w, b)
+    ref = layernorm.layer_norm_ref(x, w, b)
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    err = d.max().item()
+    bit_equal = torch.equal(out, twin.to(torch.bfloat16))
+    step = bf16_ulp_of(torch.maximum(out.float().abs(), ref.float().abs()))
+    within = bool((d <= TOL_LN + step).all())
+    same_bits = torch.equal(out, layernorm.layer_norm(x, w, b))
+    if out.dtype != torch.bfloat16 or not (bit_equal and within and same_bits):
+        fail(f"layernorm bf16 I/O [{rows}, {width}]: dtype {out.dtype}, bf16(f32 flavour) "
+             f"bit-equal={bit_equal}, within {TOL_LN} + one bf16 step of plain={within} "
+             f"(max|d| {err:.3g}), "
+             f"rerun same bits={same_bits}")
+    nbytes = 2 * rows * width * 2 + 2 * width * 4
+    b_ms, b_by = bound(nbytes, 8.0 * rows * width)
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    res = {"shape": [rows, width], "max_abs_err": err, "bit_equal_f32_flavour": bit_equal,
+           "ms": time_ms(lambda: layernorm.layer_norm(x, w, b), 50),
+           "f32_io_ms": time_ms(lambda: layernorm.layer_norm(x32, w, b), 50),
+           "plain_ms": time_ms(lambda: layernorm.layer_norm_ref(x, w, b), 20),
+           "library_ms": time_ms(lambda: F.layer_norm(x, (width,), wb, bb, 1e-5), 50),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"  layernorm bf16 I/O [{rows}, {width}]: bf16(f32 flavour) bit-equal, vs plain max|d| "
+          f"{err:.3g} (<= {TOL_LN} + one bf16 step); kernel {res['ms']:.4f} ms, f32 I/O "
+          f"{res['f32_io_ms']:.4f}, plain {res['plain_ms']:.4f}, F.layer_norm bf16 "
+          f"{res['library_ms']:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+    return res
+
+
+def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                       bwd: bool = True, kernel_times: bool = True) -> dict:
+    """K1b's bf16-I/O flavour and, with ``bwd``, K2b's and K3b's (through
+    ``flash_attention_bwd``), on bf16 q, k, v (views of one [B, T, 3, H,
+    D] buffer) and dO, NaN in k and v past each bound: every output bit-
+    equal to the f32-I/O flavour's on the upcast inputs rounded once (LSE
+    equal); the same bits as with finite values past the bound, and on a
+    rerun; a 0-key row O = 0, LSE = -1e30, zero gradients; dK = dV = 0
+    past each bound; against the plain version on the same bf16 inputs
+    and float64: |O - O_f64| <= 1.5 x the plain version's + 1.5 bf16
+    steps at its max + 1e-6 (phase 9's rule for outputs rounded once),
+    LSE within TOL_FLASH; each gradient within BWD_BF16_PLAIN_REL +
+    BF16_ULP_REL of the plain version's max |g| and BWD_BF16_PLAIN_NORM +
+    BF16_ULP_REL / 2 of its norm (where max |g| > BWD_NOISE), |g - g_f64|
+    <= 1.5 x the plain version's + 1.5 bf16 steps + 1e-6 (phase 10's
+    rule). ``kernel_times``:
+    time the bf16-I/O kernels and their f32-I/O flavour; ``timed``: the
+    plain version and SDPA (its gradient) on bf16 tensors too."""
+    h, d = 12, 64
+    bf = torch.bfloat16
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV).to(bf)
+    finite = qkv.clone()
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    _, kf, vf = finite.unbind(2)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    up = [x.float() for x in (q, k, v)]
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    o32, lse32 = flash_attention.mha_flash(*up, lens, "default")
+    o_fin, lse_fin = flash_attention.mha_flash(q, kf, vf, lens, "default")
+    again = flash_attention.mha_flash(q, k, v, lens, "default")
+    torch.cuda.synchronize()
+    checks = {"dtype": o.dtype == bf and lse.dtype == torch.float32,
+              "bit_equal_f32_flavour": torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32),
+              "nan_past_bound_changes_nothing": torch.equal(o, o_fin) and torch.equal(lse, lse_fin),
+              "rerun_same_bits": torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+              "finite": bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              "zero_key_rows": all(bool((o[i] == 0).all() and (lse[i] == flash_attention.NEG_INF)
+                                        .all()) for i, n in enumerate(lengths) if n == 0)}
+    del o32, lse32, o_fin, lse_fin, again
+    err = err_f64 = err_plain_f64 = err_lse = 0.0
+    excess = float("-inf")
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        ro, rlse = flash_attention.flash_attention_ref(q[sl], k[sl], v[sl], lens[sl], "default")
+        exact = attention_f64(up[0][sl], up[1][sl], up[2][sl], lens[sl])
+        e = (o[sl].double() - exact).abs().max().item()
+        ep = (ro.double() - exact).abs().max().item()
+        step = BF16_ULP_REL * exact.abs().max().item()
+        excess = max(excess, e - (1.5 * ep + 1.5 * step + 1e-6))
+        err = max(err, (o[sl].float() - ro.float()).abs().max().item())
+        err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
+        err_lse = max(err_lse, (lse[sl] - rlse).abs().max().item())
+        del ro, rlse, exact
+    checks["vs_plain_and_f64"] = excess <= 0 and err_lse <= TOL_FLASH
+    res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
+           "fwd": {"max_abs_err": err, "max_abs_err_vs_f64": err_f64,
+                   "plain_max_abs_err_vs_f64": err_plain_f64, "lse_max_abs_err": err_lse}}
+    b_ms, b_by = flash_bound(b, t, h, d, lens, BF16_FLOPS, io_bytes=2)
+    res["fwd"] |= {"bound_ms": b_ms, "bound_by": b_by}
+    iters = 10 if t > 1024 else 30
+    up_c = [x.contiguous() for x in up]  # the f32-I/O flavour's inputs, for its times
+    if kernel_times:
+        res["fwd"]["ms"] = time_ms(lambda: flash_attention.mha_flash(q, k, v, lens, "default"),
+                                   iters)
+        res["fwd"]["f32_io_ms"] = time_ms(
+            lambda: flash_attention.mha_flash(*up_c, lens, "default"), iters)
+    mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+    if timed:
+        qb, kb, vb = (x.transpose(1, 2) for x in (q, kf, vf))
+        res["fwd"]["plain_ms"] = time_ms(
+            lambda: flash_attention.flash_attention_ref(q, k, v, lens, "default"), 5)
+        res["fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), 10)
+    if bwd:
+        do = torch.randn(b, t, h, d, generator=g).to(DEV).to(bf)
+        names = ("dq", "dk", "dv")
+
+        def grads(*a):
+            return flash_attention.flash_attention_bwd(*a, "default")
+
+        outs = grads(q, k, v, o, lse, do, lens)
+        outs32 = grads(*up, o.float(), lse, do.float(), lens)
+        outs_fin = grads(q, kf, vf, o, lse, do, lens)
+        again = grads(q, k, v, o, lse, do, lens)
+        torch.cuda.synchronize()
+        dq, dk, dv = outs
+        checks |= {
+            "bwd_dtype": all(x.dtype == bf for x in outs),
+            "bwd_bit_equal_f32_flavour": all(torch.equal(x, y.to(bf))
+                                             for x, y in zip(outs, outs32)),
+            "bwd_rerun_same_bits": all(torch.equal(x, y) for x, y in zip(outs, again)),
+            "bwd_finite": all(bool(torch.isfinite(x).all()) for x in outs),
+            "bwd_zero_past_bound": all(bool((dk[i, n:] == 0).all() and (dv[i, n:] == 0).all())
+                                       for i, n in enumerate(lengths)),
+            "bwd_zero_key_rows": all(bool((dq[i] == 0).all()) for i, n in enumerate(lengths)
+                                     if n == 0),
+            # valid rows: every dQ row, and dK/dV below each bound
+            "bwd_nan_past_bound_changes_nothing": torch.equal(dq, outs_fin[0]) and all(
+                torch.equal(x[i, :n], y[i, :n]) for x, y in zip((dk, dv), outs_fin[1:])
+                for i, n in enumerate(lengths))}
+        del outs32, outs_fin, again
+        err, err_f64, plain_f64, gmax, sq_err, sq_ref = ({n: 0.0 for n in names}
+                                                         for _ in range(6))
+        excess = float("-inf")
+        for i in range(b):
+            sl = slice(i, i + 1)
+            ref = flash_attention.flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], lse[sl],
+                                                          do[sl], lens[sl], "default")
+            exact = attention_bwd_f64(up[0][sl], up[1][sl], up[2][sl], do[sl].float(), lens[sl])
+            for n, ours, r, x in zip(names, outs, ref, exact):
+                ours, r = ours[sl].float(), r.float()
+                diff = (ours - r).nan_to_num(nan=float("inf"))
+                err[n] = max(err[n], diff.abs().max().item())
+                e = (ours.double() - x).abs().nan_to_num(nan=float("inf")).max().item()
+                ep = (r.double() - x).abs().max().item()
+                excess = max(excess, e - (1.5 * ep + 1.5 * BF16_ULP_REL * x.abs().max().item()
+                                          + 1e-6))
+                err_f64[n], plain_f64[n] = max(err_f64[n], e), max(plain_f64[n], ep)
+                gmax[n] = max(gmax[n], r.abs().max().item())
+                sq_err[n] += diff.square().sum().item()
+                sq_ref[n] += r.square().sum().item()
+            del ref, exact
+        err_rel = {n: err[n] / max(gmax[n], 1e-30) for n in names}
+        err_norm = {n: (sq_err[n] / max(sq_ref[n], 1e-60)) ** 0.5 for n in names}
+        # an output that is rounding noise (max |g| <= BWD_NOISE: dQ and dK
+        # with one key, analytically 0) is held by the float64 rule alone
+        live = [n for n in names if gmax[n] > BWD_NOISE]
+        checks["bwd_vs_plain_and_f64"] = (
+            excess <= 0 and all(err_rel[n] <= BWD_BF16_PLAIN_REL + BF16_ULP_REL and
+                                err_norm[n] <= BWD_BF16_PLAIN_NORM + BF16_ULP_REL / 2
+                                for n in live))
+        bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS, io_bytes=2)
+        do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens, bf16_io=True)
+        do32, di32, _ = flash_attention._bwd_args(*up_c, o.float(), lse, do.float(), lens,
+                                                  bf16_io=True)
+        for key, parts in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            res[key] = {"max_abs_err": max(err[n] for n in parts),
+                        "max_rel_err": max(err_rel[n] for n in parts),
+                        "norm_rel_err": max(err_norm[n] for n in parts),
+                        "max_abs_err_vs_f64": {n: err_f64[n] for n in parts},
+                        "plain_max_abs_err_vs_f64": {n: plain_f64[n] for n in parts},
+                        "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+            if kernel_times:
+                res[key]["ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
+                    key, q, k, v, do_, lse, di, lens_), iters)
+                res[key]["f32_io_ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
+                    key, *up_c, do32, lse, di32, lens_), iters)
+        if timed:
+            plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, lens, "default"), 5)
+            qb, kb, vb = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, kf, vf))
+            out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+            dob = do.transpose(1, 2)
+            lib = time_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), dob, retain_graph=True),
+                          10)
+            for key in ("dq", "dkv"):
+                res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+    res["checks"] = checks
+    if not all(checks.values()):
+        fail(f"flash bf16 I/O [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
+             f"fwd {res['fwd']}; bwd {[res.get(k) for k in ('dq', 'dkv')]}")
+    fwd = res["fwd"]
+    line = (f"  flash bf16 I/O [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: bf16(f32 flavour) "
+            f"bit-equal, NaN past the bound changes nothing; K1b O vs plain max|d| "
+            f"{fwd['max_abs_err']:.3g}, vs f64 {fwd['max_abs_err_vs_f64']:.3g} (plain "
+            f"{fwd['plain_max_abs_err_vs_f64']:.3g})")
+    if kernel_times:
+        line += f"; K1b {fwd['ms']:.4f} ms (f32 I/O {fwd['f32_io_ms']:.4f}, bound {b_ms:.4f} {b_by})"
+    if bwd:
+        rel = max(res["dq"]["max_rel_err"], res["dkv"]["max_rel_err"])
+        norm = max(res["dq"]["norm_rel_err"], res["dkv"]["norm_rel_err"])
+        line += f"; K2b/K3b vs plain max|d|/max|g| {rel:.3g}, ||d||/||g|| {norm:.3g}"
+        if kernel_times:
+            line += (f"; K2b {res['dq']['ms']:.4f} ms (f32 I/O {res['dq']['f32_io_ms']:.4f}, "
+                     f"bound {res['dq']['bound_ms']:.4f}), K3b {res['dkv']['ms']:.4f} ms (f32 I/O "
+                     f"{res['dkv']['f32_io_ms']:.4f}, bound {res['dkv']['bound_ms']:.4f})")
+    if timed:
+        line += f"; plain fwd {fwd['plain_ms']:.4f} ms, sdpa bf16 {fwd['library_ms']:.4f}"
+        if bwd:
+            line += (f"; plain bwd pair {res['dq']['plain_ms']:.4f} ms, sdpa bf16 grad "
+                     f"{res['dq']['library_ms']:.4f}")
+    print(line, flush=True)
+    return res
+
+
+def check_bf16io_shapes() -> None:
+    """The bf16-I/O flavours at the fast_bf16 paths' shapes: K5 at the
+    evals' [96 x 511, 768] and the train step's [24 x 499, 768]; K1b at
+    [96, 511] (the evals' engine, lengths to 499), K1b + K2b + K3b at [24,
+    499] (the rates-at-0 step) and a ragged [8, 4095], K2b + K3b at the
+    loss crop [32, 50], untimed at every tile edge; each with a full, a
+    ragged, a 1-key and a 0-key row."""
+    g = torch.Generator().manual_seed(13)
+    rng = np.random.default_rng(13)
+
+    def rows(b, t, n=None):
+        return [t, t // 2, 1, 0] + [n or t] * (b - 4)
+
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    ln = {"main": check_layernorm_bf16io(96 * 511, 768, g),
+          "train": check_layernorm_bf16io(24 * 499, 768, g)}
+    fl = {"main": check_flash_bf16io(96, 511, main_lens, g, timed=True, bwd=False),
+          "train": check_flash_bf16io(LOSS10_BATCH, 499, rows(LOSS10_BATCH, 499), g, timed=True),
+          "loss": check_flash_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True),
+          "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
+                                     timed=False)}
+    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+        fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                              kernel_times=False)
+    report["kernels"]["layernorm_fwd_bf16io"] = ln
+    report["kernels"]["flash_attention_bf16io_fwd"] = {k: r["fwd"] | {"shape": r["shape"]}
+                                                       for k, r in fl.items()}
+    for key, name in (("dq", "flash_attention_bwd_dq_bf16io"),
+                      ("dkv", "flash_attention_bwd_dkv_bf16io")):
+        # the path's shape, [24, 499], is the row's "main"
+        report["kernels"][name] = {("main" if k == "train" else k): r[key] | {"shape": r["shape"]}
+                                   for k, r in fl.items() if key in r}
+
+
+FAST_BF16_LAUNCHES = {
+    "train_step": launches_want(k5=2, k5_io=48),
+    "eval_step": launches_want(k1b_io=12, k5=2, k5_io=24),
+    "train_step_rates0": launches_want(k1b_io=24, k2b_io=12, k3b_io=12, k5=2, k5_io=48)}
+
+
+def fast_steps(card: str, cfg: dict, batch, init: dict) -> dict:
+    """"fast" beside fast_bf16 in the same run: the recipe's step (one
+    profiled), the rates-at-0 step and the eval step, their times,
+    enqueue and peak memory."""
+    out: dict = {}
+    tr, out["loss"], _, _ = first_train_step("train_step_fast_p13", dict(cfg, precision="fast"),
+                                             batch, MODE_STEP_LAUNCHES["train_step"], init)
+    out["train_step"] = time_train_steps(card, "train_step fast (dropout, remat)", tr, batch)
+    with profiler_range(wav2vec2, "mha_dropout", PLAIN_ATTENTION):
+        profile_run(lambda: tr.train_step(batch, step_gen()), "profile_train_step_fast_p13",
+                    split=ranged_kernels(PLAIN_ATTENTION, "plain attention (products, "
+                                         "softmax, dropout; fwd + bwd)"))
+    out["eval_step"] = time_steps(lambda: tr.eval_step(batch), TRAIN_STEPS, card,
+                                  "trainer: eval_step fast")
+    release(tr)
+    tr, _, _, _ = first_train_step("train_step_rates0_fast_p13", cfg, batch,
+                                   MODE_STEP_LAUNCHES["train_step_rates0"], init,
+                                   mode_config("fast", **ZERO_RATES))
+    out["train_step_rates0"] = time_train_steps(card, "train_step fast (rates at 0, remat)",
+                                                tr, batch)
+    release(tr)
+    return out
+
+
+def fast_bf16_engine(card: str, cfg: dict, init: dict) -> dict:
+    """The evals' engine on a ``fast_bf16`` Training (its
+    ``get_embeddings_csv``'s route) over the recipe's 24 utterances: the
+    launches of a pass (K1b-bf16 12, K5 2, K5-bf16 24 a batch), warm pass
+    time; the f32 embeddings held to the fast_bf16 plain path's within
+    TOL_REF_PATH + GRAD_MODE_FRAC times that path's distance to the
+    "exact" plain path (phase 12's rule); then ``eval_audio_quality``
+    through it, finite."""
+    paths = sorted(str(p) for p in Path(cfg["root"]).iterdir())
+    tr = Training(dict(cfg, precision="fast_bf16"), device="cuda", params=init)
+    engine = tr._engine()
+    reset_launches()
+    emb = engine.embed_files_device(paths)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = engine.batches
+    report["launches"]["eval_engine_fast_bf16"] = counts
+    want = launches_want(k1b_io=12 * batches, k5=2 * batches, k5_io=24 * batches)
+    waves = engine.load_waves(paths)
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.embed_waves_device(waves)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    plain = {}
+    for mode in ("fast_bf16", "exact"):
+        ptr = Training(dict(cfg, precision=mode), device="cuda", params=init,
+                       model_config=plain_config(mode))
+        with plain_flash(mode):
+            plain[mode] = ptr._engine().embed_waves_device(waves)
+        release(ptr)
+    d_plain = (plain["fast_bf16"] - plain["exact"]).abs().max().item()
+    d = (emb - plain["fast_bf16"]).abs().max().item()
+    tol = TOL_REF_PATH + GRAD_MODE_FRAC * d_plain
+    quality = tr.eval_audio_quality(None, plot=False)
+    release(tr)
+    res = {"files": len(paths), "batches": batches, "launches": counts, "pass_s": passes,
+           "vs_fast_bf16_plain_path_emb": d, "fast_bf16_plain_vs_exact_plain_emb": d_plain,
+           "tolerance": tol, "eval_audio_quality": quality, "card": card}
+    print(f"fast_bf16: the evals' engine, {len(paths)} files in {batches} batches: launches "
+          f"{counts}; warm pass {float(np.median(passes)) * 1e3:.1f} ms; max|d emb| vs the "
+          f"fast_bf16 plain path {d:.3g} (<= {tol:.3g}: {TOL_REF_PATH} + {GRAD_MODE_FRAC} x "
+          f"{d_plain:.3g}); eval_audio_quality {quality}  [{card}]", flush=True)
+    finite = bool(torch.isfinite(emb).all()) and emb.dtype == torch.float32 and all(
+        np.isfinite(v) for r in quality.values() for v in r.values())
+    if counts != want or batches == 0 or not finite or d > tol:
+        fail(f"fast_bf16 engine: launches {counts} for {batches} batches (want {want}), "
+             f"finite f32={finite}, max|d emb| vs plain {d:.3g} (> {tol:.3g}?)")
+    return res
+
+
+def run_fast_bf16(card: str) -> None:
+    """Phase 13: the bf16-I/O flavours against their f32-I/O flavour,
+    their plain version and float64 at their shapes; then the triplet
+    recipe with ``precision: fast_bf16`` on phase 10's seeded BASE state
+    dict (phase 10's checks, remat on and off the same loss), the evals'
+    engine, and "fast" beside it."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    print("fast_bf16: the bf16-I/O flavours vs their f32-I/O flavour and plain versions:",
+          flush=True)
+    check_bf16io_shapes()
+    sd = SHARED.get("sd10")
+    if sd is None:  # phase 13 alone: the seeded init phase 10 makes
+        sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_fast_bf16_") as tmp:
+        cfg = write_train_tree(Path(tmp))
+        ds = train_data.TripletDataset(cfg, "train_df", level=cfg["current_level"])
+        batch = train_data._pinned(train_data.collate_triplets(
+            [ds.load_item(i) for i in range(cfg["train_bs"])]))
+        res = mode_train_steps(card, "fast_bf16", cfg, batch, sd, FAST_BF16_LAUNCHES)
+        tr, loss_nr, _, _ = first_train_step(
+            "train_step_fast_bf16_no_remat", dict(cfg, precision="fast_bf16", remat=False),
+            batch, launches_want(k5=2, k5_io=24), sd)
+        res["train_step_no_remat"] = time_train_steps(
+            card, "train_step fast_bf16 (dropout, no remat)", tr, batch)
+        release(tr)
+        d = abs(res["loss"] - loss_nr) / abs(res["loss"])
+        res["remat_vs_no_remat_loss_rel"] = d
+        print(f"fast_bf16: dropout on, remat on vs off: loss {res['loss']:.8g} vs {loss_nr:.8g} "
+              f"(rel {d:.3g})", flush=True)
+        if d > 1e-6:
+            fail(f"fast_bf16: remat on and off give other losses for one seed (rel {d:.3g})")
+        res["eval_engine"] = fast_bf16_engine(card, cfg, sd)
+        out["fast_bf16"] = res
+        out["fast"] = fast_steps(card, cfg, batch, sd)
+    for key in ("train_step", "train_step_rates0", "eval_step"):
+        a, b = out["fast_bf16"][key], out["fast"][key]
+        print(f"fast_bf16 vs fast, {key}: {a['events_median_ms']:.2f} vs "
+              f"{b['events_median_ms']:.2f} ms (CUDA events), enqueue "
+              f"{a['host_enqueue_median_s'] * 1e3:.2f} vs {b['host_enqueue_median_s'] * 1e3:.2f} "
+              f"ms, peak {a['peak_mem_gb']:.2f} vs {b['peak_mem_gb']:.2f} GB  [{card}]", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["fast_bf16"] = out
+    print(f"fast_bf16: phase 13 took {out['phase_s']:.1f} s", flush=True)
+
+
 def run_scoring_k1(card: str) -> None:
     """Phase 4's K1 path alone (``--only-scoring``)."""
     report.setdefault("launches", {})
@@ -3141,6 +3611,8 @@ def main() -> None:
                       help="phases 1, 2 and 10 only; ends with the report line")
     only.add_argument("--only-fused-modes", action="store_true",
                       help="phases 1, 2 and 12 only; ends with the report line")
+    only.add_argument("--only-fast-bf16", action="store_true",
+                      help="phases 1, 2 and 13 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -3151,7 +3623,8 @@ def main() -> None:
              "only_serve": run_serve,
              "only_precision": lambda card: (build_kernels(), run_precision(card)),
              "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card)),
-             "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card))}
+             "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card)),
+             "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -3168,6 +3641,7 @@ def main() -> None:
     run_precision(card)
     run_grad_modes(card)
     run_fused_modes(card)
+    run_fast_bf16(card)
 
     rows = []
     for name, src, replaces in (
@@ -3188,6 +3662,14 @@ def main() -> None:
         ("fused_qkv_attention_bf16_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("layernorm_fwd", "nomad_tpu_torch/csrc/layernorm.cu", "nomad_tpu/ops/layernorm.py:31"),
+        ("flash_attention_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:37"),
+        ("flash_attention_bwd_dq_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:182"),
+        ("flash_attention_bwd_dkv_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:222"),
+        ("layernorm_fwd_bf16io", "nomad_tpu_torch/csrc/layernorm.cu",
+         "nomad_tpu/ops/layernorm.py:31"),
     ):
         k = report["kernels"][name]
         m = k["main"]
@@ -3202,6 +3684,8 @@ def main() -> None:
         if "train" in k:  # K2/K3, K2b/K3b: the loss crop above, [24, 499] (10 s clips) beside it
             row |= {f"train_{f}": k["train"][f]
                     for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if "f32_io_ms" in m:  # a bf16-I/O flavour: its f32-I/O flavour's time beside it
+            row["f32_io_ms"] = m["f32_io_ms"]
         rows.append(row)
     print("report: " + json.dumps(report, default=float))
     print("kernels: " + "; ".join(

@@ -9,21 +9,31 @@
 // keys, p = exp(s - m) in f32, l = sum of the unrounded p, O = bf16(p) .
 // bf16(v) / l, LSE = m + log(l). K1 (flash_attention.cu) is the f32 flavour.
 //
+// Two I/O flavours from one template: q, k, v and O in f32, or in bf16 (the
+// trainer's fast_bf16, where the TPU kernel reads bf16 blocks through
+// astype(float32), :50, :67-68, and stores O in q's dtype, :76, :101). The
+// bf16 flavour loads q, k and v as bf16 with no rounding step (a bf16 value
+// rounds to itself, and q / 8 is exact) and rounds O once from acc / l;
+// LSE stays f32. The key loop is the same code, so its O is the f32
+// flavour's on the upcast inputs, rounded once, bit for bit.
+//
 // What bounds it on an H100: bytes. At the main-path shape (B=96, T=511,
 // H=12, D=64) it reads ~0.45 GB of f32 q/k/v and writes 0.15 GB of O and
 // LSE (0.18 ms at 3.35 TB/s), against 77 GFLOP that the bf16 tensor cores
 // do in 0.08 ms at 989 TFLOP/s. So it reads q, k and v once from device
 // memory in f32 (no bf16 copy of them in device memory), converts in
-// registers, and keeps the products on the tensor cores.
+// registers, and keeps the products on the tensor cores. The bf16-I/O
+// flavour moves half those bytes (0.09 ms), and the operations bound it.
 //
 // Design (simple first; wgmma, TMA and warp specialisation are later work):
 //   * One block of 4 warps per (64-query tile, head, batch); each warp owns
 //     16 query rows. Its Q rows, scaled by 1/sqrt(D) (exact: 1/8) and
 //     rounded with __float2bfloat16_rn, stay in registers as the A
 //     fragments of mma.sync.m16n8k16 for the whole key loop.
-//   * 64-key K and V tiles are read in f32 through their [B, T, H, D]
-//     strides, rounded to bf16 and stored in shared memory (rows padded to
-//     72 bf16: ldmatrix's 8 row addresses fall in distinct banks). Keys past
+//   * 64-key K and V tiles are read through their [B, T, H, D] strides
+//     (f32 rounded to bf16, or bf16 as it is, 16 bytes a load) and stored
+//     in shared memory (rows padded to 72 bf16: ldmatrix's 8 row addresses
+//     fall in distinct banks). Keys past
 //     lengths[b] are stored as 0, so a NaN there never reaches a product
 //     (0 * NaN would be NaN inside the tensor core).
 //   * S = Q . K^T by mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
@@ -43,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -83,6 +95,61 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(a));
 }
 
+// Elements col and col + 1 of a row, as floats.
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  if constexpr (std::is_same_v<T, float>) {
+    return *reinterpret_cast<const float2*>(p);
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+}
+
+// (a, b) into elements col and col + 1 of a row (rounded to nearest-even
+// bf16 in the bf16 flavour).
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+}
+
+// The 64-key tile from key0 of k and v (row strides skt, svt) into the
+// shared tiles ks and vs as bf16, keys at or past len as 0: f32 rows
+// rounded 4 elements a load, bf16 rows as they are, 8 elements (16 bytes)
+// a load; a K and a V word in each step.
+template <typename T>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16 (*ks)[kLd], __nv_bfloat16 (*vs)[kLd],
+                                         const T* kb, long long skt, const T* vb, long long svt,
+                                         int key0, int len) {
+  constexpr int kVec = std::is_same_v<T, float> ? 4 : 8;
+#pragma unroll
+  for (int e = 0; e < kBK * (kD / kVec) / kThreads; ++e) {
+    const int idx = threadIdx.x + e * kThreads;
+    const int r = idx / (kD / kVec);
+    const int col = kVec * (idx % (kD / kVec));
+    if constexpr (std::is_same_v<T, float>) {
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (key0 + r < len) {
+        kx = *reinterpret_cast<const float4*>(kb + (key0 + r) * skt + col);
+        vx = *reinterpret_cast<const float4*>(vb + (key0 + r) * svt + col);
+      }
+      *reinterpret_cast<uint2*>(&ks[r][col]) = make_uint2(pack_bf16(kx.x, kx.y), pack_bf16(kx.z, kx.w));
+      *reinterpret_cast<uint2*>(&vs[r][col]) = make_uint2(pack_bf16(vx.x, vx.y), pack_bf16(vx.z, vx.w));
+    } else {
+      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+      if (key0 + r < len) {
+        kx = *reinterpret_cast<const uint4*>(kb + (key0 + r) * skt + col);
+        vx = *reinterpret_cast<const uint4*>(vb + (key0 + r) * svt + col);
+      }
+      *reinterpret_cast<uint4*>(&ks[r][col]) = kx;
+      *reinterpret_cast<uint4*>(&vs[r][col]) = vx;
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -92,10 +159,11 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_fwd_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const int* __restrict__ lengths,
-                      float* __restrict__ o, float* __restrict__ lse, int T, int H,
+flash_fwd_bf16_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                      const IO* __restrict__ v, const int* __restrict__ lengths,
+                      IO* __restrict__ o, float* __restrict__ lse, int T, int H,
                       long long sqb, long long sqt, long long sqh,
                       long long skb, long long skt, long long skh,
                       long long svb, long long svt, long long svh,
@@ -117,16 +185,16 @@ flash_fwd_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // rows past T are 0 and never written
   uint32_t qa[4][4];
   {
-    const float* qr0 = q + b * sqb + static_cast<long long>(row0) * sqt + h * sqh;
-    const float* qr1 = qr0 + 8 * sqt;
+    const IO* qr0 = q + b * sqb + static_cast<long long>(row0) * sqt + h * sqh;
+    const IO* qr1 = qr0 + 8 * sqt;
     const bool ok0 = row0 < T, ok1 = row0 + 8 < T;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int col = 16 * kk + 8 * half + 2 * c;
-        const float2 x0 = ok0 ? *reinterpret_cast<const float2*>(qr0 + col) : make_float2(0.f, 0.f);
-        const float2 x1 = ok1 ? *reinterpret_cast<const float2*>(qr1 + col) : make_float2(0.f, 0.f);
+        const float2 x0 = ok0 ? load2(qr0 + col) : make_float2(0.f, 0.f);
+        const float2 x1 = ok1 ? load2(qr1 + col) : make_float2(0.f, 0.f);
         qa[kk][2 * half] = pack_bf16(x0.x * scale, x0.y * scale);
         qa[kk][2 * half + 1] = pack_bf16(x1.x * scale, x1.y * scale);
       }
@@ -142,25 +210,13 @@ flash_fwd_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
 
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
+  const IO* kb = k + b * skb + h * skh;
+  const IO* vb = v + b * svb + h * svh;
   const int tiles = (len + kBK - 1) / kBK;
   for (int tile = 0; tile < tiles; ++tile) {
     const int key0 = tile * kBK;
     __syncthreads();  // the previous tile's K and V are no longer read
-#pragma unroll
-    for (int e = 0; e < kBK * (kD / 4) / kThreads; ++e) {
-      const int idx = tid + e * kThreads;
-      const int r = idx / (kD / 4);
-      const int col = 4 * (idx % (kD / 4));
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (key0 + r < len) {
-        kx = *reinterpret_cast<const float4*>(kb + (key0 + r) * skt + col);
-        vx = *reinterpret_cast<const float4*>(vb + (key0 + r) * svt + col);
-      }
-      *reinterpret_cast<uint2*>(&ks[r][col]) = make_uint2(pack_bf16(kx.x, kx.y), pack_bf16(kx.z, kx.w));
-      *reinterpret_cast<uint2*>(&vs[r][col]) = make_uint2(pack_bf16(vx.x, vx.y), pack_bf16(vx.z, vx.w));
-    }
+    stage_kv(ks, vs, kb, skt, vb, svt, key0, len);
     __syncthreads();
 
     // S = Q . K^T for the tile's 8 key tiles of 8 (C fragments: row g keys
@@ -243,48 +299,62 @@ flash_fwd_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float total = totals[i];
     if (t >= T) continue;
     const float inv = total > 0.f ? 1.f / total : 0.f;
-    float* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
+    IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) =
-          make_float2(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
-    }
+    for (int j = 0; j < 8; ++j) store2(orow + 8 * j + 2 * c, acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
     if (c == 0) {
       lse[(static_cast<long long>(b) * H + h) * T + t] = total > 0.f ? m[i] + logf(total) : kNegInf;
     }
   }
 }
 
+template <typename IO>
+void launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
+            void* lse, int B, int T, int H,
+            long long sqb, long long sqt, long long sqh,
+            long long skb, long long skt, long long skh,
+            long long svb, long long svt, long long svh,
+            long long sob, long long sot, long long soh, float scale, cudaStream_t stream) {
+  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  flash_fwd_bf16_kernel<IO><<<grid, kThreads, 0, stream>>>(
+      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
+      static_cast<const int*>(lengths), static_cast<IO*>(o), static_cast<float*>(lse), T, H,
+      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale);
+}
+
 }  // namespace
 
-// q, k, v, o: [B, T, H, 64] f32 with unit stride on the last axis and the
-// other strides (in elements) multiples of 4, 16-byte aligned; lengths:
-// int32 [B]; lse: f32 [B, H, T] contiguous. Static shared memory (18,432
-// bytes). Returns cudaGetLastError().
+// q, k, v, o: [B, T, H, 64] with unit stride on the last axis, f32
+// (bf16_io = 0; the other strides, in elements, multiples of 4) or bf16
+// (bf16_io = 1; multiples of 8), 16-byte aligned; lengths: int32 [B]; lse:
+// f32 [B, H, T] contiguous. Static shared memory (18,432 bytes). Returns
+// cudaGetLastError().
 extern "C" int nomad_flash_attention_bf16_fwd(
     const void* q, const void* k, const void* v, const void* lengths, void* o,
     void* lse, int B, int T, int H, int D,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
-    long long sob, long long sot, long long soh, float scale, void* stream) {
+    long long sob, long long sot, long long soh, float scale, int bf16_io, void* stream) {
   if (D != kD || B < 0 || T < 0 || H < 0 || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_fwd_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(o), static_cast<float*>(lse), T, H,
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale);
+  auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
+  run(q, k, v, lengths, o, lse, B, T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
+      sob, sot, soh, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks of K1b per SM (0 if it cannot run).
-extern "C" int nomad_flash_attention_bf16_fwd_occupancy(int* blocks_per_sm) {
+// Resident blocks of K1b per SM (0 if it cannot run), of its f32 (bf16_io =
+// 0) or bf16 (1) I/O flavour.
+extern "C" int nomad_flash_attention_bf16_fwd_occupancy(int bf16_io, int* blocks_per_sm) {
+  if (bf16_io) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_fwd_bf16_kernel<__nv_bfloat16>, kThreads, 0));
+  }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_fwd_bf16_kernel, kThreads, 0));
+      blocks_per_sm, flash_fwd_bf16_kernel<float>, kThreads, 0));
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

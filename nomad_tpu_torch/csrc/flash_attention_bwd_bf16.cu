@@ -16,12 +16,22 @@
 // computes it outside its kernels. K2 and K3 (flash_attention_bwd.cu) are
 // the f32 flavour.
 //
+// Two I/O flavours from one template: q, k, v, dO and the outputs in f32,
+// or in bf16 (the trainer's fast_bf16, where the TPU kernels read bf16
+// blocks through astype(float32), :189-190, :230-231, and store dQ, dK and
+// dV in the inputs' dtype, :219, :267-268). The bf16 flavour loads its
+// operands as bf16 with no rounding step and rounds each output once; LSE
+// and Di stay f32 (Di from the upcast dO and O). The loops are the same
+// code, so its outputs are the f32 flavour's on the upcast inputs, rounded
+// once, bit for bit.
+//
 // What bounds them on an H100: bytes. At the training shape [24, 499, 12,
 // 64] each kernel reads ~0.2 GB of f32 q, k, v, dO (0.06 ms at 3.35 TB/s)
 // against 14 * D FLOP per (query, key) pair together, 0.03 ms for both on
 // the bf16 tensor cores at 989 TFLOP/s. So they read their operands once
 // from device memory in f32 (no bf16 copy in device memory), convert in
-// registers, and keep every product on the tensor cores.
+// registers, and keep every product on the tensor cores. The bf16-I/O
+// flavour moves half those bytes.
 //
 // Design (simple first, after K1b; wgmma, TMA, a copy pipeline and the
 // atomic-dQ kernel are later work):
@@ -30,9 +40,10 @@
 //     A fragments of mma.sync.m16n8k16 (for S = Q K^T and dP = dO V^T), with
 //     their LSE and Di. K3b's rows are keys: its K and V rows are the A
 //     fragments (for S^T = K Q^T and dP^T = V dO^T).
-//   * The other two operands stream in 64-row tiles, read in f32 through
-//     their [B, T, H, D] strides, rounded with __float2bfloat16_rn and
-//     stored in shared memory (rows padded to 72 bf16: ldmatrix's 8 row
+//   * The other two operands stream in 64-row tiles, read through their
+//     [B, T, H, D] strides (f32 rounded with __float2bfloat16_rn, or bf16 as
+//     it is, 16 bytes a load) and stored in shared memory (rows padded to
+//     72 bf16: ldmatrix's 8 row
 //     addresses fall in distinct banks). K3b's tile also holds the 64 query
 //     rows' LSE and Di.
 //   * Past the bound: key rows at or past lengths[b] are stored as 0 in
@@ -55,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,12 +107,23 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(a));
 }
 
+// Elements col and col + 1 of a row, as floats.
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  if constexpr (std::is_same_v<T, float>) {
+    return *reinterpret_cast<const float2*>(p);
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+}
+
 // The A fragments (4 k-steps of 16 over d) of rows row and row + 8 of x
-// (row stride sx, in floats); rows at or past `end` are 0.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const float* x, long long sx,
+// (row stride sx, in elements); rows at or past `end` are 0.
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const T* x, long long sx,
                                        int row, int end) {
-  const float* r0 = x + static_cast<long long>(row) * sx;
-  const float* r1 = r0 + 8 * sx;
+  const T* r0 = x + static_cast<long long>(row) * sx;
+  const T* r1 = r0 + 8 * sx;
   const bool ok0 = row < end, ok1 = row + 8 < end;
   const int c = threadIdx.x & 3;
 #pragma unroll
@@ -107,31 +131,49 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const float* x, long
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int col = 16 * kk + 8 * half + 2 * c;
-      const float2 x0 = ok0 ? *reinterpret_cast<const float2*>(r0 + col) : make_float2(0.f, 0.f);
-      const float2 x1 = ok1 ? *reinterpret_cast<const float2*>(r1 + col) : make_float2(0.f, 0.f);
+      const float2 x0 = ok0 ? load2(r0 + col) : make_float2(0.f, 0.f);
+      const float2 x1 = ok1 ? load2(r1 + col) : make_float2(0.f, 0.f);
       a[kk][2 * half] = pack_bf16(x0.x, x0.y);
       a[kk][2 * half + 1] = pack_bf16(x1.x, x1.y);
     }
   }
 }
 
-// Rows r0 .. r0 + kTile - 1 of x and y (row strides sx, sy) rounded to
-// bf16 into the shared tiles xs and ys; rows at or past `end` are 0.
+// Rows r0 .. r0 + kTile - 1 of x and y (row strides sx, sy) as bf16 into
+// the shared tiles xs and ys (f32 rounded 4 elements a load, bf16 as it
+// is, 8 elements a load); rows at or past `end` are 0.
+template <typename T>
 __device__ __forceinline__ void stage(__nv_bfloat16 (*xs)[kLd], __nv_bfloat16 (*ys)[kLd],
-                                      const float* x, long long sx, const float* y,
+                                      const T* x, long long sx, const T* y,
                                       long long sy, int r0, int end) {
+  if constexpr (std::is_same_v<T, float>) {
 #pragma unroll
-  for (int e = 0; e < kTile * (kD / 4) / kThreads; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    const int r = idx / (kD / 4);
-    const int col = 4 * (idx % (kD / 4));
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r0 + r < end) {
-      a = *reinterpret_cast<const float4*>(x + (r0 + r) * sx + col);
-      b = *reinterpret_cast<const float4*>(y + (r0 + r) * sy + col);
+    for (int e = 0; e < kTile * (kD / 4) / kThreads; ++e) {
+      const int idx = threadIdx.x + e * kThreads;
+      const int r = idx / (kD / 4);
+      const int col = 4 * (idx % (kD / 4));
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (r0 + r < end) {
+        a = *reinterpret_cast<const float4*>(x + (r0 + r) * sx + col);
+        b = *reinterpret_cast<const float4*>(y + (r0 + r) * sy + col);
+      }
+      *reinterpret_cast<uint2*>(&xs[r][col]) = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+      *reinterpret_cast<uint2*>(&ys[r][col]) = make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
     }
-    *reinterpret_cast<uint2*>(&xs[r][col]) = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
-    *reinterpret_cast<uint2*>(&ys[r][col]) = make_uint2(pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+  } else {
+#pragma unroll
+    for (int e = 0; e < kTile * (kD / 8) / kThreads; ++e) {
+      const int idx = threadIdx.x + e * kThreads;
+      const int r = idx / (kD / 8);
+      const int col = 8 * (idx % (kD / 8));
+      uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+      if (r0 + r < end) {
+        a = *reinterpret_cast<const uint4*>(x + (r0 + r) * sx + col);
+        b = *reinterpret_cast<const uint4*>(y + (r0 + r) * sy + col);
+      }
+      *reinterpret_cast<uint4*>(&xs[r][col]) = a;
+      *reinterpret_cast<uint4*>(&ys[r][col]) = b;
+    }
   }
 }
 
@@ -182,28 +224,35 @@ __device__ __forceinline__ void product_nn(float (&acc)[8][4], const float (&p)[
 }
 
 // Rows row and row + 8 of the C fragments acc (times scale) into out
-// (contiguous [B, T, H, 64], this (b, h)'s base), rows below `end` only.
-__device__ __forceinline__ void store_rows(float* out, long long st, int row, int end,
+// (contiguous [B, T, H, 64], this (b, h)'s base), rows below `end` only;
+// rounded once to nearest-even bf16 in the bf16 flavour.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, long long st, int row, int end,
                                            const float (&acc)[8][4], float scale) {
   const int c = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = row + 8 * i;
     if (t >= end) continue;
-    float* orow = out + static_cast<long long>(t) * st;
+    T* orow = out + static_cast<long long>(t) * st;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) =
-          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+      const float a = acc[j][2 * i] * scale, b = acc[j][2 * i + 1] * scale;
+      if constexpr (std::is_same_v<T, float>) {
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) = make_float2(a, b);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c) = __floats2bfloat162_rn(a, b);
+      }
     }
   }
 }
 
+template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dq_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_bf16_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                         const IO* __restrict__ v, const IO* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         const int* __restrict__ lengths, float* __restrict__ dq, int T, int H,
+                         const int* __restrict__ lengths, IO* __restrict__ dq, int T, int H,
                          long long sqb, long long sqt, long long sqh,
                          long long skb, long long skt, long long skh,
                          long long svb, long long svt, long long svh,
@@ -237,8 +286,8 @@ flash_bwd_dq_bf16_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   }
 
-  const float* kb = k + b * skb + h * skh;
-  const float* vb = v + b * svb + h * svh;
+  const IO* kb = k + b * skb + h * skh;
+  const IO* vb = v + b * svb + h * svh;
   const int tiles = (len + kTile - 1) / kTile;
   for (int tile = 0; tile < tiles; ++tile) {
     const int key0 = tile * kTile;
@@ -265,12 +314,13 @@ flash_bwd_dq_bf16_kernel(const float* __restrict__ q, const float* __restrict__ 
              row0, T, acc, scale);
 }
 
+template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dkv_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkv_bf16_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
+                          const IO* __restrict__ v, const IO* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
-                          const int* __restrict__ lengths, float* __restrict__ dk,
-                          float* __restrict__ dv, int T, int H,
+                          const int* __restrict__ lengths, IO* __restrict__ dk,
+                          IO* __restrict__ dv, int T, int H,
                           long long sqb, long long sqt, long long sqh,
                           long long skb, long long skt, long long skh,
                           long long svb, long long svt, long long svh,
@@ -287,8 +337,8 @@ flash_bwd_dkv_bf16_kernel(const float* __restrict__ q, const float* __restrict__
   const int row0 = blockIdx.x * kRows + (threadIdx.x >> 5) * 16 + (lane >> 2);  // and row0 + 8
   const int len = min(max(lengths[b], 0), T);
   const long long so = static_cast<long long>(H) * kD;
-  float* dkb = dk + (static_cast<long long>(b) * T * H + h) * kD;
-  float* dvb = dv + (static_cast<long long>(b) * T * H + h) * kD;
+  IO* dkb = dk + (static_cast<long long>(b) * T * H + h) * kD;
+  IO* dvb = dv + (static_cast<long long>(b) * T * H + h) * kD;
 
   float gk[8][4], gv[8][4];  // dK, dV: d-tile j, rows g and g + 8
 #pragma unroll
@@ -307,8 +357,8 @@ flash_bwd_dkv_bf16_kernel(const float* __restrict__ q, const float* __restrict__
   load_a(va, v + b * svb + h * svh, svt, row0, len);
   const bool key_ok[2] = {row0 < len, row0 + 8 < len};
 
-  const float* qb = q + b * sqb + h * sqh;
-  const float* db = dout + b * sdb + h * sdh;
+  const IO* qb = q + b * sqb + h * sqh;
+  const IO* db = dout + b * sdb + h * sdh;
   const float* lse_b = lse + (static_cast<long long>(b) * H + h) * T;
   const float* di_b = di + (static_cast<long long>(b) * H + h) * T;
   const int tiles = (T + kTile - 1) / kTile;
@@ -362,12 +412,54 @@ cudaError_t check_args(int B, int T, int H, int D) {
   return cudaSuccess;
 }
 
+template <typename IO>
+void launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* di, const void* lengths, void* dq, int B, int T, int H,
+               long long sqb, long long sqt, long long sqh,
+               long long skb, long long skt, long long skh,
+               long long svb, long long svt, long long svh,
+               long long sdb, long long sdt, long long sdh, float scale, cudaStream_t stream) {
+  const dim3 grid((T + kRows - 1) / kRows, H, B);
+  flash_bwd_dq_bf16_kernel<IO><<<grid, kThreads, 0, stream>>>(
+      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
+      static_cast<const IO*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<const int*>(lengths), static_cast<IO*>(dq),
+      T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
+}
+
+template <typename IO>
+void launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* di, const void* lengths, void* dk, void* dv, int B, int T, int H,
+                long long sqb, long long sqt, long long sqh,
+                long long skb, long long skt, long long skh,
+                long long svb, long long svt, long long svh,
+                long long sdb, long long sdt, long long sdh, float scale, cudaStream_t stream) {
+  const dim3 grid((T + kRows - 1) / kRows, H, B);
+  flash_bwd_dkv_bf16_kernel<IO><<<grid, kThreads, 0, stream>>>(
+      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
+      static_cast<const IO*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<const int*>(lengths), static_cast<IO*>(dk),
+      static_cast<IO*>(dv), T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh,
+      scale);
+}
+
+template <typename IO>
+int occupancy(int dkv, int* blocks_per_sm) {
+  if (dkv) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_bwd_dkv_bf16_kernel<IO>, kThreads, 0));
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_bwd_dq_bf16_kernel<IO>, kThreads, 0));
+}
+
 }  // namespace
 
-// q, k, v, dout: [B, T, H, 64] f32 with unit stride on the last axis and the
-// other strides (in elements) multiples of 4, 16-byte aligned; lse, di: f32
-// [B, H, T] contiguous; lengths: int32 [B]; dq: f32 [B, T, H, 64]
-// contiguous. Static shared memory (18,432 bytes). Returns
+// q, k, v, dout: [B, T, H, 64] with unit stride on the last axis, f32
+// (bf16_io = 0; the other strides, in elements, multiples of 4) or bf16
+// (bf16_io = 1; multiples of 8), 16-byte aligned; lse, di: f32 [B, H, T]
+// contiguous; lengths: int32 [B]; dq: [B, T, H, 64] contiguous, f32 or
+// bf16 as the inputs. Static shared memory (18,432 bytes). Returns
 // cudaGetLastError().
 extern "C" int nomad_flash_attention_bwd_bf16_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -376,22 +468,18 @@ extern "C" int nomad_flash_attention_bwd_bf16_dq(
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
-    long long sdb, long long sdt, long long sdh, float scale, void* stream) {
+    long long sdb, long long sdt, long long sdh, float scale, int bf16_io, void* stream) {
   const cudaError_t err = check_args(B, T, H, D);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const dim3 grid((T + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(lengths), static_cast<float*>(dq), T, H,
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
+  auto run = bf16_io ? launch_dq<__nv_bfloat16> : launch_dq<float>;
+  run(q, k, v, dout, lse, di, lengths, dq, B, T, H, sqb, sqt, sqh, skb, skt, skh,
+      svb, svt, svh, sdb, sdt, sdh, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// As above; dk, dv: f32 [B, T, H, 64] contiguous. Static shared memory
-// (18,944 bytes).
+// As above; dk, dv: [B, T, H, 64] contiguous, f32 or bf16 as the inputs.
+// Static shared memory (18,944 bytes).
 extern "C" int nomad_flash_attention_bwd_bf16_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, const void* lengths, void* dk, void* dv,
@@ -399,29 +487,22 @@ extern "C" int nomad_flash_attention_bwd_bf16_dkv(
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
-    long long sdb, long long sdt, long long sdh, float scale, void* stream) {
+    long long sdb, long long sdt, long long sdh, float scale, int bf16_io, void* stream) {
   const cudaError_t err = check_args(B, T, H, D);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const dim3 grid((T + kRows - 1) / kRows, H, B);
-  flash_bwd_dkv_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(lengths), static_cast<float*>(dk),
-      static_cast<float*>(dv), T, H,
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
+  auto run = bf16_io ? launch_dkv<__nv_bfloat16> : launch_dkv<float>;
+  run(q, k, v, dout, lse, di, lengths, dk, dv, B, T, H, sqb, sqt, sqh, skb, skt, skh,
+      svb, svt, svh, sdb, sdt, sdh, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of K2b (dkv = 0) or K3b (dkv = 1), 0 if it cannot run.
-extern "C" int nomad_flash_attention_bwd_bf16_occupancy(int dkv, int* blocks_per_sm) {
-  if (dkv) {
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_dkv_bf16_kernel, kThreads, 0));
-  }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_bwd_dq_bf16_kernel, kThreads, 0));
+// Resident blocks per SM of K2b (dkv = 0) or K3b (dkv = 1), of their f32
+// (bf16_io = 0) or bf16 (1) I/O flavour; 0 if it cannot run.
+extern "C" int nomad_flash_attention_bwd_bf16_occupancy(int dkv, int bf16_io,
+                                                        int* blocks_per_sm) {
+  return bf16_io ? occupancy<__nv_bfloat16>(dkv, blocks_per_sm)
+                 : occupancy<float>(dkv, blocks_per_sm);
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -51,6 +51,17 @@ backward rounds the operands of its products as JAX transposes them
 (``ops/precision.py``), and the attention's backward at "default" is
 K2b + K3b on the card.
 
+``encoder_dtype=torch.bfloat16`` (the JAX package's ``encoder_dtype``,
+which the trainer's ``fast_bf16`` sets) runs the block stack on bf16
+activations: the stack's input is cast after the encoder LayerNorm, its
+dropout and the mask, as the JAX package casts it; the products are bf16
+in and out (``ops/precision.py``), GELU, dropout, the residual adds and
+the masks run in bf16, the block LayerNorms are K5's bf16-I/O flavour and
+the attention K1b's, K2b's and K3b's (f32 statistics and softmax inside).
+The two LayerNorms outside the stack stay f32, and the heads pool in f32.
+Only the "default" attention island with the "kernel" or "ref" attention
+is ported with it.
+
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
 attention output, after the FFN's GELU (``activation_dropout``) and after
@@ -133,6 +144,13 @@ class Wav2Vec2Config:
     attn_score_precision: str | None = None  # the attention's two products
     ffn1_precision: str | None = None
     posconv_precision: str | None = None
+    # activation dtype inside the block stack: None (f32) or torch.bfloat16
+    # (the trainer's fast_bf16); see the module docstring
+    encoder_dtype: torch.dtype | None = None
+
+    @property
+    def block_dtype(self) -> torch.dtype:
+        return self.encoder_dtype or torch.float32
 
     @property
     def frontend_prec(self):
@@ -179,6 +197,20 @@ class Wav2Vec2Config:
             )
         for name in ISLAND_FIELDS:
             prec_ops.check(getattr(self, name), name, allow_none=True)
+        if self.encoder_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"encoder_dtype must be None or torch.bfloat16, got "
+                             f"{self.encoder_dtype!r}")
+        if self.encoder_dtype is not None and self.attention_impl == "fused_qkv":
+            raise NotImplementedError(
+                "encoder_dtype=bfloat16 with attention_impl='fused_qkv' needs the bf16-I/O "
+                "flavour of K4/K4b, which is not ported yet (ROADMAP Queue 2 item 3); use "
+                "attention_impl='kernel'")
+        if self.encoder_dtype is not None and self.attn_score_prec != "default":
+            raise NotImplementedError(
+                f"encoder_dtype=bfloat16 with the attention island {self.attn_score_prec!r} "
+                "would need K1's f32 flavour with bf16 I/O, which no recipe of the JAX package "
+                "sets and the port does not have (ROADMAP Queue 2 item 3); use the 'default' "
+                "attention island (Wav2Vec2Config.fast)")
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
@@ -419,7 +451,8 @@ class EncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """pos-conv + LayerNorm + the post-LN blocks; returns the list of the
-    blocks' outputs, each [B, T, C] (fairseq ``layer_results``)."""
+    blocks' outputs, each [B, T, C] in ``block_dtype`` (fairseq
+    ``layer_results``)."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -440,6 +473,7 @@ class TransformerEncoder(nn.Module):
         x = dropout(self.layer_norm(x + self.pos_conv(x)), self.config.dropout, generator)
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
+        x = x.to(self.config.block_dtype)
         remat = self.config.remat and torch.is_grad_enabled()
         outs = []
         for i, layer in enumerate(self.layers):

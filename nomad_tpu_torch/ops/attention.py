@@ -43,10 +43,12 @@ def dropout(x, rate: float, generator=None):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate
     and scale it by 1/(1 - rate), else 0; the identity with no generator
     (deterministic) or at rate 0. The mask comes from ``generator``, on
-    x's device."""
+    x's device, from a float32 uniform whatever x's dtype (a bf16 uniform
+    has 8 mantissa bits: at rate 0.1 it would keep 230/256); the kept
+    values are scaled in x's dtype."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) >= rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -76,16 +78,18 @@ def _softmax_weights(q, k, key_mask, precision):
 def mha_ref(q, k, v, key_mask=None, precision="highest"):
     """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
     valid key. Differentiable. precision "default" rounds the operands of
-    both products to bf16, and those of their gradients' products."""
+    both products to bf16, and those of their gradients' products. The
+    softmax runs in f32; the weights and the output take v's dtype, as
+    ``mha_xla``'s ``.astype(v.dtype)``."""
     weights = _softmax_weights(q, k, key_mask, precision).to(v.dtype)
-    return _attend(weights, v, precision)
+    return _attend(weights, v, precision).to(v.dtype)
 
 
 def mha_dropout(q, k, v, key_mask, rate: float, generator, precision="highest"):
     """``mha_ref`` with dropout on the softmax weights after the key mask
     (fairseq's placement): where(keep, w / (1 - rate), 0)."""
     weights = dropout(_softmax_weights(q, k, key_mask, precision), rate, generator).to(v.dtype)
-    return _attend(weights, v, precision)
+    return _attend(weights, v, precision).to(v.dtype)
 
 
 def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest"):

@@ -18,6 +18,13 @@ flavour: bf16 products, f32 accumulation, exp and masks) on CUDA tensors,
 ``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
 ``FlashAttention`` is the differentiable form, one
 ``torch.autograd.Function`` over both.
+
+K1b, K2b and K3b also take bf16 tensors (the trainer's ``fast_bf16`` block
+stack, where the TPU kernels read bf16 blocks through ``astype(float32)``
+and store in the inputs' dtype): their bf16-I/O flavours, built from the
+same templates, return O, dQ, dK and dV in bf16, each the f32-I/O
+flavour's output on the upcast inputs rounded once; LSE and Di stay f32.
+K1, K2 and K3 take float32 only.
 """
 
 from __future__ import annotations
@@ -55,13 +62,17 @@ _LD_S = BLOCK_K + 4
 # Di in f32. Blocks per SM: what the kernels are compiled for.
 BWD_BF16_ROWS, BWD_BF16_LD, BWD_BF16_BLOCKS_PER_SM = 64, HEAD_DIM + 8, 2
 
-# Launches of K1, K1b, K2, K3, K2b and K3b since each count was last set to 0.
+# Launches of K1, K1b, K2, K3, K2b and K3b, and of the bf16-I/O flavours of
+# K1b, K2b and K3b, since each count was last set to 0.
 launches = 0
 launches_bf16 = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 launches_bwd_dq_bf16 = 0
 launches_bwd_dkv_bf16 = 0
+launches_bf16_io = 0
+launches_bwd_dq_bf16_io = 0
+launches_bwd_dkv_bf16_io = 0
 
 
 def flash_attention_ref(q, k, v, lengths, precision="highest"):
@@ -195,28 +206,39 @@ def flash_occupancy() -> int:
     return blocks.value
 
 
-def _check_qkv(name, x, shape, device):
-    if x.dtype != torch.float32:
-        raise TypeError(f"flash kernel: {name} must be float32, got {x.dtype}")
+def _strides_ok(x) -> bool:
+    """Unit stride on the head axis, the others whole 16-byte words (4 f32
+    or 8 bf16 elements), 16-byte alignment."""
+    per_word = 16 // x.element_size()
+    return x.stride(3) == 1 and not any(s % per_word for s in x.stride()[:3]) and \
+        not x.data_ptr() % 16
+
+
+def _check_qkv(name, x, shape, device, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError(f"flash kernel: {name} must be {dtype}, got {x.dtype}")
     if x.device != device:
         raise ValueError(f"flash kernel: {name} is on {x.device}, q on {device}")
     if tuple(x.shape) != shape:
         raise ValueError(f"flash kernel: {name} shape {tuple(x.shape)} != {shape}")
-    if x.stride(3) != 1 or any(s % 4 for s in x.stride()[:3]) or x.data_ptr() % 16:
+    if not _strides_ok(x):
         raise ValueError(
             f"flash kernel: {name} needs unit stride on the head axis, other "
-            f"strides multiples of 4 and 16-byte alignment, got strides {x.stride()}"
+            f"strides whole 16-byte words and 16-byte alignment, got strides {x.stride()}"
         )
 
 
-def _check_inputs(q, k, v, lengths):
+def _check_inputs(q, k, v, lengths, bf16_io: bool = False):
+    """Shapes, strides and dtypes the kernels take: float32 q, k and v, or
+    (``bf16_io``: K1b, K2b and K3b) all three float32 or all bfloat16."""
     b, t, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernel: head width {d} unsupported (only {HEAD_DIM})")
     if b > 65535 or h > 65535:
         raise ValueError(f"flash kernel: grid limits exceeded (B={b}, H={h})")
+    dtype = q.dtype if bf16_io and q.dtype == torch.bfloat16 else torch.float32
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_qkv(name, x, (b, t, h, d), q.device)
+        _check_qkv(name, x, (b, t, h, d), q.device, dtype)
     if lengths.dtype != torch.int32 or lengths.shape != (b,) or lengths.device != q.device:
         raise ValueError(f"flash kernel: lengths must be int32 [{b}] on {q.device}")
 
@@ -226,29 +248,32 @@ def _lib_bf16():
     fn = lib.nomad_flash_attention_bf16_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         occ = lib.nomad_flash_attention_bf16_fwd_occupancy
-        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
-def flash_bf16_occupancy() -> int:
-    """Blocks of K1b resident on one SM (the card)."""
+def flash_bf16_occupancy(bf16_io: bool = False) -> int:
+    """Blocks of K1b (its bf16-I/O flavour with ``bf16_io``) resident on
+    one SM (the card)."""
     lib = _lib_bf16()
     blocks = ctypes.c_int(0)
-    _build.check(lib, lib.nomad_flash_attention_bf16_fwd_occupancy(ctypes.byref(blocks)),
-                 "bf16 flash attention occupancy")
+    _build.check(lib, lib.nomad_flash_attention_bf16_fwd_occupancy(
+        int(bf16_io), ctypes.byref(blocks)), "bf16 flash attention occupancy")
     return blocks.value
 
 
 def _flash_bf16_kernel(q, k, v, lengths):
     """K1b: the "default" flavour on the tensor cores (bf16 operands, f32
-    accumulation and softmax), the same inputs and outputs as K1."""
+    accumulation and softmax), the same inputs and outputs as K1; on bf16
+    q, k and v its bf16-I/O flavour, O in bf16."""
     b, t, h, d = q.shape
-    _check_inputs(q, k, v, lengths)
+    _check_inputs(q, k, v, lengths, bf16_io=True)
+    bf16_io = q.dtype == torch.bfloat16
     lengths = lengths.contiguous()
-    o = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
@@ -257,11 +282,14 @@ def _flash_bf16_kernel(q, k, v, lengths):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "bf16 flash attention kernel launch")
-    global launches_bf16
-    launches_bf16 += 1
+    global launches_bf16, launches_bf16_io
+    if bf16_io:
+        launches_bf16_io += 1
+    else:
+        launches_bf16 += 1
     return o, lse
 
 
@@ -289,9 +317,9 @@ def _flash_kernel(q, k, v, lengths):
 
 def mha_flash(q, k, v, lengths, precision="highest"):
     """Attention on [B, T, H, D] with lengths int32 [B] valid keys per
-    batch row -> (O [B, T, H, D], LSE f32 [B, H, T]). On CUDA tensors K1
-    ("highest", "high") or K1b ("default"), on CPU tensors the plain
-    version of the same flavour."""
+    batch row -> (O [B, T, H, D] in q's dtype, LSE f32 [B, H, T]). On CUDA
+    tensors K1 ("highest", "high"; f32) or K1b ("default"; f32, or bf16
+    I/O), on CPU tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lengths, precision)
     if q.device.type != "cuda":
@@ -324,22 +352,23 @@ def flash_bwd_occupancy(kernel: str, rows_per_block: int) -> int:
     return blocks.value
 
 
-def _bwd_args(q, k, v, o, lse, do, lengths):
-    """Checks shared by K2 and K3; returns their inputs in launch form:
-    dO as given when its strides suit the kernels (else a contiguous copy),
-    Di = rowsum(dO*O) [B, H, T] from one PyTorch reduction, lengths
-    contiguous."""
+def _bwd_args(q, k, v, o, lse, do, lengths, bf16_io: bool = False):
+    """Checks shared by K2 and K3 (and, ``bf16_io``, by K2b and K3b on bf16
+    tensors); returns their inputs in launch form: dO as given when its
+    strides suit the kernels (else a contiguous copy), Di = rowsum(dO*O)
+    [B, H, T] in f32 from one PyTorch reduction of the upcast operands (as
+    the JAX package upcasts before it multiplies), lengths contiguous."""
     b, t, h, d = q.shape
-    _check_inputs(q, k, v, lengths)
-    _check_qkv("o", o, (b, t, h, d), q.device)
-    if do.dtype != torch.float32 or tuple(do.shape) != (b, t, h, d) or do.device != q.device:
-        raise ValueError(f"flash kernel: dO must be float32 [{b}, {t}, {h}, {d}] on {q.device}")
-    if do.stride(3) != 1 or any(s % 4 for s in do.stride()[:3]) or do.data_ptr() % 16:
+    _check_inputs(q, k, v, lengths, bf16_io)
+    _check_qkv("o", o, (b, t, h, d), q.device, q.dtype)
+    if do.dtype != q.dtype or tuple(do.shape) != (b, t, h, d) or do.device != q.device:
+        raise ValueError(f"flash kernel: dO must be {q.dtype} [{b}, {t}, {h}, {d}] on {q.device}")
+    if not _strides_ok(do):
         do = do.contiguous()
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, t) or lse.device != q.device
             or not lse.is_contiguous()):
         raise ValueError(f"flash kernel: lse must be contiguous float32 [{b}, {h}, {t}]")
-    di = (do * o).sum(dim=-1).transpose(1, 2).contiguous()
+    di = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
     return do, di, lengths.contiguous()
 
 
@@ -388,29 +417,32 @@ def _lib_bwd_bf16():
     for fn, outs in ((lib.nomad_flash_attention_bwd_bf16_dq, 1),
                      (lib.nomad_flash_attention_bwd_bf16_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, p]
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, p]
             fn.restype = ctypes.c_int
     occ = lib.nomad_flash_attention_bwd_bf16_occupancy
     if occ.argtypes is None:
-        occ.argtypes, occ.restype = [i, ctypes.POINTER(i)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, i, ctypes.POINTER(i)], ctypes.c_int
     return lib
 
 
-def flash_bwd_bf16_occupancy(kernel: str) -> int:
-    """Blocks of K2b (``kernel="dq"``) or K3b (``"dkv"``) resident on one
-    SM (the card)."""
+def flash_bwd_bf16_occupancy(kernel: str, bf16_io: bool = False) -> int:
+    """Blocks of K2b (``kernel="dq"``) or K3b (``"dkv"``), or of their
+    bf16-I/O flavour with ``bf16_io``, resident on one SM (the card)."""
     lib = _lib_bwd_bf16()
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_bwd_bf16_occupancy(
-        int(kernel == "dkv"), ctypes.byref(blocks)), "bf16 flash backward occupancy")
+        int(kernel == "dkv"), int(bf16_io), ctypes.byref(blocks)),
+        "bf16 flash backward occupancy")
     return blocks.value
 
 
 def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
     """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) on
-    arguments prepared by ``_bwd_args``; outputs f32 [B, T, H, D]."""
+    arguments prepared by ``_bwd_args``; outputs [B, T, H, D] in q's
+    dtype (f32, or bf16 for the bf16-I/O flavour)."""
     b, t, h, d = q.shape
-    outs = tuple(torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    bf16_io = q.dtype == torch.bfloat16
+    outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                  for _ in range(1 if kernel == "dq" else 2))
     if q.numel() == 0:
         return outs
@@ -419,13 +451,18 @@ def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"bf16 flash attention {'dQ' if kernel == 'dq' else 'dK/dV'} "
                  "kernel launch")
     global launches_bwd_dq_bf16, launches_bwd_dkv_bf16
-    if kernel == "dq":
+    global launches_bwd_dq_bf16_io, launches_bwd_dkv_bf16_io
+    if kernel == "dq" and bf16_io:
+        launches_bwd_dq_bf16_io += 1
+    elif kernel == "dq":
         launches_bwd_dq_bf16 += 1
+    elif bf16_io:
+        launches_bwd_dkv_bf16_io += 1
     else:
         launches_bwd_dkv_bf16 += 1
     return outs
@@ -433,14 +470,14 @@ def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
 
 def flash_attention_bwd(q, k, v, o, lse, do, lengths, precision="highest"):
     """Gradients (dQ, dK, dV) of ``mha_flash``'s O for the cotangent dO,
-    from the saved O and LSE. On CUDA tensors K2 and K3 ("highest",
-    "high") or K2b and K3b ("default"), on CPU tensors the plain version of
-    the same flavour."""
+    from the saved O and LSE, in q's dtype. On CUDA tensors K2 and K3
+    ("highest", "high"; f32) or K2b and K3b ("default"; f32, or bf16 I/O),
+    on CPU tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
-    do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
+    do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths, bf16_io=is_bf16(precision))
     if is_bf16(precision):
         (dq,) = _bwd_bf16_kernel("dq", q, k, v, do, lse, di, lengths)
         dk, dv = _bwd_bf16_kernel("dkv", q, k, v, do, lse, di, lengths)

@@ -5,6 +5,9 @@ Counterpart of ``nomad_tpu.ops.layernorm``. ``layer_norm`` is one
 (``csrc/layernorm.cu``) on a CUDA tensor and computes the plain version on
 a CPU tensor; its backward is ``layer_norm_bwd_ref``, plain PyTorch on
 either device, as the JAX package hands its backward to XLA (``_ln_bwd``).
+x is float32, or bfloat16 (the trainer's ``fast_bf16`` block stack: the
+kernel's bf16-I/O flavour, f32 statistics, the output rounded once); the
+scale and shift are float32 and the output takes x's dtype.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import torch
 
 from . import _build
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of the kernel's f32 and bf16-I/O flavours since each count was
+# last set to 0.
 launches = 0
+launches_bf16_io = 0
 
 
 def layer_norm_ref(x, scale, bias, eps: float = 1e-5):
@@ -53,16 +58,19 @@ def _lib():
     fn = lib.nomad_layernorm_fwd
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _layer_norm_kernel(x, scale, bias, eps):
     d = x.shape[-1]
-    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"layer_norm kernel: x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32:
             raise TypeError(f"layer_norm kernel: {name} must be float32, got {t.dtype}")
+    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
         if t.device != x.device:
             raise ValueError(f"layer_norm kernel: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -75,14 +83,18 @@ def _layer_norm_kernel(x, scale, bias, eps):
     rows = x.numel() // d if d else 0
     if rows == 0:
         return y
+    bf16_io = x.dtype == torch.bfloat16
     lib = _lib()
     err = lib.nomad_layernorm_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        rows, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        rows, d, float(eps), int(bf16_io), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, "layernorm kernel launch")
-    global launches
-    launches += 1
+    global launches, launches_bf16_io
+    if bf16_io:
+        launches_bf16_io += 1
+    else:
+        launches += 1
     return y
 
 

@@ -37,6 +37,22 @@ hand back instead, so the product and the convolution are each a
 ``torch.autograd.Function`` with that backward written out, on the card
 and in the plain version alike; each keeps the bf16 copies of its
 operands for the backward.
+
+A bf16 activation (the trainer's ``fast_bf16`` block stack) makes a
+product bf16 in and out, as flax's ``nn.Dense(dtype=bfloat16)`` is
+(``linear``, ``_LinearBF16IO``): the operands are bf16 (the f32 weight
+rounded once), the product is summed in f32 and rounded to bf16, then the
+bf16 bias is added in bf16, a second rounding, as XLA computes flax's
+``dot_general`` and bias add on the CPU. The product of two bf16 values
+is exact in f32, so every island's precision gives this product. Its
+gradients are JAX's transposes: dX = bf16(dY . W) (bf16), dW = bf16(X^T .
+dY) and db = bf16(sum dY), the f32 sums rounded once and returned to the
+f32 parameters as those bf16 values (the transpose of flax's cast of the
+parameters to bf16). XLA on the CPU sums db's bf16 cotangent in bf16, in
+its own order; the port rounds the f32 sum once. On the card the products
+are cuBLAS ``mm`` with a bf16 output (f32 accumulation, split-K reduced in
+f32: ``api.set_exact_precision``); the plain version is the f32 product of
+the exactly converted operands, rounded once.
 """
 
 from __future__ import annotations
@@ -147,9 +163,52 @@ class _Conv1dBF16(torch.autograd.Function):
         return dx, dw, db, None, None, None
 
 
+def _mm_bf16_out(a, b):
+    """a [m, k] . b [k, n] of bf16 operands, f32 accumulation, rounded once
+    to a bf16 result: cuBLAS ``mm`` with a bf16 output on the card, the f32
+    product of the (exactly converted) operands rounded on the CPU."""
+    if _device_route(a):
+        return torch.mm(a, b)
+    return torch.mm(a.float(), b.float()).to(torch.bfloat16)
+
+
+class _LinearBF16IO(torch.autograd.Function):
+    """flax ``nn.Dense(dtype=bfloat16)`` on a bf16 x [n, in] with f32
+    weight [out, in] and bias [out] (or None): y = bf16(bf16(x . bf16(W)^T)
+    + bf16(b)), bf16 [n, out]; the gradients as the module docstring
+    gives them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        wb = weight.to(torch.bfloat16)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              wb if ctx.needs_input_grad[0] else None)
+        ctx.has_bias = bias is not None
+        y = _mm_bf16_out(x, wb.t())
+        return y if bias is None else y + bias.to(torch.bfloat16)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, wb = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_bf16_out(g, wb)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_bf16_out(g.t(), x).float()
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=0).to(torch.bfloat16).float()
+        return dx, dw, db
+
+
 def linear(x, weight, bias, prec):
     """``F.linear`` at island precision ``prec``: x [..., in], weight
-    [out, in], bias [out] or None."""
+    [out, in], bias [out] or None. A bf16 x gives a bf16 output at any
+    island (``_LinearBF16IO``)."""
+    if x.dtype == torch.bfloat16:
+        y = _LinearBF16IO.apply(x.reshape(-1, x.shape[-1]), weight, bias)
+        return y.view(*x.shape[:-1], weight.shape[0])
     if not is_bf16(prec):
         return F.linear(x, weight, bias)
     y = matmul_bf16(x.reshape(-1, x.shape[-1]), weight.t())

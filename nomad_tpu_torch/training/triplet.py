@@ -13,8 +13,9 @@
     require a gradient and stay out of the optimizer, ``torch.optim.Adam``
     (β 0.9/0.999, eps 1e-8 outside the square root: optax's
     ``scale_by_adam`` and a scale of −lr).
-  * ``precision: exact | balanced | fast`` (with no ``model_config``)
-    picks the model's precision islands as the JAX trainer does
+  * ``precision: exact | balanced | fast | fast_bf16`` (with no
+    ``model_config``) picks the model's precision islands, and for
+    ``fast_bf16`` the bf16 block stack, as the JAX trainer does
     (``resolve_model_config``); the train and eval steps run in them.
   * ``experiment_name: Training`` maps ``freeze_convnet`` to
     ``frontend_stop_gradient`` (no autograd through the frozen frontend)
@@ -121,21 +122,18 @@ def resolve_model_config(cfg: dict) -> Wav2Vec2Config:
     training ``precision``, as the JAX trainer resolves it
     (``nomad_tpu/training/triplet.py:116-146``): ``exact`` leaves it f32;
     ``fast`` runs every encoder product in one bf16 pass with the frontend
-    at "high", at any size; ``balanced`` is ``Wav2Vec2Config.balanced()``
-    for ``base`` only and leaves ``tiny`` as it is (the JAX trainer's own
-    rule, kept). ``fast_bf16``'s bf16 activations are not ported."""
+    at "high", at any size, and ``fast_bf16`` does so on bf16 activations
+    in the block stack (``encoder_dtype``); ``balanced`` is
+    ``Wav2Vec2Config.balanced()`` for ``base`` only and leaves ``tiny`` as
+    it is (the JAX trainer's own rule, kept)."""
     size = cfg.get("model_size", "base")
     model_config = Wav2Vec2Config.tiny() if size == "tiny" else Wav2Vec2Config.base()
     prec = cfg.get("precision", "exact")
-    if prec == "fast":
-        return dataclasses.replace(model_config, **FAST_ISLANDS)
+    if prec in ("fast", "fast_bf16"):
+        dtype = torch.bfloat16 if prec == "fast_bf16" else None
+        return dataclasses.replace(model_config, **FAST_ISLANDS, encoder_dtype=dtype)
     if prec == "balanced" and size == "base":
         return Wav2Vec2Config.balanced()
-    if prec == "fast_bf16":
-        raise NotImplementedError(
-            "training precision 'fast_bf16' (bf16 activations in the block stack) is not "
-            "ported yet (ROADMAP Queue 2 item 2, the bf16-I/O kernel flavours); use 'fast'"
-        )
     if prec not in ("exact", "balanced"):
         raise ValueError(
             f"unknown training precision {prec!r}: expected 'exact', 'balanced', 'fast' "

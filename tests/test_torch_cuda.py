@@ -756,3 +756,67 @@ def test_bf16_fused_occupancy(cuda):
     for t in (50, 65, 511, 1024):
         blocks, clusters = fused_attention.fused_occupancy(t, "default")
         assert blocks >= 2 and clusters >= 1, (t, blocks, clusters)
+
+
+# ---------------- the bf16-I/O flavours (the trainer's fast_bf16) ----------------
+
+
+@pytest.mark.parametrize("rows,width", [(1001, 768), (333, 512)])
+def test_bf16_io_layer_norm_is_the_f32_flavour_rounded(cuda, rows, width):
+    """K5's bf16-I/O flavour equals its f32 flavour on the upcast rows,
+    rounded once, bit for bit (a lane holds the same elements in both, so
+    the f32 statistics sum in the same order), and counts its own
+    launches."""
+    g = torch.Generator().manual_seed(rows)
+    x = (3 * torch.randn(rows, width, generator=g) + 1).to(cuda).to(torch.bfloat16)
+    w, b = (torch.randn(width, generator=g).to(cuda) for _ in range(2))
+    before = (layernorm.launches, layernorm.launches_bf16_io)
+    out = layernorm.layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    assert (layernorm.launches, layernorm.launches_bf16_io) == (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, layernorm.layer_norm(x.float(), w, b).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,t,lengths", [(4, 65, [65, 32, 1, 0]), (3, 499, [499, 250, 17])])
+def test_bf16_io_flash_kernels_are_the_f32_flavour_rounded(cuda, b, t, lengths):
+    """K1b's, K2b's and K3b's bf16-I/O flavours on bf16 q, k, v, dO (views
+    of one buffer, NaN past each bound) equal their f32-I/O flavour on the
+    upcast inputs, rounded once, bit for bit (LSE equal), and count their
+    own launches."""
+    g = torch.Generator().manual_seed(t)
+    bf = torch.bfloat16
+    qkv = torch.randn(b, t, 3, 4, 64, generator=g).to(cuda).to(bf)
+    q, k, v = qkv.unbind(2)
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    do = torch.randn(b, t, 4, 64, generator=g).to(cuda).to(bf)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (flash_attention.launches_bf16_io, flash_attention.launches_bwd_dq_bf16_io,
+              flash_attention.launches_bwd_dkv_bf16_io, flash_attention.launches_bf16)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
+    torch.cuda.synchronize()
+    after = (flash_attention.launches_bf16_io, flash_attention.launches_bwd_dq_bf16_io,
+             flash_attention.launches_bwd_dkv_bf16_io, flash_attention.launches_bf16)
+    assert tuple(a - c for a, c in zip(after, before)) == (1, 1, 1, 0)
+    up = [x.float() for x in (q, k, v)]
+    o32, lse32 = flash_attention.mha_flash(*up, lens, "default")
+    assert o.dtype == bf and torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32)
+    grads32 = flash_attention.flash_attention_bwd(*up, o.float(), lse, do.float(), lens,
+                                                  "default")
+    for ours, theirs in zip(grads, grads32):
+        assert ours.dtype == bf and torch.equal(ours, theirs.to(bf))
+
+
+def test_f32_kernels_refuse_bf16(cuda):
+    """K1, K2 and K3 (f32) raise TypeError on bf16 tensors; no bf16 wrapper
+    upcasts to them."""
+    q = torch.randn(1, 10, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lens = torch.tensor([10], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention.mha_flash(q, q, q, lens, "highest")
+    lse = torch.zeros(1, 2, 10, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention.flash_attention_bwd(q, q, q, q, lse, q, lens, "highest")

@@ -309,9 +309,10 @@ def test_modes_against_jax(bridged, mode):
 
 
 def test_refusals_name_roadmap(bridged):
-    """What the modes still refuse: the trainer's ``fast_bf16``, naming
-    ROADMAP. ``fused_qkv`` under a "default" encoder island (K4's bf16
-    mode, K4b) runs now and gives finite embeddings that round
+    """What the modes still refuse: the trainer's ``fast_bf16`` (bf16
+    activations, ``tests/test_torch_fast_bf16.py``) on the fused path,
+    naming ROADMAP. ``fused_qkv`` under a "default" encoder island (K4's
+    bf16 mode, K4b) runs now and gives finite embeddings that round
     (``tests/test_torch_fused_modes.py`` holds it to the JAX package);
     "high" keeps the f32 K4 (the card's high3). The gradients and dropout
     under a bf16 island work too (``tests/test_torch_grad_modes.py``)."""
@@ -319,7 +320,10 @@ def test_refusals_name_roadmap(bridged):
     wave = torch.from_numpy(wav[:1, :800])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Training({"experiment_name": "quality_nmr", "model_size": "tiny",
-                  "precision": "fast_bf16"}, device="cpu")
+                  "precision": "fast_bf16"}, device="cpu",
+                 model_config=Wav2Vec2Config.tiny(**PRECISION_ISLANDS["fast"],
+                                                  attention_impl="fused_qkv",
+                                                  encoder_dtype=torch.bfloat16))
     embs = {}
     for prec in ("default", "high"):
         fused = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv",

@@ -3,7 +3,7 @@ differentiate.
 
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
-                           --only-fused-modes | --only-fast-bf16]
+                           --only-fused-modes | --only-fast-bf16 | --only-bf16-paths]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -164,6 +164,30 @@ Phases, each fatal on failure:
      batch; embeddings held to the plain path by phase 12's rule) and
      ``eval_audio_quality``; step times, enqueue, peak memory and profiles
      beside "fast"'s in the same run;
+ 14. bf16 activations on every attention path: the bf16-I/O flavours of
+     K4 and K4b (at [96, 511] with lengths to 499, [32, 50], a ragged [8,
+     1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511, 1023,
+     1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
+     and every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}) and of K2 +
+     K3 (the same, but [96, 511]), each case with a full, a ragged, a 1-key
+     and a 0-key row, under phase 13's rules (bit-equal to the f32-I/O
+     flavour on the upcast inputs rounded once; plain version and float64
+     plus one bf16 step; garbage past each bound; a rerun the same bits),
+     timed in turns with the f32-I/O flavour and beside the plain version
+     and the PyTorch calls on the same bf16 tensors; then on phase 9's
+     seeded BASE state dict ``Wav2Vec2Config.fast(encoder_dtype=bf16,
+     attention_impl="fused_qkv")`` on phase 4's 108 files (K4b-bf16 12, K5
+     2, K5-bf16 24 per batch) against its plain path by phase 12's rule,
+     its device pass beside the fused "fast" pass on f32 activations, peak
+     and one profiled pass; "balanced" with ``fused_qkv`` (K4-bf16 12) and
+     BASE (K1-bf16 12) on bf16 activations on one batch of 96 files; the
+     loss of the three (BASE also fused) at 32 x 16,384 and 24 x 160,000
+     samples by phase 10's rule against their own plain path; and the
+     trainer's ``fast_bf16`` on the fused path at phase 13's recipe on
+     phase 10's state dict: the recipe's step (the plain dropout attention,
+     K5 only), its eval step (K4b-bf16 12) and the rates-at-0 step
+     (K4b-bf16 24, K1b-bf16 12, K2b-bf16 12, K3b-bf16 12) by phase 10's
+     rule;
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -177,13 +201,15 @@ newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
 ``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
 and 10, ``--only-fused-modes`` phases 1, 2 and 12, ``--only-fast-bf16``
-phases 1, 2 and 13, each ending with the report line.
+phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14, each ending
+with the report line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -210,7 +236,7 @@ from nomad_tpu_torch.ops import _build, cdist, flash_attention, fused_attention,
 from nomad_tpu_torch.ops import precision as prec_ops
 from nomad_tpu_torch.scoring.engine import EmbeddingEngine, EmbeddingLRU
 from nomad_tpu_torch.serve import NomadServer
-from nomad_tpu_torch.training import SpeechEnhancement, Training
+from nomad_tpu_torch.training import SpeechEnhancement, Training, triplet
 from nomad_tpu_torch.training import data as train_data
 from nomad_tpu_torch.training.losses import pairwise_distance, triplet_margin_loss
 from nomad_tpu_torch.utils import config as config_io
@@ -318,6 +344,12 @@ FUSED_BF16_VS_K1B = 1.0
 # lie close may fall on either side of a bf16 boundary)
 BF16_ULP_REL = 2.0 ** -7
 BWD_NOISE = 1e-4
+# K2's and K3's bf16-I/O flavour (f32 products) against their plain version
+# on the same bf16 inputs, before the bf16 step: f32 sums in two orders
+BWD_F32_PLAIN_REL = 1e-4
+# phase 14's loss steps: fewer warm steps timed than phase 5's, to keep the
+# phase near a minute
+BF16_PATH_LOSS_STEPS = 3
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -350,6 +382,14 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_pair_ms(fn_a, fn_b, iters: int) -> tuple[float, float]:
+    """Mean device times of two versions of one function (``time_ms``),
+    taken in turns a, b, b, a so that the card's clock drift falls on both
+    alike."""
+    a1, b1, b2, a2 = (time_ms(fn, iters) for fn in (fn_a, fn_b, fn_b, fn_a))
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def device_kernels(fn) -> dict:
@@ -416,18 +456,23 @@ def build_kernels() -> None:
     # kernel's shared memory, from the CUDA occupancy API
     occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
                                    "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
+           "flash_attention_f32_bf16io_fwd": {
+               "blocks_per_sm": flash_attention.flash_occupancy(bf16_io=True),
+               "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
            "flash_attention_bf16_fwd": {"blocks_per_sm": flash_attention.flash_bf16_occupancy()},
            "flash_attention_bf16io_fwd": {
                "blocks_per_sm": flash_attention.flash_bf16_occupancy(bf16_io=True)}}
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
-            blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"])
-            occ[f"flash_attention_bwd_{kernel}_T{t}"] = {
-                "rows_per_block": plan["rows_per_block"], "blocks_per_sm": blocks,
-                "plan_blocks_per_sm": plan["blocks_per_sm"], "smem_bytes": plan["smem_bytes"]}
-            if blocks < plan["blocks_per_sm"]:
-                fail(f"K2/K3 {kernel} at T = {t}: {blocks} blocks per SM, the plan claims "
-                     f"{plan['blocks_per_sm']}")
+            for io, tag in ((False, ""), (True, "_f32_bf16io")):
+                blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"], io)
+                occ[f"flash_attention_bwd_{kernel}{tag}_T{t}"] = {
+                    "rows_per_block": plan["rows_per_block"], "blocks_per_sm": blocks,
+                    "plan_blocks_per_sm": plan["blocks_per_sm"],
+                    "smem_bytes": plan["smem_bytes"]}
+                if blocks < plan["blocks_per_sm"]:
+                    fail(f"K2/K3{tag} {kernel} at T = {t}: {blocks} blocks per SM, the plan "
+                         f"claims {plan['blocks_per_sm']}")
     for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 1, 12).items():
         for io, tag in ((False, "bf16"), (True, "bf16io")):
             blocks = flash_attention.flash_bwd_bf16_occupancy(kernel, bf16_io=io)
@@ -438,10 +483,12 @@ def build_kernels() -> None:
                 fail(f"K2b/K3b {kernel} ({tag}): {blocks} blocks per SM, the plan claims "
                      f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
-        for prec, name in (("highest", "fused_qkv_attention_fwd"),
-                           ("default", "fused_qkv_attention_bf16_fwd")):
+        for prec, io, name in (("highest", False, "fused_qkv_attention_fwd"),
+                               ("default", False, "fused_qkv_attention_bf16_fwd"),
+                               ("highest", True, "fused_qkv_attention_f32_bf16io_fwd"),
+                               ("default", True, "fused_qkv_attention_bf16io_fwd")):
             plan = fused_attention.fused_launch_plan(t, 1, 12, prec)
-            blocks, clusters = fused_attention.fused_occupancy(t, prec)
+            blocks, clusters = fused_attention.fused_occupancy(t, prec, io)
             occ[f"{name}_T{t}"] = {
                 "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
                 "blocks_per_sm": blocks, "clusters_on_card": clusters,
@@ -620,13 +667,14 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
 
 
 def fused_bound(b: int, t: int, h: int, dm: int, lengths: torch.Tensor,
-                peak_flops: float = F32_FLOPS) -> tuple[float, str]:
+                peak_flops: float = F32_FLOPS, x_bytes: int = 4) -> tuple[float, str]:
     """Q is projected for all T rows, K and V for the valid keys only, and
     every query row attends the valid keys. Bytes: x, the three weights
-    and biases, lengths and O, each once."""
+    and biases, lengths and O, each once; x and O ``x_bytes`` an element,
+    the rest 4."""
     keys = int(lengths.long().sum())
     flops = 2.0 * b * t * dm * dm + 4.0 * keys * dm * dm + 4.0 * h * 64 * t * keys
-    nbytes = 4.0 * (2 * b * t * dm + 3 * dm * dm + 3 * dm + b)
+    nbytes = x_bytes * 2.0 * b * t * dm + 4.0 * (3 * dm * dm + 3 * dm + b)
     return bound(nbytes, flops, peak_flops)
 
 
@@ -869,6 +917,9 @@ def reset_launches() -> None:
     flash_attention.launches_bwd_dq_bf16 = flash_attention.launches_bwd_dkv_bf16 = 0
     flash_attention.launches_bf16_io = layernorm.launches_bf16_io = 0
     flash_attention.launches_bwd_dq_bf16_io = flash_attention.launches_bwd_dkv_bf16_io = 0
+    flash_attention.launches_f32_bf16_io = fused_attention.launches_f32_bf16_io = 0
+    flash_attention.launches_bwd_dq_f32_bf16_io = flash_attention.launches_bwd_dkv_f32_bf16_io = 0
+    fused_attention.launches_bf16_io = 0
 
 
 def read_launches() -> dict:
@@ -884,11 +935,17 @@ def read_launches() -> dict:
             "flash_attention_bf16io_fwd": flash_attention.launches_bf16_io,
             "flash_attention_bwd_dq_bf16io": flash_attention.launches_bwd_dq_bf16_io,
             "flash_attention_bwd_dkv_bf16io": flash_attention.launches_bwd_dkv_bf16_io,
-            "layernorm_fwd_bf16io": layernorm.launches_bf16_io}
+            "layernorm_fwd_bf16io": layernorm.launches_bf16_io,
+            "flash_attention_f32_bf16io_fwd": flash_attention.launches_f32_bf16_io,
+            "flash_attention_bwd_dq_f32_bf16io": flash_attention.launches_bwd_dq_f32_bf16_io,
+            "flash_attention_bwd_dkv_f32_bf16io": flash_attention.launches_bwd_dkv_f32_bf16_io,
+            "fused_qkv_attention_f32_bf16io_fwd": fused_attention.launches_f32_bf16_io,
+            "fused_qkv_attention_bf16io_fwd": fused_attention.launches_bf16_io}
 
 
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
-                  k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0) -> dict:
+                  k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
+                  k4b_io=0) -> dict:
     """Launch counts by kernel; ``*_io``: the bf16-I/O flavours."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
@@ -896,14 +953,19 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "fused_qkv_attention_fwd": k4, "fused_qkv_attention_bf16_fwd": k4b,
             "layernorm_fwd": k5, "flash_attention_bf16io_fwd": k1b_io,
             "flash_attention_bwd_dq_bf16io": k2b_io, "flash_attention_bwd_dkv_bf16io": k3b_io,
-            "layernorm_fwd_bf16io": k5_io}
+            "layernorm_fwd_bf16io": k5_io, "flash_attention_f32_bf16io_fwd": k1_io,
+            "flash_attention_bwd_dq_f32_bf16io": k2_io,
+            "flash_attention_bwd_dkv_f32_bf16io": k3_io,
+            "fused_qkv_attention_f32_bf16io_fwd": k4_io,
+            "fused_qkv_attention_bf16io_fwd": k4b_io}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
     """BASE with a precision mode's islands (``Nomad(precision=mode)``'s);
-    "fast_bf16" is the trainer's: "fast"'s islands on bf16 activations."""
-    if mode == "fast_bf16":
-        return Wav2Vec2Config.base(**(PRECISION_ISLANDS["fast"] | kw),
+    a mode with "_bf16" appended takes them on bf16 activations ("fast_bf16"
+    is the trainer's)."""
+    if mode.endswith("_bf16"):
+        return Wav2Vec2Config.base(**(PRECISION_ISLANDS[mode[:-5]] | kw),
                                    encoder_dtype=torch.bfloat16)
     return Wav2Vec2Config.base(**(PRECISION_ISLANDS[mode] | kw))
 
@@ -923,17 +985,21 @@ def plain_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
 @contextlib.contextmanager
 def plain_flash(mode: str = "default", forward: bool = True):
     """``FlashAttention`` through ``flash_attention_ref`` (unless not
-    ``forward``) and ``flash_attention_bwd_ref`` on CUDA tensors, for a
-    bf16 ``mode``; a no-op at "exact"."""
-    saved = flash_attention.mha_flash, flash_attention.flash_attention_bwd
+    ``forward``) and ``flash_attention_bwd_ref`` on CUDA tensors, and (with
+    ``forward``) ``FusedQKVAttention`` through ``fused_qkv_attention_ref``,
+    for a bf16 ``mode``; a no-op at "exact"."""
+    saved = (flash_attention.mha_flash, flash_attention.flash_attention_bwd,
+             fused_attention.fused_qkv_mha)
     if mode != "exact":
         if forward:
             flash_attention.mha_flash = flash_attention.flash_attention_ref
+            fused_attention.fused_qkv_mha = fused_attention.fused_qkv_attention_ref
         flash_attention.flash_attention_bwd = flash_attention.flash_attention_bwd_ref
     try:
         yield
     finally:
-        flash_attention.mha_flash, flash_attention.flash_attention_bwd = saved
+        (flash_attention.mha_flash, flash_attention.flash_attention_bwd,
+         fused_attention.fused_qkv_mha) = saved
 
 
 @contextlib.contextmanager
@@ -1186,7 +1252,8 @@ def signed_grad(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor,
 
 
 def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
-                  batch: int, samples: int, mode: str = "exact", params=None) -> None:
+                  batch: int, samples: int, mode: str = "exact", params=None,
+                  plain_impl: str | None = None, steps: int = LOSS_STEPS) -> None:
     """One loss path on ``batch`` seeded clips of ``samples`` samples: its
     launch counts per step (``want``), loss and gradient against the plain
     path of the same precision ``mode``, forward(x, x) == 0, warm step
@@ -1198,7 +1265,9 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     step's attention backward calls are held to their plain version on
     the same inputs, and the gap with K2b/K3b alone swapped for their
     plain version is reported. ``params``: the weights (a state dict),
-    else Nomad's seeded init."""
+    else Nomad's seeded init. ``plain_impl``: the plain path's
+    ``attention_impl`` in a bf16 mode (else the mode's own); ``steps``:
+    warm steps timed."""
     what, step_key = key.replace("_", " "), key.replace("path", "step")
     rng = np.random.default_rng(4321)
     clean_np = np.stack([speech_like(rng, samples, 0.005) for _ in range(batch)])
@@ -1244,7 +1313,8 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     torch.cuda.reset_peak_memory_stats()
     sd = nomad.model.state_dict()
     signs = layer_signs(nomad, est.detach(), clean)
-    plain = Nomad(device="cuda", config=plain_config(mode), params=sd)
+    plain = Nomad(device="cuda", params=sd, config=plain_config(
+        mode, **({"attention_impl": plain_impl} if plain_impl else {})))
     with plain_flash(mode):
         est_p = est.detach().clone().requires_grad_()
         loss_p = plain.forward(est_p, clean)
@@ -1313,7 +1383,7 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, host = [], []
-    for _ in range(LOSS_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
@@ -1325,7 +1395,7 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     report[key] |= {"step_s": times, "step_median_s": step_s, "host_enqueue_s": host,
                     "peak_mem_gb": peak_gb, "card": card}
     print(f"{what}: warm step (forward + backward) median {step_s * 1e3:.2f} ms over "
-          f"{LOSS_STEPS} (host enqueue median {np.median(host) * 1e3:.2f} ms), peak memory "
+          f"{steps} (host enqueue median {np.median(host) * 1e3:.2f} ms), peak memory "
           f"{peak_gb:.2f} GB  [{card}]", flush=True)
     profile_run(step, f"profile_{step_key}")
 
@@ -2798,9 +2868,10 @@ def mode_train_steps(card: str, mode: str, cfg: dict, batch, init: dict,
     return out
 
 
-def rates0_vs_plain(mode: str, cfg: dict, batch, init: dict, emb_dim: int) -> dict:
+def rates0_vs_plain(mode: str, cfg: dict, batch, init: dict, emb_dim: int, **kw) -> dict:
     """``mode_train_steps``' comparison of the kernel path with the plain
-    path at the rates at 0, from ``init``."""
+    path at the rates at 0, from ``init``; ``kw`` (a bf16 ``mode``) goes
+    into both paths' configs."""
     g = torch.Generator().manual_seed(TRAIN_SEED)
     direction = torch.randn(3 * len(batch.lengths_a), emb_dim, generator=g).to(DEV)
 
@@ -2809,14 +2880,14 @@ def rates0_vs_plain(mode: str, cfg: dict, batch, init: dict, emb_dim: int) -> di
 
     what = f"trainer {mode}"
     with recorded_flash_bwd() as calls:
-        k = probe(mode_config(mode, **ZERO_RATES))
+        k = probe(mode_config(mode, **ZERO_RATES, **kw))
     calls_vs_plain = check_recorded_flash_bwd(calls, f"{what}, rates at 0")
     del calls
     active = k["active"]
     with plain_flash(mode):
-        p = probe(plain_config(mode, **ZERO_RATES), active)
+        p = probe(plain_config(mode, **ZERO_RATES, **kw), active)
     with plain_flash(mode, forward=False):
-        kp = probe(mode_config(mode, **ZERO_RATES), active)
+        kp = probe(mode_config(mode, **ZERO_RATES, **kw), active)
     ep = probe(plain_config(**ZERO_RATES), active)
     e = probe(mode_config(**ZERO_RATES), active)
     d, d_plain = probe_distance(k, p), probe_distance(p, ep)
@@ -3231,9 +3302,11 @@ def check_layernorm_bf16io(rows: int, width: int, g: torch.Generator) -> dict:
 
 
 def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
-                       bwd: bool = True, kernel_times: bool = True) -> dict:
+                       bwd: bool = True, kernel_times: bool = True,
+                       prec: str = "default") -> dict:
     """K1b's bf16-I/O flavour and, with ``bwd``, K2b's and K3b's (through
-    ``flash_attention_bwd``), on bf16 q, k, v (views of one [B, T, 3, H,
+    ``flash_attention_bwd``), or at ``prec`` "highest" those of K1, K2 and
+    K3, on bf16 q, k, v (views of one [B, T, 3, H,
     D] buffer) and dO, NaN in k and v past each bound: every output bit-
     equal to the f32-I/O flavour's on the upcast inputs rounded once (LSE
     equal); the same bits as with finite values past the bound, and on a
@@ -3245,11 +3318,18 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     BF16_ULP_REL of the plain version's max |g| and BWD_BF16_PLAIN_NORM +
     BF16_ULP_REL / 2 of its norm (where max |g| > BWD_NOISE), |g - g_f64|
     <= 1.5 x the plain version's + 1.5 bf16 steps + 1e-6 (phase 10's
-    rule). ``kernel_times``:
+    rule); at "highest" the gradients within BWD_F32_PLAIN_REL instead of
+    BWD_BF16_PLAIN_REL and BWD_BF16_PLAIN_NORM (f32 products on both
+    sides). ``kernel_times``:
     time the bf16-I/O kernels and their f32-I/O flavour; ``timed``: the
     plain version and SDPA (its gradient) on bf16 tensors too."""
     h, d = 12, 64
     bf = torch.bfloat16
+    bf16_ops = prec_ops.is_bf16(prec)
+    tags = ("K1b", "K2b", "K3b") if bf16_ops else ("K1", "K2", "K3")
+    plain_rel = BWD_BF16_PLAIN_REL if bf16_ops else BWD_F32_PLAIN_REL
+    plain_norm = BWD_BF16_PLAIN_NORM if bf16_ops else BWD_F32_PLAIN_REL
+    peak = BF16_FLOPS if bf16_ops else F32_FLOPS
     qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV).to(bf)
     finite = qkv.clone()
     q, k, v = qkv.unbind(2)
@@ -3259,10 +3339,10 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     _, kf, vf = finite.unbind(2)
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     up = [x.float() for x in (q, k, v)]
-    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
-    o32, lse32 = flash_attention.mha_flash(*up, lens, "default")
-    o_fin, lse_fin = flash_attention.mha_flash(q, kf, vf, lens, "default")
-    again = flash_attention.mha_flash(q, k, v, lens, "default")
+    o, lse = flash_attention.mha_flash(q, k, v, lens, prec)
+    o32, lse32 = flash_attention.mha_flash(*up, lens, prec)
+    o_fin, lse_fin = flash_attention.mha_flash(q, kf, vf, lens, prec)
+    again = flash_attention.mha_flash(q, k, v, lens, prec)
     torch.cuda.synchronize()
     checks = {"dtype": o.dtype == bf and lse.dtype == torch.float32,
               "bit_equal_f32_flavour": torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32),
@@ -3276,7 +3356,7 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     excess = float("-inf")
     for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
         sl = slice(i, i + 1)
-        ro, rlse = flash_attention.flash_attention_ref(q[sl], k[sl], v[sl], lens[sl], "default")
+        ro, rlse = flash_attention.flash_attention_ref(q[sl], k[sl], v[sl], lens[sl], prec)
         exact = attention_f64(up[0][sl], up[1][sl], up[2][sl], lens[sl])
         e = (o[sl].double() - exact).abs().max().item()
         ep = (ro.double() - exact).abs().max().item()
@@ -3290,20 +3370,19 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
            "fwd": {"max_abs_err": err, "max_abs_err_vs_f64": err_f64,
                    "plain_max_abs_err_vs_f64": err_plain_f64, "lse_max_abs_err": err_lse}}
-    b_ms, b_by = flash_bound(b, t, h, d, lens, BF16_FLOPS, io_bytes=2)
+    b_ms, b_by = flash_bound(b, t, h, d, lens, peak, io_bytes=2)
     res["fwd"] |= {"bound_ms": b_ms, "bound_by": b_by}
     iters = 10 if t > 1024 else 30
     up_c = [x.contiguous() for x in up]  # the f32-I/O flavour's inputs, for its times
     if kernel_times:
-        res["fwd"]["ms"] = time_ms(lambda: flash_attention.mha_flash(q, k, v, lens, "default"),
-                                   iters)
-        res["fwd"]["f32_io_ms"] = time_ms(
-            lambda: flash_attention.mha_flash(*up_c, lens, "default"), iters)
+        res["fwd"]["ms"], res["fwd"]["f32_io_ms"] = time_pair_ms(
+            lambda: flash_attention.mha_flash(q, k, v, lens, prec),
+            lambda: flash_attention.mha_flash(*up_c, lens, prec), iters)
     mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
     if timed:
         qb, kb, vb = (x.transpose(1, 2) for x in (q, kf, vf))
         res["fwd"]["plain_ms"] = time_ms(
-            lambda: flash_attention.flash_attention_ref(q, k, v, lens, "default"), 5)
+            lambda: flash_attention.flash_attention_ref(q, k, v, lens, prec), 5)
         res["fwd"]["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), 10)
     if bwd:
@@ -3311,7 +3390,7 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         names = ("dq", "dk", "dv")
 
         def grads(*a):
-            return flash_attention.flash_attention_bwd(*a, "default")
+            return flash_attention.flash_attention_bwd(*a, prec)
 
         outs = grads(q, k, v, o, lse, do, lens)
         outs32 = grads(*up, o.float(), lse, do.float(), lens)
@@ -3340,7 +3419,7 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         for i in range(b):
             sl = slice(i, i + 1)
             ref = flash_attention.flash_attention_bwd_ref(q[sl], k[sl], v[sl], o[sl], lse[sl],
-                                                          do[sl], lens[sl], "default")
+                                                          do[sl], lens[sl], prec)
             exact = attention_bwd_f64(up[0][sl], up[1][sl], up[2][sl], do[sl].float(), lens[sl])
             for n, ours, r, x in zip(names, outs, ref, exact):
                 ours, r = ours[sl].float(), r.float()
@@ -3361,13 +3440,19 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         # with one key, analytically 0) is held by the float64 rule alone
         live = [n for n in names if gmax[n] > BWD_NOISE]
         checks["bwd_vs_plain_and_f64"] = (
-            excess <= 0 and all(err_rel[n] <= BWD_BF16_PLAIN_REL + BF16_ULP_REL and
-                                err_norm[n] <= BWD_BF16_PLAIN_NORM + BF16_ULP_REL / 2
+            excess <= 0 and all(err_rel[n] <= plain_rel + BF16_ULP_REL and
+                                err_norm[n] <= plain_norm + BF16_ULP_REL / 2
                                 for n in live))
-        bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS, io_bytes=2)
-        do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens, bf16_io=True)
-        do32, di32, _ = flash_attention._bwd_args(*up_c, o.float(), lse, do.float(), lens,
-                                                  bf16_io=True)
+        bounds = flash_bwd_bounds(b, t, h, d, lens, peak, io_bytes=2)
+        do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+        do32, di32, _ = flash_attention._bwd_args(*up_c, o.float(), lse, do.float(), lens)
+
+        def kernel(key, *a):
+            if bf16_ops:
+                return flash_attention._bwd_bf16_kernel(key, *a)
+            return (flash_attention._bwd_dq_kernel if key == "dq"
+                    else flash_attention._bwd_dkv_kernel)(*a)
+
         for key, parts in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
             res[key] = {"max_abs_err": max(err[n] for n in parts),
                         "max_rel_err": max(err_rel[n] for n in parts),
@@ -3376,13 +3461,12 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                         "plain_max_abs_err_vs_f64": {n: plain_f64[n] for n in parts},
                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
             if kernel_times:
-                res[key]["ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
-                    key, q, k, v, do_, lse, di, lens_), iters)
-                res[key]["f32_io_ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
-                    key, *up_c, do32, lse, di32, lens_), iters)
+                res[key]["ms"], res[key]["f32_io_ms"] = time_pair_ms(
+                    lambda key=key: kernel(key, q, k, v, do_, lse, di, lens_),
+                    lambda key=key: kernel(key, *up_c, do32, lse, di32, lens_), iters)
         if timed:
             plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
-                q, k, v, o, lse, do, lens, "default"), 5)
+                q, k, v, o, lse, do, lens, prec), 5)
             qb, kb, vb = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                           for x in (q, kf, vf))
             out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
@@ -3393,22 +3477,23 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                 res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
     res["checks"] = checks
     if not all(checks.values()):
-        fail(f"flash bf16 I/O [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
+        fail(f"flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
              f"fwd {res['fwd']}; bwd {[res.get(k) for k in ('dq', 'dkv')]}")
     fwd = res["fwd"]
-    line = (f"  flash bf16 I/O [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: bf16(f32 flavour) "
-            f"bit-equal, NaN past the bound changes nothing; K1b O vs plain max|d| "
+    line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: bf16(f32 "
+            f"flavour) bit-equal, NaN past the bound changes nothing; {tags[0]} O vs plain max|d| "
             f"{fwd['max_abs_err']:.3g}, vs f64 {fwd['max_abs_err_vs_f64']:.3g} (plain "
             f"{fwd['plain_max_abs_err_vs_f64']:.3g})")
     if kernel_times:
-        line += f"; K1b {fwd['ms']:.4f} ms (f32 I/O {fwd['f32_io_ms']:.4f}, bound {b_ms:.4f} {b_by})"
+        line += (f"; {tags[0]} {fwd['ms']:.4f} ms (f32 I/O {fwd['f32_io_ms']:.4f}, bound "
+                 f"{b_ms:.4f} {b_by})")
     if bwd:
         rel = max(res["dq"]["max_rel_err"], res["dkv"]["max_rel_err"])
         norm = max(res["dq"]["norm_rel_err"], res["dkv"]["norm_rel_err"])
-        line += f"; K2b/K3b vs plain max|d|/max|g| {rel:.3g}, ||d||/||g|| {norm:.3g}"
+        line += f"; {tags[1]}/{tags[2]} vs plain max|d|/max|g| {rel:.3g}, ||d||/||g|| {norm:.3g}"
         if kernel_times:
-            line += (f"; K2b {res['dq']['ms']:.4f} ms (f32 I/O {res['dq']['f32_io_ms']:.4f}, "
-                     f"bound {res['dq']['bound_ms']:.4f}), K3b {res['dkv']['ms']:.4f} ms (f32 I/O "
+            line += (f"; {tags[1]} {res['dq']['ms']:.4f} ms (f32 I/O {res['dq']['f32_io_ms']:.4f}, "
+                     f"bound {res['dq']['bound_ms']:.4f}), {tags[2]} {res['dkv']['ms']:.4f} ms (f32 I/O "
                      f"{res['dkv']['f32_io_ms']:.4f}, bound {res['dkv']['bound_ms']:.4f})")
     if timed:
         line += f"; plain fwd {fwd['plain_ms']:.4f} ms, sdpa bf16 {fwd['library_ms']:.4f}"
@@ -3583,6 +3668,367 @@ def run_fast_bf16(card: str) -> None:
     print(f"fast_bf16: phase 13 took {out['phase_s']:.1f} s", flush=True)
 
 
+# ---------------- phase 14: bf16 activations on every attention path ----------------
+
+
+def fused_f64_of(x, params, lengths, heads: int, rounded: bool) -> torch.Tensor:
+    """The fused kernel's float64 oracle: ``fused_f64`` (K4b: x and the
+    weights rounded to bf16, ``rounded``) or the same of the unrounded
+    operands (K4)."""
+    if rounded:
+        return fused_f64(x, params, lengths, heads)
+    b, t, dm = x.shape
+    xd = x.double()
+    q, k, v = (F.linear(xd, w.double(), bias.double()).view(b, t, heads, -1)
+               for w, bias in zip(params[0::2], params[1::2]))
+    return attention_f64(q, k, v, lengths).transpose(1, 2)
+
+
+def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                       prec: str, kernel_time: bool = True) -> dict:
+    """K4's (``prec`` "highest") or K4b's ("default") bf16-I/O flavour on a
+    bf16 x at unit scale, zero past each bound, with the f32 weights at the
+    seeded init's scale: O bf16, bit-equal to the f32-I/O flavour's on the
+    upcast x rounded once; a 0-key row O = 0; against the plain version on
+    the same bf16 x and float64 (``fused_f64_of``): |O - O_f64| <= 1.5 x
+    the plain version's + 1.5 bf16 steps at its max + 1e-6 (phase 13's
+    rule for outputs rounded once); NaN past each bound the same bits in
+    every valid row, 123.0 there every row finite and the valid rows the
+    same bits; a rerun the same bits. Timed beside the f32-I/O flavour;
+    ``timed``: the plain version and ``F.linear`` + SDPA on the same bf16
+    x (the yardstick) too."""
+    h, dm = 12, 768
+    bf = torch.bfloat16
+    bf16_ops = prec_ops.is_bf16(prec)
+    tag = "K4b" if bf16_ops else "K4"
+    x = torch.randn(b, t, dm, generator=g)
+    params = [a.to(DEV) for _ in range(3) for a in (
+        torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(DEV).to(bf)
+    x32 = x.float()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+
+    def kernel(xx=x):
+        return fused_attention.fused_qkv_mha(xx, *params, lens, h, prec)
+
+    o = kernel()
+    o32 = kernel(x32)
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, h, prec)
+    torch.cuda.synchronize()
+    checks = {"dtype": o.dtype == bf, "bit_equal_f32_flavour": torch.equal(o, o32.to(bf)),
+              "finite": bool(torch.isfinite(o).all()),
+              "zero_key_rows": all(bool((o[i] == 0).all()) for i, n in enumerate(lengths)
+                                   if n == 0)}
+    del o32
+    err = (o.float() - ref.float()).abs().max().item()
+    err_f64 = err_plain_f64 = 0.0
+    excess = float("-inf")
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        exact = fused_f64_of(x32[sl], params, lens[sl], h, bf16_ops)
+        e = (o[sl].double() - exact).abs().max().item()
+        ep = (ref[sl].double() - exact).abs().max().item()
+        step = BF16_ULP_REL * exact.abs().max().item()
+        excess = max(excess, e - (1.5 * ep + 1.5 * step + 1e-6))
+        err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
+        del exact
+    checks["vs_plain_and_f64"] = excess <= 0
+    checks["rerun_same_bits"] = torch.equal(kernel(), o)
+    garbage_ok = True
+    if min(lengths) < t:
+        for fill, whole in ((float("nan"), False), (123.0, True)):
+            x_bad = x.clone()
+            for i, n in enumerate(lengths):
+                x_bad[i, n:] = fill
+            o_bad = kernel(x_bad)
+            garbage_ok &= all(torch.equal(o_bad[i, :, :n], o[i, :, :n])
+                              for i, n in enumerate(lengths))
+            if whole:
+                garbage_ok &= bool(torch.isfinite(o_bad).all())
+            del x_bad, o_bad
+    checks["garbage_past_bound"] = garbage_ok
+    if not all(checks.values()):
+        fail(f"fused bf16 I/O {prec} [{b}, {t}, {dm}] lengths {lengths[:8]}: {checks}; "
+             f"max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
+             f"{err_plain_f64:.3g} + 1.5 bf16 steps + 1e-6 by {excess:.3g}")
+    del ref
+    b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS if bf16_ops else F32_FLOPS,
+                             x_bytes=2)
+    res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()),
+           "max_abs_err": err, "max_abs_err_vs_f64": err_f64,
+           "plain_max_abs_err_vs_f64": err_plain_f64, "bound_ms": b_ms, "bound_by": b_by}
+    if kernel_time:
+        x32c = x32.contiguous()
+        res["ms"], res["f32_io_ms"] = time_pair_ms(kernel, lambda: kernel(x32c), 20)
+    if timed:
+        wqkv = torch.cat(params[0::2]).to(bf)
+        bqkv = torch.cat(params[1::2]).to(bf)
+        mask = None
+        if int(lens.min()) < t:
+            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+        def library():
+            qq, kk, vv = F.linear(x, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+        res["plain_ms"] = time_ms(lambda: fused_attention.fused_qkv_attention_ref(
+            x, *params, lens, h, prec), 5)
+        res["library_ms"] = time_ms(library, 10)
+    print(f"  fused bf16 I/O {prec} [{b}, {t}, {dm}] keys {int(lens.sum())}: bf16(f32 flavour) "
+          f"bit-equal, garbage past the bound changes no valid row; {tag} O vs plain max|d| "
+          f"{err:.3g}, vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}); {tag} "
+          f"{res.get('ms', float('nan')):.4f} ms (f32 I/O {res.get('f32_io_ms', float('nan')):.4f})"
+          f"  plain {res.get('plain_ms', float('nan')):.4f}  F.linear + sdpa bf16 "
+          f"{res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})", flush=True)
+    return res
+
+
+def check_bf16_paths_shapes() -> None:
+    """The five bf16-I/O flavours at their paths' shapes: K4 and K4b at the
+    scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key row), the
+    loss crop [32, 50], a ragged [8, 1024] and every plan edge; K1 at [96,
+    511], [24, 499] (with K2 and K3: the loss on 10 s clips) and a ragged
+    [8, 4095]; K2 and K3 at the loss crop [32, 50] too; K1, K2 and K3
+    untimed at every tile edge; each edge with a full, a ragged, a 1-key
+    and a 0-key row."""
+    g = torch.Generator().manual_seed(14)
+    rng = np.random.default_rng(14)
+
+    def rows(b, t, n=None):
+        return [t, t // 2, 1, 0] + [n or t] * (b - 4)
+
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    for prec, name in (("highest", "fused_qkv_attention_f32_bf16io_fwd"),
+                       ("default", "fused_qkv_attention_bf16io_fwd")):
+        res = {"main": check_fused_bf16io(96, 511, main_lens, g, True, prec),
+               "loss": check_fused_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, True, prec),
+               "ragged": check_fused_bf16io(8, 1024, [1024, 1023, 777, 513, 512, 64, 1, 0], g,
+                                            False, prec)}
+        for t in (1, 15, 16, 17, 63, 64, 65, 511, 1023, 1024):
+            res[f"edge_T{t}"] = check_fused_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, False,
+                                                   prec, kernel_time=False)
+        report["kernels"][name] = res
+    fl = {"main": check_flash_bf16io(96, 511, main_lens, g, timed=True, bwd=False,
+                                     prec="highest"),
+          "train": check_flash_bf16io(LOSS10_BATCH, 499, rows(LOSS10_BATCH, 499), g, timed=True,
+                                      prec="highest"),
+          "loss": check_flash_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True,
+                                     prec="highest"),
+          "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
+                                     timed=False, prec="highest")}
+    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+        fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                              kernel_times=False, prec="highest")
+    report["kernels"]["flash_attention_f32_bf16io_fwd"] = {
+        k: r["fwd"] | {"shape": r["shape"]} for k, r in fl.items()}
+    for key, name in (("dq", "flash_attention_bwd_dq_f32_bf16io"),
+                      ("dkv", "flash_attention_bwd_dkv_f32_bf16io")):
+        # the paths' shapes: the loss crop "main", [24, 499] (10 s clips) "train"
+        report["kernels"][name] = {("main" if k == "loss" else k): r[key] | {"shape": r["shape"]}
+                                   for k, r in fl.items() if key in r}
+
+
+def bf16_plain_paths(mode: str, sd: dict, waves: list, impl: str) -> tuple:
+    """A bf16 mode's plain path (``impl``'s attention through its plain
+    versions, plain LayerNorm) and the "exact" plain path, embedded on the
+    same waves."""
+    with plain_flash(mode):
+        plain = Nomad(device="cuda", config=plain_config(mode, attention_impl=impl), params=sd)
+        emb = plain.engine.embed_waves_device(waves)
+    del plain
+    exact = Nomad(device="cuda", config=plain_config(), params=sd)
+    exact_emb = exact.engine.embed_waves_device(waves)
+    del exact
+    return emb, exact_emb
+
+
+def bf16_path_vs_plain(what: str, emb: torch.Tensor, plain: torch.Tensor,
+                       exact_plain: torch.Tensor) -> dict:
+    """Phase 12's rule: a bf16 path's f32 embeddings, finite, within
+    TOL_REF_PATH + GRAD_MODE_FRAC times its plain path's distance to the
+    "exact" plain path."""
+    d_plain = (plain - exact_plain).abs().max().item()
+    d = (emb - plain).abs().max().item()
+    tol = TOL_REF_PATH + GRAD_MODE_FRAC * d_plain
+    print(f"{what}: max|d emb| vs its plain path {d:.3g} (<= {tol:.3g}: {TOL_REF_PATH} + "
+          f"{GRAD_MODE_FRAC} x {d_plain:.3g})", flush=True)
+    if emb.dtype != torch.float32 or not torch.isfinite(emb).all() or d > tol:
+        fail(f"{what}: embeddings {emb.dtype}, finite={bool(torch.isfinite(emb).all())}, "
+             f"vs its plain path {d:.3g} > {tol:.3g}?")
+    return {"vs_plain_path_emb": d, "plain_vs_exact_plain_emb": d_plain, "tolerance": tol}
+
+
+def run_bf16_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -> dict:
+    """``Nomad(config=Wav2Vec2Config.fast(encoder_dtype=bf16,
+    attention_impl="fused_qkv"))`` on phase 4's files: launch counts of a
+    predict (K4b-bf16 12, K5 2, K5-bf16 24 per batch), warm device passes
+    beside phase 12's fused "fast" pass (f32 activations) in this run, own
+    peak, one profiled pass, and the embeddings against its plain path by
+    phase 12's rule; then ``balanced(encoder_dtype=bf16,
+    attention_impl="fused_qkv")`` (K4-bf16 12) and ``base(encoder_dtype=
+    bf16)`` (K1-bf16 12) on one batch of 96 files, each against its plain
+    path by the same rule."""
+    total_s = (N_NMR + N_DEG) * SECONDS
+    leftover_gb = settled_allocated_gb()
+    nomad = Nomad(device="cuda", params=sd,
+                  config=mode_config("fast_bf16", attention_impl="fused_qkv"))
+    out = tmp / "fused_fast_bf16"
+    out.mkdir()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    nomad.predict("dir", nmr, deg, str(out))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    batches = nomad.engine.batches
+    report["launches"]["scoring_fused_fast_bf16"] = counts
+    want = launches_want(k4b_io=12 * batches, k5=2 * batches, k5_io=24 * batches)
+    if counts != want or batches == 0:
+        fail(f"fused fast bf16: launch counts {counts} for {batches} batches (want {want})")
+    check_csvs(out, "fused fast bf16 API")
+    paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+    waves = nomad.engine.load_waves([str(p) for p in paths])
+    emb, passes = timed_passes(nomad, waves)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile_fused_fast_bf16")
+    del nomad
+    fused_fast = Nomad(device="cuda", precision="fast", params=sd,
+                       config=mode_config("fast", attention_impl="fused_qkv"))
+    _, passes_f32 = timed_passes(fused_fast, waves)
+    del fused_fast
+    pass_s, pass_f32_s = float(np.median(passes)), float(np.median(passes_f32))
+    plain, exact_plain = bf16_plain_paths("fast_bf16", sd, waves, "fused_qkv")
+    res = {"files": N_NMR + N_DEG, "batches": batches, "pass_s": passes,
+           "wav_s_per_s_pass": total_s / pass_s, "fused_fast_pass_s": passes_f32,
+           "fused_fast_wav_s_per_s_pass": total_s / pass_f32_s, "peak_mem_gb": peak_gb,
+           "leftover_mem_gb": leftover_gb, "own_peak_mem_gb": peak_gb - leftover_gb, "card": card}
+    print(f"fused fast bf16: {batches} batches, launches {counts}; device pass {pass_s:.3f} s = "
+          f"{total_s / pass_s:.1f} wav-s/s (fused fast, f32 activations, in this run: "
+          f"{pass_f32_s:.3f} s = {total_s / pass_f32_s:.1f} wav-s/s); own peak "
+          f"{res['own_peak_mem_gb']:.5f} GB  [{card}]", flush=True)
+    res |= bf16_path_vs_plain("fused fast bf16", emb, plain, exact_plain)
+    del emb, plain, exact_plain
+    for mode, impl, key, want in (
+            ("balanced_bf16", "fused_qkv", "fused_balanced_bf16",
+             launches_want(k4_io=12, k5=2, k5_io=24)),
+            ("exact_bf16", "kernel", "base_bf16", launches_want(k1_io=12, k5=2, k5_io=24))):
+        one = waves[:96]
+        model = Nomad(device="cuda", params=sd, config=mode_config(mode, attention_impl=impl))
+        reset_launches()
+        emb = model.engine.embed_waves_device(one)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        report["launches"][f"scoring_{key}"] = counts
+        print(f"{key}: one batch of {len(one)} files, launches {counts} (want {want})",
+              flush=True)
+        if counts != want:
+            fail(f"{key}: launch counts {counts} (want {want})")
+        del model
+        plain, exact_plain = bf16_plain_paths(mode, sd, one, impl)
+        res[key] = bf16_path_vs_plain(key, emb, plain, exact_plain)
+        del emb, plain, exact_plain
+    return res
+
+
+BF16_PATH_LAUNCHES = {
+    "train_step": launches_want(k5=2, k5_io=48),
+    "eval_step": launches_want(k4b_io=12, k5=2, k5_io=24),
+    "train_step_rates0": launches_want(k4b_io=24, k1b_io=12, k2b_io=12, k3b_io=12, k5=2,
+                                       k5_io=48)}
+
+
+def fused_fast_bf16_steps(card: str, cfg: dict, batch, init: dict) -> dict:
+    """``Training(model_config=fast_bf16's config with attention_impl=
+    "fused_qkv")`` at phase 13's recipe (remat on): the recipe's step (the
+    plain dropout attention, as the JAX package's ``use_fused`` falls back:
+    K5 only), its eval step and the step with the rates at 0 (K4b-bf16,
+    its backward through K1b-bf16 + K2b-bf16 + K3b-bf16), each with its
+    launch counts and warm times; then the rates-at-0 comparison with the
+    fused fast_bf16 plain path by phase 10's rule."""
+    out: dict = {}
+    config = dataclasses.replace(
+        triplet.resolve_model_config(dict(cfg, precision="fast_bf16")),
+        attention_impl="fused_qkv")
+    tr, out["loss"], _, _ = first_train_step(
+        "train_step_fused_fast_bf16", dict(cfg, precision="fast_bf16"), batch,
+        BF16_PATH_LAUNCHES["train_step"], init, config)
+    out["train_step"] = time_train_steps(card, "train_step fused fast_bf16 (dropout, remat)",
+                                         tr, batch)
+    reset_launches()
+    tr.eval_step(batch)
+    counts = read_launches()
+    report["launches"]["eval_step_fused_fast_bf16"] = counts
+    if counts != BF16_PATH_LAUNCHES["eval_step"]:
+        fail(f"trainer fused fast_bf16: eval step launch counts {counts} "
+             f"(want {BF16_PATH_LAUNCHES['eval_step']})")
+    out["eval_step"] = time_steps(lambda: tr.eval_step(batch), TRAIN_STEPS, card,
+                                  "trainer: eval_step fused fast_bf16")
+    emb_dim = tr.emb_dim
+    release(tr)
+    tr, _, _, _ = first_train_step(
+        "train_step_rates0_fused_fast_bf16", cfg, batch, BF16_PATH_LAUNCHES["train_step_rates0"],
+        init, dataclasses.replace(config, **ZERO_RATES))
+    out["train_step_rates0"] = time_train_steps(
+        card, "train_step fused fast_bf16 (rates at 0, remat)", tr, batch)
+    profile_run(lambda: tr.train_step(batch, step_gen()),
+                "profile_train_step_rates0_fused_fast_bf16")
+    release(tr)
+    out["rates0_kernel_vs_plain"] = rates0_vs_plain("fast_bf16", cfg, batch, init, emb_dim,
+                                                    attention_impl="fused_qkv")
+    return out
+
+
+def run_bf16_paths(card: str) -> None:
+    """Phase 14: the bf16-I/O flavours of K4, K4b, K1, K2 and K3 against
+    their f32-I/O flavour, their plain version and float64 at their shapes;
+    then on phase 12's and 13's seeded BASE state dicts the scoring path
+    ``fast(encoder_dtype=bf16, attention_impl="fused_qkv")`` (the main
+    path), "balanced" with ``fused_qkv`` and BASE on bf16 activations; the
+    loss of the three at 32 x 16,384 and 24 x 160,000 samples; and the
+    trainer's fast_bf16 on the fused path."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    print("bf16 paths: the bf16-I/O flavours of K4, K4b, K1, K2 and K3 vs their f32-I/O "
+          "flavour and plain versions:", flush=True)
+    check_bf16_paths_shapes()
+    sd = SHARED.get("sd")
+    if sd is None:  # phase 14 alone: Nomad's seeded init, as phase 9 makes it
+        sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_bf16_paths_") as tmp:
+        tmp = Path(tmp)
+        nmr, deg = write_wavs(tmp)
+        out["scoring"] = run_bf16_scoring(card, sd, tmp, nmr, deg)
+    # the loss: both forwards on the kernel, the estimate's backward through
+    # the recompute (fused: K1's flavour + K2 + K3) or K2 + K3
+    for mode, impl, tag, want in (
+            ("fast_bf16", "fused_qkv", "fused_fast_bf16",
+             launches_want(k4b_io=24, k1b_io=12, k2b_io=12, k3b_io=12, k5=4, k5_io=48)),
+            ("exact_bf16", "kernel", "base_bf16",
+             launches_want(k1_io=24, k2_io=12, k3_io=12, k5=4, k5_io=48)),
+            ("exact_bf16", "fused_qkv", "fused_base_bf16",
+             launches_want(k4_io=24, k1_io=12, k2_io=12, k3_io=12, k5=4, k5_io=48))):
+        config = mode_config(mode, attention_impl=impl)
+        for key, n, samples in ((f"loss_path_{tag}", LOSS_BATCH, LOSS_SAMPLES),
+                                (f"loss_path_10s_{tag}", LOSS10_BATCH, LOSS10_SAMPLES)):
+            run_loss_path(card, key, config, want, n, samples, mode, sd, plain_impl=impl,
+                          steps=BF16_PATH_LOSS_STEPS)
+    sd10 = SHARED.get("sd10")
+    if sd10 is None:  # as phase 10 makes it
+        sd10 = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    with tempfile.TemporaryDirectory(prefix="nomad_bf16_paths_train_") as tmp:
+        cfg = write_train_tree(Path(tmp))
+        ds = train_data.TripletDataset(cfg, "train_df", level=cfg["current_level"])
+        batch = train_data._pinned(train_data.collate_triplets(
+            [ds.load_item(i) for i in range(cfg["train_bs"])]))
+        out["trainer_fused_fast_bf16"] = fused_fast_bf16_steps(card, cfg, batch, sd10)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["bf16_paths"] = out
+    print(f"bf16 paths: phase 14 took {out['phase_s']:.1f} s", flush=True)
+
+
 def run_scoring_k1(card: str) -> None:
     """Phase 4's K1 path alone (``--only-scoring``)."""
     report.setdefault("launches", {})
@@ -3613,6 +4059,8 @@ def main() -> None:
                       help="phases 1, 2 and 12 only; ends with the report line")
     only.add_argument("--only-fast-bf16", action="store_true",
                       help="phases 1, 2 and 13 only; ends with the report line")
+    only.add_argument("--only-bf16-paths", action="store_true",
+                      help="phases 1, 2 and 14 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -3624,7 +4072,8 @@ def main() -> None:
              "only_precision": lambda card: (build_kernels(), run_precision(card)),
              "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card)),
              "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card)),
-             "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card))}
+             "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card)),
+             "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -3642,6 +4091,7 @@ def main() -> None:
     run_grad_modes(card)
     run_fused_modes(card)
     run_fast_bf16(card)
+    run_bf16_paths(card)
 
     rows = []
     for name, src, replaces in (
@@ -3670,6 +4120,16 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:222"),
         ("layernorm_fwd_bf16io", "nomad_tpu_torch/csrc/layernorm.cu",
          "nomad_tpu/ops/layernorm.py:31"),
+        ("fused_qkv_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
+        ("fused_qkv_attention_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
+        ("flash_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
+         "nomad_tpu/ops/flash_attention.py:37"),
+        ("flash_attention_bwd_dq_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+         "nomad_tpu/ops/flash_attention.py:182"),
+        ("flash_attention_bwd_dkv_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+         "nomad_tpu/ops/flash_attention.py:222"),
     ):
         k = report["kernels"][name]
         m = k["main"]

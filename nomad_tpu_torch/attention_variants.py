@@ -25,7 +25,8 @@ unchanged kernel at the paths' shapes with CUDA events:
   taken out of the column loop (wrong sums), which prices half of the
   score loop's shared-memory loads.
 
-The variants compute nothing useful and are never loaded by the port.
+Each entry is called with ``bf16_io`` 0 (the f32 flavours). The variants
+compute nothing useful and are never loaded by the port.
 Prints one JSON object with the times (ms) and the card's name and power
 limit.
 """
@@ -51,7 +52,7 @@ VARIANTS = {
     "k4_phase1_no_cluster": ("fused_attention.cu", [
         ("attend_keys(qs, len,", "attend_keys(qs, 0,"),
         ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
-        ("if (max_active_clusters(cluster) == 0) return", "if (false) return")]),
+        ("if (max_active_clusters<IO>(cluster) == 0) return", "if (false) return")]),
     "k1": ("flash_attention.cu", []),
     "k1_two_blocks": ("flash_attention.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -140,10 +141,10 @@ def main() -> None:
         o = torch.empty(b, t, h, 64, device=dev)
         for name in ("k4", "k4_phase1", "k4_phase2", "k4_phase1_no_cluster"):
             fn = libs[name].nomad_fused_qkv_attention_fwd
-            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 4 + [p]
+            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
             args = (x.data_ptr(), *(a.data_ptr() for a in params), lengths.data_ptr(),
                     o.data_ptr(), b, t, h, dm, *o.stride()[:3], 0.125, plan.cluster,
-                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, stream)
+                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, 0, stream)
             if fn(*args):
                 raise RuntimeError(f"{name} [{b}, {t}]: launch refused")
             out["ms"][f"{name} [{b}, {t}, {dm}]"] = time_ms(lambda: fn(*args))
@@ -153,10 +154,10 @@ def main() -> None:
     o, lse = torch.empty(b, t, h, 64, device=dev), torch.empty(b, h, t, device=dev)
     for name in ("k1", "k1_two_blocks"):
         fn = libs[name].nomad_flash_attention_fwd
-        fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, t, h, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], 0.125, K1_SMEM[name], stream)
+                *o.stride()[:3], 0.125, K1_SMEM[name], 0, stream)
         if fn(*args):
             raise RuntimeError(f"{name}: launch refused")
         out["ms"][f"{name} [{b}, {t}, {h}, 64]"] = time_ms(lambda: fn(*args))
@@ -181,11 +182,11 @@ def main() -> None:
             total = 0.0
             for entry, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
                 fn = getattr(libs[name], f"nomad_flash_attention_bwd_{entry}")
-                fn.argtypes = [p] * (7 + len(outs)) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
+                fn.argtypes = [p] * (7 + len(outs)) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs),
                         b, t, h, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *do.stride()[:3], 0.125, rows, smem, stream)
+                        *do.stride()[:3], 0.125, rows, smem, 0, stream)
                 if fn(*args):
                     raise RuntimeError(f"{name} {entry} [{b}, {t}]: launch refused")
                 ms = time_ms(lambda: fn(*args))

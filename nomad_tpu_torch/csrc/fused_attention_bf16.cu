@@ -59,12 +59,25 @@
 //     peers have read it.
 //   * Every query row t < T is written; a row with no valid key gets
 //     O = 0. No atomics: a rerun gives the same bits.
+//
+// Two I/O flavours from one template: x and O in f32, or in bf16 (bf16
+// activations with fused_qkv at a "default" island, where the TPU kernel
+// reads the bf16 x block through astype(float32), :111, :118, and stores O
+// in x's dtype, :131). The weights and biases stay f32 in both and are
+// rounded into the slice as before. The bf16 flavour copies x's slices as
+// bf16 by cp.async (32 bytes a row, not 64) and takes them into the
+// rounded slice as they are: a bf16 value rounds to itself, so the
+// staging step's rounding exists for f32 x alone. O is rounded once from
+// acc / l. The products see the same operands, so its O is the f32
+// flavour's on the upcast x, rounded once, bit for bit.
 // Launches on the caller's stream and allocates nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -85,8 +98,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct ProjSmem {
   // f32 slices as cp.async lands them (rows of 16 floats read and written
-  // in 16-byte pieces in thread order: no padding needed), and the slice
-  // in flight rounded to bf16
+  // in 16-byte pieces in thread order: no padding needed; a bf16 x row
+  // fills the first 32 bytes of its row), and the slice in flight rounded
+  // to bf16
   float stage[2][kStageRows][kSlice];
   __nv_bfloat16 ops[kStageRows][kLdB];
 };
@@ -153,13 +167,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows r0 .. r0 + 63 of xb ([T, DM], row-major; rows past T read as 0)
-// times the 64 head rows of tensor kinds[n] (0: Q, 1: K, 2: V) of w
-// ([DM, DM] each), in one bf16 pass with f32 sums, plus the bias in f32,
-// times `scale` for Q, stored as bf16 into slot[n]; rows of K and V at
-// t >= len are stored as 0. Every thread calls it alike.
-template <int NT>
-__device__ __forceinline__ void project(const float* __restrict__ xb,
+// Rows r0 .. r0 + 63 of xb ([T, DM], row-major, f32 or bf16; rows past T
+// read as 0) times the 64 head rows of tensor kinds[n] (0: Q, 1: K, 2: V)
+// of w ([DM, DM] each), in one bf16 pass with f32 sums, plus the bias in
+// f32, times `scale` for Q, stored as bf16 into slot[n]; rows of K and V
+// at t >= len are stored as 0. Every thread calls it alike.
+template <int NT, typename XT>
+__device__ __forceinline__ void project(const XT* __restrict__ xb,
                                         const float* const (&w)[3],
                                         const float* const (&bias)[3], const int (&kinds)[NT],
                                         float scale, int r0, int T, int len, int DM, int h,
@@ -177,9 +191,14 @@ __device__ __forceinline__ void project(const float* __restrict__ xb,
       const int row = idx / (kSlice / 4);
       const int c = idx % (kSlice / 4);
       if (row < kRows) {
+        // a bf16 row is two 16-byte pieces: pieces 2 and 3 copy nothing
+        constexpr int kXVec = 16 / sizeof(XT);
         const bool ok = r0 + row < T;
-        cp_async16(&ps.stage[buf][row][4 * c],
-                   ok ? xb + static_cast<long long>(r0 + row) * DM + k0 + 4 * c : xb, ok ? 16 : 0);
+        if (kXVec * c < kSlice) {
+          cp_async16(reinterpret_cast<XT*>(ps.stage[buf][row]) + kXVec * c,
+                     ok ? xb + static_cast<long long>(r0 + row) * DM + k0 + kXVec * c : xb,
+                     ok ? 16 : 0);
+        }
       } else {
         const int n = (row - kRows) / kD;
         const int r = (row - kRows) % kD;
@@ -206,15 +225,20 @@ __device__ __forceinline__ void project(const float* __restrict__ xb,
       fetch((s + 1) * kSlice, (s + 1) & 1);
       cp_async_commit();
     }
-    // the staging step: round slice s to bf16
+    // the staging step: round slice s to bf16 (a bf16 x row as it is)
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
       const int idx = tid + e * kThreads;
       const int row = idx / (kSlice / 4);
       const int c = idx % (kSlice / 4);
-      const float4 f = *reinterpret_cast<const float4*>(&ps.stage[s & 1][row][4 * c]);
-      *reinterpret_cast<uint2*>(&ps.ops[row][4 * c]) =
-          make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+      uint2 u;
+      if (std::is_same_v<XT, __nv_bfloat16> && row < kRows) {
+        u = reinterpret_cast<const uint2*>(ps.stage[s & 1][row])[c];
+      } else {
+        const float4 f = *reinterpret_cast<const float4*>(&ps.stage[s & 1][row][4 * c]);
+        u = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+      }
+      *reinterpret_cast<uint2*>(&ps.ops[row][4 * c]) = u;
     }
     __syncthreads();
     // A: the warp's 16 x rows (matrices: rows 0-7 / 8-15 at k 0-7, then
@@ -252,12 +276,13 @@ __device__ __forceinline__ void project(const float* __restrict__ xb,
   }
 }
 
+template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_qkv_fwd_bf16_kernel(const float* __restrict__ x, const float* __restrict__ wq,
+fused_qkv_fwd_bf16_kernel(const IO* __restrict__ x, const float* __restrict__ wq,
                           const float* __restrict__ bq, const float* __restrict__ wk,
                           const float* __restrict__ bk, const float* __restrict__ wv,
                           const float* __restrict__ bv, const int* __restrict__ lengths,
-                          float* __restrict__ o, int T, int DM, int tensors,
+                          IO* __restrict__ o, int T, int DM, int tensors,
                           long long sob, long long sot, long long soh, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -272,7 +297,7 @@ fused_qkv_fwd_bf16_kernel(const float* __restrict__ x, const float* __restrict__
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
-  const float* xb = x + static_cast<long long>(b) * T * DM;
+  const IO* xb = x + static_cast<long long>(b) * T * DM;
   const bool split_rows = tensors == 3;
   const float* const w[3] = {wq, wk, wv};
   const float* const bias[3] = {bq, bk, bv};
@@ -433,26 +458,37 @@ fused_qkv_fwd_bf16_kernel(const float* __restrict__ x, const float* __restrict__
       const int t = q0 + 16 * warp + g + 8 * i;
       if (t >= T) continue;
       const float inv = totals[i] > 0.f ? 1.f / totals[i] : 0.f;
-      float* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
+      IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) =
-            make_float2(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+        const float o0 = acc[j][2 * i] * inv, o1 = acc[j][2 * i + 1] * inv;
+        if constexpr (std::is_same_v<IO, float>) {
+          *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) = make_float2(o0, o1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c) = __floats2bfloat162_rn(o0, o1);
+        }
       }
     }
   }
   cluster.sync();  // peers have finished reading this block's slots
 }
 
+template <typename IO>
+cudaError_t configure_kernel() {
+  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<IO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<IO>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
 cudaError_t configure(int cluster) {
   static bool done = false;
   if (!done) {
-    cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
+    cudaError_t err = configure_kernel<float>();
+    if (err == cudaSuccess) err = configure_kernel<__nv_bfloat16>();
     if (err != cudaSuccess) return err;
     done = true;
   }
@@ -475,38 +511,57 @@ cudaLaunchConfig_t launch_config(int cluster, int H, int B, cudaStream_t stream,
   return cfg;
 }
 
-// Clusters of `cluster` blocks that fit on the card at once (cached; 0
-// means the launch cannot run).
+// Clusters of `cluster` blocks of one flavour that fit on the card at once
+// (cached; 0 means the launch cannot run).
+template <typename IO>
 int max_active_clusters(int cluster) {
   static int cache[kMaxCluster + 1] = {};
   if (cache[cluster] == 0) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = launch_config(cluster, 1, 1, nullptr, &attr);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_bf16_kernel, &cfg) != cudaSuccess) n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_bf16_kernel<IO>, &cfg) != cudaSuccess) {
+      n = 0;
+    }
     cache[cluster] = n > 0 ? n : -1;
   }
   return cache[cluster] > 0 ? cache[cluster] : 0;
 }
 
+template <typename IO>
+cudaError_t launch(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
+                   const void* wv, const void* bv, const void* lengths, void* o, int B, int T,
+                   int H, int DM, long long sob, long long sot, long long soh, float scale,
+                   int cluster, int tensors, cudaStream_t stream) {
+  if (max_active_clusters<IO>(cluster) == 0) return cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(cluster, H, B, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel<IO>, static_cast<const IO*>(x),
+                            static_cast<const float*>(wq), static_cast<const float*>(bq),
+                            static_cast<const float*>(wk), static_cast<const float*>(bk),
+                            static_cast<const float*>(wv), static_cast<const float*>(bv),
+                            static_cast<const int*>(lengths), static_cast<IO*>(o), T, DM,
+                            tensors, sob, sot, soh, scale);
+}
+
 }  // namespace
 
-// x: [B, T, DM] f32 contiguous, DM = H * 64; wq, wk, wv: [DM, DM] f32
-// contiguous (nn.Linear's [out, in]); bq, bk, bv: [DM]; lengths: int32
-// [B]; o: [B, T, H, 64] f32 addressed through its strides (in elements;
-// unit stride on the last axis, the others even, 8-byte aligned).
-// T <= 1024. The launch plan (ops/fused_attention.py::fused_launch_plan at
-// precision "default"): cluster blocks per (batch, head) along grid x,
-// rows per block, tensors per block (3: a cluster along T; 1: one tensor
-// per block, T <= 64) and the dynamic shared memory, each checked against
-// the kernel's own rule. A cluster size the card cannot hold returns
-// cudaErrorInvalidConfiguration. Returns cudaGetLastError() after the
-// launch.
+// x: [B, T, DM] contiguous, DM = H * 64, f32 (bf16_io = 0) or bf16
+// (bf16_io = 1); wq, wk, wv: [DM, DM] f32 contiguous (nn.Linear's [out,
+// in]); bq, bk, bv: [DM] f32; lengths: int32 [B]; o: [B, T, H, 64] in x's
+// type, addressed through its strides (in elements; unit stride on the
+// last axis, the others even, 8-byte aligned). T <= 1024. The launch plan
+// (ops/fused_attention.py::fused_launch_plan at precision "default"):
+// cluster blocks per (batch, head) along grid x, rows per block, tensors
+// per block (3: a cluster along T; 1: one tensor per block, T <= 64) and
+// the dynamic shared memory, each checked against the kernel's own rule. A
+// cluster size the card cannot hold returns cudaErrorInvalidConfiguration.
+// Returns cudaGetLastError() after the launch.
 extern "C" int nomad_fused_qkv_attention_bf16_fwd(
     const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
     const void* wv, const void* bv, const void* lengths, void* o, int B, int T, int H, int DM,
     long long sob, long long sot, long long soh, float scale, int cluster, int rows,
-    int tensors, int smem_bytes, void* stream) {
+    int tensors, int smem_bytes, int bf16_io, void* stream) {
   if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
   }
@@ -519,29 +574,28 @@ extern "C" int nomad_fused_qkv_attention_bf16_fwd(
   }
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
-  if (max_active_clusters(cluster) == 0) return cudaErrorInvalidConfiguration;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(cluster, H, B, static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel, static_cast<const float*>(x),
-                           static_cast<const float*>(wq), static_cast<const float*>(bq),
-                           static_cast<const float*>(wk), static_cast<const float*>(bk),
-                           static_cast<const float*>(wv), static_cast<const float*>(bv),
-                           static_cast<const int*>(lengths), static_cast<float*>(o), T, DM,
-                           tensors, sob, sot, soh, scale);
+  auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
+  err = run(x, wq, bq, wk, bk, wv, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
+            tensors, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
-// Occupancy of K4b at a cluster size: resident blocks per SM and clusters
-// on the card at once.
-extern "C" int nomad_fused_qkv_attention_bf16_fwd_occupancy(int cluster, int* blocks_per_sm,
-                                                            int* clusters) {
+// Occupancy of K4b (its f32, bf16_io = 0, or bf16 I/O flavour) at a
+// cluster size: resident blocks per SM and clusters on the card at once.
+extern "C" int nomad_fused_qkv_attention_bf16_fwd_occupancy(int cluster, int bf16_io,
+                                                            int* blocks_per_sm, int* clusters) {
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_qkv_fwd_bf16_kernel,
-                                                      kThreads, kSmemBytes);
-  *clusters = max_active_clusters(cluster);
+  if (bf16_io) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_qkv_fwd_bf16_kernel<__nv_bfloat16>, kThreads, kSmemBytes);
+    *clusters = max_active_clusters<__nv_bfloat16>(cluster);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_qkv_fwd_bf16_kernel<float>, kThreads, kSmemBytes);
+    *clusters = max_active_clusters<float>(cluster);
+  }
   return static_cast<int>(err);
 }
 

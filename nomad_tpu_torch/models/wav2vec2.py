@@ -57,10 +57,13 @@ activations: the stack's input is cast after the encoder LayerNorm, its
 dropout and the mask, as the JAX package casts it; the products are bf16
 in and out (``ops/precision.py``), GELU, dropout, the residual adds and
 the masks run in bf16, the block LayerNorms are K5's bf16-I/O flavour and
-the attention K1b's, K2b's and K3b's (f32 statistics and softmax inside).
-The two LayerNorms outside the stack stay f32, and the heads pool in f32.
-Only the "default" attention island with the "kernel" or "ref" attention
-is ported with it.
+the attention the bf16-I/O flavour of its island's kernels (K1b, K2b and
+K3b at "default", K1, K2 and K3 at "high" or "highest"; f32 statistics
+and softmax inside). The fused path takes K4b's or K4's bf16-I/O flavour
+and, as the JAX package hands its fused path the raw f32 parameters, the
+f32 products of ``precision.linear_raw_weights`` around it. The two
+LayerNorms outside the stack stay f32, and the heads pool in f32. Every
+island and every ``attention_impl`` takes it.
 
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
@@ -200,17 +203,6 @@ class Wav2Vec2Config:
         if self.encoder_dtype not in (None, torch.bfloat16):
             raise ValueError(f"encoder_dtype must be None or torch.bfloat16, got "
                              f"{self.encoder_dtype!r}")
-        if self.encoder_dtype is not None and self.attention_impl == "fused_qkv":
-            raise NotImplementedError(
-                "encoder_dtype=bfloat16 with attention_impl='fused_qkv' needs the bf16-I/O "
-                "flavour of K4/K4b, which is not ported yet (ROADMAP Queue 2 item 3); use "
-                "attention_impl='kernel'")
-        if self.encoder_dtype is not None and self.attn_score_prec != "default":
-            raise NotImplementedError(
-                f"encoder_dtype=bfloat16 with the attention island {self.attn_score_prec!r} "
-                "would need K1's f32 flavour with bf16 I/O, which no recipe of the JAX package "
-                "sets and the port does not have (ROADMAP Queue 2 item 3); use the 'default' "
-                "attention island (Wav2Vec2Config.fast)")
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":

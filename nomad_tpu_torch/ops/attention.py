@@ -53,17 +53,22 @@ def dropout(x, rate: float, generator=None):
 
 
 def _scores(q, k, precision):
-    """q [B, T, H, D] . k [B, T, H, D]^T -> [B, H, T, T]."""
+    """q [B, T, H, D] . k [B, T, H, D]^T -> [B, H, T, T] in f32. Off
+    "default" bf16 operands are upcast first (exactly): ``mha_xla``'s
+    einsum sums them into f32 (``preferred_element_type``), where a bf16
+    einsum would round each score."""
     if is_bf16(precision):
         return matmul_bf16(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
-    return torch.einsum("bqhd,bkhd->bhqk", q, k)
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
 
 
 def _attend(weights, v, precision):
-    """weights [B, H, T, T] . v [B, T, H, D] -> [B, T, H, D]."""
+    """weights [B, H, T, T] . v [B, T, H, D] -> [B, T, H, D] in f32 (bf16
+    operands upcast off "default", as ``_scores``); the callers round it
+    once to v's dtype."""
     if is_bf16(precision):
         return matmul_bf16(weights, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
 
 
 def _softmax_weights(q, k, key_mask, precision):

@@ -19,12 +19,13 @@ flavour: bf16 products, f32 accumulation, exp and masks) on CUDA tensors,
 ``FlashAttention`` is the differentiable form, one
 ``torch.autograd.Function`` over both.
 
-K1b, K2b and K3b also take bf16 tensors (the trainer's ``fast_bf16`` block
+Every kernel also takes bf16 tensors (bf16 activations in the block
 stack, where the TPU kernels read bf16 blocks through ``astype(float32)``
-and store in the inputs' dtype): their bf16-I/O flavours, built from the
-same templates, return O, dQ, dK and dV in bf16, each the f32-I/O
-flavour's output on the upcast inputs rounded once; LSE and Di stay f32.
-K1, K2 and K3 take float32 only.
+and store in the inputs' dtype): the bf16-I/O flavours of K1b, K2b and K3b
+(the trainer's ``fast_bf16``) and of K1, K2 and K3 (bf16 activations at a
+"highest" or "high" attention island), built from the same templates,
+return O, dQ, dK and dV in bf16, each the f32-I/O flavour's output on the
+upcast inputs rounded once; LSE and Di stay f32.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ _LD_S = BLOCK_K + 4
 # Di in f32. Blocks per SM: what the kernels are compiled for.
 BWD_BF16_ROWS, BWD_BF16_LD, BWD_BF16_BLOCKS_PER_SM = 64, HEAD_DIM + 8, 2
 
-# Launches of K1, K1b, K2, K3, K2b and K3b, and of the bf16-I/O flavours of
-# K1b, K2b and K3b, since each count was last set to 0.
+# Launches of K1, K1b, K2, K3, K2b and K3b, of the bf16-I/O flavours of
+# K1b, K2b and K3b (``*_bf16_io``) and of K1, K2 and K3
+# (``*_f32_bf16_io``), since each count was last set to 0.
 launches = 0
 launches_bf16 = 0
 launches_bwd_dq = 0
@@ -73,6 +75,9 @@ launches_bwd_dkv_bf16 = 0
 launches_bf16_io = 0
 launches_bwd_dq_bf16_io = 0
 launches_bwd_dkv_bf16_io = 0
+launches_f32_bf16_io = 0
+launches_bwd_dq_f32_bf16_io = 0
+launches_bwd_dkv_f32_bf16_io = 0
 
 
 def flash_attention_ref(q, k, v, lengths, precision="highest"):
@@ -190,18 +195,19 @@ def _lib():
     fn = lib.nomad_flash_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         occ = lib.nomad_flash_attention_fwd_occupancy
-        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
-def flash_occupancy() -> int:
-    """Blocks of K1 resident on one SM at its shared memory (the card)."""
+def flash_occupancy(bf16_io: bool = False) -> int:
+    """Blocks of K1 (its bf16-I/O flavour with ``bf16_io``) resident on
+    one SM at its shared memory (the card)."""
     lib = _lib()
     blocks = ctypes.c_int(0)
-    _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(ctypes.byref(blocks)),
+    _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(int(bf16_io), ctypes.byref(blocks)),
                  "flash attention occupancy")
     return blocks.value
 
@@ -228,15 +234,15 @@ def _check_qkv(name, x, shape, device, dtype=torch.float32):
         )
 
 
-def _check_inputs(q, k, v, lengths, bf16_io: bool = False):
-    """Shapes, strides and dtypes the kernels take: float32 q, k and v, or
-    (``bf16_io``: K1b, K2b and K3b) all three float32 or all bfloat16."""
+def _check_inputs(q, k, v, lengths):
+    """Shapes, strides and dtypes the kernels take: q, k and v all float32
+    or all bfloat16."""
     b, t, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash kernel: head width {d} unsupported (only {HEAD_DIM})")
     if b > 65535 or h > 65535:
         raise ValueError(f"flash kernel: grid limits exceeded (B={b}, H={h})")
-    dtype = q.dtype if bf16_io and q.dtype == torch.bfloat16 else torch.float32
+    dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_qkv(name, x, (b, t, h, d), q.device, dtype)
     if lengths.dtype != torch.int32 or lengths.shape != (b,) or lengths.device != q.device:
@@ -270,7 +276,7 @@ def _flash_bf16_kernel(q, k, v, lengths):
     accumulation and softmax), the same inputs and outputs as K1; on bf16
     q, k and v its bf16-I/O flavour, O in bf16."""
     b, t, h, d = q.shape
-    _check_inputs(q, k, v, lengths, bf16_io=True)
+    _check_inputs(q, k, v, lengths)
     bf16_io = q.dtype == torch.bfloat16
     lengths = lengths.contiguous()
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -294,10 +300,13 @@ def _flash_bf16_kernel(q, k, v, lengths):
 
 
 def _flash_kernel(q, k, v, lengths):
+    """K1: the f32 flavour ("highest", "high"); on bf16 q, k and v its
+    bf16-I/O flavour, O in bf16."""
     b, t, h, d = q.shape
     _check_inputs(q, k, v, lengths)
+    bf16_io = q.dtype == torch.bfloat16
     lengths = lengths.contiguous()
-    o = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
@@ -306,20 +315,23 @@ def _flash_kernel(q, k, v, lengths):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / d**0.5, flash_launch_plan(t, b, h)["smem_bytes"],
+        1.0 / d**0.5, flash_launch_plan(t, b, h)["smem_bytes"], int(bf16_io),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash attention kernel launch")
-    global launches
-    launches += 1
+    global launches, launches_f32_bf16_io
+    if bf16_io:
+        launches_f32_bf16_io += 1
+    else:
+        launches += 1
     return o, lse
 
 
 def mha_flash(q, k, v, lengths, precision="highest"):
     """Attention on [B, T, H, D] with lengths int32 [B] valid keys per
     batch row -> (O [B, T, H, D] in q's dtype, LSE f32 [B, H, T]). On CUDA
-    tensors K1 ("highest", "high"; f32) or K1b ("default"; f32, or bf16
-    I/O), on CPU tensors the plain version of the same flavour."""
+    tensors K1 ("highest", "high") or K1b ("default"), each on f32 or bf16
+    I/O, on CPU tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lengths, precision)
     if q.device.type != "cuda":
@@ -334,32 +346,34 @@ def _lib_bwd():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, outs in ((lib.nomad_flash_attention_bwd_dq, 1), (lib.nomad_flash_attention_bwd_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
             fn.restype = ctypes.c_int
     occ = lib.nomad_flash_attention_bwd_occupancy
     if occ.argtypes is None:
-        occ.argtypes, occ.restype = [i, i, ctypes.POINTER(i)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, i, i, ctypes.POINTER(i)], ctypes.c_int
     return lib
 
 
-def flash_bwd_occupancy(kernel: str, rows_per_block: int) -> int:
-    """Blocks of K2 (``kernel="dq"``) or K3 (``"dkv"``) resident on one SM
-    for a plan of ``rows_per_block`` rows, at its shared memory (the card)."""
+def flash_bwd_occupancy(kernel: str, rows_per_block: int, bf16_io: bool = False) -> int:
+    """Blocks of K2 (``kernel="dq"``) or K3 (``"dkv"``), or of their
+    bf16-I/O flavour with ``bf16_io``, resident on one SM for a plan of
+    ``rows_per_block`` rows, at its shared memory (the card)."""
     lib = _lib_bwd()
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_bwd_occupancy(
-        int(kernel == "dkv"), rows_per_block, ctypes.byref(blocks)), "flash backward occupancy")
+        int(kernel == "dkv"), rows_per_block, int(bf16_io), ctypes.byref(blocks)),
+        "flash backward occupancy")
     return blocks.value
 
 
-def _bwd_args(q, k, v, o, lse, do, lengths, bf16_io: bool = False):
-    """Checks shared by K2 and K3 (and, ``bf16_io``, by K2b and K3b on bf16
-    tensors); returns their inputs in launch form: dO as given when its
+def _bwd_args(q, k, v, o, lse, do, lengths):
+    """Checks shared by K2 and K3 and by K2b and K3b, on f32 or bf16
+    tensors; returns their inputs in launch form: dO as given when its
     strides suit the kernels (else a contiguous copy), Di = rowsum(dO*O)
     [B, H, T] in f32 from one PyTorch reduction of the upcast operands (as
     the JAX package upcasts before it multiplies), lengths contiguous."""
     b, t, h, d = q.shape
-    _check_inputs(q, k, v, lengths, bf16_io)
+    _check_inputs(q, k, v, lengths)
     _check_qkv("o", o, (b, t, h, d), q.device, q.dtype)
     if do.dtype != q.dtype or tuple(do.shape) != (b, t, h, d) or do.device != q.device:
         raise ValueError(f"flash kernel: dO must be {q.dtype} [{b}, {t}, {h}, {d}] on {q.device}")
@@ -380,34 +394,42 @@ def _launch_bwd(kernel, q, k, v, do, lse, di, lengths, outs, what):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / d**0.5, plan["rows_per_block"], plan["smem_bytes"],
+        1.0 / d**0.5, plan["rows_per_block"], plan["smem_bytes"], int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, what)
 
 
 def _bwd_dq_kernel(q, k, v, do, lse, di, lengths):
-    """K2 on arguments prepared by ``_bwd_args``: dQ [B, T, H, D]."""
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    """K2 on arguments prepared by ``_bwd_args``: dQ [B, T, H, D] in q's
+    dtype (f32, or bf16 for the bf16-I/O flavour)."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
     _launch_bwd("dq", q, k, v, do, lse, di, lengths, (dq,),
                 "flash attention dQ kernel launch")
-    global launches_bwd_dq
-    launches_bwd_dq += 1
+    global launches_bwd_dq, launches_bwd_dq_f32_bf16_io
+    if q.dtype == torch.bfloat16:
+        launches_bwd_dq_f32_bf16_io += 1
+    else:
+        launches_bwd_dq += 1
     return dq
 
 
 def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
-    """K3 on arguments prepared by ``_bwd_args``: (dK, dV) [B, T, H, D]."""
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    """K3 on arguments prepared by ``_bwd_args``: (dK, dV) [B, T, H, D] in
+    q's dtype."""
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
     _launch_bwd("dkv", q, k, v, do, lse, di, lengths, (dk, dv),
                 "flash attention dK/dV kernel launch")
-    global launches_bwd_dkv
-    launches_bwd_dkv += 1
+    global launches_bwd_dkv, launches_bwd_dkv_f32_bf16_io
+    if q.dtype == torch.bfloat16:
+        launches_bwd_dkv_f32_bf16_io += 1
+    else:
+        launches_bwd_dkv += 1
     return dk, dv
 
 
@@ -471,13 +493,13 @@ def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
 def flash_attention_bwd(q, k, v, o, lse, do, lengths, precision="highest"):
     """Gradients (dQ, dK, dV) of ``mha_flash``'s O for the cotangent dO,
     from the saved O and LSE, in q's dtype. On CUDA tensors K2 and K3
-    ("highest", "high"; f32) or K2b and K3b ("default"; f32, or bf16 I/O),
-    on CPU tensors the plain version of the same flavour."""
+    ("highest", "high") or K2b and K3b ("default"), each on f32 or bf16
+    I/O, on CPU tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
-    do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths, bf16_io=is_bf16(precision))
+    do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
     if is_bf16(precision):
         (dq,) = _bwd_bf16_kernel("dq", q, k, v, do, lse, di, lengths)
         dk, dv = _bwd_bf16_kernel("dkv", q, k, v, do, lse, di, lengths)

@@ -21,6 +21,14 @@ card; K1b, K2b + K3b at "default"). ``fused_qkv_attention`` is the whole
 sublayer, out-projection included (``precision.linear``); beyond
 ``MAX_FUSED_T`` frames it takes the unfused composition with K1 or K1b,
 the JAX package's own shape rule.
+
+On a bf16 x (bf16 activations in the block stack) K4 and K4b run their
+bf16-I/O flavours: x is read as bf16, the weights and biases stay f32, O
+comes back in bf16, each the f32-I/O flavour's O on the upcast x rounded
+once. The JAX package hands its fused path the raw f32 parameters, so the
+out-projection, the backward's q/k/v recompute and the fallback beyond
+``MAX_FUSED_T`` take ``precision.linear_raw_weights`` there (an f32
+product of the upcast x, one rounding), not flax's bf16 ``nn.Dense``.
 """
 
 from __future__ import annotations
@@ -60,9 +68,12 @@ FUSED_BF16_SMEM_BYTES = 2 * 3 * ROWS_PER_BLOCK * _BF16_LD + max(
     4 * 2 * _BF16_STAGE_ROWS * _BF16_SLICE + 2 * _BF16_STAGE_ROWS * (_BF16_SLICE + 8),
     2 * 2 * ROWS_PER_BLOCK * _BF16_LD)
 
-# Launches of K4 and of K4b since each count was last set to 0.
+# Launches of K4 and of K4b, and of their bf16-I/O flavours, since each
+# count was last set to 0.
 launches = 0
 launches_bf16 = 0
+launches_f32_bf16_io = 0
+launches_bf16_io = 0
 
 
 def fused_supported(t: int) -> bool:
@@ -118,11 +129,20 @@ def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> Fus
     return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem)
 
 
+def _linear(x, w, bias, precision):
+    """A product of the fused path at ``precision``: ``precision.linear``,
+    or on a bf16 x ``precision.linear_raw_weights`` (the raw f32 weights,
+    one rounding), as the JAX package's ``_unfused_ref``."""
+    if x.dtype == torch.bfloat16:
+        return prec_ops.linear_raw_weights(x, w, bias, precision)
+    return prec_ops.linear(x, w, bias, precision)
+
+
 def _qkv(x, wq, bq, wk, bk, wv, bv, heads, precision="highest"):
-    """The three projections at ``precision`` (``precision.linear``) as
-    [B, T, H, hd] views of [B, T, D] products."""
+    """The three projections at ``precision`` (``_linear``) as [B, T, H,
+    hd] views of [B, T, D] products."""
     b, t, dm = x.shape
-    return tuple(prec_ops.linear(x, w, bias, precision).view(b, t, heads, dm // heads)
+    return tuple(_linear(x, w, bias, precision).view(b, t, heads, dm // heads)
                  for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
 
 
@@ -138,7 +158,9 @@ def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision
     the operands of all five products rounded to bf16 (``round_bf16``), f32
     sums, each bias added in f32 after its product; the scale 1/sqrt(hd) is
     exact, so q is rounded after it, and p = exp(s - m) is rounded against
-    the row's final maximum with l the sum of the unrounded p."""
+    the row's final maximum with l the sum of the unrounded p.
+
+    A bf16 x is upcast; O is returned in x's dtype, rounded once."""
     b, t, dm = x.shape
     hd = dm // heads
     rnd = prec_ops.round_bf16 if prec_ops.is_bf16(precision) else (lambda y: y)
@@ -158,7 +180,8 @@ def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision
     return o.to(x.dtype)
 
 
-# the library and C entry of each precision's kernel: K4 (f32), K4b (bf16)
+# the library and C entry of each precision's kernel: K4 (f32), K4b (bf16);
+# each takes f32 or bf16 I/O
 _KERNELS = {False: ("fused_attention", "nomad_fused_qkv_attention_fwd"),
             True: ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
 
@@ -169,22 +192,23 @@ def _lib(bf16: bool = False):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 4 + [p]
+        fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
         occ = getattr(lib, f"{entry}_occupancy")
-        occ.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         occ.restype = ctypes.c_int
     return lib
 
 
-def fused_occupancy(t: int, precision: str = "highest") -> tuple:
-    """(blocks of K4, or of K4b at "default", resident on one SM, clusters
-    resident on the card) for the cluster size of T frames (the card)."""
+def fused_occupancy(t: int, precision: str = "highest", bf16_io: bool = False) -> tuple:
+    """(blocks of K4, or of K4b at "default", or of their bf16-I/O flavour
+    with ``bf16_io``, resident on one SM, clusters resident on the card)
+    for the cluster size of T frames (the card)."""
     bf16 = prec_ops.is_bf16(precision)
     lib = _lib(bf16)
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
     err = getattr(lib, f"{_KERNELS[bf16][1]}_occupancy")(
-        fused_launch_plan(t, 1, 1, precision).cluster, ctypes.byref(blocks),
+        fused_launch_plan(t, 1, 1, precision).cluster, int(bf16_io), ctypes.byref(blocks),
         ctypes.byref(clusters))
     _build.check(lib, err, "fused attention occupancy")
     return blocks.value, clusters.value
@@ -201,8 +225,10 @@ def _check_inputs(x, params, lengths, heads):
         raise ValueError(f"fused kernel: T = {t} frames > {MAX_FUSED_T}")
     if b > 65535 or heads > 65535:
         raise ValueError(f"fused kernel: grid limits exceeded (B={b}, H={heads})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused kernel: x must be float32 or bfloat16, got {x.dtype}")
     for name, a in (("x", x), *params.items()):
-        if a.dtype != torch.float32:
+        if name != "x" and a.dtype != torch.float32:
             raise TypeError(f"fused kernel: {name} must be float32, got {a.dtype}")
         if a.device != x.device:
             raise ValueError(f"fused kernel: {name} is on {a.device}, x on {x.device}")
@@ -216,13 +242,14 @@ def _check_inputs(x, params, lengths, heads):
 
 
 def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads):
-    """K4 or K4b on inputs that pass ``_check_inputs``: O [B, T, H, hd]
-    written through its strides and handed out head-major as a view, so
-    the out-projection reads it as [B, T, D] with no copy."""
+    """K4 or K4b (their bf16-I/O flavour on a bf16 x) on inputs that pass
+    ``_check_inputs``: O [B, T, H, hd] in x's dtype, written through its
+    strides and handed out head-major as a view, so the out-projection
+    reads it as [B, T, D] with no copy."""
     params = {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv}
     _check_inputs(x, params, lengths, heads)
     b, t, dm = x.shape
-    o = torch.empty((b, t, heads, HEAD_DIM), dtype=torch.float32, device=x.device)
+    o = torch.empty((b, t, heads, HEAD_DIM), dtype=x.dtype, device=x.device)
     if o.numel() == 0:
         return o.transpose(1, 2)
     lengths = lengths.contiguous()
@@ -232,34 +259,42 @@ def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads):
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
         o.data_ptr(), b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
         plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, f"{'bf16 ' if bf16 else ''}fused attention kernel launch")
     return o.transpose(1, 2)
 
 
 def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
-    """K4: the f32 flavour ("highest", "high")."""
+    """K4: the f32 flavour ("highest", "high"); on a bf16 x its bf16-I/O
+    flavour."""
     o = _launch(False, x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    global launches
-    launches += 1
+    global launches, launches_f32_bf16_io
+    if x.dtype == torch.bfloat16:
+        launches_f32_bf16_io += 1
+    else:
+        launches += 1
     return o
 
 
 def _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
     """K4b: the "default" flavour on the tensor cores; f32 inputs (rounded
-    inside the kernel) and output, as K4's."""
+    inside the kernel) and output, as K4's, or on a bf16 x its bf16-I/O
+    flavour."""
     o = _launch(True, x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    global launches_bf16
-    launches_bf16 += 1
+    global launches_bf16, launches_bf16_io
+    if x.dtype == torch.bfloat16:
+        launches_bf16_io += 1
+    else:
+        launches_bf16 += 1
     return o
 
 
 def fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
-    """Projections + attention of x [B, T, D] with lengths int32 [B] valid
-    keys per batch row -> O head-major [B, H, T, hd]. On CUDA tensors K4
-    ("highest", "high") or K4b ("default"), on CPU tensors the plain
-    version of the same precision."""
+    """Projections + attention of x [B, T, D] (f32 or bf16; f32 weights)
+    with lengths int32 [B] valid keys per batch row -> O head-major [B, H,
+    T, hd] in x's dtype. On CUDA tensors K4 ("highest", "high") or K4b
+    ("default"), on CPU tensors the plain version of the same precision."""
     if x.device.type == "cpu":
         return fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
     if x.device.type != "cuda":
@@ -275,9 +310,9 @@ class FusedQKVAttention(torch.autograd.Function):
     x and the projections (lengths, heads and precision get no gradient):
     ``fused_qkv_mha`` forward (K4, or K4b at "default", on the card), the
     vjp of the unfused composition at the same precision backward
-    (``precision.linear``, whose backward at "default" rounds as JAX
-    transposes a DEFAULT product, and ``FlashAttention``: K1 + K2 + K3 on
-    the card, K1b + K2b + K3b at "default")."""
+    (``_linear``, whose backward at "default" rounds as JAX transposes a
+    DEFAULT product, and ``FlashAttention``: K1 + K2 + K3 on the card, K1b
+    + K2b + K3b at "default"; their bf16-I/O flavours on a bf16 x)."""
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
@@ -303,8 +338,8 @@ def fused_qkv_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, key_mask=None, heads:
     """The attention sublayer on hidden states x [B, T, D] at one
     ``precision`` for the whole block, as the JAX kernel has one mode:
     q/k/v projections and masked softmax attention in K4, or K4b at
-    "default" (``FusedQKVAttention``), then the out-projection
-    (``precision.linear``) as one product of the head-major output.
+    "default" (``FusedQKVAttention``), then the out-projection (``_linear``)
+    as one product of the head-major output.
     key_mask: optional bool [B, T] prefix mask, True = valid key. Weights
     in ``nn.Linear``'s [out, in] layout. Returns [B, T, D].
 
@@ -316,10 +351,10 @@ def fused_qkv_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, key_mask=None, heads:
     if not fused_supported(t):
         q, k, v = _qkv(x, wq, bq, wk, bk, wv, bv, heads, precision)
         attn = mha(q, k, v, key_mask=key_mask, impl="kernel", precision=precision)
-        return prec_ops.linear(attn.reshape(b, t, dm), wo, bo, precision)
+        return _linear(attn.reshape(b, t, dm), wo, bo, precision)
     if key_mask is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
     else:
         lengths = key_mask.sum(dim=-1, dtype=torch.int32)
     o = FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
-    return prec_ops.linear(o.transpose(1, 2).reshape(b, t, dm), wo, bo, precision)
+    return _linear(o.transpose(1, 2).reshape(b, t, dm), wo, bo, precision)

@@ -53,6 +53,13 @@ its own order; the port rounds the f32 sum once. On the card the products
 are cuBLAS ``mm`` with a bf16 output (f32 accumulation, split-K reduced in
 f32: ``api.set_exact_precision``); the plain version is the f32 product of
 the exactly converted operands, rounded once.
+
+The projection-fused attention on a bf16 x computes another product
+(``linear_raw_weights``, ``_LinearRawWeights``): the JAX package hands the
+fused path the raw f32 parameters, so x is promoted to f32 and multiplied
+with the f32 weight at the island's precision (the weight rounded to bf16
+at "default" only), the f32 bias is added, and the result is rounded once
+to bf16.
 """
 
 from __future__ import annotations
@@ -200,6 +207,59 @@ class _LinearBF16IO(torch.autograd.Function):
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = g.float().sum(dim=0).to(torch.bfloat16).float()
         return dx, dw, db
+
+
+class _LinearRawWeights(torch.autograd.Function):
+    """What the JAX package's projection-fused path computes on a bf16 x
+    [n, in] with the raw f32 weight [out, in] and bias [out] (or None)
+    (``_fused_kernel``'s projections, ``_out_proj``, ``_unfused_ref``):
+    the f32 product of the upcast x with W, W rounded to bf16 only at
+    "default", the f32 bias added, then one rounding to bf16. Its
+    gradients are JAX's transposes of that promote-and-dot: with g the
+    bf16 cotangent upcast, dX = bf16(g . W) and dW = g^T . X in f32, each
+    product at the island's precision (at "default" of bf16 operands, f32
+    sums), and db the f32 sum of g. On the card the products are cuBLAS:
+    f32 ``mm`` with TF32 off, or at "default" ``mm`` of bf16 operands with
+    an f32 output."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, prec):
+        bf16 = is_bf16(prec)
+        w = weight.to(torch.bfloat16) if bf16 else weight
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        ctx.bf16, ctx.has_bias = bf16, bias is not None
+        y = _matmul(x, w.t()) if bf16 else torch.mm(x.float(), w.t())
+        return (y if bias is None else y + bias).to(torch.bfloat16)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.bf16:
+            g = g.to(torch.bfloat16)
+            if ctx.needs_input_grad[0]:
+                dx = _matmul(g, w).to(torch.bfloat16)
+            if ctx.needs_input_grad[1]:
+                dw = _matmul(g.t(), x)
+        else:
+            g = g.float()
+            if ctx.needs_input_grad[0]:
+                dx = torch.mm(g, w).to(torch.bfloat16)
+            if ctx.needs_input_grad[1]:
+                dw = torch.mm(g.t(), x.float())
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=0)
+        return dx, dw, db, None
+
+
+def linear_raw_weights(x, weight, bias, prec):
+    """The projection-fused path's product on a bf16 x [..., in] with the
+    f32 weight [out, in] and bias [out] (or None) at island ``prec``:
+    bf16 [..., out] (``_LinearRawWeights``)."""
+    y = _LinearRawWeights.apply(x.reshape(-1, x.shape[-1]), weight, bias, prec)
+    return y.view(*x.shape[:-1], weight.shape[0])
 
 
 def linear(x, weight, bias, prec):

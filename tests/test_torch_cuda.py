@@ -458,10 +458,14 @@ def test_bf16_precision_ops_and_refusals_on_the_card(cuda):
     ref = prec_ops.conv1d(xc, wc, None, "default", **kw)
     torch.testing.assert_close(yc, ref, atol=2e-5, rtol=1e-5)
     assert not prec_ops.round_bf16(yc).equal(yc)  # an f32 output, as the TPU's
+    # one cotangent for both devices, 2y of square().sum() taken once on
+    # the CPU: each device's own 2y may round apart where y straddles a
+    # bf16 boundary
+    dy = 2 * prec_ops.linear(x, w, b, "default")
     grads = []
     for dev in (cuda, torch.device("cpu")):
         xs = [t.to(dev).requires_grad_() for t in (x, w, b)]
-        prec_ops.linear(*xs, "default").square().sum().backward()
+        prec_ops.linear(*xs, "default").backward(dy.to(dev))
         grads.append([t.grad.cpu() for t in xs])
     for ours, theirs in zip(*grads):
         torch.testing.assert_close(ours, theirs, atol=1e-4, rtol=1e-5)
@@ -680,8 +684,12 @@ def test_bf16_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention.fused_qkv_mha(x.transpose(0, 1).contiguous().transpose(0, 1),
                                       *params, lens, 2, "default")
-    with pytest.raises(TypeError, match="float32"):
-        fused_attention.fused_qkv_mha(x.to(torch.bfloat16), *params, lens, 2, "default")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_attention.fused_qkv_mha(x.half(), *params, lens, 2, "default")
+    with pytest.raises(TypeError, match="float32"):  # a bf16 x takes the f32 weights
+        fused_attention.fused_qkv_mha(x.to(torch.bfloat16), *(a.to(torch.bfloat16)
+                                                               for a in params), lens, 2,
+                                      "default")
     with pytest.raises(ValueError, match="lengths"):
         fused_attention.fused_qkv_mha(x, *params, lens.long(), 2, "default")
     with pytest.raises(ValueError, match="is on"):
@@ -811,12 +819,99 @@ def test_bf16_io_flash_kernels_are_the_f32_flavour_rounded(cuda, b, t, lengths):
 
 
 def test_f32_kernels_refuse_bf16(cuda):
-    """K1, K2 and K3 (f32) raise TypeError on bf16 tensors; no bf16 wrapper
-    upcasts to them."""
+    """K1, K2 and K3 (f32 products) take bf16 tensors through their
+    bf16-I/O flavour (their own launch counters, never K1b's); they refuse
+    float16 and q, k and v of mixed dtypes with TypeError."""
     q = torch.randn(1, 10, 2, 64, device=cuda, dtype=torch.bfloat16)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        flash_attention.mha_flash(q, q, q, lens, "highest")
     lse = torch.zeros(1, 2, 10, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        flash_attention.flash_attention_bwd(q, q, q, q, lse, q, lens, "highest")
+    for bad in ((q.half(),) * 3, (q, q.float(), q)):
+        with pytest.raises(TypeError, match="must be"):
+            flash_attention.mha_flash(*bad, lens, "highest")
+        with pytest.raises(TypeError, match="must be"):
+            flash_attention.flash_attention_bwd(*bad, q, lse, q, lens, "highest")
+    before = (flash_attention.launches_f32_bf16_io, flash_attention.launches_bwd_dq_f32_bf16_io,
+              flash_attention.launches_bwd_dkv_f32_bf16_io, flash_attention.launches_bf16_io,
+              flash_attention.launches)
+    o, lse = flash_attention.mha_flash(q, q, q, lens, "highest")
+    flash_attention.flash_attention_bwd(q, q, q, o, lse, q, lens, "highest")
+    torch.cuda.synchronize()
+    after = (flash_attention.launches_f32_bf16_io, flash_attention.launches_bwd_dq_f32_bf16_io,
+             flash_attention.launches_bwd_dkv_f32_bf16_io, flash_attention.launches_bf16_io,
+             flash_attention.launches)
+    assert o.dtype == torch.bfloat16
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1, 0, 0)
+
+
+@pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
+                                       (65, [65, 64, 1, 0])])
+def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
+    """K1's, K2's and K3's bf16-I/O flavours ("highest" on bf16 tensors):
+    O, dQ, dK and dV bf16, each the f32-I/O flavour's output on the upcast
+    inputs rounded once, bit for bit, LSE equal; within one bf16 step
+    (2^-7 of each output's max) plus 1e-4 of it of their plain version on
+    the same bf16 inputs; a rerun the same bits; NaN past each bound
+    changes no valid row."""
+    g = torch.Generator().manual_seed(t)
+    bf = torch.bfloat16
+    b = len(lengths)
+    q, k, v = torch.randn(b, t, 3, 4, 64, generator=g).to(cuda).to(bf).unbind(2)
+    do = torch.randn(b, t, 4, 64, generator=g).to(cuda).to(bf)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "highest")
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+    up = [x.float() for x in (q, k, v)]
+    o32, lse32 = flash_attention.mha_flash(*up, lens, "highest")
+    grads32 = flash_attention.flash_attention_bwd(*up, o.float(), lse, do.float(), lens,
+                                                  "highest")
+    assert o.dtype == bf and torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32)
+    for ours, theirs in zip(grads, grads32):
+        assert ours.dtype == bf and torch.equal(ours, theirs.to(bf))
+    ro, _ = flash_attention.flash_attention_ref(q, k, v, lens, "highest")
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens, "highest")
+    for ours, ref in zip((o, *grads), (ro, *refs)):
+        scale = ref.float().abs().max().item()
+        assert (ours.float() - ref.float()).abs().max().item() <= (2.0**-7 + 1e-4) * scale
+    again = flash_attention.mha_flash(q, k, v, lens, "highest")[0]
+    assert torch.equal(again, o)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lengths):
+        k2[i, n:] = float("nan")
+        v2[i, n:] = float("nan")
+    o2, _ = flash_attention.mha_flash(q, k2, v2, lens, "highest")
+    assert torch.equal(o2, o)
+
+
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
+                                       (1024, [1024, 700, 1])])
+def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
+    """K4's ("highest") and K4b's ("default") bf16-I/O flavours on a bf16 x
+    with the f32 weights: O bf16, the f32-I/O flavour's O on the upcast x
+    rounded once, bit for bit, counted by their own launch counters; within
+    one bf16 step (2^-7 of max |O|) plus the f32-I/O flavour's own
+    tolerance of their plain version; a 0-key row O = 0; garbage past each
+    bound changes no valid row."""
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, t + 1)
+    bf = torch.bfloat16
+    x = x.to(bf)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    counter = "launches_bf16_io" if prec == "default" else "launches_f32_bf16_io"
+    before = getattr(fused_attention, counter)
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2, prec)
+    torch.cuda.synchronize()
+    assert getattr(fused_attention, counter) == before + 1
+    o32 = fused_attention.fused_qkv_mha(x.float(), *params, lens, 2, prec)
+    assert o.dtype == bf and torch.equal(o, o32.to(bf))
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2, prec)
+    tol = 2.0**-7 * ref.float().abs().max().item() + (2e-5 if prec == "highest" else 5e-3)
+    assert (o.float() - ref.float()).abs().max().item() <= tol
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (o[i] == 0).all()
+    x_bad = x.clone()
+    for i, n in enumerate(lengths):
+        x_bad[i, n:] = float("nan")
+    o_bad = fused_attention.fused_qkv_mha(x_bad, *params, lens, 2, prec)
+    for i, n in enumerate(lengths):
+        assert torch.equal(o_bad[i, :, :n], o[i, :, :n])

@@ -170,15 +170,16 @@ def test_no_cpu_fallback_and_no_dropout_loss(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dispatch.main(["--config_file", path])
     # the training precisions run (tests/test_torch_grad_modes.py), fast_bf16's
-    # bf16 activations too (tests/test_torch_fast_bf16.py); what it does not
-    # port is refused, naming ROADMAP
+    # bf16 activations too (tests/test_torch_fast_bf16.py), and on every
+    # attention island (tests/test_torch_bf16_paths.py)
     assert Training(dict(cfg, precision="fast"), device="cpu").model_config.encoder_prec == \
         "default"
     assert Training(dict(cfg, precision="fast_bf16"), device="cpu").model_config.block_dtype == \
         torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Training(dict(cfg, precision="fast_bf16"), device="cpu",
-                 model_config=Wav2Vec2Config.tiny(encoder_dtype=torch.bfloat16))
+    tr = Training(dict(cfg, precision="fast_bf16"), device="cpu",
+                  model_config=Wav2Vec2Config.tiny(encoder_dtype=torch.bfloat16))
+    assert tr.model_config.attn_score_prec == "high" and tr.model_config.block_dtype == \
+        torch.bfloat16
 
 
 def test_the_dispatcher_trains_end_to_end(tmp_path, monkeypatch):

@@ -16,7 +16,7 @@ distance between its "fast" and "fast_bf16" embeddings; (5) the
 gradients against the JAX trainer's, within twice the JAX package's own
 distance between "fast_bf16" and "exact" (the rule of chip_smoke.py's
 phase 10: two bf16 realizations of one mode, each about that far from
-"exact"); (7) an epoch's trajectory; (8) the refusals; and the dropout
+"exact"); (7) an epoch's trajectory; (8) the former refusals; and the dropout
 mask, the attention's output dtype and the evals' engine on bf16
 activations.
 """
@@ -205,21 +205,21 @@ def _bwd_unrounded(q, k, v, do, o, lse, lengths):
 
 def test_bwd_args_upcasts_before_it_multiplies():
     """The card's ``_bwd_args`` (run here on CPU tensors) takes bf16 dO and
-    O for K2b/K3b and computes Di = rowsum(dO O) [B, H, T] in f32 from the
+    O for the bf16-I/O flavours and computes Di = rowsum(dO O) [B, H, T] in f32 from the
     upcast operands, as the JAX package's ``_mha_pallas_bwd``: a bf16
     product would round each term."""
     rng = np.random.default_rng(4)
     q, k, v, o, do = (as_bf16(rng, (2, 9, 2, 64)) for _ in range(5))
     lens = torch.tensor([9, 4], dtype=torch.int32)
     lse = torch.zeros(2, 2, 9)
-    _, di, _ = flash_attention._bwd_args(q[0], k[0], v[0], o[0], lse, do[0], lens, bf16_io=True)
+    _, di, _ = flash_attention._bwd_args(q[0], k[0], v[0], o[0], lse, do[0], lens)
     assert di.dtype == torch.float32 and di.shape == (2, 2, 9)
     want = (do[2].astype(F64) * o[2].astype(F64)).sum(-1).transpose(0, 2, 1)
     assert np.abs(di.numpy() - want).max() < 1e-5 * np.abs(want).max()
     bf16_product = (do[0] * o[0]).float().sum(-1).transpose(1, 2)
     assert np.abs(bf16_product.numpy() - want).max() > 1e-4 * np.abs(want).max()
-    with pytest.raises(TypeError, match="float32"):  # K2/K3 take f32 only
-        flash_attention._bwd_args(q[0], k[0], v[0], o[0], lse, do[0], lens)
+    with pytest.raises(TypeError, match="bfloat16"):  # one dtype for q, k and v
+        flash_attention._bwd_args(q[0], k[0].float(), v[0], o[0], lse, do[0], lens)
 
 
 # ---------------- (3) the bf16-I/O product ----------------
@@ -372,18 +372,17 @@ def test_fast_bf16_resolves_as_jax(size):
 
 
 def test_the_refusals_name_roadmap():
-    """bf16 activations with ``fused_qkv`` (K4's and K4b's bf16-I/O flavour
-    is not ported) and with an attention island other than "default"
-    (K1's f32 flavour with bf16 I/O) raise, naming ROADMAP; so does any
-    other dtype."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Wav2Vec2Config.tiny(**FAST_ISLANDS, encoder_dtype=BF16, attention_impl="fused_qkv")
-    for islands in ({}, {**FAST_ISLANDS, "attn_score_precision": "highest"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Wav2Vec2Config.tiny(**islands, encoder_dtype=BF16)
-    with pytest.raises(ValueError, match="encoder_dtype"):
-        Wav2Vec2Config.tiny(**FAST_ISLANDS, encoder_dtype=torch.float16)
-    assert Wav2Vec2Config.tiny(**FAST_ISLANDS, encoder_dtype=BF16, attention_impl="ref")
+    """The two former refusals construct now: bf16 activations with
+    ``fused_qkv`` (K4's and K4b's bf16-I/O flavours) and with an attention
+    island other than "default" (K1's, K2's and K3's), on every impl; any
+    dtype other than bf16 still raises ValueError."""
+    for islands in ({}, FAST_ISLANDS, {**FAST_ISLANDS, "attn_score_precision": "highest"}):
+        for impl in ("kernel", "fused_qkv", "ref"):
+            cfg = Wav2Vec2Config.tiny(**islands, encoder_dtype=BF16, attention_impl=impl)
+            assert cfg.block_dtype == BF16 and cfg.attention_impl == impl
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="encoder_dtype"):
+            Wav2Vec2Config.tiny(**FAST_ISLANDS, encoder_dtype=dtype)
 
 
 # ---------------- (6, 7) the trainer ----------------

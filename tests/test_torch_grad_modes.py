@@ -607,12 +607,12 @@ def test_training_precision_resolves_as_jax(size, prec):
 
 
 def test_training_precision_refusals_and_explicit_config():
-    # fast_bf16 resolves now (tests/test_torch_fast_bf16.py); its bf16 stack
-    # with the fused path is refused, naming ROADMAP
+    # fast_bf16 resolves (tests/test_torch_fast_bf16.py), and its bf16 stack
+    # takes the fused path too (tests/test_torch_bf16_paths.py)
     fast_bf16 = triplet.resolve_model_config({"precision": "fast_bf16"})
     assert fast_bf16.block_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(fast_bf16, attention_impl="fused_qkv")
+    fused = dataclasses.replace(fast_bf16, attention_impl="fused_qkv")
+    assert fused.block_dtype == torch.bfloat16 and fused.attention_impl == "fused_qkv"
     with pytest.raises(ValueError, match="unknown training precision"):
         Training({"experiment_name": "quality_nmr", "model_size": "tiny",
                   "precision": "quantum"}, device="cpu")

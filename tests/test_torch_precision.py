@@ -9,9 +9,9 @@ flavour of the flash attention's plain version against a numpy float64
 emulation of one bf16 pass (operands rounded to nearest even by bit
 manipulation, products and sums in float64); (d) the port's "balanced"
 and "fast" embeddings against the JAX package's, which XLA on the CPU
-computes in f32 (it ignores dot precision); (e) what the modes refuse,
-each refusal naming ROADMAP, and ``fused_qkv`` at a bf16 island, which
-no longer refuses; and the API and the service in a mode.
+computes in f32 (it ignores dot precision); (e) the former refusals,
+which build now, and ``fused_qkv`` at a bf16 island; and the API and
+the service in a mode.
 """
 
 import dataclasses
@@ -309,21 +309,22 @@ def test_modes_against_jax(bridged, mode):
 
 
 def test_refusals_name_roadmap(bridged):
-    """What the modes still refuse: the trainer's ``fast_bf16`` (bf16
-    activations, ``tests/test_torch_fast_bf16.py``) on the fused path,
-    naming ROADMAP. ``fused_qkv`` under a "default" encoder island (K4's
-    bf16 mode, K4b) runs now and gives finite embeddings that round
+    """The modes refuse nothing now: the trainer's ``fast_bf16`` (bf16
+    activations) on the fused path builds (``tests/test_torch_bf16_paths.py``
+    holds it to the JAX package). ``fused_qkv`` under a "default" encoder
+    island (K4's bf16 mode, K4b) gives finite embeddings that round
     (``tests/test_torch_fused_modes.py`` holds it to the JAX package);
     "high" keeps the f32 K4 (the card's high3). The gradients and dropout
     under a bf16 island work too (``tests/test_torch_grad_modes.py``)."""
     _, sd, wav, lengths = bridged
     wave = torch.from_numpy(wav[:1, :800])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Training({"experiment_name": "quality_nmr", "model_size": "tiny",
-                  "precision": "fast_bf16"}, device="cpu",
-                 model_config=Wav2Vec2Config.tiny(**PRECISION_ISLANDS["fast"],
-                                                  attention_impl="fused_qkv",
-                                                  encoder_dtype=torch.bfloat16))
+    tr = Training({"experiment_name": "quality_nmr", "model_size": "tiny",
+                   "precision": "fast_bf16"}, device="cpu",
+                  model_config=Wav2Vec2Config.tiny(**PRECISION_ISLANDS["fast"],
+                                                   attention_impl="fused_qkv",
+                                                   encoder_dtype=torch.bfloat16))
+    assert tr.model_config.attention_impl == "fused_qkv"
+    assert tr.model_config.block_dtype == torch.bfloat16
     embs = {}
     for prec in ("default", "high"):
         fused = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv",

@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
      print ptxas' registers, shared memory and spills (a spill fails), and
      the occupancy (blocks per SM; K4's and K4b's clusters on the card) of
-     K1, K2, K3, K4 and K4b; build the native C++ ingest library
+     K1, K2, K3, K4 and K4b (K4b at each cluster size of its plan, 3 and
+     2 .. 16, failing below the 2 blocks per SM it is built for or with no
+     cluster on the card); build the native C++ ingest library
      (``native/``, g++);
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
@@ -132,8 +134,10 @@ Phases, each fatal on failure:
      <= 1.5 x the plain version's + 1e-6) and to K1b fed by the port's
      "default" projections (no further apart than their plain versions
      are), NaN past each bound changing no valid row, 123.0 there leaving
-     every row finite, a rerun the same bits, timed beside ``F.linear`` +
-     SDPA on bf16 copies; then on phase 9's seeded BASE state dict
+     every row finite, a rerun the same bits, its prologue's packed
+     weights and rounded x bit-equal to their plain versions, timed beside
+     ``F.linear`` + SDPA on bf16 (x rounded inside the timed call); then
+     on phase 9's seeded BASE state dict
      ``Nomad(precision="fast", config=Wav2Vec2Config.fast(
      attention_impl="fused_qkv"))`` on phase 4's 108 files (K4b 24, K5 52,
      no K1, K1b or K4), held to the "fast" plain path within
@@ -174,7 +178,8 @@ Phases, each fatal on failure:
      flavour on the upcast inputs rounded once; plain version and float64
      plus one bf16 step; garbage past each bound; a rerun the same bits),
      timed in turns with the f32-I/O flavour and beside the plain version
-     and the PyTorch calls on the same bf16 tensors; then on phase 9's
+     and the PyTorch calls of each flavour's function (bf16 calls at
+     "default"; f32 calls on the upcasts at "highest"); then on phase 9's
      seeded BASE state dict ``Wav2Vec2Config.fast(encoder_dtype=bf16,
      attention_impl="fused_qkv")`` on phase 4's 108 files (K4b-bf16 12, K5
      2, K5-bf16 24 per batch) against its plain path by phase 12's rule,
@@ -484,15 +489,26 @@ def build_kernels() -> None:
                      f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         for prec, io, name in (("highest", False, "fused_qkv_attention_fwd"),
-                               ("default", False, "fused_qkv_attention_bf16_fwd"),
-                               ("highest", True, "fused_qkv_attention_f32_bf16io_fwd"),
-                               ("default", True, "fused_qkv_attention_bf16io_fwd")):
+                               ("highest", True, "fused_qkv_attention_f32_bf16io_fwd")):
             plan = fused_attention.fused_launch_plan(t, 1, 12, prec)
             blocks, clusters = fused_attention.fused_occupancy(t, prec, io)
             occ[f"{name}_T{t}"] = {
                 "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
                 "blocks_per_sm": blocks, "clusters_on_card": clusters,
                 "smem_bytes": plan.smem_bytes}
+    # K4b at every cluster size of its plan: 3 (T <= 64), then 2 .. 16
+    for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
+        for io, name in ((False, "fused_qkv_attention_bf16_fwd"),
+                         (True, "fused_qkv_attention_bf16io_fwd")):
+            plan = fused_attention.fused_launch_plan(t, 1, 12, "default")
+            blocks, clusters = fused_attention.fused_occupancy(t, "default", io)
+            occ[f"{name}_T{t}"] = {
+                "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
+                "blocks_per_sm": blocks, "clusters_on_card": clusters,
+                "smem_bytes": plan.smem_bytes, "threads": plan.threads}
+            if blocks < fused_attention.FUSED_BF16_BLOCKS_PER_SM or clusters < 1:
+                fail(f"K4b ({name}) at cluster {plan.cluster}: {blocks} blocks per SM (built "
+                     f"for {fused_attention.FUSED_BF16_BLOCKS_PER_SM}), {clusters} clusters")
     report["occupancy"] = occ
     print("occupancy: " + "; ".join(f"{k} {v}" for k, v in occ.items()), flush=True)
 
@@ -2998,8 +3014,10 @@ def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
     versions' own distance + 1e-6; NaN past each bound the same bits in
     every valid row (a padded query row takes its Q from x, as the TPU
     kernel's does), 123.0 there every row finite and the valid rows the
-    same bits; a rerun the same bits. ``timed``: the plain version and
-    ``F.linear`` + SDPA on bf16 copies (the yardstick) too."""
+    same bits; a rerun the same bits; the prologue's packed weights and
+    rounded x bit-equal to ``pack_weights_ref`` and ``x.to(bf16)``.
+    ``timed``: the plain version and the yardstick, ``F.linear`` + SDPA on
+    bf16 with x rounded inside the timed call, too."""
     h, dm = 12, 768
     x = torch.randn(b, t, dm, generator=g)
     params = [a.to(DEV) for _ in range(3) for a in (
@@ -3050,10 +3068,18 @@ def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
             del x_bad, o_bad
     rounds = err_f64 >= 0.5 * err_plain_f64
     vs_k1b_ok = d_k1b <= FUSED_BF16_VS_K1B * d_pair + 1e-6
-    if not (finite and empty_ok and same_bits and garbage_ok and rounds and vs_k1b_ok) \
-            or excess > 0:
+    # the prologue's buffers: the packed weights and the rounded x, bit-equal
+    # to their plain versions
+    workspace = fused_attention._bf16_workspace(x, h)
+    fused_attention._launch(True, x, *params, lens, h, workspace=workspace)
+    packed = torch.equal(workspace[0], fused_attention.pack_weights_ref(*params[0::2], h)) and \
+        torch.equal(workspace[1], x.to(torch.bfloat16))
+    del workspace
+    if not (finite and empty_ok and same_bits and garbage_ok and rounds and vs_k1b_ok
+            and packed) or excess > 0:
         fail(f"fused bf16 [{b}, {t}, {dm}] lengths {lengths[:8]}: finite={finite} 0-key "
-             f"rows={empty_ok} rerun same bits={same_bits} garbage past bound={garbage_ok}; "
+             f"rows={empty_ok} rerun same bits={same_bits} garbage past bound={garbage_ok} "
+             f"packed weights and rounded x bit-equal={packed}; "
              f"max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
              f"{err_plain_f64:.3g} + 1e-6 by {excess:.3g}, or under half of it; vs K1b "
              f"{d_k1b:.3g} (plain pair {d_pair:.3g}, <= {FUSED_BF16_VS_K1B} x + 1e-6)")
@@ -3066,9 +3092,9 @@ def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
     if kernel_time:
         res["ms"] = time_ms(kernel, 20)
     if timed:
-        # the yardstick: one bf16 product against the stacked [3 * 768, 768]
-        # weights, then SDPA on bf16 with the key mask (two library calls)
-        xb = x.to(torch.bfloat16)
+        # the yardstick: x rounded to bf16 (inside the timed call, as the
+        # kernel rounds it inside its own), one bf16 product against the
+        # stacked [3 * 768, 768] weights, then SDPA on bf16 with the key mask
         wqkv = torch.cat(params[0::2]).to(torch.bfloat16)
         bqkv = torch.cat(params[1::2]).to(torch.bfloat16)
         mask = None
@@ -3076,7 +3102,8 @@ def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
             mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
 
         def library():
-            qq, kk, vv = F.linear(xb, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+            qq, kk, vv = F.linear(x.to(torch.bfloat16), wqkv, bqkv).view(
+                b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
             return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
         res["plain_ms"] = time_ms(lambda: fused_attention.fused_qkv_attention_ref(
@@ -3099,7 +3126,7 @@ def check_fused_bf16_shapes() -> None:
     res = {"main": check_fused_bf16(96, 511, main_lens, g, timed=True),
            "loss": check_fused_bf16(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
            "ragged": check_fused_bf16(8, 1024, [1024, 1023, 777, 513, 512, 64, 2, 1], g,
-                                      timed=False)}
+                                      timed=True)}
     # every edge of the plan: one tensor per block up to 64 rows (16-row
     # warp tiles), then a cluster of 64-row chunks up to 16 of them
     for t in (1, 15, 16, 17, 63, 64, 65, 511, 1023, 1024):
@@ -3125,7 +3152,8 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
     """``Nomad(precision="fast", config=Wav2Vec2Config.fast(
     attention_impl="fused_qkv"))`` on phase 4's files: launch counts of a
     predict (K4b 12 per batch, K5 26), warm device passes, own peak, one
-    profiled pass; its embeddings against the "fast" plain path within
+    profiled pass, each beside the unfused "fast" K1b path's in the same
+    run; its embeddings against the "fast" plain path within
     TOL_REF_PATH + GRAD_MODE_FRAC times that path's distance to the
     "exact" plain path, and, reported, against the "fast" K1b path and
     its pairwise delta against "exact" (the K1 path); then two single
@@ -3154,13 +3182,19 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile_fused_fast")
     pass_s = float(np.median(passes))
-    k1b_emb = Nomad(device="cuda", precision="fast", params=sd).engine.embed_waves_device(waves)
+    # the unfused "fast" path (K1b after the q/k/v products) timed beside it
+    k1b = Nomad(device="cuda", precision="fast", params=sd)
+    k1b_emb, k1b_passes = timed_passes(k1b, waves)
+    profile_run(lambda: k1b.engine.embed_waves_device(waves), "profile_fast_k1b_beside_fused")
+    del k1b
     exact_emb = Nomad(device="cuda", params=sd).engine.embed_waves_device(waves)
     plain_fast, plain_exact = fast_plain_paths(sd, waves)
     d_plain = (plain_fast - plain_exact).abs().max().item()
     tol = TOL_REF_PATH + GRAD_MODE_FRAC * d_plain
     res = {"files": N_NMR + N_DEG, "batches": batches, "pass_s": passes,
-           "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb,
+           "wav_s_per_s_pass": total_s / pass_s, "k1b_fast_pass_s": k1b_passes,
+           "k1b_fast_wav_s_per_s_pass": total_s / float(np.median(k1b_passes)),
+           "peak_mem_gb": peak_gb,
            "leftover_mem_gb": leftover_gb, "own_peak_mem_gb": peak_gb - leftover_gb,
            "vs_fast_plain_path_emb": (emb - plain_fast).abs().max().item(),
            "fast_plain_vs_exact_plain_emb": d_plain, "tolerance": tol,
@@ -3170,7 +3204,8 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
                                             slice(0, N_NMR)),
            "card": card}
     print(f"fused fast: {batches} batches, launches {counts}; device pass {pass_s:.3f} s = "
-          f"{total_s / pass_s:.1f} wav-s/s; own peak {res['own_peak_mem_gb']:.5f} GB  [{card}]; "
+          f"{total_s / pass_s:.1f} wav-s/s (the unfused fast K1b path beside it "
+          f"{float(np.median(k1b_passes)):.3f} s); own peak {res['own_peak_mem_gb']:.5f} GB  [{card}]; "
           f"max|d emb| vs the fast plain path {res['vs_fast_plain_path_emb']:.3g} (<= {tol:.3g}: "
           f"{TOL_REF_PATH} + {GRAD_MODE_FRAC} x {d_plain:.3g}), vs the fast K1b path "
           f"{res['vs_fast_k1b_path_emb']:.3g}; pairwise delta vs exact "
@@ -3322,7 +3357,8 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     BWD_BF16_PLAIN_REL and BWD_BF16_PLAIN_NORM (f32 products on both
     sides). ``kernel_times``:
     time the bf16-I/O kernels and their f32-I/O flavour; ``timed``: the
-    plain version and SDPA (its gradient) on bf16 tensors too."""
+    plain version and the yardstick, SDPA (its gradient) on the bf16
+    tensors at "default", on their f32 upcasts at "highest", too."""
     h, d = 12, 64
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
@@ -3379,12 +3415,16 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
             lambda: flash_attention.mha_flash(q, k, v, lens, prec),
             lambda: flash_attention.mha_flash(*up_c, lens, prec), iters)
     mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+    # the yardstick computes the flavour's function: SDPA on the bf16
+    # tensors at "default", on their f32 upcasts (made inside the timed
+    # call) at "highest"
+    up_lib = (lambda x: x) if bf16_ops else (lambda x: x.float())
     if timed:
         qb, kb, vb = (x.transpose(1, 2) for x in (q, kf, vf))
         res["fwd"]["plain_ms"] = time_ms(
             lambda: flash_attention.flash_attention_ref(q, k, v, lens, prec), 5)
-        res["fwd"]["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), 10)
+        res["fwd"]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            up_lib(qb), up_lib(kb), up_lib(vb), attn_mask=mask), 10)
     if bwd:
         do = torch.randn(b, t, h, d, generator=g).to(DEV).to(bf)
         names = ("dq", "dk", "dv")
@@ -3469,8 +3509,9 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                 q, k, v, o, lse, do, lens, prec), 5)
             qb, kb, vb = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                           for x in (q, kf, vf))
-            out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
-            dob = do.transpose(1, 2)
+            out = F.scaled_dot_product_attention(up_lib(qb), up_lib(kb), up_lib(vb),
+                                                 attn_mask=mask)
+            dob = up_lib(do.transpose(1, 2))
             lib = time_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), dob, retain_graph=True),
                           10)
             for key in ("dq", "dkv"):
@@ -3496,9 +3537,10 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                      f"bound {res['dq']['bound_ms']:.4f}), {tags[2]} {res['dkv']['ms']:.4f} ms (f32 I/O "
                      f"{res['dkv']['f32_io_ms']:.4f}, bound {res['dkv']['bound_ms']:.4f})")
     if timed:
-        line += f"; plain fwd {fwd['plain_ms']:.4f} ms, sdpa bf16 {fwd['library_ms']:.4f}"
+        lib_io = "bf16" if bf16_ops else "f32"
+        line += f"; plain fwd {fwd['plain_ms']:.4f} ms, sdpa {lib_io} {fwd['library_ms']:.4f}"
         if bwd:
-            line += (f"; plain bwd pair {res['dq']['plain_ms']:.4f} ms, sdpa bf16 grad "
+            line += (f"; plain bwd pair {res['dq']['plain_ms']:.4f} ms, sdpa {lib_io} grad "
                      f"{res['dq']['library_ms']:.4f}")
     print(line, flush=True)
     return res
@@ -3695,8 +3737,10 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     rule for outputs rounded once); NaN past each bound the same bits in
     every valid row, 123.0 there every row finite and the valid rows the
     same bits; a rerun the same bits. Timed beside the f32-I/O flavour;
-    ``timed``: the plain version and ``F.linear`` + SDPA on the same bf16
-    x (the yardstick) too."""
+    ``timed``: the plain version and the yardstick too, the flavour's own
+    function in library calls: at "default" ``F.linear`` of x with the
+    rounded weights and SDPA on bf16, at "highest" the f32 product of the
+    upcast x with the f32 weights (TF32 off) and f32 SDPA."""
     h, dm = 12, 768
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
@@ -3763,14 +3807,21 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         x32c = x32.contiguous()
         res["ms"], res["f32_io_ms"] = time_pair_ms(kernel, lambda: kernel(x32c), 20)
     if timed:
-        wqkv = torch.cat(params[0::2]).to(bf)
-        bqkv = torch.cat(params[1::2]).to(bf)
+        # the yardstick computes the flavour's function: at "default" a bf16
+        # product of x and the rounded weights, SDPA on bf16; at "highest"
+        # the f32 product of the upcast x (inside the timed call) and the
+        # f32 weights (TF32 off), then f32 SDPA
+        wqkv = torch.cat(params[0::2])
+        bqkv = torch.cat(params[1::2])
+        if bf16_ops:
+            wqkv, bqkv = wqkv.to(bf), bqkv.to(bf)
         mask = None
         if int(lens.min()) < t:
             mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
 
         def library():
-            qq, kk, vv = F.linear(x, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+            xx = x if bf16_ops else x.float()
+            qq, kk, vv = F.linear(xx, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
             return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
 
         res["plain_ms"] = time_ms(lambda: fused_attention.fused_qkv_attention_ref(
@@ -3780,8 +3831,9 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
           f"bit-equal, garbage past the bound changes no valid row; {tag} O vs plain max|d| "
           f"{err:.3g}, vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}); {tag} "
           f"{res.get('ms', float('nan')):.4f} ms (f32 I/O {res.get('f32_io_ms', float('nan')):.4f})"
-          f"  plain {res.get('plain_ms', float('nan')):.4f}  F.linear + sdpa bf16 "
-          f"{res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})", flush=True)
+          f"  plain {res.get('plain_ms', float('nan')):.4f}  F.linear + sdpa "
+          f"{'bf16' if bf16_ops else 'f32'} {res.get('library_ms', float('nan')):.4f}  bound "
+          f"{b_ms:.4f} ({b_by})", flush=True)
     return res
 
 
@@ -3805,7 +3857,7 @@ def check_bf16_paths_shapes() -> None:
         res = {"main": check_fused_bf16io(96, 511, main_lens, g, True, prec),
                "loss": check_fused_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, True, prec),
                "ragged": check_fused_bf16io(8, 1024, [1024, 1023, 777, 513, 512, 64, 1, 0], g,
-                                            False, prec)}
+                                            True, prec)}
         for t in (1, 15, 16, 17, 63, 64, 65, 511, 1023, 1024):
             res[f"edge_T{t}"] = check_fused_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, False,
                                                    prec, kernel_time=False)

@@ -1,20 +1,31 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k23]
 
-Builds copies of ``csrc/fused_attention.cu``, ``csrc/flash_attention.cu``
-and ``csrc/flash_attention_bwd.cu`` (and of the headers they include) with
-one part switched off, each by a text substitution that must match the
-current source, into ``build/nomad_tpu_torch/variants/`` (nvcc, as
-``ops/_build.py`` builds the real kernels), and times each against the
-unchanged kernel at the paths' shapes with CUDA events:
+Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (and of the
+headers they include) with one part switched off, each by a text
+substitution that must match the current source, into
+``build/nomad_tpu_torch/variants/`` (nvcc, as ``ops/_build.py`` builds the
+real kernels), and times each against the unchanged kernel at the paths'
+shapes with CUDA events (``--kernels`` picks groups or single variants by
+name; all by default):
 
 * K4 ``phase1``: the projections only (the key loop runs over no key);
 * K4 ``phase2``: the key loop only (no projection);
 * K4 ``phase1_no_cluster``: the projections launched without the cluster
   attribute (implicit clusters of one block), which prices the cluster
   scheduling;
+* K4b ``phase1``, ``phase2`` and ``phase1_no_cluster``, the same for K4b,
+  in both I/O flavours; its prologue (packing the weights, rounding an
+  f32 x) runs in each. Without the cluster attribute every block loads the
+  whole weight tile itself, so that variant also prices the multicast;
+* K4b ``phase2_no_copy``: the key loop without its copies of the peers'
+  key tiles (the two first tiles are still copied; the sums are wrong),
+  which prices the copies through distributed shared memory;
+* K4b ``empty``: neither phase (the prologue, the launch, the cluster
+  barriers and the O stores of rows with no key), its fixed cost;
 * K1 ``two_blocks``: K1 held to 2 blocks per SM by its shared memory, K4's
   occupancy;
 * K2 + K3 ``two_blocks``: both held to 2 blocks per SM by their shared
@@ -25,14 +36,20 @@ unchanged kernel at the paths' shapes with CUDA events:
   taken out of the column loop (wrong sums), which prices half of the
   score loop's shared-memory loads.
 
-Each entry is called with ``bf16_io`` 0 (the f32 flavours). The variants
-compute nothing useful and are never loaded by the port.
-Prints one JSON object with the times (ms) and the card's name and power
-limit.
+K4, K1 and K2 + K3 are called through their C entries with ``bf16_io`` 0
+(the f32 flavours). K4b goes through the port's own wrapper
+(``fused_attention.fused_qkv_mha`` at "default", on f32 and on bf16 x)
+with the variant's library in place of the real one, so a checkout whose
+K4b takes other arguments (an older one, say, to time the parent's kernel
+with this file) is called as its own wrapper calls it. The variants
+compute nothing useful and are never loaded by the port. Prints one JSON
+object with the times (ms) and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -53,6 +70,25 @@ VARIANTS = {
         ("attend_keys(qs, len,", "attend_keys(qs, 0,"),
         ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
         ("if (max_active_clusters<IO>(cluster) == 0) return", "if (false) return")]),
+    "k4b": ("fused_attention_bf16.cu", []),
+    "k4b_phase1": ("fused_attention_bf16.cu", [
+        ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;")]),
+    "k4b_phase2": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {")]),
+    "k4b_phase2_no_copy": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {"),
+        ("if (tile + 2 < tiles) fetch(tile + 2);", ""),
+        ("if (tile + 2 < tiles) stash(sm.u.p2.kv[(tile + 2) % 3]);", "")]),
+    "k4b_empty": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {"),
+        ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;")]),
+    "k4b_phase1_no_cluster": ("fused_attention_bf16.cu", [
+        ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;"),
+        ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
+        ("if (max_active_clusters<IO>(cluster) == 0) return", "if (false) return")]),
     "k1": ("flash_attention.cu", []),
     "k1_two_blocks": ("flash_attention.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -71,13 +107,19 @@ VARIANTS = {
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
 HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh")
+GROUPS = ("k4", "k4b", "k1", "k23")  # --kernels: a variant's group is its name's first word
 
 
-def build() -> dict:
-    """Each variant's library, built in parallel."""
+def build(picked) -> dict:
+    """The library of each variant in ``picked``, built in parallel: the
+    variants it names, or, where it names only groups, every variant of
+    each (the unchanged kernel's variant bears its group's name)."""
     root = _build.BUILD_DIR / "variants"
+    by_name = set(picked) - set(GROUPS)
     procs = {}
     for name, (src, subs) in VARIANTS.items():
+        if (name not in picked) if by_name else (name.split("_")[0] not in picked):
+            continue
         texts = {f: (_build.CSRC / f).read_text() for f in (src, *HEADERS)}
         for sub in subs:
             f, old, new = sub if len(sub) == 3 else (src, *sub)
@@ -113,13 +155,67 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def library(name: str, lib: ctypes.CDLL):
+    """The port's wrappers call ``lib`` for ``csrc/<name>.cu`` inside the
+    block: a variant runs through the same wrapper, arguments and
+    buffers as the real kernel."""
+    lib.nomad_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.nomad_cuda_error_string.restype = ctypes.c_char_p
+    saved = _build._libs.get(name)
+    _build._libs[name] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._libs.pop(name)
+        else:
+            _build._libs[name] = saved
+
+
+def time_fused(libs, shapes, dev, stream, out) -> None:
+    """K4's and K4b's variants that were built (K4b in both I/O flavours) at
+    ``shapes``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    g = torch.Generator().manual_seed(0)
+    h, dm = 12, 768
+    for b, t, lens in shapes:
+        x = torch.randn(b, t, dm, generator=g).to(dev)
+        params = [a.to(dev) for _ in range(3) for a in (
+            torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        plan = fused_attention.fused_launch_plan(t, b, h)
+        o = torch.empty(b, t, h, 64, device=dev)
+        for name in [v for v in VARIANTS if v.split("_")[0] == "k4" and v in libs]:
+            fn = libs[name].nomad_fused_qkv_attention_fwd
+            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
+            args = (x.data_ptr(), *(a.data_ptr() for a in params), lengths.data_ptr(),
+                    o.data_ptr(), b, t, h, dm, *o.stride()[:3], 0.125, plan.cluster,
+                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, 0, stream)
+            if fn(*args):
+                raise RuntimeError(f"{name} [{b}, {t}]: launch refused")
+            out["ms"][f"{name} [{b}, {t}, {dm}]"] = time_ms(lambda: fn(*args))
+        for io in (torch.float32, torch.bfloat16):
+            xi = x.to(io)
+            for name in [v for v in VARIANTS if v.split("_")[0] == "k4b" and v in libs]:
+                with library("fused_attention_bf16", libs[name]):
+                    out["ms"][f"{name} [{b}, {t}, {dm}] bf16_io {int(io == torch.bfloat16)}"] = (
+                        time_ms(lambda: fused_attention.fused_qkv_mha(
+                            xi, *params, lengths, h, "default")))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("attention_variants: needs a CUDA card")
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels", default=",".join(GROUPS),
+                        help=f"comma-separated groups ({','.join(GROUPS)}) or variant names")
+    picked = parser.parse_args().kernels.split(",")
+    if set(picked) - set(GROUPS) - set(VARIANTS):
+        sys.exit(f"attention_variants: --kernels takes {','.join(GROUPS)} or variant names")
     dev = torch.device("cuda")
-    libs = build()
+    libs = build(picked)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    g = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(0)
     # the smoke's shapes: the scoring batch with its lengths, the loss crop,
     # and the longest input K4 takes, ragged
@@ -131,38 +227,27 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60)
     out = {"card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else
            torch.cuda.get_device_name(0), "ms": {}}
-    h, dm = 12, 768
-    for b, t, lens in shapes:
-        x = torch.randn(b, t, dm, generator=g).to(dev)
-        params = [a.to(dev) for _ in range(3) for a in (
-            torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+    time_fused(libs, shapes, dev, stream, out)
+    h = 12
+    g = torch.Generator().manual_seed(1)
+    k1 = [v for v in VARIANTS if v.split("_")[0] == "k1" and v in libs]
+    k23 = [v for v in VARIANTS if v.split("_")[0] == "k23" and v in libs]
+    if k1:
+        b, t, lens = shapes[0]
+        q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        plan = fused_attention.fused_launch_plan(t, b, h)
-        o = torch.empty(b, t, h, 64, device=dev)
-        for name in ("k4", "k4_phase1", "k4_phase2", "k4_phase1_no_cluster"):
-            fn = libs[name].nomad_fused_qkv_attention_fwd
-            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
-            args = (x.data_ptr(), *(a.data_ptr() for a in params), lengths.data_ptr(),
-                    o.data_ptr(), b, t, h, dm, *o.stride()[:3], 0.125, plan.cluster,
-                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, 0, stream)
+        o, lse = torch.empty(b, t, h, 64, device=dev), torch.empty(b, h, t, device=dev)
+        for name in k1:
+            fn = libs[name].nomad_flash_attention_fwd
+            fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), b, t, h, 64, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], *o.stride()[:3], 0.125, K1_SMEM[name], 0, stream)
             if fn(*args):
-                raise RuntimeError(f"{name} [{b}, {t}]: launch refused")
-            out["ms"][f"{name} [{b}, {t}, {dm}]"] = time_ms(lambda: fn(*args))
-    b, t, lens = shapes[0]
-    q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    o, lse = torch.empty(b, t, h, 64, device=dev), torch.empty(b, h, t, device=dev)
-    for name in ("k1", "k1_two_blocks"):
-        fn = libs[name].nomad_flash_attention_fwd
-        fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b, t, h, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], 0.125, K1_SMEM[name], 0, stream)
-        if fn(*args):
-            raise RuntimeError(f"{name}: launch refused")
-        out["ms"][f"{name} [{b}, {t}, {h}, 64]"] = time_ms(lambda: fn(*args))
+                raise RuntimeError(f"{name}: launch refused")
+            out["ms"][f"{name} [{b}, {t}, {h}, 64]"] = time_ms(lambda: fn(*args))
     # K2 + K3 at the 10 s clips' [24, 499] and the loss crop's [32, 50]
-    for b, t in ((24, 499), (32, 50)):
+    for b, t in ((24, 499), (32, 50)) if k23 else ():
         q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
         lengths = torch.full((b,), t, dtype=torch.int32, device=dev)
         o, lse = flash_attention.mha_flash(q, k, v, lengths)
@@ -170,7 +255,7 @@ def main() -> None:
             q, k, v, o, lse, torch.randn(b, t, h, 64, generator=g).to(dev), lengths)
         dq, dk, dv = (torch.empty(b, t, h, 64, device=dev) for _ in range(3))
         plan = flash_attention.flash_bwd_launch_plan(t, b, h)["dq"]
-        for name in ("k23", "k23_two_blocks", "k23_rows16", "k23_no_resident_loads"):
+        for name in k23:
             rows, smem = plan["rows_per_block"], plan["smem_bytes"]
             if name == "k23_two_blocks" and rows == 64:
                 smem = 113664

@@ -12,15 +12,28 @@
 // f32; each bias is added in f32 after its product. K4
 // (fused_attention.cu) is the f32 flavour ("highest" and "high3").
 //
-// What bounds it on an H100: operations. At the scoring shape (B = 96,
-// T = 511, 499 keys valid, H = 12, model width 768) it does 246 GFLOP
-// against 308 MB of f32 x, weights and O: 0.25 ms on the bf16 tensor
-// cores at 989 TFLOP/s against 0.09 ms of memory time. So every product
-// runs on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulators), x
-// and the weights are read in f32 once per block and rounded on the way
-// into shared memory, and Q, K and V never reach device memory.
+// What bounds it on an H100: operations, as the bound counts them. At the
+// scoring shape (B = 96, T = 511, 499 keys valid, H = 12, model width 768)
+// it does 246 GFLOP against 308 MB of f32 x, weights and O: 0.25 ms on
+// the bf16 tensor cores at 989 TFLOP/s against 0.09 ms of memory time. So
+// every product runs on the tensor cores (wgmma), and Q, K and V never
+// reach device memory. Inside the kernel what sets the pace is what each
+// SM must take into shared memory: a block of 64 rows needs the head's
+// whole 192 x 768 weight slab (288 KB in bf16) for 19 MFLOP of
+// projections, and every key tile of its cluster for the attention, about
+// 4.7 GB into the SMs at the scoring shape.
 //
-// Design (simple first; wgmma, TMA and warp specialisation are later work):
+// Design:
+//   * A prologue kernel (pack_kernel) rounds the weights to bf16 once per
+//     call and packs them head-major, [H, 3 * 64, DM]: rows 0-63 of head h
+//     are Wq's rows 64h .. 64h + 63, then Wk's, then Wv's (nn.Linear's
+//     [out, in] layout, so a row is one output feature along the model
+//     axis), as the JAX package builds per_head_w outside its kernel. For
+//     f32 x it rounds x to a bf16 copy in the same launch; both flavours
+//     then run the one projection kernel on bf16 x, so the f32 flavour's O
+//     is the bf16 flavour's before its one rounding, bit for bit. bf16(w)
+//     and bf16(x) are the values the products used before, wherever they
+//     are rounded.
 //   * K4's thread-block cluster per (batch, head), with its two split
 //     rules (ops/fused_attention.py::fused_launch_plan). T > 64: a cluster
 //     of ceil(T / 64) blocks, block r projects Q, K and V of rows
@@ -28,55 +41,72 @@
 //     attends those query rows. T <= 64: a cluster of 3, block g projects
 //     tensor g (Q, K, V) of all rows, and the three share the query rows by
 //     16-row warp tiles, warp tile w going to block w % 3. Peers' K and V
-//     are read through distributed shared memory: no device workspace.
-//   * Phase 1, the projections: 16-wide slices of the model axis of x (64
-//     rows) and of the head's weight rows (64 per tensor; nn.Linear's
-//     [out, in] layout is already mma's "col" operand, so no transpose)
-//     are copied in f32 by cp.async into a double buffer, rounded with
-//     __float2bfloat16_rn into one bf16 slice (the staging step), and fed
-//     to mma by ldmatrix. Warp w owns rows 16w .. 16w + 15 of every
-//     tensor; its f32 accumulators take the bias, Q the scale 1/8 (exact),
-//     and the result is stored once as bf16 in the block's own shared
-//     memory, rows padded to 72 bf16 so that ldmatrix meets no bank
-//     conflict. The TPU kept K_h and V_h in f32 scratch; the next DEFAULT
-//     product rounds them to bf16 anyway, so the values are the same.
+//     are read through distributed shared memory: no device workspace
+//     beyond the packed weights. A block is a consumer warpgroup (4 warps)
+//     and a producer warp; 2 blocks an SM.
+//   * Phase 1, the projections: a ring of 3 stages, each a 64-wide slice of
+//     the model axis of the chunk's 64 rows of x and of the weight rows it
+//     needs (all 192 of the head, or the 64 of one tensor), in TMA's
+//     128-byte swizzle, one mbarrier "full" and one "empty" per stage. One
+//     thread of the producer warp issues the copies. Tiles that every
+//     block of the cluster needs go out once with .multicast::cluster, each
+//     block issuing its share: the head's weights (T > 64; one box of
+//     192 / n rows a block where the cluster size n divides the head's 24
+//     swizzle atoms of 8 rows, else 8-row boxes) or x (T <= 64, the three
+//     tensors of one x; 8-row boxes), so each weight byte leaves L2 once
+//     per cluster. A block's own tile is one box (its 64 x rows, or its
+//     tensor's 64 weight rows). x's 3-D tensor map reads rows past T as 0. A stage is refilled once every block of the cluster has released
+//     it (each consumer warp arrives on every block's "empty" barrier).
+//     The consumer warpgroup multiplies with wgmma m64n192k16 (Q, K and V
+//     of the chunk: 96 f32 accumulators a thread) or m64n64k16 (one
+//     tensor), both operands K-major from shared memory, keeping one
+//     stage's products in flight while it releases the stage before. The
+//     epilogue adds the bias in f32, Q's scale 1/8 (exact), and stores
+//     bf16 rows of 128 bytes in the same swizzle (wgmma's operands in
+//     phase 2) into shared memory that the ring used. The TPU kept K_h and
+//     V_h in f32 scratch; the next DEFAULT product rounds them to bf16
+//     anyway, so the values are the same.
 //   * Rows of K and V at t >= lengths[b] are stored as 0: inside the
 //     tensor core 0 * NaN is NaN, so garbage in padded rows of x must
-//     never reach a product of a valid row. Q of every row t < T is
-//     projected from x as the TPU kernel does (a padded query row sees
-//     the valid keys; its output is written, and it is finite whenever x
-//     is).
-//   * Phase 2 is K1b's key loop (flash_attention_bf16.cu): each warp's Q
-//     rows as A fragments in registers (read from the block's own slot, or
-//     block 0's for T <= 64), each 64-key tile of K and V copied from the
-//     block that projected it into a local tile, S = Q . K^T through
-//     ldmatrix, an online f32 softmax on the accumulator fragments, p
-//     rounded to bf16 straight from them into A fragments, V through
-//     ldmatrix.trans. The online softmax rounds p against the running
-//     maximum, where the TPU kernel's single pass rounds it against the
-//     final one: the same bf16 error class, not the same bits. A last
-//     cluster barrier keeps every block's shared memory alive until its
-//     peers have read it.
+//     never reach a product of a valid row (wgmma's row i of the output
+//     reads row i of x alone). Q of every row t < T is projected from x as
+//     the TPU kernel does (a padded query row sees the valid keys; its
+//     output is written, and it is finite whenever x is).
+//   * Phase 2, the key loop, on wgmma: each 64-key tile of K and V is read
+//     from the block that projected it through distributed shared memory
+//     into registers two tiles ahead and stored into one of three local
+//     tiles (16 KB a tile, copied as it lies: the swizzle is the same in
+//     every block; T <= 64 also copies Q from block 0). S = Q . K^T by
+//     m64n64k16 from shared memory; an online f32 softmax on the
+//     accumulator fragments (unmasked where the whole tile is valid), p
+//     rounded to bf16 into A fragments in registers; O += P . V by
+//     m64n64k16 with A from registers and V MN-major. The scores of the
+//     next tile and their softmax run while P . V of this one is in
+//     flight. The online softmax rounds p against the running maximum,
+//     where the TPU kernel's single pass rounds it against the final one:
+//     the same bf16 error class, not the same bits (they are K1b's, the
+//     same sums in the same order). A last cluster barrier keeps every
+//     block's shared memory alive until its peers have read it.
 //   * Every query row t < T is written; a row with no valid key gets
-//     O = 0. No atomics: a rerun gives the same bits.
+//     O = 0. No atomics: a rerun gives the same bits. A wait on an
+//     mbarrier that outlasts ~2 s traps, so that a lost copy fails the
+//     launch instead of holding the card.
 //
-// Two I/O flavours from one template: x and O in f32, or in bf16 (bf16
-// activations with fused_qkv at a "default" island, where the TPU kernel
-// reads the bf16 x block through astype(float32), :111, :118, and stores O
-// in x's dtype, :131). The weights and biases stay f32 in both and are
-// rounded into the slice as before. The bf16 flavour copies x's slices as
-// bf16 by cp.async (32 bytes a row, not 64) and takes them into the
-// rounded slice as they are: a bf16 value rounds to itself, so the
-// staging step's rounding exists for f32 x alone. O is rounded once from
-// acc / l. The products see the same operands, so its O is the f32
-// flavour's on the upcast x, rounded once, bit for bit.
-// Launches on the caller's stream and allocates nothing.
+// Two I/O flavours from one template on O's type: x and O in f32 (x
+// rounded by the prologue), or in bf16 (bf16 activations with fused_qkv
+// at a "default" island, where the TPU kernel reads the bf16 x block
+// through astype(float32), :111, :118, and stores O in x's dtype, :131).
+// The weights and biases are f32 in both; O is rounded once from acc / l.
+// Launches on the caller's stream and allocates nothing: the caller hands
+// in the packed weights' and the rounded x's buffers.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -84,79 +114,271 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kD = 64;                  // head width
-constexpr int kThreads = 128;           // 4 warps
+constexpr int kConsumers = 4;           // warps of the consumer warpgroup
+constexpr int kThreads = 32 * (kConsumers + 1);  // and one producer warp
 constexpr int kRows = 64;               // rows of a chunk = query rows of a block = keys of a tile
-constexpr int kLd = kD + 8;             // bf16 row stride of Q, K and V (144 bytes)
-constexpr int kSlice = 16;              // model-axis values per phase-1 step: one mma k-step
-constexpr int kLdB = kSlice + 8;        // bf16 row stride of the rounded slice (48 bytes)
-constexpr int kStageRows = kRows + 3 * kD;  // x rows, then the weight rows of up to 3 tensors
+constexpr int kK = 64;                  // model-axis values per stage: one 128-byte swizzle row
+constexpr int kStages = 3;              // the ring
+constexpr int kBox = 8;                 // rows of a swizzle atom (1,024 bytes): the least TMA box
+constexpr int kHeadRows = 3 * kD;       // packed weight rows per head
 constexpr int kMaxT = 1024;
 constexpr int kMaxCluster = kMaxT / kRows;  // 16: past the portable 8
 constexpr int kMinBlocks = 2;           // per SM (__launch_bounds__)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct ProjSmem {
-  // f32 slices as cp.async lands them (rows of 16 floats read and written
-  // in 16-byte pieces in thread order: no padding needed; a bf16 x row
-  // fills the first 32 bytes of its row), and the slice in flight rounded
-  // to bf16
-  float stage[2][kStageRows][kSlice];
-  __nv_bfloat16 ops[kStageRows][kLdB];
+struct Stage {
+  __nv_bfloat16 x[kRows * kK];       // 8 KB: the chunk's x rows
+  __nv_bfloat16 w[kHeadRows * kK];   // 24 KB: the head's weight rows (or one tensor's 64)
 };
-struct KeyTile {
-  __nv_bfloat16 k[kRows][kLd];
-  __nv_bfloat16 v[kRows][kLd];
+struct KeyTile {  // K then V of 64 keys, each 64 rows of 128 bytes in the swizzle
+  __nv_bfloat16 k[kRows * kD];
+  __nv_bfloat16 v[kRows * kD];
+};
+struct Phase2 {
+  // this block's projected rows as bf16, 64 rows of 128 bytes in the
+  // swizzle: Q / 8, K and V of its chunk (a cluster along T), or its one
+  // tensor in slot g (T <= 64, where blocks 1 and 2 receive Q in slot 0)
+  __nv_bfloat16 slot[3][kRows * kD];
+  KeyTile kv[3];  // the key tiles in flight
 };
 struct Smem {
-  // this block's projected rows as bf16: Q / 8, K and V of its chunk (a
-  // cluster along T), or its one tensor in slot 0 (T <= 64)
-  __nv_bfloat16 slot[3][kRows][kLd];
   union {
-    ProjSmem proj;
-    KeyTile kv;
+    Stage ring[kStages];  // phase 1
+    Phase2 p2;            // from phase 1's epilogue on
   } u;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem);
-static_assert(kSmemBytes == 72704, "ops/fused_attention.py::FUSED_BF16_SMEM_BYTES");
+// the ring's tiles start on 1,024-byte boundaries (the swizzle atom); the
+// dynamic shared memory is aligned by hand, hence the extra 1,024 bytes
+constexpr int kSmemBytes = sizeof(Smem) + 1024;
+static_assert(sizeof(Stage) % 1024 == 0, "swizzle atoms");
+static_assert(sizeof(Phase2) <= sizeof(Stage) * kStages, "phase 2 fits in the ring");
+static_assert(kSmemBytes == 99376, "ops/fused_attention.py::FUSED_BF16_SMEM_BYTES");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the phase of parity `parity` has completed; a wait of more
+// than ~2 s (a lost arrival or copy) traps, so that the launch fails
+// instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+
+// arrive on the barrier at `bar`'s offset in the shared memory of cluster
+// block `rank`
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// one box of a tensor map into shared memory, completing on `bar`; with a
+// mask, into the same offset of every cluster block in it, each completing
+// on its own barrier at `bar`'s offset
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar, uint16_t mask) {
+  if (mask == 0) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+        : "memory");
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar, uint16_t mask) {
+  if (mask == 0) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar)),
+        "h"(mask)
+        : "memory");
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
+// element offset of (row, col) in a 64 x 64 bf16 tile in the 128-byte
+// swizzle (TMA's and wgmma's): 16-byte chunk col / 8 of row `row` sits at
+// chunk (col / 8) ^ (row % 8)
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * kD + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+// ---- wgmma ----
+
+// shared-memory matrix descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row atoms 1,024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that wgmma reads or writes behind the compiler's back: each is
+// "changed" here, so that no read of an accumulator moves above the wait
+// that completes it, and an A fragment stays live until then.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+}
+
+// D[64 x N] += A[64 x 16] . B[N x 16]^T, bf16 operands from shared memory
+// (descriptors), f32 accumulators in registers: d[4j + e] is row
+// 16 warp + lane / 4 + 8 (e / 2), column 8j + 2 (lane % 4) + e % 2
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the same with A from registers (bf16 pairs in mma.sync's m16n8k16 A
+// layout per warp) and B MN-major (N contiguous in shared memory)
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tile(float (&d)[NT * kD / 2], uint64_t a, uint64_t b) {
+  if constexpr (NT == 3) {
+    wgmma_m64n192(d, a, b);
+  } else {
+    wgmma_m64n64(d, a, b);
+  }
+}
+
+// ---- phase 2's row reductions ----
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -167,102 +389,131 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows r0 .. r0 + 63 of xb ([T, DM], row-major, f32 or bf16; rows past T
-// read as 0) times the 64 head rows of tensor kinds[n] (0: Q, 1: K, 2: V)
-// of w ([DM, DM] each), in one bf16 pass with f32 sums, plus the bias in
-// f32, times `scale` for Q, stored as bf16 into slot[n]; rows of K and V
-// at t >= len are stored as 0. Every thread calls it alike.
-template <int NT, typename XT>
-__device__ __forceinline__ void project(const XT* __restrict__ xb,
-                                        const float* const (&w)[3],
-                                        const float* const (&bias)[3], const int (&kinds)[NT],
-                                        float scale, int r0, int T, int len, int DM, int h,
-                                        ProjSmem& ps, __nv_bfloat16 (*slot)[kRows][kLd]) {
-  constexpr int kR = kRows + NT * kD;              // staged rows
-  constexpr int kPer = kR * (kSlice / 4) / kThreads;  // 16-byte pieces per thread
+// ---- the prologue: weights packed once, f32 x rounded ----
+
+// Row 192 h + 64 n + r of wp is row 64 h + r of tensor n (wq, wk, wv),
+// rounded to bf16; then xr = bf16(x) when x is given. 8 values a thread
+// and step.
+__global__ void pack_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
+                            const float* __restrict__ wv, __nv_bfloat16* __restrict__ wp, int DM,
+                            const float* __restrict__ x, __nv_bfloat16* __restrict__ xr,
+                            long long x_units) {
+  const long long per_w = static_cast<long long>(DM) * DM;
+  const long long w_units = 3 * per_w / 8;
+  const long long total = w_units + (x ? x_units : 0);
+  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < total;
+       u += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float* src;
+    __nv_bfloat16* dst;
+    if (u < w_units) {
+      const long long e = 8 * u;
+      const int n = static_cast<int>(e / per_w);
+      const long long rem = e - n * per_w;
+      const int row = static_cast<int>(rem / DM);
+      const int col = static_cast<int>(rem - static_cast<long long>(row) * DM);
+      src = (n == 0 ? wq : n == 1 ? wk : wv) + rem;
+      dst = wp + static_cast<long long>((row / kD) * kHeadRows + n * kD + row % kD) * DM + col;
+    } else {
+      const long long e = 8 * (u - w_units);
+      src = x + e;
+      dst = xr + e;
+    }
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                                                pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+  }
+}
+
+// ---- phase 1 ----
+
+// The producer's loop (one thread): stage s's copies into ring slot
+// s % kStages once every block in the ring has released the slot's last
+// stage. T > 64 (`along_t`): this block's 64 x rows (one box) and its
+// share of the head's 192 weight rows in boxes of w_box rows, multicast;
+// T <= 64: its tensor's 64 weight rows (one box) and its share of x in
+// 8-row boxes, multicast.
+__device__ __forceinline__ void produce_ring(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                             Smem& sm, bool along_t, int rank, int parts, int b,
+                                             int h, int r0, int steps, int w_box) {
+  const uint16_t mask = parts > 1 ? static_cast<uint16_t>((1u << parts) - 1) : 0;
+  const uint32_t stage_bytes = along_t ? sizeof(Stage) : 2 * kRows * kK * 2;
+  for (int s = 0; s < steps; ++s) {
+    const int j = s % kStages;
+    // the slot's last stage released by every block in the ring
+    if (s >= kStages) mbar_wait(&sm.empty[j], (s / kStages - 1) & 1);
+    Stage& st = sm.u.ring[j];
+    uint64_t* bar = &sm.full[j];
+    const int k0 = s * kK;
+    mbar_expect_tx(bar, stage_bytes);
+    if (along_t) {
+      tma_3d(st.x, tm_x, k0, r0, b, bar, 0);  // this block's 64 x rows: one box
+      for (int a = rank; a < kHeadRows / w_box; a += parts) {  // its share of the weights
+        tma_2d(st.w + a * w_box * kK, tm_w, k0, h * kHeadRows + a * w_box, bar, mask);
+      }
+    } else {
+      tma_2d(st.w, tm_w, k0, h * kHeadRows + rank * kD, bar, 0);  // its tensor's 64 rows
+      for (int a = rank; a < kRows / kBox; a += parts) {  // its share of x, in 8-row boxes
+        tma_3d(st.x + a * kBox * kK, tm_x, k0, a * kBox, b, bar, mask);
+      }
+    }
+  }
+}
+
+// The projections of one block: NT = 3, Q, K and V of rows r0 .. r0 + 63
+// (a cluster along T, `along_t`), or NT = 1, tensor kinds[0] of them (Q of
+// a chunk with no valid key, or tensor `rank` of rows 0 .. 63 for T <= 64),
+// plus the bias in f32, times `scale` for Q, stored as bf16 into the slot
+// of its kind; rows of K and V at t >= len are stored as 0. `parts` blocks
+// of the cluster (ranks 0 .. parts - 1) take part in the ring: each issues
+// its share of the shared tiles to all of them. The producer warp issues
+// the copies; the consumer warpgroup multiplies and writes the slots.
+template <int NT>
+__device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                        Smem& sm, const float* const (&bias)[3],
+                                        const int (&kinds)[NT], float scale, bool along_t,
+                                        int rank, int parts, int b, int h, int r0, int len,
+                                        int DM, int w_box) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int steps = DM / kK;
 
-  auto fetch = [&](int k0, int buf) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = tid + e * kThreads;
-      const int row = idx / (kSlice / 4);
-      const int c = idx % (kSlice / 4);
-      if (row < kRows) {
-        // a bf16 row is two 16-byte pieces: pieces 2 and 3 copy nothing
-        constexpr int kXVec = 16 / sizeof(XT);
-        const bool ok = r0 + row < T;
-        if (kXVec * c < kSlice) {
-          cp_async16(reinterpret_cast<XT*>(ps.stage[buf][row]) + kXVec * c,
-                     ok ? xb + static_cast<long long>(r0 + row) * DM + k0 + kXVec * c : xb,
-                     ok ? 16 : 0);
-        }
-      } else {
-        const int n = (row - kRows) / kD;
-        const int r = (row - kRows) % kD;
-        cp_async16(&ps.stage[buf][row][4 * c],
-                   w[kinds[n]] + static_cast<long long>(h * kD + r) * DM + k0 + 4 * c, 16);
-      }
-    }
-  };
-
-  float acc[NT * 8][4];  // n-tile j: tensor j / 8, columns 8 (j % 8) + 2c, +1; rows g, g + 8
-#pragma unroll
-  for (int j = 0; j < NT * 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if (warp == kConsumers) {  // the producer warp: lane 0 keeps the ring full
+    if (lane == 0) produce_ring(tm_x, tm_w, sm, along_t, rank, parts, b, h, r0, steps, w_box);
+    __syncwarp();
+    return;
   }
 
-  const int steps = DM / kSlice;
-  fetch(0, 0);
-  cp_async_commit();
+  float acc[NT * kD / 2];
+#pragma unroll
+  for (int i = 0; i < NT * kD / 2; ++i) acc[i] = 0.f;
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();  // slice s has landed everywhere; slice s - 1 is no longer read
-    if (s + 1 < steps) {
-      fetch((s + 1) * kSlice, (s + 1) & 1);
-      cp_async_commit();
-    }
-    // the staging step: round slice s to bf16 (a bf16 x row as it is)
+    const int j = s % kStages;
+    mbar_wait(&sm.full[j], (s / kStages) & 1);
+    const uint64_t da = sw128_desc(smem_u32(sm.u.ring[j].x));
+    const uint64_t db = sw128_desc(smem_u32(sm.u.ring[j].w));
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = tid + e * kThreads;
-      const int row = idx / (kSlice / 4);
-      const int c = idx % (kSlice / 4);
-      uint2 u;
-      if (std::is_same_v<XT, __nv_bfloat16> && row < kRows) {
-        u = reinterpret_cast<const uint2*>(ps.stage[s & 1][row])[c];
-      } else {
-        const float4 f = *reinterpret_cast<const float4*>(&ps.stage[s & 1][row][4 * c]);
-        u = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
-      }
-      *reinterpret_cast<uint2*>(&ps.ops[row][4 * c]) = u;
+    for (int kk = 0; kk < kK / 16; ++kk) {  // 16 values = 32 bytes along the swizzled row
+      wgmma_tile<NT>(acc, da + 2 * kk, db + 2 * kk);
     }
-    __syncthreads();
-    // A: the warp's 16 x rows (matrices: rows 0-7 / 8-15 at k 0-7, then
-    // at k 8-15); B: two n-tiles of weight rows per ldmatrix (rows 0-7 at
-    // k 0-7 and k 8-15, then rows 8-15)
-    uint32_t a[4];
-    ldmatrix_x4(a, &ps.ops[16 * warp + (lane & 15)][8 * (lane >> 4)]);
-    const int m = lane >> 3;
-#pragma unroll
-    for (int jp = 0; jp < NT * 4; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &ps.ops[kRows + 16 * jp + (lane & 7) + 8 * (m >> 1)][8 * (m & 1)]);
-      mma_bf16(acc[2 * jp], a, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    wgmma_commit();
+    wgmma_wait<1>();  // stage s - 1 has been read: release its slot in every block
+    if (s >= 1 && s - 1 + kStages < steps && lane < parts) {
+      mbar_arrive_cluster(&sm.empty[(s - 1) % kStages], lane);
     }
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
   const int g = lane >> 2;
   const int c = lane & 3;
 #pragma unroll
-  for (int j = 0; j < NT * 8; ++j) {
-    const int n = j / 8;
-    const int kind = kinds[n];
-    const int col = 8 * (j % 8) + 2 * c;
+  for (int jt = 0; jt < NT * 8; ++jt) {
+    const int kind = kinds[jt / 8];
+    const int col = 8 * (jt % 8) + 2 * c;
     const float b0 = bias[kind][h * kD + col];
     const float b1 = bias[kind][h * kD + col + 1];
     const float sc = kind == 0 ? scale : 1.f;
@@ -270,25 +521,119 @@ __device__ __forceinline__ void project(const XT* __restrict__ xb,
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * warp + g + 8 * i;
       const bool zero = kind != 0 && r0 + row >= len;
-      *reinterpret_cast<uint32_t*>(&slot[n][row][col]) =
-          zero ? 0u : pack_bf16((acc[j][2 * i] + b0) * sc, (acc[j][2 * i + 1] + b1) * sc);
+      *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][sw128(row, col)]) =
+          zero ? 0u
+               : pack_bf16((acc[4 * jt + 2 * i] + b0) * sc, (acc[4 * jt + 2 * i + 1] + b1) * sc);
     }
+  }
+  // the slots are read next by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- phase 2 ----
+
+// the consumer warpgroup's own barrier (the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
+}
+
+// S = Q . K^T of one key tile, issued and committed (not waited): both
+// K-major (d contiguous); s[4j + 2i + e] row 16 warp + lane / 4 + 8i, key
+// 8j + 2 (lane % 4) + e
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint64_t dq, const KeyTile& kt) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  const uint64_t dk = sw128_desc(smem_u32(kt.k));
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk);
+  wgmma_commit();
+}
+
+// O += bf16(P) . bf16(V), issued and committed: k-step kk covers keys
+// 16kk .. 16kk + 15, whose A fragments pa[kk] are the P fragments of key
+// tiles 2kk and 2kk + 1; V's rows (keys) of 128 bytes are B MN-major,
+// 8-key atoms 1,024 bytes apart
+__device__ __forceinline__ void issue_values(float (&acc)[32], const uint32_t (&pa)[4][4],
+                                             const KeyTile& kt) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs(acc, pa[kk], sw128_desc(smem_u32(kt.v + 16 * kk * kD)));
+  wgmma_commit();
+}
+
+// the online softmax of one tile's scores s (keys key0 + ..., those >= len
+// masked unless the whole tile is valid, kFull): updates the row maxima m
+// and this thread's share of the row sums l, gives each row's rescale
+// factor for O, and P rounded to bf16 as wgmma A fragments (k-step kk
+// takes key tiles 2kk and 2kk + 1). It only reads s, so that ptxas keeps
+// P . V, whose accumulators are elsewhere, in flight around it.
+template <bool kFull>
+__device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
+                                             int len, int c) {
+  float p[32];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (kFull || key0 + 8 * jj + 2 * c + e < len) mx = fmaxf(mx, s[4 * jj + 2 * i + e]);
+      }
+    }
+    mx = quad_max(mx);
+    alpha[i] = exp2f((m[i] - mx) * kLog2e);
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = kFull || key0 + 8 * jj + 2 * c + e < len;
+        const float v = ok ? exp2f((s[4 * jj + 2 * i + e] - mx) * kLog2e) : 0.f;
+        p[4 * jj + 2 * i + e] = v;
+        sum += v;
+      }
+    }
+    l[i] = l[i] * alpha[i] + sum;
+    m[i] = mx;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+  }
+}
+
+// the same, choosing the unmasked form where every key of the tile is valid
+__device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
+                                             int len, int c) {
+  if (key0 + kRows <= len) {
+    softmax_tile<true>(s, m, l, alpha, pa, key0, len, c);
+  } else {
+    softmax_tile<false>(s, m, l, alpha, pa, key0, len, c);
   }
 }
 
 template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_qkv_fwd_bf16_kernel(const IO* __restrict__ x, const float* __restrict__ wq,
-                          const float* __restrict__ bq, const float* __restrict__ wk,
-                          const float* __restrict__ bk, const float* __restrict__ wv,
-                          const float* __restrict__ bv, const int* __restrict__ lengths,
-                          IO* __restrict__ o, int T, int DM, int tensors,
-                          long long sob, long long sot, long long soh, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bq,
+                          const float* __restrict__ bk, const float* __restrict__ bv,
+                          const int* __restrict__ lengths, IO* __restrict__ o, int T, int DM,
+                          int tensors, int w_box, long long sob, long long sot, long long soh,
+                          float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
   cg::cluster_group cluster = cg::this_cluster();
 
   const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int len = min(max(lengths[b], 0), T);
@@ -297,180 +642,199 @@ fused_qkv_fwd_bf16_kernel(const IO* __restrict__ x, const float* __restrict__ wq
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
-  const IO* xb = x + static_cast<long long>(b) * T * DM;
   const bool split_rows = tensors == 3;
-  const float* const w[3] = {wq, wk, wv};
   const float* const bias[3] = {bq, bk, bv};
+  // blocks in the ring: every block of a cluster along T; for T <= 64 the
+  // three, or block 0 alone when no key is valid (K and V are all 0)
+  const int parts = split_rows || len > 0 ? blocks : 1;
+
+  if (tid == 0) {
+    for (int j = 0; j < kStages; ++j) {
+      mbar_init(&sm.full[j], 1);
+      mbar_init(&sm.empty[j], kConsumers * parts);  // each consumer warp of each block in the ring
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every block's barriers are set before a copy lands in it
 
   // phase 1: this block's projections into its own shared memory
   if (split_rows) {
     const int r0 = rank * kRows;
     if (r0 < len) {
-      project<3>(xb, w, bias, {0, 1, 2}, scale, r0, T, len, DM, h, sm.u.proj, sm.slot);
+      project<3>(&tm_x, &tm_w, sm, bias, {0, 1, 2}, scale, true, rank, parts, b, h, r0, len, DM,
+                 w_box);
     } else {
-      project<1>(xb, w, bias, {0}, scale, r0, T, len, DM, h, sm.u.proj, sm.slot);
+      project<1>(&tm_x, &tm_w, sm, bias, {0}, scale, true, rank, parts, b, h, r0, len, DM,
+                 w_box);
     }
   } else if (rank == 0 || len > 0) {
-    project<1>(xb, w, bias, {rank}, scale, 0, T, len, DM, h, sm.u.proj, sm.slot);
+    project<1>(&tm_x, &tm_w, sm, bias, {rank}, scale, false, rank, parts, b, h, 0, len, DM,
+               w_box);
   }
   cluster.sync();  // every block's slots are written and visible to the cluster
 
-  // phase 2: the key loop over the cluster's K and V
-  const int q0 = split_rows ? rank * kRows : 0;
-  const bool active = split_rows ? q0 + 16 * warp < T : warp % 3 == rank && 16 * warp < T;
-  // the warp's Q rows as A fragments for the 4 k-steps of 16 (Q lives in
-  // block 0 for T <= 64): a0 row g, d 2c..2c+1; a1 row g+8; a2, a3 at d+8
-  uint32_t qa[4][4];
-  if (active) {
-    const __nv_bfloat16* qs =
-        split_rows ? &sm.slot[0][0][0] : cluster.map_shared_rank(&sm.slot[0][0][0], 0);
-    const __nv_bfloat16* qr0 = qs + (16 * warp + g) * kLd;
-    const __nv_bfloat16* qr1 = qr0 + 8 * kLd;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = 16 * kk + 8 * half + 2 * c;
-        qa[kk][2 * half] = *reinterpret_cast<const uint32_t*>(qr0 + col);
-        qa[kk][2 * half + 1] = *reinterpret_cast<const uint32_t*>(qr1 + col);
-      }
-    }
-  }
-
-  float acc[8][4];  // O: d-tile j, (row g: d 8j+2c, +1; row g+8: the same)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-
+  // phase 2, the consumer warpgroup: the key loop over the cluster's K and
+  // V. Tile k (keys 64k .. 64k + 63) is read from the block that projected
+  // it through distributed shared memory into registers two tiles ahead,
+  // then stored into slot k % 3 of the block's own tiles; the scores of
+  // tile k + 1 and their softmax run while P . V of tile k is in flight
   const int tiles = (len + kRows - 1) / kRows;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int key0 = tile * kRows;
-    // tile `tile`'s K and V from the block that projected them (rows past
-    // the bound are 0 there); every load in flight before the first store
-    const __nv_bfloat16* kp = split_rows ? cluster.map_shared_rank(&sm.slot[1][0][0], tile)
-                                         : cluster.map_shared_rank(&sm.slot[0][0][0], 1);
-    const __nv_bfloat16* vp = split_rows ? cluster.map_shared_rank(&sm.slot[2][0][0], tile)
-                                         : cluster.map_shared_rank(&sm.slot[0][0][0], 2);
-    constexpr int kPer = kRows * (kD / 8) / kThreads;
-    uint4 kx[kPer], vx[kPer];
+  if (warp < kConsumers) {
+    constexpr int kPer = sizeof(KeyTile) / 16 / (32 * kConsumers);  // 16-byte pieces a thread
+    const int ct = tid;  // consumer thread 0 .. 127
+    uint4 held[kPer];
+    // tile `tile`'s K and V, 16 KB as they lie (the swizzle is the same in
+    // every block), or for T <= 64 K from block 1 and V from block 2
+    auto fetch = [&](int tile) {
+      const uint4* kp = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(sm.u.p2.slot[1], split_rows ? tile : 1));
+      const uint4* vp = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(sm.u.p2.slot[2], split_rows ? tile : 2));
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = tid + e * kThreads;
-      const int r = idx / (kD / 8);
-      const int ch = idx % (kD / 8);
-      kx[e] = *reinterpret_cast<const uint4*>(kp + r * kLd + 8 * ch);
-      vx[e] = *reinterpret_cast<const uint4*>(vp + r * kLd + 8 * ch);
-    }
-    __syncthreads();  // the previous tile (phase 1's buffers, first) is no longer read
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = tid + e * kThreads;
-      const int r = idx / (kD / 8);
-      const int ch = idx % (kD / 8);
-      *reinterpret_cast<uint4*>(&sm.u.kv.k[r][8 * ch]) = kx[e];
-      *reinterpret_cast<uint4*>(&sm.u.kv.v[r][8 * ch]) = vx[e];
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    // S = Q . K^T for the tile's 8 key tiles of 8 (C fragments: row g keys
-    // 8j+2c, +1; row g+8 the same)
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kp2 = 0; kp2 < 2; ++kp2) {
-        // matrices: keys 8j..8j+7 at d 32kp2 + {0, 8, 16, 24}: the B
-        // fragments of k-steps 2kp2 and 2kp2 + 1
-        uint32_t bk4[4];
-        ldmatrix_x4(bk4, &sm.u.kv.k[8 * j + (lane & 7)][32 * kp2 + 8 * (lane >> 3)]);
-        mma_bf16(s[j], qa[2 * kp2], bk4[0], bk4[1]);
-        mma_bf16(s[j], qa[2 * kp2 + 1], bk4[2], bk4[3]);
+      for (int e = 0; e < kPer / 2; ++e) {
+        held[e] = kp[ct + e * 32 * kConsumers];
+        held[kPer / 2 + e] = vp[ct + e * 32 * kConsumers];
       }
-    }
+    };
+    auto stash = [&](KeyTile& kt) {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) reinterpret_cast<uint4*>(&kt)[ct + e * 32 * kConsumers] = held[e];
+      // read next by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    };
+    const bool active = split_rows ? rank * kRows + 16 * warp < T
+                                   : warp % 3 == rank && 16 * warp < T;
+    float acc[32];  // O: acc[4j + 2i + e] row 16 warp + g + 8i, d 8j + 2c + e
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+    float alpha[2];
+    float s[32];
+    uint32_t pa[4][4], pn[4][4];  // P of the tile in P . V, of the next one
+    const uint64_t dq = sw128_desc(smem_u32(sm.u.p2.slot[0]));
 
-    // online softmax on the fragments; rows g (i = 0) and g + 8 (i = 1)
+    if (tiles > 0) {
+      if (!split_rows && rank != 0) {  // T <= 64: Q from block 0
+        const uint4* qp = reinterpret_cast<const uint4*>(
+            cluster.map_shared_rank(sm.u.p2.slot[0], 0));
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = key0 + 8 * j + 2 * c + e < len;
-          s[j][2 * i + e] = ok ? s[j][2 * i + e] : kNegInf;
-          mx = fmaxf(mx, s[j][2 * i + e]);
+        for (int e = 0; e < kPer / 2; ++e) {
+          reinterpret_cast<uint4*>(sm.u.p2.slot[0])[ct + e * 32 * kConsumers] =
+              qp[ct + e * 32 * kConsumers];
         }
       }
-      mx = quad_max(mx);
-      const float alpha = exp2f((m[i] - mx) * kLog2e);
-      float sum = 0.f;
+      fetch(0);
+      stash(sm.u.p2.kv[0]);
+      if (tiles > 1) {
+        fetch(1);
+        stash(sm.u.p2.kv[1]);
+      }
+      consumers_sync();
+      issue_scores(s, dq, sm.u.p2.kv[0]);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m, l, alpha, pn, 0, len, c);
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+      // here: tiles `tile` and `tile + 1` in place, P of `tile` in pn, O
+      // rescaled to its maximum
+      const bool next = tile + 1 < tiles;
+      if (tile + 2 < tiles) fetch(tile + 2);  // in flight through this tile
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int kk = 0; kk < 4; ++kk) {  // read by P . V until it completes
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = key0 + 8 * j + 2 * c + e < len;
-          const float p = ok ? exp2f((s[j][2 * i + e] - mx) * kLog2e) : 0.f;
-          s[j][2 * i + e] = p;
-          sum += p;
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
+      }
+      if (next) issue_scores(s, dq, sm.u.p2.kv[(tile + 1) % 3]);
+      issue_values(acc, pa, sm.u.p2.kv[tile % 3]);
+      wgmma_wait<1>();  // the scores of tile + 1; P . V of tile still in flight
+      fence_regs(s);
+      if (next) softmax_tile(s, m, l, alpha, pn, (tile + 1) * kRows, len, c);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      if (next) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            acc[4 * jj + 2 * i] *= alpha[i];
+            acc[4 * jj + 2 * i + 1] *= alpha[i];
+          }
         }
       }
-      l[i] = l[i] * alpha + sum;
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[j][2 * i] *= alpha;
-        acc[j][2 * i + 1] *= alpha;
-      }
+      if (tile + 2 < tiles) stash(sm.u.p2.kv[(tile + 2) % 3]);  // tile - 1's slot, read by all
+      consumers_sync();  // tile + 2 is in place; tile is no longer read
     }
 
-    // O += bf16(P) . bf16(V): k-step kk covers keys 16kk..16kk+15, whose A
-    // fragment is the C fragments of key tiles 2kk and 2kk + 1
+    if (active) {
+      const float totals[2] = {quad_sum(l[0]), quad_sum(l[1])};
+      const int q0 = split_rows ? rank * kRows : 0;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int i = 0; i < 2; ++i) {
+        const int t = q0 + 16 * warp + g + 8 * i;
+        if (t >= T) continue;
+        const float inv = totals[i] > 0.f ? 1.f / totals[i] : 0.f;
+        IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        // matrices: keys 16kk + {0, 8} at d 16dp and 16dp + 8, transposed:
-        // the B fragments of d tiles 2dp and 2dp + 1
-        uint32_t bv4[4];
-        ldmatrix_x4_trans(
-            bv4, &sm.u.kv.v[16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)][16 * dp + 8 * (lane >> 4)]);
-        mma_bf16(acc[2 * dp], pa, bv4[0], bv4[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv4[2], bv4[3]);
-      }
-    }
-  }
-
-  if (active) {
-    const float totals[2] = {quad_sum(l[0]), quad_sum(l[1])};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = q0 + 16 * warp + g + 8 * i;
-      if (t >= T) continue;
-      const float inv = totals[i] > 0.f ? 1.f / totals[i] : 0.f;
-      IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float o0 = acc[j][2 * i] * inv, o1 = acc[j][2 * i + 1] * inv;
-        if constexpr (std::is_same_v<IO, float>) {
-          *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) = make_float2(o0, o1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * c) = __floats2bfloat162_rn(o0, o1);
+        for (int jj = 0; jj < 8; ++jj) {
+          const float o0 = acc[4 * jj + 2 * i] * inv, o1 = acc[4 * jj + 2 * i + 1] * inv;
+          if constexpr (std::is_same_v<IO, float>) {
+            *reinterpret_cast<float2*>(orow + 8 * jj + 2 * c) = make_float2(o0, o1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * c) =
+                __floats2bfloat162_rn(o0, o1);
+          }
         }
       }
     }
   }
   cluster.sync();  // peers have finished reading this block's slots
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no link
+// against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a bf16 tensor map in the 128-byte swizzle, boxes of 64 values (128
+// bytes) by box_rows rows (a multiple of 8: whole swizzle atoms); dims[0]
+// is the contiguous axis, strides in bytes of dims 1 .. rank - 1
+cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t box[3] = {kK, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename IO>
@@ -529,19 +893,17 @@ int max_active_clusters(int cluster) {
 }
 
 template <typename IO>
-cudaError_t launch(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
-                   const void* wv, const void* bv, const void* lengths, void* o, int B, int T,
+cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const void* bq,
+                   const void* bk, const void* bv, const void* lengths, void* o, int B, int T,
                    int H, int DM, long long sob, long long sot, long long soh, float scale,
-                   int cluster, int tensors, cudaStream_t stream) {
+                   int cluster, int tensors, int w_box, cudaStream_t stream) {
   if (max_active_clusters<IO>(cluster) == 0) return cudaErrorInvalidConfiguration;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(cluster, H, B, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel<IO>, static_cast<const IO*>(x),
-                            static_cast<const float*>(wq), static_cast<const float*>(bq),
-                            static_cast<const float*>(wk), static_cast<const float*>(bk),
-                            static_cast<const float*>(wv), static_cast<const float*>(bv),
-                            static_cast<const int*>(lengths), static_cast<IO*>(o), T, DM,
-                            tensors, sob, sot, soh, scale);
+  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel<IO>, tm_x, tm_w,
+                            static_cast<const float*>(bq), static_cast<const float*>(bk),
+                            static_cast<const float*>(bv), static_cast<const int*>(lengths),
+                            static_cast<IO*>(o), T, DM, tensors, w_box, sob, sot, soh, scale);
 }
 
 }  // namespace
@@ -550,18 +912,22 @@ cudaError_t launch(const void* x, const void* wq, const void* bq, const void* wk
 // (bf16_io = 1); wq, wk, wv: [DM, DM] f32 contiguous (nn.Linear's [out,
 // in]); bq, bk, bv: [DM] f32; lengths: int32 [B]; o: [B, T, H, 64] in x's
 // type, addressed through its strides (in elements; unit stride on the
-// last axis, the others even, 8-byte aligned). T <= 1024. The launch plan
+// last axis, the others even, 8-byte aligned). wp: a bf16 [H * 192, DM]
+// buffer for the packed weights; xr: a bf16 [B, T, DM] buffer for the
+// rounded x when bf16_io = 0 (ignored when 1); both 16-byte aligned and
+// written by this call. T <= 1024. The launch plan
 // (ops/fused_attention.py::fused_launch_plan at precision "default"):
 // cluster blocks per (batch, head) along grid x, rows per block, tensors
 // per block (3: a cluster along T; 1: one tensor per block, T <= 64) and
 // the dynamic shared memory, each checked against the kernel's own rule. A
 // cluster size the card cannot hold returns cudaErrorInvalidConfiguration.
-// Returns cudaGetLastError() after the launch.
+// Launches the prologue, then the kernel; returns cudaGetLastError() after
+// them.
 extern "C" int nomad_fused_qkv_attention_bf16_fwd(
     const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
-    const void* wv, const void* bv, const void* lengths, void* o, int B, int T, int H, int DM,
-    long long sob, long long sot, long long soh, float scale, int cluster, int rows,
-    int tensors, int smem_bytes, int bf16_io, void* stream) {
+    const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr, int B,
+    int T, int H, int DM, long long sob, long long sot, long long soh, float scale, int cluster,
+    int rows, int tensors, int threads, int smem_bytes, int bf16_io, void* stream) {
   if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
   }
@@ -569,14 +935,41 @@ extern "C" int nomad_fused_qkv_attention_bf16_fwd(
   const int want_cluster = T <= kRows ? 3 : (T + kRows - 1) / kRows;
   const int want_tensors = T <= kRows ? 1 : 3;
   if (cluster != want_cluster || rows != kRows || tensors != want_tensors ||
-      smem_bytes != kSmemBytes) {
+      threads != kThreads || smem_bytes != kSmemBytes) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* xb = bf16_io ? x : xr;
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(DM), static_cast<cuuint64_t>(T),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_strides[2] = {2ull * DM, 2ull * DM * T};
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(DM),
+                                static_cast<cuuint64_t>(H) * kHeadRows};
+  const cuuint64_t w_strides[1] = {2ull * DM};
+  // boxes: for a cluster along T, x's 64 rows of a block and the head's
+  // weights in one box a block where the cluster divides its 24 atoms
+  // (else 8-row boxes); for T <= 64, x in 8-row shares, a tensor's 64
+  // weight rows
+  const bool along_t = tensors == 3;
+  const int w_box = !along_t ? kD : (kHeadRows / kBox) % cluster == 0 ? kHeadRows / cluster : kBox;
+  err = make_map(&tm_x, xb, 3, x_dims, x_strides, along_t ? kRows : kBox);
+  if (err == cudaSuccess) err = make_map(&tm_w, wp, 2, w_dims, w_strides, w_box);
+  if (err != cudaSuccess) return err;
+  const long long x_units = bf16_io ? 0 : static_cast<long long>(B) * T * DM / 8;
+  const long long units = 3ll * DM * DM / 8 + x_units;
+  const int grid = static_cast<int>(std::min<long long>((units + 255) / 256, 4096));
+  pack_kernel<<<grid, 256, 0, s>>>(
+      static_cast<const float*>(wq), static_cast<const float*>(wk),
+      static_cast<const float*>(wv), static_cast<__nv_bfloat16*>(wp), DM,
+      bf16_io ? nullptr : static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xr), x_units);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
-  err = run(x, wq, bq, wk, bk, wv, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
-            tensors, static_cast<cudaStream_t>(stream));
+  err = run(tm_x, tm_w, bq, bk, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
+            tensors, w_box, s);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
 }

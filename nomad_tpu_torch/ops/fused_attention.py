@@ -58,15 +58,19 @@ _PROJ_BYTES = 4 * 2 * max((ROWS_PER_BLOCK + nt * HEAD_DIM) * (slice_ + 4)
                           for nt, slice_ in ((3, 16), (1, 32)))
 FUSED_SMEM_BYTES = _SLOTS_BYTES + max(_PROJ_BYTES, KEY_TILES_BYTES)
 
-# K4b's (csrc/fused_attention_bf16.cu): Q, K and V as bf16 rows padded to
-# 72; in phase 1 two f32 slices of 16 model-axis values in flight (x and
-# the weight rows of up to 3 tensors) and the slice in flight rounded to
-# bf16, rows of 24; in phase 2 one bf16 K and V tile of 64 keys
-_BF16_LD, _BF16_SLICE = HEAD_DIM + 8, 16
-_BF16_STAGE_ROWS = ROWS_PER_BLOCK + 3 * HEAD_DIM
-FUSED_BF16_SMEM_BYTES = 2 * 3 * ROWS_PER_BLOCK * _BF16_LD + max(
-    4 * 2 * _BF16_STAGE_ROWS * _BF16_SLICE + 2 * _BF16_STAGE_ROWS * (_BF16_SLICE + 8),
-    2 * 2 * ROWS_PER_BLOCK * _BF16_LD)
+# K4b's (csrc/fused_attention_bf16.cu): a ring of 3 stages, each a 64-wide
+# model-axis slice of 64 bf16 x rows and 192 bf16 weight rows (Q, K and V
+# of one head), on 1,024-byte swizzle atoms, with a "full" and an "empty"
+# mbarrier per stage; once phase 1 is done, in the ring's memory, Q, K and
+# V of the chunk and three K + V tiles of 64 keys (64 rows of 128 bytes
+# each); 1,024 bytes to align the ring. A consumer warpgroup and a producer
+# warp a block, 2 blocks an SM.
+_BF16_STAGES, _BF16_SLICE = 3, 64
+_BF16_HEAD_ROWS = 3 * HEAD_DIM  # rows of the packed weights per head
+_BF16_RING_BYTES = 2 * _BF16_STAGES * (ROWS_PER_BLOCK + _BF16_HEAD_ROWS) * _BF16_SLICE
+FUSED_BF16_SMEM_BYTES = _BF16_RING_BYTES + 8 * 2 * _BF16_STAGES + 1024
+FUSED_BF16_THREADS = THREADS + 32
+FUSED_BF16_BLOCKS_PER_SM = 2
 
 # Launches of K4 and of K4b, and of their bf16-I/O flavours, since each
 # count was last set to 0.
@@ -87,7 +91,8 @@ class FusedPlan:
     cluster along T, block r projects Q, K and V of rows 64r .. 64r + 63
     and attends those query rows. 1 (T <= 64): block g projects tensor g
     (Q, K, V) of all rows, and the blocks share the query rows by 16-row
-    warp tiles, warp tile w going to block w % 3."""
+    warp tiles, warp tile w going to block w % 3. ``smem_bytes`` and
+    ``threads`` are the kernel's own (K4 or K4b)."""
 
     t: int
     cluster: int
@@ -95,6 +100,7 @@ class FusedPlan:
     tensors_per_block: int
     grid: tuple
     smem_bytes: int
+    threads: int
 
     def projects(self, rank: int) -> list:
         """(tensor, first row, end row) that block ``rank`` projects when
@@ -116,17 +122,21 @@ class FusedPlan:
 def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> FusedPlan:
     """The launch of K4 (or of K4b, at ``precision`` "default") for x
     [b, t, 64 h]: the cluster size, rows per block, tensors per block,
-    grid (cluster, h, b) and dynamic shared memory. The two kernels split
-    a (batch, head) alike and differ in shared memory. The C launcher
-    checks each against the kernel's own rule."""
+    grid (cluster, h, b), dynamic shared memory and threads a block. The
+    two kernels split a (batch, head) alike and differ in shared memory
+    and threads. The C launcher checks each against the kernel's own
+    rule."""
     if not 1 <= t <= MAX_FUSED_T:
         raise ValueError(f"fused kernel: T = {t} outside 1 .. {MAX_FUSED_T}")
     if t <= ROWS_PER_BLOCK:
         cluster, tensors = 3, 1
     else:
         cluster, tensors = -(-t // ROWS_PER_BLOCK), 3
-    smem = FUSED_BF16_SMEM_BYTES if prec_ops.is_bf16(precision) else FUSED_SMEM_BYTES
-    return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem)
+    if prec_ops.is_bf16(precision):
+        smem, threads = FUSED_BF16_SMEM_BYTES, FUSED_BF16_THREADS
+    else:
+        smem, threads = FUSED_SMEM_BYTES, THREADS
+    return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem, threads)
 
 
 def _linear(x, w, bias, precision):
@@ -192,7 +202,10 @@ def _lib(bf16: bool = False):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
+        # K4b also takes the buffers of its packed weights and rounded x, and
+        # its threads a block
+        fn.argtypes = [p] * (11 if bf16 else 9) + [i] * 4 + [ll] * 3 + [ctypes.c_float] + (
+            [i] * (6 if bf16 else 5) + [p])
         fn.restype = ctypes.c_int
         occ = getattr(lib, f"{entry}_occupancy")
         occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -241,11 +254,35 @@ def _check_inputs(x, params, lengths, heads):
         raise ValueError(f"fused kernel: lengths must be int32 [{b}] on {x.device}")
 
 
-def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads):
+def pack_weights_ref(wq, wk, wv, heads: int) -> torch.Tensor:
+    """The plain version of K4b's prologue: the q/k/v weights ([out, in])
+    rounded to bf16 and packed head-major, [H * 3 * hd, D], rows 3 hd h ..
+    3 hd h + hd - 1 head h's rows of wq, then of wk, then of wv: the JAX
+    package's ``per_head_w`` ([H, D, hd] of the [in, out] weights), each
+    head's slice transposed, stacked over the three."""
+    dm = wq.shape[1]
+    hd = dm // heads
+    return torch.stack([w.view(heads, hd, dm) for w in (wq, wk, wv)], dim=1).to(
+        torch.bfloat16).reshape(heads * 3 * hd, dm)
+
+
+def _bf16_workspace(x, heads):
+    """K4b's buffers, written by its prologue: the packed weights
+    (``pack_weights_ref``'s layout) and, for an f32 x, x rounded to bf16
+    (None for a bf16 x, which the kernel reads as it is)."""
+    dm = x.shape[2]
+    wp = torch.empty((heads * _BF16_HEAD_ROWS, dm), dtype=torch.bfloat16, device=x.device)
+    xr = None if x.dtype == torch.bfloat16 else torch.empty(x.shape, dtype=torch.bfloat16,
+                                                              device=x.device)
+    return wp, xr
+
+
+def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads, workspace=None):
     """K4 or K4b (their bf16-I/O flavour on a bf16 x) on inputs that pass
     ``_check_inputs``: O [B, T, H, hd] in x's dtype, written through its
     strides and handed out head-major as a view, so the out-projection
-    reads it as [B, T, D] with no copy."""
+    reads it as [B, T, D] with no copy. K4b writes its prologue's buffers
+    into ``workspace`` (``_bf16_workspace``) when it is given."""
     params = {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv}
     _check_inputs(x, params, lengths, heads)
     b, t, dm = x.shape
@@ -254,11 +291,16 @@ def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads):
         return o.transpose(1, 2)
     lengths = lengths.contiguous()
     plan = fused_launch_plan(t, b, heads, "default" if bf16 else "highest")
+    buffers, threads = (), ()
+    if bf16:
+        workspace = workspace or _bf16_workspace(x, heads)
+        buffers = tuple(0 if a is None else a.data_ptr() for a in workspace)
+        threads = (plan.threads,)
     lib = _lib(bf16)
     err = getattr(lib, _KERNELS[bf16][1])(
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
-        o.data_ptr(), b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
-        plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes,
+        o.data_ptr(), *buffers, b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
+        plan.cluster, plan.rows_per_block, plan.tensors_per_block, *threads, plan.smem_bytes,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, f"{'bf16 ' if bf16 else ''}fused attention kernel launch")
@@ -279,8 +321,8 @@ def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
 
 def _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
     """K4b: the "default" flavour on the tensor cores; f32 inputs (rounded
-    inside the kernel) and output, as K4's, or on a bf16 x its bf16-I/O
-    flavour."""
+    by the kernel's prologue, which also packs the weights) and output, as
+    K4's, or on a bf16 x its bf16-I/O flavour."""
     o = _launch(True, x, wq, bq, wk, bk, wv, bv, lengths, heads)
     global launches_bf16, launches_bf16_io
     if x.dtype == torch.bfloat16:

@@ -57,18 +57,27 @@ def test_fused_plan_refuses_what_the_kernel_does_not_take(t):
 def test_fused_bf16_plan_splits_as_k4_and_fits_the_sm(b):
     """K4b's plan (precision "default") splits every (batch, head) as K4's
     does, so the row coverage above holds for it too, and asks for the
-    dynamic shared memory the kernel declares: Q, K and V as bf16 rows of
-    72, then the union of phase 1's two f32 slices of 16 (x and 192 weight
-    rows) with their bf16 copy, and phase 2's bf16 K and V tile. The 2
-    blocks per SM it is built for fit the SM's 228 KB (3 would, too);
-    "high" and "highest" keep K4's plan."""
+    dynamic shared memory and threads the kernel declares: a ring of 3
+    stages, each 64 x rows and 192 weight rows of 64 bf16 (32 KB), whose
+    memory phase 2's Q, K, V and three key tiles reuse, a "full" and an
+    "empty" mbarrier a stage and 1,024 bytes to align the ring; a consumer
+    warpgroup and a producer warp. The 2 blocks per SM it is built for fit
+    the SM's 228 KB (3 would not); "high" and "highest" keep K4's plan."""
+    ring = 3 * (64 + 192) * 64 * 2
+    phase2 = (3 + 2 * 3) * 64 * 64 * 2  # Q, K, V; three K + V tiles
+    assert phase2 <= ring
     for t in LENGTHS + list(range(1, 1025, 37)):
         plan = fused_attention.fused_launch_plan(t, b, 12, "default")
         f32 = fused_attention.fused_launch_plan(t, b, 12)
         assert (plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.grid) == (
             f32.cluster, f32.rows_per_block, f32.tensors_per_block, f32.grid), t
-        assert plan.smem_bytes == fused_attention.FUSED_BF16_SMEM_BYTES == 72_704
-        assert 3 * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
+        assert plan.smem_bytes == fused_attention.FUSED_BF16_SMEM_BYTES == ring + 6 * 8 + 1024
+        assert (plan.threads, f32.threads) == (fused_attention.FUSED_BF16_THREADS, 128) == (
+            160, 128)
+        blocks = fused_attention.FUSED_BF16_BLOCKS_PER_SM
+        assert blocks == 2
+        assert blocks * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM < (blocks + 1) * (
+            plan.smem_bytes + SMEM_RESERVED)
         assert fused_attention.fused_launch_plan(t, b, 12, "high") == f32
 
 

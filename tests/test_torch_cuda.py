@@ -759,11 +759,32 @@ def test_model_fast_fused_path_launches_k4b(cuda):
 
 
 def test_bf16_fused_occupancy(cuda):
-    """K4b keeps at least the 2 blocks per SM it is built for, at every
-    cluster size of its plan, and each cluster size fits on the card."""
-    for t in (50, 65, 511, 1024):
-        blocks, clusters = fused_attention.fused_occupancy(t, "default")
-        assert blocks >= 2 and clusters >= 1, (t, blocks, clusters)
+    """K4b, both I/O flavours, keeps at least the 2 blocks per SM it is
+    built for (FUSED_BF16_BLOCKS_PER_SM: its shared memory and a consumer
+    warpgroup plus a producer warp) at every cluster size of its plan, 3
+    (T <= 64) and 2 .. 16, and each cluster size fits on the card."""
+    for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
+        for io in (False, True):
+            blocks, clusters = fused_attention.fused_occupancy(t, "default", io)
+            assert blocks >= fused_attention.FUSED_BF16_BLOCKS_PER_SM and clusters >= 1, (
+                t, io, blocks, clusters)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_fused_prologue_packs_the_weights(cuda, dtype):
+    """K4b's prologue writes the packed weights bit-equal to
+    ``pack_weights_ref`` (the JAX package's per_head_w layout, rounded) and,
+    for an f32 x, x rounded to bf16; a bf16 x needs no copy."""
+    x, params = _fused_inputs(cuda, 2, 70, 2, 23)
+    x = x.to(dtype)
+    lens = torch.tensor([70, 33], dtype=torch.int32, device=cuda)
+    wp, xr = fused_attention._bf16_workspace(x, 2)
+    fused_attention._launch(True, x, *params, lens, 2, workspace=(wp, xr))
+    torch.cuda.synchronize()
+    assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2))
+    assert (xr is None) == (dtype == torch.bfloat16)
+    if xr is not None:
+        assert torch.equal(xr, x.to(torch.bfloat16))
 
 
 # ---------------- the bf16-I/O flavours (the trainer's fast_bf16) ----------------

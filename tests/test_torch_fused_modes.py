@@ -159,6 +159,35 @@ def test_plain_k4b_sublayer_matches_jax_default_mode():
         np.abs(ours - theirs).max() / scale
 
 
+# ---------------- (b2) K4b's prologue: the packed weights ----------------
+
+
+def test_packed_weights_are_jax_per_head_w_rounded(monkeypatch):
+    """K4b's prologue packs the weights as the JAX package hands them to
+    its kernel: ``per_head_w`` ([H, D, hd] column slices of the [in, out]
+    weights) of q, k and v, each head's slice transposed and the three
+    stacked per head, then rounded to bf16 (ties to even), bit for bit.
+    ``pack_weights_ref`` is the plain version; the card holds the
+    kernel's prologue to it (``test_torch_cuda.py``, ``chip_smoke.py``)."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 40, DM)).astype(np.float32)
+    ws = [rng.standard_normal((DM, DM)).astype(np.float32) for _ in range(4)]
+    bs = [rng.standard_normal(DM).astype(np.float32) for _ in range(4)]
+    seen = {}
+
+    def capture(xp, wq, wk, wv, bq, bk, bv, lengths, heads, block_q, mode, interpret):
+        seen["w"] = [np.asarray(w) for w in (wq, wk, wv)]
+        return jnp.zeros((xp.shape[0], heads, xp.shape[1], DM // heads), xp.dtype)
+
+    monkeypatch.setattr(jfa, "_fused_call", capture)
+    jfa._fused_fwd_impl(x, *_jax_params(ws, bs), None, H, "default", True)
+    per_head = np.stack(seen["w"], axis=1)  # [H, 3, D, hd]
+    want = bf16_np(per_head.transpose(0, 1, 3, 2).reshape(H * 3 * (DM // H), DM))
+    got = fused_attention.pack_weights_ref(*(_t(w) for w in ws[:3]), H)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert np.array_equal(got.double().numpy(), want)
+
+
 # ---------------- (c) the identity: fused = precision.linear + K1b's plain version ----------------
 
 

@@ -106,12 +106,15 @@ Phases, each fatal on failure:
      exp and masks), through ``flash_attention_bwd``, from K1b's O and LSE
      against their plain version at [32, 50], [24, 499], [24, 511] (499
      valid), a ragged [8, 4095] and every tile edge T in {1, 15, 16, 17,
-     63, 64, 65, 511}, each with a full, a ragged, a 1-key and a 0-key row
-     and NaN past each bound: within BWD_BF16_PLAIN_REL of the plain
-     version's max |g|, and held to the exact float64 gradient
-     (|g - g_f64| <= 1.5 x the plain version's + 1e-6, and >= half of it),
-     dK = dV = 0 past each bound, a rerun the same bits, timed beside
-     SDPA's gradient on bf16 tensors; the backward of the card's bf16
+     63, 64, 65, 511} and ring edge T in {129, 193, 257}, each with a
+     full, a ragged, a 1-key and a 0-key row and NaN past each bound:
+     within BWD_BF16_PLAIN_REL of the plain version's max |g|, and held to
+     the exact float64 gradient (|g - g_f64| <= 1.5 x the plain version's
+     + 1e-6, and >= half of it), dK = dV = 0 past each bound, a rerun the
+     same bits, their prologue's fold bit-equal to ``fold_bf16_ref``; the
+     prologue, K2b and K3b each timed alone, and the pair through
+     ``flash_attention_bwd`` in turns with SDPA's gradient on bf16 copies
+     made inside its timed call; the backward of the card's bf16
      product and convolution against float64 transposes; then on one
      seeded BASE state dict the loss with its gradient in "balanced" and
      "fast" at 32 x 16,384 and 24 x 160,000 samples (K1b 24, K2b 12, K3b
@@ -151,8 +154,9 @@ Phases, each fatal on failure:
  13. the trainer's ``fast_bf16`` (bf16 activations in the block stack):
      the bf16-I/O flavours of K5 (at [49056, 768] and [11976, 768]), K1b
      (at [96, 511] with lengths to 499, [24, 499], a ragged [8, 4095] and
-     every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}) and K2b + K3b
-     (at [32, 50], [24, 499], [8, 4095] and the same edges), each case with
+     every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257})
+     and K2b + K3b with their prologue (at [32, 50], [24, 499], [8, 4095]
+     and the same edges; both flavours' folds the same bits), each case with
      a full, a ragged, a 1-key and a 0-key row: bit-equal to their f32-I/O
      flavour on the upcast inputs rounded once, held to their plain
      version and to float64 (phases 9 and 10's rules, plus one bf16 ulp of
@@ -389,12 +393,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_pair_ms(fn_a, fn_b, iters: int) -> tuple[float, float]:
-    """Mean device times of two versions of one function (``time_ms``),
-    taken in turns a, b, b, a so that the card's clock drift falls on both
-    alike."""
-    a1, b1, b2, a2 = (time_ms(fn, iters) for fn in (fn_a, fn_b, fn_b, fn_a))
-    return (a1 + a2) / 2, (b1 + b2) / 2
+def time_pair_ms(fn_a, fn_b, iters: int, rounds: int = 1) -> tuple[float, float]:
+    """Device times of two functions (``time_ms``) taken in turns a, b, b,
+    a, so that the card's clock drift falls on both alike: the mean of each
+    one's two turns, the median of that over ``rounds`` such rounds (for a
+    yardstick whose time spreads between runs, read beside the kernel in
+    the same minutes)."""
+    a, b = [], []
+    for _ in range(rounds):
+        a1, b1, b2, a2 = (time_ms(fn, iters) for fn in (fn_a, fn_b, fn_b, fn_a))
+        a.append((a1 + a2) / 2)
+        b.append((b1 + b2) / 2)
+    return float(np.median(a)), float(np.median(b))
 
 
 def device_kernels(fn) -> dict:
@@ -584,19 +594,23 @@ def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
 
 
 def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
-                     peak_flops: float = F32_FLOPS, io_bytes: int = 4) -> dict:
+                     peak_flops: float = F32_FLOPS, io_bytes: int = 4,
+                     out_bytes: int | None = None) -> dict:
     """Per kernel: every (query row, valid key) pair costs K2 6*D FLOP (s,
     dP, dQ) and K3 8*D (s, dP, dK, dV). Bytes: the valid keys' k and v,
     q, dO, LSE and Di of the batch rows that have a key, and the outputs
-    (dQ; dK and dV), each once; q, k, v, dO and the outputs ``io_bytes``
-    an element, LSE and Di 4."""
+    (dQ; dK and dV), each once; q, k, v and dO ``io_bytes`` an element,
+    the outputs ``out_bytes`` (``io_bytes`` unless given), LSE and Di 4.
+    K2b and K3b read their prologue's bf16 fold, not the inputs: their own
+    bound takes ``io_bytes=2`` and the outputs at the flavour's width."""
     lens = lengths.long()
     keys, live = int(lens.sum()), int((lens > 0).sum())
     pairs = t * keys
     row = float(io_bytes) * h * d
+    out_row = float(io_bytes if out_bytes is None else out_bytes) * h * d
     reads = 2 * keys * row + 2 * live * t * row + 2 * live * h * t * 4.0
-    return {"dq": bound(reads + b * t * row, 6.0 * h * d * pairs, peak_flops),
-            "dkv": bound(reads + 2 * b * t * row, 8.0 * h * d * pairs, peak_flops)}
+    return {"dq": bound(reads + b * t * out_row, 6.0 * h * d * pairs, peak_flops),
+            "dkv": bound(reads + 2 * b * t * out_row, 8.0 * h * d * pairs, peak_flops)}
 
 
 def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
@@ -851,14 +865,16 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 KERNEL_GROUPS = (
     ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",)),
     ("flash_attention_bwd_bf16io", ("flash_bwd_dq_bf16_kernel<__nv_bfloat16",
-                                    "flash_bwd_dkv_bf16_kernel<__nv_bfloat16")),
+                                    "flash_bwd_dkv_bf16_kernel<__nv_bfloat16",
+                                    "flash_bwd_fold_bf16_kernel<__nv_bfloat16")),
     ("layernorm_fwd_bf16io", ("layernorm_fwd_kernel<__nv_bfloat16",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
     ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel",)),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-    ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")),
+    ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                                  "flash_bwd_fold_bf16_kernel")),
     ("layernorm_fwd", ("layernorm_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
     ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere", "nvjet")),
@@ -936,6 +952,7 @@ def reset_launches() -> None:
     flash_attention.launches_f32_bf16_io = fused_attention.launches_f32_bf16_io = 0
     flash_attention.launches_bwd_dq_f32_bf16_io = flash_attention.launches_bwd_dkv_f32_bf16_io = 0
     fused_attention.launches_bf16_io = 0
+    flash_attention.launches_bwd_fold_bf16 = flash_attention.launches_bwd_fold_bf16_io = 0
 
 
 def read_launches() -> dict:
@@ -956,13 +973,17 @@ def read_launches() -> dict:
             "flash_attention_bwd_dq_f32_bf16io": flash_attention.launches_bwd_dq_f32_bf16_io,
             "flash_attention_bwd_dkv_f32_bf16io": flash_attention.launches_bwd_dkv_f32_bf16_io,
             "fused_qkv_attention_f32_bf16io_fwd": fused_attention.launches_f32_bf16_io,
-            "fused_qkv_attention_bf16io_fwd": fused_attention.launches_bf16_io}
+            "fused_qkv_attention_bf16io_fwd": fused_attention.launches_bf16_io,
+            "flash_attention_bwd_fold_bf16": flash_attention.launches_bwd_fold_bf16,
+            "flash_attention_bwd_fold_bf16io": flash_attention.launches_bwd_fold_bf16_io}
 
 
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
                   k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
                   k4b_io=0) -> dict:
-    """Launch counts by kernel; ``*_io``: the bf16-I/O flavours."""
+    """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. K2b/K3b's
+    prologue (the fold) runs once per backward call: once per K2b
+    launch, in K2b's flavour."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
@@ -973,7 +994,8 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "flash_attention_bwd_dq_f32_bf16io": k2_io,
             "flash_attention_bwd_dkv_f32_bf16io": k3_io,
             "fused_qkv_attention_f32_bf16io_fwd": k4_io,
-            "fused_qkv_attention_bf16io_fwd": k4b_io}
+            "fused_qkv_attention_bf16io_fwd": k4b_io,
+            "flash_attention_bwd_fold_bf16": k2b, "flash_attention_bwd_fold_bf16io": k2b_io}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
@@ -2638,6 +2660,51 @@ def grad_routes_vs_plain(sd: dict) -> dict:
     return res
 
 
+def fold_plain(q, k, v, do, lse, di, lengths) -> tuple:
+    """The plain version of K2b/K3b's prologue: q, k, v and dO folded by
+    ``fold_bf16_ref`` (k and v zero past each bound), LSE and Di padded
+    with zeros to [2, B*H, T64]."""
+    fold = torch.stack([flash_attention.fold_bf16_ref(x, lengths, n in (1, 2))
+                        for n, x in enumerate((q, k, v, do))])
+    b, h, t = lse.shape
+    ld = torch.zeros((2, b * h, fold.shape[2]), dtype=torch.float32, device=lse.device)
+    ld[0, :, :t] = lse.reshape(b * h, t)
+    ld[1, :, :t] = di.reshape(b * h, t)
+    return fold, ld
+
+
+def fold_bound(b: int, t: int, h: int, d: int, lengths: torch.Tensor, io_bytes: int) -> tuple:
+    """The prologue's bytes: q and dO, the valid rows of k and v, LSE and Di
+    read once; the fold and the padded LSE and Di written once."""
+    t_pad = -(-t // 64) * 64
+    keys = int(lengths.long().clamp(0, t).sum())
+    reads = io_bytes * h * d * (2 * b * t + 2 * keys) + 2 * 4 * b * h * t
+    writes = 2 * 4 * b * h * t_pad * d + 2 * 4 * b * h * t_pad
+    return bound(reads + writes, 0.0)
+
+
+def check_fold(q, k, v, do, lse, di, lengths, timed: bool) -> dict:
+    """K2b/K3b's prologue through its wrapper against ``fold_plain`` on the
+    card, bit for bit (the fold and the padded LSE and Di), and, with
+    ``timed``, its time beside its plain version's and its bound."""
+    b, t, h, d = q.shape
+    ws = flash_attention._bwd_bf16_fold(q, k, v, do, lse, di, lengths)
+    ref = fold_plain(q, k, v, do, lse, di, lengths)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(ws, ref)):
+        fail(f"flash bwd prologue [{b}, {t}, {h}, {d}] ({q.dtype}): its fold differs from "
+             f"fold_bf16_ref's or its LSE/Di from the padded ones")
+    bound_ms, bound_by = fold_bound(b, t, h, d, lengths, q.element_size())
+    res = {"max_abs_err": 0.0, "bit_equal": True, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    if timed:
+        iters = 10 if t > 1024 else 30
+        res["ms"] = time_ms(lambda: flash_attention._bwd_bf16_fold(q, k, v, do, lse, di,
+                                                                   lengths, ws), iters)
+        res["plain_ms"] = time_ms(lambda: fold_plain(q, k, v, do, lse, di, lengths), 5)
+    return res
+
+
 def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
                          kernel_times: bool = True) -> dict:
     """K2b and K3b, through ``flash_attention_bwd``, against
@@ -2648,9 +2715,15 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
     BWD_BF16_PLAIN_NORM of its norm from it, no further from the exact float64 gradient than 1.5 x the plain
     version's distance + 1e-6, and no nearer than half of it (they do
     round: bf16 operands everywhere, f32 sums in another order); a rerun
-    the same bits. ``kernel_times``: time K2b and K3b; ``timed``: the plain
-    version and SDPA's gradient on bf16 copies of q, k, v and dO (the
-    yardstick) too."""
+    the same bits; their prologue's fold bit-equal to its plain version.
+    The three kernels launched one at a time (as the smoke times them) give
+    the bits of ``flash_attention_bwd``'s one C call. ``kernel_times``:
+    time the prologue, K2b and K3b each alone, each against what it moves
+    (K2b and K3b read the bf16 fold); ``timed``: the plain version, and
+    the pair through ``flash_attention_bwd`` (prologue and Di included),
+    against the work's bound (the two kernels' bounds on the f32 inputs),
+    in turns with SDPA's gradient on bf16 copies of q, k, v and dO, the
+    four casts inside its timed call (the yardstick)."""
     h, d = 12, 64
     qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
     q, k, v = qkv.unbind(2)
@@ -2689,6 +2762,11 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
                     for i, n in enumerate(lengths))
     zero_rows = all(bool((dq[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
     same_bits = all(torch.equal(x, y) for x, y in zip(outs, kernels()))
+    ws = flash_attention._bwd_bf16_fold(q, k, v, do_, lse, di, lens_)
+    alone = (*flash_attention._bwd_bf16_kernel("dq", q, ws, lens_),
+             *flash_attention._bwd_bf16_kernel("dkv", q, ws, lens_))
+    same_bits = same_bits and all(torch.equal(x, y) for x, y in zip(outs, alone))
+    del alone
     excess = max(err_f64[n] - (1.5 * plain_f64[n] + 1e-6) for n in names)
     rounds = all(err_f64[n] >= 0.5 * plain_f64[n] for n in names)
     err_rel = {n: err[n] / max(gmax[n], 1e-30) for n in names}
@@ -2698,12 +2776,15 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
             or max(err_norm.values()) > BWD_BF16_PLAIN_NORM):
         fail(f"flash bwd bf16 [{b}, {t}, {h}, {d}] lengths {lengths}: finite={finite} zero past "
              f"bound={zero_past} zero rows={zero_rows} rerun same bits={same_bits}; vs plain "
-             f"max|d|/max|g| {err_rel} (<= {BWD_BF16_PLAIN_REL}), ||d||/||g|| {err_norm} "
+             f"(and the kernels alone) max|d|/max|g| {err_rel} (<= {BWD_BF16_PLAIN_REL}), "
+             f"||d||/||g|| {err_norm} "
              f"(<= {BWD_BF16_PLAIN_NORM}); max|g - g_f64| {err_f64} "
              f"beyond 1.5 x the plain version's {plain_f64} + 1e-6 by {excess:.3g}, or under "
              f"half of it")
-    bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS)
-    res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum())}
+    bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS, io_bytes=2, out_bytes=4)
+    work = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS)
+    res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
+           "fold": check_fold(q, k, v, do_, lse, di, lens_, kernel_times)}
     for key, parts in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
         res[key] = {"max_abs_err": max(err[n] for n in parts),
                     "max_rel_err": max(err_rel[n] for n in parts),
@@ -2713,10 +2794,10 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
                     "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
         if kernel_times:
             res[key]["ms"] = time_ms(lambda key=key: flash_attention._bwd_bf16_kernel(
-                key, q, k, v, do_, lse, di, lens_), 10 if t > 1024 else 30)
+                key, q, ws, lens_), 10 if t > 1024 else 30)
     if timed:
         # one plain call and one library call compute K2b and K3b's outputs
-        # together: both times stand on both rows
+        # together: both times stand on both rows, the pair's beside them
         plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
             q, k, v, o, lse, do, lens, "default"), 5)
         qb, kb, vb = (x.detach().nan_to_num(0.0).transpose(1, 2).to(torch.bfloat16)
@@ -2725,10 +2806,17 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
         if int(lens.min()) < t:
             mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
         out = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
-        dob = do.transpose(1, 2).to(torch.bfloat16)
-        lib = time_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), dob, retain_graph=True), 10)
+
+        def library():  # the kernels round q, k, v and dO themselves: so does the yardstick
+            for x in (q, k, v):
+                x.transpose(1, 2).to(torch.bfloat16)
+            return torch.autograd.grad(out, (qb, kb, vb), do.transpose(1, 2).to(torch.bfloat16),
+                                       retain_graph=True)
+
+        pair, lib = time_pair_ms(kernels, library, 3 if t > 1024 else 5, rounds=10)
         for key in ("dq", "dkv"):
-            res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+            res[key] |= {"plain_ms": plain, "library_ms": lib, "pair_ms": pair,
+                         "pair_bound_ms": work["dq"][0] + work["dkv"][0]}
     print(f"  flash bwd bf16 [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: vs plain max|d| "
           f"K2b {err['dq']:.3g}, K3b {max(err['dk'], err['dv']):.3g} (/max|g| "
           + ", ".join(f"{n} {err_rel[n]:.3g}" for n in names) + "; ||d||/||g|| "
@@ -2736,17 +2824,22 @@ def check_flash_bwd_bf16(b: int, t: int, lengths: list, g: torch.Generator, time
           + ", ".join(f"{n} {err_f64[n]:.3g} (plain {plain_f64[n]:.3g})" for n in names)
           + (f"; K2b {res['dq']['ms']:.4f} ms (bound {bounds['dq'][0]:.4f}), K3b "
              f"{res['dkv']['ms']:.4f} ms (bound {bounds['dkv'][0]:.4f})" if kernel_times else "")
-          + (f"; plain pair {res['dq']['plain_ms']:.4f} ms, sdpa bf16 grad "
-             f"{res['dq']['library_ms']:.4f} ms" if timed else ""), flush=True)
+          + (f", prologue {res['fold']['ms']:.4f} ms (bound {res['fold']['bound_ms']:.4f})"
+             if kernel_times else "")
+          + (f"; in turns: the pair through flash_attention_bwd {res['dq']['pair_ms']:.4f} ms "
+             f"(the work's bound {res['dq']['pair_bound_ms']:.4f}), "
+             f"sdpa bf16 grad with its casts {res['dq']['library_ms']:.4f} ms; plain pair "
+             f"{res['dq']['plain_ms']:.4f} ms" if timed else ""), flush=True)
     return res
 
 
 def check_flash_bwd_bf16_shapes() -> None:
-    """K2b and K3b at the paths' shapes, each with a full, a ragged, a
-    1-key and a 0-key row: the loss crop [32, 50], 10 s clips [24, 499],
-    the triplet batch's bucket [24, 511] (499 valid frames), a ragged
-    [8, 4095]; untimed at every edge of the 16-row warp tiles, 64-row
-    blocks and 64-row streamed tiles."""
+    """K2b and K3b with their prologue at the paths' shapes, each with a
+    full, a ragged, a 1-key and a 0-key row: the loss crop [32, 50], 10 s
+    clips [24, 499], the triplet batch's bucket [24, 511] (499 valid
+    frames), a ragged [8, 4095]; untimed at every edge of the 16-row warp
+    tiles, 64-row blocks and 64-row streamed tiles, and of the 3-stage
+    ring."""
     g = torch.Generator().manual_seed(10)
 
     def rows(b, t, n=None):
@@ -2759,11 +2852,14 @@ def check_flash_bwd_bf16_shapes() -> None:
                                           timed=False),
            "long": check_flash_bwd_bf16(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
                                         timed=True)}
-    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+    # the warp tiles' and blocks' edges, then the ring's (3 stages): 3, 4
+    # and 5 tiles, each with a ragged last tile
+    for t in (1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257):
         res[f"edge_T{t}"] = check_flash_bwd_bf16(4, t, [t, max(t // 2, 1), 1, 0], g,
                                                  timed=False, kernel_times=False)
     for key, name in (("dq", "flash_attention_bwd_dq_bf16"),
-                      ("dkv", "flash_attention_bwd_dkv_bf16")):
+                      ("dkv", "flash_attention_bwd_dkv_bf16"),
+                      ("fold", "flash_attention_bwd_fold_bf16")):
         report["kernels"][name] = {shape: r[key] | {"shape": r["shape"]}
                                    for shape, r in res.items()}
 
@@ -3486,12 +3582,21 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         bounds = flash_bwd_bounds(b, t, h, d, lens, peak, io_bytes=2)
         do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
         do32, di32, _ = flash_attention._bwd_args(*up_c, o.float(), lse, do.float(), lens)
+        args = {False: (q, k, v, do_, lse, di, lens_), True: (*up_c, do32, lse, di32, lens_)}
+        if bf16_ops:  # K2b/K3b's prologue: both flavours fold to the same bits
+            res["fold"] = check_fold(*args[False], kernel_times)
+            ws = {f32: flash_attention._bwd_bf16_fold(*args[f32]) for f32 in (False, True)}
+            checks["bwd_fold_bit_equal_f32_flavour"] = all(
+                torch.equal(x, y) for x, y in zip(ws[False], ws[True]))
+            if kernel_times:
+                res["fold"]["f32_io_ms"] = time_ms(
+                    lambda: flash_attention._bwd_bf16_fold(*args[True], ws[True]), iters)
 
-        def kernel(key, *a):
+        def kernel(key, f32_io):
             if bf16_ops:
-                return flash_attention._bwd_bf16_kernel(key, *a)
+                return flash_attention._bwd_bf16_kernel(key, args[f32_io][0], ws[f32_io], lens_)
             return (flash_attention._bwd_dq_kernel if key == "dq"
-                    else flash_attention._bwd_dkv_kernel)(*a)
+                    else flash_attention._bwd_dkv_kernel)(*args[f32_io])
 
         for key, parts in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
             res[key] = {"max_abs_err": max(err[n] for n in parts),
@@ -3502,8 +3607,7 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
             if kernel_times:
                 res[key]["ms"], res[key]["f32_io_ms"] = time_pair_ms(
-                    lambda key=key: kernel(key, q, k, v, do_, lse, di, lens_),
-                    lambda key=key: kernel(key, *up_c, do32, lse, di32, lens_), iters)
+                    lambda key=key: kernel(key, False), lambda key=key: kernel(key, True), iters)
         if timed:
             plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, lens, prec), 5)
@@ -3511,11 +3615,15 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                           for x in (q, kf, vf))
             out = F.scaled_dot_product_attention(up_lib(qb), up_lib(kb), up_lib(vb),
                                                  attn_mask=mask)
-            dob = up_lib(do.transpose(1, 2))
-            lib = time_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), dob, retain_graph=True),
-                          10)
+            # the pair through its wrapper (prologue and Di included) in turns
+            # with the yardstick
+            pair, lib = time_pair_ms(
+                lambda: grads(q, k, v, o, lse, do, lens),
+                lambda: torch.autograd.grad(out, (qb, kb, vb), up_lib(do.transpose(1, 2)),
+                                            retain_graph=True), 3 if t > 1024 else 5, rounds=10)
             for key in ("dq", "dkv"):
-                res[key]["plain_ms"], res[key]["library_ms"] = plain, lib
+                res[key] |= {"plain_ms": plain, "library_ms": lib, "pair_ms": pair,
+                             "pair_bound_ms": bounds["dq"][0] + bounds["dkv"][0]}
     res["checks"] = checks
     if not all(checks.values()):
         fail(f"flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
@@ -3536,11 +3644,16 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
             line += (f"; {tags[1]} {res['dq']['ms']:.4f} ms (f32 I/O {res['dq']['f32_io_ms']:.4f}, "
                      f"bound {res['dq']['bound_ms']:.4f}), {tags[2]} {res['dkv']['ms']:.4f} ms (f32 I/O "
                      f"{res['dkv']['f32_io_ms']:.4f}, bound {res['dkv']['bound_ms']:.4f})")
+            if "fold" in res:
+                line += (f", prologue {res['fold']['ms']:.4f} ms (f32 I/O "
+                         f"{res['fold']['f32_io_ms']:.4f}, bound {res['fold']['bound_ms']:.4f})")
     if timed:
         lib_io = "bf16" if bf16_ops else "f32"
         line += f"; plain fwd {fwd['plain_ms']:.4f} ms, sdpa {lib_io} {fwd['library_ms']:.4f}"
         if bwd:
-            line += (f"; plain bwd pair {res['dq']['plain_ms']:.4f} ms, sdpa {lib_io} grad "
+            line += (f"; plain bwd pair {res['dq']['plain_ms']:.4f} ms; in turns the pair "
+                     f"through flash_attention_bwd {res['dq']['pair_ms']:.4f} (the work's bound "
+                     f"{res['dq']['pair_bound_ms']:.4f}), sdpa {lib_io} grad "
                      f"{res['dq']['library_ms']:.4f}")
     print(line, flush=True)
     return res
@@ -3567,14 +3680,15 @@ def check_bf16io_shapes() -> None:
           "loss": check_flash_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True),
           "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
                                      timed=False)}
-    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+    for t in (1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257):
         fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
                                               kernel_times=False)
     report["kernels"]["layernorm_fwd_bf16io"] = ln
     report["kernels"]["flash_attention_bf16io_fwd"] = {k: r["fwd"] | {"shape": r["shape"]}
                                                        for k, r in fl.items()}
     for key, name in (("dq", "flash_attention_bwd_dq_bf16io"),
-                      ("dkv", "flash_attention_bwd_dkv_bf16io")):
+                      ("dkv", "flash_attention_bwd_dkv_bf16io"),
+                      ("fold", "flash_attention_bwd_fold_bf16io")):
         # the path's shape, [24, 499], is the row's "main"
         report["kernels"][name] = {("main" if k == "train" else k): r[key] | {"shape": r["shape"]}
                                    for k, r in fl.items() if key in r}
@@ -4182,6 +4296,11 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:182"),
         ("flash_attention_bwd_dkv_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
          "nomad_tpu/ops/flash_attention.py:222"),
+        # K2b/K3b's prologue: the fold the JAX package does outside its kernels
+        ("flash_attention_bwd_fold_bf16", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:143"),
+        ("flash_attention_bwd_fold_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:143"),
     ):
         k = report["kernels"][name]
         m = k["main"]
@@ -4198,6 +4317,11 @@ def main() -> None:
                     for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if "f32_io_ms" in m:  # a bf16-I/O flavour: its f32-I/O flavour's time beside it
             row["f32_io_ms"] = m["f32_io_ms"]
+        # K2b/K3b: the pair through its wrapper, in turns with library_ms, and
+        # the work's bound
+        row |= {f: m[f] for f in ("pair_ms", "pair_bound_ms") if f in m}
+        row |= {f"train_{f}": k["train"][f] for f in ("pair_ms", "pair_bound_ms")
+                if f in k.get("train", {})}
         rows.append(row)
     print("report: " + json.dumps(report, default=float))
     print("kernels: " + "; ".join(

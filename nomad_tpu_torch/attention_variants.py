@@ -1,12 +1,13 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k23]
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k23,k23b]
 
 Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (and of the
-headers they include) with one part switched off, each by a text
-substitution that must match the current source, into
+``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_bf16.cu`` (and of the headers they include)
+with one part switched off, each by a text substitution that must match
+the source, into
 ``build/nomad_tpu_torch/variants/`` (nvcc, as ``ops/_build.py`` builds the
 real kernels), and times each against the unchanged kernel at the paths'
 shapes with CUDA events (``--kernels`` picks groups or single variants by
@@ -34,7 +35,20 @@ name; all by default):
   one row a thread: 2.9 waves of the card instead of 1.94;
 * K2 + K3 ``no_resident_loads``: the tile's loads of its resident rows
   taken out of the column loop (wrong sums), which prices half of the
-  score loop's shared-memory loads.
+  score loop's shared-memory loads;
+* K2b + K3b (``k23b``), in both I/O flavours at [24, 499], a ragged
+  [8, 4095] and [32, 50], through the port's own wrapper
+  (``flash_attention.flash_attention_bwd`` at "default"), each kernel's
+  device time under the profiler and the call's host time beside the
+  call's: ``loads_only``, the producer's TMA ring with no wgmma and no
+  exp; ``no_loads``, the consumers without the ring (no copies, no
+  waits; wrong sums);
+* the mma.sync K2b + K3b that the TMA/wgmma design replaced
+  (``k23bmma``, in no default group: they patch that design's source,
+  so run them in a checkout of it with this file copied in, e.g.
+  ``--kernels k23b,k23bmma_no_stage,k23bmma_stage_only``):
+  ``no_stage``, the tiles' loading and rounding skipped, and
+  ``stage_only``, the products and exp skipped.
 
 K4, K1 and K2 + K3 are called through their C entries with ``bf16_io`` 0
 (the f32 flavours). K4b goes through the port's own wrapper
@@ -43,7 +57,9 @@ with the variant's library in place of the real one, so a checkout whose
 K4b takes other arguments (an older one, say, to time the parent's kernel
 with this file) is called as its own wrapper calls it. The variants
 compute nothing useful and are never loaded by the port. Prints one JSON
-object with the times (ms) and the card's name and power limit.
+object with the times (ms; K2b + K3b's by kernel under "ms_by_kernel",
+their calls' host times under "host_ms") and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -93,6 +110,45 @@ VARIANTS = {
     "k1_two_blocks": ("flash_attention.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
         ("kSmemBytes = sizeof(Smem);", "kSmemBytes = 113664;")]),
+    "k23b": ("flash_attention_bwd_bf16.cu", []),
+    # the mma.sync K2b + K3b that the TMA/wgmma design replaced (each block
+    # stages its own tiles), to be run in a checkout of it: the staging
+    # skipped (the tiles hold garbage), or the products and exp skipped (the
+    # staging alone)
+    "k23bmma_no_stage": ("flash_attention_bwd_bf16.cu", [
+        ("stage(ks, vs, kb, skt, vb, svt, key0, len);", ""),
+        ("stage(qs, dos, qb, sqt, db, sdt, q0, T);", "")]),
+    "k23bmma_stage_only": ("flash_attention_bwd_bf16.cu", [
+        ("product_nt(ds, qa, ks);  // the scores, unscaled\n    product_nt(dp, da, vs);",
+         "for (int j = 0; j < 32; ++j) ds[j / 4][j % 4] = dp[j / 4][j % 4] = 0.f;"),
+        ("ok ? expf(ds[j][e] * scale - row_lse[i]) : 0.f", "ok ? 1.f : 0.f"),
+        ("product_nn(acc, ds, ks);", ""),
+        ("product_nt(p, ka, qs);  // the scores, unscaled",
+         "for (int j = 0; j < 32; ++j) p[j / 4][j % 4] = 0.f;"),
+        ("ok ? expf(p[j][e] * scale - tile_lse[col]) : 0.f", "ok ? 1.f : 0.f"),
+        ("product_nn(gv, p, dos);  // dV += bf16(P^T) . bf16(dO)", ""),
+        ("product_nt(dpt, va, dos);  // dP^T = V . dO^T",
+         "for (int j = 0; j < 32; ++j) dpt[j / 4][j % 4] = 0.f;"),
+        ("product_nn(gk, p, qs);  // dK += bf16(dS^T) . bf16(Q)", "")]),
+    # this K2b + K3b (TMA ring, wgmma): the producer's ring with no wgmma and
+    # no exp, or the consumers without the ring (no copies, no waits)
+    "k23b_loads_only": ("flash_attention_bwd_bf16.cu", [
+        ("  for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n64(d, a + 2 * kk, b + 2 * kk, kk > 0);\n",
+         ""),
+        ("    wgmma_m64n64_rs(acc, xa[kk], sw128_desc(smem_u32(tile + 16 * kk * kD)));\n", ""),
+        ("expf(s[e] * scale", "(s[e] * scale")]),
+    "k23b_no_loads": ("flash_attention_bwd_bf16.cu", [
+        ("        mbar_expect_tx(&sm.full[j], 2 * kTileBytes);\n"
+         "        tma_2d(sm.ring[j].a, &tm, 0, rows + base + s * kRows, &sm.full[j], 0);      // K\n"
+         "        tma_2d(sm.ring[j].b, &tm, 0, 2 * rows + base + s * kRows, &sm.full[j], 0);  // V\n",
+         ""),
+        ("        mbar_expect_tx(&sm.full[j], 2 * kTileBytes + 2 * kRows * 4);\n"
+         "        tma_2d(sm.ring[j].a, &tm, 0, base + s * kRows, &sm.full[j], 0);             // Q\n"
+         "        tma_2d(sm.ring[j].b, &tm, 0, 3 * rows + base + s * kRows, &sm.full[j], 0);  // dO\n"
+         "        bulk_copy(sm.lse[j], ld + base + s * kRows, kRows * 4, &sm.full[j]);\n"
+         "        bulk_copy(sm.di[j], ld + rows + base + s * kRows, kRows * 4, &sm.full[j]);\n",
+         ""),
+        ("mbar_wait(&sm.full[j], (tile / kStages) & 1);", "")]),
     "k23": ("flash_attention_bwd.cu", []),
     "k23_two_blocks": ("flash_attention_bwd.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -106,21 +162,24 @@ VARIANTS = {
          "      if (d == 0) a[i] = *reinterpret_cast")]),
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
-HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh")
-GROUPS = ("k4", "k4b", "k1", "k23")  # --kernels: a variant's group is its name's first word
+HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh")
+GROUPS = ("k4", "k4b", "k1", "k23", "k23b")  # --kernels: a variant's group is its name's first word
 
 
 def build(picked) -> dict:
     """The library of each variant in ``picked``, built in parallel: the
     variants it names, or, where it names only groups, every variant of
-    each (the unchanged kernel's variant bears its group's name)."""
+    each (the unchanged kernel's variant bears its group's name). Raises
+    when a substitution does not match the source."""
     root = _build.BUILD_DIR / "variants"
     by_name = set(picked) - set(GROUPS)
     procs = {}
     for name, (src, subs) in VARIANTS.items():
         if (name not in picked) if by_name else (name.split("_")[0] not in picked):
             continue
-        texts = {f: (_build.CSRC / f).read_text() for f in (src, *HEADERS)}
+        # an older checkout lacks the newer headers
+        texts = {f: (_build.CSRC / f).read_text() for f in (src, *HEADERS)
+                 if (_build.CSRC / f).is_file()}
         for sub in subs:
             f, old, new = sub if len(sub) == 3 else (src, *sub)
             if old not in texts[f]:
@@ -204,6 +263,67 @@ def time_fused(libs, shapes, dev, stream, out) -> None:
                             xi, *params, lengths, h, "default")))
 
 
+def host_ms(fn, iters: int, rounds: int = 9) -> float:
+    """Host time of one fn() (perf_counter, the card not waited on): what a
+    launch-bound caller waits for. The median over ``rounds`` of the mean
+    of ``iters`` calls in a row, since the host's cores are shared."""
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - start) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def time_bwd_bf16(libs, dev, out) -> None:
+    """K2b + K3b's variants that were built, in both I/O flavours, through
+    the port's own wrapper (``flash_attention.flash_attention_bwd`` at
+    "default", so an older checkout's kernels run as its wrapper calls
+    them): the call's time (CUDA events, Di's reduction and any prologue
+    included), its host time (the wrapper's own work per call, the card
+    not waited for) and each kernel's device time under torch.profiler,
+    by kernel name (``fold``: a prologue, ``dq``, ``dkv``, ``other``:
+    Di)."""
+    names = [v for v in VARIANTS if v.split("_")[0] in ("k23b", "k23bmma") and v in libs]
+    g = torch.Generator().manual_seed(2)
+    h = 12
+    for b, t, lens in ((24, 499, [499, 249, 1, 0] + [499] * 20),
+                       (8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0]),
+                       (32, 50, [50, 25, 1, 0] + [50] * 28)) if names else ():
+        q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
+        do = torch.randn(b, t, h, 64, generator=g).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for io in (torch.float32, torch.bfloat16):
+            qi, ki, vi, doi = (x.to(io) for x in (q, k, v, do))
+            o, lse = flash_attention.mha_flash(qi, ki, vi, lengths, "default")
+            for name in names:
+                with library("flash_attention_bwd_bf16", libs[name]):
+                    def call():
+                        return flash_attention.flash_attention_bwd(qi, ki, vi, o, lse, doi,
+                                                                   lengths, "default")
+                    key = f"{name} [{b}, {t}, {h}, 64] bf16_io {int(io == torch.bfloat16)}"
+                    out["ms"][key] = time_ms(call, 10 if t > 1024 else 30)
+                    out["host_ms"][key] = host_ms(call, 10 if t > 1024 else 50)
+                    reps = 10
+                    with torch.profiler.profile(
+                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            call()
+                        torch.cuda.synchronize()
+                    parts = {"fold": 0.0, "dq": 0.0, "dkv": 0.0, "other": 0.0}
+                    for evt in prof.events():
+                        if evt.device_type != torch.autograd.DeviceType.CUDA:
+                            continue
+                        part = ("fold" if "fold" in evt.name else "dq" if "bwd_dq_bf16" in evt.name
+                                else "dkv" if "bwd_dkv_bf16" in evt.name else "other")
+                        parts[part] += evt.time_range.elapsed_us() / 1e3 / reps
+                    out["ms_by_kernel"][key] = parts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("attention_variants: needs a CUDA card")
@@ -226,8 +346,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     out = {"card": smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else
-           torch.cuda.get_device_name(0), "ms": {}}
+           torch.cuda.get_device_name(0), "ms": {}, "ms_by_kernel": {}, "host_ms": {}}
     time_fused(libs, shapes, dev, stream, out)
+    time_bwd_bf16(libs, dev, out)
     h = 12
     g = torch.Generator().manual_seed(1)
     k1 = [v for v in VARIANTS if v.split("_")[0] == "k1" and v in libs]

@@ -14,8 +14,9 @@ O = 0, LSE = -1e30.
 ``flash_attention_bwd`` is the backward: K2 and K3
 (``csrc/flash_attention_bwd.cu``, f32) or K2b and K3b
 (``csrc/flash_attention_bwd_bf16.cu``, the TPU kernels' own "default"
-flavour: bf16 products, f32 accumulation, exp and masks) on CUDA tensors,
-``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
+flavour: bf16 products, f32 accumulation, exp and masks; their prologue
+folds q, k, v and dO to bf16 once per call, ``fold_bf16_ref``) on CUDA
+tensors, ``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
 ``FlashAttention`` is the differentiable form, one
 ``torch.autograd.Function`` over both.
 
@@ -56,17 +57,26 @@ FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
 BWD_SMALL_T, BWD_SMALL_ROWS, BWD_STAGES, BWD_BLOCKS_PER_SM = 64, 32, 2, 3
 _LD_S = BLOCK_K + 4
 
-# K2b's and K3b's tiles (csrc/flash_attention_bwd_bf16.cu): a block of 4
-# warps owns 64 rows (16 a warp) as bf16 mma fragments in registers and
-# streams 64-row tiles of the other two operands as bf16 in static shared
-# memory (rows padded to 72); K3b's tile also carries the 64 rows' LSE and
-# Di in f32. Blocks per SM: what the kernels are compiled for.
-BWD_BF16_ROWS, BWD_BF16_LD, BWD_BF16_BLOCKS_PER_SM = 64, HEAD_DIM + 8, 2
+# K2b's and K3b's blocks (csrc/flash_attention_bwd_bf16.cu): a consumer
+# warpgroup and a producer warp (160 threads) own 64 rows; their two
+# resident 64-row bf16 tiles and a ring of BWD_BF16_STAGES stages of two
+# streamed tiles (K3b's with 64 LSE and Di values) in dynamic shared
+# memory, aligned by hand to 1,024 bytes. Blocks per SM: what the kernels
+# are compiled for (K3b holds four accumulators, K2b three). Their
+# prologue folds q, k, v and dO to bf16 [B*H, T64, 64] (T64: T rounded up
+# to BWD_BF16_ROWS) and LSE and Di to f32 [B*H, T64].
+BWD_BF16_ROWS, BWD_BF16_THREADS, BWD_BF16_STAGES = 64, 160, 3
+BWD_BF16_BLOCKS_PER_SM = {"dq": 3, "dkv": 2}
+BWD_BF16_SMEM_BYTES = (2 + 2 * BWD_BF16_STAGES) * BWD_BF16_ROWS * HEAD_DIM * 2 \
+    + 2 * BWD_BF16_STAGES * BWD_BF16_ROWS * 4 + (2 * BWD_BF16_STAGES + 1) * 8 + 1024
 
-# Launches of K1, K1b, K2, K3, K2b and K3b, of the bf16-I/O flavours of
-# K1b, K2b and K3b (``*_bf16_io``) and of K1, K2 and K3
-# (``*_f32_bf16_io``), since each count was last set to 0.
+# Launches of K1, K1b, K2, K3, K2b, K3b and K2b/K3b's prologue (the fold),
+# of the bf16-I/O flavours of K1b, K2b, K3b and the fold (``*_bf16_io``)
+# and of K1, K2 and K3 (``*_f32_bf16_io``), since each count was last set
+# to 0.
 launches = 0
+launches_bwd_fold_bf16 = 0
+launches_bwd_fold_bf16_io = 0
 launches_bf16 = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
@@ -177,17 +187,35 @@ def flash_bwd_launch_plan(t: int, b: int, h: int) -> dict:
 
 
 def flash_bwd_bf16_launch_plan(t: int, b: int, h: int) -> dict:
-    """K2b's and K3b's launches ({"dq": ..., "dkv": ...}): one block of 128
-    threads per 64-row tile (K2b: query rows, K3b: key rows), head and
-    batch row; static shared memory (K2b: the K and V tiles; K3b: the Q
-    and dO tiles plus their LSE and Di) and the blocks per SM they are
-    built for."""
-    tile = 2 * BWD_BF16_ROWS * BWD_BF16_LD * 2
-    smem = {"dq": tile, "dkv": tile + 2 * BWD_BF16_ROWS * 4}
-    return {kernel: {"grid": (-(-t // BWD_BF16_ROWS), h, b), "threads": THREADS,
-                     "rows_per_block": BWD_BF16_ROWS, "smem_bytes": smem[kernel],
-                     "blocks_per_sm": BWD_BF16_BLOCKS_PER_SM}
+    """K2b's and K3b's launches ({"dq": ..., "dkv": ...}): one block of 160
+    threads per 64-row tile (K2b: query rows, K3b: key rows) of the folded
+    length ``t_pad`` (t rounded up to 64), head and batch row; the dynamic
+    shared memory, the ring's stages and the blocks per SM they are built
+    for. The C launchers check rows, threads and shared memory against
+    their own rule."""
+    t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
+    return {kernel: {"grid": (t_pad // BWD_BF16_ROWS, h, b), "threads": BWD_BF16_THREADS,
+                     "rows_per_block": BWD_BF16_ROWS, "smem_bytes": BWD_BF16_SMEM_BYTES,
+                     "stages": BWD_BF16_STAGES, "t_pad": t_pad,
+                     "blocks_per_sm": BWD_BF16_BLOCKS_PER_SM[kernel]}
             for kernel in ("dq", "dkv")}
+
+
+def fold_bf16_ref(x, lengths, zero_past_bound: bool) -> torch.Tensor:
+    """The plain version of K2b/K3b's prologue for one operand: x [B, T, H,
+    D] folded head-major to bf16 [B*H, T64, D], T64 = T rounded up to 64,
+    rows t >= T zero (the JAX package's ``_fold_args`` ``prep`` with
+    64-row blocks, then rounded to nearest-even bf16) and, with
+    ``zero_past_bound`` (k and v), rows t >= lengths[b] zero too."""
+    b, t, h, d = x.shape
+    t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
+    out = torch.zeros((b, h, t_pad, d), dtype=torch.bfloat16, device=x.device)
+    out[:, :, :t] = x.transpose(1, 2).to(torch.bfloat16)
+    if zero_past_bound:
+        lens = lengths.to(device=x.device, dtype=torch.int64).clamp(0, t)
+        past = torch.arange(t_pad, device=x.device)[None, :] >= lens[:, None]  # [B, T64]
+        out[past[:, None, :, None].expand_as(out)] = 0
+    return out.reshape(b * h, t_pad, d)
 
 
 def _lib():
@@ -436,10 +464,18 @@ def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
 def _lib_bwd_bf16():
     lib = _build.load("flash_attention_bwd_bf16")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fold = lib.nomad_flash_attention_bwd_bf16_fold
+    if fold.argtypes is None:
+        fold.argtypes = [p] * 9 + [i] * 4 + [ll] * 12 + [i, p]
+        fold.restype = ctypes.c_int
+    whole = lib.nomad_flash_attention_bwd_bf16
+    if whole.argtypes is None:
+        whole.argtypes = [p] * 12 + [i] * 4 + [ll] * 12 + [i] * 3 + [ctypes.c_float, i, p]
+        whole.restype = ctypes.c_int
     for fn, outs in ((lib.nomad_flash_attention_bwd_bf16_dq, 1),
                      (lib.nomad_flash_attention_bwd_bf16_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, p]
+            fn.argtypes = [p] * (3 + outs) + [i] * 7 + [ctypes.c_float, i, p]
             fn.restype = ctypes.c_int
     occ = lib.nomad_flash_attention_bwd_bf16_occupancy
     if occ.argtypes is None:
@@ -458,35 +494,108 @@ def flash_bwd_bf16_occupancy(kernel: str, bf16_io: bool = False) -> int:
     return blocks.value
 
 
-def _bwd_bf16_kernel(kernel, q, k, v, do, lse, di, lengths):
-    """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) on
-    arguments prepared by ``_bwd_args``; outputs [B, T, H, D] in q's
+def _bwd_bf16_workspace(q):
+    """The prologue's buffers for a backward call on q's shape: the fold
+    (bf16 [4, B*H, T64, D]: q, k, v, dO) and LSE and Di padded (f32
+    [2, B*H, T64])."""
+    b, t, h, d = q.shape
+    t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
+    return (torch.empty((4, b * h, t_pad, d), dtype=torch.bfloat16, device=q.device),
+            torch.empty((2, b * h, t_pad), dtype=torch.float32, device=q.device))
+
+
+def _check_bwd_bf16_workspace(q, workspace) -> None:
+    """Refuse a workspace that was not made for q's shape and device: the
+    kernels read it through a tensor map built from q's shape alone."""
+    b, t, h, d = q.shape
+    t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
+    want = (((4, b * h, t_pad, d), torch.bfloat16), ((2, b * h, t_pad), torch.float32))
+    if len(workspace) != 2 or any(
+            tuple(x.shape) != shape or x.dtype != dtype or x.device != q.device
+            or not x.is_contiguous() for x, (shape, dtype) in zip(workspace, want)):
+        raise ValueError(f"flash kernel: the backward's workspace must be contiguous bf16 "
+                         f"{list(want[0][0])} and float32 {list(want[1][0])} on {q.device}")
+
+
+def _count_bwd_bf16(kernels, bf16_io: bool) -> None:
+    """One launch more on the counter of each of ``kernels`` ("fold", "dq",
+    "dkv") in its I/O flavour."""
+    for kernel in kernels:
+        globals()[f"launches_bwd_{kernel}_bf16" + ("_io" if bf16_io else "")] += 1
+
+
+def _bwd_bf16_fold(q, k, v, do, lse, di, lengths, workspace=None):
+    """K2b/K3b's prologue on arguments prepared by ``_bwd_args``: q, k, v
+    and dO rounded to bf16 (copied, for bf16 inputs) and folded as
+    ``fold_bf16_ref`` folds them, k and v zero past each bound; LSE and Di
+    padded with zeros. Writes into ``workspace`` (``_bwd_bf16_workspace``)
+    when it is given; returns it."""
+    b, t, h, d = q.shape
+    bf16_io = q.dtype == torch.bfloat16
+    if workspace is None:
+        workspace = _bwd_bf16_workspace(q)
+    _check_bwd_bf16_workspace(q, workspace)
+    if q.numel() == 0:
+        return workspace
+    lib = _lib_bwd_bf16()
+    err = lib.nomad_flash_attention_bwd_bf16_fold(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in workspace), b, t, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "bf16 flash attention backward prologue launch")
+    _count_bwd_bf16(("fold",), bf16_io)
+    return workspace
+
+
+def _bwd_bf16_kernel(kernel, q, workspace, lengths):
+    """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) alone, on
+    the prologue's ``workspace`` for q's shape; outputs [B, T, H, D] in q's
     dtype (f32, or bf16 for the bf16-I/O flavour)."""
     b, t, h, d = q.shape
     bf16_io = q.dtype == torch.bfloat16
+    _check_bwd_bf16_workspace(q, workspace)
     outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                  for _ in range(1 if kernel == "dq" else 2))
     if q.numel() == 0:
         return outs
+    plan = flash_bwd_bf16_launch_plan(t, b, h)[kernel]
     lib = _lib_bwd_bf16()
     err = getattr(lib, f"nomad_flash_attention_bwd_bf16_{kernel}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *(x.data_ptr() for x in workspace), lengths.data_ptr(), *(x.data_ptr() for x in outs),
+        b, t, h, d, plan["rows_per_block"], plan["threads"], plan["smem_bytes"],
         1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"bf16 flash attention {'dQ' if kernel == 'dq' else 'dK/dV'} "
                  "kernel launch")
-    global launches_bwd_dq_bf16, launches_bwd_dkv_bf16
-    global launches_bwd_dq_bf16_io, launches_bwd_dkv_bf16_io
-    if kernel == "dq" and bf16_io:
-        launches_bwd_dq_bf16_io += 1
-    elif kernel == "dq":
-        launches_bwd_dq_bf16 += 1
-    elif bf16_io:
-        launches_bwd_dkv_bf16_io += 1
-    else:
-        launches_bwd_dkv_bf16 += 1
+    _count_bwd_bf16((kernel,), bf16_io)
+    return outs
+
+
+def _bwd_bf16(q, k, v, do, lse, di, lengths):
+    """The prologue, K2b and K3b in one C call on arguments prepared by
+    ``_bwd_args``, as ``flash_attention_bwd`` runs them: (dQ, dK, dV) in
+    q's dtype. One call into C and one tensor map for both kernels: at the
+    loss crop the host's work, not the card's, sets the pace."""
+    b, t, h, d = q.shape
+    bf16_io = q.dtype == torch.bfloat16
+    outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    if q.numel() == 0:
+        return outs
+    workspace = _bwd_bf16_workspace(q)
+    plan = flash_bwd_bf16_launch_plan(t, b, h)["dq"]
+    lib = _lib_bwd_bf16()
+    err = lib.nomad_flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in workspace),
+        *(x.data_ptr() for x in outs), b, t, h, d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], plan["rows_per_block"], plan["threads"],
+        plan["smem_bytes"], 1.0 / d**0.5, int(bf16_io),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "bf16 flash attention backward launch")
+    _count_bwd_bf16(("fold", "dq", "dkv"), bf16_io)
     return outs
 
 
@@ -501,9 +610,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, lengths, precision="highest"):
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
     do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
     if is_bf16(precision):
-        (dq,) = _bwd_bf16_kernel("dq", q, k, v, do, lse, di, lengths)
-        dk, dv = _bwd_bf16_kernel("dkv", q, k, v, do, lse, di, lengths)
-        return dq, dk, dv
+        return _bwd_bf16(q, k, v, do, lse, di, lengths)
     dq = _bwd_dq_kernel(q, k, v, do, lse, di, lengths)
     dk, dv = _bwd_dkv_kernel(q, k, v, do, lse, di, lengths)
     return dq, dk, dv

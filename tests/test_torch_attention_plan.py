@@ -140,15 +140,28 @@ def test_flash_bwd_plan_fills_the_card_at_the_loss_crop():
 
 @pytest.mark.parametrize("b", BATCHES)
 def test_flash_bwd_bf16_plan_covers_every_row_once(b):
-    """K2b's blocks own 64 query rows and K3b's 64 key rows: each row of
-    every (head, batch) in exactly one block; the static shared memory the
-    kernels declare (two 64 x 72 bf16 tiles; K3b also the tile's LSE and
-    Di in f32) and the blocks per SM they are built for fit an SM."""
+    """K2b's blocks own 64 query rows and K3b's 64 key rows of the folded
+    length (T rounded up to 64, the prologue's fold): each row of every
+    (head, batch) in exactly one block, and no block wholly in the
+    padding; a consumer warpgroup and a producer warp; the dynamic shared
+    memory the kernels declare (two resident 64-row bf16 tiles, a ring of
+    3 stages of two, K3b's LSE and Di a stage, the barriers, 1,024 bytes of
+    alignment) times the blocks per SM each is built for (K2b 3, K3b 2)
+    within an SM."""
+    tile = 64 * 64 * 2
     for t in LENGTHS + [1433, 4095]:
         plans = flash_attention.flash_bwd_bf16_launch_plan(t, b, 12)
-        assert {k: p["smem_bytes"] for k, p in plans.items()} == {"dq": 18_432, "dkv": 18_944}
+        assert {k: p["blocks_per_sm"] for k, p in plans.items()} == {"dq": 3, "dkv": 2}
         for kernel, plan in plans.items():
             tiles, h, bb = plan["grid"]
-            assert (h, bb, plan["threads"], plan["rows_per_block"]) == (12, b, 128, 64)
-            assert (tiles - 1) * 64 < t <= tiles * 64, (kernel, t)
+            assert (h, bb, plan["threads"], plan["rows_per_block"]) == (12, b, 160, 64)
+            assert plan["stages"] == 3 and plan["t_pad"] == tiles * 64
+            assert plan["smem_bytes"] == 2 * tile + 3 * 2 * tile + 3 * 2 * 64 * 4 + 7 * 8 + 1024
+            owned = [0] * t
+            for blk in range(tiles):
+                for r in range(blk * 64, min(blk * 64 + 64, t)):
+                    owned[r] += 1
+            assert owned == [1] * t, (kernel, t)
+            assert (tiles - 1) * 64 < t <= tiles * 64, (kernel, t)  # no block in the padding
+            assert plan["smem_bytes"] <= SMEM_LIMIT
             assert plan["blocks_per_sm"] * (plan["smem_bytes"] + SMEM_RESERVED) <= SMEM_PER_SM

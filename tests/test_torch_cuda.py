@@ -515,11 +515,12 @@ def attention_bwd_f64(q, k, v, do, lengths):
 BWD_BF16_PLAIN_REL, BWD_BF16_PLAIN_NORM = 3.5e-3, 1e-3
 
 
-@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 511])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257])
 def test_bf16_flash_backward_kernels_tile_edges(cuda, t):
     """K2b and K3b (the "default" flavour of K2/K3) against their plain
     version at every edge of their 16-row warp tiles and 64-row blocks and
-    tiles, a full, a ragged, a 1-key and a 0-key row, NaN in k and v past
+    tiles and of their 3-stage ring (3, 4 and 5 tiles, the last one
+    ragged), a full, a ragged, a 1-key and a 0-key row, NaN in k and v past
     each bound: dQ, dK and dV each within BWD_BF16_PLAIN_REL of the plain
     version's max |g| and BWD_BF16_PLAIN_NORM of its norm from it, and no
     further from the exact float64 gradient than 1.5 x the plain version's
@@ -538,12 +539,14 @@ def test_bf16_flash_backward_kernels_tile_edges(cuda, t):
     o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
     do = torch.randn(b, t, h, d, generator=g).to(cuda)
     before = [flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16,
-              flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv]
+              flash_attention.launches_bwd_fold_bf16, flash_attention.launches_bwd_dq,
+              flash_attention.launches_bwd_dkv]
     ours = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
     torch.cuda.synchronize()
     assert [flash_attention.launches_bwd_dq_bf16, flash_attention.launches_bwd_dkv_bf16,
-            flash_attention.launches_bwd_dq, flash_attention.launches_bwd_dkv] == [
-        before[0] + 1, before[1] + 1, before[2], before[3]]
+            flash_attention.launches_bwd_fold_bf16, flash_attention.launches_bwd_dq,
+            flash_attention.launches_bwd_dkv] == [
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4]]
     plain = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens, "default")
     exact = attention_bwd_f64(q, k, v, do, lens)
     for a, p, e in zip(ours, plain, exact):
@@ -558,6 +561,73 @@ def test_bf16_flash_backward_kernels_tile_edges(cuda, t):
     assert torch.all(dq[3] == 0)
     again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
     assert all(torch.equal(a, c) for a, c in zip(ours, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_flash_backward_prologue_folds_the_operands(cuda, dtype):
+    """K2b/K3b's prologue writes q, k, v and dO bit-equal to
+    ``fold_bf16_ref`` (folded head-major to bf16 [B*H, T64, 64], k and v 0
+    past each bound, NaN there included) and LSE and Di padded with zeros;
+    a bf16 flavour's fold equals the f32 flavour's on the upcast inputs."""
+    g = torch.Generator().manual_seed(3)
+    b, t, h, lengths = 4, 130, 3, [130, 64, 1, 0]
+    q, k, v, o, do = (torch.randn(b, t, h, 64, generator=g).to(cuda).to(dtype) for _ in range(5))
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    lse = torch.randn(b, h, t, generator=g).to(cuda)
+    do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+    before = (flash_attention.launches_bwd_fold_bf16, flash_attention.launches_bwd_fold_bf16_io)
+    fold, ld = flash_attention._bwd_bf16_fold(q, k, v, do_, lse, di, lens_)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_attention.launches_bwd_fold_bf16, flash_attention.launches_bwd_fold_bf16_io) == (
+        before[0] + (not bf16), before[1] + bf16)
+    for n, x in enumerate((q, k, v, do)):
+        assert torch.equal(fold[n], flash_attention.fold_bf16_ref(x, lens, n in (1, 2))), n
+    assert fold.shape == (4, b * h, 192, 64) and ld.shape == (2, b * h, 192)
+    for n, x in enumerate((lse, di)):
+        assert torch.equal(ld[n, :, :t], x.reshape(b * h, t)) and not ld[n, :, t:].any()
+    if bf16:
+        up = [x.float() for x in (q, k, v, do_)]
+        fold32, ld32 = flash_attention._bwd_bf16_fold(*up[:3], up[3], lse, di, lens_)
+        assert torch.equal(fold32, fold) and torch.equal(ld32, ld)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_flash_backward_one_call_is_the_kernels_alone(cuda, dtype):
+    """``flash_attention_bwd``'s one C call (prologue, K2b, K3b) gives the
+    bits of the three kernels launched one at a time, and counts one
+    launch of each; a workspace made for another shape is refused."""
+    g = torch.Generator().manual_seed(5)
+    b, t, h, lengths = 4, 193, 2, [193, 100, 1, 0]
+    q, k, v, do = (torch.randn(b, t, h, 64, generator=g).to(cuda).to(dtype) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    io = "_io" if dtype == torch.bfloat16 else ""
+    names = [f"launches_bwd_{n}_bf16{io}" for n in ("fold", "dq", "dkv")]
+    before = [getattr(flash_attention, n) for n in names]
+    ours = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "default")
+    assert [getattr(flash_attention, n) for n in names] == [c + 1 for c in before]
+    do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+    ws = flash_attention._bwd_bf16_fold(q, k, v, do_, lse, di, lens_)
+    alone = (*flash_attention._bwd_bf16_kernel("dq", q, ws, lens_),
+             *flash_attention._bwd_bf16_kernel("dkv", q, ws, lens_))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(ours, alone))
+    with pytest.raises(ValueError, match="workspace"):
+        flash_attention._bwd_bf16_kernel("dq", q[:, :64], ws, lens_)
+
+
+def test_bf16_flash_backward_occupancy(cuda):
+    """K2b keeps 3 blocks on an SM and K3b 2, both I/O flavours: what their
+    launch plan claims (a consumer warpgroup and a producer warp, 68,152
+    bytes of dynamic shared memory each)."""
+    for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 24, 12).items():
+        for io in (False, True):
+            assert flash_attention.flash_bwd_bf16_occupancy(kernel, io) >= (
+                plan["blocks_per_sm"]), (kernel, io)
 
 
 def test_loss_balanced_launches_k2b_k3b(cuda):

@@ -8,12 +8,14 @@ differentiate.
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
-     print ptxas' registers, shared memory and spills (a spill fails), and
-     the occupancy (blocks per SM; K4's and K4b's clusters on the card) of
-     K1, K2, K3, K4 and K4b (K4b at each cluster size of its plan, 3 and
-     2 .. 16, failing below the 2 blocks per SM it is built for or with no
-     cluster on the card); build the native C++ ingest library
-     (``native/``, g++);
+     print ptxas' registers, shared memory and spills (a spill fails, and
+     so does a log without the K1b and K2b/K3b kernels and prologues the
+     check must cover), and the occupancy (blocks per SM; K4's and K4b's
+     clusters on the card) of K1, K1b, K2, K3, K4 and K4b (K1b, K2b and
+     K3b failing below the blocks per SM their plan claims; K4b at each
+     cluster size of its plan, 3 and 2 .. 16, failing below the 2 blocks
+     per SM it is built for or with no cluster on the card); build the
+     native C++ ingest library (``native/``, g++);
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
@@ -87,10 +89,15 @@ Phases, each fatal on failure:
      cold score;
   9. the precision modes: K1b (the "default" flavour of K1: bf16
      products on the tensor cores, f32 softmax) against its plain version
-     at [96, 511] (lengths to 499), [32, 50], a ragged [8, 4095] and every
-     tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}, with NaN past each
-     bound and a 0-key row, held to exact attention in float64 and timed
-     beside SDPA on bf16 tensors; then ``Nomad(precision=...)`` in
+     at [96, 511] (lengths to 499), [32, 50], a ragged [8, 4095], every
+     tile edge T in {1, 15, 16, 17, 63, 64, 65, 511} and every edge of its
+     ring T in {127, 128, 129, 191, 192, 193, 257}, with NaN past each
+     bound and a 0-key row, held to exact attention in float64, its
+     prologue's fold bit-equal to ``fold_bf16_ref`` and the kernel alone on
+     it the one call's bits; the call through ``mha_flash`` against the
+     work's bound, the prologue and the kernel each against what it moves,
+     the call in turns with SDPA on bf16 copies (the casts outside the
+     timed call and inside it); then ``Nomad(precision=...)`` in
      "exact", "balanced" and "fast" on the same seeded BASE weights over
      phase 4's 108 files (launches: K1 24 or K1b 24, K5 52), each mode's
      pairwise delta against "exact" there and on a pause-heavy stress set
@@ -121,7 +128,9 @@ Phases, each fatal on failure:
      12, K5 52 a step; the step's attention backward calls against their
      plain version on the same inputs; phase 5's checks against the same
      mode's plain path, within GRAD_MODE_FRAC times that plain path's
-     distance to the "exact" plain path); the triplet recipe with
+     distance to the "exact" plain path; on 10 s clips the gradient's gap
+     to the plain path with K2b + K3b, K1b, then K5 alone swapped for its
+     plain version, and the share of the gap each closes); the triplet recipe with
      ``precision:`` fast and balanced (remat on): the recipe's step
      (plain bf16 dropout attention, K5 50), its eval step (K1b 12, K5 26),
      the rates-at-0 step (K1b 24, K2b 12, K3b 12, K5 50), whose
@@ -154,7 +163,9 @@ Phases, each fatal on failure:
  13. the trainer's ``fast_bf16`` (bf16 activations in the block stack):
      the bf16-I/O flavours of K5 (at [49056, 768] and [11976, 768]), K1b
      (at [96, 511] with lengths to 499, [24, 499], a ragged [8, 4095] and
-     every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257})
+     every tile and ring edge T in {1, 15, 16, 17, 63, 64, 65, 511, 127,
+     128, 129, 191, 192, 193, 257}; its prologue's fold bit-equal to
+     ``fold_bf16_ref`` and to the f32 flavour's)
      and K2b + K3b with their prologue (at [32, 50], [24, 499], [8, 4095]
      and the same edges; both flavours' folds the same bits), each case with
      a full, a ragged, a 1-key and a 0-key row: bit-equal to their f32-I/O
@@ -176,7 +187,8 @@ Phases, each fatal on failure:
      K4 and K4b (at [96, 511] with lengths to 499, [32, 50], a ragged [8,
      1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511, 1023,
      1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
-     and every tile edge T in {1, 15, 16, 17, 63, 64, 65, 511}) and of K2 +
+     and every edge T in {1, 15, 16, 17, 63, 64, 65, 511, 127, 128, 129,
+     191, 192, 193, 257}) and of K2 +
      K3 (the same, but [96, 511]), each case with a full, a ragged, a 1-key
      and a 0-key row, under phase 13's rules (bit-equal to the f32-I/O
      flavour on the upcast inputs rounded once; plain version and float64
@@ -359,6 +371,8 @@ BWD_F32_PLAIN_REL = 1e-4
 # phase 14's loss steps: fewer warm steps timed than phase 5's, to keep the
 # phase near a minute
 BF16_PATH_LOSS_STEPS = 3
+# the edges of K1b's ring of 4 (K, V) stages: T in 2, 3 and 4 tiles and past
+K1B_RING_EDGES = (127, 128, 129, 191, 192, 193, 257)
 
 DEV = torch.device("cuda")
 report: dict = {"kernels": {}, "checks": {}}
@@ -446,6 +460,14 @@ def card_info() -> str:
 
 # ---------------- phase 2: build ----------------
 
+# kernels whose ptxas lines the spill check must find, by source: the
+# K1b and K2b/K3b prologues and kernels (each flavour a template instance)
+PTXAS_ENTRIES = {
+    "flash_attention_bf16": ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel"),
+    "flash_attention_bwd_bf16": ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                                 "flash_bwd_fold_bf16_kernel"),
+}
+
 
 def build_kernels() -> None:
     t0 = time.perf_counter()
@@ -459,6 +481,11 @@ def build_kernels() -> None:
     print(f"build: native ingest library {native.library_path().name} in "
           f"{report['native_build_s']:.1f} s", flush=True)
     spills = []
+    missing = [f"{name}: {sym}" for name, syms in PTXAS_ENTRIES.items() for sym in syms
+               if not any(sym in line and "Compiling entry" in line
+                          for line in logs.get(name, "").splitlines())]
+    if missing:
+        fail("ptxas' log lacks a kernel the spill check must cover: " + "; ".join(missing))
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
@@ -473,10 +500,15 @@ def build_kernels() -> None:
                                    "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
            "flash_attention_f32_bf16io_fwd": {
                "blocks_per_sm": flash_attention.flash_occupancy(bf16_io=True),
-               "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
-           "flash_attention_bf16_fwd": {"blocks_per_sm": flash_attention.flash_bf16_occupancy()},
-           "flash_attention_bf16io_fwd": {
-               "blocks_per_sm": flash_attention.flash_bf16_occupancy(bf16_io=True)}}
+               "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
+    plan = flash_attention.flash_bf16_launch_plan(511, 1, 12)
+    for io, name in ((False, "flash_attention_bf16_fwd"), (True, "flash_attention_bf16io_fwd")):
+        blocks = flash_attention.flash_bf16_occupancy(bf16_io=io)
+        occ[name] = {"blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
+                     "smem_bytes": plan["smem_bytes"], "stages": plan["stages"]}
+        if blocks < plan["blocks_per_sm"]:
+            fail(f"K1b ({name}): {blocks} blocks per SM, the plan claims "
+                 f"{plan['blocks_per_sm']}")
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
             for io, tag in ((False, ""), (True, "_f32_bf16io")):
@@ -863,13 +895,14 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # kernel name -> layer of the model, first match wins (cuDNN's implicit-GEMM
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
-    ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",)),
+    ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",
+                                    "flash_fwd_fold_bf16_kernel<__nv_bfloat16")),
     ("flash_attention_bwd_bf16io", ("flash_bwd_dq_bf16_kernel<__nv_bfloat16",
                                     "flash_bwd_dkv_bf16_kernel<__nv_bfloat16",
                                     "flash_bwd_fold_bf16_kernel<__nv_bfloat16")),
     ("layernorm_fwd_bf16io", ("layernorm_fwd_kernel<__nv_bfloat16",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
-    ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel",)),
+    ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel")),
     ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel",)),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
@@ -953,6 +986,7 @@ def reset_launches() -> None:
     flash_attention.launches_bwd_dq_f32_bf16_io = flash_attention.launches_bwd_dkv_f32_bf16_io = 0
     fused_attention.launches_bf16_io = 0
     flash_attention.launches_bwd_fold_bf16 = flash_attention.launches_bwd_fold_bf16_io = 0
+    flash_attention.launches_fwd_fold_bf16 = flash_attention.launches_fwd_fold_bf16_io = 0
 
 
 def read_launches() -> dict:
@@ -975,15 +1009,18 @@ def read_launches() -> dict:
             "fused_qkv_attention_f32_bf16io_fwd": fused_attention.launches_f32_bf16_io,
             "fused_qkv_attention_bf16io_fwd": fused_attention.launches_bf16_io,
             "flash_attention_bwd_fold_bf16": flash_attention.launches_bwd_fold_bf16,
-            "flash_attention_bwd_fold_bf16io": flash_attention.launches_bwd_fold_bf16_io}
+            "flash_attention_bwd_fold_bf16io": flash_attention.launches_bwd_fold_bf16_io,
+            "flash_attention_fwd_fold_bf16": flash_attention.launches_fwd_fold_bf16,
+            "flash_attention_fwd_fold_bf16io": flash_attention.launches_fwd_fold_bf16_io}
 
 
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
                   k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
                   k4b_io=0) -> dict:
     """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. K2b/K3b's
-    prologue (the fold) runs once per backward call: once per K2b
-    launch, in K2b's flavour."""
+    prologue (the backward fold) runs once per backward call: once per K2b
+    launch, in K2b's flavour; K1b's (the forward fold) once per K1b
+    launch."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
@@ -995,7 +1032,8 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "flash_attention_bwd_dkv_f32_bf16io": k3_io,
             "fused_qkv_attention_f32_bf16io_fwd": k4_io,
             "fused_qkv_attention_bf16io_fwd": k4b_io,
-            "flash_attention_bwd_fold_bf16": k2b, "flash_attention_bwd_fold_bf16io": k2b_io}
+            "flash_attention_bwd_fold_bf16": k2b, "flash_attention_bwd_fold_bf16io": k2b_io,
+            "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
@@ -1291,7 +1329,8 @@ def signed_grad(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor,
 
 def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
                   batch: int, samples: int, mode: str = "exact", params=None,
-                  plain_impl: str | None = None, steps: int = LOSS_STEPS) -> None:
+                  plain_impl: str | None = None, steps: int = LOSS_STEPS,
+                  attribute: bool = False) -> None:
     """One loss path on ``batch`` seeded clips of ``samples`` samples: its
     launch counts per step (``want``), loss and gradient against the plain
     path of the same precision ``mode``, forward(x, x) == 0, warm step
@@ -1305,7 +1344,9 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     plain version is reported. ``params``: the weights (a state dict),
     else Nomad's seeded init. ``plain_impl``: the plain path's
     ``attention_impl`` in a bf16 mode (else the mode's own); ``steps``:
-    warm steps timed."""
+    warm steps timed. ``attribute``: the gap with K1b alone, then K5 alone,
+    swapped for its plain version too, and the share of the gap each swap
+    closes (beside K2b/K3b's)."""
     what, step_key = key.replace("_", " "), key.replace("path", "step")
     rng = np.random.default_rng(4321)
     clean_np = np.stack([speech_like(rng, samples, 0.005) for _ in range(batch)])
@@ -1386,6 +1427,18 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
         del exact
         with plain_flash(mode, forward=False):
             grad_kp = signed_grad(nomad, est, clean, signs)
+        swapped = {"k2b_k3b": grad_kp}
+        if attribute:
+            saved = flash_attention.mha_flash  # K1b alone: its plain forward, K2b/K3b kept
+            flash_attention.mha_flash = flash_attention.flash_attention_ref
+            try:
+                swapped["k1b"] = signed_grad(nomad, est, clean, signs)
+            finally:
+                flash_attention.mha_flash = saved
+            ln_ref = Nomad(device="cuda", params=sd,
+                           config=dataclasses.replace(config, layernorm_impl="ref"))
+            swapped["k5"] = signed_grad(ln_ref, est, clean, signs)
+            del ln_ref
         d_plain = {"loss_rel": abs(loss_p.item() - loss_ep) / abs(loss_ep),
                    "grad_rel_to_max": rel(grad_s, grad_ep)}
         tol_loss += GRAD_MODE_FRAC * d_plain["loss_rel"]
@@ -1396,7 +1449,13 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
                                        "grad_rel_to_max": rel(grad, grad_e)},
             "k2b_k3b_swapped": {"vs_kernel_path": rel(grad_kp, grad),
                                 "vs_plain_path": rel(grad_kp, grad_s)}}
-        del grad_ep, grad_e, grad_kp
+        if attribute:  # the kernel path's gap to the plain path, and each swap's share of it
+            mode_checks["gap_attribution"] = {
+                "gap": d_grad_signs, "swapped_vs_plain_path": {
+                    n: rel(x, grad_s) for n, x in swapped.items()},
+                "share_closed": {n: 1 - rel(x, grad_s) / d_grad_signs
+                                 for n, x in swapped.items()}}
+        del grad_ep, grad_e, grad_kp, swapped
     zero = nomad.forward(clean, clean).item()
     report[key] = {
         "shape": [batch, samples], "loss": value, "grad_max_abs": gmax,
@@ -2264,6 +2323,58 @@ def attention_f64(q, k, v, lengths):
     return torch.einsum("bhqk,bkhd->bqhd", p, vd)
 
 
+def k1b_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor, io_bytes: int) -> dict:
+    """K1b's prologue and kernel, each against what it moves: the prologue
+    reads the valid rows of k and v once and writes the fold (bf16 [2, B*H,
+    T64, D]) once; the kernel reads q, the fold's valid rows and lengths and
+    writes O and LSE, and does the work's operations on the bf16 tensor
+    cores."""
+    t_pad = -(-t // 64) * 64
+    keys = int(lengths.long().clamp(0, t).sum())
+    fold = bound(io_bytes * 2 * keys * h * d + 2 * 2 * b * h * t_pad * d, 0.0)
+    kernel = bound(2 * io_bytes * b * t * h * d + 2 * 2 * keys * h * d + 4.0 * (b * h * t + b),
+                   4.0 * h * d * t * keys, BF16_FLOPS)
+    return {"fold": fold, "kernel": kernel}
+
+
+def fold_fwd_plain(k, v, lengths) -> torch.Tensor:
+    """The plain version of K1b's prologue: k and v folded by
+    ``fold_bf16_ref``, zero past each bound, as one [2, B*H, T64, D]."""
+    return torch.stack([flash_attention.fold_bf16_ref(x, lengths, True) for x in (k, v)])
+
+
+def check_fold_fwd(q, k, v, lengths, timed: bool) -> dict:
+    """K1b's prologue through its wrapper against ``fold_fwd_plain`` on the
+    card, bit for bit; the kernel alone on that fold against the one call
+    (``mha_flash``), bit for bit; with ``timed``, the prologue's and the
+    kernel's times, each beside the bound of what it moves, and the
+    prologue's plain version's. Returns {"fold": ..., "kernel": ...}."""
+    b, t, h, d = q.shape
+    ws = flash_attention._flash_bf16_fold(q, k, v, lengths)
+    ref = fold_fwd_plain(k, v, lengths)
+    alone = flash_attention._flash_bf16_body(q, ws, lengths)
+    call = flash_attention.mha_flash(q, k, v, lengths, "default")
+    torch.cuda.synchronize()
+    if not torch.equal(ws, ref):
+        fail(f"flash bf16 prologue [{b}, {t}, {h}, {d}] ({q.dtype}): its fold differs from "
+             f"fold_bf16_ref's")
+    if not (torch.equal(alone[0], call[0]) and torch.equal(alone[1], call[1])):
+        fail(f"flash bf16 [{b}, {t}, {h}, {d}] ({q.dtype}): the kernel alone on the prologue's "
+             f"fold differs from the one call's bits")
+    bounds = k1b_bounds(b, t, h, d, lengths, q.element_size())
+    res = {"fold": {"max_abs_err": 0.0, "bit_equal": True, "bound_ms": bounds["fold"][0],
+                    "bound_by": bounds["fold"][1], "library_ms": None},
+           "kernel": {"bound_ms": bounds["kernel"][0], "bound_by": bounds["kernel"][1]}}
+    if timed:
+        iters = 10 if t > 1024 else 30
+        res["fold"]["ms"] = time_ms(
+            lambda: flash_attention._flash_bf16_fold(q, k, v, lengths, ws), iters)
+        res["fold"]["plain_ms"] = time_ms(lambda: fold_fwd_plain(k, v, lengths), 5)
+        res["kernel"]["ms"] = time_ms(lambda: flash_attention._flash_bf16_body(q, ws, lengths),
+                                      iters)
+    return res
+
+
 def check_flash_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
                      kernel_time: bool = True) -> dict:
     """K1b against flash_attention_ref(..., "default") on the card, NaN in k
@@ -2272,8 +2383,14 @@ def check_flash_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
     plain version's distance + 1e-6 (the kernel rounds p against the
     running maximum, the plain version against the final one: the same
     bf16 error class, other bits) and no nearer than half of it (it does
-    round); a 0-key row O = 0, LSE = -1e30; a rerun the same bits. ``timed``: the plain version and SDPA on bf16 copies of
-    q, k, v (the yardstick) too."""
+    round); a 0-key row O = 0, LSE = -1e30; a rerun the same bits; its
+    prologue's fold bit-equal to ``fold_bf16_ref``'s and the kernel alone
+    on it the one call's bits. ``kernel_time``: the call through
+    ``mha_flash`` (prologue included) against the work's bound, the
+    prologue and the kernel each alone against what it moves; ``timed``:
+    the plain version, and the call in turns with SDPA on bf16 copies of q,
+    k, v, the three casts made outside the timed call (the stricter
+    yardstick, ``library_ms``) and inside it."""
     h, d = 12, 64
     qkv = torch.randn(b, t, 3, h, d, generator=g).to(DEV)
     q, k, v = qkv.unbind(2)
@@ -2309,24 +2426,48 @@ def check_flash_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
              f"{err_plain_f64:.3g} + 1e-6 by {excess:.3g}, or under half of it; LSE max|d| "
              f"{err_lse:.3g} (<= {TOL_FLASH})")
     b_ms, b_by = flash_bound(b, t, h, d, lens, BF16_FLOPS)
+    parts = check_fold_fwd(q, k, v, lens, kernel_time)
     res = {"shape": [b, t, h, d], "lengths_sum": int(lens.sum()), "max_abs_err": err,
            "max_abs_err_vs_f64": err_f64, "plain_max_abs_err_vs_f64": err_plain_f64,
-           "lse_max_abs_err": err_lse, "bound_ms": b_ms, "bound_by": b_by}
+           "lse_max_abs_err": err_lse, "bound_ms": b_ms, "bound_by": b_by,
+           "fold": parts["fold"] | {"shape": [b, t, h, d]}}
+    res |= {f"kernel_{f}": v for f, v in parts["kernel"].items()}
+
+    def call():
+        return flash_attention.mha_flash(q, k, v, lens, "default")
+
     if kernel_time:
-        res["ms"] = time_ms(lambda: flash_attention.mha_flash(q, k, v, lens, "default"),
-                            10 if t > 1024 else 30)
+        res["ms"] = time_ms(call, 10 if t > 1024 else 30)
     if timed:
         mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
         qb, kb, vb = (x.nan_to_num(0.0).transpose(1, 2).to(torch.bfloat16) for x in (q, k, v))
+        kz, vz = (x.nan_to_num(0.0) for x in (k, v))  # SDPA's mask cannot drop a NaN
+
+        def library_casts_inside():
+            return F.scaled_dot_product_attention(
+                *(x.transpose(1, 2).to(torch.bfloat16) for x in (q, kz, vz)), attn_mask=mask)
+
         res["plain_ms"] = time_ms(
             lambda: flash_attention.flash_attention_ref(q, k, v, lens, "default"), 5)
-        res["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), 10)
+        iters = 10 if t > 1024 else 30
+        res["call_in_turns_ms"], res["library_ms"] = time_pair_ms(
+            call, lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), iters,
+            rounds=5)
+        res["call_in_turns_inside_ms"], res["library_casts_inside_ms"] = time_pair_ms(
+            call, library_casts_inside, iters, rounds=5)
+    fold, kern = res["fold"], parts["kernel"]
     print(f"  flash bf16 [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: vs plain max|d| {err:.3g}, "
-          f"vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}), LSE {err_lse:.3g}; kernel "
-          f"{res.get('ms', float('nan')):.4f} ms  plain {res.get('plain_ms', float('nan')):.4f}  "
-          f"sdpa bf16 {res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})",
-          flush=True)
+          f"vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}), LSE {err_lse:.3g}; prologue "
+          f"bit-equal to fold_bf16_ref, the kernel alone the one call's bits"
+          + (f"; through mha_flash {res['ms']:.4f} ms (the work's bound {b_ms:.4f}, {b_by}; "
+             f"{b_ms / res['ms']:.1%}), prologue {fold['ms']:.4f} ms (bound "
+             f"{fold['bound_ms']:.4f}; {fold['bound_ms'] / fold['ms']:.1%}), kernel "
+             f"{kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f}, {kern['bound_by']}; "
+             f"{kern['bound_ms'] / kern['ms']:.1%})" if kernel_time else "")
+          + (f"; plain {res['plain_ms']:.4f} ms; in turns: the call {res['call_in_turns_ms']:.4f}"
+             f" vs sdpa bf16 (casts outside) {res['library_ms']:.4f}, the call "
+             f"{res['call_in_turns_inside_ms']:.4f} vs sdpa bf16 with its casts "
+             f"{res['library_casts_inside_ms']:.4f}" if timed else ""), flush=True)
     return res
 
 
@@ -2340,11 +2481,13 @@ def check_flash_bf16_shapes() -> None:
            "loss": check_flash_bf16(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
            "long": check_flash_bf16(8, 4095, [4095, 4000, 3001, 2048, 1025, 513, 64, 0], g,
                                     timed=False)}
-    # every edge of the 16-row warp tiles, 64-row blocks and 64-key tiles
-    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+    # every edge of the 16-row warp tiles, 64-row blocks and 64-key tiles,
+    # then of the 4-stage ring: 2, 3, 4 and 5 tiles, full and ragged
+    for t in (1, 15, 16, 17, 63, 64, 65, 511) + K1B_RING_EDGES:
         res[f"edge_T{t}"] = check_flash_bf16(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
                                              kernel_time=False)
     report["kernels"]["flash_attention_bf16_fwd"] = res
+    report["kernels"]["flash_attention_fwd_fold_bf16"] = {k: r["fold"] for k, r in res.items()}
 
 
 def speechish(n: int, seed: int) -> list:
@@ -3066,7 +3209,7 @@ def run_grad_modes(card: str) -> None:
         run_loss_path(card, f"loss_path_{mode}", mode_config(mode), want, LOSS_BATCH,
                       LOSS_SAMPLES, mode, sd)
         run_loss_path(card, f"loss_path_10s_{mode}", mode_config(mode), want, LOSS10_BATCH,
-                      LOSS10_SAMPLES, mode, sd)
+                      LOSS10_SAMPLES, mode, sd, attribute=True)
     out: dict = {"card": card}
     with tempfile.TemporaryDirectory(prefix="nomad_grad_modes_") as tmp:
         tmp = Path(tmp)
@@ -3506,6 +3649,16 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     res["fwd"] |= {"bound_ms": b_ms, "bound_by": b_by}
     iters = 10 if t > 1024 else 30
     up_c = [x.contiguous() for x in up]  # the f32-I/O flavour's inputs, for its times
+    if bf16_ops:  # K1b's prologue: both flavours fold to the same bits
+        parts = check_fold_fwd(q, k, v, lens, kernel_times)
+        res["fwd_fold"] = parts["fold"]
+        res["fwd"] |= {f"kernel_{f}": v for f, v in parts["kernel"].items()}
+        ws32 = flash_attention._flash_bf16_fold(*up_c, lens)
+        checks["fwd_fold_bit_equal_f32_flavour"] = torch.equal(
+            flash_attention._flash_bf16_fold(q, k, v, lens), ws32)
+        if kernel_times:
+            res["fwd_fold"]["f32_io_ms"] = time_ms(
+                lambda: flash_attention._flash_bf16_fold(*up_c, lens, ws32), iters)
     if kernel_times:
         res["fwd"]["ms"], res["fwd"]["f32_io_ms"] = time_pair_ms(
             lambda: flash_attention.mha_flash(q, k, v, lens, prec),
@@ -3680,12 +3833,15 @@ def check_bf16io_shapes() -> None:
           "loss": check_flash_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True),
           "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
                                      timed=False)}
-    for t in (1, 15, 16, 17, 63, 64, 65, 511, 129, 193, 257):
+    # the tiles' edges, then K1b's ring's (K2b/K3b's ring edges among them)
+    for t in (1, 15, 16, 17, 63, 64, 65, 511) + K1B_RING_EDGES:
         fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
                                               kernel_times=False)
     report["kernels"]["layernorm_fwd_bf16io"] = ln
     report["kernels"]["flash_attention_bf16io_fwd"] = {k: r["fwd"] | {"shape": r["shape"]}
                                                        for k, r in fl.items()}
+    report["kernels"]["flash_attention_fwd_fold_bf16io"] = {
+        k: r["fwd_fold"] | {"shape": r["shape"]} for k, r in fl.items()}
     for key, name in (("dq", "flash_attention_bwd_dq_bf16io"),
                       ("dkv", "flash_attention_bwd_dkv_bf16io"),
                       ("fold", "flash_attention_bwd_fold_bf16io")):
@@ -3984,7 +4140,7 @@ def check_bf16_paths_shapes() -> None:
                                      prec="highest"),
           "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
                                      timed=False, prec="highest")}
-    for t in (1, 15, 16, 17, 63, 64, 65, 511):
+    for t in (1, 15, 16, 17, 63, 64, 65, 511) + K1B_RING_EDGES:
         fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
                                               kernel_times=False, prec="highest")
     report["kernels"]["flash_attention_f32_bf16io_fwd"] = {
@@ -4301,6 +4457,11 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:143"),
         ("flash_attention_bwd_fold_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:143"),
+        # K1b's prologue: the fold the JAX package does ahead of its forward
+        ("flash_attention_fwd_fold_bf16", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:143"),
+        ("flash_attention_fwd_fold_bf16io", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
+         "nomad_tpu/ops/flash_attention.py:143"),
     ):
         k = report["kernels"][name]
         m = k["main"]
@@ -4322,6 +4483,10 @@ def main() -> None:
         row |= {f: m[f] for f in ("pair_ms", "pair_bound_ms") if f in m}
         row |= {f"train_{f}": k["train"][f] for f in ("pair_ms", "pair_bound_ms")
                 if f in k.get("train", {})}
+        # K1b: the kernel alone beside the call, both yardsticks' turns
+        row |= {f: m[f] for f in ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
+                                  "library_casts_inside_ms", "call_in_turns_ms",
+                                  "call_in_turns_inside_ms") if f in m}
         rows.append(row)
     print("report: " + json.dumps(report, default=float))
     print("kernels: " + "; ".join(

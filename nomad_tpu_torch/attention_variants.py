@@ -1,11 +1,12 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k23,k23b]
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k1b,k23,k23b]
 
 Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
-``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
-``csrc/flash_attention_bwd_bf16.cu`` (and of the headers they include)
+``csrc/flash_attention.cu``, ``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
+(and of the headers they include)
 with one part switched off, each by a text substitution that must match
 the source, into
 ``build/nomad_tpu_torch/variants/`` (nvcc, as ``ops/_build.py`` builds the
@@ -48,7 +49,20 @@ name; all by default):
   so run them in a checkout of it with this file copied in, e.g.
   ``--kernels k23b,k23bmma_no_stage,k23bmma_stage_only``):
   ``no_stage``, the tiles' loading and rounding skipped, and
-  ``stage_only``, the products and exp skipped.
+  ``stage_only``, the products and exp skipped;
+* K1b (``k1b``), in both I/O flavours at [96, 511], [24, 499], a ragged
+  [8, 4095] and [32, 50], through the port's own wrapper
+  (``flash_attention.mha_flash`` at "default", any prologue included):
+  the call's time, its host time and each kernel's device time under the
+  profiler (``fold``, ``kernel``); by name only, ``k1bw_ring_only`` (the
+  producer's TMA ring, no wgmma and no exp2f), ``k1bw_no_ring`` (the
+  consumers without the ring; wrong sums) and ``k1bw_two_blocks`` (built
+  for 2 blocks an SM, not 3);
+* the mma.sync K1b that the TMA/wgmma design replaced (``k1bmma``, by
+  name only, in a checkout of that source: ``--kernels
+  k1b,k1bmma_no_stage,k1bmma_stage_only,k1bmma_no_branch``): the staging
+  skipped, the products and exp skipped, and exp2f of every element with
+  the mask a select.
 
 K4, K1 and K2 + K3 are called through their C entries with ``bf16_io`` 0
 (the f32 flavours). K4b goes through the port's own wrapper
@@ -57,9 +71,11 @@ with the variant's library in place of the real one, so a checkout whose
 K4b takes other arguments (an older one, say, to time the parent's kernel
 with this file) is called as its own wrapper calls it. The variants
 compute nothing useful and are never loaded by the port. Prints one JSON
-object with the times (ms; K2b + K3b's by kernel under "ms_by_kernel",
-their calls' host times under "host_ms") and the card's name and power
-limit.
+object with the times (ms; K1b's and K2b + K3b's by kernel under
+"ms_by_kernel", their calls' host times under "host_ms") and the card's
+name and power limit. To time two checkouts in turns, name in each only
+what both have (a group holds variants of its own checkout's source).
+
 """
 
 from __future__ import annotations
@@ -96,8 +112,8 @@ VARIANTS = {
     "k4b_phase2_no_copy": ("fused_attention_bf16.cu", [
         ("if (split_rows) {", "if (false) {"),
         ("} else if (rank == 0 || len > 0) {", "} else if (false) {"),
-        ("if (tile + 2 < tiles) fetch(tile + 2);", ""),
-        ("if (tile + 2 < tiles) stash(sm.u.p2.kv[(tile + 2) % 3]);", "")]),
+        ("if (t + 2 < tiles) fetch(t + 2);", ""),
+        ("if (t + 2 < tiles) stash(sm.u.p2.kv[(t + 2) % 3]);", "")]),
     "k4b_empty": ("fused_attention_bf16.cu", [
         ("if (split_rows) {", "if (false) {"),
         ("} else if (rank == 0 || len > 0) {", "} else if (false) {"),
@@ -149,6 +165,41 @@ VARIANTS = {
          "        bulk_copy(sm.di[j], ld + rows + base + s * kRows, kRows * 4, &sm.full[j]);\n",
          ""),
         ("mbar_wait(&sm.full[j], (tile / kStages) & 1);", "")]),
+    # K1b through its wrapper (``mha_flash`` at "default"), prologue included
+    "k1b": ("flash_attention_bf16.cu", []),
+    # the mma.sync K1b that the TMA/wgmma design replaced (each block stages
+    # its own K/V tiles), to be run in a checkout of it: the staging skipped
+    # (the tiles hold garbage), the products and exp skipped (the staging
+    # alone), or exp2f of every element with the mask a select
+    "k1bmma_no_stage": ("flash_attention_bf16.cu", [
+        ("stage_kv(ks, vs, kb, skt, vb, svt, key0, len);", "")]),
+    "k1bmma_stage_only": ("flash_attention_bf16.cu", [
+        ("        mma_bf16(s[j], qa[2 * kp], bk[0], bk[1]);\n"
+         "        mma_bf16(s[j], qa[2 * kp + 1], bk[2], bk[3]);\n", ""),
+        ("ok ? exp2f((s[j][2 * i + e] - mx) * kLog2e) : 0.f", "ok ? 1.f : 0.f"),
+        ("        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);\n"
+         "        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);\n", "")]),
+    "k1bmma_no_branch": ("flash_attention_bf16.cu", [
+        ("const float p = ok ? exp2f((s[j][2 * i + e] - mx) * kLog2e) : 0.f;",
+         "const float x = exp2f((s[j][2 * i + e] - mx) * kLog2e);\n"
+         "          const float p = ok ? x : 0.f;")]),
+    # this K1b (prologue, TMA ring, the shared wgmma key loop), by name only:
+    # the ring with no wgmma and no exp2f; the consumers without the ring
+    # (no copies, no waits; wrong sums); built for 2 blocks an SM
+    "k1bw_ring_only": ("flash_attention_bf16.cu", [
+        ("attention_wgmma.cuh", "  for (int kk = 0; kk < kAttnRows / 16; ++kk) "
+         "wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);\n", ""),
+        ("attention_wgmma.cuh", "    wgmma_m64n64_rs(acc, pa[kk], sw128_desc(smem_u32(kt.v + 16 * kk "
+         "* kAttnRows)));\n", ""),
+        ("attention_wgmma.cuh", "const float x = exp2f((s[4 * jj + 2 * i + e] - mx) * kLog2e);",
+         "const float x = (s[4 * jj + 2 * i + e] - mx) * kLog2e;")]),
+    "k1bw_no_ring": ("flash_attention_bf16.cu", [
+        ("        mbar_expect_tx(&sm.full[j], 2 * kTileBytes);\n"
+         "        tma_2d(sm.ring[j].k, &tm, 0, krow + s * kRows, &sm.full[j], 0);\n"
+         "        tma_2d(sm.ring[j].v, &tm, 0, vrow + s * kRows, &sm.full[j], 0);\n", ""),
+        ("mbar_wait(&sm.full[t % kStages], (t / kStages) & 1);", "")]),
+    "k1bw_two_blocks": ("flash_attention_bf16.cu", [
+        ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;")]),
     "k23": ("flash_attention_bwd.cu", []),
     "k23_two_blocks": ("flash_attention_bwd.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -162,8 +213,8 @@ VARIANTS = {
          "      if (d == 0) a[i] = *reinterpret_cast")]),
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
-HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh")
-GROUPS = ("k4", "k4b", "k1", "k23", "k23b")  # --kernels: a variant's group is its name's first word
+HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh", "attention_wgmma.cuh")
+GROUPS = ("k4", "k4b", "k1", "k1b", "k23", "k23b")  # --kernels: a variant's group is its name's first word
 
 
 def build(picked) -> dict:
@@ -308,20 +359,57 @@ def time_bwd_bf16(libs, dev, out) -> None:
                     key = f"{name} [{b}, {t}, {h}, 64] bf16_io {int(io == torch.bfloat16)}"
                     out["ms"][key] = time_ms(call, 10 if t > 1024 else 30)
                     out["host_ms"][key] = host_ms(call, 10 if t > 1024 else 50)
-                    reps = 10
-                    with torch.profiler.profile(
-                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                        for _ in range(reps):
-                            call()
-                        torch.cuda.synchronize()
-                    parts = {"fold": 0.0, "dq": 0.0, "dkv": 0.0, "other": 0.0}
-                    for evt in prof.events():
-                        if evt.device_type != torch.autograd.DeviceType.CUDA:
-                            continue
-                        part = ("fold" if "fold" in evt.name else "dq" if "bwd_dq_bf16" in evt.name
-                                else "dkv" if "bwd_dkv_bf16" in evt.name else "other")
-                        parts[part] += evt.time_range.elapsed_us() / 1e3 / reps
-                    out["ms_by_kernel"][key] = parts
+                    out["ms_by_kernel"][key] = profiled_parts(
+                        call, {"fold": ("fold",), "dq": ("bwd_dq_bf16",),
+                               "dkv": ("bwd_dkv_bf16",)})
+
+
+def profiled_parts(call, parts: dict, reps: int = 10) -> dict:
+    """Device time (ms) of one call by kernel, under torch.profiler over
+    ``reps`` calls: {part: ms}, a kernel going to the first part whose
+    name it holds (``parts``: {part: (substrings)}), else to "other"."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*parts, "other"], 0.0)
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((p for p, keys in parts.items() if any(k in evt.name for k in keys)), "other")
+        out[part] += evt.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def time_flash_bf16(libs, dev, out) -> None:
+    """K1b's variants that were built (``k1b``, ``k1bmma_*``), in both I/O
+    flavours, through the port's own wrapper (``flash_attention.mha_flash``
+    at "default", so an older checkout's kernel runs as its wrapper calls
+    it) at the paths' shapes: the call's time (CUDA events, any prologue
+    included), its host time and each kernel's device time under
+    torch.profiler (``fold``: a prologue; ``kernel``: the attention)."""
+    names = [v for v in VARIANTS if v.split("_")[0] in ("k1b", "k1bmma", "k1bw") and v in libs]
+    g = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(3)
+    h = 12
+    shapes = ((96, 511, [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84),
+              (24, 499, [499, 249, 1, 0] + [499] * 20),
+              (8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0]),
+              (32, 50, [50, 25, 1, 0] + [50] * 28))
+    for b, t, lens in shapes if names else ():
+        q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(dev).unbind(2)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for io in (torch.float32, torch.bfloat16):
+            qi, ki, vi = (x.to(io) for x in (q, k, v))
+            for name in names:
+                with library("flash_attention_bf16", libs[name]):
+                    def call():
+                        return flash_attention.mha_flash(qi, ki, vi, lengths, "default")
+                    key = f"{name} [{b}, {t}, {h}, 64] bf16_io {int(io == torch.bfloat16)}"
+                    out["ms"][key] = time_ms(call, 10 if t > 1024 else 30)
+                    out["host_ms"][key] = host_ms(call, 10 if t > 1024 else 50)
+                    out["ms_by_kernel"][key] = profiled_parts(
+                        call, {"fold": ("fold",), "kernel": ("flash_fwd_bf16",)})
 
 
 def main() -> None:
@@ -349,6 +437,7 @@ def main() -> None:
            torch.cuda.get_device_name(0), "ms": {}, "ms_by_kernel": {}, "host_ms": {}}
     time_fused(libs, shapes, dev, stream, out)
     time_bwd_bf16(libs, dev, out)
+    time_flash_bf16(libs, dev, out)
     h = 12
     g = torch.Generator().manual_seed(1)
     k1 = [v for v in VARIANTS if v.split("_")[0] == "k1" and v in libs]

@@ -90,6 +90,7 @@
 #include <climits>
 #include <type_traits>
 
+#include "attention_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -148,8 +149,9 @@ __device__ __forceinline__ void init_barriers(Smem& sm) {
 
 // Block x of 6 B H: for x / (B H) = n < 4, rows t < T64 of folded tensor n
 // (q, k, v, dO) of (batch, head) bh = x % (B H), rounded to bf16 (copied
-// for bf16 inputs), 0 at t >= T and, for k and v, at t >= lengths[b]; for
-// n = 4, 5, LSE and Di of bh, 0 at t >= T. 8 values a thread and step.
+// for bf16 inputs), 0 at t >= T and, for k and v, at t >= lengths[b]
+// (attention_wgmma.cuh::fold_rows, K1b's prologue's too); for n = 4, 5,
+// LSE and Di of bh, 0 at t >= T.
 template <typename IO>
 __global__ void __launch_bounds__(kFoldThreads)
 flash_bwd_fold_bf16_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
@@ -178,25 +180,8 @@ flash_bwd_fold_bf16_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
   const long long st = n == 0 ? sqt : n == 1 ? skt : n == 2 ? svt : sdt;
   const long long sh = n == 0 ? sqh : n == 1 ? skh : n == 2 ? svh : sdh;
   const int bound = n == 1 || n == 2 ? min(max(lengths[b], 0), T) : T;
-  x += b * sb + h * sh;
-  __nv_bfloat16* dst = fold + (n * rows + static_cast<long long>(bh) * T64) * kD;
-  for (int u = threadIdx.x; u < T64 * (kD / 8); u += kFoldThreads) {
-    const int t = u / (kD / 8);
-    const int col = 8 * (u % (kD / 8));
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (t < bound) {
-      const IO* src = x + t * st + col;
-      if constexpr (std::is_same_v<IO, float>) {
-        const float4 a = *reinterpret_cast<const float4*>(src);
-        const float4 c = *reinterpret_cast<const float4*>(src + 4);
-        out = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(c.x, c.y),
-                         pack_bf16(c.z, c.w));
-      } else {
-        out = *reinterpret_cast<const uint4*>(src);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + static_cast<long long>(t) * kD + col) = out;
-  }
+  fold_rows(x + b * sb + h * sh, st, bound, T64,
+            fold + (n * rows + static_cast<long long>(bh) * T64) * kD, kFoldThreads);
 }
 
 // ---- the two kernels' shared parts ----

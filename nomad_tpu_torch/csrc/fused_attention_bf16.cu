@@ -72,7 +72,8 @@
 //     reads row i of x alone). Q of every row t < T is projected from x as
 //     the TPU kernel does (a padded query row sees the valid keys; its
 //     output is written, and it is finite whenever x is).
-//   * Phase 2, the key loop, on wgmma: each 64-key tile of K and V is read
+//   * Phase 2, the key loop that K1b runs too (attention_wgmma.cuh::
+//     attend_tiles): each 64-key tile of K and V is read
 //     from the block that projected it through distributed shared memory
 //     into registers two tiles ahead and stored into one of three local
 //     tiles (16 KB a tile, copied as it lies: the swizzle is the same in
@@ -109,6 +110,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "attention_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -128,16 +130,10 @@ constexpr int kHeadRows = 3 * kD;       // packed weight rows per head
 constexpr int kMaxT = 1024;
 constexpr int kMaxCluster = kMaxT / kRows;  // 16: past the portable 8
 constexpr int kMinBlocks = 2;           // per SM (__launch_bounds__)
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Stage {
   __nv_bfloat16 x[kRows * kK];       // 8 KB: the chunk's x rows
   __nv_bfloat16 w[kHeadRows * kK];   // 24 KB: the head's weight rows (or one tensor's 64)
-};
-struct KeyTile {  // K then V of 64 keys, each 64 rows of 128 bytes in the swizzle
-  __nv_bfloat16 k[kRows * kD];
-  __nv_bfloat16 v[kRows * kD];
 };
 struct Phase2 {
   // this block's projected rows as bf16, 64 rows of 128 bytes in the
@@ -207,17 +203,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[NT * kD / 2], uint64_t a, 
   } else {
     wgmma_m64n64(d, a, b);
   }
-}
-
-// ---- phase 2's row reductions ----
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---- the prologue: weights packed once, f32 x rounded ----
@@ -361,95 +346,6 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---- phase 2 ----
-
-// the consumer warpgroup's own barrier (the producer warp is not in it)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
-}
-
-// S = Q . K^T of one key tile, issued and committed (not waited): both
-// K-major (d contiguous); s[4j + 2i + e] row 16 warp + lane / 4 + 8i, key
-// 8j + 2 (lane % 4) + e
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint64_t dq, const KeyTile& kt) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  const uint64_t dk = sw128_desc(smem_u32(kt.k));
-  fence_regs(s);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk);
-  wgmma_commit();
-}
-
-// O += bf16(P) . bf16(V), issued and committed: k-step kk covers keys
-// 16kk .. 16kk + 15, whose A fragments pa[kk] are the P fragments of key
-// tiles 2kk and 2kk + 1; V's rows (keys) of 128 bytes are B MN-major,
-// 8-key atoms 1,024 bytes apart
-__device__ __forceinline__ void issue_values(float (&acc)[32], const uint32_t (&pa)[4][4],
-                                             const KeyTile& kt) {
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs(acc, pa[kk], sw128_desc(smem_u32(kt.v + 16 * kk * kD)));
-  wgmma_commit();
-}
-
-// the online softmax of one tile's scores s (keys key0 + ..., those >= len
-// masked unless the whole tile is valid, kFull): updates the row maxima m
-// and this thread's share of the row sums l, gives each row's rescale
-// factor for O, and P rounded to bf16 as wgmma A fragments (k-step kk
-// takes key tiles 2kk and 2kk + 1). It only reads s, so that ptxas keeps
-// P . V, whose accumulators are elsewhere, in flight around it.
-template <bool kFull>
-__device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
-                                             int len, int c) {
-  float p[32];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = m[i];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (kFull || key0 + 8 * jj + 2 * c + e < len) mx = fmaxf(mx, s[4 * jj + 2 * i + e]);
-      }
-    }
-    mx = quad_max(mx);
-    alpha[i] = exp2f((m[i] - mx) * kLog2e);
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = kFull || key0 + 8 * jj + 2 * c + e < len;
-        const float v = ok ? exp2f((s[4 * jj + 2 * i + e] - mx) * kLog2e) : 0.f;
-        p[4 * jj + 2 * i + e] = v;
-        sum += v;
-      }
-    }
-    l[i] = l[i] * alpha[i] + sum;
-    m[i] = mx;
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
-  }
-}
-
-// the same, choosing the unmasked form where every key of the tile is valid
-__device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
-                                             int len, int c) {
-  if (key0 + kRows <= len) {
-    softmax_tile<true>(s, m, l, alpha, pa, key0, len, c);
-  } else {
-    softmax_tile<false>(s, m, l, alpha, pa, key0, len, c);
-  }
-}
-
 template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -538,11 +434,8 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     float acc[32];  // O: acc[4j + 2i + e] row 16 warp + g + 8i, d 8j + 2c + e
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf};
+    float m[2] = {kAttnNegInf, kAttnNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-    float alpha[2];
-    float s[32];
-    uint32_t pa[4][4], pn[4][4];  // P of the tile in P . V, of the next one
     const uint64_t dq = sw128_desc(smem_u32(sm.u.p2.slot[0]));
 
     if (tiles > 0) {
@@ -562,42 +455,17 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         stash(sm.u.p2.kv[1]);
       }
       consumers_sync();
-      issue_scores(s, dq, sm.u.p2.kv[0]);
-      wgmma_wait<0>();
-      fence_regs(s);
-      softmax_tile(s, m, l, alpha, pn, 0, len, c);
     }
-    for (int tile = 0; tile < tiles; ++tile) {
-      // here: tiles `tile` and `tile + 1` in place, P of `tile` in pn, O
-      // rescaled to its maximum
-      const bool next = tile + 1 < tiles;
-      if (tile + 2 < tiles) fetch(tile + 2);  // in flight through this tile
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // read by P . V until it completes
-#pragma unroll
-        for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
-      }
-      if (next) issue_scores(s, dq, sm.u.p2.kv[(tile + 1) % 3]);
-      issue_values(acc, pa, sm.u.p2.kv[tile % 3]);
-      wgmma_wait<1>();  // the scores of tile + 1; P . V of tile still in flight
-      fence_regs(s);
-      if (next) softmax_tile(s, m, l, alpha, pn, (tile + 1) * kRows, len, c);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(pa);
-      if (next) {
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            acc[4 * jj + 2 * i] *= alpha[i];
-            acc[4 * jj + 2 * i + 1] *= alpha[i];
-          }
-        }
-      }
-      if (tile + 2 < tiles) stash(sm.u.p2.kv[(tile + 2) % 3]);  // tile - 1's slot, read by all
-      consumers_sync();  // tile + 2 is in place; tile is no longer read
-    }
+    // the shared key loop (attention_wgmma.cuh): tiles `tile` and `tile + 1`
+    // are in place when iteration `tile` starts; tile + 2 is fetched during
+    // it and stored once tile's P . V has completed
+    attend_tiles(
+        acc, m, l, dq, tiles, len, [&](int t) -> const KeyTile& { return sm.u.p2.kv[t % 3]; },
+        [](int) {}, [&](int t) { if (t + 2 < tiles) fetch(t + 2); },
+        [&](int t) {
+          if (t + 2 < tiles) stash(sm.u.p2.kv[(t + 2) % 3]);  // t - 1's slot, read by all
+          consumers_sync();  // t + 2 is in place; t is no longer read
+        });
 
     if (active) {
       const float totals[2] = {quad_sum(l[0]), quad_sum(l[1])};

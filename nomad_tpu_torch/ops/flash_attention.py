@@ -4,7 +4,8 @@
 Counterpart of ``nomad_tpu.ops.flash_attention``. ``mha_flash`` launches
 K1 (``csrc/flash_attention.cu``, f32: the "highest" and "high" flavours)
 or K1b (``csrc/flash_attention_bf16.cu``, the TPU kernel's own "default"
-flavour: bf16 products, f32 accumulation and softmax) on CUDA tensors and
+flavour: bf16 products, f32 accumulation and softmax; its prologue folds
+k and v to bf16 once per call, ``fold_bf16_ref``) on CUDA tensors and
 computes the plain version of the same flavour on CPU tensors. Both take
 q/k/v as [B, T, H, D] and the valid key count per batch row, and return O
 [B, T, H, D] and LSE = m + log(l) [B, H, T] in f32. Every query row is
@@ -70,11 +71,23 @@ BWD_BF16_BLOCKS_PER_SM = {"dq": 3, "dkv": 2}
 BWD_BF16_SMEM_BYTES = (2 + 2 * BWD_BF16_STAGES) * BWD_BF16_ROWS * HEAD_DIM * 2 \
     + 2 * BWD_BF16_STAGES * BWD_BF16_ROWS * 4 + (2 * BWD_BF16_STAGES + 1) * 8 + 1024
 
-# Launches of K1, K1b, K2, K3, K2b, K3b and K2b/K3b's prologue (the fold),
-# of the bf16-I/O flavours of K1b, K2b, K3b and the fold (``*_bf16_io``)
-# and of K1, K2 and K3 (``*_f32_bf16_io``), since each count was last set
-# to 0.
+# K1b's block (csrc/flash_attention_bf16.cu): a consumer warpgroup and a
+# producer warp (160 threads) own 64 query rows; their Q tile and a ring of
+# FWD_BF16_STAGES (K, V) tile pairs, all bf16 64 x 64, in dynamic shared
+# memory with the ring's barriers, aligned by hand to 1,024 bytes. Blocks
+# per SM: what the kernel is built for. Its prologue folds k and v to bf16
+# [2, B*H, T64, 64] (T64: T rounded up to FWD_BF16_ROWS).
+FWD_BF16_ROWS, FWD_BF16_THREADS, FWD_BF16_STAGES, FWD_BF16_BLOCKS_PER_SM = 64, 160, 4, 3
+FWD_BF16_SMEM_BYTES = (1 + 2 * FWD_BF16_STAGES) * FWD_BF16_ROWS * HEAD_DIM * 2 \
+    + 2 * FWD_BF16_STAGES * 8 + 1024
+
+# Launches of K1, K1b and its prologue (the forward fold), K2, K3, K2b, K3b
+# and K2b/K3b's prologue (the backward fold), of the bf16-I/O flavours of
+# K1b, K2b, K3b and the folds (``*_bf16_io``) and of K1, K2 and K3
+# (``*_f32_bf16_io``), since each count was last set to 0.
 launches = 0
+launches_fwd_fold_bf16 = 0
+launches_fwd_fold_bf16_io = 0
 launches_bwd_fold_bf16 = 0
 launches_bwd_fold_bf16_io = 0
 launches_bf16 = 0
@@ -201,12 +214,24 @@ def flash_bwd_bf16_launch_plan(t: int, b: int, h: int) -> dict:
             for kernel in ("dq", "dkv")}
 
 
+def flash_bf16_launch_plan(t: int, b: int, h: int) -> dict:
+    """K1b's launch: one block of 160 threads per 64 query rows of the
+    folded length ``t_pad`` (t rounded up to 64), head and batch row; the
+    dynamic shared memory, the ring's stages and the blocks per SM it is
+    built for. The C launcher checks rows, threads, shared memory and
+    stages against its own rule."""
+    t_pad = -(-t // FWD_BF16_ROWS) * FWD_BF16_ROWS
+    return {"grid": (t_pad // FWD_BF16_ROWS, h, b), "threads": FWD_BF16_THREADS,
+            "rows_per_block": FWD_BF16_ROWS, "smem_bytes": FWD_BF16_SMEM_BYTES,
+            "stages": FWD_BF16_STAGES, "t_pad": t_pad, "blocks_per_sm": FWD_BF16_BLOCKS_PER_SM}
+
+
 def fold_bf16_ref(x, lengths, zero_past_bound: bool) -> torch.Tensor:
-    """The plain version of K2b/K3b's prologue for one operand: x [B, T, H,
-    D] folded head-major to bf16 [B*H, T64, D], T64 = T rounded up to 64,
-    rows t >= T zero (the JAX package's ``_fold_args`` ``prep`` with
-    64-row blocks, then rounded to nearest-even bf16) and, with
-    ``zero_past_bound`` (k and v), rows t >= lengths[b] zero too."""
+    """The plain version of K1b's and K2b/K3b's prologues for one operand:
+    x [B, T, H, D] folded head-major to bf16 [B*H, T64, D], T64 = T
+    rounded up to 64, rows t >= T zero (the JAX package's ``_fold_args``
+    ``prep`` with 64-row blocks, then rounded to nearest-even bf16) and,
+    with ``zero_past_bound`` (k and v), rows t >= lengths[b] zero too."""
     b, t, h, d = x.shape
     t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
     out = torch.zeros((b, h, t_pad, d), dtype=torch.bfloat16, device=x.device)
@@ -279,19 +304,23 @@ def _check_inputs(q, k, v, lengths):
 
 def _lib_bf16():
     lib = _build.load("flash_attention_bf16")
-    fn = lib.nomad_flash_attention_bf16_fwd
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        occ = lib.nomad_flash_attention_bf16_fwd_occupancy
-        occ.argtypes, occ.restype = [i, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    whole = lib.nomad_flash_attention_bf16_fwd
+    if whole.argtypes is None:  # the entries' types, once per library
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        for fn, args in ((lib.nomad_flash_attention_bf16_fwd_fold,
+                          [p] * 4 + [i] * 4 + [ll] * 6 + [i, p]),
+                         (lib.nomad_flash_attention_bf16_fwd_kernel,
+                          [p] * 5 + [i] * 4 + [ll] * 6 + [i] * 4 + [f, i, p]),
+                         (lib.nomad_flash_attention_bf16_fwd_occupancy,
+                          [i, ctypes.POINTER(i)]),
+                         (whole, [p] * 7 + [i] * 4 + [ll] * 12 + [i] * 4 + [f, i, p])):
+            fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
 
 
 def flash_bf16_occupancy(bf16_io: bool = False) -> int:
     """Blocks of K1b (its bf16-I/O flavour with ``bf16_io``) resident on
-    one SM (the card)."""
+    one SM at its dynamic shared memory (the card)."""
     lib = _lib_bf16()
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_bf16_fwd_occupancy(
@@ -299,31 +328,112 @@ def flash_bf16_occupancy(bf16_io: bool = False) -> int:
     return blocks.value
 
 
+def _flash_bf16_fold_shape(q) -> tuple:
+    """K1b's fold for q's shape: [2, B*H, T64, D] (k, v)."""
+    b, t, h, d = q.shape
+    return (2, b * h, -(-t // FWD_BF16_ROWS) * FWD_BF16_ROWS, d)
+
+
+def _flash_bf16_workspace(q) -> torch.Tensor:
+    """K1b's prologue's buffer for a call on q's shape: the fold, bf16."""
+    return torch.empty(_flash_bf16_fold_shape(q), dtype=torch.bfloat16, device=q.device)
+
+
+def _check_flash_bf16_workspace(q, workspace) -> None:
+    """Refuse a workspace that was not made for q's shape and device: the
+    kernel reads it through a tensor map built from q's shape alone."""
+    shape = _flash_bf16_fold_shape(q)
+    if (not torch.is_tensor(workspace) or tuple(workspace.shape) != shape
+            or workspace.dtype != torch.bfloat16 or workspace.device != q.device
+            or not workspace.is_contiguous()):
+        raise ValueError(f"flash kernel: the forward's workspace must be contiguous bf16 "
+                         f"{list(shape)} on {q.device}")
+
+
+def _count_fwd_bf16(kernels, bf16_io: bool) -> None:
+    """One launch more on the counter of each of ``kernels`` ("fold",
+    "kernel": K1b itself) in its I/O flavour."""
+    for kernel in kernels:
+        name = "launches_fwd_fold_bf16" if kernel == "fold" else "launches_bf16"
+        globals()[name + ("_io" if bf16_io else "")] += 1
+
+
+def _flash_bf16_fold(q, k, v, lengths, workspace=None) -> torch.Tensor:
+    """K1b's prologue alone: k and v rounded to bf16 (copied, for bf16
+    inputs) and folded as ``fold_bf16_ref`` folds them, zero past each
+    bound, into ``workspace`` (``_flash_bf16_workspace(q)``, made when not
+    given); returns it."""
+    b, t, h, d = q.shape
+    _check_inputs(q, k, v, lengths)
+    if workspace is None:
+        workspace = _flash_bf16_workspace(q)
+    _check_flash_bf16_workspace(q, workspace)
+    if q.numel() == 0:
+        return workspace
+    bf16_io = q.dtype == torch.bfloat16
+    lib = _lib_bf16()
+    err = lib.nomad_flash_attention_bf16_fwd_fold(
+        k.data_ptr(), v.data_ptr(), lengths.contiguous().data_ptr(), workspace.data_ptr(),
+        b, t, h, d, *k.stride()[:3], *v.stride()[:3], int(bf16_io),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "bf16 flash attention prologue launch")
+    _count_fwd_bf16(("fold",), bf16_io)
+    return workspace
+
+
+def _flash_bf16_outputs(q):
+    """K1b's O [B, T, H, D] in q's dtype and LSE f32 [B, H, T], empty."""
+    b, t, h, d = q.shape
+    return (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device),
+            torch.empty((b, h, t), dtype=torch.float32, device=q.device))
+
+
+def _flash_bf16_body(q, workspace, lengths):
+    """K1b alone on its prologue's ``workspace`` for q's shape: (O in q's
+    dtype, LSE f32)."""
+    b, t, h, d = q.shape
+    _check_flash_bf16_workspace(q, workspace)
+    o, lse = _flash_bf16_outputs(q)
+    if o.numel() == 0:
+        return o, lse
+    bf16_io = q.dtype == torch.bfloat16
+    plan = flash_bf16_launch_plan(t, b, h)
+    lib = _lib_bf16()
+    err = lib.nomad_flash_attention_bf16_fwd_kernel(
+        q.data_ptr(), workspace.data_ptr(), lengths.contiguous().data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, t, h, d, *q.stride()[:3], *o.stride()[:3], plan["rows_per_block"],
+        plan["threads"], plan["smem_bytes"], plan["stages"], 1.0 / d**0.5, int(bf16_io),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "bf16 flash attention kernel launch")
+    _count_fwd_bf16(("kernel",), bf16_io)
+    return o, lse
+
+
 def _flash_bf16_kernel(q, k, v, lengths):
     """K1b: the "default" flavour on the tensor cores (bf16 operands, f32
     accumulation and softmax), the same inputs and outputs as K1; on bf16
-    q, k and v its bf16-I/O flavour, O in bf16."""
+    q, k and v its bf16-I/O flavour, O in bf16. The prologue and the kernel
+    in one C call, one tensor map: at the loss crop the host's work, not
+    the card's, sets the pace."""
     b, t, h, d = q.shape
     _check_inputs(q, k, v, lengths)
-    bf16_io = q.dtype == torch.bfloat16
-    lengths = lengths.contiguous()
-    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    o, lse = _flash_bf16_outputs(q)
     if o.numel() == 0:
         return o, lse
+    bf16_io = q.dtype == torch.bfloat16
+    lengths = lengths.contiguous()
+    workspace = _flash_bf16_workspace(q)
+    plan = flash_bf16_launch_plan(t, b, h)
     lib = _lib_bf16()
     err = lib.nomad_flash_attention_bf16_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), workspace.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        plan["rows_per_block"], plan["threads"], plan["smem_bytes"], plan["stages"],
         1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "bf16 flash attention kernel launch")
-    global launches_bf16, launches_bf16_io
-    if bf16_io:
-        launches_bf16_io += 1
-    else:
-        launches_bf16 += 1
+    _build.check(lib, err, "bf16 flash attention launch")
+    _count_fwd_bf16(("fold", "kernel"), bf16_io)
     return o, lse
 
 

@@ -1,5 +1,5 @@
-"""The launch plans of the port's attention kernels, K1, K4 and K4b
-forward, K2 and K3 backward, held on the CPU: the plan is plain Python
+"""The launch plans of the port's attention kernels, K1, K1b, K4 and K4b
+forward, K2, K3, K2b and K3b backward, held on the CPU: the plan is plain Python
 that the C launchers check against their own rules, so what it promises
 is what the card runs."""
 
@@ -165,3 +165,30 @@ def test_flash_bwd_bf16_plan_covers_every_row_once(b):
             assert (tiles - 1) * 64 < t <= tiles * 64, (kernel, t)  # no block in the padding
             assert plan["smem_bytes"] <= SMEM_LIMIT
             assert plan["blocks_per_sm"] * (plan["smem_bytes"] + SMEM_RESERVED) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_flash_bf16_plan_covers_every_row_once(b):
+    """K1b's blocks own 64 query rows of the folded length (T rounded up to
+    64, its prologue's fold): each row of every (head, batch) in exactly one
+    block, and no block wholly in the padding; a consumer warpgroup and a
+    producer warp; a ring of at least 3 stages; the dynamic shared memory
+    the kernel declares (the Q tile, each stage's K and V tiles, a "full"
+    and an "empty" barrier a stage, 1,024 bytes of alignment) times the
+    blocks per SM it is built for within an SM."""
+    tile = 64 * 64 * 2
+    for t in LENGTHS + [1433, 4095]:
+        plan = flash_attention.flash_bf16_launch_plan(t, b, 12)
+        tiles, h, bb = plan["grid"]
+        assert (h, bb, plan["threads"], plan["rows_per_block"]) == (12, b, 160, 64), t
+        assert plan["stages"] >= 3 and plan["t_pad"] == tiles * 64, t
+        assert plan["smem_bytes"] == tile + plan["stages"] * 2 * tile + plan["stages"] * 2 * 8 \
+            + 1024
+        owned = [0] * t
+        for blk in range(tiles):
+            for r in range(blk * 64, min(blk * 64 + 64, t)):
+                owned[r] += 1
+        assert owned == [1] * t, t
+        assert (tiles - 1) * 64 < t <= tiles * 64, t  # no block in the padding
+        assert plan["smem_bytes"] <= SMEM_LIMIT
+        assert plan["blocks_per_sm"] * (plan["smem_bytes"] + SMEM_RESERVED) <= SMEM_PER_SM

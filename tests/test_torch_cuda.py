@@ -442,6 +442,70 @@ def test_bf16_flash_kernel_at_path_shapes(cuda, b, t, lengths):
     check_bf16_flash(cuda, lengths, t, 12 if t < 1000 else 2, b + t)
 
 
+# the edges of K1b's ring of 4 (K, V) stages: 2, 3, 4 and 5 key tiles
+K1B_RING_EDGES = [127, 128, 129, 191, 192, 193, 257]
+
+
+@pytest.mark.parametrize("t", K1B_RING_EDGES)
+def test_bf16_flash_kernel_ring_edges(cuda, t):
+    """K1b at every edge of its ring of (K, V) stages, NaN past each bound:
+    a full row, a ragged one, 1 key and none."""
+    check_bf16_flash(cuda, [t, max(t // 2, 1), 1, 0], t, 4, 400 + t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_flash_one_call_is_the_prologue_and_kernel_alone(cuda, dtype):
+    """``mha_flash``'s one C call (prologue, K1b) gives the bits of the two
+    launched one at a time and counts one launch of each; the prologue's
+    fold is ``fold_bf16_ref`` of k and v bit for bit (0 past each bound,
+    NaN there included); a workspace made for another shape is refused."""
+    g = torch.Generator().manual_seed(6)
+    b, t, h, lengths = 4, 257, 3, [257, 130, 1, 0]
+    q, k, v = (torch.randn(b, t, h, 64, generator=g).to(cuda).to(dtype) for _ in range(3))
+    for i, n in enumerate(lengths):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    io = "_io" if dtype == torch.bfloat16 else ""
+    names = [f"launches_fwd_fold_bf16{io}", f"launches_bf16{io}"]
+    before = [getattr(flash_attention, n) for n in names]
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+    assert [getattr(flash_attention, n) for n in names] == [c + 1 for c in before]
+    ws = flash_attention._flash_bf16_fold(q, k, v, lens)
+    alone = flash_attention._flash_bf16_body(q, ws, lens)
+    torch.cuda.synchronize()
+    assert ws.shape == (2, b * h, 320, 64)
+    for n, x in enumerate((k, v)):
+        assert torch.equal(ws[n], flash_attention.fold_bf16_ref(x, lens, True)), n
+    assert torch.equal(alone[0], o) and torch.equal(alone[1], lse)
+    with pytest.raises(ValueError, match="workspace"):
+        flash_attention._flash_bf16_body(q[:, :64], ws, lens)
+
+
+def test_bf16_flash_io_flavours_are_one_body(cuda):
+    """K1b's bf16-I/O flavour gives the f32-I/O flavour's O on the upcast
+    inputs rounded once and the same LSE, bit for bit, at the scoring
+    shape's rows and the ring's edges: both run one bf16 body on one fold."""
+    g = torch.Generator().manual_seed(7)
+    for b, t, lengths in ((6, 511, [511, 499, 250, 64, 1, 0]), (4, 193, [193, 129, 128, 0])):
+        q, k, v = (torch.randn(b, t, 12, 64, generator=g).to(cuda).to(torch.bfloat16)
+                   for _ in range(3))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        o, lse = flash_attention.mha_flash(q, k, v, lens, "default")
+        o32, lse32 = flash_attention.mha_flash(q.float(), k.float(), v.float(), lens, "default")
+        assert o.dtype == torch.bfloat16
+        assert torch.equal(o, o32.to(torch.bfloat16)) and torch.equal(lse, lse32), t
+
+
+def test_bf16_flash_occupancy(cuda):
+    """K1b keeps on an SM the blocks its launch plan claims, both I/O
+    flavours (a consumer warpgroup and a producer warp, 74,816 bytes of
+    dynamic shared memory)."""
+    plan = flash_attention.flash_bf16_launch_plan(511, 96, 12)
+    for io in (False, True):
+        assert flash_attention.flash_bf16_occupancy(io) >= plan["blocks_per_sm"], io
+
+
 def test_bf16_precision_ops_and_refusals_on_the_card(cuda):
     """ops.precision's card routes (cuBLAS bf16 with f32 out; cuDNN f32 on
     bf16-rounded operands) against their plain versions on the CPU, within

@@ -3,7 +3,8 @@ differentiate.
 
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
-                           --only-fused-modes | --only-fast-bf16 | --only-bf16-paths]
+                           --only-fused-modes | --only-fast-bf16 | --only-bf16-paths |
+                           --only-large-scale]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -209,6 +210,21 @@ Phases, each fatal on failure:
      K5 only), its eval step (K4b-bf16 12) and the rates-at-0 step
      (K4b-bf16 24, K1b-bf16 12, K2b-bf16 12, K3b-bf16 12) by phase 10's
      rule;
+ 15. large-scale and data-parallel work at world size 1, in a one-rank
+     NCCL group: BASELINE.json config 4 (10k degraded utterances x 100
+     NMRs) cut to 1,020 degraded files of 1.5-24 s and 100 NMRs of 2-4 s
+     through ``make_large_scale_scorer(...).score`` at full BASE width in
+     "exact" (cold and warm wall time, wav-s/s, peak memory, K1 12 and K5
+     26 a batch), held to ``Nomad.score_matrix`` on the same files (1e-5)
+     and to float64 distances of its own embeddings (1e-4); then
+     ``score_embeddings`` at the config's full 10,000 x 100 against
+     float64; the engine over ``data_mesh()`` against the plain engine
+     (1e-5, and whether the bits agree), the scorer on a 1 x 1 grid
+     bit-equal to its dense path; ``Training(mesh=data_mesh())``'s recipe
+     step (8 triplets x 160,000 samples, dropout 0.1, conv frozen; K5 50)
+     bit-equal to the plain step from the same state and generator, both
+     timed; ``graft_entry.entry()`` ([2, 256], K1b 12, K5 26) and
+     ``graft_entry.dryrun_multichip(1)`` (one spawned NCCL rank);
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -222,8 +238,8 @@ newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-se`` phases 1 and 7, ``--only-serve`` phases 1 and 8,
 ``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
 and 10, ``--only-fused-modes`` phases 1, 2 and 12, ``--only-fast-bf16``
-phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14, each ending
-with the report line.
+phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14,
+``--only-large-scale`` phases 1 and 15, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -4351,6 +4367,288 @@ def run_bf16_paths(card: str) -> None:
     print(f"bf16 paths: phase 14 took {out['phase_s']:.1f} s", flush=True)
 
 
+# ---------------- phase 15: large-scale and data-parallel work, world size 1 ----------------
+
+# BASELINE.json config 4, "10k degraded LibriSpeech utterances x 100 NMRs":
+# 1,000 of the 10,000 degraded files go through the engine (the smoke's
+# time limit), 1.5-20 s long, and 20 more of 20-24 s (LibriSpeech's long
+# utterances) so that a bucket past 1,024 frames is hit; 100 NMRs of 2-4 s;
+# ``score_embeddings`` at the config's full 10,000 x 100 on seeded unit
+# embeddings
+LS_DEG, LS_LONG, LS_NMR, LS_FULL_DEG = 1000, 20, 100, 10_000
+LS_DEG_S, LS_LONG_S, LS_NMR_S = (1.5, 20.0), (20.0, 24.0), (2.0, 4.0)
+# the distance matrix against float64 distances of its own embeddings: the
+# JAX package's large-scale test against scipy
+TOL_LS_F64 = 1e-4
+LS_STEPS = 3  # warm recipe steps timed, plain and on the mesh
+
+
+def write_large_scale_tree(root: Path) -> tuple[list, list, float]:
+    """Seeded PCM16 degraded and NMR files; (deg paths, nmr paths, seconds
+    of degraded audio)."""
+    rng = np.random.default_rng(4321)
+    jobs = []
+    for sub, count, span, noise in (("deg", LS_DEG, LS_DEG_S, (0.01, 0.1)),
+                                    ("deg", LS_LONG, LS_LONG_S, (0.01, 0.1)),
+                                    ("nmr", LS_NMR, LS_NMR_S, 0.005)):
+        (root / sub).mkdir(exist_ok=True)
+        for _ in range(count):
+            n = int(rng.uniform(*span) * SR)
+            seed = int(rng.integers(1 << 31))
+            jobs.append((root / sub / f"{sub}_{len(jobs):05d}.wav", n, seed, noise))
+
+    def write(job):
+        path, n, seed, noise = job
+        write_wav(str(path), speech_like(np.random.default_rng(seed), n, noise), SR, bits=16)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(write, jobs))
+    deg = [str(j[0]) for j in jobs if j[0].parent.name == "deg"]
+    nmr = [str(j[0]) for j in jobs if j[0].parent.name == "nmr"]
+    return deg, nmr, sum(j[1] for j in jobs if j[0].parent.name == "deg") / SR
+
+
+def f64_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Euclidean distances of the rows of a and b in float64."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    sq = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * a @ b.T
+    return np.sqrt(np.maximum(sq, 0.0))
+
+
+def large_scale_scoring(card: str, out: dict, nomad: Nomad, deg: list, nmr: list,
+                        seconds: float):
+    """(a) config 4 through ``make_large_scale_scorer(...).score``; returns
+    the scorer and its embeddings."""
+    from nomad_tpu_torch.scoring import make_large_scale_scorer
+
+    scorer = make_large_scale_scorer(nomad.model)
+    if scorer.engine.mesh is not None or scorer._grid() is not None:
+        fail("large scale: a one-rank group built a mesh")
+    walls = []
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches = scorer.engine.batches
+        reset_launches()
+        t0 = time.perf_counter()
+        avg, dm = scorer.score(deg, nmr)
+        walls.append(time.perf_counter() - t0)
+        counts = read_launches()
+        nb = scorer.engine.batches - batches
+        want = launches_want(k1=12 * nb, k5=26 * nb)
+        if counts != want:
+            fail(f"large scale: {run} score() launches {counts} (want {want}, {nb} batches)")
+    report["launches"]["large_scale_score"] = counts
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["score"] = {"deg": len(deg), "nmr": len(nmr), "deg_seconds": seconds,
+                    "cold_s": walls[0], "warm_s": walls[1],
+                    "warm_wav_s_per_s": seconds / walls[1], "batches": nb, "peak_gb": peak,
+                    "launches": {"k1": counts["flash_attention_fwd"],
+                                 "k5": counts["layernorm_fwd"]}}
+    print(f"large scale: config 4 cut to {len(deg)} x {len(nmr)} files ({seconds:.0f} s of "
+          f"degraded audio): score() cold {walls[0]:.2f} s, warm {walls[1]:.2f} s "
+          f"({seconds / walls[1]:.1f} wav-s/s of degraded audio), {nb} batches, K1 "
+          f"{counts['flash_attention_fwd']}, K5 {counts['layernorm_fwd']}, peak {peak:.2f} GB"
+          f"  [{card}]", flush=True)
+    if avg.shape != (len(deg),) or dm.shape != (len(deg), len(nmr)) or not (
+            np.isfinite(avg).all() and np.isfinite(dm).all()):
+        fail(f"large scale: avg {avg.shape}, dm {dm.shape} or non-finite")
+
+    ref = nomad.score_matrix(nmr, deg)
+    d_dm = float(np.abs(dm - ref).max())
+    d_avg = float(np.abs(avg - ref.mean(axis=1)).max())
+    deg_emb = scorer.engine.embed_files_device(deg)
+    nmr_emb = scorer.engine.embed_files_device(nmr)
+    avg2, dm2 = scorer.score_embeddings(deg_emb, nmr_emb)
+    d_f64 = float(np.abs(dm - f64_distances(deg_emb.cpu().numpy(), nmr_emb.cpu().numpy())).max())
+    out["checks"] = {"dm_vs_score_matrix": d_dm, "avg_vs_score_matrix": d_avg,
+                     "dm_vs_f64": d_f64,
+                     "rerun_bit_equal": bool(np.array_equal(dm2, dm) and np.array_equal(avg2, avg))}
+    print(f"large scale: vs Nomad.score_matrix max|d| dm {d_dm:.3g}, avg {d_avg:.3g} (<= "
+          f"{TOL_BATCH1}); dm vs float64 of its embeddings {d_f64:.3g} (<= {TOL_LS_F64}); "
+          f"score_embeddings of the engine's embeddings the same bits: "
+          f"{out['checks']['rerun_bit_equal']}", flush=True)
+    if d_dm > TOL_BATCH1 or d_avg > TOL_BATCH1 or d_f64 > TOL_LS_F64:
+        fail(f"large scale: {out['checks']}")
+    if not out["checks"]["rerun_bit_equal"]:
+        fail("large scale: score() and score_embeddings of the same embeddings differ")
+
+    rng = np.random.default_rng(77)
+    full = [rng.standard_normal((k, 256)).astype(np.float32) for k in (LS_FULL_DEG, len(nmr))]
+    full = [x / np.linalg.norm(x, axis=1, keepdims=True) for x in full]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg_f, dm_f = scorer.score_embeddings(*full)
+    t_full = time.perf_counter() - t0
+    d_full = float(np.abs(dm_f - f64_distances(*full)).max())
+    d_full_avg = float(np.abs(avg_f - f64_distances(*full).mean(axis=1)).max())
+    out["full"] = {"shape": list(dm_f.shape), "s": t_full, "dm_vs_f64": d_full,
+                   "avg_vs_f64": d_full_avg}
+    print(f"large scale: score_embeddings at the config's full {LS_FULL_DEG:,} x {len(nmr)}: "
+          f"{t_full * 1e3:.1f} ms, vs float64 max|d| dm {d_full:.3g}, avg {d_full_avg:.3g} "
+          f"(<= {TOL_LS_F64})  [{card}]", flush=True)
+    if dm_f.shape != (LS_FULL_DEG, len(nmr)) or d_full > TOL_LS_F64 or d_full_avg > TOL_LS_F64:
+        fail(f"large scale: the full-size matrix {out['full']}")
+    return scorer, deg_emb, nmr_emb
+
+
+def large_scale_mesh(card: str, out: dict, nomad: Nomad, scorer, deg: list, nmr: list,
+                     deg_emb: torch.Tensor, nmr_emb: torch.Tensor, mesh) -> None:
+    """(b) the mesh engine on (a)'s files in one call against the plain
+    engine's embeddings of them (other batch plans: the padded-vs-batch-1
+    bound), and the 1 x 1 grid against the dense path."""
+    from nomad_tpu_torch.parallel import grid_mesh
+    from nomad_tpu_torch.scoring import LargeScaleScorer
+
+    engine = EmbeddingEngine(nomad.model, mesh=mesh)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = engine.embed_files_device(deg + nmr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    want = launches_want(k1=12 * engine.batches, k5=26 * engine.batches)
+    report["launches"]["large_scale_mesh_engine"] = counts
+    if counts != want:
+        fail(f"large scale: the mesh engine's launches {counts} (want {want})")
+    plain = torch.cat([deg_emb, nmr_emb])
+    d = (emb - plain).abs().max().item()
+    out["mesh_engine"] = {"max_abs_vs_plain": d, "bit_equal": bool(torch.equal(emb, plain)),
+                          "s": wall, "batches": engine.batches}
+    print(f"large scale: data_mesh() engine on {len(deg) + len(nmr)} files, {wall:.2f} s, "
+          f"{engine.batches} batches: max|d| vs the plain engine {d:.3g} (<= {TOL_BATCH1}), "
+          f"bits equal: {out['mesh_engine']['bit_equal']}  [{card}]", flush=True)
+    if d > TOL_BATCH1:
+        fail(f"large scale: the mesh engine vs the plain one {d:.3g}")
+    avg, dm = scorer.score_embeddings(deg_emb, nmr_emb)
+    gavg, gdm = LargeScaleScorer.score_on_grid(grid_mesh(1, 1), deg_emb, nmr_emb)
+    same = bool(np.array_equal(gdm, dm) and np.array_equal(gavg, avg))
+    out["grid_1x1_bit_equal"] = same
+    print(f"large scale: LargeScaleScorer on a 1 x 1 grid vs the dense path: bits equal {same}",
+          flush=True)
+    if not same:
+        fail("large scale: the 1 x 1 grid differs from the dense path")
+
+
+def ls_step(cfg: dict, sd: dict, batch, key: str, **kw) -> tuple:
+    """A Training from ``sd`` and its first recipe step (launches checked):
+    (trainer, loss, parameters, Adam state). The step runs cuDNN's
+    deterministic algorithms: with its defaults the positional conv's
+    backward may sum in another order from one run to the next."""
+    tr = Training(cfg, params=sd, **kw)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_launches()
+        loss = tr.train_step(batch, step_gen()).item()
+        counts = read_launches()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    report["launches"][f"large_scale_train_step_{key}"] = counts
+    if counts != launches_want(k5=50):
+        fail(f"large scale: the {key} recipe step's launches {counts} (want K5 50)")
+    # host copies: a copy on the card would count in the next run's peak
+    params = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+    adam = {i: {k: v.cpu() for k, v in st.items()}
+            for i, st in tr.optimizer.state_dict()["state"].items()}
+    return tr, loss, params, adam
+
+
+def step_diff(a: tuple, b: tuple) -> dict:
+    """Where two steps' (loss, parameters, Adam state) differ."""
+    (la, pa, sa), (lb, pb, sb) = a, b
+    params = [k for k, v in pa.items() if not torch.equal(v, pb[k])]
+    adam = [f"{i}.{k}" for i, st in sa.items() for k, v in st.items()
+            if not torch.equal(v, sb[i][k])]
+    worst = max([(pa[k] - pb[k]).abs().max().item() for k in params] or [0.0])
+    return {"loss_equal": la == lb, "params_differ": len(params), "adam_differ": len(adam),
+            "first": (params + adam)[:4], "max_abs_param": worst,
+            "bit_equal": la == lb and not params and not adam}
+
+
+def large_scale_training(card: str, out: dict, sd: dict, mesh) -> None:
+    """(c) ``Training(mesh=data_mesh())`` at world size 1: one recipe step
+    bit-equal to the plain one from the same state and generator (both
+    with cuDNN's deterministic algorithms), and the two timed."""
+    with tempfile.TemporaryDirectory(prefix="nomad_ls_train_") as tmp:
+        cfg = write_train_tree(Path(tmp))
+        ds = train_data.TripletDataset(cfg, "train_df", level=cfg["current_level"])
+        batch = train_data._pinned(train_data.collate_triplets(
+            [ds.load_item(i) for i in range(cfg["train_bs"])]))
+        runs = {}
+        for key, kw in (("plain", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
+            tr, *runs[key] = ls_step(cfg, sd, batch, key, **kw)
+            gen = step_gen()
+            out[f"train_step_{key}"] = time_steps(
+                lambda: tr.train_step(batch, gen), LS_STEPS, card,
+                f"large scale: {key} recipe step")
+            release(tr)
+    diff = step_diff(runs["plain"], runs["mesh"])
+    out["train_step_mesh_vs_plain"] = diff
+    print(f"large scale: Training(mesh=data_mesh()) recipe step vs the plain step (cuDNN "
+          f"deterministic): loss {runs['mesh'][0]:.8g} vs {runs['plain'][0]:.8g}; bit-equal "
+          f"{diff['bit_equal']} {diff}", flush=True)
+    if not diff["bit_equal"]:
+        fail("large scale: the world-size-1 mesh step differs from the plain step")
+
+
+def large_scale_entries(card: str, out: dict) -> None:
+    """(d) ``graft_entry.entry()`` on the card and ``dryrun_multichip(1)``."""
+    from nomad_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    reset_launches()
+    emb = fn(*args)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    report["launches"]["graft_entry"] = counts
+    if counts != launches_want(k1b=12, k5=26):
+        fail(f"large scale: entry()'s launches {counts} (want K1b 12, K5 26)")
+    if tuple(emb.shape) != (2, 256) or not bool(torch.isfinite(emb).all()):
+        fail(f"large scale: entry() gave {tuple(emb.shape)}, finite {torch.isfinite(emb).all()}")
+    del fn, args
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    out["entries"] = {"entry_shape": list(emb.shape), "dryrun_multichip_1_s":
+                      time.perf_counter() - t0}
+    print(f"large scale: entry() [2, 256] finite (K1b 12, K5 26); dryrun_multichip(1) passed "
+          f"in {out['entries']['dryrun_multichip_1_s']:.1f} s", flush=True)
+
+
+def run_large_scale(card: str) -> None:
+    """Phase 15: large-scale and data-parallel work on one card, in a
+    one-rank NCCL group destroyed before the phase ends."""
+    from nomad_tpu_torch.parallel import data_mesh, init_process_group
+    from nomad_tpu_torch.parallel.mesh import destroy_process_group
+
+    report.setdefault("launches", {})
+    out: dict = {"card": card}
+    t_phase = time.perf_counter()
+    init_process_group(0, 1, "cuda")
+    try:
+        mesh = data_mesh()
+        with tempfile.TemporaryDirectory(prefix="nomad_large_scale_") as tmp:
+            t0 = time.perf_counter()
+            deg, nmr, seconds = write_large_scale_tree(Path(tmp))
+            out["write_s"] = time.perf_counter() - t0
+            nomad = Nomad(device="cuda", weights_dir=str(Path(tmp) / "no-weights"))
+            scorer, deg_emb, nmr_emb = large_scale_scoring(card, out, nomad, deg, nmr, seconds)
+            large_scale_mesh(card, out, nomad, scorer, deg, nmr, deg_emb, nmr_emb, mesh)
+            sd = {k: v.detach().cpu().clone() for k, v in nomad.model.state_dict().items()}
+            del nomad, scorer, deg_emb, nmr_emb
+            settled_allocated_gb()
+        large_scale_training(card, out, sd, mesh)
+        large_scale_entries(card, out)
+    finally:
+        destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"large scale: phase 15 took {out['phase_s']:.1f} s", flush=True)
+    report["large_scale"] = out
+
+
 def run_scoring_k1(card: str) -> None:
     """Phase 4's K1 path alone (``--only-scoring``)."""
     report.setdefault("launches", {})
@@ -4383,6 +4681,8 @@ def main() -> None:
                       help="phases 1, 2 and 13 only; ends with the report line")
     only.add_argument("--only-bf16-paths", action="store_true",
                       help="phases 1, 2 and 14 only; ends with the report line")
+    only.add_argument("--only-large-scale", action="store_true",
+                      help="phases 1 and 15 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -4395,7 +4695,8 @@ def main() -> None:
              "only_grad_modes": lambda card: (build_kernels(), run_grad_modes(card)),
              "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card)),
              "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card)),
-             "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card))}
+             "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card)),
+             "only_large_scale": run_large_scale}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -4414,6 +4715,7 @@ def main() -> None:
     run_fused_modes(card)
     run_fast_bf16(card)
     run_bf16_paths(card)
+    run_large_scale(card)
 
     rows = []
     for name, src, replaces in (

@@ -32,6 +32,13 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
     ``precision``, as in the JAX package. The JAX package defaults to
     ``'balanced'``; the port keeps ``'exact'``, its parity anchor, until
     a benchmark cell can judge the switch (ROADMAP).
+  * Data parallelism: ``mesh=parallel.data_mesh()`` (in a process group,
+    one rank per card, every rank making the same calls) runs the engine
+    over the mesh: each rank embeds its share of every batch, and every
+    rank returns the same scores. Rank 0 alone writes the two CSVs, and
+    resolves the weights (writing the cache) before the other ranks read
+    them. The device is the rank's; a ``device`` that names another
+    raises.
   * Attention: ``config=Wav2Vec2Config.base(attention_impl="fused_qkv")``
     selects the projection-fused path (kernel K4 for inputs of up to
     1,024 frames, ~20 s of audio) for both ``predict`` and ``forward``;
@@ -42,6 +49,7 @@ from __future__ import annotations
 
 import csv
 import os
+import tempfile
 import warnings
 from typing import Optional
 
@@ -52,6 +60,7 @@ from .convert import convert_checkpoint, jax_to_state_dict, merge_into, state_di
 from .models import NomadModel, Wav2Vec2Config, init_weights, nomad_loss
 from .models.wav2vec2 import PRECISION_ISLANDS
 from .ops import cdist
+from .parallel.mesh import barrier, device_for, is_main
 from .scoring.csvio import ResultTable, build_result_tables, write_results
 from .scoring.engine import EmbeddingEngine, list_dir_files
 
@@ -89,6 +98,20 @@ def check_precision(precision: str) -> None:
             f"unknown precision {precision!r}: expected one of {tuple(PRECISION_ISLANDS)}")
 
 
+def write_cache(path: str, sd: dict) -> None:
+    """The weights cache, in the JAX layout, written whole or not at all: a
+    reader never opens a partly written file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **state_dict_to_jax(sd))
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
 class Nomad:
     def __init__(
         self,
@@ -98,9 +121,11 @@ class Nomad:
         emb_dim: int = 256,
         params: Optional[dict] = None,
         precision: str = "exact",
+        mesh=None,
     ):
         check_precision(precision)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else device_for(mesh, device)
         set_exact_precision()
         self.config = config or Wav2Vec2Config.base(**PRECISION_ISLANDS[precision])
         self.emb_dim = emb_dim
@@ -141,8 +166,7 @@ class Nomad:
                 "randomly initialized"
             )
         try:
-            os.makedirs(self.weights_dir, exist_ok=True)
-            np.savez(cache, **state_dict_to_jax(sd))
+            write_cache(cache, sd)
         except OSError:
             pass  # a read-only weights dir: the next process converts again
         return sd
@@ -151,7 +175,16 @@ class Nomad:
     def model(self) -> NomadModel:
         if self._model is None:
             model = NomadModel(self.config, emb_dim=self.emb_dim)
-            sd = self._params if self._params is not None else self._resolve_params(model)
+            if self._params is not None:
+                sd = self._params
+            elif self.mesh is None:
+                sd = self._resolve_params(model)
+            else:  # rank 0 converts a .pt and writes the cache; the others read it
+                if is_main(self.mesh):
+                    sd = self._resolve_params(model)
+                barrier(self.mesh)
+                if not is_main(self.mesh):
+                    sd = self._resolve_params(model)
             model.load_state_dict(sd, strict=True)
             self._model = model.to(self.device).eval().requires_grad_(False)
         return self._model
@@ -159,7 +192,7 @@ class Nomad:
     @property
     def engine(self) -> EmbeddingEngine:
         if self._engine is None:
-            self._engine = EmbeddingEngine(self.model, self.device)
+            self._engine = EmbeddingEngine(self.model, self.device, mesh=self.mesh)
         return self._engine
 
     # ---------------- scoring ----------------
@@ -201,7 +234,8 @@ class Nomad:
         test_paths = self._resolve_paths(deg)
         distance_matrix = self.score_matrix(nmr_paths, test_paths)
         avg, dm = build_result_tables(test_paths, nmr_paths, distance_matrix)
-        write_results(avg, dm, results_path)
+        if is_main(self.mesh):
+            write_results(avg, dm, results_path)
         return avg, dm
 
     # ---------------- differentiable loss ----------------

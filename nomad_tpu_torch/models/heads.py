@@ -6,7 +6,8 @@ time -> ReLU -> Linear 768->256 -> L2 normalize. ``forward_layers`` returns
 the 12 block outputs plus the lossnet embedding, the 13 inputs of
 ``nomad_loss``. ``forward_features`` is Origw2v, the raw mean-pooled
 backbone features (the ``eval_w2v`` ablation). Each takes
-``deterministic``/``generator`` for training's dropout. Quirk Q7: the lossnet embedding is a separate Linear that the
+``deterministic``/``generator`` (and a data-parallel rank's ``rows``) for
+training's dropout. Quirk Q7: the lossnet embedding is a separate Linear that the
 NOMAD checkpoint never populates, as in the reference; both heads exist so
 that the weight bridge is complete and loads strictly.
 """
@@ -48,9 +49,10 @@ class NomadModel(nn.Module):
     def _embed(self, head, res):
         return l2_normalize(head(torch.relu(self._pool(res))).to(torch.float32))
 
-    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None):
+    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None,
+                rows=None):
         """[B, T] waveforms (+ [B] valid sample counts) -> [B, emb_dim]."""
-        res = self.backbone(wav, lengths, deterministic, generator)
+        res = self.backbone(wav, lengths, deterministic, generator, rows)
         return self._embed(self.embedding, res)
 
     def forward_layers(self, wav, lengths=None, deterministic: bool = True, generator=None):

@@ -73,7 +73,10 @@ attention output, after the FFN's GELU (``activation_dropout``) and after
 masks come from a ``torch.Generator``: the model draws one seed for the
 frontend and one per block from it, and each block seeds its own
 generator on the device, so that a block recomputed under ``remat``
-(``torch.utils.checkpoint``) draws the masks it drew in the forward.
+(``torch.utils.checkpoint``) draws the masks it drew in the forward. A
+data-parallel rank passes ``rows`` (``ops.attention.BatchRows``): every
+mask is drawn for the global batch and the rank keeps its rows, so the
+ranks apply the single-process step's masks.
 """
 
 from __future__ import annotations
@@ -402,7 +405,7 @@ class EncoderLayer(nn.Module):
         self.self_attn_layer_norm = LayerNorm(d, eps, impl)
         self.final_layer_norm = LayerNorm(d, eps, impl)
 
-    def forward(self, x, key_mask=None, seed=None):
+    def forward(self, x, key_mask=None, seed=None, rows=None):
         cfg = self.config
         b, t, d = x.shape
         h = cfg.num_heads
@@ -425,17 +428,17 @@ class EncoderLayer(nn.Module):
                        for p in (self.q_proj, self.k_proj, self.v_proj))
             if attn_dropout:
                 attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g,
-                                   precision=cfg.attn_score_prec)
+                                   precision=cfg.attn_score_prec, rows=rows)
             else:
                 attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
                            precision=cfg.attn_score_prec)
             attn = prec_ops.linear(attn.reshape(b, t, d), self.out_proj.weight,
                                    self.out_proj.bias, cfg.encoder_prec)
-        x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g))
+        x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g, rows))
         y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, cfg.ffn1_prec)
-        y = dropout(F.gelu(y), cfg.activation_dropout, g)
+        y = dropout(F.gelu(y), cfg.activation_dropout, g, rows)
         y = prec_ops.linear(y, self.fc2.weight, self.fc2.bias, cfg.encoder_prec)
-        x = self.final_layer_norm(x + dropout(y, cfg.dropout, g))
+        x = self.final_layer_norm(x + dropout(y, cfg.dropout, g, rows))
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
         return x
@@ -455,14 +458,15 @@ class TransformerEncoder(nn.Module):
         )
         self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
 
-    def forward(self, x, frame_lengths=None, generator=None, seeds=None):
+    def forward(self, x, frame_lengths=None, generator=None, seeds=None, rows=None):
         """``generator``: the input dropout's (None: deterministic);
-        ``seeds``: one per block, or None."""
+        ``seeds``: one per block, or None; ``rows``: a data-parallel rank's
+        rows of the global batch, or None."""
         key_mask = None
         if frame_lengths is not None:
             key_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_lengths[:, None]
             x = x * key_mask.to(x.dtype)[:, :, None]
-        x = dropout(self.layer_norm(x + self.pos_conv(x)), self.config.dropout, generator)
+        x = dropout(self.layer_norm(x + self.pos_conv(x)), self.config.dropout, generator, rows)
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
         x = x.to(self.config.block_dtype)
@@ -473,10 +477,10 @@ class TransformerEncoder(nn.Module):
             if remat:
                 # the block seeds its own generator, so the recompute draws
                 # the same masks without the default generators' states
-                x = checkpoint(layer, x, key_mask, seed, use_reentrant=False,
+                x = checkpoint(layer, x, key_mask, seed, rows, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = layer(x, key_mask, seed)
+                x = layer(x, key_mask, seed, rows)
             outs.append(x)
         return outs
 
@@ -498,10 +502,12 @@ class Wav2Vec2Model(nn.Module):
         self.post_extract_proj = nn.Linear(config.conv_dim[-1], config.hidden_size)
         self.encoder = TransformerEncoder(config)
 
-    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None):
+    def forward(self, wav, lengths=None, deterministic: bool = True, generator=None,
+                rows=None):
         """``deterministic=False`` applies dropout. ``generator``, a CPU
         ``torch.Generator`` (None: torch's default one), gives the seeds of
-        the masks, which are drawn on the waveform's device."""
+        the masks, which are drawn on the waveform's device. ``rows``: the
+        global rows of a data-parallel rank's batch (``BatchRows``)."""
         cfg = self.config
         g = seeds = None
         if not deterministic:
@@ -515,8 +521,8 @@ class Wav2Vec2Model(nn.Module):
             feats, frame_lengths = self.feature_encoder(wav, lengths)
         p = self.post_extract_proj
         x = prec_ops.linear(self.feature_layer_norm(feats), p.weight, p.bias, cfg.frontend_prec)
-        x = dropout(x, cfg.dropout, g)
+        x = dropout(x, cfg.dropout, g, rows)
         if frame_lengths is not None:
             x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)
-        layers = self.encoder(x, frame_lengths, g, seeds)
+        layers = self.encoder(x, frame_lengths, g, seeds, rows)
         return {"x": layers[-1], "layers": layers, "frame_lengths": frame_lengths}

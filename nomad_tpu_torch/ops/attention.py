@@ -31,6 +31,8 @@ q is pre-scaled by 1/sqrt(head_dim) before QK^T, as in torch
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .flash_attention import FlashAttention
@@ -39,16 +41,39 @@ from .precision import is_bf16, matmul_bf16
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
 
 
-def dropout(x, rate: float, generator=None):
+class BatchRows(NamedTuple):
+    """A rank's rows of a data-parallel batch that stacks ``groups`` groups
+    of ``size`` rows (the trainer's [A; P; N]): rows ``start:stop`` of
+    each group."""
+
+    groups: int
+    size: int
+    start: int
+    stop: int
+
+    def take(self, x):
+        """This rank's rows of a tensor over the whole batch (dim 0): a view
+        when they are all of it."""
+        rest = x.shape[1:]
+        return x.view(self.groups, self.size, *rest)[:, self.start:self.stop].reshape(-1, *rest)
+
+
+def dropout(x, rate: float, generator=None, rows: Optional[BatchRows] = None):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate
     and scale it by 1/(1 - rate), else 0; the identity with no generator
     (deterministic) or at rate 0. The mask comes from ``generator``, on
     x's device, from a float32 uniform whatever x's dtype (a bf16 uniform
     has 8 mantissa bits: at rate 0.1 it would keep 230/256); the kept
-    values are scaled in x's dtype."""
+    values are scaled in x's dtype. With ``rows`` (x holds a rank's rows,
+    dim 0, of a data-parallel batch) the mask of the whole batch is drawn
+    and the rank keeps its rows, so that every rank applies the masks of
+    the single-process step, as the JAX package's sharded step does."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32) >= rate
+    shape = x.shape if rows is None else (rows.groups * rows.size, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32) >= rate
+    if rows is not None:
+        keep = rows.take(keep)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -90,10 +115,13 @@ def mha_ref(q, k, v, key_mask=None, precision="highest"):
     return _attend(weights, v, precision).to(v.dtype)
 
 
-def mha_dropout(q, k, v, key_mask, rate: float, generator, precision="highest"):
+def mha_dropout(q, k, v, key_mask, rate: float, generator, precision="highest",
+                rows: Optional[BatchRows] = None):
     """``mha_ref`` with dropout on the softmax weights after the key mask
-    (fairseq's placement): where(keep, w / (1 - rate), 0)."""
-    weights = dropout(_softmax_weights(q, k, key_mask, precision), rate, generator).to(v.dtype)
+    (fairseq's placement): where(keep, w / (1 - rate), 0). ``rows``: as
+    ``dropout``'s."""
+    weights = dropout(_softmax_weights(q, k, key_mask, precision), rate, generator,
+                      rows).to(v.dtype)
     return _attend(weights, v, precision).to(v.dtype)
 
 

@@ -10,6 +10,10 @@ embeddings read up to ~1e-3 apart in f32 instead of 0. So the pairs whose
 Gram value lies within ``NEAR`` of their centred norms are recomputed
 directly as |a - b|^2, which reads exactly 0 for identical rows. Pairs
 outside that band are left as the Gram form computed them.
+
+``center`` takes the centre from outside: a block of a larger matrix
+(``parallel.sharded_cdist``) is centred as the whole is, so it holds the
+whole matrix's values.
 """
 
 from __future__ import annotations
@@ -19,11 +23,18 @@ import torch
 NEAR = 1e-2
 
 
-def cdist(a, b):
-    """Distance matrix between the rows of a [N, D] and b [M, D], f32."""
+def cdist_center(a, b):
+    """The pooled mean that ``cdist`` centres a and b on."""
+    return (a.mean(dim=0) + b.mean(dim=0)) * 0.5
+
+
+def cdist(a, b, center=None):
+    """Distance matrix between the rows of a [N, D] and b [M, D], f32;
+    centred on ``cdist_center(a, b)`` unless ``center`` is given."""
     a = torch.as_tensor(a).to(torch.float32)
     b = torch.as_tensor(b).to(device=a.device, dtype=torch.float32)
-    center = (a.mean(dim=0) + b.mean(dim=0)) * 0.5
+    if center is None:
+        center = cdist_center(a, b)
     a = a - center
     b = b - center
     a2 = (a * a).sum(dim=-1, keepdim=True)  # [N, 1]

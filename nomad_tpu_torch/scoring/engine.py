@@ -22,6 +22,19 @@
     unchanged file (same path, mtime and size) reuses its embedding,
     a 1 KB row kept on the device, so a hit costs no decode, no copy to the
     device and no forward.
+  * ``mesh`` (a ``parallel.data_mesh``): data parallelism over the ranks
+    of a process group, as the JAX engine shards its batches over the
+    "data" axis. Every rank makes the same ``embed_*`` call on the same
+    inputs (SPMD) and plans the same batches, each a multiple of the world
+    size n (no snap to 32; the tail to the next multiple, as
+    ``nomad_tpu/scoring/engine.py:1326-1331``). A rank decodes, copies and
+    embeds only its b/n rows of each batch; one ``all_gather`` at the end
+    of the call gives every rank the whole [N, emb] in input order. The
+    engine runs on the rank's device (``cuda:<local rank>`` or the CPU);
+    a ``device`` that disagrees raises. ``file_cache`` is refused under a
+    mesh: a rank's hits and misses would follow its own cache, so the
+    ranks would plan different batches and their collectives would not
+    meet.
 
 The JAX engine's relay machinery (transfer-mode probes, the wire codec,
 AOT compiles, padding to compiled shapes) answers a TPU host link and
@@ -43,6 +56,7 @@ import torch
 from ..io import TARGET_SR, load_for_scoring, load_processing, native, sinc_resample_kernel
 from ..models.heads import NomadModel
 from ..models.wav2vec2 import feature_frame_lengths
+from ..parallel.mesh import device_for, gather_rows
 from ..utils.profiling import timed
 
 MIN_BUCKET = 4096  # samples (~0.26 s); below this, padding waste is noise
@@ -145,25 +159,52 @@ class EmbeddingEngine:
     def __init__(
         self,
         model: NomadModel,
-        device: torch.device,
+        device: Optional[torch.device] = None,
         batch_sample_budget: int = DEFAULT_BATCH_SAMPLE_BUDGET,
         method: str = "forward",
+        mesh=None,
     ):
         """``method``: the model method that embeds a batch, ``forward``
         (the NOMAD embedding) or ``forward_features`` (the raw pooled
         features of the ``eval_w2v`` ablation). ``file_cache`` starts off
-        (None), as the reference recomputes every file; a server sets it."""
+        (None), as the reference recomputes every file; a server sets it.
+        ``device`` may be None under a ``mesh``: the rank's device."""
         if method not in ("forward", "forward_features"):
             raise ValueError(f"method must be 'forward' or 'forward_features', got {method!r}")
         self.model = model
+        self.mesh = mesh
+        # the batch plan reads only the world size: None without a mesh
+        self.world: Optional[int] = None
+        self.rank = 0
+        if mesh is not None:
+            if tuple(mesh.mesh_dim_names or ()) != ("data",):
+                raise ValueError(f"the engine shards over a 1-D 'data' mesh, got axes "
+                                 f"{mesh.mesh_dim_names}")
+            device = device_for(mesh, device)
+            self.world, self.rank = mesh.size(), mesh.get_local_rank("data")
+        elif device is None:
+            raise ValueError("EmbeddingEngine needs a device or a mesh")
         self.device = torch.device(device)
         self.batch_sample_budget = batch_sample_budget
         self.method = method
-        self.file_cache: Optional[EmbeddingLRU] = None
+        self.file_cache = None
         self.cache_hits = 0
         self.batches = 0  # forward passes run, for launch-count checks
         self.transfer = dict.fromkeys(
             ("h2d_bytes_int16", "h2d_bytes_f32", "native_batches", "python_batches"), 0)
+
+    @property
+    def file_cache(self) -> Optional[EmbeddingLRU]:
+        return self._file_cache
+
+    @file_cache.setter
+    def file_cache(self, cache: Optional[EmbeddingLRU]) -> None:
+        if cache is not None and self.mesh is not None:
+            raise ValueError(
+                "file_cache is single-process: under a mesh each rank's hits would follow its "
+                "own cache, the ranks would plan different batches and their collectives would "
+                "not meet")
+        self._file_cache = cache
 
     def transfer_stats(self) -> dict:
         """Host-to-device bytes by dtype, and batches by ingest path."""
@@ -182,6 +223,13 @@ class EmbeddingEngine:
     def batch_size_for(self, length: int, remaining: Optional[int] = None) -> int:
         b = max(1, self.batch_sample_budget // max(length, 1))
         b = min(b, MAX_BATCH, self._attn_batch_cap(length))
+        if self.world is not None:
+            # a multiple of the mesh: no snap, the tail to the next multiple
+            n = self.world
+            b = max(n, (b // n) * n)
+            if remaining is not None and remaining < b:
+                b = max(n, ((remaining + n - 1) // n) * n)
+            return b
         # snap down to a multiple of 32 (powers of two below that)
         if b >= 32:
             b = (b // 32) * 32
@@ -226,6 +274,17 @@ class EmbeddingEngine:
                 start += take
         return chunks
 
+    def _rank_rows(self, chunk, bsz: int) -> list:
+        """The files of this rank's rows of a padded batch of ``bsz``: the
+        chunk itself without a mesh (its pad rows are filled by copy);
+        under one, rank r's b/n rows of the chunk followed by pad rows that
+        repeat its last file."""
+        if self.world is None:
+            return list(chunk)
+        rows = list(chunk) + [chunk[-1]] * (bsz - len(chunk))
+        s = bsz // self.world
+        return rows[self.rank * s:(self.rank + 1) * s]
+
     def _host_batch(self, bsz: int, blen: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
         """Empty host batch and lengths, pinned when the device is CUDA."""
         pin = self.device.type == "cuda"
@@ -233,13 +292,15 @@ class EmbeddingEngine:
                 torch.empty((bsz,), dtype=torch.int64, pin_memory=pin))
 
     def _assemble(self, waves, i16able, chunk, bsz, blen):
-        """Padded host batch + lengths from decoded waveforms; pad rows
-        repeat the last file."""
+        """Padded host batch (this rank's rows) + lengths from decoded
+        waveforms; pad rows repeat the last file."""
         is_i16 = all(i16able[i] for i in chunk)
-        host, lengths_t = self._host_batch(bsz, blen, torch.int16 if is_i16 else torch.float32)
+        rows = self._rank_rows(chunk, bsz)
+        host, lengths_t = self._host_batch(bsz // (self.world or 1), blen,
+                                           torch.int16 if is_i16 else torch.float32)
         batch, lengths = host.numpy(), lengths_t.numpy()
         batch.fill(0)
-        for row, i in enumerate(chunk):
+        for row, i in enumerate(rows):
             w = waves[i]
             if is_i16 and w.dtype != np.int16:
                 w = np.rint(w * PCM16_SCALE).astype(np.int16)
@@ -247,8 +308,8 @@ class EmbeddingEngine:
                 w = w.astype(np.float32) / PCM16_SCALE
             batch[row, : len(w)] = w
             lengths[row] = len(w)
-        batch[len(chunk):] = batch[len(chunk) - 1]
-        lengths[len(chunk):] = lengths[len(chunk) - 1]
+        batch[len(rows):] = batch[len(rows) - 1]
+        lengths[len(rows):] = lengths[len(rows) - 1]
         return host, lengths_t
 
     def _submit(self, host: torch.Tensor, lengths: torch.Tensor, rows: int,
@@ -270,13 +331,34 @@ class EmbeddingEngine:
         """The batches' embeddings back in input order: one stack of row
         views queued on the device, with no index to copy over (a copy to
         the device would wait for the forward). The caller's copy to the
-        host waits for the device."""
+        host waits for the device. Under a mesh the ranks' rows are
+        gathered first."""
         with timed("engine.collect", items=n):
+            if self.mesh is not None:
+                outs = self._gather(outs)
             rows = [None] * n
             for (chunk, _, _), emb in zip(chunks, outs):
                 for i, row in zip(chunk, emb.unbind(0)):
                     rows[i] = row
             return torch.stack(rows)
+
+    def _gather(self, outs: list) -> list:
+        """Each batch's rows from every rank (pad rows last, which
+        ``_collect`` drops): one ``all_gather`` of this rank's rows of all
+        the batches over the mesh."""
+        parts = gather_rows(torch.cat(outs), self.mesh).chunk(self.world)
+        whole, start = [], 0
+        for emb in outs:
+            s = emb.shape[0]
+            whole.append(torch.cat([p[start:start + s] for p in parts]))
+            start += s
+        return whole
+
+    def _kept(self, chunk, host: torch.Tensor) -> int:
+        """The rows of a submitted batch that ``_collect`` reads: the
+        chunk's files without a mesh; under one every row of the rank's
+        share, which the gather needs."""
+        return len(chunk) if self.mesh is None else host.shape[0]
 
     def _empty(self) -> torch.Tensor:
         width = self.model.emb_dim if self.method == "forward" else self.model.config.hidden_size
@@ -298,7 +380,8 @@ class EmbeddingEngine:
             ]
             for (chunk, _bsz, _blen), fut in zip(chunks, futures):
                 host, lengths = fut.result()
-                outs.append(self._submit(host, lengths, len(chunk), native_ingest=False))
+                outs.append(self._submit(host, lengths, self._kept(chunk, host),
+                                         native_ingest=False))
             return self._collect(chunks, outs, n)
 
     def embed_waves(self, waves: Sequence[np.ndarray]) -> np.ndarray:
@@ -317,7 +400,9 @@ class EmbeddingEngine:
             for sec in durations:
                 blen = bucket_length(int(round(float(sec) * TARGET_SR)))
                 full = self.batch_size_for(blen)
-                for bsz in sorted({full} | {min(t, full) for t in PREWARM_TAILS}):
+                for bsz in sorted({self.batch_size_for(blen, remaining=min(t, full))
+                                   for t in PREWARM_TAILS} | {full}):
+                    bsz //= self.world or 1  # a rank's share
                     wav = torch.zeros((bsz, blen), device=self.device)
                     lengths = torch.full((bsz,), blen, dtype=torch.int64, device=self.device)
                     emb = getattr(self.model, self.method)(wav, lengths)
@@ -392,12 +477,13 @@ class EmbeddingEngine:
         outs = []
         with torch.inference_mode():
             for chunk, bsz, blen in chunks:
-                k = len(chunk)
                 is_i16 = all(i16[i] for i in chunk)
-                host, lengths_t = self._host_batch(bsz, blen,
+                rows = self._rank_rows(chunk, bsz)
+                k = len(rows)
+                host, lengths_t = self._host_batch(bsz // (self.world or 1), blen,
                                                    torch.int16 if is_i16 else torch.float32)
                 batch, lengths = host.numpy(), lengths_t.numpy()
-                chunk_paths = [paths[i] for i in chunk]
+                chunk_paths = [paths[i] for i in rows]
                 with timed("engine.native_ingest", items=k):
                     if is_i16:
                         _, _, errs = native.native_load_batch_i16(
@@ -409,7 +495,7 @@ class EmbeddingEngine:
                             chunk_paths, blen, TARGET_SR,
                             expect_sr=0 if sr == TARGET_SR else sr, num_threads=IO_THREADS,
                             out=batch[:k], lengths=lengths[:k])
-                for row, i in enumerate(chunk):
+                for row, i in enumerate(rows):
                     if errs[row] != 0:  # a file the C++ path refused: decode it in Python
                         w = load_processing(paths[i])[0][:blen]
                         if is_i16:
@@ -419,7 +505,8 @@ class EmbeddingEngine:
                         lengths[row] = len(w)
                 batch[k:] = batch[k - 1]
                 lengths[k:] = lengths[k - 1]
-                outs.append(self._submit(host, lengths_t, k, native_ingest=True))
+                outs.append(self._submit(host, lengths_t, self._kept(chunk, host),
+                                         native_ingest=True))
             return self._collect(chunks, outs, len(paths))
 
 

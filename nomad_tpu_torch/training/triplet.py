@@ -34,6 +34,19 @@
     LRs) per epoch under ``<run_dir>/checkpoints``. The loader's epoch is
     set from the epoch index, so a resumed run shuffles as an
     uninterrupted one.
+  * ``mesh`` (a ``parallel.data_mesh``): data parallelism, as the JAX
+    trainer shards its step over the "data" axis. Every rank runs the same
+    loader with the same seed and keeps its rows of a, p and n
+    (``parallel.shard_rows``) before the copy to the device; the model
+    draws each dropout mask for the global batch and keeps the rank's rows
+    (``BatchRows``), so the masks are the single-process step's. The
+    trainable gradients are averaged by one all-reduce of a flat buffer
+    before Adam, so the parameters stay replicated (``replicate`` makes
+    them so at the start); the train and eval steps return the global mean
+    loss. The evals embed through the engine on the same mesh. Rank 0
+    alone writes checkpoints, ``best_model.npz``, the resume state, the
+    run's config and plots; every rank reads them. A batch must split
+    evenly over the ranks, as XLA's batch sharding requires.
   * The evals read their CSVs with the stdlib (``training.data.read_table``),
     group by sorted keys as pandas' ``groupby`` does, embed through the
     scoring engine (``forward_features`` under ``eval_w2v``) and plot with
@@ -53,12 +66,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api import resolve_device, set_exact_precision
 from ..convert import convert_checkpoint, jax_to_state_dict, merge_into, state_dict_to_jax
 from ..models import NomadModel, Wav2Vec2Config, init_weights
 from ..models.wav2vec2 import FAST_ISLANDS
 from ..ops import cdist, cdist_diag
+from ..ops.attention import BatchRows
+from ..parallel.mesh import barrier, device_for, is_main, rank_rows, replicate, shard_rows
 from ..scoring.engine import PCM16_SCALE, EmbeddingEngine
 from ..utils import config as config_io
 from ..utils.metrics import correlation_report, fit_order_three, srcc
@@ -148,13 +164,14 @@ class Training:
 
     def __init__(self, config_file_or_dict, device: Optional[str] = None,
                  params: Optional[dict] = None,
-                 model_config: Optional[Wav2Vec2Config] = None):
+                 model_config: Optional[Wav2Vec2Config] = None, mesh=None):
         if isinstance(config_file_or_dict, dict):
             self.config = dict(config_file_or_dict)
         else:
             self.config = config_io.load(config_file_or_dict)
         cfg = self.config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else device_for(mesh, device)
         set_exact_precision()
         print(f"Device: {self.device}")
 
@@ -178,6 +195,8 @@ class Training:
         else:
             self._load_params(cfg)
         self.model.to(self.device)
+        if mesh is not None:
+            replicate(self.model.state_dict().values(), mesh)
         self.optimizer = None
 
         if training:
@@ -246,27 +265,61 @@ class Training:
                              dev(batch.lengths_n)]).long()
         return wav, lengths
 
+    def _batch_rows(self, b: int) -> Optional[BatchRows]:
+        """Under a mesh, this rank's rows of the global [A; P; N] of b
+        triplets: its triplets of each of a, p and n."""
+        if self.mesh is None:
+            return None
+        mine = rank_rows(b, self.mesh)
+        return BatchRows(3, b, mine.start, mine.stop)
+
     def triplet_loss(self, batch: TripletBatch, deterministic: bool,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The margin loss of one forward over [A; P; N]."""
+        """The margin loss of one forward over [A; P; N]; under a mesh over
+        this rank's triplets, the mean of its share."""
+        rows = self._batch_rows(len(batch.lengths_a))
+        if self.mesh is not None:
+            batch = TripletBatch(*(shard_rows(getattr(batch, f.name), self.mesh)
+                                   for f in dataclasses.fields(batch)))
         wav, lengths = self._device_batch(batch)
         emb = self.model(wav, lengths if self.masked_pool else None,
-                         deterministic=deterministic, generator=generator)
+                         deterministic=deterministic, generator=generator, rows=rows)
         b = len(batch.lengths_a)
         return triplet_margin_loss(emb[:b], emb[b:2 * b], emb[2 * b:], self.margin)
 
+    def _mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the mesh's ranks, in place (every rank
+        holds the same share of the batch, so the mean of their means is the
+        global mean)."""
+        if self.mesh is not None:
+            dist.all_reduce(t, group=self.mesh.get_group())
+            t /= self.mesh.size()
+        return t
+
+    def _average_grads(self) -> None:
+        """The trainable gradients averaged over the ranks: one all-reduce
+        of a flat buffer, whose pieces become the gradients."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+        flat = self._mean_over_ranks(torch.cat([p.grad.reshape(-1) for p in params]))
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
     def train_step(self, batch: TripletBatch,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """One step with dropout; returns the loss, still on the device."""
+        """One step with dropout; returns the loss, still on the device
+        (under a mesh the global one)."""
         loss = self.triplet_loss(batch, False, generator)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self._average_grads()
         self.optimizer.step()
-        return loss.detach()
+        return self._mean_over_ranks(loss.detach())
 
     def eval_step(self, batch: TripletBatch) -> torch.Tensor:
         with torch.inference_mode():
-            return self.triplet_loss(batch, True)
+            return self._mean_over_ranks(self.triplet_loss(batch, True))
 
     def train(self, loader=None, rng_seed: int = 0) -> float:
         """One epoch; dropout masks from a generator seeded with rng_seed."""
@@ -307,8 +360,13 @@ class Training:
             dt_string = datetime.now().strftime("%d-%m-%Y_%H-%M-%S")
             self.PATH_DIR = os.path.join("out-models", cfg.get("out_dir", "train-triplet"),
                                          dt_string)
+        if self.mesh is not None:  # rank 0's clock names the run
+            names = [self.PATH_DIR]
+            dist.broadcast_object_list(names, src=0)
+            self.PATH_DIR = names[0]
         os.makedirs(self.PATH_DIR, exist_ok=True)
-        config_io.dump(cfg, os.path.join(self.PATH_DIR, "config.yaml"))
+        if is_main(self.mesh):
+            config_io.dump(cfg, os.path.join(self.PATH_DIR, "config.yaml"))
 
         best_valid_loss, counter, start_epoch = np.inf, 0, 0
         state = self._load_resume_state()
@@ -348,8 +406,11 @@ class Training:
 
     def save_checkpoint(self, path: str) -> None:
         """The JAX package's flat-key npz: its ``Training.load_checkpoint``
-        and ``Nomad`` weights cache read it."""
-        np.savez(path, **state_dict_to_jax(self.model.state_dict()))
+        and ``Nomad`` weights cache read it. Under a mesh rank 0 writes it
+        and every rank waits for the file."""
+        if is_main(self.mesh):
+            np.savez(path, **state_dict_to_jax(self.model.state_dict()))
+        barrier(self.mesh)
 
     def load_checkpoint(self, path: str) -> None:
         """The JAX package's flat-key npz, or a fairseq or NOMAD ``.pt``
@@ -383,15 +444,18 @@ class Training:
         mgr = self._ckpt_manager()
         if mgr is None:
             return
-        names = self._opt_names()
-        state = {
-            "params": {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()},
-            "opt": {names[i]: {k: v.detach().cpu().numpy() for k, v in s.items()}
-                    for i, s in self.optimizer.state_dict()["state"].items()},
-        }
-        mgr.save(next_epoch - 1, state, meta={
-            "best": float(best), "counter": int(counter), "next_epoch": int(next_epoch),
-            "lr_head": float(self.lr_head), "lr_backbone": float(self.lr_backbone)})
+        if is_main(self.mesh):
+            names = self._opt_names()
+            state = {
+                "params": {k: v.detach().cpu().numpy()
+                           for k, v in self.model.state_dict().items()},
+                "opt": {names[i]: {k: v.detach().cpu().numpy() for k, v in s.items()}
+                        for i, s in self.optimizer.state_dict()["state"].items()},
+            }
+            mgr.save(next_epoch - 1, state, meta={
+                "best": float(best), "counter": int(counter), "next_epoch": int(next_epoch),
+                "lr_head": float(self.lr_head), "lr_backbone": float(self.lr_backbone)})
+        barrier(self.mesh)
 
     def _load_resume_state(self) -> Optional[tuple[float, int, int]]:
         """With ``resume``: restore the latest state; (best, counter,
@@ -422,7 +486,7 @@ class Training:
         """The scoring engine; the raw pooled features under ``eval_w2v``
         (the Origw2v ablation, ``train_triplet.py:67-69``)."""
         method = "forward_features" if self.eval_w2v else "forward"
-        return EmbeddingEngine(self.model, self.device, method=method)
+        return EmbeddingEngine(self.model, self.device, method=method, mesh=self.mesh)
 
     def get_embeddings_csv(self, file_names, root=False) -> tuple[list, np.ndarray]:
         """(names, [N, D] embeddings) of the files, joined to root if given."""
@@ -572,10 +636,12 @@ class Training:
         os.makedirs(out_dir, exist_ok=True)
         return os.path.join(out_dir, name)
 
-    @staticmethod
-    def _pyplot():
+    def _pyplot(self):
         """matplotlib's pyplot on the Agg backend, or None (with a warning)
-        where matplotlib is not installed."""
+        where matplotlib is not installed; None on every rank but 0 under a
+        mesh (one rank plots)."""
+        if not is_main(self.mesh):
+            return None
         try:
             import matplotlib
         except ImportError:

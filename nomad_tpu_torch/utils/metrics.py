@@ -1,11 +1,11 @@
 """Evaluation metrics: SRCC/PCC and the 3rd-order polynomial MOS mapping
-(counterpart of ``nomad_tpu.utils.metrics``), on numpy/scipy."""
+(counterpart of ``nomad_tpu.utils.metrics``), on numpy/scipy. scipy loads
+at the first call, not with the trainer (a data-parallel rank that never
+evaluates does not pay its import)."""
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.optimize import curve_fit
-from scipy.stats import pearsonr, spearmanr
 
 
 def order_three(x, a, b, c, d):
@@ -20,6 +20,8 @@ def fit_order_three(distance, mos):
     mos = np.asarray(mos, dtype=np.float64)
     if distance.size < 4:
         return lambda x: np.asarray(x)
+    from scipy.optimize import curve_fit
+
     try:
         popt, _ = curve_fit(order_three, distance, mos)
     except (RuntimeError, TypeError, ValueError):
@@ -29,11 +31,15 @@ def fit_order_three(distance, mos):
 
 
 def srcc(x, y) -> float:
+    from scipy.stats import spearmanr
+
     r, _ = spearmanr(x, y)
     return float(r)
 
 
 def pcc(x, y) -> float:
+    from scipy.stats import pearsonr
+
     r, _ = pearsonr(x, y)
     return float(r)
 

@@ -1070,3 +1070,73 @@ def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
     o_bad = fused_attention.fused_qkv_mha(x_bad, *params, lens, 2, prec)
     for i, n in enumerate(lengths):
         assert torch.equal(o_bad[i, :, :n], o[i, :, :n])
+
+
+# ---------------- the mesh at world size 1, over NCCL ----------------
+
+
+@pytest.fixture
+def nccl_one(cuda):
+    """A one-rank NCCL group and its data mesh."""
+    from nomad_tpu_torch.parallel.mesh import data_mesh, destroy_process_group, init_process_group
+
+    init_process_group(0, 1, "cuda")
+    try:
+        yield data_mesh()
+    finally:
+        destroy_process_group()
+
+
+def test_nccl_world_of_one_engine_and_grid(cuda, nccl_one):
+    """The mesh engine against the plain one (batch plans may differ:
+    1e-5), and the large-scale scorer on a 1 x 1 grid bit-equal to its
+    dense path, on a narrow model with 64-wide heads."""
+    from nomad_tpu_torch.parallel import grid_mesh
+    from nomad_tpu_torch.scoring import EmbeddingEngine, LargeScaleScorer
+
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256, num_layers=2)
+    model = init_weights(NomadModel(Wav2Vec2Config.base(**kw), emb_dim=16), seed=3)
+    model = model.to(cuda).eval().requires_grad_(False)
+    g = torch.Generator().manual_seed(7)
+    waves = [(0.2 * torch.randn(n, generator=g)).numpy() for n in (9000, 4000, 12000, 7000, 5000)]
+    plain = EmbeddingEngine(model, cuda).embed_waves(waves)
+    meshed = EmbeddingEngine(model, mesh=nccl_one).embed_waves(waves)
+    assert abs(meshed - plain).max() <= 1e-5
+    scorer = LargeScaleScorer(EmbeddingEngine(model, cuda))
+    avg, dm = scorer.score_embeddings(plain[:3], plain[3:])
+    gavg, gdm = LargeScaleScorer.score_on_grid(grid_mesh(1, 1), plain[:3], plain[3:])
+    assert (gdm == dm).all() and (gavg == avg).all()
+
+
+def test_nccl_world_of_one_step_is_bit_equal(cuda, nccl_one):
+    """``Training(mesh=)`` at world size 1: one step with dropout (the plain
+    dropout attention, K5) gives the plain step's loss, parameters and Adam
+    state to the bit (cuDNN's deterministic algorithms in both)."""
+    import numpy as np
+
+    from nomad_tpu_torch.training import Training
+    from nomad_tpu_torch.training.data import TripletBatch
+
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256, num_layers=2)
+    sd = init_weights(NomadModel(Wav2Vec2Config.base(**kw), emb_dim=16), seed=4).state_dict()
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(6000, 8001, size=4).astype(np.int32)
+    batch = TripletBatch(*(rng.standard_normal((4, 8000)).astype(np.float32) for _ in range(3)),
+                         lengths, lengths, lengths)
+    config = {"experiment_name": "none", "lr": 1e-3, "freeze_convnet": True,
+              "emb_dim": 16, "masked_pool": True}
+    runs = []
+    torch.backends.cudnn.deterministic = True  # the positional conv's backward sums in one order
+    try:
+        for mesh in (None, nccl_one):
+            tr = Training(dict(config), device="cuda" if mesh is None else None, mesh=mesh,
+                          params=sd, model_config=Wav2Vec2Config.base(**kw))
+            tr._build_optimizer()
+            loss = tr.train_step(batch, torch.Generator().manual_seed(1))
+            runs.append((loss.item(), tr.model.state_dict(), tr.optimizer.state_dict()["state"]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0, s0), (l1, p1, s1) = runs
+    assert l0 == l1
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(s0[i][k], s1[i][k]) for i in s0 for k in s0[i])

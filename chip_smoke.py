@@ -4,7 +4,7 @@ differentiate.
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
                            --only-fused-modes | --only-fast-bf16 | --only-bf16-paths |
-                           --only-large-scale]
+                           --only-large-scale | --only-wire-and-tools]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -225,6 +225,28 @@ Phases, each fatal on failure:
      bit-equal to the plain step from the same state and generator, both
      timed; ``graft_entry.entry()`` ([2, 256], K1b 12, K5 26) and
      ``graft_entry.dryrun_multichip(1)`` (one spawned NCCL rank);
+ 16. the wire codec, the q16 loader, the build cache and the dataset
+     tools, on phase 9's seeded BASE weights: the codec's C++ and numpy
+     encoders on phase 4's [96, 163,840] batch and the random, zeros and
+     extremes payloads at [16, 163,840] (the same stream), the card's
+     decode bit-equal to ``decode_numpy`` and to the input; the host
+     encode, the card decode (CUDA events) and the copies of the raw batch
+     and of the frame from pinned memory timed; phase 4's 108 files
+     through the engine with ``wire_codec`` "off" and "on" in turns (K1
+     12, K5 26 a batch; the embeddings bit-equal, every "on" batch
+     packed) and once with ``serialize_pipeline``; 8 files
+     at 22.05 kHz, 44.1 kHz stereo, 16 kHz FLAC and stereo with
+     ``quantize_transfer`` on and off (int16 bytes only when on; the
+     embeddings' and scores' distance against the 1e-3 budget); a cold
+     ``python -m nomad_tpu_torch.serve`` to its first score with an empty
+     ``NOMAD_TPU_TORCH_CACHE_DIR`` (K1, K5 and the native library built)
+     and again with its libraries present; the degrader recipe
+     (``config_audio_degrader.yaml``) on 4 seeded clean 10.5-12 s WAVs:
+     the training and intensity sets (spawned workers; the codec grids
+     only with ffmpeg), NSIM triplets from a seeded NSIM CSV, the CLEAN
+     subset copied, and the triplet recipe's step on the generated
+     ``train.csv`` with remat "full" and "dots" (K5 50 each; loss and
+     gradients within 1e-6, time, peak);
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -239,7 +261,8 @@ newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 ``--only-precision`` phases 1, 2 and 9, ``--only-grad-modes`` phases 1, 2
 and 10, ``--only-fused-modes`` phases 1, 2 and 12, ``--only-fast-bf16``
 phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14,
-``--only-large-scale`` phases 1 and 15, each ending with the report line.
+``--only-large-scale`` phases 1 and 15, ``--only-wire-and-tools`` phases
+1, 2 and 16, each ending with the report line.
 """
 
 from __future__ import annotations
@@ -271,6 +294,7 @@ from nomad_tpu_torch.models import NomadModel, Wav2Vec2Config, init_weights, wav
 from nomad_tpu_torch.models.wav2vec2 import PRECISION_ISLANDS
 from nomad_tpu_torch.ops import _build, cdist, flash_attention, fused_attention, layernorm
 from nomad_tpu_torch.ops import precision as prec_ops
+from nomad_tpu_torch.ops import wirecodec
 from nomad_tpu_torch.scoring.engine import EmbeddingEngine, EmbeddingLRU
 from nomad_tpu_torch.serve import NomadServer
 from nomad_tpu_torch.training import SpeechEnhancement, Training, triplet
@@ -4649,6 +4673,416 @@ def run_large_scale(card: str) -> None:
     report["large_scale"] = out
 
 
+# ---------------- phase 16: the wire codec, the q16 loader, the build cache, the tools ----------------
+
+WIRE_BATCH = (96, 163_840)  # phase 4's full batch: 96 files of 10 s in the 163,840 bucket
+WIRE_CASE_ROWS = 16  # the synthetic payloads' rows (the numpy encoder and decoder take seconds)
+WIRE_ITERS = 10
+# the q16 directory: 4 files of each kind the native path cannot load as
+# raw int16 (name, rate, channels, container)
+Q16_KINDS = (("r22", 22050, 1, "wav"), ("st44", 44100, 2, "wav"), ("fl16", SR, 1, "flac"),
+             ("st16", SR, 2, "wav"))
+Q16_PER_KIND = 2
+DEGRADER_RECIPE = ROOT / "nomad_tpu" / "configs" / "config_audio_degrader.yaml"
+# the tools: 4 clean files; 2 spawned workers (each imports torch: on the
+# card's machine 4 and 8 workers took longer, 13.1 + 16.8 s and 15.4 +
+# 19.0 s); the intensity grid's levels cut to every other one
+TOOLS_CLEAN, TOOLS_WORKERS, TOOLS_STEPS, TOOLS_TEST_LEVEL_STEP = 4, 2, 3, 2
+COLD_SERVE_FILES = 2  # NMR and degraded files of the cold start's first score
+
+
+def codec_cases(speech: np.ndarray) -> dict:
+    """Phase 4's batch and tests/test_wirecodec.py's synthetic payloads at
+    WIRE_CASE_ROWS of its rows."""
+    rng = np.random.default_rng(16)
+    shape = (WIRE_CASE_ROWS, speech.shape[1])
+    return {"speech": speech,
+            "random": rng.integers(-32768, 32768, shape, dtype=np.int16),
+            "zeros": np.zeros(shape, np.int16),
+            "extremes": np.tile(np.array([-32768, 32767], np.int16),
+                                shape[0] * shape[1] // 2).reshape(shape)}
+
+
+def pinned(a: np.ndarray) -> torch.Tensor:
+    t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+    t.numpy()[...] = a
+    return t
+
+
+def h2d_ms(host: torch.Tensor) -> float:
+    """One pinned host tensor's copy to the card (CUDA events)."""
+    dst = torch.empty(host.shape, dtype=host.dtype, device=DEV)
+    return time_ms(lambda: dst.copy_(host, non_blocking=True), WIRE_ITERS)
+
+
+def check_codec(waves: list, card: str) -> dict:
+    """Both encoders on each payload class: the same stream; the card's
+    decode bit-equal to ``decode_numpy`` and to the input; for phase 4's
+    [96, 163,840] batch the host encode, the card decode and the copies of
+    the raw batch and of the frame timed."""
+    speech = np.zeros(WIRE_BATCH, np.int16)
+    for row, w in enumerate(waves[:WIRE_BATCH[0]]):
+        speech[row, :len(w)] = w
+    res = {}
+    for name, arr in codec_cases(speech).items():
+        b, t = arr.shape
+        t0 = time.perf_counter()
+        enc = wirecodec.encode(arr)
+        native_s = time.perf_counter() - t0
+        saved = wirecodec.native_pack_i16
+        wirecodec.native_pack_i16 = lambda *a, **k: None
+        try:
+            t0 = time.perf_counter()
+            enc_np = wirecodec.encode(arr)
+            numpy_s = time.perf_counter() - t0
+        finally:
+            wirecodec.native_pack_i16 = saved
+        same = all(np.array_equal(enc[k], enc_np[k]) for k in ("packed", "widths", "offsets",
+                                                               "firsts"))
+        frame = pinned(wirecodec.combined_rows(enc).view(np.int32))
+        dec = wirecodec.decode_combined(frame.to(DEV), b, t).cpu().numpy()
+        exact = np.array_equal(dec, arr) and np.array_equal(dec, wirecodec.decode_numpy(enc))
+        r = {"ratio": frame.numel() * 4 / arr.nbytes, "native_encode_s": native_s,
+             "numpy_encode_s": numpy_s, "encoders_same_stream": same, "decode_exact": exact}
+        print(f"codec: {name} [{b}, {t}]: frame/raw {r['ratio']:.4f}, C++ and numpy encoders "
+              f"the same stream {same} ({native_s:.3f} s, {numpy_s:.3f} s), card decode "
+              f"bit-equal to decode_numpy and the input {exact}", flush=True)
+        if not (same and exact):
+            fail(f"codec: {name}: encoders the same {same}, card decode exact {exact}")
+        if name == "speech":
+            dev = frame.to(DEV)
+            enc_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                wirecodec.combined_rows(wirecodec.encode(arr))
+                enc_s.append(time.perf_counter() - t0)
+            raw = pinned(arr)
+            r |= {"encode_frame_s": float(np.median(enc_s)),
+                  "decode_ms": time_ms(lambda: wirecodec.decode_combined(dev, b, t), WIRE_ITERS),
+                  "h2d_raw_ms": h2d_ms(raw), "h2d_frame_ms": h2d_ms(frame),
+                  "raw_bytes": arr.nbytes, "frame_bytes": frame.numel() * 4}
+            r["h2d_raw_GBps"] = arr.nbytes / r["h2d_raw_ms"] / 1e6
+            main = report.get("main_path")  # phase 4's device pass, when it ran
+            if main:
+                r["h2d_raw_share_of_pass"] = r["h2d_raw_ms"] / 1e3 / float(np.median(main["pass_s"]))
+            print(f"codec: speech: host encode + frame {r['encode_frame_s'] * 1e3:.1f} ms; card "
+                  f"decode {r['decode_ms']:.3f} ms; copy to the card from pinned memory: raw "
+                  f"{arr.nbytes / 1e6:.1f} MB {r['h2d_raw_ms']:.3f} ms "
+                  f"({r['h2d_raw_GBps']:.1f} GB/s), frame {r['frame_bytes'] / 1e6:.1f} MB "
+                  f"{r['h2d_frame_ms']:.3f} ms (ratio {r['h2d_frame_ms'] / r['h2d_raw_ms']:.3f})"
+                  f"  [{card}]", flush=True)
+        res[name] = r
+    return res
+
+
+def embed_counted(eng: EmbeddingEngine, paths: list, key: str, **kw) -> tuple:
+    """One ``embed_files_device`` call with its launch counts (K1 12, K5 26
+    a batch) and wall time to the card's end."""
+    batches = eng.batches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    emb = eng.embed_files_device(paths, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    n = eng.batches - batches
+    report["launches"][key] = counts
+    if counts != launches_want(k1=12 * n, k5=26 * n) or n == 0:
+        fail(f"{key}: launch counts {counts} for {n} batches")
+    return emb, wall, n
+
+
+def packed_vs_raw(model: NomadModel, paths: list, card: str) -> tuple:
+    """Phase 4's 108 files with ``wire_codec`` "off" and "on" in turns
+    (off, on, on, off): the embeddings bit-equal, every batch of "on"
+    packed. Returns the "off" embeddings and the results."""
+    engines = {m: EmbeddingEngine(model, DEV, wire_codec=m) for m in ("off", "on")}
+    embs, walls = {}, {"off": [], "on": []}
+    for i, m in enumerate(("off", "on", "on", "off")):
+        emb, wall, n = embed_counted(engines[m], paths, f"wire_codec_{m}_{i}")
+        walls[m].append(wall)
+        if m in embs and not torch.equal(emb, embs[m]):
+            fail(f"codec: two '{m}' passes differ")
+        embs[m] = emb
+    equal = torch.equal(embs["on"], embs["off"])
+    stats = engines["on"].transfer_stats()
+    # the reference's serial loop: each batch waited for before the next copy
+    serial, serial_s, _ = embed_counted(EmbeddingEngine(model, DEV, serialize_pipeline=True),
+                                        paths, "serialize_pipeline")
+    res = {"bit_equal": equal, "pass_s": walls, "batches_per_pass": n, "serial_pass_s": serial_s,
+           "on_stats": stats, "off_stats": engines["off"].transfer_stats(), "card": card}
+    print(f"codec: {len(paths)} files, wire_codec off / on in turns: passes {walls['off']} / "
+          f"{walls['on']} s; embeddings bit-equal {equal}; on: {stats}; serialized pass "
+          f"{serial_s:.3f} s", flush=True)
+    if not equal or stats["codec_hits"] != stats["batches"] or stats["codec_skips"]:
+        fail(f"codec: the packed path's embeddings bit-equal {equal}, stats {stats}")
+    if not torch.equal(serial, embs["off"]):
+        fail("codec: the serialized pass's embeddings differ from the pipelined pass's")
+    return embs["off"], res
+
+
+def write_q16_tree(root: Path) -> list:
+    rng = np.random.default_rng(1616)
+    paths = []
+    for name, sr, ch, ext in Q16_KINDS:
+        for i in range(Q16_PER_KIND):
+            n = int(SECONDS * sr)
+            x = np.stack([speech_like(rng, n, (0.01, 0.1)) for _ in range(ch)])
+            p = str(root / f"{name}_{i}.{ext}")
+            if ext == "flac":
+                write_flac(p, x, sr)
+            else:
+                write_wav(p, x, sr, bits=16)
+            paths.append(p)
+    return paths
+
+
+def check_q16(model: NomadModel, paths: list, nmr_emb: torch.Tensor, card: str) -> dict:
+    """``quantize_transfer`` on (the default) and off over files the raw
+    int16 loader cannot take: int16 bytes only when on, f32 when off; the
+    embeddings' and the scores' (against phase 4's NMR files) distance,
+    against the 1e-3 score budget."""
+    res, embs = {"card": card}, {}
+    for on in (True, False):
+        eng = EmbeddingEngine(model, DEV, quantize_transfer=on)
+        embs[on], wall, n = embed_counted(eng, paths, f"q16_{'on' if on else 'off'}")
+        t = eng.transfer_stats()
+        res["on" if on else "off"] = {"transfer": t, "wall_s": wall, "batches": n}
+        if t["native_batches"] != n or (t["h2d_bytes_f32"] == 0) != on or (
+                t["h2d_bytes_int16"] > 0) != on:
+            fail(f"q16: quantize_transfer={on}: transfer {t}")
+    d_emb = (embs[True] - embs[False]).abs().max().item()
+    d_score = (cdist(embs[True], nmr_emb) - cdist(embs[False], nmr_emb)).abs().max().item()
+    res |= {"max_abs_emb": d_emb, "max_abs_score": d_score, "in_budget": d_score <= DELTA_BUDGET}
+    print(f"q16: {len(paths)} files (22.05 kHz, 44.1 kHz stereo, FLAC, stereo): int16 bytes on "
+          f"{res['on']['transfer']['h2d_bytes_int16'] / 1e6:.1f} MB, f32 bytes off "
+          f"{res['off']['transfer']['h2d_bytes_f32'] / 1e6:.1f} MB; quantized vs f32 max|d emb| "
+          f"{d_emb:.3g}, max|d score| {d_score:.3g} (budget {DELTA_BUDGET})  [{card}]",
+          flush=True)
+    if not np.isfinite(d_score) or d_score > DELTA_FAULT:
+        fail(f"q16: quantized vs f32 scores differ by {d_score}")
+    return res
+
+
+def serve_first_answers(root: Path, cache_dir: Path, nmr: str, deg: str, tag: str) -> dict:
+    """``python -m nomad_tpu_torch.serve`` with its build directory at
+    ``cache_dir``: the wall time from the start to the ping's answer
+    (imports, the card, the weights) and to the first score's (kernels
+    built or loaded, the first pass)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), NOMAD_TPU_TORCH_CACHE_DIR=str(cache_dir))
+    before = {p.name for p in cache_dir.glob("*.so")} if cache_dir.is_dir() else set()
+    reqs = [{"op": "ping"}, {"op": "score", "nmr": nmr, "deg": deg,
+                             "results_path": str(root / f"out_{tag}")}, {"op": "shutdown"}]
+    (root / f"out_{tag}").mkdir()
+    err_path = root / f"serve_{tag}.stderr"
+    walls = []
+    with open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "nomad_tpu_torch.serve"], cwd=root,
+                                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        watchdog = threading.Timer(SERVE_TIMEOUT_S, proc.kill)
+        watchdog.start()
+        try:
+            for req in reqs:
+                proc.stdin.write(json.dumps(req) + "\n")
+                proc.stdin.flush()
+                line = proc.stdout.readline()
+                walls.append(time.perf_counter() - t0)
+                try:
+                    ok = json.loads(line).get("ok") if line else False
+                except json.JSONDecodeError:
+                    ok = False
+                if not ok:
+                    fail(f"cold serve {tag}: {req['op']} answered {line[:300]!r}; stderr:\n"
+                         f"{err_path.read_text()[-3000:]}")
+            rc = proc.wait(timeout=60)
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        fail(f"cold serve {tag}: exit {rc}")
+    built = sorted({p.name for p in cache_dir.glob("*.so")} - before)
+    res = {"ping_s": walls[0], "first_score_s": walls[1], "built": built}
+    print(f"cold serve ({tag}): ping answered {walls[0]:.2f} s after the start, the first score "
+          f"{walls[1]:.2f} s; built {built}", flush=True)
+    return res
+
+
+def check_cold_serve(root: Path, sd: dict, nmr: str, deg: str, card: str) -> dict:
+    """A cold ``serve`` start to its first answer in a fresh build directory
+    (every library it runs built: K1, K5 and the native ingest) and again
+    with them present; the difference is the build's share."""
+    from nomad_tpu_torch.api import write_cache
+
+    serve_root = root / "serve"
+    write_cache(str(serve_root / "pt-models" / CACHE_FILENAME), sd)
+    dirs = []
+    for sub, src in (("nmr", nmr), ("deg", deg)):
+        (serve_root / sub).mkdir(parents=True)
+        for p in sorted(Path(src).iterdir())[:COLD_SERVE_FILES]:
+            shutil.copy(p, serve_root / sub / p.name)
+        dirs.append(str(serve_root / sub))
+    cache_dir = root / "fresh_build"
+    absent = serve_first_answers(serve_root, cache_dir, *dirs, "absent")
+    present = serve_first_answers(serve_root, cache_dir, *dirs, "present")
+    want = {f"{n}-" for n in ("flash_attention", "layernorm", "libnomad_native")}
+    if {next((w for w in want if b.startswith(w)), b) for b in absent["built"]} != want or \
+            present["built"]:
+        fail(f"cold serve: built {absent['built']} cold, then {present['built']}")
+    res = {"absent": absent, "present": present, "card": card,
+           "build_share_s": absent["first_score_s"] - present["first_score_s"]}
+    print(f"cold serve: first score {absent['first_score_s']:.2f} s with the build directory "
+          f"empty, {present['first_score_s']:.2f} s with its libraries present: the build "
+          f"{res['build_share_s']:.2f} s  [{card}]", flush=True)
+    return res
+
+
+def write_degrader_tree(root: Path) -> dict:
+    """The degrader recipe (``config_audio_degrader.yaml``) pointed at 4
+    seeded clean 10.5-12 s WAVs (train and test alike) and 2 noise files,
+    its test levels cut to every other one."""
+    rng = np.random.default_rng(1617)
+    cfg = config_io.load(str(DEGRADER_RECIPE))
+    cfg.update(root=str(root) + "/", root_noise=str(root), noise_dir_train="noise",
+               noise_dir_test="noise")
+    for key in ("mp3_test", "opus_test", "vorbis", "clip_test", "reverb", "noise_test"):
+        cfg[key] = cfg[key][::TOOLS_TEST_LEVEL_STEP]
+    for sub in (cfg["in_dir_train_wav"], cfg["in_dir_test_wav"]):
+        (root / sub / "spk1").mkdir(parents=True)
+    (root / "noise").mkdir()
+    for i in range(TOOLS_CLEAN):
+        x = speech_like(rng, int(rng.integers(168_000, 192_001)), 0.005)
+        for sub in (cfg["in_dir_train_wav"], cfg["in_dir_test_wav"]):
+            write_wav(str(root / sub / "spk1" / f"utt_{i}.wav"), x, SR, bits=16)
+    for i in range(2):
+        write_wav(str(root / "noise" / f"n{i}.wav"),
+                  (0.1 * rng.standard_normal(3 * SR)).astype(np.float32), SR, bits=16)
+    return cfg
+
+
+def run_tools(root: Path, sd: dict, card: str) -> dict:
+    """The dataset tools on the card's machine, which has no pandas: both
+    generators at the recipe's grids, NSIM triplets from a seeded NSIM CSV,
+    the CLEAN subset copied, then the triplet recipe's step on the
+    generated ``train.csv`` (K5 50) with remat "full" and "dots": loss and
+    gradients within 1e-6 of max |g| (cuDNN's deterministic algorithms in
+    both), time and peak."""
+    from nomad_tpu_torch.utils import degrader_drivers, nsim_sampling
+
+    res: dict = {"card": card}
+    cfg = write_degrader_tree(root)
+    codecs = degrader_drivers.D.have_ffmpeg()
+    t0 = time.perf_counter()
+    rows = degrader_drivers.generate_training_set(cfg, workers=TOOLS_WORKERS)
+    res["training_set_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_rows = degrader_drivers.generate_intensity_test_set(cfg, workers=TOOLS_WORKERS)
+    res["intensity_set_s"] = time.perf_counter() - t0
+    grid = len(cfg["clip_train"]) + len(cfg["noise_train"]) + codecs * (
+        len(cfg["mp3_train"]) + len(cfg["opus_train"]))
+    test_grid = len(cfg["clip_test"]) + len(cfg["reverb"]) + len(cfg["noise_test"]) + codecs * (
+        len(cfg["mp3_test"]) + len(cfg["opus_test"]) + len(cfg["vorbis"]))
+    out_root = Path(cfg["root"]) / cfg["out_dir_train"]
+    read = train_data.read_table(str(out_root / "degraded_data.csv"))
+    if len(rows) != TOOLS_CLEAN * grid or read != rows or len(test_rows) != test_grid or not all(
+            (out_root / r["degraded"]).is_file() for r in rows):
+        fail(f"tools: {len(rows)} training rows (want {TOOLS_CLEAN * grid}), "
+             f"{len(test_rows)} intensity rows (want {test_grid})")
+    # seeded NSIM labels for the degraded files, then the triplets
+    rng = np.random.default_rng(1618)
+    nsim_rows = [{"reference": r["reference"], "degraded": r["degraded"],
+                  "nsim": float(np.round(rng.uniform(0.3, 1.0), 3))} for r in rows]
+    nsim_csv = str(root / "nsim.csv")
+    train_data.write_rows(nsim_csv, ("reference", "degraded", "nsim"), nsim_rows)
+    train_csv, valid_csv = str(root / "train.csv"), str(root / "valid.csv")
+    t0 = time.perf_counter()
+    tables = nsim_sampling.build_triplet_csvs(nsim_csv, nsim_csv, train_csv, valid_csv)
+    res["triplets_s"] = time.perf_counter() - t0
+    clean_src = root / "clean_src"
+    shutil.copytree(Path(cfg["root"]) / cfg["in_dir_train_wav"], clean_src / "CLEAN")
+    copied = degrader_drivers.copy_referenced_subset([train_csv, valid_csv], str(clean_src),
+                                                     str(out_root))
+    res |= {"training_rows": len(rows), "intensity_rows": len(test_rows),
+            "triplets": [len(t) for t in tables], "clean_copied": len(copied),
+            "ffmpeg_codecs": codecs}
+    print(f"tools: training set {len(rows)} files in {res['training_set_s']:.1f} s, intensity "
+          f"set {len(test_rows)} in {res['intensity_set_s']:.1f} s ({TOOLS_WORKERS} spawned "
+          f"workers; codecs {'on' if codecs else 'off: no ffmpeg'}); triplets {res['triplets']}"
+          f"; {len(copied)} clean files copied", flush=True)
+
+    recipe = config_io.load(str(TRAIN_RECIPE))
+    recipe.update(root=str(out_root) + "/", train_df=train_csv, valid_df=valid_csv,
+                  checkpoint_path=None, run_dir=str(root / "run"))
+    ds = train_data.TripletDataset(recipe, "train_df", level=recipe["current_level"])
+    batch = train_data.collate_triplets([ds.load_item(i) for i in range(recipe["train_bs"])])
+    if batch.anchor.shape != (recipe["train_bs"], 163_840) or batch.anchor.dtype != np.int16:
+        fail(f"tools: the generated train.csv's batch {batch.anchor.shape} {batch.anchor.dtype}")
+    batch = train_data._pinned(batch)
+    steps = {}
+    for policy in ("full", "dots"):
+        torch.backends.cudnn.deterministic = True
+        try:
+            tr, loss, _, grads = first_train_step(f"tools_recipe_step_{policy}",
+                                                  dict(recipe, remat_policy=policy), batch,
+                                                  launches_want(k5=50), sd)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        gen = step_gen()
+        timing = time_steps(lambda: tr.train_step(batch, gen), TOOLS_STEPS, card,
+                            f"tools: recipe step, remat {policy}")
+        steps[policy] = (loss, grads, timing)
+        release(tr)
+        del tr
+    (loss_f, grads_f, time_f), (loss_d, grads_d, time_d) = steps["full"], steps["dots"]
+    gmax = max(g.abs().max().item() for g in grads_f.values())
+    d_loss = abs(loss_d - loss_f) / abs(loss_f)
+    d_grad = max((grads_d[n] - g).abs().max().item() for n, g in grads_f.items()) / gmax
+    res |= {"step_full": time_f, "step_dots": time_d, "dots_vs_full_loss_rel": d_loss,
+            "dots_vs_full_grad_rel_to_max": d_grad}
+    print(f"tools: remat dots vs full on the generated triplets: loss rel {d_loss:.3g}, gradient "
+          f"max|d|/max|g| {d_grad:.3g} (<= 1e-6); step {time_d['events_median_ms']:.2f} vs "
+          f"{time_f['events_median_ms']:.2f} ms, peak {time_d['peak_mem_gb']:.2f} vs "
+          f"{time_f['peak_mem_gb']:.2f} GB  [{card}]", flush=True)
+    if grads_d.keys() != grads_f.keys() or d_loss > 1e-6 or d_grad > 1e-6:
+        fail(f"tools: remat dots vs full: loss rel {d_loss}, gradient {d_grad}")
+    return res
+
+
+def run_wire_and_tools(card: str) -> None:
+    """Phase 16: the wire codec, the q16 loader, the build cache's cold
+    start and the dataset tools."""
+    report.setdefault("launches", {})
+    out: dict = {"card": card}
+    t_phase = time.perf_counter()
+    sd = SHARED.get("sd")
+    if sd is None:  # run alone: phase 9's seeded init
+        sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    model = NomadModel(Wav2Vec2Config.base(), emb_dim=256)
+    model.load_state_dict(sd)
+    model = model.to(DEV).eval()
+    with tempfile.TemporaryDirectory(prefix="nomad_wire_") as tmp:
+        tmp = Path(tmp)
+        nmr, deg = write_wavs(tmp)
+        paths = [str(p) for p in sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())]
+        waves = EmbeddingEngine(model, DEV).load_waves(paths)
+        out["codec"] = check_codec(waves, card)
+        emb_off, out["packed_vs_raw"] = packed_vs_raw(model, paths, card)
+        (tmp / "q16").mkdir()
+        out["q16"] = check_q16(model, write_q16_tree(tmp / "q16"), emb_off[:N_NMR], card)
+        del model, emb_off
+        settled_allocated_gb()
+        out["cold_serve"] = check_cold_serve(tmp, sd, nmr, deg, card)
+        (tmp / "tools").mkdir()
+        out["tools"] = run_tools(tmp / "tools", sd, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"wire and tools: phase 16 took {out['phase_s']:.1f} s", flush=True)
+    report["wire_and_tools"] = out
+
+
 def run_scoring_k1(card: str) -> None:
     """Phase 4's K1 path alone (``--only-scoring``)."""
     report.setdefault("launches", {})
@@ -4683,6 +5117,8 @@ def main() -> None:
                       help="phases 1, 2 and 14 only; ends with the report line")
     only.add_argument("--only-large-scale", action="store_true",
                       help="phases 1 and 15 only; ends with the report line")
+    only.add_argument("--only-wire-and-tools", action="store_true",
+                      help="phases 1, 2 and 16 only; ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -4696,7 +5132,8 @@ def main() -> None:
              "only_fused_modes": lambda card: (build_kernels(), run_fused_modes(card)),
              "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card)),
              "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card)),
-             "only_large_scale": run_large_scale}
+             "only_large_scale": run_large_scale,
+             "only_wire_and_tools": lambda card: (build_kernels(), run_wire_and_tools(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -4716,6 +5153,7 @@ def main() -> None:
     run_fast_bf16(card)
     run_bf16_paths(card)
     run_large_scale(card)
+    run_wire_and_tools(card)
 
     rows = []
     for name, src, replaces in (

@@ -222,7 +222,7 @@ def build(picked) -> dict:
     variants it names, or, where it names only groups, every variant of
     each (the unchanged kernel's variant bears its group's name). Raises
     when a substitution does not match the source."""
-    root = _build.BUILD_DIR / "variants"
+    root = _build.build_dir() / "variants"
     by_name = set(picked) - set(GROUPS)
     procs = {}
     for name, (src, subs) in VARIANTS.items():

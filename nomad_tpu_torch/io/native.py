@@ -6,7 +6,9 @@ a batch, in a C++ thread pool that runs without the interpreter lock.
 The counterpart of ``nomad_tpu.io.native``. The library is compiled from
 those two sources, which this module reads and never writes, at first
 use with ``g++ -O3 -march=native -fPIC -std=c++17 -shared -pthread`` into
-``build/nomad_tpu_torch/libnomad_native-<hash>.so`` under the checkout.
+``libnomad_native-<hash>.so`` in the build directory
+(``utils/cache.py::build_dir``: ``build/nomad_tpu_torch`` under the checkout
+unless ``NOMAD_TPU_TORCH_CACHE_DIR`` names another).
 The hash covers the sources, the flags and the host's CPU-flag signature:
 ``-march=native`` code can fault on another CPU, so a checkout that moves
 to another host builds again. One process builds at a time (a file lock);
@@ -31,11 +33,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..utils.cache import build_dir
 from .resample import sinc_resample_kernel
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCES = (ROOT / "native" / "nomad_native.cpp", ROOT / "native" / "flac_decoder.cpp")
-BUILD_DIR = ROOT / "build" / "nomad_tpu_torch"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared", "-pthread")
 ABI_VERSION = 1
 BUILD_TIMEOUT_S = 300
@@ -68,7 +70,7 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(cpu_signature().encode())
-    return BUILD_DIR / f"libnomad_native-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libnomad_native-{h.hexdigest()[:16]}.so"
 
 
 def _build(so: Path) -> None:
@@ -77,8 +79,8 @@ def _build(so: Path) -> None:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++, or $CXX) to build the native ingest library")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "libnomad_native.lock", "w") as lock:
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent / "libnomad_native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if so.is_file():
             return
@@ -104,11 +106,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.nomad_load_batch_i16.restype = ctypes.c_int
     lib.nomad_load_batch_i16.argtypes = [_P(ctypes.c_char_p), _i64, _P(_i16), _i64, _P(_i64),
                                          _P(_i32), ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.nomad_load_batch.restype = ctypes.c_int
-    lib.nomad_load_batch.argtypes = [_P(ctypes.c_char_p), _i64, _P(_f32), _i64, _P(_i64),
-                                     _P(_i32), ctypes.c_int, ctypes.c_int, _P(_f32),
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int]
+    for name, sample in (("nomad_load_batch", _f32), ("nomad_load_batch_q16", _i16)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_P(ctypes.c_char_p), _i64, _P(sample), _i64, _P(_i64), _P(_i32),
+                       ctypes.c_int, ctypes.c_int, _P(_f32), ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.nomad_pack_i16.restype = _i64
+    lib.nomad_pack_i16.argtypes = [_P(_i16), _i64, _P(ctypes.c_uint32), _i64, _P(_i32),
+                                   _P(_i32), _P(_i32), ctypes.c_int]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -205,11 +211,12 @@ def _outputs(n: int, pad_len: int, dtype, out, lengths):
 
 
 def native_load_batch_i16(paths: Sequence[str], pad_len: int, target_sr: int = 16000,
-                          num_threads: int = 0, out=None, lengths=None):
-    """Mono PCM16 files at ``target_sr`` -> their raw int16 samples,
-    zero-padded into [n, pad_len] (``out``), with lengths; any other file
-    gets a non-zero error flag and a zero row. Returns (batch, lengths,
-    err_flags) or None when the library is unavailable."""
+                          trim_sec: int = 0, num_threads: int = 0, out=None, lengths=None):
+    """Mono PCM16 files at ``target_sr`` -> their raw int16 samples (the
+    first ``trim_sec`` seconds when it is not 0), zero-padded into [n,
+    pad_len] (``out``), with lengths; any other file gets a non-zero error
+    flag and a zero row. Returns (batch, lengths, err_flags) or None when
+    the library is unavailable."""
     lib = get_lib()
     if lib is None:
         return None
@@ -219,22 +226,28 @@ def native_load_batch_i16(paths: Sequence[str], pad_len: int, target_sr: int = 1
     c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
     lib.nomad_load_batch_i16(c_paths, n, batch.ctypes.data_as(_P(_i16)), pad_len,
                              lengths.ctypes.data_as(_P(_i64)), errs.ctypes.data_as(_P(_i32)),
-                             target_sr, 0, _threads(num_threads))  # 0: no trim
+                             target_sr, trim_sec, _threads(num_threads))
     return batch, lengths, errs
 
 
 def native_load_batch(paths: Sequence[str], pad_len: int, target_sr: int = 16000,
-                      expect_sr: int = 0, num_threads: int = 0, out=None, lengths=None):
+                      trim_sec: int = 0, expect_sr: int = 0, num_threads: int = 0,
+                      quantize_i16: bool = False, out=None, lengths=None):
     """Decode, fold to mono, resample (files at ``expect_sr``; files at
-    ``target_sr`` pass through) and zero-pad n files into a float32
-    [n, pad_len] batch (``out``). Files at any other rate get a non-zero
-    error flag for the caller to retry in Python. Returns (batch, lengths,
-    err_flags) or None when the library is unavailable."""
+    ``target_sr`` pass through), trim to ``trim_sec`` seconds when it is
+    not 0 and zero-pad n files into a float32 [n, pad_len] batch (``out``).
+    Files at any other rate get a non-zero error flag for the caller to
+    retry in Python. ``quantize_i16`` writes an int16 batch instead,
+    rounded to the PCM16 grid in C++ (to nearest, ties to even, clamped): half
+    the bytes to the device, at most 1/65,536 from the float samples.
+    Returns (batch, lengths, err_flags) or None when the library is
+    unavailable."""
     lib = get_lib()
     if lib is None:
         return None
     n = len(paths)
-    batch, lengths = _outputs(n, pad_len, np.float32, out, lengths)
+    sample, ptr = (np.int16, _i16) if quantize_i16 else (np.float32, _f32)
+    batch, lengths = _outputs(n, pad_len, sample, out, lengths)
     errs = np.empty((n,), np.int32)
     c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
     kern_ptr, klen, width, og, ng = None, 0, 0, 0, 0
@@ -243,8 +256,33 @@ def native_load_batch(paths: Sequence[str], pad_len: int, target_sr: int = 16000
         kernels = np.ascontiguousarray(kernels, np.float32)  # kept alive for the call
         klen = kernels.shape[1]
         kern_ptr = kernels.ctypes.data_as(_P(_f32))
-    lib.nomad_load_batch(c_paths, n, batch.ctypes.data_as(_P(_f32)), pad_len,
-                         lengths.ctypes.data_as(_P(_i64)), errs.ctypes.data_as(_P(_i32)),
-                         target_sr, 0, kern_ptr, klen, width, og, ng, expect_sr,  # 0: no trim
-                         _threads(num_threads))
+    fn = lib.nomad_load_batch_q16 if quantize_i16 else lib.nomad_load_batch
+    fn(c_paths, n, batch.ctypes.data_as(_P(ptr)), pad_len, lengths.ctypes.data_as(_P(_i64)),
+       errs.ctypes.data_as(_P(_i32)), target_sr, trim_sec, kern_ptr, klen, width, og, ng,
+       expect_sr, _threads(num_threads))
     return batch, lengths, errs
+
+
+def native_pack_i16(batch, num_threads: int = 8):
+    """The wire codec's packer in C++ (``ops/wirecodec.py`` has the
+    format): a C-contiguous int16 array whose size is a multiple of 1,024
+    -> (packed uint32[total], widths, offsets, firsts), each int32 per
+    1,024-sample block; None when the library is unavailable or the size
+    does not divide."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arr = np.ascontiguousarray(batch, dtype=np.int16)
+    if arr.size % 1024:
+        return None
+    nb = arr.size // 1024
+    cap = nb * (17 * 1024 // 32) + 2  # every block at the widest 17 bit planes
+    packed = np.empty(cap, np.uint32)
+    widths, offsets, firsts = (np.empty(nb, np.int32) for _ in range(3))
+    total = lib.nomad_pack_i16(arr.ctypes.data_as(_P(_i16)), nb,
+                               packed.ctypes.data_as(_P(ctypes.c_uint32)), cap,
+                               widths.ctypes.data_as(_P(_i32)), offsets.ctypes.data_as(_P(_i32)),
+                               firsts.ctypes.data_as(_P(_i32)), num_threads)
+    if total < 0:
+        return None
+    return packed[:total], widths, offsets, firsts

@@ -73,7 +73,13 @@ attention output, after the FFN's GELU (``activation_dropout``) and after
 masks come from a ``torch.Generator``: the model draws one seed for the
 frontend and one per block from it, and each block seeds its own
 generator on the device, so that a block recomputed under ``remat``
-(``torch.utils.checkpoint``) draws the masks it drew in the forward. A
+(``torch.utils.checkpoint``) draws the masks it drew in the forward.
+``remat_policy="dots"`` is ``jax.checkpoint_policies.dots_saveable`` as a
+selective checkpoint: the outputs of the products (``mm``, ``addmm``,
+``bmm``, ``baddbmm`` in every overload, those inside ``ops/precision.py``'s
+autograd Functions included, and ``convolution``) are kept, everything else
+is recomputed, the ctypes kernels K1 and K5 too, as JAX recomputes a
+``pallas_call``. A
 data-parallel rank passes ``rows`` (``ops.attention.BatchRows``): every
 mask is drawn for the global batch and the rank keeps its rows, so the
 ranks apply the single-process step's masks.
@@ -87,7 +93,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import precision as prec_ops
 from ..ops.attention import dropout, mha, mha_dropout
@@ -98,6 +105,10 @@ ATTENTION_IMPLS = ("kernel", "fused_qkv", "ref")
 LAYERNORM_IMPLS = ("kernel", "ref")
 REMAT_POLICIES = ("full", "dots")
 SEED_BOUND = 1 << 62  # seeds drawn for the frontend's and each block's masks
+# the products remat_policy="dots" keeps, as dots_saveable keeps dot_general
+# and conv_general_dilated (every overload: mm.dtype is the bf16 product)
+_aten = torch.ops.aten
+DOT_OPS = frozenset((_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm, _aten.convolution))
 # the islands' fields, outermost first
 ISLAND_FIELDS = ("frontend_precision", "encoder_precision", "attn_score_precision",
                  "ffn1_precision", "posconv_precision")
@@ -129,8 +140,9 @@ class Wav2Vec2Config:
     # no autograd through the conv frontend (a frozen convnet): it runs
     # under no_grad, its output detached
     frontend_stop_gradient: bool = False
-    # recompute each encoder block in the backward (torch.utils.checkpoint);
-    # 'full' only: 'dots' (save the products' outputs) is not ported
+    # recompute each encoder block in the backward (torch.utils.checkpoint):
+    # 'full' recomputes the whole block, 'dots' keeps the products' outputs
+    # and recomputes the rest (JAX's dots_saveable)
     remat: bool = False
     remat_policy: str = "full"
     # 'kernel': the flash-attention / LayerNorm kernels (their plain
@@ -196,10 +208,6 @@ class Wav2Vec2Config:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy must be one of {REMAT_POLICIES}, got {self.remat_policy!r}"
-            )
-        if self.remat and self.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet (ROADMAP Queue 1 item 5); use 'full'"
             )
         for name in ISLAND_FIELDS:
             prec_ops.check(getattr(self, name), name, allow_none=True)
@@ -381,6 +389,15 @@ class PositionalConvEmbedding(nn.Module):
         return F.gelu(y).transpose(1, 2)
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_saveable)
+
+
 def _generator(seed, device):
     """The device generator for one seed; None (deterministic) for None."""
     return None if seed is None else torch.Generator(device=device).manual_seed(seed)
@@ -477,8 +494,9 @@ class TransformerEncoder(nn.Module):
             if remat:
                 # the block seeds its own generator, so the recompute draws
                 # the same masks without the default generators' states
+                kw = {"context_fn": _dots_context} if self.config.remat_policy == "dots" else {}
                 x = checkpoint(layer, x, key_mask, seed, rows, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, **kw)
             else:
                 x = layer(x, key_mask, seed, rows)
             outs.append(x)

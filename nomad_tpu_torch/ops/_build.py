@@ -1,9 +1,11 @@
 """Build the CUDA kernels in ``nomad_tpu_torch/csrc`` and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into its own shared library, ``build/nomad_tpu_torch/<name>-<hash>.so``
-under the checkout, at first use. The hash covers the sources and the
-flags, so an edited kernel rebuilds and an unchanged one loads at once.
+into its own shared library, ``<name>-<hash>.so`` in the build directory
+(``utils/cache.py::build_dir``: ``build/nomad_tpu_torch`` under the
+checkout unless ``NOMAD_TPU_TORCH_CACHE_DIR`` names another), at first
+use. The hash covers the sources and the flags, so an edited kernel
+rebuilds and an unchanged one loads at once.
 Libraries are loaded with ``ctypes``; the wrappers in the sibling modules
 declare each entry's argument types. Nothing here runs at import time.
 """
@@ -18,8 +20,9 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.cache import build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nomad_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -57,7 +60,7 @@ def _target(name: str) -> Path:
         if src.suffix == ".cuh" or src.stem == name:
             h.update(src.name.encode())
             h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
@@ -66,10 +69,10 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     holds ``ptxas``' registers, shared memory and spills per kernel (read
     back from the log of an earlier build where nothing was compiled).
     Raises ``KernelBuildError`` with nvcc's stderr when a build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         so = _target(name)
+        so.parent.mkdir(parents=True, exist_ok=True)
         if so.is_file():
             continue
         tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")

@@ -16,12 +16,27 @@
   * Files: when the native C++ ingest library builds (``io.native``), a
     batch's files are decoded, folded, resampled and padded by its thread
     pool straight into the pinned host batch; mono PCM16 files at 16 kHz
-    ride its int16 loader. Otherwise (or for a file it cannot probe) the
-    Python decoder runs, with the same samples.
+    ride its int16 loader. Any other batch (resampled, stereo, float or
+    FLAC files) is quantized to the PCM16 grid in C++ and rides int16 too
+    (``quantize_transfer``, on by default as in the JAX package: at most
+    1/65,536 per sample from the float samples; False keeps them f32).
+    Otherwise (or for a file it cannot probe) the Python decoder runs,
+    with the same samples. ``trim`` keeps a file's first 10 s.
   * ``file_cache`` (an :class:`EmbeddingLRU`, or None for off): an
-    unchanged file (same path, mtime and size) reuses its embedding,
+    unchanged file (same path, trim, mtime and size) reuses its embedding,
     a 1 KB row kept on the device, so a hit costs no decode, no copy to the
     device and no forward.
+  * ``wire_codec`` ("auto", "on", "off"): the lossless int16 wire codec
+    (``ops/wirecodec.py``). "auto" is off here: the JAX package turns it
+    on on a TPU only. With "on", an int16 batch of at least
+    ``parallel_put_min_bytes`` is packed on the host where it is
+    assembled, its one frame copied from pinned memory and decoded on the
+    device ahead of the forward, which sees the same int16 batch; a frame
+    over ``wire_codec_max_ratio`` of the raw bytes ships raw and counts as
+    a skip. Refused under a mesh.
+  * ``serialize_pipeline``: wait for each batch's embeddings before the
+    next batch is copied (the reference's serial loop, to time the
+    overlap against).
   * ``mesh`` (a ``parallel.data_mesh``): data parallelism over the ranks
     of a process group, as the JAX engine shards its batches over the
     "data" axis. Every rank makes the same ``embed_*`` call on the same
@@ -36,16 +51,22 @@
     ranks would plan different batches and their collectives would not
     meet.
 
-The JAX engine's relay machinery (transfer-mode probes, the wire codec,
-AOT compiles, padding to compiled shapes) answers a TPU host link and
-XLA's compile-per-shape; PyTorch runs eagerly on a local card, so none of
-it is carried over. ``prewarm`` stands in for the compile ladder.
+Members of the JAX engine that stay unported, each an answer to a TPU
+host link or to XLA's compile per shape: the transfer-mode probes,
+parallel puts and their throttle (``_probe_put``, ``_put_large``,
+``probe_interval``); the relay's warm-up and the codec's race
+(``warm_wire_*``, ``_measure_rtt``, ``_probe_codec``); the AOT
+executables (``_aot``, ``_prewarm_keys``); ``pad_to_compiled``. PyTorch
+runs eagerly, and the H100's host link moves a [96, 163,840] int16 batch
+in a small fraction of the forward (``PERF.md``, phase 16 of
+``chip_smoke.py``). ``prewarm`` stands in for the compile ladder.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
@@ -56,6 +77,7 @@ import torch
 from ..io import TARGET_SR, load_for_scoring, load_processing, native, sinc_resample_kernel
 from ..models.heads import NomadModel
 from ..models.wav2vec2 import feature_frame_lengths
+from ..ops import wirecodec
 from ..parallel.mesh import device_for, gather_rows
 from ..utils.profiling import timed
 
@@ -73,6 +95,8 @@ IO_THREADS = 16  # host decode threads
 # 'fused_qkv') hold no [T', T'] buffer and are not capped.
 REF_ATTN_SCORE_BYTES_BUDGET = 20 << 30
 PREWARM_TAILS = (1, 8, 32)  # tail batch sizes prewarm runs besides each full batch
+TRIM_SEC = 10  # ``trim``: a file's first 10 s
+WIRE_CODEC_MODES = ("auto", "on", "off")
 
 
 class EmbeddingLRU:
@@ -80,12 +104,13 @@ class EmbeddingLRU:
     subset the engine uses), as ``nomad_tpu.scoring.engine.EmbeddingLRU``:
     evicts least-recently-used entries beyond ``maxsize``, and drops the
     stale entry of a path the moment a key with a new mtime/size replaces
-    it. Keys are ``EmbeddingEngine._cache_key`` tuples."""
+    it. Keys are ``EmbeddingEngine._cache_key`` tuples, whose first item
+    names the file (its path and trim)."""
 
     def __init__(self, maxsize: int = 65536):
         self.maxsize = int(maxsize)
         self._d: OrderedDict = OrderedDict()
-        self._by_path: dict[str, tuple] = {}  # abspath -> its current key
+        self._by_path: dict = {}  # a key's file -> its current key
         self.evictions = 0
         self.stale_evictions = 0
 
@@ -163,14 +188,28 @@ class EmbeddingEngine:
         batch_sample_budget: int = DEFAULT_BATCH_SAMPLE_BUDGET,
         method: str = "forward",
         mesh=None,
+        quantize_transfer: bool = True,
+        wire_codec: str = "auto",
+        wire_codec_max_ratio: float = 0.95,
+        parallel_put_min_bytes: int = 4 << 20,
+        serialize_pipeline: bool = False,
     ):
         """``method``: the model method that embeds a batch, ``forward``
         (the NOMAD embedding) or ``forward_features`` (the raw pooled
         features of the ``eval_w2v`` ablation). ``file_cache`` starts off
         (None), as the reference recomputes every file; a server sets it.
-        ``device`` may be None under a ``mesh``: the rank's device."""
+        ``device`` may be None under a ``mesh``: the rank's device. The
+        other arguments are the JAX engine's fields of the same names (the
+        module docstring); ``parallel_put_min_bytes`` is only the wire
+        codec's floor here."""
         if method not in ("forward", "forward_features"):
             raise ValueError(f"method must be 'forward' or 'forward_features', got {method!r}")
+        if wire_codec not in WIRE_CODEC_MODES:
+            raise ValueError(f"wire_codec must be one of {WIRE_CODEC_MODES}, got {wire_codec!r}")
+        if wire_codec == "on" and mesh is not None:
+            raise ValueError(
+                "wire_codec='on' under a mesh: the codec packs whole batches on one device, "
+                "where a mesh copies each rank's rows of a batch; use 'auto' or 'off'")
         self.model = model
         self.mesh = mesh
         # the batch plan reads only the world size: None without a mesh
@@ -187,11 +226,18 @@ class EmbeddingEngine:
         self.device = torch.device(device)
         self.batch_sample_budget = batch_sample_budget
         self.method = method
+        self.quantize_transfer = quantize_transfer
+        self.wire_codec = wire_codec
+        self.wire_codec_max_ratio = wire_codec_max_ratio
+        self.parallel_put_min_bytes = parallel_put_min_bytes
+        self.serialize_pipeline = serialize_pipeline
         self.file_cache = None
         self.cache_hits = 0
         self.batches = 0  # forward passes run, for launch-count checks
         self.transfer = dict.fromkeys(
-            ("h2d_bytes_int16", "h2d_bytes_f32", "native_batches", "python_batches"), 0)
+            ("h2d_bytes_int16", "h2d_bytes_f32", "h2d_bytes_packed", "native_batches",
+             "python_batches", "codec_hits", "codec_skips", "codec_saved_bytes"), 0)
+        self._skips_lock = threading.Lock()  # skips are counted on the assemble threads
 
     @property
     def file_cache(self) -> Optional[EmbeddingLRU]:
@@ -207,8 +253,14 @@ class EmbeddingEngine:
         self._file_cache = cache
 
     def transfer_stats(self) -> dict:
-        """Host-to-device bytes by dtype, and batches by ingest path."""
-        return {"batches": self.batches, **self.transfer}
+        """Host-to-device bytes by kind (int16 and f32 batches, packed
+        frames), batches by ingest path, and the wire codec's keys of the
+        JAX engine: frames shipped, batches shipped raw instead, MB saved,
+        and whether the codec is on."""
+        t = dict(self.transfer)
+        saved = t.pop("codec_saved_bytes")
+        return {"batches": self.batches, **t, "codec_saved_MB": round(saved / 1e6, 1),
+                "codec_in_use": self.wire_codec == "on"}
 
     def _attn_batch_cap(self, length: int) -> int:
         """Largest batch whose plain-path attention buffers fit the budget
@@ -310,20 +362,54 @@ class EmbeddingEngine:
             lengths[row] = len(w)
         batch[len(rows):] = batch[len(rows) - 1]
         lengths[len(rows):] = lengths[len(rows) - 1]
-        return host, lengths_t
+        return host, lengths_t, self._encode_batch(host)
+
+    def _encode_batch(self, host: torch.Tensor) -> Optional[torch.Tensor]:
+        """The wire codec's frame of a host batch, its bits as int32 (pinned
+        on CUDA), or None when the batch ships raw: the codec off, not
+        int16, under ``parallel_put_min_bytes``, or a frame over
+        ``wire_codec_max_ratio`` of the raw bytes (counted as a skip)."""
+        batch = host.numpy()
+        if (self.wire_codec != "on" or batch.dtype != np.int16
+                or batch.nbytes < self.parallel_put_min_bytes):
+            return None
+        with timed("engine.encode", nbytes=batch.nbytes):
+            enc = wirecodec.encode(batch)
+            frame = None if enc is None else wirecodec.combined_rows(enc)
+        if frame is None or frame.nbytes > self.wire_codec_max_ratio * batch.nbytes:
+            with self._skips_lock:
+                self.transfer["codec_skips"] += 1
+            return None
+        out = torch.empty(frame.shape, dtype=torch.int32, pin_memory=self.device.type == "cuda")
+        out.numpy()[...] = frame.view(np.int32)
+        return out
 
     def _submit(self, host: torch.Tensor, lengths: torch.Tensor, rows: int,
-                native_ingest: bool) -> torch.Tensor:
-        """Copy a host batch to the device and embed it; the first ``rows``
-        embeddings (the rest are padding)."""
+                native_ingest: bool, frame: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Copy a host batch to the device, or its wire-codec ``frame`` and
+        decode it there, and embed it; the first ``rows`` embeddings (the
+        rest are padding)."""
         nbytes = host.numel() * host.element_size()
-        with timed("engine.submit", items=rows, nbytes=nbytes):
-            wav = host.to(self.device, non_blocking=True)
+        sent = nbytes if frame is None else frame.numel() * frame.element_size()
+        with timed("engine.submit", items=rows, nbytes=sent):
+            if frame is None:
+                wav = host.to(self.device, non_blocking=True)
+            else:
+                wav = wirecodec.decode_combined(frame.to(self.device, non_blocking=True),
+                                                *host.shape)
             if wav.dtype == torch.int16:
                 wav = wav.to(torch.float32) / PCM16_SCALE
             emb = getattr(self.model, self.method)(wav, lengths.to(self.device, non_blocking=True))
+        if self.serialize_pipeline and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.batches += 1
-        self.transfer["h2d_bytes_int16" if host.dtype == torch.int16 else "h2d_bytes_f32"] += nbytes
+        if frame is None:
+            self.transfer["h2d_bytes_int16" if host.dtype == torch.int16
+                          else "h2d_bytes_f32"] += nbytes
+        else:
+            self.transfer["h2d_bytes_packed"] += sent
+            self.transfer["codec_hits"] += 1
+            self.transfer["codec_saved_bytes"] += nbytes - sent
         self.transfer["native_batches" if native_ingest else "python_batches"] += 1
         return emb[:rows]
 
@@ -379,17 +465,17 @@ class EmbeddingEngine:
                 ex.submit(self._assemble, waves, i16able, *job) for job in chunks
             ]
             for (chunk, _bsz, _blen), fut in zip(chunks, futures):
-                host, lengths = fut.result()
+                host, lengths, frame = fut.result()
                 outs.append(self._submit(host, lengths, self._kept(chunk, host),
-                                         native_ingest=False))
+                                         native_ingest=False, frame=frame))
             return self._collect(chunks, outs, n)
 
     def embed_waves(self, waves: Sequence[np.ndarray]) -> np.ndarray:
         return self.embed_waves_device(waves).cpu().numpy()
 
-    def load_waves(self, paths: Sequence[str]):
+    def load_waves(self, paths: Sequence[str], trim: bool = False):
         with ThreadPoolExecutor(max_workers=IO_THREADS) as ex:
-            return list(ex.map(load_for_scoring, paths))
+            return list(ex.map(lambda p: load_for_scoring(p, trim=trim), paths))
 
     def prewarm(self, durations: Sequence[float] = (10.0,)) -> None:
         """Embed one zero batch at each duration's full batch shape and at
@@ -412,22 +498,23 @@ class EmbeddingEngine:
 
     # ---------------- files ----------------
 
-    def _cache_key(self, path: str):
+    def _cache_key(self, path: str, trim: bool = False):
         try:
             st = os.stat(path)
         except OSError:
             return None  # unstatable: let the embed path report the error
-        return (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+        return ((os.path.abspath(path), trim), st.st_mtime_ns, st.st_size)
 
-    def embed_files_device(self, paths: Sequence[str]) -> torch.Tensor:
-        """Files -> [N, emb_dim] f32 on the device, in input order. With
-        ``file_cache``, unchanged files reuse their earlier embedding (the
-        same bits: the forward is deterministic per file and batch shape);
-        only the misses are decoded and embedded, in batches of their own."""
+    def embed_files_device(self, paths: Sequence[str], trim: bool = False) -> torch.Tensor:
+        """Files -> [N, emb_dim] f32 on the device, in input order (with
+        ``trim``, of each file's first 10 s). With ``file_cache``,
+        unchanged files reuse their earlier embedding (the same bits: the
+        forward is deterministic per file and batch shape); only the misses
+        are decoded and embedded, in batches of their own."""
         paths = list(paths)
         if self.file_cache is None or not paths:
-            return self._embed_files_uncached(paths)
-        keys = [self._cache_key(p) for p in paths]
+            return self._embed_files_uncached(paths, trim)
+        keys = [self._cache_key(p, trim) for p in paths]
         # snapshot the hits before inserting: the inserts below may evict
         # this request's own hits from a bounded cache
         hits = {i: self.file_cache[k] for i, k in enumerate(keys)
@@ -436,7 +523,7 @@ class EmbeddingEngine:
         missing = [i for i in range(len(paths)) if i not in hits]
         fresh = {}
         if missing:
-            emb = self._embed_files_uncached([paths[i] for i in missing])
+            emb = self._embed_files_uncached([paths[i] for i in missing], trim)
             for row, i in enumerate(missing):
                 fresh[i] = emb[row]
                 if keys[i] is not None:
@@ -444,26 +531,27 @@ class EmbeddingEngine:
                     self.file_cache[keys[i]] = emb[row].clone()
         return torch.stack([hits[i] if i in hits else fresh[i] for i in range(len(paths))])
 
-    def embed_files(self, paths: Sequence[str]) -> np.ndarray:
-        return self.embed_files_device(paths).cpu().numpy()
+    def embed_files(self, paths: Sequence[str], trim: bool = False) -> np.ndarray:
+        return self.embed_files_device(paths, trim).cpu().numpy()
 
-    def _embed_files_uncached(self, paths: list) -> torch.Tensor:
+    def _embed_files_uncached(self, paths: list, trim: bool) -> torch.Tensor:
         if not paths:
             return self._empty()
-        emb = self._embed_files_native(paths)
+        emb = self._embed_files_native(paths, trim)
         if emb is not None:
             return emb
-        return self.embed_waves_device(self.load_waves(paths))
+        return self.embed_waves_device(self.load_waves(paths, trim))
 
-    def _embed_files_native(self, paths: list) -> Optional[torch.Tensor]:
+    def _embed_files_native(self, paths: list, trim: bool) -> Optional[torch.Tensor]:
         """The native ingest path (counterpart of the JAX engine's
         ``_embed_files_native``): probe every file, plan batches by the
-        predicted length at 16 kHz, keep files of other rates in batches of
-        their own (one resampling kernel bank per batch), and decode each
-        batch in the C++ thread pool into its pinned host batch: int16 when
-        every file of the batch is mono PCM16 at 16 kHz, f32 otherwise (a
-        FLAC file turns its batch f32). None when the library is
-        unavailable or a file cannot be probed: the Python path runs."""
+        predicted length at 16 kHz (trimmed), keep files of other rates in
+        batches of their own (one resampling kernel bank per batch), and
+        decode each batch in the C++ thread pool into its pinned host batch:
+        raw int16 when every file of the batch is mono PCM16 at 16 kHz;
+        otherwise quantized to int16 in C++ with ``quantize_transfer``, else
+        f32. None when the library is unavailable or a file cannot be
+        probed: the Python path runs."""
         if not native.available():
             return None
         infos = [native.native_probe(p) for p in paths]
@@ -472,33 +560,37 @@ class EmbeddingEngine:
         rates = [info[0] for info in infos]
         i16 = [sr == TARGET_SR and ch == 1 and bits == 16 and not is_float and not is_flac
                for sr, _frames, ch, bits, is_float, is_flac in infos]
-        chunks = self.plan([predicted_length(sr, frames) for sr, frames, *_ in infos],
-                           groups=rates)
+        trim_sec = TRIM_SEC if trim else 0
+        limit = TARGET_SR * trim_sec if trim else math.inf
+        chunks = self.plan([min(predicted_length(sr, frames), limit)
+                            for sr, frames, *_ in infos], groups=rates)
         outs = []
         with torch.inference_mode():
             for chunk, bsz, blen in chunks:
                 is_i16 = all(i16[i] for i in chunk)
                 rows = self._rank_rows(chunk, bsz)
                 k = len(rows)
-                host, lengths_t = self._host_batch(bsz // (self.world or 1), blen,
-                                                   torch.int16 if is_i16 else torch.float32)
+                host, lengths_t = self._host_batch(
+                    bsz // (self.world or 1), blen,
+                    torch.int16 if is_i16 or self.quantize_transfer else torch.float32)
                 batch, lengths = host.numpy(), lengths_t.numpy()
                 chunk_paths = [paths[i] for i in rows]
                 with timed("engine.native_ingest", items=k):
                     if is_i16:
                         _, _, errs = native.native_load_batch_i16(
-                            chunk_paths, blen, TARGET_SR, IO_THREADS,
+                            chunk_paths, blen, TARGET_SR, trim_sec, IO_THREADS,
                             out=batch[:k], lengths=lengths[:k])
                     else:
                         sr = rates[chunk[0]]
                         _, _, errs = native.native_load_batch(
-                            chunk_paths, blen, TARGET_SR,
+                            chunk_paths, blen, TARGET_SR, trim_sec,
                             expect_sr=0 if sr == TARGET_SR else sr, num_threads=IO_THREADS,
-                            out=batch[:k], lengths=lengths[:k])
+                            quantize_i16=self.quantize_transfer, out=batch[:k],
+                            lengths=lengths[:k])
                 for row, i in enumerate(rows):
                     if errs[row] != 0:  # a file the C++ path refused: decode it in Python
-                        w = load_processing(paths[i])[0][:blen]
-                        if is_i16:
+                        w = load_processing(paths[i], trim=trim)[0][:blen]
+                        if batch.dtype == np.int16:
                             w = np.clip(np.round(w * PCM16_SCALE), -32768, 32767).astype(np.int16)
                         batch[row] = 0
                         batch[row, : len(w)] = w
@@ -506,7 +598,7 @@ class EmbeddingEngine:
                 batch[k:] = batch[k - 1]
                 lengths[k:] = lengths[k - 1]
                 outs.append(self._submit(host, lengths_t, self._kept(chunk, host),
-                                         native_ingest=True))
+                                         native_ingest=True, frame=self._encode_batch(host)))
             return self._collect(chunks, outs, len(paths))
 
 

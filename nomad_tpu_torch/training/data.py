@@ -3,7 +3,10 @@ the stdlib ``csv`` module.
 
   * ``read_table`` reads a CSV as pandas' ``read_csv`` types it: a column
     whose cells are all ints holds ints, one whose cells are all numbers
-    holds floats (an empty cell is NaN), any other holds strings.
+    holds floats (an empty cell is NaN), any other holds strings. Floats
+    are parsed as pandas' C parser parses them (``pandas_float``), which
+    is not always the correctly rounded value ``float()`` gives;
+    ``write_rows`` writes rows back as ``to_csv(index=False)`` does.
   * ``TripletDataset``: columns db, Anchor, Positive, Negative (+ the
     distances); the ``db`` level filter compares parsed values, duplicate
     rows are dropped keeping the first (pandas ``drop_duplicates``), and a
@@ -38,13 +41,50 @@ from ..io import load_processing
 from ..scoring.engine import PCM16_SCALE, bucket_length, wave_i16able
 
 _INT = re.compile(r"\s*[-+]?\d+\s*$")
+_DECIMAL = re.compile(r"\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*$")
+_POW10 = tuple(float(f"1e{k}") for k in range(309))  # the parser's table of literals
+_MAX_DIGITS = 17
+
+
+def pandas_float(text: str) -> float:
+    """A decimal cell as pandas' C parser reads it (``precise_xstrtod``, its
+    default): the first 17 digits accumulated in a double, one digit at a
+    time, then one multiply or divide by a power of ten. "0.9500000000000001"
+    reads as 0.95, where ``float()`` keeps the last digit. Other text
+    ("nan", "inf") goes to ``float()``."""
+    m = _DECIMAL.match(text)
+    if m is None or not (m.group(2) or m.group(3)):
+        return float(text)
+    sign, whole, frac, exp = m.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for c in whole:
+        if digits < _MAX_DIGITS:
+            number = number * 10.0 + (ord(c) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for c in (frac or "")[: _MAX_DIGITS - digits]:
+        number = number * 10.0 + (ord(c) - 48)
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    if exp:
+        n = int(exp.lstrip("+-")[:_MAX_DIGITS])
+        exponent += -n if exp.startswith("-") else n
+    if exponent > 308:
+        return math.copysign(math.inf, number)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
 
 
 def _column_values(cells: list) -> list:
     if all(_INT.match(c) for c in cells):
         return [int(c) for c in cells]
     try:
-        return [float(c) if c.strip() else math.nan for c in cells]
+        return [pandas_float(c) if c.strip() else math.nan for c in cells]
     except ValueError:
         return cells
 
@@ -60,6 +100,16 @@ def read_table(path: str) -> list:
             raise ValueError(f"{path}:{n}: {len(r)} cells under {len(header)} columns")
     columns = [_column_values([r[j] for r in raw]) for j in range(len(header))]
     return [dict(zip(header, vals)) for vals in zip(*columns)]
+
+
+def write_rows(path: str, columns, rows: list) -> None:
+    """Rows (dicts) -> a CSV as pandas' ``to_csv(index=False)`` writes
+    it: a header, minimal quoting, '\\n' line ends, floats in their
+    shortest repr."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(columns)
+        w.writerows([row[c] for c in columns] for row in rows)
 
 
 def drop_duplicates(rows: list) -> list:

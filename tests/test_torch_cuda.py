@@ -1140,3 +1140,52 @@ def test_nccl_world_of_one_step_is_bit_equal(cuda, nccl_one):
     assert l0 == l1
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
     assert all(torch.equal(s0[i][k], s1[i][k]) for i in s0 for k in s0[i])
+
+
+def test_wire_codec_decodes_on_the_card(cuda):
+    """The codec's frame decoded on the card: the input's bits, through
+    the engine too (packed and raw embeddings bit-equal)."""
+    import numpy as np
+
+    from nomad_tpu_torch.ops import wirecodec
+    from nomad_tpu_torch.scoring.engine import EmbeddingEngine
+
+    rng = np.random.default_rng(5)
+    t = np.arange(2 * 8192) / 16000
+    arr = np.round(3000 * np.sin(2 * np.pi * 150 * t)[None] + rng.integers(-40, 40, (6, t.size))
+                   ).astype(np.int16)
+    arr[2] = rng.integers(-32768, 32768, t.size)
+    frame = torch.from_numpy(wirecodec.combined_rows(wirecodec.encode(arr)).view(np.int32))
+    dec = wirecodec.decode_combined(frame.to(cuda), *arr.shape)
+    assert dec.device.type == "cuda" and np.array_equal(dec.cpu().numpy(), arr)
+    tiny64 = Wav2Vec2Config.tiny(hidden_size=128, num_heads=2, ffn_dim=256)  # K1's 64-wide heads
+    model = init_weights(NomadModel(tiny64, emb_dim=16), seed=1).to(cuda).eval()
+    waves = list(arr[[0, 1, 3, 4, 5]])
+    on = EmbeddingEngine(model, cuda, wire_codec="on", parallel_put_min_bytes=1024)
+    emb = on.embed_waves(waves)
+    assert on.transfer_stats()["codec_hits"] == on.batches >= 1
+    assert np.array_equal(emb, EmbeddingEngine(model, cuda).embed_waves(waves))
+
+
+def test_remat_dots_on_the_card(cuda):
+    """``remat_policy="dots"`` with dropout on the kernels: the loss and
+    gradients of "full" remat, which recomputes K5 too."""
+    wav = torch.randn(3, 4000, generator=torch.Generator().manual_seed(2)).to(cuda)
+    lengths = torch.tensor([4000, 3100, 1700], device=cuda)
+    out = {}
+    for policy in ("full", "dots"):
+        model = init_weights(NomadModel(Wav2Vec2Config.tiny(remat=True, remat_policy=policy),
+                                        emb_dim=16), seed=4).to(cuda)
+        before = layernorm.launches
+        emb = model(wav, lengths, deterministic=False,
+                    generator=torch.Generator().manual_seed(9))
+        loss = (emb[0] - emb[1]).square().sum() + emb[2].sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        out[policy] = (loss.item(), {n: p.grad for n, p in model.named_parameters()
+                                     if p.grad is not None}, layernorm.launches - before)
+    (loss_f, grads_f, k5_f), (loss_d, grads_d, k5_d) = out["full"], out["dots"]
+    assert k5_f == k5_d > 0
+    assert abs(loss_d - loss_f) <= 1e-6 * abs(loss_f)
+    for name, g in grads_f.items():
+        torch.testing.assert_close(grads_d[name], g, rtol=1e-6, atol=1e-7, msg=name)

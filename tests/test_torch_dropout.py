@@ -127,9 +127,45 @@ def test_remat_gives_the_same_loss_and_gradients_with_dropout(batch, frontend_st
     assert all(bool(grads[n].abs().max() == 0) == frontend_stop_gradient for n in frontend)
 
 
+@pytest.mark.parametrize("islands", ["exact", "fast"])
+def test_remat_dots_gives_the_same_loss_and_gradients(batch, islands, monkeypatch):
+    """``remat_policy="dots"`` with dropout: the loss and gradients of the
+    model without remat, to the bit here, and the policy keeps every
+    product of each block (6 linear layers and the attention's 2 products),
+    those inside ``ops/precision.py``'s autograd Functions at a bf16
+    island included, and nothing else."""
+    cfg = {**RATES, **wav2vec2.PRECISION_ISLANDS[islands]}
+    plain = init_weights(NomadModel(Wav2Vec2Config.tiny(**cfg), emb_dim=EMB), seed=5)
+    dots = NomadModel(Wav2Vec2Config.tiny(remat=True, remat_policy="dots", **cfg), emb_dim=EMB)
+    dots.load_state_dict(plain.state_dict())
+    saved = []
+    policy = wav2vec2._dots_saveable
+
+    def spy(ctx, op, *args, **kwargs):
+        verdict = policy(ctx, op, *args, **kwargs)
+        if verdict == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append(op.overloadpacket)
+        return verdict
+
+    monkeypatch.setattr(wav2vec2, "_dots_saveable", spy)
+    wav, lengths = batch
+    loss, grads = _loss_and_grads(plain, wav, lengths, 21)
+    assert not saved
+    loss_d, grads_d = _loss_and_grads(dots, wav, lengths, 21)
+    assert torch.equal(loss, loss_d)
+    for name, g in grads.items():
+        torch.testing.assert_close(grads_d[name], g, rtol=1e-6, atol=1e-9, msg=name)
+    layers = dots.config.num_layers
+    linear = torch.ops.aten.mm if islands == "fast" else torch.ops.aten.addmm
+    assert saved.count(linear) == 6 * layers and saved.count(torch.ops.aten.bmm) == 2 * layers
+    assert len(saved) == 8 * layers
+
+
 def test_remat_policy_dots_is_not_ported():
-    with pytest.raises(NotImplementedError, match="dots"):
-        Wav2Vec2Config.tiny(remat=True, remat_policy="dots")
+    """The remat policies' checks. "dots", once refused, now builds (the
+    selective checkpoint: ``test_remat_dots_gives_the_same_loss_and_gradients``);
+    an unknown policy and a rate of 1 raise."""
+    assert Wav2Vec2Config.tiny(remat=True, remat_policy="dots").remat_policy == "dots"
     with pytest.raises(ValueError, match="remat_policy"):
         Wav2Vec2Config.tiny(remat_policy="some")
     with pytest.raises(ValueError, match="dropout"):

@@ -170,7 +170,9 @@ def test_native_batch_loaders_match_python(lib, files):
 
 def test_engine_scores_flac_as_its_wav_twin(lib, files):
     model = init_weights(NomadModel(Wav2Vec2Config.tiny(), emb_dim=16), seed=2).eval()
-    eng = EmbeddingEngine(model, torch.device("cpu"))
+    # f32 batches, as the Python path ships them: the default quantizes the
+    # stereo and resampled files' batches (tests/test_torch_ingest_q16.py)
+    eng = EmbeddingEngine(model, torch.device("cpu"), quantize_transfer=False)
     order = ["a", "a_flac", "st", "st_flac", "b", "r22"]
     emb = eng.embed_files([files[n] for n in order])
     stats = eng.transfer_stats()

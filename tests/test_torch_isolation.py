@@ -1,6 +1,7 @@
 """The port stands alone: nothing in ``nomad_tpu_torch`` or ``chip_smoke.py``
-imports JAX, flax or the JAX package, and its entry points run on the
-card unless the caller asks for the CPU."""
+imports JAX, flax or the JAX package, nor pandas, click, tqdm or PyYAML,
+which the card's machine lacks; and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -15,7 +16,10 @@ import nomad_tpu_torch.api as tapi
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nomad_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nomad_tpu", "pandas", "click", "tqdm", "yaml"}
+# torch.hub imports tqdm itself when it is installed (as here, not on the
+# card's machine): the port's own imports of it are caught by the source scan
+NOT_LOADED = FORBIDDEN - {"tqdm"}
 
 
 def _port_sources():
@@ -45,8 +49,10 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, nomad_tpu_torch.api, nomad_tpu_torch.__main__, nomad_tpu_torch.parallel\n"
         "import nomad_tpu_torch.scoring.large_scale, nomad_tpu_torch.graft_entry\n"
+        "import nomad_tpu_torch.utils.degrader_drivers, nomad_tpu_torch.utils.nsim_sampling\n"
+        "import nomad_tpu_torch.ops.wirecodec, nomad_tpu_torch.utils.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{sorted(FORBIDDEN)!r})\n"
+        f"{sorted(NOT_LOADED)!r})\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

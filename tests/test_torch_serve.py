@@ -179,7 +179,8 @@ def test_stats_and_warm_ops(tiny_params, tree):
     assert {"engine.submit", "engine.collect", "engine.native_ingest"} <= set(got["stats"])
     t = got["transfer"]
     assert t["batches"] == t["native_batches"] + t["python_batches"] > 0
-    assert t["h2d_bytes_int16"] > 0 and t["h2d_bytes_f32"] > 0  # the FLAC file rides f32
+    # the FLAC file's batch is quantized to int16 in C++ (quantize_transfer)
+    assert t["h2d_bytes_int16"] > 0 and t["h2d_bytes_f32"] == 0
     warm = srv.handle({"op": "warm", "seconds": [0.3]})
     assert warm["ok"] and set(warm["warmed_s"]) == {"0.3", "total"}
     assert srv.nomad.engine.batches == t["batches"]  # prewarm counts no batch

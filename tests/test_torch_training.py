@@ -203,6 +203,30 @@ def test_one_train_step_matches_jax(tree, jax_params, freeze_convnet):
             assert not np.array_equal(ours[key], before[key]), key
 
 
+def test_remat_dots_step_equals_no_remat(tree, jax_params):
+    """``remat_policy: dots`` (the selective checkpoint: products kept, the
+    rest recomputed) against the step without remat, dropout on: the same
+    loss and gradients within 1e-6; the JAX trainer takes the same key."""
+    def step(**over):
+        tr = Training(train_config(tree, **over), device="cpu",
+                      params=jax_to_state_dict(jax_params), model_config=Wav2Vec2Config.tiny())
+        batch = data.collate_triplets([tr.train_set.load_item(i) for i in (0, 1, 3)])
+        loss = tr.train_step(batch, torch.Generator().manual_seed(0))
+        return tr, loss.item(), {n: p.grad.clone() for n, p in tr.model.named_parameters()
+                                 if p.grad is not None}
+
+    tr, loss, grads = step(remat=True, remat_policy="dots")
+    assert tr.model_config.remat and tr.model_config.remat_policy == "dots"
+    assert tr.model_config.dropout > 0
+    assert _jax_training(tree, jax_params, remat_policy="dots").model_config.remat_policy == "dots"
+    plain, loss0, grads0 = step(remat=False)
+    assert not plain.model_config.remat
+    assert abs(loss - loss0) <= 1e-6
+    assert grads.keys() == grads0.keys()
+    for name, g in grads0.items():
+        torch.testing.assert_close(grads[name], g, rtol=0, atol=1e-6, msg=name)
+
+
 def test_lr_decay_and_early_stop_match_jax(tree, jax_params, tmp_path, monkeypatch):
     """Q10 and early stop over scripted validation losses: the same LRs
     per epoch, the same saves and the same last epoch as the JAX loop."""

@@ -4,19 +4,20 @@ differentiate.
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
                            --only-fused-modes | --only-fast-bf16 | --only-bf16-paths |
-                           --only-large-scale | --only-wire-and-tools]
+                           --only-large-scale | --only-wire-and-tools | --only-high3]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from nomad_tpu_torch/csrc with nvcc,
      print ptxas' registers, shared memory and spills (a spill fails, and
      so does a log without the K1b and K2b/K3b kernels and prologues the
-     check must cover), and the occupancy (blocks per SM; K4's and K4b's
-     clusters on the card) of K1, K1b, K2, K3, K4 and K4b (K1b, K2b and
-     K3b failing below the blocks per SM their plan claims; K4b at each
-     cluster size of its plan, 3 and 2 .. 16, failing below the 2 blocks
-     per SM it is built for or with no cluster on the card); build the
-     native C++ ingest library (``native/``, g++);
+     check must cover), and the occupancy (blocks per SM; K4's, K4h's and
+     K4b's clusters on the card) of K1, K1b, K2, K3, K4, K4h and K4b (K1b,
+     K2b and K3b failing below the blocks per SM their plan claims; K4h at
+     T in {50, 65, 511, 1024} below its 1 block per SM or with no cluster
+     on the card; K4b at each cluster size of its plan, 3 and 2 .. 16,
+     failing below the 2 blocks per SM it is built for or with no cluster
+     on the card); build the native C++ ingest library (``native/``, g++);
   3. hold each kernel against its plain PyTorch version on the card at the
      paths' shapes, and time kernel, plain version and one PyTorch call
      computing the same function (a yardstick the port never calls),
@@ -24,9 +25,18 @@ Phases, each fatal on failure:
      scoring shapes, K2 and K3 (the attention backward) at the loss shape,
      the triplet-training shape and a ragged long shape, and untimed at
      every edge of their tiles, with NaN past the bound and a rerun that
-     must give the same bits, K4 (projection-fused attention) at the
-     scoring and loss shapes and a ragged [8, 1024] shape with garbage
-     past each bound;
+     must give the same bits, K4 (projection-fused attention, "highest")
+     at the scoring and loss shapes and a ragged [8, 1024] shape with
+     garbage past each bound; K4h (its "high3": three bf16 passes a product
+     on hi/lo splits, the fused "exact" and "balanced" paths' kernel) at
+     [96, 511] (lengths to 499, a 0-key row), [32, 50], a ragged [8, 1024],
+     [16, 65] and T in {1, 17, 64}, against its plain version within
+     TOL_FUSED, held to float64 attention over each call (|O - O_f64| <=
+     1.5 x the plain version's + 1e-6, and >= half of it), NaN past each
+     bound changing no
+     valid row, 123.0 there leaving every row finite, a rerun the same
+     bits, its prologue's split weights and x bit-equal to their plain
+     versions, timed beside the plain version and f32 ``F.linear`` + SDPA;
   4. the scoring paths at full wav2vec 2.0 BASE width with seeded weights:
      ``python -m nomad_tpu_torch --mode dir`` on 8 + 100 seeded 10 s WAVs,
      then ``Nomad(device="cuda").predict`` in process with the kernel
@@ -34,10 +44,14 @@ Phases, each fatal on failure:
      on the same card and against batch-1 runs; warm throughput, pass time
      and peak memory; one warm pass under torch.profiler (device time by
      kernel group, the device's idle share). Then the same for the fused
-     path (``attention_impl="fused_qkv"``: K4, no K1), held against the
-     plain and K1 paths, and two single files on it: 300,000 samples
-     (T' = 1,023, K4) and 400,000 (T' = 1,433, past K4's limit: K1);
-  5. the loss paths at the same width, K1's and the fused one:
+     path (``attention_impl="fused_qkv"``: K4h, no K1), held against its
+     plain path (the fused kernel's plain version at "high", plain
+     LayerNorm) and the K1 path, with its pairwise score delta against the
+     K1 path, and two single files on it: 300,000 samples (T' = 1,023,
+     K4h) and 400,000 (T' = 1,433, past the fused limit: K1); and one batch
+     of 96 files with the frontend and the encoder at "highest" (K4 12);
+  5. the loss paths at the same width, K1's and the fused one (K4h, held
+     against its own plain path):
      ``Nomad.forward(estimate, clean)`` and ``.backward()`` on 32 seeded
      16,384-sample crops, then K1's on 24 seeded 10 s clips (160,000
      samples, T' = 499: the triplet batch's attention shape), with the
@@ -159,8 +173,8 @@ Phases, each fatal on failure:
      profiled pass, two single files (T' = 1,023: K4b; T' = 1,433: K1b);
      the fused "fast" loss at 32 x 16,384 and 24 x 160,000 samples (K4b
      24, K1b 12, K2b 12, K3b 12, K5 52 a step) with phase 10's checks;
-     and "balanced" with ``fused_qkv`` (K4 24, no K4b: the fused kernel
-     takes the projections' island);
+     and "balanced" with ``fused_qkv`` (K4h 12 a batch, no K4b: the fused
+     kernel takes the projections' island);
  13. the trainer's ``fast_bf16`` (bf16 activations in the block stack):
      the bf16-I/O flavours of K5 (at [49056, 768] and [11976, 768]), K1b
      (at [96, 511] with lengths to 499, [24, 499], a ragged [8, 4095] and
@@ -185,9 +199,9 @@ Phases, each fatal on failure:
      ``eval_audio_quality``; step times, enqueue, peak memory and profiles
      beside "fast"'s in the same run;
  14. bf16 activations on every attention path: the bf16-I/O flavours of
-     K4 and K4b (at [96, 511] with lengths to 499, [32, 50], a ragged [8,
-     1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511, 1023,
-     1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
+     K4, K4h and K4b (at [96, 511] with lengths to 499, [32, 50], a ragged
+     [8, 1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511,
+     1023, 1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
      and every edge T in {1, 15, 16, 17, 63, 64, 65, 511, 127, 128, 129,
      191, 192, 193, 257}) and of K2 +
      K3 (the same, but [96, 511]), each case with a full, a ragged, a 1-key
@@ -201,9 +215,11 @@ Phases, each fatal on failure:
      attention_impl="fused_qkv")`` on phase 4's 108 files (K4b-bf16 12, K5
      2, K5-bf16 24 per batch) against its plain path by phase 12's rule,
      its device pass beside the fused "fast" pass on f32 activations, peak
-     and one profiled pass; "balanced" with ``fused_qkv`` (K4-bf16 12) and
-     BASE (K1-bf16 12) on bf16 activations on one batch of 96 files; the
-     loss of the three (BASE also fused) at 32 x 16,384 and 24 x 160,000
+     and one profiled pass; "balanced" with ``fused_qkv`` (K4h-bf16 12),
+     the fused path with the frontend and the encoder at "highest"
+     (K4-bf16 12) and BASE (K1-bf16 12) on bf16 activations on one batch of
+     96 files; the loss of the three (BASE also fused: K4h-bf16) at 32 x
+     16,384 and 24 x 160,000
      samples by phase 10's rule against their own plain path; and the
      trainer's ``fast_bf16`` on the fused path at phase 13's recipe on
      phase 10's state dict: the recipe's step (the plain dropout attention,
@@ -262,7 +278,10 @@ newer than the loss path's). ``--only-train`` runs phases 1 and 6 alone,
 and 10, ``--only-fused-modes`` phases 1, 2 and 12, ``--only-fast-bf16``
 phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14,
 ``--only-large-scale`` phases 1 and 15, ``--only-wire-and-tools`` phases
-1, 2 and 16, each ending with the report line.
+1, 2 and 16, ``--only-high3`` phases 1 and 2, phase 3's K4h checks and
+the K4h-bf16 checks of phase 14 at the scoring shape, phase 4 and phase
+5's fused loss (the paths that drive K4h), each ending with the report
+line.
 """
 
 from __future__ import annotations
@@ -501,8 +520,11 @@ def card_info() -> str:
 # ---------------- phase 2: build ----------------
 
 # kernels whose ptxas lines the spill check must find, by source: the
-# K1b and K2b/K3b prologues and kernels (each flavour a template instance)
+# K1b, K2b/K3b, K4b and K4h prologues and kernels (each flavour a template
+# instance; K4b's pass count 1, K4h's 3, as the mangled names give them)
 PTXAS_ENTRIES = {
+    "fused_attention_bf16": ("fused_qkv_fwd_bf16_kernelILi1E", "fused_qkv_fwd_bf16_kernelILi3E",
+                             "pack_kernelILb0E", "pack_kernelILb1E"),
     "flash_attention_bf16": ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel"),
     "flash_attention_bwd_bf16": ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                                  "flash_bwd_fold_bf16_kernel"),
@@ -571,13 +593,20 @@ def build_kernels() -> None:
                      f"{plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         for prec, io, name in (("highest", False, "fused_qkv_attention_fwd"),
-                               ("highest", True, "fused_qkv_attention_f32_bf16io_fwd")):
+                               ("highest", True, "fused_qkv_attention_f32_bf16io_fwd"),
+                               ("high", False, "fused_qkv_attention_high3_fwd"),
+                               ("high", True, "fused_qkv_attention_high3_bf16io_fwd")):
             plan = fused_attention.fused_launch_plan(t, 1, 12, prec)
             blocks, clusters = fused_attention.fused_occupancy(t, prec, io)
             occ[f"{name}_T{t}"] = {
                 "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
                 "blocks_per_sm": blocks, "clusters_on_card": clusters,
-                "smem_bytes": plan.smem_bytes}
+                "smem_bytes": plan.smem_bytes, "threads": plan.threads}
+            # K4h: its planes fill the shared memory of one block an SM
+            if prec == "high" and (blocks < fused_attention.FUSED_HIGH3_BLOCKS_PER_SM
+                                   or clusters < 1):
+                fail(f"K4h ({name}) at cluster {plan.cluster}: {blocks} blocks per SM (built for "
+                     f"{fused_attention.FUSED_HIGH3_BLOCKS_PER_SM}), {clusters} clusters")
     # K4b at every cluster size of its plan: 3 (T <= 64), then 2 .. 16
     for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
         for io, name in ((False, "fused_qkv_attention_bf16_fwd"),
@@ -769,13 +798,17 @@ def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bo
 
 
 def fused_bound(b: int, t: int, h: int, dm: int, lengths: torch.Tensor,
-                peak_flops: float = F32_FLOPS, x_bytes: int = 4) -> tuple[float, str]:
+                peak_flops: float = F32_FLOPS, x_bytes: int = 4,
+                passes: tuple = (1, 1)) -> tuple[float, str]:
     """Q is projected for all T rows, K and V for the valid keys only, and
-    every query row attends the valid keys. Bytes: x, the three weights
-    and biases, lengths and O, each once; x and O ``x_bytes`` an element,
-    the rest 4."""
+    every query row attends the valid keys; ``passes``: the bf16 passes of
+    the projections and of the two attention products (K4h's high3: 3 and
+    3, on a bf16 x, whose lo plane is 0, 2 and 3). Bytes: x, the three
+    weights and biases, lengths and O, each once; x and O ``x_bytes`` an
+    element, the rest 4."""
     keys = int(lengths.long().sum())
-    flops = 2.0 * b * t * dm * dm + 4.0 * keys * dm * dm + 4.0 * h * 64 * t * keys
+    flops = passes[0] * (2.0 * b * t * dm * dm + 4.0 * keys * dm * dm) + (
+        passes[1] * 4.0 * h * 64 * t * keys)
     nbytes = x_bytes * 2.0 * b * t * dm + 4.0 * (3 * dm * dm + 3 * dm + b)
     return bound(nbytes, flops, peak_flops)
 
@@ -818,25 +851,155 @@ def check_fused(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
            "tolerance": [TOL_FUSED, RTOL_FUSED], "bound_ms": b_ms, "bound_by": b_by,
            "ms": time_ms(lambda: fused_attention.fused_qkv_mha(x, *params, lens, h), 20)}
     if timed:
-        # the yardstick: one product against the stacked [3 * 768, 768]
-        # weights, then SDPA with the key mask (two library calls)
-        wqkv, bqkv = torch.cat(params[0::2]), torch.cat(params[1::2])
-        mask = None
-        if int(lens.min()) < t:
-            mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
-
-        def library():
-            q, k, v = F.linear(x, wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
         res["plain_ms"] = time_ms(
             lambda: fused_attention.fused_qkv_attention_ref(x, *params, lens, h), 5)
-        res["library_ms"] = time_ms(library, 10)
+        res["library_ms"] = time_ms(fused_yardstick(x, params, lens, h), 10)
     print(f"  fused [{b}, {t}, {dm}] keys {int(lens.sum())}: max|d| {err:.3g}  "
           f"kernel {res['ms']:.4f} ms  plain {res.get('plain_ms', float('nan')):.4f}  "
           f"F.linear + sdpa {res.get('library_ms', float('nan')):.4f}  "
           f"bound {b_ms:.4f} ({b_by})", flush=True)
     return res
+
+
+def garbage_past_bound_ok(kernel, x, o, lengths: list) -> bool:
+    """A fused kernel (``kernel(x)`` -> O head-major) given NaN past each
+    row's bound, then 123.0 there: every valid row the bits of ``o`` (its
+    call on x with zeros there), and with 123.0 every row finite (a padded
+    query row takes its Q from x, as the TPU kernel's does)."""
+    ok = True
+    ragged = min(lengths) < x.shape[1]
+    for fill, whole in ((float("nan"), False), (123.0, True)) if ragged else ():
+        x_bad = x.clone()
+        for i, n in enumerate(lengths):
+            x_bad[i, n:] = fill
+        o_bad = kernel(x_bad)
+        ok &= all(torch.equal(o_bad[i, :, :n], o[i, :, :n]) for i, n in enumerate(lengths))
+        if whole:
+            ok &= bool(torch.isfinite(o_bad).all())
+        del x_bad, o_bad
+    return ok
+
+
+def fused_yardstick(x, params, lens, h: int):
+    """One PyTorch computation of the fused kernel's function in f32: a
+    product against the stacked [3 * 768, 768] weights (TF32 off; a bf16 x
+    upcast inside the call), then SDPA with the key mask (two library
+    calls)."""
+    b, t, _ = x.shape
+    wqkv, bqkv = torch.cat(params[0::2]), torch.cat(params[1::2])
+    mask = None
+    if int(lens.min()) < t:
+        mask = (torch.arange(t, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+    def library():
+        q, k, v = F.linear(x.float(), wqkv, bqkv).view(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    return library
+
+
+def check_fused_high3(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
+                      kernel_time: bool = True) -> dict:
+    """K4h (the TPU kernel's "high3") against fused_qkv_attention_ref(...,
+    "high") on the card, x at unit scale and zero past each bound, the
+    weights at the seeded init's scale: within TOL_FUSED + RTOL_FUSED |ref|
+    of the plain version (f32 sums in another order: K4h sums each stage's
+    three passes in the tensor core and the stages in f32, the plain
+    version each pass in cuBLAS; a bf16 split that order flips moves an
+    element by 2^-16 of it); O no further from float64 attention of the
+    unrounded operands than 1.5 x the plain version's distance + 1e-6, and
+    no nearer than half of it (both drop every lo.lo term), over the call
+    (in one batch row a flip, ~1.5e-5, can outweigh that row's own high3
+    error: K1b's rule holds per row for bf16 errors, not for these); every row
+    finite; a 0-key row 0; NaN past each bound the same bits in every
+    valid row, 123.0 there every row finite and the valid rows the same
+    bits; a rerun the same bits; the prologue's split packed weights and
+    split x bit-equal to ``pack_weights_ref(..., high3=True)`` and
+    ``split_bf16``. ``timed``: the plain version and the yardstick, f32
+    ``F.linear`` + SDPA (``fused_yardstick``: the same function computed
+    more precisely; no PyTorch call computes bf16 x 3)."""
+    h, dm = 12, 768
+    x = torch.randn(b, t, dm, generator=g)
+    params = [a.to(DEV) for _ in range(3) for a in (
+        torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+
+    def kernel(xx=x):
+        return fused_attention.fused_qkv_mha(xx, *params, lens, h, "high")
+
+    o = kernel()
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, h, "high")
+    torch.cuda.synchronize()
+    diff = (o - ref).abs()
+    err = diff.max().item()
+    excess_plain = (diff - TOL_FUSED - RTOL_FUSED * ref.abs()).max().item()
+    del diff
+    err_f64 = err_plain_f64 = 0.0
+    for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
+        sl = slice(i, i + 1)
+        exact = fused_f64_of(x[sl], params, lens[sl], h, rounded=False)
+        err_f64 = max(err_f64, (o[sl].double() - exact).abs().max().item())
+        err_plain_f64 = max(err_plain_f64, (ref[sl].double() - exact).abs().max().item())
+        del exact
+    excess = err_f64 - (1.5 * err_plain_f64 + 1e-6)
+    checks = {"finite": bool(torch.isfinite(o).all()),
+              "zero_key_rows": all(bool((o[i] == 0).all()) for i, n in enumerate(lengths)
+                                   if n == 0),
+              "rerun_same_bits": torch.equal(kernel(), o),
+              "vs_plain": excess_plain <= 0, "vs_f64": excess <= 0,
+              "rounds": err_f64 >= 0.5 * err_plain_f64}
+    checks["garbage_past_bound"] = garbage_past_bound_ok(kernel, x, o, lengths)
+    # the prologue's buffers: the packed weights' and x's hi and lo planes
+    workspace = fused_attention._bf16_workspace(x, h, planes=2)
+    fused_attention._launch("high", x, *params, lens, h, workspace=workspace)
+    checks["split_planes"] = torch.equal(
+        workspace[0], fused_attention.pack_weights_ref(*params[0::2], h, high3=True)) and \
+        torch.equal(workspace[1], torch.cat(prec_ops.split_bf16(x)).to(torch.bfloat16))
+    del workspace
+    if not all(checks.values()):
+        fail(f"fused high3 [{b}, {t}, {dm}] lengths {lengths[:8]}: {checks}; max|d| {err:.3g} "
+             f"beyond {TOL_FUSED} + {RTOL_FUSED}|ref| by {excess_plain:.3g}; max|O - O_f64| "
+             f"{err_f64:.3g} beyond 1.5 x the plain version's {err_plain_f64:.3g} + 1e-6 by "
+             f"{excess:.3g}, or under half of it")
+    del ref
+    b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS, passes=(3, 3))
+    res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()), "max_abs_err": err,
+           "tolerance": [TOL_FUSED, RTOL_FUSED], "max_abs_err_vs_f64": err_f64,
+           "plain_max_abs_err_vs_f64": err_plain_f64, "bound_ms": b_ms, "bound_by": b_by}
+    if kernel_time:
+        res["ms"] = time_ms(kernel, 20)
+    if timed:
+        res["plain_ms"] = time_ms(
+            lambda: fused_attention.fused_qkv_attention_ref(x, *params, lens, h, "high"), 5)
+        res["library_ms"] = time_ms(fused_yardstick(x, params, lens, h), 10)
+    print(f"  fused high3 [{b}, {t}, {dm}] keys {int(lens.sum())}: vs plain max|d| {err:.3g}, "
+          f"vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}); K4h "
+          f"{res.get('ms', float('nan')):.4f} ms  plain {res.get('plain_ms', float('nan')):.4f}  "
+          f"F.linear + sdpa f32 {res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} "
+          f"({b_by})", flush=True)
+    return res
+
+
+def check_high3_shapes() -> None:
+    """K4h at the fused "exact" path's shapes: the scoring shape (499
+    valid frames of 511, rows ragged down to 1 key, a 0-key row), the loss
+    crop, a ragged [8, 1024], the first two-block cluster [16, 65] and the
+    one-tensor-per-block plan's edges T in {1, 17, 64}."""
+    g = torch.Generator().manual_seed(19)
+    rng = np.random.default_rng(19)
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    res = {"main": check_fused_high3(96, 511, main_lens, g, timed=True),
+           "loss": check_fused_high3(LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True),
+           "ragged": check_fused_high3(8, 1024, [1024, 1023, 777, 513, 512, 64, 2, 1], g,
+                                       timed=True),
+           "edge": check_fused_high3(16, 65, [65] * 12 + [64, 33, 1, 0], g, timed=False)}
+    for t in (1, 17, 64):
+        res[f"edge_T{t}"] = check_fused_high3(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
+                                              kernel_time=False)
+    report["kernels"]["fused_qkv_attention_high3_fwd"] = res
 
 
 def check_kernels() -> None:
@@ -883,6 +1046,7 @@ def check_kernels() -> None:
         LOSS_BATCH, 50, [50] * LOSS_BATCH, g, timed=True)
     report["kernels"]["fused_qkv_attention_fwd"]["edge"] = check_fused(
         16, 65, [65] * 12 + [64, 33, 1, 0], g, timed=False)
+    check_high3_shapes()
 
 
 # ---------------- phase 4: the main path ----------------
@@ -943,7 +1107,9 @@ KERNEL_GROUPS = (
     ("layernorm_fwd_bf16io", ("layernorm_fwd_kernel<__nv_bfloat16",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel")),
-    ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel",)),
+    # K4h (K4b's template at 3 passes) and K4b, each with its prologue
+    ("fused_qkv_attention_high3_fwd", ("fused_qkv_fwd_bf16_kernel<3", "pack_kernel<true")),
+    ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel", "pack_kernel<false")),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
@@ -1025,6 +1191,7 @@ def reset_launches() -> None:
     flash_attention.launches_f32_bf16_io = fused_attention.launches_f32_bf16_io = 0
     flash_attention.launches_bwd_dq_f32_bf16_io = flash_attention.launches_bwd_dkv_f32_bf16_io = 0
     fused_attention.launches_bf16_io = 0
+    fused_attention.launches_high3 = fused_attention.launches_high3_bf16_io = 0
     flash_attention.launches_bwd_fold_bf16 = flash_attention.launches_bwd_fold_bf16_io = 0
     flash_attention.launches_fwd_fold_bf16 = flash_attention.launches_fwd_fold_bf16_io = 0
 
@@ -1048,6 +1215,8 @@ def read_launches() -> dict:
             "flash_attention_bwd_dkv_f32_bf16io": flash_attention.launches_bwd_dkv_f32_bf16_io,
             "fused_qkv_attention_f32_bf16io_fwd": fused_attention.launches_f32_bf16_io,
             "fused_qkv_attention_bf16io_fwd": fused_attention.launches_bf16_io,
+            "fused_qkv_attention_high3_fwd": fused_attention.launches_high3,
+            "fused_qkv_attention_high3_bf16io_fwd": fused_attention.launches_high3_bf16_io,
             "flash_attention_bwd_fold_bf16": flash_attention.launches_bwd_fold_bf16,
             "flash_attention_bwd_fold_bf16io": flash_attention.launches_bwd_fold_bf16_io,
             "flash_attention_fwd_fold_bf16": flash_attention.launches_fwd_fold_bf16,
@@ -1056,7 +1225,7 @@ def read_launches() -> dict:
 
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
                   k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
-                  k4b_io=0) -> dict:
+                  k4b_io=0, k4h=0, k4h_io=0) -> dict:
     """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. K2b/K3b's
     prologue (the backward fold) runs once per backward call: once per K2b
     launch, in K2b's flavour; K1b's (the forward fold) once per K1b
@@ -1072,6 +1241,7 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "flash_attention_bwd_dkv_f32_bf16io": k3_io,
             "fused_qkv_attention_f32_bf16io_fwd": k4_io,
             "fused_qkv_attention_bf16io_fwd": k4b_io,
+            "fused_qkv_attention_high3_fwd": k4h, "fused_qkv_attention_high3_bf16io_fwd": k4h_io,
             "flash_attention_bwd_fold_bf16": k2b, "flash_attention_bwd_fold_bf16io": k2b_io,
             "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io}
 
@@ -1088,25 +1258,28 @@ def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
 
 def plain_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
     """The plain path of ``mode``: attention and LayerNorm in plain PyTorch.
-    At "exact" the plain attention is ``mha_ref``. A bf16 mode keeps
-    ``attention_impl="kernel"`` and runs it under ``plain_flash()``: its
-    attention rounds where K1b, K2b and K3b round (p before the
-    normalisation), which ``mha_ref`` does not, so their own plain
-    versions are its plain path."""
+    At "exact" the plain attention is ``mha_ref``, unless ``kw`` names the
+    fused path, which runs under ``plain_flash("exact", impl="fused_qkv")``:
+    at "high" its kernel computes the TPU kernel's "high3", which
+    ``mha_ref`` does not. A bf16 mode keeps ``attention_impl="kernel"``
+    and runs it under ``plain_flash()``: its attention rounds where K1b,
+    K2b and K3b round (p before the normalisation), which ``mha_ref`` does
+    not, so their own plain versions are its plain path."""
     if mode == "exact":
-        return mode_config(attention_impl="ref", layernorm_impl="ref", **kw)
+        return mode_config(**({"attention_impl": "ref", "layernorm_impl": "ref"} | kw))
     return mode_config(mode, layernorm_impl="ref", **kw)
 
 
 @contextlib.contextmanager
-def plain_flash(mode: str = "default", forward: bool = True):
+def plain_flash(mode: str = "default", forward: bool = True, impl: str | None = None):
     """``FlashAttention`` through ``flash_attention_ref`` (unless not
     ``forward``) and ``flash_attention_bwd_ref`` on CUDA tensors, and (with
     ``forward``) ``FusedQKVAttention`` through ``fused_qkv_attention_ref``,
-    for a bf16 ``mode``; a no-op at "exact"."""
+    for a bf16 ``mode`` or for the fused path (``impl`` "fused_qkv"); a
+    no-op at "exact" otherwise."""
     saved = (flash_attention.mha_flash, flash_attention.flash_attention_bwd,
              fused_attention.fused_qkv_mha)
-    if mode != "exact":
+    if mode != "exact" or impl == "fused_qkv":
         if forward:
             flash_attention.mha_flash = flash_attention.flash_attention_ref
             fused_attention.fused_qkv_mha = fused_attention.fused_qkv_attention_ref
@@ -1272,11 +1445,27 @@ def run_main_path(card: str, tmp: Path, nmr: str, deg: str) -> tuple:
     return waves, emb, plain_emb
 
 
+def fused_plain_embeddings(waves: list, **kw) -> torch.Tensor:
+    """The fused path's own plain path (the fused kernel's plain version at
+    its island's precision: "high3" at "high"; plain LayerNorm) on the same
+    seeded weights."""
+    with plain_flash("exact", impl="fused_qkv"):
+        plain = Nomad(device="cuda", config=plain_config(attention_impl="fused_qkv", **kw))
+        return plain.engine.embed_waves_device(waves)
+
+
 def run_fused_scoring(card: str, tmp: Path, nmr: str, deg: str, waves: list,
                       k1_emb: torch.Tensor, plain_emb: torch.Tensor) -> None:
     """The fused path (``attention_impl="fused_qkv"``) on the same files:
-    K4 in every block, no K1; then one file at T' = 1,023 (K4) and one at
-    T' = 1,433 (past MAX_FUSED_T: K1), each against the plain path."""
+    K4h in every block, no K1, against its own plain path (the fused
+    kernel's plain version at "high": "high3") and the K1 path, within
+    TOL_REF_PATH each, with the pairwise score delta against the K1 path
+    (the score budget 1e-3; a fault beyond 1e-2) and the plain path's
+    distance to the "exact" plain path (``mha_ref``: f32 attention) for the
+    record; then one file at T' = 1,023 (K4h) and one at T' = 1,433 (past
+    MAX_FUSED_T: K1), each against the fused plain path; then one batch of
+    96 files with the frontend and the encoder at "highest" (K4, the f32
+    kernel) against the K1 path."""
     total_s = (N_NMR + N_DEG) * SECONDS
     nomad = Nomad(device="cuda", config=Wav2Vec2Config.base(attention_impl="fused_qkv"))
     out = tmp / "fused"
@@ -1289,35 +1478,42 @@ def run_fused_scoring(card: str, tmp: Path, nmr: str, deg: str, waves: list,
     counts = read_launches()
     batches = nomad.engine.batches
     report["launches"]["scoring_fused"] = counts
-    want = launches_want(k4=12 * batches, k5=26 * batches)
+    want = launches_want(k4h=12 * batches, k5=26 * batches)
     if counts != want or batches == 0:
         fail(f"fused path: launch counts {counts} for {batches} batches (want {want})")
     check_csvs(out, "fused API")
     emb, passes = timed_passes(nomad, waves)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pass_s = float(np.median(passes))
-    d_plain = (emb - plain_emb).abs().max().item()
+    fused_plain = fused_plain_embeddings(waves)
+    d_plain = (emb - fused_plain).abs().max().item()
     d_k1 = (emb - k1_emb).abs().max().item()
     d_b1 = batch1_error(nomad, waves, emb)
+    delta = pairwise_delta(emb, k1_emb, slice(N_NMR, None), slice(0, N_NMR))
     report["fused_path"] = {
         "files": N_NMR + N_DEG, "audio_s": total_s, "batches": batches, "pass_s": passes,
         "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb, "card": card,
         "vs_plain_path_emb": d_plain, "vs_k1_path_emb": d_k1, "batch1_vs_padded_emb": d_b1,
+        "plain_path_vs_exact_plain_emb": (fused_plain - plain_emb).abs().max().item(),
+        "pairwise_delta_vs_k1_path": delta, "in_budget": delta <= DELTA_BUDGET,
     }
+    del fused_plain
     print(f"fused path: {batches} batches, launches {counts}; device pass {pass_s:.3f} s = "
           f"{total_s / pass_s:.1f} wav-s/s; peak memory {peak_gb:.2f} GB  [{card}]; max|d| "
-          f"{d_plain:.3g} vs plain, {d_k1:.3g} vs K1 path (<= {TOL_REF_PATH}); batch-1 vs "
-          f"padded {d_b1:.3g} (<= {TOL_BATCH1})", flush=True)
-    if not torch.isfinite(emb).all() or max(d_plain, d_k1) > TOL_REF_PATH or d_b1 > TOL_BATCH1:
+          f"{d_plain:.3g} vs its plain path (high3), {d_k1:.3g} vs K1 path (<= {TOL_REF_PATH}; "
+          f"the plain paths {report['fused_path']['plain_path_vs_exact_plain_emb']:.3g} apart); "
+          f"batch-1 vs padded {d_b1:.3g} (<= {TOL_BATCH1}); pairwise delta vs the K1 path "
+          f"{delta:.3g} (budget {DELTA_BUDGET})", flush=True)
+    if not torch.isfinite(emb).all() or max(d_plain, d_k1) > TOL_REF_PATH or \
+            d_b1 > TOL_BATCH1 or delta > DELTA_FAULT:
         fail(f"fused path embeddings: {d_plain:.3g} vs plain, {d_k1:.3g} vs K1 path, "
-             f"{d_b1:.3g} batch-1 vs padded")
+             f"{d_b1:.3g} batch-1 vs padded, pairwise delta {delta:.3g}")
     profile_run(lambda: nomad.engine.embed_waves_device(waves), "profile_fused")
 
-    plain = Nomad(device="cuda", config=plain_config())
     rng = np.random.default_rng(99)
     for n, frames in FUSED_SINGLE_FILES:
         if fused_attention.fused_supported(frames):
-            want = launches_want(k4=12, k5=26)
+            want = launches_want(k4h=12, k5=26)
         else:
             want = launches_want(k1=12, k5=26)
         wave = np.rint(np.clip(speech_like(rng, n, 0.02), -1, 1) * 32767).astype(np.int16)
@@ -1327,13 +1523,34 @@ def run_fused_scoring(card: str, tmp: Path, nmr: str, deg: str, waves: list,
         counts = read_launches()
         key = f"fused_single_T{frames}"
         report["launches"][key] = counts
-        d = (one - plain.engine.embed_waves_device([wave])).abs().max().item()
+        d = (one - fused_plain_embeddings([wave])).abs().max().item()
         report["checks"][f"{key}_vs_plain_path_emb"] = d
         print(f"fused path: one file of {n} samples (T' = {frames}): launches {counts}, "
-              f"max|d| {d:.3g} vs plain (<= {TOL_REF_PATH})", flush=True)
+              f"max|d| {d:.3g} vs its plain path (<= {TOL_REF_PATH})", flush=True)
         if counts != want or not torch.isfinite(one).all() or d > TOL_REF_PATH:
             fail(f"fused path, one file of {n} samples: launches {counts} (want {want}), "
                  f"max|d| {d:.3g} vs plain")
+    del nomad
+
+    # the f32 kernel K4 keeps a path: "highest" in the frontend and the
+    # encoder, one batch, against the K1 path (f32 products on the card at
+    # "high" and "highest" alike)
+    one = waves[:96]
+    highest = Nomad(device="cuda", config=Wav2Vec2Config.base(
+        attention_impl="fused_qkv", frontend_precision="highest", encoder_precision="highest"))
+    reset_launches()
+    emb = highest.engine.embed_waves_device(one)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    report["launches"]["scoring_fused_highest"] = counts
+    want = launches_want(k4=12, k5=26)
+    d_k1 = (emb - k1_emb[:96]).abs().max().item()
+    report["checks"]["fused_highest_vs_k1_path_emb"] = d_k1
+    print(f"fused path at \"highest\": one batch of {len(one)} files, launches {counts}, max|d| "
+          f"{d_k1:.3g} vs the K1 path (<= {TOL_REF_PATH})", flush=True)
+    if counts != want or not torch.isfinite(emb).all() or d_k1 > TOL_REF_PATH:
+        fail(f"fused path at \"highest\": launches {counts} (want {want}), max|d| {d_k1:.3g} "
+             f"vs the K1 path")
 
 
 def run_scoring_paths(card: str) -> None:
@@ -1383,7 +1600,9 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     the same inputs, and the gap with K2b/K3b alone swapped for their
     plain version is reported. ``params``: the weights (a state dict),
     else Nomad's seeded init. ``plain_impl``: the plain path's
-    ``attention_impl`` in a bf16 mode (else the mode's own); ``steps``:
+    ``attention_impl`` in a bf16 mode (else the mode's own), or
+    "fused_qkv" at "exact" (the fused kernel's plain version, else
+    ``mha_ref``); ``steps``:
     warm steps timed. ``attribute``: the gap with K1b alone, then K5 alone,
     swapped for its plain version too, and the share of the gap each swap
     closes (beside K2b/K3b's)."""
@@ -1434,7 +1653,7 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     signs = layer_signs(nomad, est.detach(), clean)
     plain = Nomad(device="cuda", params=sd, config=plain_config(
         mode, **({"attention_impl": plain_impl} if plain_impl else {})))
-    with plain_flash(mode):
+    with plain_flash(mode, impl=plain_impl):
         est_p = est.detach().clone().requires_grad_()
         loss_p = plain.forward(est_p, clean)
         loss_p.backward()
@@ -1537,14 +1756,20 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     profile_run(step, f"profile_{step_key}")
 
 
+def run_fused_loss_path(card: str) -> None:
+    """The fused path: K4h in both forwards, K1 + K2 + K3 in the backward's
+    f32 recompute of the estimate's blocks; held to its own plain path
+    (the fused kernel's plain version, "high3")."""
+    run_loss_path(card, "loss_path_fused", Wav2Vec2Config.base(attention_impl="fused_qkv"),
+                  launches_want(k1=12, k2=12, k3=12, k4h=24, k5=52), LOSS_BATCH, LOSS_SAMPLES,
+                  plain_impl="fused_qkv")
+
+
 def run_loss_paths(card: str) -> None:
     report.setdefault("launches", {})
     run_loss_path(card, "loss_path", Wav2Vec2Config.base(),
                   launches_want(k1=24, k2=12, k3=12, k5=52), LOSS_BATCH, LOSS_SAMPLES)
-    # the fused path: K4 in both forwards, K1 + K2 + K3 in the backward's
-    # recompute of the estimate's blocks
-    run_loss_path(card, "loss_path_fused", Wav2Vec2Config.base(attention_impl="fused_qkv"),
-                  launches_want(k1=12, k2=12, k3=12, k4=24, k5=52), LOSS_BATCH, LOSS_SAMPLES)
+    run_fused_loss_path(card)
     # 10 s clips: K2 and K3 at [24, 499, 12, 64]
     run_loss_path(card, "loss_path_10s", Wav2Vec2Config.base(),
                   launches_want(k1=24, k2=12, k3=12, k5=52), LOSS10_BATCH, LOSS10_SAMPLES)
@@ -3333,24 +3558,13 @@ def check_fused_bf16(b: int, t: int, lengths: list, g: torch.Generator, timed: b
     finite = bool(torch.isfinite(o).all())
     empty_ok = all(bool((o[i] == 0).all()) for i, n in enumerate(lengths) if n == 0)
     same_bits = torch.equal(kernel(), o)
-    garbage_ok = True
-    if min(lengths) < t:
-        for fill, whole in ((float("nan"), False), (123.0, True)):
-            x_bad = x.clone()
-            for i, n in enumerate(lengths):
-                x_bad[i, n:] = fill
-            o_bad = kernel(x_bad)
-            garbage_ok &= all(torch.equal(o_bad[i, :, :n], o[i, :, :n])
-                              for i, n in enumerate(lengths))
-            if whole:
-                garbage_ok &= bool(torch.isfinite(o_bad).all())
-            del x_bad, o_bad
+    garbage_ok = garbage_past_bound_ok(kernel, x, o, lengths)
     rounds = err_f64 >= 0.5 * err_plain_f64
     vs_k1b_ok = d_k1b <= FUSED_BF16_VS_K1B * d_pair + 1e-6
     # the prologue's buffers: the packed weights and the rounded x, bit-equal
     # to their plain versions
     workspace = fused_attention._bf16_workspace(x, h)
-    fused_attention._launch(True, x, *params, lens, h, workspace=workspace)
+    fused_attention._launch("default", x, *params, lens, h, workspace=workspace)
     packed = torch.equal(workspace[0], fused_attention.pack_weights_ref(*params[0::2], h)) and \
         torch.equal(workspace[1], x.to(torch.bfloat16))
     del workspace
@@ -3519,8 +3733,9 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
                  f"max|d| {d:.3g} vs the fast plain path (> {tol:.3g}?)")
     del nomad
 
-    # "balanced" keeps the f32 K4: the fused kernel takes the projections'
-    # island ("high"), not the attention products' ("default")
+    # "balanced" keeps K4h: the fused kernel takes the projections' island
+    # ("high": the TPU kernel's "high3"), not the attention products'
+    # ("default")
     balanced = Nomad(device="cuda", precision="balanced", params=sd,
                      config=mode_config("balanced", attention_impl="fused_qkv"))
     reset_launches()
@@ -3528,7 +3743,7 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
     torch.cuda.synchronize()
     counts = read_launches()
     report["launches"]["scoring_fused_balanced"] = counts
-    want = launches_want(k4=12 * batches, k5=26 * batches)
+    want = launches_want(k4h=12 * batches, k5=26 * batches)
     print(f"fused balanced: launches {counts} (want {want})", flush=True)
     if counts != want or not torch.isfinite(bal_emb).all():
         fail(f"fused balanced: launch counts {counts} (want {want})")
@@ -3539,7 +3754,7 @@ def run_fused_fast_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -
 def run_fused_modes(card: str) -> None:
     """Phase 12: K4b against its plain version at its shapes, then the
     fused path in "fast" (scoring, single files, the loss at both shapes)
-    and "balanced" (K4) on phase 9's seeded BASE state dict."""
+    and "balanced" (K4h) on phase 9's seeded BASE state dict."""
     report.setdefault("launches", {})
     t_phase = time.perf_counter()
     print("fused modes: K4b vs its plain version on the card:", flush=True)
@@ -4038,23 +4253,25 @@ def fused_f64_of(x, params, lengths, heads: int, rounded: bool) -> torch.Tensor:
 
 def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
                        prec: str, kernel_time: bool = True) -> dict:
-    """K4's (``prec`` "highest") or K4b's ("default") bf16-I/O flavour on a
-    bf16 x at unit scale, zero past each bound, with the f32 weights at the
-    seeded init's scale: O bf16, bit-equal to the f32-I/O flavour's on the
-    upcast x rounded once; a 0-key row O = 0; against the plain version on
-    the same bf16 x and float64 (``fused_f64_of``): |O - O_f64| <= 1.5 x
-    the plain version's + 1.5 bf16 steps at its max + 1e-6 (phase 13's
-    rule for outputs rounded once); NaN past each bound the same bits in
+    """K4's (``prec`` "highest"), K4h's ("high") or K4b's ("default")
+    bf16-I/O flavour on a bf16 x at unit scale, zero past each bound, with
+    the f32 weights at the seeded init's scale: O bf16, bit-equal to the
+    f32-I/O flavour's on the upcast x rounded once; a 0-key row O = 0;
+    against the plain version on the same bf16 x and float64
+    (``fused_f64_of``): |O - O_f64| <= 1.5 x the plain version's + 1.5
+    bf16 steps at its max + 1e-6 (phase 13's rule for outputs rounded
+    once); NaN past each bound the same bits in
     every valid row, 123.0 there every row finite and the valid rows the
     same bits; a rerun the same bits. Timed beside the f32-I/O flavour;
     ``timed``: the plain version and the yardstick too, the flavour's own
     function in library calls: at "default" ``F.linear`` of x with the
     rounded weights and SDPA on bf16, at "highest" the f32 product of the
-    upcast x with the f32 weights (TF32 off) and f32 SDPA."""
+    upcast x with the f32 weights (TF32 off) and f32 SDPA, and at "high"
+    the same (no PyTorch call computes bf16 x 3)."""
     h, dm = 12, 768
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
-    tag = "K4b" if bf16_ops else "K4"
+    tag = {"highest": "K4", "high": "K4h", "default": "K4b"}[prec]
     x = torch.randn(b, t, dm, generator=g)
     params = [a.to(DEV) for _ in range(3) for a in (
         torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
@@ -4090,26 +4307,17 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         del exact
     checks["vs_plain_and_f64"] = excess <= 0
     checks["rerun_same_bits"] = torch.equal(kernel(), o)
-    garbage_ok = True
-    if min(lengths) < t:
-        for fill, whole in ((float("nan"), False), (123.0, True)):
-            x_bad = x.clone()
-            for i, n in enumerate(lengths):
-                x_bad[i, n:] = fill
-            o_bad = kernel(x_bad)
-            garbage_ok &= all(torch.equal(o_bad[i, :, :n], o[i, :, :n])
-                              for i, n in enumerate(lengths))
-            if whole:
-                garbage_ok &= bool(torch.isfinite(o_bad).all())
-            del x_bad, o_bad
-    checks["garbage_past_bound"] = garbage_ok
+    checks["garbage_past_bound"] = garbage_past_bound_ok(kernel, x, o, lengths)
     if not all(checks.values()):
         fail(f"fused bf16 I/O {prec} [{b}, {t}, {dm}] lengths {lengths[:8]}: {checks}; "
              f"max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
              f"{err_plain_f64:.3g} + 1.5 bf16 steps + 1e-6 by {excess:.3g}")
     del ref
-    b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS if bf16_ops else F32_FLOPS,
-                             x_bytes=2)
+    if prec == "high":  # three bf16 passes, two for the projections of a bf16 x
+        b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS, x_bytes=2, passes=(2, 3))
+    else:
+        b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS if bf16_ops else F32_FLOPS,
+                                 x_bytes=2)
     res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()),
            "max_abs_err": err, "max_abs_err_vs_f64": err_f64,
            "plain_max_abs_err_vs_f64": err_plain_f64, "bound_ms": b_ms, "bound_by": b_by}
@@ -4148,8 +4356,8 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
 
 
 def check_bf16_paths_shapes() -> None:
-    """The five bf16-I/O flavours at their paths' shapes: K4 and K4b at the
-    scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key row), the
+    """The six bf16-I/O flavours at their paths' shapes: K4, K4h and K4b at
+    the scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key row), the
     loss crop [32, 50], a ragged [8, 1024] and every plan edge; K1 at [96,
     511], [24, 499] (with K2 and K3: the loss on 10 s clips) and a ragged
     [8, 4095]; K2 and K3 at the loss crop [32, 50] too; K1, K2 and K3
@@ -4163,7 +4371,8 @@ def check_bf16_paths_shapes() -> None:
 
     main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
     for prec, name in (("highest", "fused_qkv_attention_f32_bf16io_fwd"),
-                       ("default", "fused_qkv_attention_bf16io_fwd")):
+                       ("default", "fused_qkv_attention_bf16io_fwd"),
+                       ("high", "fused_qkv_attention_high3_bf16io_fwd")):
         res = {"main": check_fused_bf16io(96, 511, main_lens, g, True, prec),
                "loss": check_fused_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, True, prec),
                "ragged": check_fused_bf16io(8, 1024, [1024, 1023, 777, 513, 512, 64, 1, 0], g,
@@ -4192,12 +4401,13 @@ def check_bf16_paths_shapes() -> None:
                                    for k, r in fl.items() if key in r}
 
 
-def bf16_plain_paths(mode: str, sd: dict, waves: list, impl: str) -> tuple:
+def bf16_plain_paths(mode: str, sd: dict, waves: list, impl: str, **kw) -> tuple:
     """A bf16 mode's plain path (``impl``'s attention through its plain
-    versions, plain LayerNorm) and the "exact" plain path, embedded on the
-    same waves."""
+    versions, plain LayerNorm; ``kw``: other fields of its config) and the
+    "exact" plain path, embedded on the same waves."""
     with plain_flash(mode):
-        plain = Nomad(device="cuda", config=plain_config(mode, attention_impl=impl), params=sd)
+        plain = Nomad(device="cuda", config=plain_config(mode, attention_impl=impl, **kw),
+                      params=sd)
         emb = plain.engine.embed_waves_device(waves)
     del plain
     exact = Nomad(device="cuda", config=plain_config(), params=sd)
@@ -4229,9 +4439,10 @@ def run_bf16_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -> dict
     beside phase 12's fused "fast" pass (f32 activations) in this run, own
     peak, one profiled pass, and the embeddings against its plain path by
     phase 12's rule; then ``balanced(encoder_dtype=bf16,
-    attention_impl="fused_qkv")`` (K4-bf16 12) and ``base(encoder_dtype=
-    bf16)`` (K1-bf16 12) on one batch of 96 files, each against its plain
-    path by the same rule."""
+    attention_impl="fused_qkv")`` (K4h-bf16 12), the same at "exact" with
+    the frontend and the encoder at "highest" (K4-bf16 12) and
+    ``base(encoder_dtype=bf16)`` (K1-bf16 12) on one batch of 96 files,
+    each against its plain path by the same rule."""
     total_s = (N_NMR + N_DEG) * SECONDS
     leftover_gb = settled_allocated_gb()
     nomad = Nomad(device="cuda", params=sd,
@@ -4272,12 +4483,16 @@ def run_bf16_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -> dict
           f"{res['own_peak_mem_gb']:.5f} GB  [{card}]", flush=True)
     res |= bf16_path_vs_plain("fused fast bf16", emb, plain, exact_plain)
     del emb, plain, exact_plain
-    for mode, impl, key, want in (
+    highest = {"frontend_precision": "highest", "encoder_precision": "highest"}
+    for mode, impl, key, want, kw in (
             ("balanced_bf16", "fused_qkv", "fused_balanced_bf16",
-             launches_want(k4_io=12, k5=2, k5_io=24)),
-            ("exact_bf16", "kernel", "base_bf16", launches_want(k1_io=12, k5=2, k5_io=24))):
+             launches_want(k4h_io=12, k5=2, k5_io=24), {}),
+            ("exact_bf16", "fused_qkv", "fused_highest_bf16",
+             launches_want(k4_io=12, k5=2, k5_io=24), highest),
+            ("exact_bf16", "kernel", "base_bf16", launches_want(k1_io=12, k5=2, k5_io=24), {})):
         one = waves[:96]
-        model = Nomad(device="cuda", params=sd, config=mode_config(mode, attention_impl=impl))
+        model = Nomad(device="cuda", params=sd,
+                      config=mode_config(mode, attention_impl=impl, **kw))
         reset_launches()
         emb = model.engine.embed_waves_device(one)
         torch.cuda.synchronize()
@@ -4288,7 +4503,7 @@ def run_bf16_scoring(card: str, sd: dict, tmp: Path, nmr: str, deg: str) -> dict
         if counts != want:
             fail(f"{key}: launch counts {counts} (want {want})")
         del model
-        plain, exact_plain = bf16_plain_paths(mode, sd, one, impl)
+        plain, exact_plain = bf16_plain_paths(mode, sd, one, impl, **kw)
         res[key] = bf16_path_vs_plain(key, emb, plain, exact_plain)
         del emb, plain, exact_plain
     return res
@@ -4343,7 +4558,7 @@ def fused_fast_bf16_steps(card: str, cfg: dict, batch, init: dict) -> dict:
 
 
 def run_bf16_paths(card: str) -> None:
-    """Phase 14: the bf16-I/O flavours of K4, K4b, K1, K2 and K3 against
+    """Phase 14: the bf16-I/O flavours of K4, K4h, K4b, K1, K2 and K3 against
     their f32-I/O flavour, their plain version and float64 at their shapes;
     then on phase 12's and 13's seeded BASE state dicts the scoring path
     ``fast(encoder_dtype=bf16, attention_impl="fused_qkv")`` (the main
@@ -4352,7 +4567,7 @@ def run_bf16_paths(card: str) -> None:
     trainer's fast_bf16 on the fused path."""
     report.setdefault("launches", {})
     t_phase = time.perf_counter()
-    print("bf16 paths: the bf16-I/O flavours of K4, K4b, K1, K2 and K3 vs their f32-I/O "
+    print("bf16 paths: the bf16-I/O flavours of K4, K4h, K4b, K1, K2 and K3 vs their f32-I/O "
           "flavour and plain versions:", flush=True)
     check_bf16_paths_shapes()
     sd = SHARED.get("sd")
@@ -4371,7 +4586,7 @@ def run_bf16_paths(card: str) -> None:
             ("exact_bf16", "kernel", "base_bf16",
              launches_want(k1_io=24, k2_io=12, k3_io=12, k5=4, k5_io=48)),
             ("exact_bf16", "fused_qkv", "fused_base_bf16",
-             launches_want(k4_io=24, k1_io=12, k2_io=12, k3_io=12, k5=4, k5_io=48))):
+             launches_want(k4h_io=24, k1_io=12, k2_io=12, k3_io=12, k5=4, k5_io=48))):
         config = mode_config(mode, attention_impl=impl)
         for key, n, samples in ((f"loss_path_{tag}", LOSS_BATCH, LOSS_SAMPLES),
                                 (f"loss_path_10s_{tag}", LOSS10_BATCH, LOSS10_SAMPLES)):
@@ -5083,6 +5298,22 @@ def run_wire_and_tools(card: str) -> None:
     report["wire_and_tools"] = out
 
 
+def run_high3(card: str) -> None:
+    """``--only-high3``: K4h against its plain version at its shapes (phase
+    3's checks) and its bf16-I/O flavour at the scoring shape (phase 14's),
+    then the paths that drive it: phase 4 (the fused "exact" scoring path,
+    K4 on its "highest" batch) and phase 5's fused loss."""
+    report.setdefault("launches", {})
+    print("high3: K4h vs its plain version on the card:", flush=True)
+    check_high3_shapes()
+    rng = np.random.default_rng(14)
+    main_lens = [511, 1, 0] + list(rng.integers(2, 511, size=9)) + [499] * 84
+    report["kernels"]["fused_qkv_attention_high3_bf16io_fwd"] = {"main": check_fused_bf16io(
+        96, 511, main_lens, torch.Generator().manual_seed(14), True, "high")}
+    run_scoring_paths(card)
+    run_fused_loss_path(card)
+
+
 def run_scoring_k1(card: str) -> None:
     """Phase 4's K1 path alone (``--only-scoring``)."""
     report.setdefault("launches", {})
@@ -5119,6 +5350,9 @@ def main() -> None:
                       help="phases 1 and 15 only; ends with the report line")
     only.add_argument("--only-wire-and-tools", action="store_true",
                       help="phases 1, 2 and 16 only; ends with the report line")
+    only.add_argument("--only-high3", action="store_true",
+                      help="phases 1 and 2, K4h's checks, phase 4 and the fused loss only; "
+                           "ends with the report line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke runs on a CUDA card")
@@ -5133,7 +5367,8 @@ def main() -> None:
              "only_fast_bf16": lambda card: (build_kernels(), run_fast_bf16(card)),
              "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card)),
              "only_large_scale": run_large_scale,
-             "only_wire_and_tools": lambda card: (build_kernels(), run_wire_and_tools(card))}
+             "only_wire_and_tools": lambda card: (build_kernels(), run_wire_and_tools(card)),
+             "only_high3": lambda card: (build_kernels(), run_high3(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -5173,6 +5408,8 @@ def main() -> None:
          "nomad_tpu/ops/fused_attention.py:93"),
         ("fused_qkv_attention_bf16_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
+        ("fused_qkv_attention_high3_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
         ("layernorm_fwd", "nomad_tpu_torch/csrc/layernorm.cu", "nomad_tpu/ops/layernorm.py:31"),
         ("flash_attention_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
@@ -5185,6 +5422,8 @@ def main() -> None:
         ("fused_qkv_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("fused_qkv_attention_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
+         "nomad_tpu/ops/fused_attention.py:93"),
+        ("fused_qkv_attention_high3_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("flash_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
@@ -5228,6 +5467,9 @@ def main() -> None:
                                   "library_casts_inside_ms", "call_in_turns_ms",
                                   "call_in_turns_inside_ms") if f in m}
         rows.append(row)
+    unlaunched = [r["name"] for r in rows if r["launches"] == 0]
+    if unlaunched:
+        fail(f"kernels no path launched: {unlaunched}")
     print("report: " + json.dumps(report, default=float))
     print("kernels: " + "; ".join(
         f"{r['name']} max|d| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"

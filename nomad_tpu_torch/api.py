@@ -40,8 +40,9 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
     them. The device is the rank's; a ``device`` that names another
     raises.
   * Attention: ``config=Wav2Vec2Config.base(attention_impl="fused_qkv")``
-    selects the projection-fused path (kernel K4 for inputs of up to
-    1,024 frames, ~20 s of audio) for both ``predict`` and ``forward``;
+    selects the projection-fused path (kernel K4h, or K4b in "fast", for
+    inputs of up to 1,024 frames, ~20 s of audio) for both ``predict`` and
+    ``forward``;
     the default runs the projections as products and attention in K1.
 """
 

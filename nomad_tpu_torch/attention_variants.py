@@ -1,7 +1,7 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k1,k1b,k23,k23b]
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k4h,k1,k1b,k23,k23b]
 
 Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
 ``csrc/flash_attention.cu``, ``csrc/flash_attention_bf16.cu``,
@@ -28,6 +28,11 @@ name; all by default):
   which prices the copies through distributed shared memory;
 * K4b ``empty``: neither phase (the prologue, the launch, the cluster
   barriers and the O stores of rows with no key), its fixed cost;
+* K4h (``k4h``, K4b's template at three passes: the fused path at
+  "high"), in both I/O flavours, through the port's own wrapper
+  (``fused_qkv_mha`` at "high"), and its ``phase1`` and ``phase2``, as
+  K4b's. In a checkout from before K4h, "high" runs the f32 K4: ``--kernels
+  k4h`` there and here times the two in turns (name only ``k4h`` there);
 * K1 ``two_blocks``: K1 held to 2 blocks per SM by its shared memory, K4's
   occupancy;
 * K2 + K3 ``two_blocks``: both held to 2 blocks per SM by their shared
@@ -121,7 +126,14 @@ VARIANTS = {
     "k4b_phase1_no_cluster": ("fused_attention_bf16.cu", [
         ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;"),
         ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
-        ("if (max_active_clusters<IO>(cluster) == 0) return", "if (false) return")]),
+        ("if (max_active_clusters<Passes, IO>(cluster) == 0) return", "if (false) return")]),
+    # K4h: K4b's body at three passes, timed through the wrapper at "high"
+    "k4h": ("fused_attention_bf16.cu", []),
+    "k4h_phase1": ("fused_attention_bf16.cu", [
+        ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;")]),
+    "k4h_phase2": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {")]),
     "k1": ("flash_attention.cu", []),
     "k1_two_blocks": ("flash_attention.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -214,7 +226,7 @@ VARIANTS = {
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
 HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh", "attention_wgmma.cuh")
-GROUPS = ("k4", "k4b", "k1", "k1b", "k23", "k23b")  # --kernels: a variant's group is its name's first word
+GROUPS = ("k4", "k4b", "k4h", "k1", "k1b", "k23", "k23b")  # --kernels: a variant's group is its name's first word
 
 
 def build(picked) -> dict:
@@ -284,8 +296,8 @@ def library(name: str, lib: ctypes.CDLL):
 
 
 def time_fused(libs, shapes, dev, stream, out) -> None:
-    """K4's and K4b's variants that were built (K4b in both I/O flavours) at
-    ``shapes``."""
+    """K4's, K4b's and K4h's variants that were built (K4b and K4h in both
+    I/O flavours) at ``shapes``."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     g = torch.Generator().manual_seed(0)
     h, dm = 12, 768
@@ -307,11 +319,12 @@ def time_fused(libs, shapes, dev, stream, out) -> None:
             out["ms"][f"{name} [{b}, {t}, {dm}]"] = time_ms(lambda: fn(*args))
         for io in (torch.float32, torch.bfloat16):
             xi = x.to(io)
-            for name in [v for v in VARIANTS if v.split("_")[0] == "k4b" and v in libs]:
-                with library("fused_attention_bf16", libs[name]):
-                    out["ms"][f"{name} [{b}, {t}, {dm}] bf16_io {int(io == torch.bfloat16)}"] = (
-                        time_ms(lambda: fused_attention.fused_qkv_mha(
-                            xi, *params, lengths, h, "default")))
+            for group, prec in (("k4b", "default"), ("k4h", "high")):
+                for name in [v for v in VARIANTS if v.split("_")[0] == group and v in libs]:
+                    key = f"{name} [{b}, {t}, {dm}] bf16_io {int(io == torch.bfloat16)}"
+                    with library("fused_attention_bf16", libs[name]):
+                        out["ms"][key] = time_ms(lambda: fused_attention.fused_qkv_mha(
+                            xi, *params, lengths, h, prec))
 
 
 def host_ms(fn, iters: int, rounds: int = 9) -> float:

@@ -1,6 +1,7 @@
 // The bf16 attention key loop on wgmma that K1b (flash_attention_bf16.cu)
-// and K4b's phase 2 (fused_attention_bf16.cu) share, and the row fold that
-// K1b's and K2b/K3b's prologues (flash_attention_bwd_bf16.cu) share.
+// and the phase 2 of K4b and K4h (fused_attention_bf16.cu) share, and the
+// row fold that K1b's and K2b/K3b's prologues (flash_attention_bwd_bf16.cu)
+// share.
 //
 // One consumer warpgroup (4 warps, 16 query rows a warp) attends its 64
 // query rows, held bf16 in one 128-byte-swizzled tile of shared memory
@@ -20,6 +21,12 @@
 // The per-element sums are mma.sync m16n8k16's in the same order (k-steps
 // and key tiles ascending), so O and LSE are the bits of the mma.sync K1b
 // that this loop replaced.
+//
+// With Passes = 3 (K4h, the TPU kernel's "high3") every operand comes as a
+// hi and a lo bf16 plane (hi = bf16(a), lo = bf16(a - hi)) and each product
+// is three passes into one f32 accumulator, k-step by k-step: hi.hi, hi.lo,
+// lo.hi (the lo.lo term is dropped, as the TPU kernel's _dot drops it); P is
+// split in registers into two A fragments.
 
 #pragma once
 
@@ -41,6 +48,10 @@ struct KeyTile {  // K then V of 64 keys, each 64 rows of 128 bytes in the swizz
   __nv_bfloat16 k[kAttnRows * kAttnRows];
   __nv_bfloat16 v[kAttnRows * kAttnRows];
 };
+struct KeyTileHL {  // the same as hi and lo planes: K hi, K lo, V hi, V lo
+  __nv_bfloat16 k[2][kAttnRows * kAttnRows];
+  __nv_bfloat16 v[2][kAttnRows * kAttnRows];
+};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -58,27 +69,57 @@ __device__ __forceinline__ void consumers_sync() {
 
 // S = Q . K^T of one key tile, issued and committed (not waited): both
 // K-major (d contiguous); s[4j + 2i + e] row 16 warp + lane / 4 + 8i, key
-// 8j + 2 (lane % 4) + e
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint64_t dq, const KeyTile& kt) {
-  const uint64_t dk = sw128_desc(smem_u32(kt.k));
-  fence_regs(s);
-  wgmma_fence();
+// 8j + 2 (lane % 4) + e. Passes = 3: Q's planes at dq and dq_lo, K's in
+// kt.k[0] and kt.k[1]
+template <int Passes, class Tile>
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint64_t dq, uint64_t dq_lo,
+                                             const Tile& kt) {
+  if constexpr (Passes == 1) {
+    const uint64_t dk = sw128_desc(smem_u32(kt.k));
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kAttnRows / 16; ++kk) wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
-  wgmma_commit();
+    for (int kk = 0; kk < kAttnRows / 16; ++kk) wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    wgmma_commit();
+  } else {
+    const uint64_t dk = sw128_desc(smem_u32(kt.k[0]));
+    const uint64_t dk_lo = sw128_desc(smem_u32(kt.k[1]));
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kAttnRows / 16; ++kk) {
+      wgmma_m64n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      wgmma_m64n64(s, dq + 2 * kk, dk_lo + 2 * kk);
+      wgmma_m64n64(s, dq_lo + 2 * kk, dk + 2 * kk);
+    }
+    wgmma_commit();
+  }
 }
 
 // O += bf16(P) . bf16(V), issued and committed: k-step kk covers keys
 // 16kk .. 16kk + 15, whose A fragments pa[kk] are the P fragments of key
 // tiles 2kk and 2kk + 1; V's rows (keys) of 128 bytes are B MN-major,
-// 8-key atoms 1,024 bytes apart
+// 8-key atoms 1,024 bytes apart. Passes = 3: P's lo fragments in pl, V's
+// planes in kt.v[0] and kt.v[1]
+template <int Passes, class Tile>
 __device__ __forceinline__ void issue_values(float (&acc)[32], const uint32_t (&pa)[4][4],
-                                             const KeyTile& kt) {
+                                             const uint32_t (&pl)[4][4], const Tile& kt) {
   fence_regs(acc);
   wgmma_fence();
+  if constexpr (Passes == 1) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_m64n64_rs(acc, pa[kk], sw128_desc(smem_u32(kt.v + 16 * kk * kAttnRows)));
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64_rs(acc, pa[kk], sw128_desc(smem_u32(kt.v + 16 * kk * kAttnRows)));
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = sw128_desc(smem_u32(kt.v[0] + 16 * kk * kAttnRows));
+      const uint64_t dv_lo = sw128_desc(smem_u32(kt.v[1] + 16 * kk * kAttnRows));
+      wgmma_m64n64_rs(acc, pa[kk], dv);
+      wgmma_m64n64_rs(acc, pa[kk], dv_lo);
+      wgmma_m64n64_rs(acc, pl[kk], dv);
+    }
   }
   wgmma_commit();
 }
@@ -87,14 +128,15 @@ __device__ __forceinline__ void issue_values(float (&acc)[32], const uint32_t (&
 // masked unless the whole tile is valid, kFull): updates the row maxima m
 // and this thread's share of the row sums l, gives each row's rescale
 // factor for O, and P rounded to bf16 as wgmma A fragments (k-step kk
-// takes key tiles 2kk and 2kk + 1). exp2f is taken of every element and a
-// masked one dropped by select: a masked key's row of K is 0, so its score
-// is finite. It only reads s, so that ptxas keeps P . V, whose
-// accumulators are elsewhere, in flight around it.
-template <bool kFull>
+// takes key tiles 2kk and 2kk + 1; Passes = 3: P's hi plane in pa, its lo
+// plane in pl, l the sum of the unrounded p). exp2f is taken of every
+// element and a masked one dropped by select: a masked key's row of K is
+// 0, so its score is finite. It only reads s, so that ptxas keeps P . V,
+// whose accumulators are elsewhere, in flight around it.
+template <bool kFull, int Passes>
 __device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
-                                             int len, int c) {
+                                             float (&alpha)[2], uint32_t (&pa)[4][4],
+                                             uint32_t (&pl)[4][4], int key0, int len, int c) {
   float p[32];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -124,26 +166,38 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2]
     l[i] = l[i] * alpha[i] + sum;
     m[i] = mx;
   }
+  if constexpr (Passes == 1) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1], pa[kk][r], pl[kk][r]);
+      }
+    }
   }
 }
 
 // the same, choosing the unmasked form where every key of the tile is valid
+template <int Passes>
 __device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], uint32_t (&pa)[4][4], int key0,
-                                             int len, int c) {
+                                             float (&alpha)[2], uint32_t (&pa)[4][4],
+                                             uint32_t (&pl)[4][4], int key0, int len, int c) {
   if (key0 + kAttnRows <= len) {
-    softmax_tile<true>(s, m, l, alpha, pa, key0, len, c);
+    softmax_tile<true, Passes>(s, m, l, alpha, pa, pl, key0, len, c);
   } else {
-    softmax_tile<false>(s, m, l, alpha, pa, key0, len, c);
+    softmax_tile<false, Passes>(s, m, l, alpha, pa, pl, key0, len, c);
   }
 }
 
 // The key loop of the consumer warpgroup over `tiles` key tiles (keys
-// 64t .. 64t + 63 of tile t, those >= len masked), Q's descriptor dq: acc
+// 64t .. 64t + 63 of tile t, those >= len masked), Q's descriptor dq (and
+// with Passes = 3 its lo plane's, dq_lo; at(t) then a KeyTileHL): acc
 // (O, acc[4j + 2i + e] row 16 warp + lane / 4 + 8i, d 8j + 2 (lane % 4) +
 // e), m and l (this thread's share of each row's sum) carried in and out.
 // The caller supplies where tile t lies and when it may be read:
@@ -151,20 +205,22 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[32], float (&m)[2]
 //   wait(t)    returns once tile t may be read by wgmma (called in order);
 //   begin(t)   at the start of iteration t (t + 1 is waited on next);
 //   release(t) once nothing reads tile t any more (its P . V complete).
-template <class At, class Wait, class Begin, class Release>
+template <int Passes = 1, class At, class Wait, class Begin, class Release>
 __device__ __forceinline__ void attend_tiles(float (&acc)[32], float (&m)[2], float (&l)[2],
                                              uint64_t dq, int tiles, int len, At at, Wait wait,
-                                             Begin begin, Release release) {
+                                             Begin begin, Release release, uint64_t dq_lo = 0) {
+  static_assert(Passes == 1 || Passes == 3, "one bf16 pass, or high3's three");
   const int c = threadIdx.x & 3;
   float alpha[2];
   float s[32] = {};  // written by wgmma alone from here on
   uint32_t pa[4][4], pn[4][4];  // P of the tile in P . V, of the next one
+  uint32_t pal[4][4], pnl[4][4];  // their lo planes (Passes = 3)
   if (tiles > 0) {
     wait(0);
-    issue_scores(s, dq, at(0));
+    issue_scores<Passes>(s, dq, dq_lo, at(0));
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(s, m, l, alpha, pn, 0, len, c);
+    softmax_tile<Passes>(s, m, l, alpha, pn, pnl, 0, len, c);
   }
   for (int tile = 0; tile < tiles; ++tile) {
     // here: P of `tile` in pn, O rescaled to its maximum
@@ -174,18 +230,23 @@ __device__ __forceinline__ void attend_tiles(float (&acc)[32], float (&m)[2], fl
     for (int kk = 0; kk < 4; ++kk) {  // read by P . V until it completes
 #pragma unroll
       for (int r = 0; r < 4; ++r) pa[kk][r] = pn[kk][r];
+      if constexpr (Passes == 3) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pal[kk][r] = pnl[kk][r];
+      }
     }
     if (next) {
       wait(tile + 1);
-      issue_scores(s, dq, at(tile + 1));
+      issue_scores<Passes>(s, dq, dq_lo, at(tile + 1));
     }
-    issue_values(acc, pa, at(tile));
+    issue_values<Passes>(acc, pa, pal, at(tile));
     wgmma_wait<1>();  // the scores of tile + 1; P . V of tile still in flight
     fence_regs(s);
-    if (next) softmax_tile(s, m, l, alpha, pn, (tile + 1) * kAttnRows, len, c);
+    if (next) softmax_tile<Passes>(s, m, l, alpha, pn, pnl, (tile + 1) * kAttnRows, len, c);
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
+    if constexpr (Passes == 3) fence_regs(pal);
     if (next) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {

@@ -1,27 +1,40 @@
-// Projection-fused masked multi-head attention in one bf16 pass per
-// product, f32 accumulation and softmax, head width 64 (kernel K4b).
+// Projection-fused masked multi-head attention on the bf16 tensor cores,
+// f32 accumulation and softmax, head width 64: kernel K4b, one bf16 pass
+// per product, and kernel K4h, three bf16 passes per product ("high3").
 //
 // Replaces nomad_tpu/ops/fused_attention.py::_fused_kernel in
-// mode="default" (_dot, :65-87; launched by _fused_call at :148), the
-// flavour that fused_qkv runs at a "default" encoder island (the "fast"
-// recipe): for each (batch b, head h), K_h = bf16(x) . bf16(Wk_h) + bk and
-// V_h likewise, q = (bf16(x) . bf16(Wq_h) + bq) / 8, s = bf16(q) .
-// bf16(K_h) over the keys t < lengths[b], p = exp(s - m) in f32, l the sum
-// of the unrounded p, O = bf16(p) . bf16(V_h) / l. Every product takes
-// operands rounded to nearest-even bf16, multiplies exactly and sums in
-// f32; each bias is added in f32 after its product. K4
-// (fused_attention.cu) is the f32 flavour ("highest" and "high3").
+// mode="default" (K4b) and mode="high3" (K4h) (_dot, :65-90; launched by
+// _fused_call at :148). K4 (fused_attention.cu) is its f32 flavour
+// ("highest").
+//   * K4b, the flavour that fused_qkv runs at a "default" encoder island
+//     (the "fast" recipe): for each (batch b, head h), K_h = bf16(x) .
+//     bf16(Wk_h) + bk and V_h likewise, q = (bf16(x) . bf16(Wq_h) + bq) /
+//     8, s = bf16(q) . bf16(K_h) over the keys t < lengths[b], p = exp(s -
+//     m) in f32, l the sum of the unrounded p, O = bf16(p) . bf16(V_h) / l.
+//     Every product takes operands rounded to nearest-even bf16,
+//     multiplies exactly and sums in f32; each bias is added in f32 after
+//     its product.
+//   * K4h, the TPU kernel's default mode, which the JAX package's "high"
+//     matmul precision maps to (nomad_tpu/models/wav2vec2.py:481), and so
+//     the fused "exact" and "balanced" paths: the same five products, each
+//     operand a split into a_hi = bf16(a) and a_lo = bf16(a - a_hi), each
+//     product hi.hi + hi.lo + lo.hi (XLA's bf16 x 3 decomposition of
+//     Precision.HIGH; lo.lo dropped, ~1e-5 relative). q is split after its
+//     scale 1/8 (exact), K and V after their bias, p before its division
+//     by l, l the sum of the unrounded p. On a bf16 x, x_lo = 0: the
+//     projections take two passes.
 //
 // What bounds it on an H100: operations, as the bound counts them. At the
 // scoring shape (B = 96, T = 511, 499 keys valid, H = 12, model width 768)
-// it does 246 GFLOP against 308 MB of f32 x, weights and O: 0.25 ms on
-// the bf16 tensor cores at 989 TFLOP/s against 0.09 ms of memory time. So
-// every product runs on the tensor cores (wgmma), and Q, K and V never
-// reach device memory. Inside the kernel what sets the pace is what each
-// SM must take into shared memory: a block of 64 rows needs the head's
-// whole 192 x 768 weight slab (288 KB in bf16) for 19 MFLOP of
-// projections, and every key tile of its cluster for the attention, about
-// 4.7 GB into the SMs at the scoring shape.
+// K4b does 246 GFLOP against 308 MB of f32 x, weights and O: 0.25 ms on
+// the bf16 tensor cores at 989 TFLOP/s against 0.09 ms of memory time; K4h
+// three times the work, 0.75 ms (0.63 ms on a bf16 x). So every product
+// runs on the tensor cores (wgmma), and Q, K and V never reach device
+// memory. Inside the kernel what sets the pace is what each SM must take
+// into shared memory: a block of 64 rows needs the head's whole 192 x 768
+// weight slab (288 KB in bf16, twice that as K4h's two planes) for 19
+// MFLOP of projections a pass, and every key tile of its cluster for the
+// attention, about 4.7 GB into the SMs at the scoring shape (K4b).
 //
 // Design:
 //   * A prologue kernel (pack_kernel) rounds the weights to bf16 once per
@@ -33,7 +46,8 @@
 //     then run the one projection kernel on bf16 x, so the f32 flavour's O
 //     is the bf16 flavour's before its one rounding, bit for bit. bf16(w)
 //     and bf16(x) are the values the products used before, wherever they
-//     are rounded.
+//     are rounded. K4h's prologue writes a second plane after each, the lo
+//     parts: W [2, H, 192, DM], an f32 x [2, B, T, DM].
 //   * K4's thread-block cluster per (batch, head), with its two split
 //     rules (ops/fused_attention.py::fused_launch_plan). T > 64: a cluster
 //     of ceil(T / 64) blocks, block r projects Q, K and V of rows
@@ -42,62 +56,73 @@
 //     tensor g (Q, K, V) of all rows, and the three share the query rows by
 //     16-row warp tiles, warp tile w going to block w % 3. Peers' K and V
 //     are read through distributed shared memory: no device workspace
-//     beyond the packed weights. A block is a consumer warpgroup (4 warps)
-//     and a producer warp; 2 blocks an SM.
+//     beyond the prologue's buffers. A block is a consumer warpgroup (4
+//     warps) and a producer warp; 2 blocks an SM (K4b), 1 (K4h, whose
+//     planes double every tile: 197,680 bytes of shared memory).
 //   * Phase 1, the projections: a ring of 3 stages, each a 64-wide slice of
 //     the model axis of the chunk's 64 rows of x and of the weight rows it
-//     needs (all 192 of the head, or the 64 of one tensor), in TMA's
-//     128-byte swizzle, one mbarrier "full" and one "empty" per stage. One
-//     thread of the producer warp issues the copies. Tiles that every
-//     block of the cluster needs go out once with .multicast::cluster, each
-//     block issuing its share: the head's weights (T > 64; one box of
-//     192 / n rows a block where the cluster size n divides the head's 24
-//     swizzle atoms of 8 rows, else 8-row boxes) or x (T <= 64, the three
-//     tensors of one x; 8-row boxes), so each weight byte leaves L2 once
-//     per cluster. A block's own tile is one box (its 64 x rows, or its
-//     tensor's 64 weight rows). x's 3-D tensor map reads rows past T as 0. A stage is refilled once every block of the cluster has released
-//     it (each consumer warp arrives on every block's "empty" barrier).
-//     The consumer warpgroup multiplies with wgmma m64n192k16 (Q, K and V
-//     of the chunk: 96 f32 accumulators a thread) or m64n64k16 (one
-//     tensor), both operands K-major from shared memory, keeping one
-//     stage's products in flight while it releases the stage before. The
-//     epilogue adds the bias in f32, Q's scale 1/8 (exact), and stores
-//     bf16 rows of 128 bytes in the same swizzle (wgmma's operands in
-//     phase 2) into shared memory that the ring used. The TPU kept K_h and
-//     V_h in f32 scratch; the next DEFAULT product rounds them to bf16
-//     anyway, so the values are the same.
-//   * Rows of K and V at t >= lengths[b] are stored as 0: inside the
-//     tensor core 0 * NaN is NaN, so garbage in padded rows of x must
-//     never reach a product of a valid row (wgmma's row i of the output
-//     reads row i of x alone). Q of every row t < T is projected from x as
-//     the TPU kernel does (a padded query row sees the valid keys; its
-//     output is written, and it is finite whenever x is).
+//     needs (all 192 of the head, or the 64 of one tensor), each in its
+//     planes, in TMA's 128-byte swizzle, one mbarrier "full" and one
+//     "empty" per stage. One thread of the producer warp issues the
+//     copies. Tiles that every block of the cluster needs go out once with
+//     .multicast::cluster, each block issuing its share: the head's
+//     weights (T > 64; one box of 192 / n rows a block where the cluster
+//     size n divides the head's 24 swizzle atoms of 8 rows, else 8-row
+//     boxes) or x (T <= 64, the three tensors of one x; 8-row boxes), so
+//     each weight byte leaves L2 once per cluster. A block's own tile is
+//     one box (its 64 x rows, or its tensor's 64 weight rows). x's 3-D
+//     tensor map reads rows past T as 0. A stage is refilled once every
+//     block of the cluster has released it (each consumer warp arrives on
+//     every block's "empty" barrier). The consumer warpgroup multiplies
+//     with wgmma m64n192k16 (Q, K and V of the chunk: 96 f32 accumulators
+//     a thread) or m64n64k16 (one tensor), both operands K-major from
+//     shared memory, keeping one stage's products in flight while it
+//     releases the stage before; K4h issues a stage's passes k-step by
+//     k-step (hi.hi, hi.lo, lo.hi) into a zeroed sum of its own, waits for
+//     it and adds it to the accumulator in f32 (three separate sums would
+//     not fit the registers, so its f32 order is not the plain version's
+//     (hh + hl) + lh; the wait costs the overlap of two stages' products,
+//     and keeps the tensor core's drift to one stage). The epilogue adds
+//     the bias in f32, Q's scale 1/8 (exact), and stores bf16 rows of 128
+//     bytes in the same swizzle (wgmma's operands in phase 2) into shared
+//     memory that the ring used: K4h splits each f32 value into its hi and
+//     lo planes there. The TPU kept K_h and V_h in f32 scratch; the next
+//     product rounds (or splits) them anyway, so the values are the same.
+//   * Rows of K and V at t >= lengths[b] are stored as 0 (in both planes):
+//     inside the tensor core 0 * NaN is NaN, so garbage in padded rows of
+//     x (or an inf that a split makes of a huge value) must never reach a
+//     product of a valid row (wgmma's row i of the output reads row i of x
+//     alone). Q of every row t < T is projected from x as the TPU kernel
+//     does (a padded query row sees the valid keys; its output is written,
+//     and it is finite whenever x is).
 //   * Phase 2, the key loop that K1b runs too (attention_wgmma.cuh::
-//     attend_tiles): each 64-key tile of K and V is read
-//     from the block that projected it through distributed shared memory
-//     into registers two tiles ahead and stored into one of three local
-//     tiles (16 KB a tile, copied as it lies: the swizzle is the same in
-//     every block; T <= 64 also copies Q from block 0). S = Q . K^T by
-//     m64n64k16 from shared memory; an online f32 softmax on the
-//     accumulator fragments (unmasked where the whole tile is valid), p
-//     rounded to bf16 into A fragments in registers; O += P . V by
-//     m64n64k16 with A from registers and V MN-major. The scores of the
-//     next tile and their softmax run while P . V of this one is in
-//     flight. The online softmax rounds p against the running maximum,
-//     where the TPU kernel's single pass rounds it against the final one:
-//     the same bf16 error class, not the same bits (they are K1b's, the
-//     same sums in the same order). A last cluster barrier keeps every
-//     block's shared memory alive until its peers have read it.
+//     attend_tiles, with Passes = 3 for K4h): each 64-key tile of K and V
+//     is read from the block that projected it through distributed shared
+//     memory into registers two tiles ahead and stored into one of three
+//     local tiles (16 KB a tile, 32 KB with K4h's planes, copied as it
+//     lies: the swizzle is the same in every block; T <= 64 also copies Q
+//     from block 0). S = Q . K^T by m64n64k16 from shared memory; an
+//     online f32 softmax on the accumulator fragments (unmasked where the
+//     whole tile is valid), p rounded to bf16 into A fragments in
+//     registers (K4h: split into two); O += P . V by m64n64k16 with A from
+//     registers and V MN-major. The scores of the next tile and their
+//     softmax run while P . V of this one is in flight. The online softmax
+//     rounds p against the running maximum, where the TPU kernel's single
+//     pass rounds it against the final one: the same bf16 error class, not
+//     the same bits (K4b's are K1b's, the same sums in the same order). A
+//     last cluster barrier keeps every block's shared memory alive until
+//     its peers have read it.
 //   * Every query row t < T is written; a row with no valid key gets
 //     O = 0. No atomics: a rerun gives the same bits. A wait on an
 //     mbarrier that outlasts ~2 s traps, so that a lost copy fails the
 //     launch instead of holding the card.
 //
-// Two I/O flavours from one template on O's type: x and O in f32 (x
-// rounded by the prologue), or in bf16 (bf16 activations with fused_qkv
-// at a "default" island, where the TPU kernel reads the bf16 x block
-// through astype(float32), :111, :118, and stores O in x's dtype, :131).
-// The weights and biases are f32 in both; O is rounded once from acc / l.
+// K4b and K4h are one body templated on the pass count (1 or 3), and each
+// has two I/O flavours from the template on O's type: x and O in f32 (x
+// rounded, or split, by the prologue), or in bf16 (bf16 activations with
+// fused_qkv, where the TPU kernel reads the bf16 x block through
+// astype(float32), :111, :118, and stores O in x's dtype, :131). The
+// weights and biases are f32 in both; O is rounded once from acc / l.
 // Launches on the caller's stream and allocates nothing: the caller hands
 // in the packed weights' and the rounded x's buffers.
 
@@ -129,38 +154,58 @@ constexpr int kBox = 8;                 // rows of a swizzle atom (1,024 bytes):
 constexpr int kHeadRows = 3 * kD;       // packed weight rows per head
 constexpr int kMaxT = 1024;
 constexpr int kMaxCluster = kMaxT / kRows;  // 16: past the portable 8
-constexpr int kMinBlocks = 2;           // per SM (__launch_bounds__)
 
-struct Stage {
-  __nv_bfloat16 x[kRows * kK];       // 8 KB: the chunk's x rows
-  __nv_bfloat16 w[kHeadRows * kK];   // 24 KB: the head's weight rows (or one tensor's 64)
+// K4b (Passes = 1): one bf16 plane of every operand, 2 blocks an SM. K4h
+// (Passes = 3): a hi and a lo plane, 1 block an SM (two of its 197,680
+// bytes do not fit the SM's 228 KB).
+template <int Passes>
+struct Flavour {
+  static_assert(Passes == 1 || Passes == 3, "one bf16 pass, or high3's three");
+  static constexpr int kPlanes = Passes == 1 ? 1 : 2;
+  static constexpr int kMinBlocks = Passes == 1 ? 2 : 1;  // per SM (__launch_bounds__)
+  using Tile = std::conditional_t<Passes == 1, KeyTile, KeyTileHL>;
 };
+
+template <int Planes>
+struct Stage {
+  __nv_bfloat16 x[Planes][kRows * kK];      // 8 KB a plane: the chunk's x rows
+  __nv_bfloat16 w[Planes][kHeadRows * kK];  // 24 KB a plane: the head's weight rows (or
+                                            // one tensor's 64)
+};
+template <int Passes>
 struct Phase2 {
   // this block's projected rows as bf16, 64 rows of 128 bytes in the
-  // swizzle: Q / 8, K and V of its chunk (a cluster along T), or its one
-  // tensor in slot g (T <= 64, where blocks 1 and 2 receive Q in slot 0)
-  __nv_bfloat16 slot[3][kRows * kD];
-  KeyTile kv[3];  // the key tiles in flight
+  // swizzle, in each plane: Q / 8, K and V of its chunk (a cluster along
+  // T), or its one tensor in slot g (T <= 64, where blocks 1 and 2 receive
+  // Q in slot 0)
+  __nv_bfloat16 slot[3][Flavour<Passes>::kPlanes][kRows * kD];
+  typename Flavour<Passes>::Tile kv[3];  // the key tiles in flight
 };
+template <int Passes>
 struct Smem {
   union {
-    Stage ring[kStages];  // phase 1
-    Phase2 p2;            // from phase 1's epilogue on
+    Stage<Flavour<Passes>::kPlanes> ring[kStages];  // phase 1
+    Phase2<Passes> p2;                              // from phase 1's epilogue on
   } u;
   uint64_t full[kStages];
   uint64_t empty[kStages];
 };
 // the ring's tiles start on 1,024-byte boundaries (the swizzle atom); the
 // dynamic shared memory is aligned by hand, hence the extra 1,024 bytes
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
-static_assert(sizeof(Stage) % 1024 == 0, "swizzle atoms");
-static_assert(sizeof(Phase2) <= sizeof(Stage) * kStages, "phase 2 fits in the ring");
-static_assert(kSmemBytes == 99376, "ops/fused_attention.py::FUSED_BF16_SMEM_BYTES");
+template <int Passes>
+constexpr int kSmemBytes = sizeof(Smem<Passes>) + 1024;
+static_assert(sizeof(Stage<1>) % 1024 == 0 && sizeof(Stage<2>) % 1024 == 0, "swizzle atoms");
+static_assert(sizeof(Phase2<1>) <= sizeof(Stage<1>) * kStages &&
+                  sizeof(Phase2<3>) <= sizeof(Stage<2>) * kStages,
+              "phase 2 fits in the ring");
+static_assert(kSmemBytes<1> == 99376, "ops/fused_attention.py::FUSED_BF16_SMEM_BYTES");
+static_assert(kSmemBytes<3> == 197680, "ops/fused_attention.py::FUSED_HIGH3_SMEM_BYTES");
 
 // ---- wgmma (the helpers in hopper.cuh) ----
 
-// D[64 x 192] += A . B^T, as wgmma_m64n64
-__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t a, uint64_t b) {
+// D[64 x 192] += A . B^T, as wgmma_m64n64 (accumulate = 0: D = A . B^T)
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t a, uint64_t b,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -193,23 +238,26 @@ __device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t a, uint64
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <int NT>
-__device__ __forceinline__ void wgmma_tile(float (&d)[NT * kD / 2], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_tile(float (&d)[NT * kD / 2], uint64_t a, uint64_t b,
+                                           int accumulate = 1) {
   if constexpr (NT == 3) {
-    wgmma_m64n192(d, a, b);
+    wgmma_m64n192(d, a, b, accumulate);
   } else {
-    wgmma_m64n64(d, a, b);
+    wgmma_m64n64(d, a, b, accumulate);
   }
 }
 
 // ---- the prologue: weights packed once, f32 x rounded ----
 
 // Row 192 h + 64 n + r of wp is row 64 h + r of tensor n (wq, wk, wv),
-// rounded to bf16; then xr = bf16(x) when x is given. 8 values a thread
-// and step.
+// rounded to bf16; then xr = bf16(x) when x is given. kSplit (K4h): the lo
+// parts, bf16(a - bf16(a)), go into a second plane after each, 3 DM^2
+// elements on in wp and 8 x_units in xr. 8 values a thread and step.
+template <bool kSplit>
 __global__ void pack_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
                             const float* __restrict__ wv, __nv_bfloat16* __restrict__ wp, int DM,
                             const float* __restrict__ x, __nv_bfloat16* __restrict__ xr,
@@ -221,6 +269,7 @@ __global__ void pack_kernel(const float* __restrict__ wq, const float* __restric
        u += static_cast<long long>(gridDim.x) * blockDim.x) {
     const float* src;
     __nv_bfloat16* dst;
+    long long plane;  // elements from a hi plane to its lo plane
     if (u < w_units) {
       const long long e = 8 * u;
       const int n = static_cast<int>(e / per_w);
@@ -229,15 +278,28 @@ __global__ void pack_kernel(const float* __restrict__ wq, const float* __restric
       const int col = static_cast<int>(rem - static_cast<long long>(row) * DM);
       src = (n == 0 ? wq : n == 1 ? wk : wv) + rem;
       dst = wp + static_cast<long long>((row / kD) * kHeadRows + n * kD + row % kD) * DM + col;
+      plane = 3 * per_w;
     } else {
       const long long e = 8 * (u - w_units);
       src = x + e;
       dst = xr + e;
+      plane = 8 * x_units;
     }
     const float4 a = *reinterpret_cast<const float4*>(src);
     const float4 b = *reinterpret_cast<const float4*>(src + 4);
-    *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                                                pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    if constexpr (kSplit) {
+      uint4 hi, lo;
+      split_bf16(a.x, a.y, hi.x, lo.x);
+      split_bf16(a.z, a.w, hi.y, lo.y);
+      split_bf16(b.x, b.y, hi.z, lo.z);
+      split_bf16(b.z, b.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(dst) = hi;
+      *reinterpret_cast<uint4*>(dst + plane) = lo;
+    } else {
+      (void)plane;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                                                  pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
   }
 }
 
@@ -245,32 +307,45 @@ __global__ void pack_kernel(const float* __restrict__ wq, const float* __restric
 
 // The producer's loop (one thread): stage s's copies into ring slot
 // s % kStages once every block in the ring has released the slot's last
-// stage. T > 64 (`along_t`): this block's 64 x rows (one box) and its
-// share of the head's 192 weight rows in boxes of w_box rows, multicast;
-// T <= 64: its tensor's 64 weight rows (one box) and its share of x in
-// 8-row boxes, multicast.
+// stage, plane by plane (XPlanes of x: 2 for K4h's split f32 x, else 1).
+// T > 64 (`along_t`): this block's 64 x rows (one box) and its share of
+// the head's 192 weight rows in boxes of w_box rows, multicast; T <= 64:
+// its tensor's 64 weight rows (one box) and its share of x in 8-row boxes,
+// multicast. x's planes lie B batches apart along its map's third axis,
+// the weights' H heads of 192 rows apart.
+template <int Passes, int XPlanes>
 __device__ __forceinline__ void produce_ring(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
-                                             Smem& sm, bool along_t, int rank, int parts, int b,
-                                             int h, int r0, int steps, int w_box) {
+                                             Smem<Passes>& sm, bool along_t, int rank, int parts,
+                                             int b, int h, int r0, int steps, int w_box) {
+  constexpr int kPlanes = Flavour<Passes>::kPlanes;
   const uint16_t mask = parts > 1 ? static_cast<uint16_t>((1u << parts) - 1) : 0;
-  const uint32_t stage_bytes = along_t ? sizeof(Stage) : 2 * kRows * kK * 2;
+  const uint32_t stage_bytes =
+      2 * kK * (along_t ? XPlanes * kRows + kPlanes * kHeadRows : kPlanes * kD + XPlanes * kRows);
+  const int x_plane = gridDim.z;
+  const int w_plane = gridDim.y * kHeadRows;
   for (int s = 0; s < steps; ++s) {
     const int j = s % kStages;
     // the slot's last stage released by every block in the ring
     if (s >= kStages) mbar_wait(&sm.empty[j], (s / kStages - 1) & 1);
-    Stage& st = sm.u.ring[j];
+    auto& st = sm.u.ring[j];
     uint64_t* bar = &sm.full[j];
     const int k0 = s * kK;
     mbar_expect_tx(bar, stage_bytes);
-    if (along_t) {
-      tma_3d(st.x, tm_x, k0, r0, b, bar, 0);  // this block's 64 x rows: one box
-      for (int a = rank; a < kHeadRows / w_box; a += parts) {  // its share of the weights
-        tma_2d(st.w + a * w_box * kK, tm_w, k0, h * kHeadRows + a * w_box, bar, mask);
-      }
-    } else {
-      tma_2d(st.w, tm_w, k0, h * kHeadRows + rank * kD, bar, 0);  // its tensor's 64 rows
-      for (int a = rank; a < kRows / kBox; a += parts) {  // its share of x, in 8-row boxes
-        tma_3d(st.x + a * kBox * kK, tm_x, k0, a * kBox, b, bar, mask);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      const int wrow = p * w_plane + h * kHeadRows;
+      if (along_t) {
+        if (p < XPlanes) tma_3d(st.x[p], tm_x, k0, r0, p * x_plane + b, bar, 0);  // one box
+        for (int a = rank; a < kHeadRows / w_box; a += parts) {  // its share of the weights
+          tma_2d(st.w[p] + a * w_box * kK, tm_w, k0, wrow + a * w_box, bar, mask);
+        }
+      } else {
+        tma_2d(st.w[p], tm_w, k0, wrow + rank * kD, bar, 0);  // its tensor's 64 rows
+        if (p < XPlanes) {
+          for (int a = rank; a < kRows / kBox; a += parts) {  // its share of x, in 8-row boxes
+            tma_3d(st.x[p] + a * kBox * kK, tm_x, k0, a * kBox, p * x_plane + b, bar, mask);
+          }
+        }
       }
     }
   }
@@ -280,13 +355,14 @@ __device__ __forceinline__ void produce_ring(const CUtensorMap* tm_x, const CUte
 // (a cluster along T, `along_t`), or NT = 1, tensor kinds[0] of them (Q of
 // a chunk with no valid key, or tensor `rank` of rows 0 .. 63 for T <= 64),
 // plus the bias in f32, times `scale` for Q, stored as bf16 into the slot
-// of its kind; rows of K and V at t >= len are stored as 0. `parts` blocks
-// of the cluster (ranks 0 .. parts - 1) take part in the ring: each issues
-// its share of the shared tiles to all of them. The producer warp issues
-// the copies; the consumer warpgroup multiplies and writes the slots.
-template <int NT>
+// of its kind (K4h: split into its two planes); rows of K and V at t >= len
+// are stored as 0. `parts` blocks of the cluster (ranks 0 .. parts - 1)
+// take part in the ring: each issues its share of the shared tiles to all
+// of them. The producer warp issues the copies; the consumer warpgroup
+// multiplies and writes the slots.
+template <int NT, int Passes, int XPlanes>
 __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
-                                        Smem& sm, const float* const (&bias)[3],
+                                        Smem<Passes>& sm, const float* const (&bias)[3],
                                         const int (&kinds)[NT], float scale, bool along_t,
                                         int rank, int parts, int b, int h, int r0, int len,
                                         int DM, int w_box) {
@@ -296,7 +372,9 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
   const int steps = DM / kK;
 
   if (warp == kConsumers) {  // the producer warp: lane 0 keeps the ring full
-    if (lane == 0) produce_ring(tm_x, tm_w, sm, along_t, rank, parts, b, h, r0, steps, w_box);
+    if (lane == 0) {
+      produce_ring<Passes, XPlanes>(tm_x, tm_w, sm, along_t, rank, parts, b, h, r0, steps, w_box);
+    }
     __syncwarp();
     return;
   }
@@ -307,18 +385,44 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
   for (int s = 0; s < steps; ++s) {
     const int j = s % kStages;
     mbar_wait(&sm.full[j], (s / kStages) & 1);
-    const uint64_t da = sw128_desc(smem_u32(sm.u.ring[j].x));
-    const uint64_t db = sw128_desc(smem_u32(sm.u.ring[j].w));
-    fence_regs(acc);
-    wgmma_fence();
+    const uint64_t da = sw128_desc(smem_u32(sm.u.ring[j].x[0]));
+    const uint64_t db = sw128_desc(smem_u32(sm.u.ring[j].w[0]));
+    if constexpr (Passes == 1) {
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kK / 16; ++kk) {  // 16 values = 32 bytes along the swizzled row
-      wgmma_tile<NT>(acc, da + 2 * kk, db + 2 * kk);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // stage s - 1 has been read: release its slot in every block
-    if (s >= 1 && s - 1 + kStages < steps && lane < parts) {
-      mbar_arrive_cluster(&sm.empty[(s - 1) % kStages], lane);
+      for (int kk = 0; kk < kK / 16; ++kk) {  // 16 values = 32 bytes along the swizzled row
+        wgmma_tile<NT>(acc, da + 2 * kk, db + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // stage s - 1 has been read: release its slot in every block
+      if (s >= 1 && s - 1 + kStages < steps && lane < parts) {
+        mbar_arrive_cluster(&sm.empty[(s - 1) % kStages], lane);
+      }
+    } else {
+      // the three passes k-step by k-step (hi.hi, hi.lo, lo.hi) into a
+      // stage's own sum, added to acc in f32 once complete. The tensor
+      // core's f32 accumulation drifts over many passes: with all 144 of
+      // a 768-wide projection in acc, O lay 4.7e-5 from the plain
+      // version at [96, 511] on an H100, twice TOL_FUSED; with a stage's
+      // 12 apart, 1.5e-5
+      float part[NT * kD / 2];
+      const uint64_t da_lo = sw128_desc(smem_u32(sm.u.ring[j].x[XPlanes - 1]));
+      const uint64_t db_lo = sw128_desc(smem_u32(sm.u.ring[j].w[1]));
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kK / 16; ++kk) {
+        wgmma_tile<NT>(part, da + 2 * kk, db + 2 * kk, kk > 0);
+        wgmma_tile<NT>(part, da + 2 * kk, db_lo + 2 * kk);
+        if constexpr (XPlanes == 2) wgmma_tile<NT>(part, da_lo + 2 * kk, db + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // stage s has been read: release its slot in every block
+      fence_regs(part);
+      if (s + kStages < steps && lane < parts) mbar_arrive_cluster(&sm.empty[j], lane);
+#pragma unroll
+      for (int i = 0; i < NT * kD / 2; ++i) acc[i] += part[i];
     }
   }
   wgmma_wait<0>();
@@ -337,26 +441,39 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * warp + g + 8 * i;
       const bool zero = kind != 0 && r0 + row >= len;
-      *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][sw128(row, col)]) =
-          zero ? 0u
-               : pack_bf16((acc[4 * jt + 2 * i] + b0) * sc, (acc[4 * jt + 2 * i + 1] + b1) * sc);
+      const float v0 = (acc[4 * jt + 2 * i] + b0) * sc;
+      const float v1 = (acc[4 * jt + 2 * i + 1] + b1) * sc;
+      const int at = sw128(row, col);
+      if constexpr (Passes == 1) {
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][0][at]) = zero ? 0u : pack_bf16(v0, v1);
+      } else {
+        uint32_t hi = 0u, lo = 0u;
+        if (!zero) split_bf16(v0, v1, hi, lo);
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][0][at]) = hi;
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][1][at]) = lo;
+      }
     }
   }
   // the slots are read next by wgmma (the async proxy)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <typename IO>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int Passes, typename IO>
+__global__ void __launch_bounds__(kThreads, Flavour<Passes>::kMinBlocks)
 fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
                           const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ bq,
                           const float* __restrict__ bk, const float* __restrict__ bv,
                           const int* __restrict__ lengths, IO* __restrict__ o, int T, int DM,
                           int tensors, int w_box, long long sob, long long sot, long long soh,
                           float scale) {
+  using Tile = typename Flavour<Passes>::Tile;
+  constexpr int kPlanes = Flavour<Passes>::kPlanes;
+  // K4h splits an f32 x into two planes; a bf16 x is its own hi plane
+  constexpr int kXPlanes = Passes == 3 && std::is_same_v<IO, float> ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
+  Smem<Passes>& sm =
+      *reinterpret_cast<Smem<Passes>*>(smem_raw + (((base + 1023) & ~1023u) - base));
   cg::cluster_group cluster = cg::this_cluster();
 
   const int rank = static_cast<int>(cluster.block_rank());
@@ -388,15 +505,15 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   if (split_rows) {
     const int r0 = rank * kRows;
     if (r0 < len) {
-      project<3>(&tm_x, &tm_w, sm, bias, {0, 1, 2}, scale, true, rank, parts, b, h, r0, len, DM,
-                 w_box);
+      project<3, Passes, kXPlanes>(&tm_x, &tm_w, sm, bias, {0, 1, 2}, scale, true, rank, parts,
+                                   b, h, r0, len, DM, w_box);
     } else {
-      project<1>(&tm_x, &tm_w, sm, bias, {0}, scale, true, rank, parts, b, h, r0, len, DM,
-                 w_box);
+      project<1, Passes, kXPlanes>(&tm_x, &tm_w, sm, bias, {0}, scale, true, rank, parts, b, h,
+                                   r0, len, DM, w_box);
     }
   } else if (rank == 0 || len > 0) {
-    project<1>(&tm_x, &tm_w, sm, bias, {rank}, scale, false, rank, parts, b, h, 0, len, DM,
-               w_box);
+    project<1, Passes, kXPlanes>(&tm_x, &tm_w, sm, bias, {rank}, scale, false, rank, parts, b,
+                                 h, 0, len, DM, w_box);
   }
   cluster.sync();  // every block's slots are written and visible to the cluster
 
@@ -407,23 +524,24 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   // tile k + 1 and their softmax run while P . V of tile k is in flight
   const int tiles = (len + kRows - 1) / kRows;
   if (warp < kConsumers) {
-    constexpr int kPer = sizeof(KeyTile) / 16 / (32 * kConsumers);  // 16-byte pieces a thread
+    constexpr int kPer = sizeof(Tile) / 16 / (32 * kConsumers);  // 16-byte pieces a thread
     const int ct = tid;  // consumer thread 0 .. 127
     uint4 held[kPer];
-    // tile `tile`'s K and V, 16 KB as they lie (the swizzle is the same in
-    // every block), or for T <= 64 K from block 1 and V from block 2
+    // tile `tile`'s K and V (each in its planes), as they lie (the swizzle
+    // is the same in every block), or for T <= 64 K from block 1 and V
+    // from block 2
     auto fetch = [&](int tile) {
       const uint4* kp = reinterpret_cast<const uint4*>(
-          cluster.map_shared_rank(sm.u.p2.slot[1], split_rows ? tile : 1));
+          cluster.map_shared_rank(sm.u.p2.slot[1][0], split_rows ? tile : 1));
       const uint4* vp = reinterpret_cast<const uint4*>(
-          cluster.map_shared_rank(sm.u.p2.slot[2], split_rows ? tile : 2));
+          cluster.map_shared_rank(sm.u.p2.slot[2][0], split_rows ? tile : 2));
 #pragma unroll
       for (int e = 0; e < kPer / 2; ++e) {
         held[e] = kp[ct + e * 32 * kConsumers];
         held[kPer / 2 + e] = vp[ct + e * 32 * kConsumers];
       }
     };
-    auto stash = [&](KeyTile& kt) {
+    auto stash = [&](Tile& kt) {
 #pragma unroll
       for (int e = 0; e < kPer; ++e) reinterpret_cast<uint4*>(&kt)[ct + e * 32 * kConsumers] = held[e];
       // read next by wgmma (the async proxy)
@@ -436,15 +554,16 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     float m[2] = {kAttnNegInf, kAttnNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-    const uint64_t dq = sw128_desc(smem_u32(sm.u.p2.slot[0]));
+    const uint64_t dq = sw128_desc(smem_u32(sm.u.p2.slot[0][0]));
+    const uint64_t dq_lo = sw128_desc(smem_u32(sm.u.p2.slot[0][kPlanes - 1]));
 
     if (tiles > 0) {
-      if (!split_rows && rank != 0) {  // T <= 64: Q from block 0
+      if (!split_rows && rank != 0) {  // T <= 64: Q (its planes) from block 0
         const uint4* qp = reinterpret_cast<const uint4*>(
-            cluster.map_shared_rank(sm.u.p2.slot[0], 0));
+            cluster.map_shared_rank(sm.u.p2.slot[0][0], 0));
 #pragma unroll
         for (int e = 0; e < kPer / 2; ++e) {
-          reinterpret_cast<uint4*>(sm.u.p2.slot[0])[ct + e * 32 * kConsumers] =
+          reinterpret_cast<uint4*>(sm.u.p2.slot[0][0])[ct + e * 32 * kConsumers] =
               qp[ct + e * 32 * kConsumers];
         }
       }
@@ -459,13 +578,14 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     // the shared key loop (attention_wgmma.cuh): tiles `tile` and `tile + 1`
     // are in place when iteration `tile` starts; tile + 2 is fetched during
     // it and stored once tile's P . V has completed
-    attend_tiles(
-        acc, m, l, dq, tiles, len, [&](int t) -> const KeyTile& { return sm.u.p2.kv[t % 3]; },
+    attend_tiles<Passes>(
+        acc, m, l, dq, tiles, len, [&](int t) -> const Tile& { return sm.u.p2.kv[t % 3]; },
         [](int) {}, [&](int t) { if (t + 2 < tiles) fetch(t + 2); },
         [&](int t) {
           if (t + 2 < tiles) stash(sm.u.p2.kv[(t + 2) % 3]);  // t - 1's slot, read by all
           consumers_sync();  // t + 2 is in place; t is no longer read
-        });
+        },
+        dq_lo);
 
     if (active) {
       const float totals[2] = {quad_sum(l[0]), quad_sum(l[1])};
@@ -494,12 +614,13 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
 
 // ---- host side ----
 
-template <typename IO>
+template <int Passes, typename IO>
 cudaError_t configure_kernel() {
-  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<IO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<Passes, IO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBytes<Passes>);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<IO>,
+    err = cudaFuncSetAttribute(fused_qkv_fwd_bf16_kernel<Passes, IO>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   return err;
@@ -508,20 +629,22 @@ cudaError_t configure_kernel() {
 cudaError_t configure(int cluster) {
   static bool done = false;
   if (!done) {
-    cudaError_t err = configure_kernel<float>();
-    if (err == cudaSuccess) err = configure_kernel<__nv_bfloat16>();
+    cudaError_t err = configure_kernel<1, float>();
+    if (err == cudaSuccess) err = configure_kernel<1, __nv_bfloat16>();
+    if (err == cudaSuccess) err = configure_kernel<3, float>();
+    if (err == cudaSuccess) err = configure_kernel<3, __nv_bfloat16>();
     if (err != cudaSuccess) return err;
     done = true;
   }
   return cluster >= 1 && cluster <= kMaxCluster ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-cudaLaunchConfig_t launch_config(int cluster, int H, int B, cudaStream_t stream,
+cudaLaunchConfig_t launch_config(int cluster, int H, int B, int smem_bytes, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, H, B);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -532,16 +655,17 @@ cudaLaunchConfig_t launch_config(int cluster, int H, int B, cudaStream_t stream,
   return cfg;
 }
 
-// Clusters of `cluster` blocks of one flavour that fit on the card at once
-// (cached; 0 means the launch cannot run).
-template <typename IO>
+// Clusters of `cluster` blocks of one kernel and flavour that fit on the
+// card at once (cached; 0 means the launch cannot run).
+template <int Passes, typename IO>
 int max_active_clusters(int cluster) {
   static int cache[kMaxCluster + 1] = {};
   if (cache[cluster] == 0) {
     cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = launch_config(cluster, 1, 1, nullptr, &attr);
+    cudaLaunchConfig_t cfg = launch_config(cluster, 1, 1, kSmemBytes<Passes>, nullptr, &attr);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_bf16_kernel<IO>, &cfg) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_bf16_kernel<Passes, IO>, &cfg) !=
+        cudaSuccess) {
       n = 0;
     }
     cache[cluster] = n > 0 ? n : -1;
@@ -549,18 +673,91 @@ int max_active_clusters(int cluster) {
   return cache[cluster] > 0 ? cache[cluster] : 0;
 }
 
-template <typename IO>
+template <int Passes, typename IO>
 cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const void* bq,
                    const void* bk, const void* bv, const void* lengths, void* o, int B, int T,
                    int H, int DM, long long sob, long long sot, long long soh, float scale,
                    int cluster, int tensors, int w_box, cudaStream_t stream) {
-  if (max_active_clusters<IO>(cluster) == 0) return cudaErrorInvalidConfiguration;
+  if (max_active_clusters<Passes, IO>(cluster) == 0) return cudaErrorInvalidConfiguration;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(cluster, H, B, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel<IO>, tm_x, tm_w,
+  const cudaLaunchConfig_t cfg = launch_config(cluster, H, B, kSmemBytes<Passes>, stream, &attr);
+  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_bf16_kernel<Passes, IO>, tm_x, tm_w,
                             static_cast<const float*>(bq), static_cast<const float*>(bk),
                             static_cast<const float*>(bv), static_cast<const int*>(lengths),
                             static_cast<IO*>(o), T, DM, tensors, w_box, sob, sot, soh, scale);
+}
+
+// The C entries' body for K4b (Passes = 1) or K4h (Passes = 3).
+template <int Passes>
+int fused_fwd(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
+              const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr,
+              int B, int T, int H, int DM, long long sob, long long sot, long long soh,
+              float scale, int cluster, int rows, int tensors, int threads, int smem_bytes,
+              int bf16_io, void* stream) {
+  if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+  const int want_cluster = T <= kRows ? 3 : (T + kRows - 1) / kRows;
+  const int want_tensors = T <= kRows ? 1 : 3;
+  if (cluster != want_cluster || rows != kRows || tensors != want_tensors ||
+      threads != kThreads || smem_bytes != kSmemBytes<Passes>) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = configure(cluster);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* xb = bf16_io ? x : xr;
+  // planes: K4h's W in two, an f32 x in two (its bf16 x in one)
+  const int w_planes = Flavour<Passes>::kPlanes;
+  const int x_planes = Passes == 3 && !bf16_io ? 2 : 1;
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(DM), static_cast<cuuint64_t>(T),
+                                static_cast<cuuint64_t>(x_planes) * B};
+  const cuuint64_t x_strides[2] = {2ull * DM, 2ull * DM * T};
+  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(DM),
+                                static_cast<cuuint64_t>(w_planes) * H * kHeadRows};
+  const cuuint64_t w_strides[1] = {2ull * DM};
+  // boxes: for a cluster along T, x's 64 rows of a block and the head's
+  // weights in one box a block where the cluster divides its 24 atoms
+  // (else 8-row boxes); for T <= 64, x in 8-row shares, a tensor's 64
+  // weight rows
+  const bool along_t = tensors == 3;
+  const int w_box = !along_t ? kD : (kHeadRows / kBox) % cluster == 0 ? kHeadRows / cluster : kBox;
+  err = make_map(&tm_x, xb, 3, x_dims, x_strides, along_t ? kRows : kBox);
+  if (err == cudaSuccess) err = make_map(&tm_w, wp, 2, w_dims, w_strides, w_box);
+  if (err != cudaSuccess) return err;
+  const long long x_units = bf16_io ? 0 : static_cast<long long>(B) * T * DM / 8;
+  const long long units = 3ll * DM * DM / 8 + x_units;
+  const int grid = static_cast<int>(std::min<long long>((units + 255) / 256, 4096));
+  pack_kernel<(Passes == 3)><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(wq), static_cast<const float*>(wk),
+      static_cast<const float*>(wv), static_cast<__nv_bfloat16*>(wp), DM,
+      bf16_io ? nullptr : static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xr), x_units);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto run = bf16_io ? launch<Passes, __nv_bfloat16> : launch<Passes, float>;
+  err = run(tm_x, tm_w, bq, bk, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
+            tensors, w_box, s);
+  if (err != cudaSuccess) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int Passes>
+int occupancy(int cluster, int bf16_io, int* blocks_per_sm, int* clusters) {
+  cudaError_t err = configure(cluster);
+  if (err != cudaSuccess) return err;
+  if (bf16_io) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_qkv_fwd_bf16_kernel<Passes, __nv_bfloat16>, kThreads,
+        kSmemBytes<Passes>);
+    *clusters = max_active_clusters<Passes, __nv_bfloat16>(cluster);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_qkv_fwd_bf16_kernel<Passes, float>, kThreads, kSmemBytes<Passes>);
+    *clusters = max_active_clusters<Passes, float>(cluster);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -585,68 +782,33 @@ extern "C" int nomad_fused_qkv_attention_bf16_fwd(
     const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr, int B,
     int T, int H, int DM, long long sob, long long sot, long long soh, float scale, int cluster,
     int rows, int tensors, int threads, int smem_bytes, int bf16_io, void* stream) {
-  if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
-    return cudaErrorInvalidValue;
-  }
-  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const int want_cluster = T <= kRows ? 3 : (T + kRows - 1) / kRows;
-  const int want_tensors = T <= kRows ? 1 : 3;
-  if (cluster != want_cluster || rows != kRows || tensors != want_tensors ||
-      threads != kThreads || smem_bytes != kSmemBytes) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = configure(cluster);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* xb = bf16_io ? x : xr;
-  CUtensorMap tm_x, tm_w;
-  const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(DM), static_cast<cuuint64_t>(T),
-                                static_cast<cuuint64_t>(B)};
-  const cuuint64_t x_strides[2] = {2ull * DM, 2ull * DM * T};
-  const cuuint64_t w_dims[2] = {static_cast<cuuint64_t>(DM),
-                                static_cast<cuuint64_t>(H) * kHeadRows};
-  const cuuint64_t w_strides[1] = {2ull * DM};
-  // boxes: for a cluster along T, x's 64 rows of a block and the head's
-  // weights in one box a block where the cluster divides its 24 atoms
-  // (else 8-row boxes); for T <= 64, x in 8-row shares, a tensor's 64
-  // weight rows
-  const bool along_t = tensors == 3;
-  const int w_box = !along_t ? kD : (kHeadRows / kBox) % cluster == 0 ? kHeadRows / cluster : kBox;
-  err = make_map(&tm_x, xb, 3, x_dims, x_strides, along_t ? kRows : kBox);
-  if (err == cudaSuccess) err = make_map(&tm_w, wp, 2, w_dims, w_strides, w_box);
-  if (err != cudaSuccess) return err;
-  const long long x_units = bf16_io ? 0 : static_cast<long long>(B) * T * DM / 8;
-  const long long units = 3ll * DM * DM / 8 + x_units;
-  const int grid = static_cast<int>(std::min<long long>((units + 255) / 256, 4096));
-  pack_kernel<<<grid, 256, 0, s>>>(
-      static_cast<const float*>(wq), static_cast<const float*>(wk),
-      static_cast<const float*>(wv), static_cast<__nv_bfloat16*>(wp), DM,
-      bf16_io ? nullptr : static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xr), x_units);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
-  err = run(tm_x, tm_w, bq, bk, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
-            tensors, w_box, s);
-  if (err != cudaSuccess) return err;
-  return static_cast<int>(cudaGetLastError());
+  return fused_fwd<1>(x, wq, bq, wk, bk, wv, bv, lengths, o, wp, xr, B, T, H, DM, sob, sot, soh,
+                      scale, cluster, rows, tensors, threads, smem_bytes, bf16_io, stream);
 }
 
-// Occupancy of K4b (its f32, bf16_io = 0, or bf16 I/O flavour) at a
+// K4h, the same arguments as K4b's entry but for its buffers' second
+// planes: wp a bf16 [2, H * 192, DM] buffer (the hi, then the lo packed
+// weights), xr a bf16 [2, B, T, DM] buffer (x's hi, then lo) when
+// bf16_io = 0; the plan at precision "high".
+extern "C" int nomad_fused_qkv_attention_high3_fwd(
+    const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
+    const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr, int B,
+    int T, int H, int DM, long long sob, long long sot, long long soh, float scale, int cluster,
+    int rows, int tensors, int threads, int smem_bytes, int bf16_io, void* stream) {
+  return fused_fwd<3>(x, wq, bq, wk, bk, wv, bv, lengths, o, wp, xr, B, T, H, DM, sob, sot, soh,
+                      scale, cluster, rows, tensors, threads, smem_bytes, bf16_io, stream);
+}
+
+// Occupancy of K4b or K4h (its f32, bf16_io = 0, or bf16 I/O flavour) at a
 // cluster size: resident blocks per SM and clusters on the card at once.
 extern "C" int nomad_fused_qkv_attention_bf16_fwd_occupancy(int cluster, int bf16_io,
                                                             int* blocks_per_sm, int* clusters) {
-  cudaError_t err = configure(cluster);
-  if (err != cudaSuccess) return err;
-  if (bf16_io) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_qkv_fwd_bf16_kernel<__nv_bfloat16>, kThreads, kSmemBytes);
-    *clusters = max_active_clusters<__nv_bfloat16>(cluster);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_qkv_fwd_bf16_kernel<float>, kThreads, kSmemBytes);
-    *clusters = max_active_clusters<float>(cluster);
-  }
-  return static_cast<int>(err);
+  return occupancy<1>(cluster, bf16_io, blocks_per_sm, clusters);
+}
+
+extern "C" int nomad_fused_qkv_attention_high3_fwd_occupancy(int cluster, int bf16_io,
+                                                             int* blocks_per_sm, int* clusters) {
+  return occupancy<3>(cluster, bf16_io, blocks_per_sm, clusters);
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -7,8 +7,9 @@ one card.
         '<this checkout>/nomad_tpu_torch/kernel_digests.py', run_name='__main__')" > other.json
 
 Runs K1 and K1b (O and LSE), K2 + K3 and K2b + K3b (dQ, dK, dV) through
-``mha_flash`` and ``flash_attention_bwd``, and K4 and K4b through
-``fused_qkv_mha``, on f32 and on bf16 inputs made from one seed, at the
+``mha_flash`` and ``flash_attention_bwd``, and K4, K4b and K4h through
+``fused_qkv_mha`` (at "highest", "default" and "high"), on f32 and on
+bf16 inputs made from one seed, at the
 scoring shape [96, 511], the loss crop [32, 50] and a ragged [8, 1024],
 each with a 0-key row (ragged rows and a 1-key row at [96, 511] and
 [8, 1024]). Prints one JSON object
@@ -64,6 +65,10 @@ def cases(dev: torch.device) -> dict:
                         qi, ki, vi, o, lse, doi, lengths, prec))
                 except (TypeError, ValueError, RuntimeError) as err:
                     out[f"flash_{tag}"] = f"refused: {err}"
+            # "high" moves only the fused route's kernel (K4h; the flash
+            # kernels take "high" as "highest")
+            for prec in ("highest", "default", "high"):
+                tag = f"{prec}_{str(io)[6:]}_io_T{t}"
                 try:
                     out[f"fused_{tag}"] = digest((fused_attention.fused_qkv_mha(
                         xi, *params, lengths, HEADS, prec),))

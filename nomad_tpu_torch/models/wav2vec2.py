@@ -23,13 +23,16 @@ takes on the card:
   * 'kernel'    — projections by ``nn.Linear``, attention K1 forward
                   (``csrc/flash_attention.cu``), K2 + K3 backward; at an
                   attention island of "default" K1b, K2b + K3b.
-  * 'fused_qkv' — projections and attention in K4 (``csrc/fused_attention.cu``)
-                  up to 1,024 frames, the out-projection one product; its
-                  backward recomputes through K1 + K2 + K3. At an encoder
-                  island of "default" ("fast") K4b
-                  (``csrc/fused_attention_bf16.cu``), the backward through
-                  K1b + K2b + K3b. Longer inputs take the 'kernel' path
-                  at the same precision (the JAX package's shape rule).
+  * 'fused_qkv' — projections and attention in one kernel up to 1,024
+                  frames, the out-projection one product: at an encoder
+                  island of "high" K4h (``csrc/fused_attention_bf16.cu``,
+                  the TPU kernel's "high3"), at "highest" K4
+                  (``csrc/fused_attention.cu``, f32), the backward
+                  recomputing through K1 + K2 + K3; at "default" ("fast")
+                  K4b (``csrc/fused_attention_bf16.cu``), the backward
+                  through K1b + K2b + K3b. Longer inputs take the 'kernel'
+                  path at the same precision (the JAX package's shape
+                  rule).
   * 'ref'       — the plain versions, for holding the others against.
 
 Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
@@ -42,9 +45,10 @@ and ``post_extract_proj`` at ``frontend_prec``, the positional conv at
 the q/k/v/out projections and fc2 at ``encoder_prec``. The fused path
 runs its whole attention sublayer (projections, both attention products,
 out-projection) at ``encoder_prec``, as the JAX package's fused kernel
-has one mode ("balanced" keeps the f32 K4).
+has one mode ("balanced" keeps K4h, the "high" of "exact").
 ``ops/precision.py`` says what each value means on the card; "high" and
-"highest" are today's f32 ("exact"), bit for bit.
+"highest" are f32 ("exact") but inside the fused kernel, where "high"
+is the TPU kernel's "high3".
 ``Wav2Vec2Config.balanced()`` and ``.fast()`` are the JAX package's
 recipes. Gradients and dropout work under every island: a bf16 island's
 backward rounds the operands of its products as JAX transposes them
@@ -59,11 +63,11 @@ in and out (``ops/precision.py``), GELU, dropout, the residual adds and
 the masks run in bf16, the block LayerNorms are K5's bf16-I/O flavour and
 the attention the bf16-I/O flavour of its island's kernels (K1b, K2b and
 K3b at "default", K1, K2 and K3 at "high" or "highest"; f32 statistics
-and softmax inside). The fused path takes K4b's or K4's bf16-I/O flavour
-and, as the JAX package hands its fused path the raw f32 parameters, the
-f32 products of ``precision.linear_raw_weights`` around it. The two
-LayerNorms outside the stack stay f32, and the heads pool in f32. Every
-island and every ``attention_impl`` takes it.
+and softmax inside). The fused path takes the bf16-I/O flavour of K4b,
+K4h or K4 and, as the JAX package hands its fused path the raw f32
+parameters, the f32 products of ``precision.linear_raw_weights`` around
+it. The two LayerNorms outside the stack stay f32, and the heads pool
+in f32. Every island and every ``attention_impl`` takes it.
 
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
@@ -147,7 +151,8 @@ class Wav2Vec2Config:
     remat_policy: str = "full"
     # 'kernel': the flash-attention / LayerNorm kernels (their plain
     # versions on the CPU). 'fused_qkv' (attention only): the
-    # projection-fused kernel K4 (K4b at a "default" encoder island).
+    # projection-fused kernel K4h (K4b at a "default" encoder island, K4
+    # at "highest").
     # 'ref': the plain versions everywhere, for holding the kernel paths
     # against them on the card.
     attention_impl: str = "kernel"
@@ -432,8 +437,9 @@ class EncoderLayer(nn.Module):
             # the fused kernel has one mode for the whole attention
             # sublayer, from the projections' island as in the JAX package
             # (attn_score_prec does not subdivide it): "default" is K4b,
-            # "high" and "highest" the f32 K4 (the card's "high3"). The same
-            # parameters as the unfused path: one state_dict loads both
+            # "high" K4h (the TPU kernel's "high3": bf16 x 3), "highest" the
+            # f32 K4. The same parameters as the unfused path: one
+            # state_dict loads both
             attn = fused_qkv_attention(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
                 self.k_proj.bias, self.v_proj.weight, self.v_proj.bias,

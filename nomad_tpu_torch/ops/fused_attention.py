@@ -1,31 +1,35 @@
-"""Projection-fused attention: kernels K4 and K4b beside their plain
+"""Projection-fused attention: kernels K4, K4b and K4h beside their plain
 PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.fused_attention``. ``fused_qkv_mha``
-launches K4 (``csrc/fused_attention.cu``, f32: the TPU kernel's "highest"
-and "high3" modes) or K4b (``csrc/fused_attention_bf16.cu``, its
-"default" mode: each of the five products in one bf16 pass with f32
-accumulation, an f32 softmax) on CUDA tensors and computes the plain
-version of the same precision on CPU tensors: the q/k/v projections of
-every head and masked softmax attention in one call, from the hidden
-states x [B, T, D_model] and the projections' weights in ``nn.Linear``'s
-[out, in] layout, returning O head-major [B, H, T, hd]. Every query row
-is defined, padded rows included; a row with no valid key gives O = 0.
+launches, by precision, one of the TPU kernel's three modes on CUDA
+tensors: at "highest" K4 (``csrc/fused_attention.cu``, f32), at "high"
+K4h (``csrc/fused_attention_bf16.cu``, the TPU kernel's "high3": each of
+the five products three bf16 passes on hi/lo splits of its operands, f32
+accumulation), at "default" K4b (the same source, one bf16 pass a
+product); the softmax is f32 in all three. On CPU tensors it computes the
+plain version of the same precision: the q/k/v projections of every head
+and masked softmax attention in one call, from the hidden states x [B, T,
+D_model] and the projections' weights in ``nn.Linear``'s [out, in]
+layout, returning O head-major [B, H, T, hd]. Every query row is defined,
+padded rows included; a row with no valid key gives O = 0.
 
 ``FusedQKVAttention`` is the differentiable form. Its backward is the vjp
 of the unfused composition at the same precision, as the JAX package's is
 (``_fused_bwd``): the projections are recomputed through
 ``precision.linear`` and the attention goes through
 ``flash_attention.FlashAttention`` (K1 forward, K2 + K3 backward on the
-card; K1b, K2b + K3b at "default"). ``fused_qkv_attention`` is the whole
+card; K1b, K2b + K3b at "default"): at "high" the f32 products the JAX
+package's ``_unfused_ref`` takes at Precision.HIGH (XLA's HIGH is f32
+off the TPU), not high3. ``fused_qkv_attention`` is the whole
 sublayer, out-projection included (``precision.linear``); beyond
 ``MAX_FUSED_T`` frames it takes the unfused composition with K1 or K1b,
 the JAX package's own shape rule.
 
-On a bf16 x (bf16 activations in the block stack) K4 and K4b run their
-bf16-I/O flavours: x is read as bf16, the weights and biases stay f32, O
-comes back in bf16, each the f32-I/O flavour's O on the upcast x rounded
-once. The JAX package hands its fused path the raw f32 parameters, so the
+On a bf16 x (bf16 activations in the block stack) K4, K4h and K4b run
+their bf16-I/O flavours: x is read as bf16, the weights and biases stay
+f32, O comes back in bf16, each the f32-I/O flavour's O on the upcast x
+rounded once. The JAX package hands its fused path the raw f32 parameters, so the
 out-projection, the backward's q/k/v recompute and the fallback beyond
 ``MAX_FUSED_T`` take ``precision.linear_raw_weights`` there (an f32
 product of the upcast x, one rounding), not flax's bf16 ``nn.Dense``.
@@ -71,13 +75,22 @@ _BF16_RING_BYTES = 2 * _BF16_STAGES * (ROWS_PER_BLOCK + _BF16_HEAD_ROWS) * _BF16
 FUSED_BF16_SMEM_BYTES = _BF16_RING_BYTES + 8 * 2 * _BF16_STAGES + 1024
 FUSED_BF16_THREADS = THREADS + 32
 FUSED_BF16_BLOCKS_PER_SM = 2
+# K4h's (the same source, templated on its 3 passes): every tile in a hi
+# and a lo plane, so a stage is 64 KB and the ring 192 KB (phase 2's Q, K,
+# V and key tiles, 144 KB, fit in it); two blocks do not fit an SM's
+# 228 KB, so 1 block an SM, as many threads as K4b's
+_HIGH3_PLANES = 2
+FUSED_HIGH3_SMEM_BYTES = _HIGH3_PLANES * _BF16_RING_BYTES + 8 * 2 * _BF16_STAGES + 1024
+FUSED_HIGH3_BLOCKS_PER_SM = 1
 
-# Launches of K4 and of K4b, and of their bf16-I/O flavours, since each
+# Launches of K4, K4b and K4h, and of their bf16-I/O flavours, since each
 # count was last set to 0.
 launches = 0
 launches_bf16 = 0
+launches_high3 = 0
 launches_f32_bf16_io = 0
 launches_bf16_io = 0
+launches_high3_bf16_io = 0
 
 
 def fused_supported(t: int) -> bool:
@@ -92,7 +105,7 @@ class FusedPlan:
     and attends those query rows. 1 (T <= 64): block g projects tensor g
     (Q, K, V) of all rows, and the blocks share the query rows by 16-row
     warp tiles, warp tile w going to block w % 3. ``smem_bytes`` and
-    ``threads`` are the kernel's own (K4 or K4b)."""
+    ``threads`` are the kernel's own (K4, K4h or K4b)."""
 
     t: int
     cluster: int
@@ -120,22 +133,22 @@ class FusedPlan:
 
 
 def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> FusedPlan:
-    """The launch of K4 (or of K4b, at ``precision`` "default") for x
-    [b, t, 64 h]: the cluster size, rows per block, tensors per block,
-    grid (cluster, h, b), dynamic shared memory and threads a block. The
-    two kernels split a (batch, head) alike and differ in shared memory
-    and threads. The C launcher checks each against the kernel's own
-    rule."""
+    """The launch of ``precision``'s kernel (K4 at "highest", K4h at
+    "high", K4b at "default") for x [b, t, 64 h]: the cluster size, rows
+    per block, tensors per block, grid (cluster, h, b), dynamic shared
+    memory and threads a block. The three kernels split a (batch, head)
+    alike and differ in shared memory and threads. The C launcher checks
+    each against the kernel's own rule."""
+    prec_ops.check(precision)
     if not 1 <= t <= MAX_FUSED_T:
         raise ValueError(f"fused kernel: T = {t} outside 1 .. {MAX_FUSED_T}")
     if t <= ROWS_PER_BLOCK:
         cluster, tensors = 3, 1
     else:
         cluster, tensors = -(-t // ROWS_PER_BLOCK), 3
-    if prec_ops.is_bf16(precision):
-        smem, threads = FUSED_BF16_SMEM_BYTES, FUSED_BF16_THREADS
-    else:
-        smem, threads = FUSED_SMEM_BYTES, THREADS
+    smem, threads = {"highest": (FUSED_SMEM_BYTES, THREADS),
+                     "high": (FUSED_HIGH3_SMEM_BYTES, FUSED_BF16_THREADS),
+                     "default": (FUSED_BF16_SMEM_BYTES, FUSED_BF16_THREADS)}[precision]
     return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem, threads)
 
 
@@ -156,6 +169,15 @@ def _qkv(x, wq, bq, wk, bk, wv, bv, heads, precision="highest"):
                  for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
 
 
+def _product(precision):
+    """The plain version's product a @ b at ``precision``: f32 at
+    "highest"; high3 at "high" (``precision.matmul_high3``); at "default"
+    one bf16 pass (both operands rounded to bf16, f32 sums)."""
+    if prec_ops.is_bf16(precision):
+        return lambda a, b: torch.matmul(prec_ops.round_bf16(a), prec_ops.round_bf16(b))
+    return prec_ops.matmul_high3 if precision == "high" else torch.matmul
+
+
 def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
     """What ``_fused_kernel`` computes, unfolded: Q = (x.Wq^T + bq)/sqrt(hd),
     K and V likewise; scores against keys t < lengths[b] (the others set to
@@ -163,49 +185,55 @@ def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision
     head-major [B, H, T, hd]. Values past the bound are zeroed before the
     product, so a NaN there cannot reach O.
 
-    ``precision`` "highest" or "high": f32 products. "default", the TPU
-    kernel's ``_dot`` at DEFAULT (``nomad_tpu/ops/fused_attention.py:65-87``):
-    the operands of all five products rounded to bf16 (``round_bf16``), f32
-    sums, each bias added in f32 after its product; the scale 1/sqrt(hd) is
-    exact, so q is rounded after it, and p = exp(s - m) is rounded against
-    the row's final maximum with l the sum of the unrounded p.
+    ``precision`` is the TPU kernel's ``_dot`` mode
+    (``nomad_tpu/ops/fused_attention.py:65-90``) for all five products,
+    each bias added in f32 after its product. "highest": f32 products.
+    "high", its "high3": each operand split into hi = bf16(a) and lo =
+    bf16(a - hi), the product hh + hl + lh of f32 products of those
+    bf16 values (exact products, f32 sums; on a bf16 x, x's lo is 0).
+    "default": the operands rounded to bf16 (``round_bf16``), f32 sums. The
+    scale 1/sqrt(hd) is exact, so q is rounded or split after it; p = exp(s
+    - m) is rounded or split against the row's final maximum, with l the
+    sum of the unrounded p.
 
     A bf16 x is upcast; O is returned in x's dtype, rounded once."""
     b, t, dm = x.shape
     hd = dm // heads
-    rnd = prec_ops.round_bf16 if prec_ops.is_bf16(precision) else (lambda y: y)
-    xr = rnd(x.to(torch.float32))
-    q, k, v = ((torch.matmul(xr, rnd(w).t()) + bias).view(b, t, heads, hd).transpose(1, 2)
+    mm = _product(precision)
+    xr = x.to(torch.float32)
+    q, k, v = ((mm(xr, w.t()) + bias).view(b, t, heads, hd).transpose(1, 2)
                for w, bias in ((wq, bq), (wk, bk), (wv, bv)))  # [B, H, T, hd]
     lengths = lengths.to(device=x.device, dtype=torch.int64).clamp(0, t)
     valid = torch.arange(t, device=x.device)[None, :] < lengths[:, None]  # [B, T]
-    s = torch.matmul(rnd(q * (1.0 / hd**0.5)), rnd(k).transpose(-1, -2))
+    s = mm(q * (1.0 / hd**0.5), k.transpose(-1, -2))
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(valid[:, None, None, :], p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(rnd(p), rnd(torch.where(valid[:, None, :, None], v, 0.0)))
+    o = mm(p, torch.where(valid[:, None, :, None], v, 0.0))
     o = o * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
     return o.to(x.dtype)
 
 
-# the library and C entry of each precision's kernel: K4 (f32), K4b (bf16);
-# each takes f32 or bf16 I/O
-_KERNELS = {False: ("fused_attention", "nomad_fused_qkv_attention_fwd"),
-            True: ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
+# the library and C entry of each precision's kernel: K4 (f32), K4h (bf16 x
+# 3) and K4b (bf16), each in f32 or bf16 I/O; K4h and K4b are one template
+_KERNELS = {"highest": ("fused_attention", "nomad_fused_qkv_attention_fwd"),
+            "high": ("fused_attention_bf16", "nomad_fused_qkv_attention_high3_fwd"),
+            "default": ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
 
 
-def _lib(bf16: bool = False):
-    source, entry = _KERNELS[bf16]
+def _lib(precision: str = "highest"):
+    source, entry = _KERNELS[precision]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # K4b also takes the buffers of its packed weights and rounded x, and
-        # its threads a block
-        fn.argtypes = [p] * (11 if bf16 else 9) + [i] * 4 + [ll] * 3 + [ctypes.c_float] + (
-            [i] * (6 if bf16 else 5) + [p])
+        # K4b and K4h also take the buffers of their packed weights and
+        # rounded x, and their threads a block
+        tc = precision != "highest"
+        fn.argtypes = [p] * (11 if tc else 9) + [i] * 4 + [ll] * 3 + [ctypes.c_float] + (
+            [i] * (6 if tc else 5) + [p])
         fn.restype = ctypes.c_int
         occ = getattr(lib, f"{entry}_occupancy")
         occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -214,13 +242,12 @@ def _lib(bf16: bool = False):
 
 
 def fused_occupancy(t: int, precision: str = "highest", bf16_io: bool = False) -> tuple:
-    """(blocks of K4, or of K4b at "default", or of their bf16-I/O flavour
-    with ``bf16_io``, resident on one SM, clusters resident on the card)
-    for the cluster size of T frames (the card)."""
-    bf16 = prec_ops.is_bf16(precision)
-    lib = _lib(bf16)
+    """(blocks of ``precision``'s kernel, K4, K4h or K4b, or of its bf16-I/O
+    flavour with ``bf16_io``, resident on one SM, clusters resident on the
+    card) for the cluster size of T frames (the card)."""
+    lib = _lib(precision)
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    err = getattr(lib, f"{_KERNELS[bf16][1]}_occupancy")(
+    err = getattr(lib, f"{_KERNELS[precision][1]}_occupancy")(
         fused_launch_plan(t, 1, 1, precision).cluster, int(bf16_io), ctypes.byref(blocks),
         ctypes.byref(clusters))
     _build.check(lib, err, "fused attention occupancy")
@@ -254,35 +281,44 @@ def _check_inputs(x, params, lengths, heads):
         raise ValueError(f"fused kernel: lengths must be int32 [{b}] on {x.device}")
 
 
-def pack_weights_ref(wq, wk, wv, heads: int) -> torch.Tensor:
+def pack_weights_ref(wq, wk, wv, heads: int, high3: bool = False) -> torch.Tensor:
     """The plain version of K4b's prologue: the q/k/v weights ([out, in])
     rounded to bf16 and packed head-major, [H * 3 * hd, D], rows 3 hd h ..
     3 hd h + hd - 1 head h's rows of wq, then of wk, then of wv: the JAX
     package's ``per_head_w`` ([H, D, hd] of the [in, out] weights), each
-    head's slice transposed, stacked over the three."""
+    head's slice transposed, stacked over the three. ``high3``: K4h's, the
+    hi plane, then the lo plane (``precision.split_bf16``), [2 H * 3 hd,
+    D]."""
     dm = wq.shape[1]
     hd = dm // heads
-    return torch.stack([w.view(heads, hd, dm) for w in (wq, wk, wv)], dim=1).to(
-        torch.bfloat16).reshape(heads * 3 * hd, dm)
+    w = torch.stack([w.view(heads, hd, dm) for w in (wq, wk, wv)], dim=1).reshape(
+        heads * 3 * hd, dm)
+    if high3:
+        return torch.cat(prec_ops.split_bf16(w)).to(torch.bfloat16)
+    return w.to(torch.bfloat16)
 
 
-def _bf16_workspace(x, heads):
-    """K4b's buffers, written by its prologue: the packed weights
-    (``pack_weights_ref``'s layout) and, for an f32 x, x rounded to bf16
-    (None for a bf16 x, which the kernel reads as it is)."""
-    dm = x.shape[2]
-    wp = torch.empty((heads * _BF16_HEAD_ROWS, dm), dtype=torch.bfloat16, device=x.device)
-    xr = None if x.dtype == torch.bfloat16 else torch.empty(x.shape, dtype=torch.bfloat16,
-                                                              device=x.device)
+def _bf16_workspace(x, heads, planes: int = 1):
+    """K4b's (``planes`` 1) or K4h's (2) buffers, written by its prologue:
+    the packed weights (``pack_weights_ref``'s layout, K4h's two planes one
+    after the other) and, for an f32 x, x rounded to bf16 (K4h: [2, B, T,
+    D], its hi and its lo plane; None for a bf16 x, which the kernel reads
+    as it is)."""
+    b, t, dm = x.shape
+    wp = torch.empty((planes * heads * _BF16_HEAD_ROWS, dm), dtype=torch.bfloat16,
+                     device=x.device)
+    xr = None if x.dtype == torch.bfloat16 else torch.empty(
+        (planes * b, t, dm), dtype=torch.bfloat16, device=x.device)
     return wp, xr
 
 
-def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads, workspace=None):
-    """K4 or K4b (their bf16-I/O flavour on a bf16 x) on inputs that pass
-    ``_check_inputs``: O [B, T, H, hd] in x's dtype, written through its
-    strides and handed out head-major as a view, so the out-projection
-    reads it as [B, T, D] with no copy. K4b writes its prologue's buffers
-    into ``workspace`` (``_bf16_workspace``) when it is given."""
+def _launch(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads, workspace=None):
+    """``precision``'s kernel, K4, K4h or K4b (its bf16-I/O flavour on a
+    bf16 x) on inputs that pass ``_check_inputs``: O [B, T, H, hd] in x's
+    dtype, written through its strides and handed out head-major as a
+    view, so the out-projection reads it as [B, T, D] with no copy. K4b and
+    K4h write their prologue's buffers into ``workspace``
+    (``_bf16_workspace``) when it is given."""
     params = {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv}
     _check_inputs(x, params, lengths, heads)
     b, t, dm = x.shape
@@ -290,68 +326,62 @@ def _launch(bf16, x, wq, bq, wk, bk, wv, bv, lengths, heads, workspace=None):
     if o.numel() == 0:
         return o.transpose(1, 2)
     lengths = lengths.contiguous()
-    plan = fused_launch_plan(t, b, heads, "default" if bf16 else "highest")
+    plan = fused_launch_plan(t, b, heads, precision)
     buffers, threads = (), ()
-    if bf16:
-        workspace = workspace or _bf16_workspace(x, heads)
+    if precision != "highest":
+        planes = _HIGH3_PLANES if precision == "high" else 1
+        workspace = workspace or _bf16_workspace(x, heads, planes)
         buffers = tuple(0 if a is None else a.data_ptr() for a in workspace)
         threads = (plan.threads,)
-    lib = _lib(bf16)
-    err = getattr(lib, _KERNELS[bf16][1])(
+    lib = _lib(precision)
+    err = getattr(lib, _KERNELS[precision][1])(
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
         o.data_ptr(), *buffers, b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
         plan.cluster, plan.rows_per_block, plan.tensors_per_block, *threads, plan.smem_bytes,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(lib, err, f"{'bf16 ' if bf16 else ''}fused attention kernel launch")
+    _build.check(lib, err, f"fused attention kernel launch at {precision!r}")
     return o.transpose(1, 2)
 
 
-def _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
-    """K4: the f32 flavour ("highest", "high"); on a bf16 x its bf16-I/O
-    flavour."""
-    o = _launch(False, x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    global launches, launches_f32_bf16_io
-    if x.dtype == torch.bfloat16:
-        launches_f32_bf16_io += 1
-    else:
-        launches += 1
-    return o
+# each kernel's launch counters: (f32 x, bf16 x)
+_COUNTERS = {"highest": ("launches", "launches_f32_bf16_io"),
+             "high": ("launches_high3", "launches_high3_bf16_io"),
+             "default": ("launches_bf16", "launches_bf16_io")}
 
 
-def _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads):
-    """K4b: the "default" flavour on the tensor cores; f32 inputs (rounded
-    by the kernel's prologue, which also packs the weights) and output, as
-    K4's, or on a bf16 x its bf16-I/O flavour."""
-    o = _launch(True, x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    global launches_bf16, launches_bf16_io
-    if x.dtype == torch.bfloat16:
-        launches_bf16_io += 1
-    else:
-        launches_bf16 += 1
+def _run_kernel(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads):
+    """``_launch`` of ``precision``'s kernel, counted by its flavour's
+    counter: K4 ("highest", f32 FMA), K4h ("high", the TPU kernel's
+    "high3" on the tensor cores, its prologue splitting the weights and an
+    f32 x) or K4b ("default", its prologue rounding them); on a bf16 x
+    each kernel's bf16-I/O flavour."""
+    o = _launch(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads)
+    counter = _COUNTERS[precision][int(x.dtype == torch.bfloat16)]
+    globals()[counter] += 1
     return o
 
 
 def fused_qkv_mha(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision="highest"):
     """Projections + attention of x [B, T, D] (f32 or bf16; f32 weights)
     with lengths int32 [B] valid keys per batch row -> O head-major [B, H,
-    T, hd] in x's dtype. On CUDA tensors K4 ("highest", "high") or K4b
-    ("default"), on CPU tensors the plain version of the same precision."""
+    T, hd] in x's dtype. On CUDA tensors K4 ("highest"), K4h ("high") or
+    K4b ("default"), on CPU tensors the plain version of the same
+    precision."""
     if x.device.type == "cpu":
         return fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision)
     if x.device.type != "cuda":
         raise ValueError(f"fused kernel runs on CUDA tensors, got {x.device}")
-    if prec_ops.is_bf16(precision):
-        return _fused_bf16_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads)
-    return _fused_kernel(x, wq, bq, wk, bk, wv, bv, lengths, heads)
+    prec_ops.check(precision)
+    return _run_kernel(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads)
 
 
 class FusedQKVAttention(torch.autograd.Function):
     """``FusedQKVAttention.apply(x, wq, bq, wk, bk, wv, bv, lengths, heads,
     precision="highest")`` -> O head-major [B, H, T, hd], differentiable in
     x and the projections (lengths, heads and precision get no gradient):
-    ``fused_qkv_mha`` forward (K4, or K4b at "default", on the card), the
-    vjp of the unfused composition at the same precision backward
+    ``fused_qkv_mha`` forward (K4, K4h at "high", K4b at "default", on the
+    card), the vjp of the unfused composition at the same precision backward
     (``_linear``, whose backward at "default" rounds as JAX transposes a
     DEFAULT product, and ``FlashAttention``: K1 + K2 + K3 on the card, K1b
     + K2b + K3b at "default"; their bf16-I/O flavours on a bf16 x)."""
@@ -379,8 +409,8 @@ def fused_qkv_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, key_mask=None, heads:
                         precision: str = "highest"):
     """The attention sublayer on hidden states x [B, T, D] at one
     ``precision`` for the whole block, as the JAX kernel has one mode:
-    q/k/v projections and masked softmax attention in K4, or K4b at
-    "default" (``FusedQKVAttention``), then the out-projection (``_linear``)
+    q/k/v projections and masked softmax attention in K4, K4h at "high" or
+    K4b at "default" (``FusedQKVAttention``), then the out-projection (``_linear``)
     as one product of the head-major output.
     key_mask: optional bool [B, T] prefix mask, True = valid key. Weights
     in ``nn.Linear``'s [out, in] layout. Returns [B, T, D].

@@ -6,8 +6,13 @@ The JAX package sets a TPU matrix-unit precision per island
 (``jax.default_matmul_precision``). The port maps each value once, here:
 
   * ``"highest"`` and ``"high"`` (f32; bf16 x 3 on the TPU, ~1e-5): f32
-    FMA with TF32 off, on either device. The card has no cheap counterpart
-    of bf16 x 3, so "high" is f32, bit for bit today's "exact".
+    FMA with TF32 off, on either device, for cuBLAS's products, the
+    convolutions and K1: cuBLAS has no bf16 x 3, JAX's flash kernel never
+    lowers HIGH (``nomad_tpu/ops/flash_attention.py:56``), and XLA's HIGH
+    is f32 off the TPU. Inside the projection-fused kernel, "high" is the
+    TPU kernel's own "high3", as in the JAX package
+    (``nomad_tpu/ops/fused_attention.py:65-90``): three bf16 passes on
+    hi/lo splits of the operands (``matmul_high3``; K4h on the card).
   * ``"default"`` (one bf16 pass: operands rounded to bf16, products
     exact, f32 accumulation, f32 out). A product (``matmul_bf16``: a
     linear layer's, and the plain and dropout attention's two einsums): on
@@ -88,6 +93,24 @@ def is_bf16(prec) -> bool:
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to the nearest bf16 (ties to even), in x's dtype."""
     return x.to(torch.bfloat16).to(x.dtype)
+
+
+def split_bf16(a: torch.Tensor) -> tuple:
+    """(hi, lo) of an f32 a as high3 splits an operand: hi = bf16(a), lo =
+    bf16(a - hi), both returned as f32 tensors holding bf16 values."""
+    hi = round_bf16(a)
+    return hi, round_bf16(a - hi)
+
+
+def matmul_high3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of f32 tensors as the TPU kernel's ``_dot`` at "high3"
+    (``nomad_tpu/ops/fused_attention.py:79-90``): three DEFAULT passes on
+    the split operands, hi.hi + hi.lo + lo.hi in that order, each an f32
+    product of bf16 values (exact products, f32 sums); lo.lo is dropped, so
+    the result is ~1e-5 relative from the f32 product."""
+    a_hi, a_lo = split_bf16(a)
+    b_hi, b_lo = split_bf16(b)
+    return torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)
 
 
 def _device_route(x: torch.Tensor) -> bool:

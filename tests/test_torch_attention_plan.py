@@ -1,5 +1,5 @@
-"""The launch plans of the port's attention kernels, K1, K1b, K4 and K4b
-forward, K2, K3, K2b and K3b backward, held on the CPU: the plan is plain Python
+"""The launch plans of the port's attention kernels, K1, K1b, K4, K4b and
+K4h forward, K2, K3, K2b and K3b backward, held on the CPU: the plan is plain Python
 that the C launchers check against their own rules, so what it promises
 is what the card runs."""
 
@@ -62,7 +62,8 @@ def test_fused_bf16_plan_splits_as_k4_and_fits_the_sm(b):
     memory phase 2's Q, K, V and three key tiles reuse, a "full" and an
     "empty" mbarrier a stage and 1,024 bytes to align the ring; a consumer
     warpgroup and a producer warp. The 2 blocks per SM it is built for fit
-    the SM's 228 KB (3 would not); "high" and "highest" keep K4's plan."""
+    the SM's 228 KB (3 would not); "highest" keeps K4's plan ("high" is
+    K4h's, below)."""
     ring = 3 * (64 + 192) * 64 * 2
     phase2 = (3 + 2 * 3) * 64 * 64 * 2  # Q, K, V; three K + V tiles
     assert phase2 <= ring
@@ -78,7 +79,38 @@ def test_fused_bf16_plan_splits_as_k4_and_fits_the_sm(b):
         assert blocks == 2
         assert blocks * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM < (blocks + 1) * (
             plan.smem_bytes + SMEM_RESERVED)
-        assert fused_attention.fused_launch_plan(t, b, 12, "high") == f32
+        assert fused_attention.fused_launch_plan(t, b, 12, "highest") == f32
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_fused_high3_plan_splits_as_k4_and_fits_one_block_an_sm(b):
+    """K4h's plan (precision "high", K4b's template at three passes)
+    splits every (batch, head) as K4's and K4b's do and asks for K4b's
+    threads and its own shared memory: every tile in a hi and a lo plane,
+    so a ring stage is 64 KB and the ring 192 KB, phase 2's Q, K, V and
+    three key tiles (144 KB) in its memory, the 6 mbarriers and the 1,024
+    alignment bytes. One block fits an SM, two do not."""
+    ring = 2 * 3 * (64 + 192) * 64 * 2
+    phase2 = 2 * (3 + 2 * 3) * 64 * 64 * 2
+    assert phase2 <= ring
+    for t in LENGTHS + list(range(1, 1025, 37)):
+        plan = fused_attention.fused_launch_plan(t, b, 12, "high")
+        k4b = fused_attention.fused_launch_plan(t, b, 12, "default")
+        assert (plan.cluster, plan.rows_per_block, plan.tensors_per_block, plan.grid) == (
+            k4b.cluster, k4b.rows_per_block, k4b.tensors_per_block, k4b.grid), t
+        assert plan.smem_bytes == fused_attention.FUSED_HIGH3_SMEM_BYTES == (
+            ring + 6 * 8 + 1024) == 197_680
+        assert plan.smem_bytes <= SMEM_LIMIT and plan.threads == k4b.threads == 160
+        blocks = fused_attention.FUSED_HIGH3_BLOCKS_PER_SM
+        assert blocks == 1
+        assert blocks * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM < (blocks + 1) * (
+            plan.smem_bytes + SMEM_RESERVED)
+
+
+@pytest.mark.parametrize("t", [0, 1025])
+def test_fused_high3_plan_refuses_what_the_kernel_does_not_take(t):
+    with pytest.raises(ValueError, match="outside"):
+        fused_attention.fused_launch_plan(t, 1, 12, "high")
 
 
 @pytest.mark.parametrize("t", [0, 1025])

@@ -289,11 +289,12 @@ def test_fused_gradient_matches_plain_autograd(cuda):
 
 
 def test_model_fused_path_matches_plain_path(cuda):
-    """The narrow model on the fused path: K4 once per block and no K1,
-    embeddings against the plain path and batch-1 against the padded
-    batch."""
+    """The narrow model on the fused path at "highest": K4 once per block
+    and no K1, embeddings against the plain path and batch-1 against the
+    padded batch."""
     kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
-    model = init_weights(NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv", **kw),
+    model = init_weights(NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv",
+                                                        encoder_precision="highest", **kw),
                                     emb_dim=16), seed=0)
     ref = NomadModel(Wav2Vec2Config.tiny(attention_impl="ref", layernorm_impl="ref", **kw),
                      emb_dim=16)
@@ -864,7 +865,8 @@ def test_model_fast_fused_path_launches_k4b(cuda):
     """A narrow model with 64-wide heads in "fast" with ``fused_qkv``: K4b
     in every block and no K1b, K1 or K4; embeddings no further from the
     "fast" K1b path than half of that path's distance to "exact" (the
-    same bf16 roundings); "balanced" with ``fused_qkv`` keeps K4."""
+    same bf16 roundings); "balanced" with ``fused_qkv`` runs K4h, the
+    "high" of "exact"."""
     kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
     g = torch.Generator().manual_seed(6)
     lengths = torch.tensor([4000, 2500]).to(cuda)
@@ -879,15 +881,16 @@ def test_model_fast_fused_path_launches_k4b(cuda):
         model.load_state_dict(sd)
         model = model.to(cuda).eval()
         counters = (lambda: (fused_attention.launches_bf16, fused_attention.launches,  # noqa: E731
-                             flash_attention.launches_bf16, flash_attention.launches))
+                             flash_attention.launches_bf16, flash_attention.launches,
+                             fused_attention.launches_high3))
         before = counters()
         with torch.inference_mode():
             embs[name] = model(wav, lengths)
         torch.cuda.synchronize()
         launched[name] = tuple(a - b for a, b in zip(counters(), before))
         assert torch.isfinite(embs[name]).all()
-    assert launched["fast_fused"] == (12, 0, 0, 0)
-    assert launched["balanced_fused"] == (0, 12, 0, 0)
+    assert launched["fast_fused"] == (12, 0, 0, 0, 0)
+    assert launched["balanced_fused"] == (0, 0, 0, 0, 12)
     d = (embs["fast_fused"] - embs["fast"]).abs().max().item()
     assert d <= 0.5 * (embs["fast"] - embs["exact"]).abs().max().item(), d
 
@@ -913,12 +916,120 @@ def test_bf16_fused_prologue_packs_the_weights(cuda, dtype):
     x = x.to(dtype)
     lens = torch.tensor([70, 33], dtype=torch.int32, device=cuda)
     wp, xr = fused_attention._bf16_workspace(x, 2)
-    fused_attention._launch(True, x, *params, lens, 2, workspace=(wp, xr))
+    fused_attention._launch("default", x, *params, lens, 2, workspace=(wp, xr))
     torch.cuda.synchronize()
     assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2))
     assert (xr is None) == (dtype == torch.bfloat16)
     if xr is not None:
         assert torch.equal(xr, x.to(torch.bfloat16))
+
+
+# ---------------- K4h: the fused path at "high" (the TPU kernel's "high3") ----------------
+
+
+def fused_f64_unrounded(x, params, lengths, heads):
+    """K4h's oracle: float64 projections of the unrounded x and weights plus
+    the biases, then exact attention in float64; head-major."""
+    b, t, _ = x.shape
+    q, k, v = (torch.nn.functional.linear(x.double(), w.double(), bias.double())
+               .view(b, t, heads, 64) for w, bias in zip(params[0::2], params[1::2]))
+    return attention_f64(q, k, v, lengths).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 17, 64, 65, 130, 511, 1024])
+def test_high3_fused_kernel_matches_ref(cuda, t, dtype):
+    """K4h (f32 x) and K4h-bf16 against their plain version at "high": one
+    launch of the flavour's own counter (and no K4 or K4b), every row
+    finite, a 0-key row 0; f32 x: within K4's 2e-5 + 1e-5 relative (f32
+    sums in another order), and O no further from ``fused_f64_unrounded``
+    than 1.5 x the plain version's distance + 1e-6 and no nearer than half
+    of it (both drop every lo.lo term); bf16 x: the f32 flavour's O on the
+    upcast x rounded once, bit for bit; a rerun the same bits; NaN past
+    each bound changes no valid row, 123.0 there leaves every row finite."""
+    lengths = [t, max(t // 2, 1), 1, 0]
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, 300 + t)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    bf16 = dtype == torch.bfloat16
+    counters = lambda: (fused_attention.launches_high3,  # noqa: E731
+                        fused_attention.launches_high3_bf16_io, fused_attention.launches,
+                        fused_attention.launches_bf16)
+    before = counters()
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2, "high")
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + (not bf16), before[1] + bf16, *before[2:])
+    assert o.shape == (4, 2, t, 64) and o.dtype == dtype and torch.isfinite(o).all()
+    assert torch.equal(o[3], torch.zeros_like(o[3]))
+    if bf16:
+        assert torch.equal(o, fused_attention.fused_qkv_mha(x.float(), *params, lens, 2,
+                                                            "high").to(dtype))
+    else:
+        ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2, "high")
+        torch.testing.assert_close(o, ref, atol=2e-5, rtol=1e-5)
+        exact = fused_f64_unrounded(x, params, lens, 2)
+        err, err_plain = ((a.double() - exact).abs().max().item() for a in (o, ref))
+        assert 0.5 * err_plain <= err <= 1.5 * err_plain + 1e-6, (err, err_plain)
+    assert torch.equal(fused_attention.fused_qkv_mha(x, *params, lens, 2, "high"), o)
+    for fill, whole in ((float("nan"), False), (123.0, True)):
+        dirty = x.clone()
+        for i, n in enumerate(lengths):
+            dirty[i, n:] = fill
+        got = fused_attention.fused_qkv_mha(dirty, *params, lens, 2, "high")
+        assert not whole or torch.isfinite(got).all()
+        for i, n in enumerate(lengths):
+            assert torch.equal(got[i, :, :n], o[i, :, :n]), (fill, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_high3_fused_prologue_splits_the_operands(cuda, dtype):
+    """K4h's prologue writes the packed weights' hi and lo planes bit-equal
+    to ``pack_weights_ref(..., high3=True)`` and, for an f32 x, x's planes
+    bit-equal to ``precision.split_bf16``; a bf16 x needs no copy."""
+    x, params = _fused_inputs(cuda, 2, 70, 2, 24)
+    x = x.to(dtype)
+    lens = torch.tensor([70, 33], dtype=torch.int32, device=cuda)
+    wp, xr = fused_attention._bf16_workspace(x, 2, planes=2)
+    fused_attention._launch("high", x, *params, lens, 2, workspace=(wp, xr))
+    torch.cuda.synchronize()
+    assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2, high3=True))
+    assert (xr is None) == (dtype == torch.bfloat16)
+    if xr is not None:
+        assert torch.equal(xr, torch.cat(prec_ops.split_bf16(x)).to(torch.bfloat16))
+
+
+def test_high3_fused_occupancy_and_route(cuda):
+    """K4h, both I/O flavours, keeps the 1 block per SM it is built for at
+    every cluster size of its plan and each size fits on the card; the
+    narrow model on the fused path at its default "high" launches K4h once
+    per block (no K4, K1) and its embeddings lie within 1e-5 of the same
+    model with the fused kernel's plain version."""
+    for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
+        for io in (False, True):
+            blocks, clusters = fused_attention.fused_occupancy(t, "high", io)
+            assert blocks >= fused_attention.FUSED_HIGH3_BLOCKS_PER_SM and clusters >= 1, (
+                t, io, blocks, clusters)
+    kw = dict(hidden_size=128, num_heads=2, ffn_dim=256)
+    model = init_weights(NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv", **kw),
+                                    emb_dim=16), seed=0).to(cuda).eval()
+    g = torch.Generator().manual_seed(4)
+    lengths = torch.tensor([4000, 2500, 900]).to(cuda)
+    wav = (0.3 * torch.randn(3, 4000, generator=g)).to(cuda)
+    counts = lambda: (fused_attention.launches_high3, fused_attention.launches,  # noqa: E731
+                      flash_attention.launches)
+    before = counts()
+    with torch.inference_mode():
+        emb = model(wav, lengths)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 0)
+        real = fused_attention.fused_qkv_mha
+        fused_attention.fused_qkv_mha = fused_attention.fused_qkv_attention_ref
+        try:
+            plain = model(wav, lengths)
+        finally:
+            fused_attention.fused_qkv_mha = real
+    torch.testing.assert_close(emb, plain, atol=1e-5, rtol=0)
 
 
 # ---------------- the bf16-I/O flavours (the trainer's fast_bf16) ----------------
@@ -1037,12 +1148,12 @@ def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
     assert torch.equal(o2, o)
 
 
-@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("prec", ["highest", "default", "high"])
 @pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
                                        (1024, [1024, 700, 1])])
 def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
-    """K4's ("highest") and K4b's ("default") bf16-I/O flavours on a bf16 x
-    with the f32 weights: O bf16, the f32-I/O flavour's O on the upcast x
+    """K4's ("highest"), K4h's ("high") and K4b's ("default") bf16-I/O
+    flavours on a bf16 x with the f32 weights: O bf16, the f32-I/O flavour's O on the upcast x
     rounded once, bit for bit, counted by their own launch counters; within
     one bf16 step (2^-7 of max |O|) plus the f32-I/O flavour's own
     tolerance of their plain version; a 0-key row O = 0; garbage past each
@@ -1051,7 +1162,8 @@ def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
     bf = torch.bfloat16
     x = x.to(bf)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    counter = "launches_bf16_io" if prec == "default" else "launches_f32_bf16_io"
+    counter = {"default": "launches_bf16_io", "highest": "launches_f32_bf16_io",
+               "high": "launches_high3_bf16_io"}[prec]
     before = getattr(fused_attention, counter)
     o = fused_attention.fused_qkv_mha(x, *params, lens, 2, prec)
     torch.cuda.synchronize()
@@ -1059,7 +1171,7 @@ def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
     o32 = fused_attention.fused_qkv_mha(x.float(), *params, lens, 2, prec)
     assert o.dtype == bf and torch.equal(o, o32.to(bf))
     ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2, prec)
-    tol = 2.0**-7 * ref.float().abs().max().item() + (2e-5 if prec == "highest" else 5e-3)
+    tol = 2.0**-7 * ref.float().abs().max().item() + (5e-3 if prec == "default" else 2e-5)
     assert (o.float() - ref.float()).abs().max().item() <= tol
     for i, n in enumerate(lengths):
         if n == 0:

@@ -146,7 +146,8 @@ def test_gradients_match_jax():
 def bridged():
     """The JAX tiny model on its fused path (K4 and K5 in interpret mode,
     f32 products) and the port's, on the same weights through the
-    bridge."""
+    bridge. The port's fused kernel runs at "highest" too (its default
+    "high" is the TPU kernel's "high3": ``test_torch_fused_high3.py``)."""
     jcfg = JaxConfig.tiny(attention_impl="fused_qkv", matmul_precision="highest",
                           layernorm_impl="pallas")
     rng = np.random.default_rng(15)
@@ -166,7 +167,8 @@ def test_model_layers_and_embedding_match_jax(bridged):
     j_layers = jmodel.apply(params, jnp.asarray(wav), jnp.asarray(lengths),
                             method=JaxNomadModel.forward_layers)
     j_emb = np.asarray(jmodel.apply(params, jnp.asarray(wav), jnp.asarray(lengths)))
-    model = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv"), emb_dim=EMB)
+    model = NomadModel(Wav2Vec2Config.tiny(attention_impl="fused_qkv",
+                                           encoder_precision="highest"), emb_dim=EMB)
     model.load_state_dict(sd, strict=True)
     with torch.inference_mode():
         t_wav, t_len = _t(wav), _t(lengths).long()
@@ -190,7 +192,8 @@ def test_loss_value_and_gradient_match_jax(bridged):
     jnomad = JaxNomad(device="cpu", config=jcfg, emb_dim=EMB, params=params)
     j_loss, j_grad = jax.value_and_grad(lambda e: jnomad.loss_fn(e, jnp.asarray(clean)))(
         jnp.asarray(est))
-    nomad = Nomad(device="cpu", config=Wav2Vec2Config.tiny(attention_impl="fused_qkv"),
+    nomad = Nomad(device="cpu", config=Wav2Vec2Config.tiny(attention_impl="fused_qkv",
+                                                           encoder_precision="highest"),
                   emb_dim=EMB, params=sd)
     e = _t(est).requires_grad_()
     loss = nomad.forward(e, _t(clean))

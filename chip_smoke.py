@@ -203,14 +203,22 @@ Phases, each fatal on failure:
      [8, 1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511,
      1023, 1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
      and every edge T in {1, 15, 16, 17, 63, 64, 65, 511, 127, 128, 129,
-     191, 192, 193, 257}) and of K2 +
-     K3 (the same, but [96, 511]), each case with a full, a ragged, a 1-key
-     and a 0-key row, under phase 13's rules (bit-equal to the f32-I/O
-     flavour on the upcast inputs rounded once; plain version and float64
-     plus one bf16 step; garbage past each bound; a rerun the same bits),
-     timed in turns with the f32-I/O flavour and beside the plain version
-     and the PyTorch calls of each flavour's function (bf16 calls at
-     "default"; f32 calls on the upcasts at "highest"); then on phase 9's
+     191, 192, 193, 257}) and K2-bf16 + K3-bf16 (the "highest" backward on
+     bf16 tensors, K2b/K3b's template at three passes; the same, but [96,
+     511]), each case with a full, a ragged, a 1-key and a 0-key row, under
+     phase 13's rules (bit-equal to the f32-I/O flavour on the upcast
+     inputs rounded once; K2-bf16 and K3-bf16, summing in the tensor
+     core's order, within one bf16 step of it, the share of elements that
+     differ reported, and their one C call the bits of the prologue and
+     the kernels launched alone; plain version and float64 plus one bf16
+     step; garbage past each bound; a rerun the same bits), timed in turns
+     with the f32-I/O flavour and beside the plain version and the
+     PyTorch calls of each flavour's function (bf16 calls at "default";
+     f32 calls on the upcasts at "highest"; K2-bf16 + K3-bf16's call with
+     its prologue at [32, 50], [24, 499] and [8, 4095], against the bound
+     of their passes on the bf16 tensor cores, the f32-FMA bound beside
+     it, and the error of the P they recompute: the forward's LSE and the
+     one-pass scores against float64); then on phase 9's
      seeded BASE state dict ``Wav2Vec2Config.fast(encoder_dtype=bf16,
      attention_impl="fused_qkv")`` on phase 4's 108 files (K4b-bf16 12, K5
      2, K5-bf16 24 per batch) against its plain path by phase 12's rule,
@@ -520,13 +528,18 @@ def card_info() -> str:
 # ---------------- phase 2: build ----------------
 
 # kernels whose ptxas lines the spill check must find, by source: the
-# K1b, K2b/K3b, K4b and K4h prologues and kernels (each flavour a template
-# instance; K4b's pass count 1, K4h's 3, as the mangled names give them)
+# K1b, K2b/K3b, K2-bf16/K3-bf16, K4b and K4h prologues and kernels (each
+# flavour a template instance; K4b's pass count 1, K4h's 3, K2b/K3b's 1 and
+# K2-bf16/K3-bf16's 3 on bf16 I/O, as the mangled names give them)
 PTXAS_ENTRIES = {
     "fused_attention_bf16": ("fused_qkv_fwd_bf16_kernelILi1E", "fused_qkv_fwd_bf16_kernelILi3E",
                              "pack_kernelILb0E", "pack_kernelILb1E"),
     "flash_attention_bf16": ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel"),
-    "flash_attention_bwd_bf16": ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+    "flash_attention_bwd_bf16": ("flash_bwd_dq_bf16_kernelIfLi1E", "flash_bwd_dkv_bf16_kernelIfLi1E",
+                                 "flash_bwd_dq_bf16_kernelI13__nv_bfloat16Li1E",
+                                 "flash_bwd_dkv_bf16_kernelI13__nv_bfloat16Li1E",
+                                 "flash_bwd_dq_bf16_kernelI13__nv_bfloat16Li3E",
+                                 "flash_bwd_dkv_bf16_kernelI13__nv_bfloat16Li3E",
                                  "flash_bwd_fold_bf16_kernel"),
 }
 
@@ -573,24 +586,25 @@ def build_kernels() -> None:
                  f"{plan['blocks_per_sm']}")
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
-            for io, tag in ((False, ""), (True, "_f32_bf16io")):
-                blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"], io)
-                occ[f"flash_attention_bwd_{kernel}{tag}_T{t}"] = {
-                    "rows_per_block": plan["rows_per_block"], "blocks_per_sm": blocks,
-                    "plan_blocks_per_sm": plan["blocks_per_sm"],
-                    "smem_bytes": plan["smem_bytes"]}
-                if blocks < plan["blocks_per_sm"]:
-                    fail(f"K2/K3{tag} {kernel} at T = {t}: {blocks} blocks per SM, the plan "
-                         f"claims {plan['blocks_per_sm']}")
-    for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 1, 12).items():
-        for io, tag in ((False, "bf16"), (True, "bf16io")):
-            blocks = flash_attention.flash_bwd_bf16_occupancy(kernel, bf16_io=io)
-            occ[f"flash_attention_bwd_{kernel}_{tag}"] = {
-                "blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
+            blocks = flash_attention.flash_bwd_occupancy(kernel, plan["rows_per_block"])
+            occ[f"flash_attention_bwd_{kernel}_T{t}"] = {
+                "rows_per_block": plan["rows_per_block"], "blocks_per_sm": blocks,
+                "plan_blocks_per_sm": plan["blocks_per_sm"],
                 "smem_bytes": plan["smem_bytes"]}
             if blocks < plan["blocks_per_sm"]:
-                fail(f"K2b/K3b {kernel} ({tag}): {blocks} blocks per SM, the plan claims "
-                     f"{plan['blocks_per_sm']}")
+                fail(f"K2/K3 {kernel} at T = {t}: {blocks} blocks per SM, the plan "
+                     f"claims {plan['blocks_per_sm']}")
+    # K2b/K3b in both I/O flavours; K2-bf16/K3-bf16 ("highest", three passes)
+    for prec, io, tag in (("default", False, "bf16"), ("default", True, "bf16io"),
+                          ("highest", True, "f32_bf16io")):
+        for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 1, 12, prec).items():
+            blocks = flash_attention.flash_bwd_bf16_occupancy(kernel, bf16_io=io, precision=prec)
+            occ[f"flash_attention_bwd_{kernel}_{tag}"] = {
+                "blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
+                "smem_bytes": plan["smem_bytes"], "passes": plan["passes"]}
+            if blocks < plan["blocks_per_sm"]:
+                fail(f"K2b/K3b's template {kernel} ({tag}): {blocks} blocks per SM, the plan "
+                     f"claims {plan['blocks_per_sm']}")
     for t in (50, 65, 511, 1024):
         for prec, io, name in (("highest", False, "fused_qkv_attention_fwd"),
                                ("highest", True, "fused_qkv_attention_f32_bf16io_fwd"),
@@ -696,9 +710,11 @@ def check_flash(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) 
 
 def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
                      peak_flops: float = F32_FLOPS, io_bytes: int = 4,
-                     out_bytes: int | None = None) -> dict:
+                     out_bytes: int | None = None, passes: int = 1) -> dict:
     """Per kernel: every (query row, valid key) pair costs K2 6*D FLOP (s,
-    dP, dQ) and K3 8*D (s, dP, dK, dV). Bytes: the valid keys' k and v,
+    dP, dQ) and K3 8*D (s, dP, dK, dV); with ``passes`` = 3 (K2-bf16,
+    K3-bf16: dQ, dK and dV each three bf16 passes) 10*D and 16*D on the
+    tensor cores. Bytes: the valid keys' k and v,
     q, dO, LSE and Di of the batch rows that have a key, and the outputs
     (dQ; dK and dV), each once; q, k, v and dO ``io_bytes`` an element,
     the outputs ``out_bytes`` (``io_bytes`` unless given), LSE and Di 4.
@@ -710,8 +726,9 @@ def flash_bwd_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
     row = float(io_bytes) * h * d
     out_row = float(io_bytes if out_bytes is None else out_bytes) * h * d
     reads = 2 * keys * row + 2 * live * t * row + 2 * live * h * t * 4.0
-    return {"dq": bound(reads + b * t * out_row, 6.0 * h * d * pairs, peak_flops),
-            "dkv": bound(reads + 2 * b * t * out_row, 8.0 * h * d * pairs, peak_flops)}
+    return {"dq": bound(reads + b * t * out_row, 2.0 * (2 + passes) * h * d * pairs, peak_flops),
+            "dkv": bound(reads + 2 * b * t * out_row, 2.0 * (2 + 2 * passes) * h * d * pairs,
+                         peak_flops)}
 
 
 def check_flash_bwd(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
@@ -1101,6 +1118,9 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 KERNEL_GROUPS = (
     ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",
                                     "flash_fwd_fold_bf16_kernel<__nv_bfloat16")),
+    # K2-bf16/K3-bf16 ("highest" on bf16 tensors: three passes), then K2b/K3b-bf16
+    ("flash_attention_bwd_f32_bf16io", ("flash_bwd_dq_bf16_kernel<__nv_bfloat16, 3",
+                                        "flash_bwd_dkv_bf16_kernel<__nv_bfloat16, 3")),
     ("flash_attention_bwd_bf16io", ("flash_bwd_dq_bf16_kernel<__nv_bfloat16",
                                     "flash_bwd_dkv_bf16_kernel<__nv_bfloat16",
                                     "flash_bwd_fold_bf16_kernel<__nv_bfloat16")),
@@ -1226,9 +1246,10 @@ def read_launches() -> dict:
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
                   k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
                   k4b_io=0, k4h=0, k4h_io=0) -> dict:
-    """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. K2b/K3b's
-    prologue (the backward fold) runs once per backward call: once per K2b
-    launch, in K2b's flavour; K1b's (the forward fold) once per K1b
+    """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. The
+    backward fold runs once per backward call of K2b/K3b or K2-bf16/K3-bf16:
+    once per K2b launch, in K2b's flavour, and once per K2-bf16 launch
+    (``k2_io``), in the bf16 one; K1b's (the forward fold) once per K1b
     launch."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
@@ -1242,7 +1263,8 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "fused_qkv_attention_f32_bf16io_fwd": k4_io,
             "fused_qkv_attention_bf16io_fwd": k4b_io,
             "fused_qkv_attention_high3_fwd": k4h, "fused_qkv_attention_high3_bf16io_fwd": k4h_io,
-            "flash_attention_bwd_fold_bf16": k2b, "flash_attention_bwd_fold_bf16io": k2b_io,
+            "flash_attention_bwd_fold_bf16": k2b,
+            "flash_attention_bwd_fold_bf16io": k2b_io + k2_io,
             "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io}
 
 
@@ -3830,33 +3852,85 @@ def check_layernorm_bf16io(rows: int, width: int, g: torch.Generator) -> dict:
     return res
 
 
+def near_f32_flavour(outs, outs32) -> tuple[bool, dict]:
+    """K2-bf16's and K3-bf16's (dQ, dK, dV) against the f32 flavour's (K2
+    and K3 on the upcast inputs) rounded once: whether every element lies
+    within one bf16 step (at the larger of the two) beyond BWD_F32_PLAIN_REL
+    of the f32 flavour's max |g| (both sum f32-exact products, in two
+    orders: an element that cancelled carries its terms' rounding); per
+    output the share of elements whose bits differ, the share more than
+    one step apart and the largest distance in steps. An output that is
+    rounding noise on both sides (max |g| <= BWD_NOISE: dQ and dK with one
+    key, analytically 0) is held by the float64 rule alone."""
+    near, info = True, {}
+    for n, x, y in zip(("dq", "dk", "dv"), outs, outs32):
+        yb = y.to(torch.bfloat16)
+        diff = (x.float() - yb.float()).abs()
+        step = bf16_ulp_of(torch.maximum(x.float().abs(), yb.float().abs()))
+        gmax = y.abs().max().item()
+        if gmax > BWD_NOISE:
+            near &= bool((diff <= step + BWD_F32_PLAIN_REL * gmax).all())
+        info[n] = {"share_differ": (x != yb).float().mean().item(),
+                   "share_beyond_one_step": (diff > step).float().mean().item(),
+                   "max_steps": (diff / step).max().item(), "noise": gmax <= BWD_NOISE}
+    return near, info
+
+
+def recompute_gap(q, k, lse, n: int) -> tuple[float, float]:
+    """How far the P = exp(S / sqrt(D) - LSE) that K2-bf16 and K3-bf16
+    recompute lies from the exact softmax, for one batch row of bf16 q, k
+    with n valid keys: max |LSE - LSE_f64| of the forward's saved LSE
+    (K1-bf16: f32 FMA order) and max |S - S_f64| / sqrt(D) of the scores in
+    one bf16 pass with f32 sums (cuBLAS's bmm standing in for the kernels'
+    wgmma: the products are exact, the order of the sum differs)."""
+    if n == 0:
+        return 0.0, 0.0
+    d = q.shape[3]
+    qh, kh = q[0].transpose(0, 1), k[0, :n].transpose(0, 1)  # [H, T, D], [H, n, D]
+    s64 = torch.einsum("hqd,hkd->hqk", qh.double(), kh.double()) / d**0.5
+    s_tc = torch.bmm(qh, kh.transpose(1, 2), out_dtype=torch.float32).double() / d**0.5
+    gaps = ((lse[0].double() - torch.logsumexp(s64, dim=-1)).abs().max().item(),
+            (s_tc - s64).abs().max().item())
+    del s64, s_tc
+    return gaps
+
+
 def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
                        bwd: bool = True, kernel_times: bool = True,
                        prec: str = "default") -> dict:
     """K1b's bf16-I/O flavour and, with ``bwd``, K2b's and K3b's (through
-    ``flash_attention_bwd``), or at ``prec`` "highest" those of K1, K2 and
-    K3, on bf16 q, k, v (views of one [B, T, 3, H,
-    D] buffer) and dO, NaN in k and v past each bound: every output bit-
-    equal to the f32-I/O flavour's on the upcast inputs rounded once (LSE
-    equal); the same bits as with finite values past the bound, and on a
-    rerun; a 0-key row O = 0, LSE = -1e30, zero gradients; dK = dV = 0
-    past each bound; against the plain version on the same bf16 inputs
-    and float64: |O - O_f64| <= 1.5 x the plain version's + 1.5 bf16
-    steps at its max + 1e-6 (phase 9's rule for outputs rounded once),
-    LSE within TOL_FLASH; each gradient within BWD_BF16_PLAIN_REL +
-    BF16_ULP_REL of the plain version's max |g| and BWD_BF16_PLAIN_NORM +
-    BF16_ULP_REL / 2 of its norm (where max |g| > BWD_NOISE), |g - g_f64|
-    <= 1.5 x the plain version's + 1.5 bf16 steps + 1e-6 (phase 10's
-    rule); at "highest" the gradients within BWD_F32_PLAIN_REL instead of
-    BWD_BF16_PLAIN_REL and BWD_BF16_PLAIN_NORM (f32 products on both
-    sides). ``kernel_times``:
-    time the bf16-I/O kernels and their f32-I/O flavour; ``timed``: the
-    plain version and the yardstick, SDPA (its gradient) on the bf16
-    tensors at "default", on their f32 upcasts at "highest", too."""
+    ``flash_attention_bwd``), or at ``prec`` "highest" those of K1 and
+    K2-bf16 and K3-bf16, on bf16 q, k, v (views of one [B, T, 3, H, D]
+    buffer) and dO, NaN in k and v past each bound: O bit-equal to the
+    f32-I/O flavour's on the upcast inputs rounded once (LSE equal), and so
+    are K2b's and K3b's gradients; K2-bf16's and K3-bf16's (the f32
+    flavour's products on the tensor cores, summed in another order) each
+    within one bf16 step of the f32 flavour's rounded once, beyond
+    BWD_F32_PLAIN_REL of its max |g| (two f32 orders: an element that
+    cancelled carries its terms' rounding), the share of elements that
+    differ reported, and the one C call the bits of the prologue and the
+    two kernels launched alone; the same bits as with finite values past
+    the bound, and on a rerun; a 0-key row O = 0, LSE = -1e30, zero
+    gradients; dK = dV = 0 past each bound; against the plain version on
+    the same bf16 inputs and float64: |O - O_f64| <= 1.5 x the plain
+    version's + 1.5 bf16 steps at its max + 1e-6 (phase 9's rule for
+    outputs rounded once), LSE within TOL_FLASH; each gradient within
+    BWD_BF16_PLAIN_REL + BF16_ULP_REL of the plain version's max |g| and
+    BWD_BF16_PLAIN_NORM + BF16_ULP_REL / 2 of its norm (where max |g| >
+    BWD_NOISE), |g - g_f64| <= 1.5 x the plain version's + 1.5 bf16 steps
+    + 1e-6 (phase 10's rule); at "highest" the gradients within
+    BWD_F32_PLAIN_REL instead of BWD_BF16_PLAIN_REL and BWD_BF16_PLAIN_NORM
+    (f32-exact products on both sides). ``kernel_times``: time the bf16-I/O
+    kernels and their f32-I/O flavour; ``timed``: the plain version and the
+    yardstick, SDPA (its gradient) on the bf16 tensors at "default", on
+    their f32 upcasts at "highest", too. At "highest" the bounds count
+    K2-bf16's and K3-bf16's passes on the bf16 tensor cores and the bytes
+    of the fold they read; the f32-FMA bound of the f32 flavour's work
+    beside them."""
     h, d = 12, 64
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
-    tags = ("K1b", "K2b", "K3b") if bf16_ops else ("K1", "K2", "K3")
+    tags = ("K1b", "K2b", "K3b") if bf16_ops else ("K1", "K2-bf16", "K3-bf16")
     plain_rel = BWD_BF16_PLAIN_REL if bf16_ops else BWD_F32_PLAIN_REL
     plain_norm = BWD_BF16_PLAIN_NORM if bf16_ops else BWD_F32_PLAIN_REL
     peak = BF16_FLOPS if bf16_ops else F32_FLOPS
@@ -3882,7 +3956,7 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
               "zero_key_rows": all(bool((o[i] == 0).all() and (lse[i] == flash_attention.NEG_INF)
                                         .all()) for i, n in enumerate(lengths) if n == 0)}
     del o32, lse32, o_fin, lse_fin, again
-    err = err_f64 = err_plain_f64 = err_lse = 0.0
+    err = err_f64 = err_plain_f64 = err_lse = lse_gap = s_gap = 0.0
     excess = float("-inf")
     for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
         sl = slice(i, i + 1)
@@ -3895,11 +3969,16 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         err = max(err, (o[sl].float() - ro.float()).abs().max().item())
         err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
         err_lse = max(err_lse, (lse[sl] - rlse).abs().max().item())
+        if bwd and not bf16_ops:
+            gaps = recompute_gap(q[sl], k[sl], lse[sl], lengths[i])
+            lse_gap, s_gap = max(lse_gap, gaps[0]), max(s_gap, gaps[1])
         del ro, rlse, exact
     checks["vs_plain_and_f64"] = excess <= 0 and err_lse <= TOL_FLASH
     res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
            "fwd": {"max_abs_err": err, "max_abs_err_vs_f64": err_f64,
                    "plain_max_abs_err_vs_f64": err_plain_f64, "lse_max_abs_err": err_lse}}
+    if bwd and not bf16_ops:
+        res["recompute"] = {"lse_max_abs_err_vs_f64": lse_gap, "scores_max_abs_err_vs_f64": s_gap}
     b_ms, b_by = flash_bound(b, t, h, d, lens, peak, io_bytes=2)
     res["fwd"] |= {"bound_ms": b_ms, "bound_by": b_by}
     iters = 10 if t > 1024 else 30
@@ -3923,10 +4002,13 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     # tensors at "default", on their f32 upcasts (made inside the timed
     # call) at "highest"
     up_lib = (lambda x: x) if bf16_ops else (lambda x: x.float())
+    # the plain versions at [8, 4095] hold [B, H, T, T] f32 scores: fewer calls
+    plain_iters, plain_warmup = (5, 3) if t <= 1024 else (2, 1)
     if timed:
         qb, kb, vb = (x.transpose(1, 2) for x in (q, kf, vf))
         res["fwd"]["plain_ms"] = time_ms(
-            lambda: flash_attention.flash_attention_ref(q, k, v, lens, prec), 5)
+            lambda: flash_attention.flash_attention_ref(q, k, v, lens, prec), plain_iters,
+            plain_warmup)
         res["fwd"]["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
             up_lib(qb), up_lib(kb), up_lib(vb), attn_mask=mask), 10)
     if bwd:
@@ -3942,10 +4024,14 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         again = grads(q, k, v, o, lse, do, lens)
         torch.cuda.synchronize()
         dq, dk, dv = outs
+        if bf16_ops:  # one bf16 body: the f32 flavour's bits, rounded once
+            checks["bwd_bit_equal_f32_flavour"] = all(torch.equal(x, y.to(bf))
+                                                      for x, y in zip(outs, outs32))
+        else:  # K2-bf16/K3-bf16: the tensor core's order, within one bf16 step
+            near, res["bwd_vs_f32_flavour"] = near_f32_flavour(outs, outs32)
+            checks["bwd_within_one_bf16_step_of_f32_flavour"] = near
         checks |= {
             "bwd_dtype": all(x.dtype == bf for x in outs),
-            "bwd_bit_equal_f32_flavour": all(torch.equal(x, y.to(bf))
-                                             for x, y in zip(outs, outs32)),
             "bwd_rerun_same_bits": all(torch.equal(x, y) for x, y in zip(outs, again)),
             "bwd_finite": all(bool(torch.isfinite(x).all()) for x in outs),
             "bwd_zero_past_bound": all(bool((dk[i, n:] == 0).all() and (dv[i, n:] == 0).all())
@@ -3987,22 +4073,34 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
             excess <= 0 and all(err_rel[n] <= plain_rel + BF16_ULP_REL and
                                 err_norm[n] <= plain_norm + BF16_ULP_REL / 2
                                 for n in live))
-        bounds = flash_bwd_bounds(b, t, h, d, lens, peak, io_bytes=2)
+        # at "highest": K2-bf16/K3-bf16's passes on the bf16 tensor cores,
+        # reading the fold; the f32 flavour's FMA work beside it
+        bounds = flash_bwd_bounds(b, t, h, d, lens, BF16_FLOPS, io_bytes=2,
+                                  passes=1 if bf16_ops else 3)
+        fma_bounds = None if bf16_ops else flash_bwd_bounds(b, t, h, d, lens, F32_FLOPS,
+                                                            io_bytes=2)
         do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
         do32, di32, _ = flash_attention._bwd_args(*up_c, o.float(), lse, do.float(), lens)
         args = {False: (q, k, v, do_, lse, di, lens_), True: (*up_c, do32, lse, di32, lens_)}
-        if bf16_ops:  # K2b/K3b's prologue: both flavours fold to the same bits
-            res["fold"] = check_fold(*args[False], kernel_times)
-            ws = {f32: flash_attention._bwd_bf16_fold(*args[f32]) for f32 in (False, True)}
-            checks["bwd_fold_bit_equal_f32_flavour"] = all(
-                torch.equal(x, y) for x, y in zip(ws[False], ws[True]))
-            if kernel_times:
-                res["fold"]["f32_io_ms"] = time_ms(
-                    lambda: flash_attention._bwd_bf16_fold(*args[True], ws[True]), iters)
+        # the prologue: both flavours fold to the same bits
+        res["fold"] = check_fold(*args[False], kernel_times)
+        ws = {f32: flash_attention._bwd_bf16_fold(*args[f32]) for f32 in (False, True)}
+        checks["bwd_fold_bit_equal_f32_flavour"] = all(
+            torch.equal(x, y) for x, y in zip(ws[False], ws[True]))
+        if kernel_times:
+            res["fold"]["f32_io_ms"] = time_ms(
+                lambda: flash_attention._bwd_bf16_fold(*args[True], ws[True]), iters)
+        if not bf16_ops:  # the one C call is the prologue and the kernels alone
+            alone = (*flash_attention._bwd_bf16_kernel("dq", q, ws[False], lens_, prec),
+                     *flash_attention._bwd_bf16_kernel("dkv", q, ws[False], lens_, prec))
+            checks["bwd_one_call_is_the_kernels_alone"] = all(
+                torch.equal(x, y) for x, y in zip(outs, alone))
+            del alone
 
         def kernel(key, f32_io):
-            if bf16_ops:
-                return flash_attention._bwd_bf16_kernel(key, args[f32_io][0], ws[f32_io], lens_)
+            if bf16_ops or not f32_io:
+                return flash_attention._bwd_bf16_kernel(key, args[f32_io][0], ws[f32_io], lens_,
+                                                        prec)
             return (flash_attention._bwd_dq_kernel if key == "dq"
                     else flash_attention._bwd_dkv_kernel)(*args[f32_io])
 
@@ -4013,12 +4111,17 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                         "max_abs_err_vs_f64": {n: err_f64[n] for n in parts},
                         "plain_max_abs_err_vs_f64": {n: plain_f64[n] for n in parts},
                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+            if fma_bounds is not None:
+                res[key] |= {"f32_fma_bound_ms": fma_bounds[key][0],
+                             "f32_fma_bound_by": fma_bounds[key][1],
+                             "vs_f32_flavour": {n: res["bwd_vs_f32_flavour"][n] for n in parts},
+                             "fold_ms": res["fold"].get("ms")}
             if kernel_times:
                 res[key]["ms"], res[key]["f32_io_ms"] = time_pair_ms(
                     lambda key=key: kernel(key, False), lambda key=key: kernel(key, True), iters)
         if timed:
             plain = time_ms(lambda: flash_attention.flash_attention_bwd_ref(
-                q, k, v, o, lse, do, lens, prec), 5)
+                q, k, v, o, lse, do, lens, prec), plain_iters, plain_warmup)
             qb, kb, vb = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                           for x in (q, kf, vf))
             out = F.scaled_dot_product_attention(up_lib(qb), up_lib(kb), up_lib(vb),
@@ -4037,8 +4140,9 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         fail(f"flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
              f"fwd {res['fwd']}; bwd {[res.get(k) for k in ('dq', 'dkv')]}")
     fwd = res["fwd"]
-    line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: bf16(f32 "
-            f"flavour) bit-equal, NaN past the bound changes nothing; {tags[0]} O vs plain max|d| "
+    line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
+            f"{'' if bf16_ops else 'O '}bf16(f32 flavour) bit-equal, NaN past the bound changes "
+            f"nothing; {tags[0]} O vs plain max|d| "
             f"{fwd['max_abs_err']:.3g}, vs f64 {fwd['max_abs_err_vs_f64']:.3g} (plain "
             f"{fwd['plain_max_abs_err_vs_f64']:.3g})")
     if kernel_times:
@@ -4048,10 +4152,20 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         rel = max(res["dq"]["max_rel_err"], res["dkv"]["max_rel_err"])
         norm = max(res["dq"]["norm_rel_err"], res["dkv"]["norm_rel_err"])
         line += f"; {tags[1]}/{tags[2]} vs plain max|d|/max|g| {rel:.3g}, ||d||/||g|| {norm:.3g}"
+        if "bwd_vs_f32_flavour" in res:
+            near = res["bwd_vs_f32_flavour"]
+            line += ("; vs the f32 flavour rounded once: share differing " + ", ".join(
+                f"{n} {v['share_differ']:.3g}" for n, v in near.items()) + f", at most "
+                f"{max(v['max_steps'] for v in near.values()):.3g} bf16 steps; recomputed P: "
+                f"|LSE - LSE_f64| {res['recompute']['lse_max_abs_err_vs_f64']:.3g}, "
+                f"|S - S_f64|/8 {res['recompute']['scores_max_abs_err_vs_f64']:.3g}")
         if kernel_times:
             line += (f"; {tags[1]} {res['dq']['ms']:.4f} ms (f32 I/O {res['dq']['f32_io_ms']:.4f}, "
                      f"bound {res['dq']['bound_ms']:.4f}), {tags[2]} {res['dkv']['ms']:.4f} ms (f32 I/O "
                      f"{res['dkv']['f32_io_ms']:.4f}, bound {res['dkv']['bound_ms']:.4f})")
+            if "f32_fma_bound_ms" in res["dq"]:
+                line += (f", f32-FMA bounds {res['dq']['f32_fma_bound_ms']:.4f} + "
+                         f"{res['dkv']['f32_fma_bound_ms']:.4f}")
             if "fold" in res:
                 line += (f", prologue {res['fold']['ms']:.4f} ms (f32 I/O "
                          f"{res['fold']['f32_io_ms']:.4f}, bound {res['fold']['bound_ms']:.4f})")
@@ -4359,10 +4473,11 @@ def check_bf16_paths_shapes() -> None:
     """The six bf16-I/O flavours at their paths' shapes: K4, K4h and K4b at
     the scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key row), the
     loss crop [32, 50], a ragged [8, 1024] and every plan edge; K1 at [96,
-    511], [24, 499] (with K2 and K3: the loss on 10 s clips) and a ragged
-    [8, 4095]; K2 and K3 at the loss crop [32, 50] too; K1, K2 and K3
-    untimed at every tile edge; each edge with a full, a ragged, a 1-key
-    and a 0-key row."""
+    511], [24, 499] (with K2-bf16 and K3-bf16: the loss on 10 s clips) and a
+    ragged [8, 4095] (with them, timed); K2-bf16 and K3-bf16 at the loss
+    crop [32, 50] too; K1, K2-bf16 and K3-bf16 untimed at every tile edge
+    and every edge of the 3-stage ring; each edge with a full, a ragged, a
+    1-key and a 0-key row."""
     g = torch.Generator().manual_seed(14)
     rng = np.random.default_rng(14)
 
@@ -4388,7 +4503,7 @@ def check_bf16_paths_shapes() -> None:
           "loss": check_flash_bf16io(LOSS_BATCH, 50, rows(LOSS_BATCH, 50), g, timed=True,
                                      prec="highest"),
           "long": check_flash_bf16io(8, 4095, [4095, 4000, 3001, 2048, 1025, 64, 1, 0], g,
-                                     timed=False, prec="highest")}
+                                     timed=True, prec="highest")}
     for t in (1, 15, 16, 17, 63, 64, 65, 511) + K1B_RING_EDGES:
         fl[f"edge_T{t}"] = check_flash_bf16io(4, t, [t, max(t // 2, 1), 1, 0], g, timed=False,
                                               kernel_times=False, prec="highest")
@@ -5427,9 +5542,10 @@ def main() -> None:
          "nomad_tpu/ops/fused_attention.py:93"),
         ("flash_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
-        ("flash_attention_bwd_dq_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+        ("flash_attention_bwd_dq_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:182"),
-        ("flash_attention_bwd_dkv_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd.cu",
+        ("flash_attention_bwd_dkv_f32_bf16io",
+         "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:222"),
         # K2b/K3b's prologue: the fold the JAX package does outside its kernels
         ("flash_attention_bwd_fold_bf16", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",

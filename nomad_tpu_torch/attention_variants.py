@@ -1,7 +1,7 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k4h,k1,k1b,k23,k23b]
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k4h,k1,k1b,k23,k23b,k23io]
 
 Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
 ``csrc/flash_attention.cu``, ``csrc/flash_attention_bf16.cu``,
@@ -49,6 +49,15 @@ name; all by default):
   call's: ``loads_only``, the producer's TMA ring with no wgmma and no
   exp; ``no_loads``, the consumers without the ring (no copies, no
   waits; wrong sums);
+* the "highest" backward on bf16 tensors (``k23io``) at [24, 499], a
+  ragged [8, 4095] and [32, 50], through the port's own wrapper
+  (``flash_attention.flash_attention_bwd`` at "highest" on bf16 q, k, v,
+  dO): K2-bf16 + K3-bf16 with their prologue here, the f32-FMA K2 + K3 on
+  bf16 I/O in a checkout from before them, so ``--kernels k23io`` in both
+  times the two in turns; the call's time, its host time and each
+  kernel's device time (``fold``, ``dq``, ``dkv``, ``other``: Di); by
+  name only, ``k23iov_dv_after_dp``: K3-bf16 issuing dV's passes only once
+  dP^T has landed;
 * the mma.sync K2b + K3b that the TMA/wgmma design replaced
   (``k23bmma``, in no default group: they patch that design's source,
   so run them in a checkout of it with this file copied in, e.g.
@@ -69,8 +78,8 @@ name; all by default):
   skipped, the products and exp skipped, and exp2f of every element with
   the mask a select.
 
-K4, K1 and K2 + K3 are called through their C entries with ``bf16_io`` 0
-(the f32 flavours). K4b goes through the port's own wrapper
+K4 and K1 are called through their C entries with ``bf16_io`` 0 (the f32
+flavours), K2 + K3 through theirs (f32 only). K4b goes through the port's own wrapper
 (``fused_attention.fused_qkv_mha`` at "default", on f32 and on bf16 x)
 with the variant's library in place of the real one, so a checkout whose
 K4b takes other arguments (an older one, say, to time the parent's kernel
@@ -212,6 +221,19 @@ VARIANTS = {
         ("mbar_wait(&sm.full[t % kStages], (t / kStages) & 1);", "")]),
     "k1bw_two_blocks": ("flash_attention_bf16.cu", [
         ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;")]),
+    # the "highest" backward on bf16 tensors, through its wrapper; in a
+    # checkout from before K2-bf16/K3-bf16 that wrapper runs the f32-FMA
+    # K2/K3 and this library goes unused
+    "k23io": ("flash_attention_bwd_bf16.cu", []),
+    # K3-bf16 issuing dV's passes once dP^T has landed, not while it is in
+    # flight (no accumulator of a finished product fenced under a pending one)
+    "k23iov_dv_after_dp": ("flash_attention_bwd_bf16.cu", [
+        ("      issue_nn3(part, pp, sm.ring[j].b);  // this tile's dV 2^16 = Σ planes(P^T 2^16) . dO\n"
+         "      wgmma_wait<1>();  // dP^T; dV's passes in flight\n"
+         "      fence_regs(dpt);\n",
+         "      wgmma_wait<0>();\n"
+         "      fence_regs(dpt);\n"
+         "      issue_nn3(part, pp, sm.ring[j].b);\n")]),
     "k23": ("flash_attention_bwd.cu", []),
     "k23_two_blocks": ("flash_attention_bwd.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -226,7 +248,7 @@ VARIANTS = {
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
 HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh", "attention_wgmma.cuh")
-GROUPS = ("k4", "k4b", "k4h", "k1", "k1b", "k23", "k23b")  # --kernels: a variant's group is its name's first word
+GROUPS = ("k4", "k4b", "k4h", "k1", "k1b", "k23", "k23b", "k23io")  # --kernels: a variant's group is its name's first word
 
 
 def build(picked) -> dict:
@@ -347,12 +369,14 @@ def time_bwd_bf16(libs, dev, out) -> None:
     """K2b + K3b's variants that were built, in both I/O flavours, through
     the port's own wrapper (``flash_attention.flash_attention_bwd`` at
     "default", so an older checkout's kernels run as its wrapper calls
-    them): the call's time (CUDA events, Di's reduction and any prologue
+    them), and ``k23io``, the "highest" backward on bf16 tensors, the same
+    way: the call's time (CUDA events, Di's reduction and any prologue
     included), its host time (the wrapper's own work per call, the card
     not waited for) and each kernel's device time under torch.profiler,
     by kernel name (``fold``: a prologue, ``dq``, ``dkv``, ``other``:
     Di)."""
-    names = [v for v in VARIANTS if v.split("_")[0] in ("k23b", "k23bmma") and v in libs]
+    names = [v for v in VARIANTS if v.split("_")[0] in ("k23b", "k23bmma", "k23io", "k23iov")
+             and v in libs]
     g = torch.Generator().manual_seed(2)
     h = 12
     for b, t, lens in ((24, 499, [499, 249, 1, 0] + [499] * 20),
@@ -363,18 +387,20 @@ def time_bwd_bf16(libs, dev, out) -> None:
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         for io in (torch.float32, torch.bfloat16):
             qi, ki, vi, doi = (x.to(io) for x in (q, k, v, do))
-            o, lse = flash_attention.mha_flash(qi, ki, vi, lengths, "default")
             for name in names:
+                prec = "highest" if name.split("_")[0] in ("k23io", "k23iov") else "default"
+                if prec == "highest" and io == torch.float32:
+                    continue  # f32 tensors at "highest" run K2/K3 (group k23)
+                o, lse = flash_attention.mha_flash(qi, ki, vi, lengths, prec)
                 with library("flash_attention_bwd_bf16", libs[name]):
                     def call():
                         return flash_attention.flash_attention_bwd(qi, ki, vi, o, lse, doi,
-                                                                   lengths, "default")
+                                                                   lengths, prec)
                     key = f"{name} [{b}, {t}, {h}, 64] bf16_io {int(io == torch.bfloat16)}"
                     out["ms"][key] = time_ms(call, 10 if t > 1024 else 30)
                     out["host_ms"][key] = host_ms(call, 10 if t > 1024 else 50)
                     out["ms_by_kernel"][key] = profiled_parts(
-                        call, {"fold": ("fold",), "dq": ("bwd_dq_bf16",),
-                               "dkv": ("bwd_dkv_bf16",)})
+                        call, {"fold": ("fold",), "dq": ("bwd_dq",), "dkv": ("bwd_dkv",)})
 
 
 def profiled_parts(call, parts: dict, reps: int = 10) -> dict:
@@ -490,11 +516,11 @@ def main() -> None:
             total = 0.0
             for entry, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
                 fn = getattr(libs[name], f"nomad_flash_attention_bwd_{entry}")
-                fn.argtypes = [p] * (7 + len(outs)) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
+                fn.argtypes = [p] * (7 + len(outs)) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs),
                         b, t, h, 64, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        *do.stride()[:3], 0.125, rows, smem, 0, stream)
+                        *do.stride()[:3], 0.125, rows, smem, stream)
                 if fn(*args):
                     raise RuntimeError(f"{name} {entry} [{b}, {t}]: launch refused")
                 ms = time_ms(lambda: fn(*args))

@@ -65,22 +65,13 @@
 //     [B, H, T]. expf, not __expf, to stay within f32 rounding of the plain
 //     version.
 //
-// Two I/O flavours from one template: q, k, v, dO and the gradients in
-// f32, or in bf16 (bf16 activations at a "highest" or "high" attention
-// island, where the TPU kernels read bf16 blocks through astype(float32),
-// :189-190, :203-204, :230-231, :245-246, and store in the inputs' dtype,
-// :219, :267-268). The bf16 flavour widens its inputs on the way into the
-// same f32 shared memory (8-byte loads; the streamed tiles by plain loads
-// and stores, since cp.async cannot convert) and rounds dQ, dK and dV once
-// each; LSE and Di stay f32, Di from the upcast dO and O. The arithmetic is
-// the f32 flavour's, so its gradients are the f32 flavour's on the upcast
-// inputs, rounded once, bit for bit.
+// f32 tensors only: on bf16 ones (bf16 activations at a "highest" or
+// "high" attention island) the same gradients, f32-exact on the upcast
+// inputs, run on the tensor cores as K2-bf16 and K3-bf16
+// (flash_attention_bwd_bf16.cu).
 // Launches on the caller's stream and allocates nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "attention_bwd_tile.cuh"
 
@@ -118,11 +109,11 @@ struct DkvSmem {
   float pds[16 * RT][kLdS];     // P^T, then dS^T: one slice per warp
 };
 
-// Copies rows r0 .. r0 + 16 RT - 1 of x (row stride sx, in elements; f32
-// or bf16, widened) into dst (laid out by nomad::resident_col), times
-// scale; rows at or past `end` are 0 and never read.
-template <int RT, typename IO>
-__device__ __forceinline__ void load_rows(float (*dst)[kLdR], const IO* x, long long sx, int r0,
+// Copies rows r0 .. r0 + 16 RT - 1 of x (row stride sx, in elements) into
+// dst (laid out by nomad::resident_col), times scale; rows at or past
+// `end` are 0 and never read.
+template <int RT>
+__device__ __forceinline__ void load_rows(float (*dst)[kLdR], const float* x, long long sx, int r0,
                                           int end, float scale) {
   for (int idx = threadIdx.x; idx < 16 * RT * kD4; idx += kThreads) {
     const int r = idx / kD4;
@@ -136,56 +127,28 @@ __device__ __forceinline__ void load_rows(float (*dst)[kLdR], const IO* x, long 
   }
 }
 
-// Rows j*kBK .. j*kBK + kBK - 1 of x and y into the tiles xs, ys; rows at
-// or past `end` are zero-filled and not read. f32 rows by cp.async; bf16
-// rows widened by plain loads and stores, every load in flight before the
-// first store.
-template <typename IO>
-__device__ __forceinline__ void stage_rows(float (*xs)[kLd], float (*ys)[kLd], const IO* x,
-                                           long long sx, const IO* y, long long sy, int j,
+// Rows j*kBK .. j*kBK + kBK - 1 of x and y into the tiles xs, ys by
+// cp.async; rows at or past `end` are zero-filled and not read.
+__device__ __forceinline__ void stage_rows(float (*xs)[kLd], float (*ys)[kLd], const float* x,
+                                           long long sx, const float* y, long long sy, int j,
                                            int end) {
   constexpr int kPer = kBK * kD4 / kThreads;
-  if constexpr (std::is_same_v<IO, float>) {
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int r = idx / kD4;
-      const int c = idx % kD4;
-      const int row = j * kBK + r;
-      const bool ok = row < end;
-      nomad::cp_async16(&xs[r][4 * c], ok ? x + row * sx + 4 * c : x, ok ? 16 : 0);
-      nomad::cp_async16(&ys[r][4 * c], ok ? y + row * sy + 4 * c : y, ok ? 16 : 0);
-    }
-  } else {
-    float4 xv[kPer], yv[kPer];
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int r = idx / kD4;
-      const int c = idx % kD4;
-      const int row = j * kBK + r;
-      xv[e] = yv[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < end) {
-        xv[e] = nomad::load4(x + row * sx + 4 * c);
-        yv[e] = nomad::load4(y + row * sy + 4 * c);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int r = idx / kD4;
-      const int c = idx % kD4;
-      *reinterpret_cast<float4*>(&xs[r][4 * c]) = xv[e];
-      *reinterpret_cast<float4*>(&ys[r][4 * c]) = yv[e];
-    }
+  for (int e = 0; e < kPer; ++e) {
+    const int idx = threadIdx.x + e * kThreads;
+    const int r = idx / kD4;
+    const int c = idx % kD4;
+    const int row = j * kBK + r;
+    const bool ok = row < end;
+    nomad::cp_async16(&xs[r][4 * c], ok ? x + row * sx + 4 * c : x, ok ? 16 : 0);
+    nomad::cp_async16(&ys[r][4 * c], ok ? y + row * sy + 4 * c : y, ok ? 16 : 0);
   }
 }
 
-// Stores the thread's RT x 8 block of a [B, T, H, 64] output (f32, or bf16
-// rounded once) for the rows r0 + bwd_row(i) < T, times scale, or 0 where
-// zero(row) holds.
-template <int RT, typename IO, class Zero>
-__device__ __forceinline__ void store_rows(IO* out, const float (&acc)[RT][8], int b, int h,
+// Stores the thread's RT x 8 block of a [B, T, H, 64] output for the rows
+// r0 + bwd_row(i) < T, times scale, or 0 where zero(row) holds.
+template <int RT, class Zero>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[RT][8], int b, int h,
                                            int T, int H, int r0, float scale, Zero&& zero) {
   const int c0 = nomad::tile_col0();
 #pragma unroll
@@ -193,7 +156,7 @@ __device__ __forceinline__ void store_rows(IO* out, const float (&acc)[RT][8], i
     const int t = r0 + nomad::bwd_row<RT>(i);
     if (t >= T) continue;
     const float f = zero(t) ? 0.f : scale;
-    IO* op = out + ((static_cast<long long>(b) * T + t) * H + h) * kD;
+    float* op = out + ((static_cast<long long>(b) * T + t) * H + h) * kD;
     const float* a = acc[i];
     nomad::store4(op + c0, a[0] * f, a[1] * f, a[2] * f, a[3] * f);
     nomad::store4(op + c0 + 32, a[4] * f, a[5] * f, a[6] * f, a[7] * f);
@@ -202,12 +165,12 @@ __device__ __forceinline__ void store_rows(IO* out, const float (&acc)[RT][8], i
 
 // ---------------- K2: dQ ----------------
 
-template <int RT, typename IO>
+template <int RT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dq_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
-                    const IO* __restrict__ v, const IO* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    const int* __restrict__ lengths, IO* __restrict__ dq,
+                    const int* __restrict__ lengths, float* __restrict__ dq,
                     int T, int H,
                     long long sqb, long long sqt, long long sqh,
                     long long skb, long long skt, long long skh,
@@ -221,8 +184,8 @@ flash_bwd_dq_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
   const int len = min(max(lengths[b], 0), T);
   const int tx = threadIdx.x & 7;
 
-  load_rows<RT, IO>(sm.q, q + b * sqb + h * sqh, sqt, t0, T, scale);
-  load_rows<RT, IO>(sm.dout, dout + b * sdb + h * sdh, sdt, t0, T, 1.f);
+  load_rows<RT>(sm.q, q + b * sqb + h * sqh, sqt, t0, T, scale);
+  load_rows<RT>(sm.dout, dout + b * sdb + h * sdh, sdt, t0, T, 1.f);
   // a row past T computes on zeros (P = 1, dS = 0) and is not written
   float lse_r[RT], di_r[RT], acc[RT][8];
 #pragma unroll
@@ -235,8 +198,8 @@ flash_bwd_dq_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
     for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   }
 
-  const IO* kb = k + b * skb + h * skh;
-  const IO* vb = v + b * svb + h * svh;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
   const bool active = t0 + (threadIdx.x >> 5) * 4 * RT < T;  // the warp has a row
   const int tiles = (len + kBK - 1) / kBK;
   auto stage = [&](int j) {
@@ -271,13 +234,13 @@ flash_bwd_dq_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
 
 // ---------------- K3: dK, dV ----------------
 
-template <int RT, typename IO>
+template <int RT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_bwd_dkv_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
-                     const IO* __restrict__ v, const IO* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
-                     const int* __restrict__ lengths, IO* __restrict__ dk,
-                     IO* __restrict__ dv, int T, int H,
+                     const int* __restrict__ lengths, float* __restrict__ dk,
+                     float* __restrict__ dv, int T, int H,
                      long long sqb, long long sqt, long long sqh,
                      long long skb, long long skt, long long skh,
                      long long svb, long long svt, long long svh,
@@ -303,13 +266,13 @@ flash_bwd_dkv_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
     return;
   }
 
-  load_rows<RT, IO>(sm.k, k + b * skb + h * skh, skt, key0, len, scale);
-  load_rows<RT, IO>(sm.v, v + b * svb + h * svh, svt, key0, len, 1.f);
+  load_rows<RT>(sm.k, k + b * skb + h * skh, skt, key0, len, scale);
+  load_rows<RT>(sm.v, v + b * svb + h * svh, svt, key0, len, 1.f);
   // the thread's rows are key0 + bwd_row(0) + 4 i: the first `valid` are keys
   const int valid = (len - key0 - nomad::bwd_row<RT>(0) + 3) >> 2;
 
-  const IO* qb = q + b * sqb + h * sqh;
-  const IO* db = dout + b * sdb + h * sdh;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* db = dout + b * sdb + h * sdh;
   const float* lb = lse + (static_cast<long long>(b) * H + h) * T;
   const float* ib = di + (static_cast<long long>(b) * H + h) * T;
   const int tiles = (T + kBK - 1) / kBK;
@@ -387,21 +350,14 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename IO>
-cudaError_t configure_flavour() {
-  cudaError_t err;
-  if ((err = allow_smem(flash_bwd_dq_kernel<4, IO>, sizeof(DqSmem<4>))) != cudaSuccess) return err;
-  if ((err = allow_smem(flash_bwd_dq_kernel<kSmallRT, IO>, sizeof(DqSmem<kSmallRT>))) != cudaSuccess) return err;
-  if ((err = allow_smem(flash_bwd_dkv_kernel<4, IO>, sizeof(DkvSmem<4>))) != cudaSuccess) return err;
-  return allow_smem(flash_bwd_dkv_kernel<kSmallRT, IO>, sizeof(DkvSmem<kSmallRT>));
-}
-
 cudaError_t configure() {  // dynamic shared memory above 48 KB, once
   static bool done = false;
   if (done) return cudaSuccess;
-  cudaError_t err = configure_flavour<float>();
-  if (err == cudaSuccess) err = configure_flavour<__nv_bfloat16>();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if ((err = allow_smem(flash_bwd_dq_kernel<4>, sizeof(DqSmem<4>))) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dq_kernel<kSmallRT>, sizeof(DqSmem<kSmallRT>))) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dkv_kernel<4>, sizeof(DkvSmem<4>))) != cudaSuccess) return err;
+  if ((err = allow_smem(flash_bwd_dkv_kernel<kSmallRT>, sizeof(DkvSmem<kSmallRT>))) != cudaSuccess) return err;
   done = true;
   return cudaSuccess;
 }
@@ -415,109 +371,72 @@ cudaError_t check_launch(bool dkv, int B, int T, int H, int D, int rows_per_bloc
   return configure();
 }
 
-template <typename IO>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* di, const void* lengths, void* dq, int B, int T, int H,
-               long long sqb, long long sqt, long long sqh,
-               long long skb, long long skt, long long skh,
-               long long svb, long long svt, long long svh,
-               long long sdb, long long sdt, long long sdh, float scale,
-               int rows_per_block, int smem_bytes, cudaStream_t stream) {
-  const dim3 grid((T + rows_per_block - 1) / rows_per_block, H, B);
-  auto kernel = rows_per_block == 64 ? flash_bwd_dq_kernel<4, IO> : flash_bwd_dq_kernel<kSmallRT, IO>;
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
-      static_cast<const IO*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(lengths), static_cast<IO*>(dq), T, H,
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
-}
-
-template <typename IO>
-void launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                const void* di, const void* lengths, void* dk, void* dv, int B, int T, int H,
-                long long sqb, long long sqt, long long sqh,
-                long long skb, long long skt, long long skh,
-                long long svb, long long svt, long long svh,
-                long long sdb, long long sdt, long long sdh, float scale,
-                int rows_per_block, int smem_bytes, cudaStream_t stream) {
-  const dim3 grid((T + rows_per_block - 1) / rows_per_block, H, B);
-  auto kernel =
-      rows_per_block == 64 ? flash_bwd_dkv_kernel<4, IO> : flash_bwd_dkv_kernel<kSmallRT, IO>;
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
-      static_cast<const IO*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(lengths), static_cast<IO*>(dk), static_cast<IO*>(dv), T, H,
-      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
-}
-
-template <typename IO>
-cudaError_t occupancy(bool dkv, int rows_per_block, int smem, int* blocks_per_sm) {
-  if (dkv) {
-    auto kernel =
-        rows_per_block == 64 ? flash_bwd_dkv_kernel<4, IO> : flash_bwd_dkv_kernel<kSmallRT, IO>;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
-  }
-  auto kernel = rows_per_block == 64 ? flash_bwd_dq_kernel<4, IO> : flash_bwd_dq_kernel<kSmallRT, IO>;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
-}
-
 }  // namespace
 
-// q, k, v, dout: [B, T, H, 64] with unit stride on the last axis, f32
-// (bf16_io = 0; the other strides, in elements, multiples of 4) or bf16
-// (bf16_io = 1; multiples of 8), 16-byte aligned; lse, di: f32 [B, H, T]
-// contiguous; lengths: int32 [B]; dq: [B, T, H, 64] contiguous in q's
-// type. rows_per_block and smem_bytes: the wrapper's plan
+// q, k, v, dout: f32 [B, T, H, 64] with unit stride on the last axis (the
+// other strides, in elements, multiples of 4), 16-byte aligned; lse, di:
+// f32 [B, H, T] contiguous; lengths: int32 [B]; dq: f32 [B, T, H, 64]
+// contiguous. rows_per_block and smem_bytes: the wrapper's plan
 // (ops/flash_attention.py::flash_bwd_launch_plan), checked against the
 // kernel's. Returns cudaGetLastError().
 extern "C" int nomad_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* di, const void* lengths, void* dq,
+    const float* q, const float* k, const float* v, const float* dout,
+    const float* lse, const float* di, const int* lengths, float* dq,
     int B, int T, int H, int D,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     long long sdb, long long sdt, long long sdh, float scale,
-    int rows_per_block, int smem_bytes, int bf16_io, void* stream) {
+    int rows_per_block, int smem_bytes, void* stream) {
   const cudaError_t err = check_launch(false, B, T, H, D, rows_per_block, smem_bytes);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  auto run = bf16_io ? launch_dq<__nv_bfloat16> : launch_dq<float>;
-  run(q, k, v, dout, lse, di, lengths, dq, B, T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
-      sdb, sdt, sdh, scale, rows_per_block, smem_bytes, static_cast<cudaStream_t>(stream));
+  const dim3 grid((T + rows_per_block - 1) / rows_per_block, H, B);
+  auto kernel = rows_per_block == 64 ? flash_bwd_dq_kernel<4> : flash_bwd_dq_kernel<kSmallRT>;
+  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, dout, lse, di, lengths, dq, T, H,
+      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// As above; dk, dv: [B, T, H, 64] contiguous in q's type.
+// As above; dk, dv: f32 [B, T, H, 64] contiguous.
 extern "C" int nomad_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* di, const void* lengths, void* dk, void* dv,
+    const float* q, const float* k, const float* v, const float* dout,
+    const float* lse, const float* di, const int* lengths, float* dk, float* dv,
     int B, int T, int H, int D,
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
     long long sdb, long long sdt, long long sdh, float scale,
-    int rows_per_block, int smem_bytes, int bf16_io, void* stream) {
+    int rows_per_block, int smem_bytes, void* stream) {
   const cudaError_t err = check_launch(true, B, T, H, D, rows_per_block, smem_bytes);
   if (err != cudaSuccess) return err;
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  auto run = bf16_io ? launch_dkv<__nv_bfloat16> : launch_dkv<float>;
-  run(q, k, v, dout, lse, di, lengths, dk, dv, B, T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt,
-      svh, sdb, sdt, sdh, scale, rows_per_block, smem_bytes, static_cast<cudaStream_t>(stream));
+  const dim3 grid((T + rows_per_block - 1) / rows_per_block, H, B);
+  auto kernel =
+      rows_per_block == 64 ? flash_bwd_dkv_kernel<4> : flash_bwd_dkv_kernel<kSmallRT>;
+  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, dout, lse, di, lengths, dk, dv, T, H,
+      sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of K2 (dkv = 0) or K3 (dkv = 1), of the f32
-// (bf16_io = 0) or bf16 (1) I/O flavour, for a plan of rows_per_block rows,
-// at its shared memory (0 if it cannot run).
-extern "C" int nomad_flash_attention_bwd_occupancy(int dkv, int rows_per_block, int bf16_io,
+// Resident blocks per SM of K2 (dkv = 0) or K3 (dkv = 1) for a plan of
+// rows_per_block rows, at its shared memory (0 if it cannot run).
+extern "C" int nomad_flash_attention_bwd_occupancy(int dkv, int rows_per_block,
                                                    int* blocks_per_sm) {
   cudaError_t err = configure();
   if (err != cudaSuccess) return err;
   if (rows_per_block != 16 * kSmallRT && rows_per_block != 64) return cudaErrorInvalidValue;
   const int smem = smem_bytes_for(dkv != 0, rows_per_block);
-  err = bf16_io ? occupancy<__nv_bfloat16>(dkv != 0, rows_per_block, smem, blocks_per_sm)
-                : occupancy<float>(dkv != 0, rows_per_block, smem, blocks_per_sm);
+  if (dkv) {
+    auto kernel =
+        rows_per_block == 64 ? flash_bwd_dkv_kernel<4> : flash_bwd_dkv_kernel<kSmallRT>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+  } else {
+    auto kernel = rows_per_block == 64 ? flash_bwd_dq_kernel<4> : flash_bwd_dq_kernel<kSmallRT>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+  }
   return static_cast<int>(err);
 }
 

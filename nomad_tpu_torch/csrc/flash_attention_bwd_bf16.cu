@@ -1,6 +1,8 @@
-// Masked multi-head attention backward in single-pass bf16 products with
-// f32 accumulation, head width 64: kernel K2b (dQ) and kernel K3b (dK, dV),
-// fed by one prologue kernel that folds their operands.
+// Masked multi-head attention backward on the tensor cores, head width
+// 64: kernel K2b (dQ) and kernel K3b (dK, dV) in single-pass bf16 products
+// with f32 accumulation, and from the same template K2-bf16 and K3-bf16,
+// the f32-exact flavour on bf16 tensors; all fed by one prologue kernel that
+// folds their operands.
 //
 // Replaces nomad_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel and
 // ::_flash_bwd_dkv_kernel at their own default precision
@@ -79,6 +81,34 @@
 //     fixed order, so a rerun gives the same bits. expf, not __expf, to
 //     stay within f32 rounding of the plain version. A wait on an mbarrier
 //     that outlasts ~2 s traps instead of holding the card.
+//
+// K2-bf16 and K3-bf16 (Passes = 3) replace the same TPU kernels at
+// HIGHEST on bf16 blocks (:189-190, :230-231 read them through
+// astype(float32); :195-199, :234-238 multiply at HIGHEST; dQ, dK, dV in
+// the inputs' dtype): every product of the f32 algorithm on the upcast
+// inputs, in f32, rounded once to bf16 at the end. A product of two bf16
+// values is exact in f32, so
+//   * S = Q K^T and dP = dO V^T are one bf16 pass each, as in K2b/K3b: only
+//     the order of the f32 sum differs from the f32 flavour's;
+//   * dS = P o (dP - Di) and P stay f32 (K2b/K3b round them to bf16 here):
+//     each is scaled by 2^16 (exact) and split in registers into three bf16
+//     planes, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)
+//     (hopper.cuh::split3_bf16), whose sum is x exactly: 24 significant
+//     bits, and with the scale every f32 value below 2^112 in magnitude,
+//     subnormals included, lies on the planes' grid;
+//   * dQ = dS K, dK = dS^T Q and dV = P^T dO are three passes each, one a
+//     plane (lo, mid, hi), into a zeroed stage accumulator; once the
+//     passes complete it is added to the output's f32 accumulator in
+//     registers, and the sum is scaled back by 2^-16 when it is stored.
+//     The tensor core's f32 accumulation drifts over many passes (K4h's
+//     finding, fused_attention_bf16.cu): a key or query tile's passes
+//     alone share one accumulator. K3-bf16 holds one stage accumulator
+//     for dV, then for dK.
+// The bounds, masks and zeros are K2b/K3b's. Five pass units a tile in
+// K2-bf16 (K2b: 3) and eight in K3-bf16 (K3b: 4); the planes and the stage
+// accumulator take registers, so K2-bf16 runs 2 blocks an SM and K3-bf16
+// 1. The f32 flavour of "highest" stays K2/K3 (flash_attention_bwd.cu,
+// f32 FMA).
 // Launches on the caller's stream and allocates nothing: the caller hands
 // in the fold's buffers.
 
@@ -104,6 +134,9 @@ constexpr int kThreads = 32 * (kConsumers + 1);  // and one producer warp
 constexpr int kStages = 3;                       // the ring
 constexpr int kDqBlocks = 3;                     // per SM (__launch_bounds__): K2b
 constexpr int kDkvBlocks = 2;                    // and K3b, with its four accumulators
+constexpr int kDqBlocks3 = 2;                    // K2-bf16: three planes, a stage sum
+constexpr int kDkvBlocks3 = 1;                   // K3-bf16
+constexpr float kSplitScale = 65536.f;           // 2^16: every plane on bf16's grid
 constexpr int kTile = kRows * kD;                // bf16 values of a tile
 constexpr uint32_t kTileBytes = kTile * 2;       // 8 KB
 constexpr int kFoldThreads = 256;
@@ -235,6 +268,56 @@ __device__ __forceinline__ void issue_nn(float (&acc)[32], const uint32_t (&xa)[
   wgmma_commit();
 }
 
+// The three planes of an f32 X (split3_bf16) as A fragments, laid out as
+// issue_nn's xa
+struct Planes {
+  uint32_t hi[4][4], mid[4][4], lo[4][4];
+};
+
+__device__ __forceinline__ void fence_planes(Planes& x) {
+  fence_regs(x.hi);
+  fence_regs(x.mid);
+  fence_regs(x.lo);
+}
+
+// x[e] of a tile's 32 values (the accumulators' layout), split into planes
+__device__ __forceinline__ void split_tile(Planes& x, const float (&v)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int e = 8 * kk + 2 * r;
+      split3_bf16(v[e], v[e + 1], x.hi[kk][r], x.mid[kk][r], x.lo[kk][r]);
+    }
+  }
+}
+
+// issue part = X . B over the tile's 64 rows, one pass a plane of X (lo,
+// mid, then hi: the small terms first) into part, whose first k-step does
+// not accumulate; one commit group
+__device__ __forceinline__ void issue_nn3(float (&part)[32], const Planes& x,
+                                          const __nv_bfloat16* tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n64_rs(part, x.lo[kk], sw128_desc(smem_u32(tile + 16 * kk * kD)), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n64_rs(part, x.mid[kk], sw128_desc(smem_u32(tile + 16 * kk * kD)));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n64_rs(part, x.hi[kk], sw128_desc(smem_u32(tile + 16 * kk * kD)));
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[32], const float (&part)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+}
+
 // p[e] = exp(s[e] * scale - lse(e)) of one tile's accumulators, 0 where
 // ok(e) is false (kMasked: a key past the bound, a query past T). exp is
 // taken everywhere and the mask is a select, so a tile costs no branch;
@@ -249,13 +332,15 @@ __device__ __forceinline__ void probs(float (&p)[32], const float (&s)[32], floa
   }
 }
 
-// ---- K2b ----
+// ---- K2b, K2-bf16 ----
 
-template <typename IO>
-__global__ void __launch_bounds__(kThreads, kDqBlocks)
+template <typename IO, int Passes>
+__global__ void __launch_bounds__(kThreads, Passes == 1 ? kDqBlocks : kDqBlocks3)
 flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* __restrict__ ld,
                          const int* __restrict__ lengths, IO* __restrict__ dq, int T, int T64,
                          float scale) {
+  static_assert(Passes == 1 || (Passes == 3 && std::is_same_v<IO, __nv_bfloat16>),
+                "one bf16 pass, or three planes on bf16 I/O");
   Smem& sm = shared_smem();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -302,6 +387,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* __
     const uint64_t do_desc = sw128_desc(smem_u32(sm.resident.b));
     float s[32] = {}, dp[32] = {}, p[32];
     uint32_t dsa[4][4] = {};
+    Planes dsp = {};         // Passes = 3: dS's planes
+    float part[32] = {};     // and a key tile's sum of dQ, written by wgmma alone
     for (int tile = 0; tile < tiles; ++tile) {
       const int j = tile % kStages;
       mbar_wait(&sm.full[j], (tile / kStages) & 1);
@@ -309,8 +396,14 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* __
       issue_nt(dp, do_desc, sw128_desc(smem_u32(sm.ring[j].b)));  // dP = dO V^T
       wgmma_wait<1>();  // S, and the last tile's dQ product: its stage is free
       fence_regs(s);
-      fence_regs(acc);
-      fence_regs(dsa);
+      if constexpr (Passes == 1) {
+        fence_regs(acc);
+        fence_regs(dsa);
+      } else {
+        fence_regs(part);
+        fence_planes(dsp);
+        if (tile >= 1) add_to(acc, part);
+      }
       if (tile >= 1 && tile - 1 + kStages < tiles && lane == 0) {
         mbar_arrive(&sm.empty[(tile - 1) % kStages]);
       }
@@ -325,32 +418,47 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* __
       }
       wgmma_wait<0>();  // dP
       fence_regs(dp);
+      if constexpr (Passes == 1) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int e = 8 * kk + 2 * r;
-          const float d = row_di[r & 1];
-          dsa[kk][r] = pack_bf16(p[e] * (dp[e] - d), p[e + 1] * (dp[e + 1] - d));
+          for (int r = 0; r < 4; ++r) {
+            const int e = 8 * kk + 2 * r;
+            const float d = row_di[r & 1];
+            dsa[kk][r] = pack_bf16(p[e] * (dp[e] - d), p[e + 1] * (dp[e + 1] - d));
+          }
         }
+        issue_nn(acc, dsa, sm.ring[j].a);  // dQ += bf16(dS) . bf16(K)
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) p[e] = p[e] * kSplitScale * (dp[e] - row_di[(e >> 1) & 1]);
+        split_tile(dsp, p);
+        issue_nn3(part, dsp, sm.ring[j].a);  // this tile's dQ 2^16 = Σ planes(dS 2^16) . K
       }
-      issue_nn(acc, dsa, sm.ring[j].a);  // dQ += bf16(dS) . bf16(K)
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    fence_regs(dsa);
+    if constexpr (Passes == 1) {
+      fence_regs(dsa);
+    } else {
+      fence_regs(part);
+      fence_planes(dsp);
+      add_to(acc, part);
+    }
   }
   store_rows(dq + (static_cast<long long>(b) * T * H + h) * kD, static_cast<long long>(H) * kD,
-             row0, T, acc, scale);
+             row0, T, acc, Passes == 1 ? scale : scale / kSplitScale);
 }
 
-// ---- K3b ----
+// ---- K3b, K3-bf16 ----
 
-template <typename IO>
-__global__ void __launch_bounds__(kThreads, kDkvBlocks)
+template <typename IO, int Passes>
+__global__ void __launch_bounds__(kThreads, Passes == 1 ? kDkvBlocks : kDkvBlocks3)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* __restrict__ ld,
                           const int* __restrict__ lengths, IO* __restrict__ dk,
                           IO* __restrict__ dv, int T, int T64, float scale) {
+  static_assert(Passes == 1 || (Passes == 3 && std::is_same_v<IO, __nv_bfloat16>),
+                "one bf16 pass, or three planes on bf16 I/O");
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
@@ -412,6 +520,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* _
   const uint64_t v_desc = sw128_desc(smem_u32(sm.resident.b));
   float s[32] = {}, dpt[32] = {}, p[32];
   uint32_t pa[4][4] = {}, dsa[4][4] = {};
+  Planes pp = {}, dsp = {};  // Passes = 3: the planes of P^T and dS^T
+  float part[32] = {};       // and a query tile's sum of dV, then of dK (wgmma's alone)
   for (int tile = 0; tile < tiles; ++tile) {
     const int j = tile % kStages;
     mbar_wait(&sm.full[j], (tile / kStages) & 1);
@@ -419,10 +529,16 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* _
     issue_nt(dpt, v_desc, sw128_desc(smem_u32(sm.ring[j].b)));  // dP^T = V dO^T
     wgmma_wait<1>();  // S^T, and the last tile's dV and dK products: its stage is free
     fence_regs(s);
-    fence_regs(gk);
-    fence_regs(gv);
-    fence_regs(pa);
-    fence_regs(dsa);
+    if constexpr (Passes == 1) {
+      fence_regs(gk);
+      fence_regs(gv);
+      fence_regs(pa);
+      fence_regs(dsa);
+    } else {
+      fence_regs(part);
+      fence_planes(dsp);
+      if (tile >= 1) add_to(gk, part);
+    }
     if (tile >= 1 && tile - 1 + kStages < tiles && lane == 0) {
       mbar_arrive(&sm.empty[(tile - 1) % kStages]);
     }
@@ -436,26 +552,49 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* _
     } else {
       probs<true>(p, s, scale, lse, ok);
     }
-    wgmma_wait<0>();  // dP^T
-    fence_regs(dpt);
+    if constexpr (Passes == 1) {
+      wgmma_wait<0>();  // dP^T
+      fence_regs(dpt);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int e = 8 * kk + 2 * r;
-        pa[kk][r] = pack_bf16(p[e], p[e + 1]);
-        dsa[kk][r] = pack_bf16(p[e] * (dpt[e] - sm.di[j][col(e)]),
-                               p[e + 1] * (dpt[e + 1] - sm.di[j][col(e + 1)]));
+        for (int r = 0; r < 4; ++r) {
+          const int e = 8 * kk + 2 * r;
+          pa[kk][r] = pack_bf16(p[e], p[e + 1]);
+          dsa[kk][r] = pack_bf16(p[e] * (dpt[e] - sm.di[j][col(e)]),
+                                 p[e + 1] * (dpt[e + 1] - sm.di[j][col(e + 1)]));
+        }
       }
+      issue_nn(gv, pa, sm.ring[j].b);   // dV += bf16(P^T) . bf16(dO)
+      issue_nn(gk, dsa, sm.ring[j].a);  // dK += bf16(dS^T) . bf16(Q)
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p[e] *= kSplitScale;
+      split_tile(pp, p);
+      issue_nn3(part, pp, sm.ring[j].b);  // this tile's dV 2^16 = Σ planes(P^T 2^16) . dO
+      wgmma_wait<1>();  // dP^T; dV's passes in flight
+      fence_regs(dpt);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) p[e] *= dpt[e] - sm.di[j][col(e)];
+      split_tile(dsp, p);
+      wgmma_wait<0>();  // dV's passes
+      fence_regs(part);
+      fence_planes(pp);
+      add_to(gv, part);
+      issue_nn3(part, dsp, sm.ring[j].a);  // this tile's dK 2^16 = Σ planes(dS^T 2^16) . Q
     }
-    issue_nn(gv, pa, sm.ring[j].b);   // dV += bf16(P^T) . bf16(dO)
-    issue_nn(gk, dsa, sm.ring[j].a);  // dK += bf16(dS^T) . bf16(Q)
   }
   wgmma_wait<0>();
-  fence_regs(gk);
-  fence_regs(gv);
-  fence_regs(pa);
-  fence_regs(dsa);
+  if constexpr (Passes == 1) {
+    fence_regs(gk);
+    fence_regs(gv);
+    fence_regs(pa);
+    fence_regs(dsa);
+  } else {
+    fence_regs(part);
+    fence_planes(dsp);
+    add_to(gk, part);
+  }
   // rows past the bound: their p was 0, so 0 here; written as 0 all the same
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -466,8 +605,9 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm, const float* _
       gv[4 * jj + 2 * i] = gv[4 * jj + 2 * i + 1] = 0.f;
     }
   }
-  store_rows(dkb, so, row0, T, gk, scale);
-  store_rows(dvb, so, row0, T, gv, 1.f);
+  const float unscale = Passes == 1 ? 1.f : 1.f / kSplitScale;
+  store_rows(dkb, so, row0, T, gk, scale * unscale);
+  store_rows(dvb, so, row0, T, gv, unscale);
 }
 
 // ---- host side ----
@@ -483,12 +623,12 @@ cudaError_t check_args(int B, int T, int H, int D) {
   return cudaSuccess;
 }
 
-template <typename IO>
+template <typename IO, int Passes>
 cudaError_t configure_kernels() {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<IO>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<IO, Passes>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<IO>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<IO, Passes>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   }
   return err;
@@ -497,8 +637,9 @@ cudaError_t configure_kernels() {
 cudaError_t configure() {
   static bool done = false;
   if (!done) {
-    cudaError_t err = configure_kernels<float>();
-    if (err == cudaSuccess) err = configure_kernels<__nv_bfloat16>();
+    cudaError_t err = configure_kernels<float, 1>();
+    if (err == cudaSuccess) err = configure_kernels<__nv_bfloat16, 1>();
+    if (err == cudaSuccess) err = configure_kernels<__nv_bfloat16, 3>();
     if (err != cudaSuccess) return err;
     done = true;
   }
@@ -514,9 +655,22 @@ cudaError_t fold_map(CUtensorMap* map, const void* fold, int B, int H, int T) {
   return make_map(map, fold, 2, dims, strides, kRows);
 }
 
-// the kernels' launch plan, checked against the caller's
-cudaError_t check_plan(int rows_per_block, int threads, int smem_bytes) {
-  return rows_per_block == kRows && threads == kThreads && smem_bytes == kSmemBytes
+// the flavours: one pass on f32 or bf16 I/O (K2b/K3b), three planes on
+// bf16 I/O (K2-bf16/K3-bf16)
+bool flavour_ok(int bf16_io, int passes) { return passes == 1 || (passes == 3 && bf16_io); }
+
+// blocks per SM each kernel of a flavour is built for
+int dq_blocks(int passes) { return passes == 1 ? kDqBlocks : kDqBlocks3; }
+int dkv_blocks(int passes) { return passes == 1 ? kDkvBlocks : kDkvBlocks3; }
+
+// the kernels' launch plan, checked against the caller's; a blocks-per-SM
+// claim of -1 is not checked (the entry launches no such kernel)
+cudaError_t check_plan(int rows_per_block, int threads, int smem_bytes, int bf16_io, int passes,
+                       int dq_blocks_per_sm, int dkv_blocks_per_sm) {
+  return rows_per_block == kRows && threads == kThreads && smem_bytes == kSmemBytes &&
+                 flavour_ok(bf16_io, passes) &&
+                 (dq_blocks_per_sm < 0 || dq_blocks_per_sm == dq_blocks(passes)) &&
+                 (dkv_blocks_per_sm < 0 || dkv_blocks_per_sm == dkv_blocks(passes))
              ? cudaSuccess
              : cudaErrorInvalidValue;
 }
@@ -533,42 +687,54 @@ void launch_fold(const void* q, const void* k, const void* v, const void* dout, 
       static_cast<__nv_bfloat16*>(fold), static_cast<float*>(ld), T, H, padded(T));
 }
 
-// K2b and K3b on the fold through one tensor map, on the caller's stream
+// K2b or K2-bf16 and K3b or K3-bf16 on the fold through one tensor map, on
+// the caller's stream, in a flavour flavour_ok takes
+template <typename IO, int Passes>
+void launch_dq_as(const CUtensorMap& tm, const void* ld, const void* lengths, void* dq, int B,
+                  int T, int H, float scale, cudaStream_t s) {
+  flash_bwd_dq_bf16_kernel<IO, Passes><<<dim3(padded(T) / kRows, H, B), kThreads, kSmemBytes,
+                                         s>>>(tm, static_cast<const float*>(ld),
+                                              static_cast<const int*>(lengths),
+                                              static_cast<IO*>(dq), T, padded(T), scale);
+}
+
+template <typename IO, int Passes>
+void launch_dkv_as(const CUtensorMap& tm, const void* ld, const void* lengths, void* dk, void* dv,
+                   int B, int T, int H, float scale, cudaStream_t s) {
+  flash_bwd_dkv_bf16_kernel<IO, Passes><<<dim3(padded(T) / kRows, H, B), kThreads, kSmemBytes,
+                                          s>>>(tm, static_cast<const float*>(ld),
+                                               static_cast<const int*>(lengths),
+                                               static_cast<IO*>(dk), static_cast<IO*>(dv), T,
+                                               padded(T), scale);
+}
+
 cudaError_t launch_dq(const CUtensorMap& tm, const void* ld, const void* lengths, void* dq,
-                      int B, int T, int H, float scale, int bf16_io, cudaStream_t s) {
-  const dim3 grid(padded(T) / kRows, H, B);
-  if (bf16_io) {
-    flash_bwd_dq_bf16_kernel<__nv_bfloat16><<<grid, kThreads, kSmemBytes, s>>>(
-        tm, static_cast<const float*>(ld), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(dq), T, padded(T), scale);
-  } else {
-    flash_bwd_dq_bf16_kernel<float><<<grid, kThreads, kSmemBytes, s>>>(
-        tm, static_cast<const float*>(ld), static_cast<const int*>(lengths),
-        static_cast<float*>(dq), T, padded(T), scale);
-  }
+                      int B, int T, int H, float scale, int bf16_io, int passes, cudaStream_t s) {
+  auto run = passes == 3 ? launch_dq_as<__nv_bfloat16, 3>
+             : bf16_io   ? launch_dq_as<__nv_bfloat16, 1>
+                         : launch_dq_as<float, 1>;
+  run(tm, ld, lengths, dq, B, T, H, scale, s);
   return cudaGetLastError();
 }
 
 cudaError_t launch_dkv(const CUtensorMap& tm, const void* ld, const void* lengths, void* dk,
-                       void* dv, int B, int T, int H, float scale, int bf16_io, cudaStream_t s) {
-  const dim3 grid(padded(T) / kRows, H, B);
-  if (bf16_io) {
-    flash_bwd_dkv_bf16_kernel<__nv_bfloat16><<<grid, kThreads, kSmemBytes, s>>>(
-        tm, static_cast<const float*>(ld), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, padded(T), scale);
-  } else {
-    flash_bwd_dkv_bf16_kernel<float><<<grid, kThreads, kSmemBytes, s>>>(
-        tm, static_cast<const float*>(ld), static_cast<const int*>(lengths),
-        static_cast<float*>(dk), static_cast<float*>(dv), T, padded(T), scale);
-  }
+                       void* dv, int B, int T, int H, float scale, int bf16_io, int passes,
+                       cudaStream_t s) {
+  auto run = passes == 3 ? launch_dkv_as<__nv_bfloat16, 3>
+             : bf16_io   ? launch_dkv_as<__nv_bfloat16, 1>
+                         : launch_dkv_as<float, 1>;
+  run(tm, ld, lengths, dk, dv, B, T, H, scale, s);
   return cudaGetLastError();
 }
 
-// what every K2b/K3b entry checks: the arguments and the caller's plan
+// what every kernel entry checks: the arguments and the caller's plan
 cudaError_t check_call(int B, int T, int H, int D, int rows_per_block, int threads,
-                       int smem_bytes) {
+                       int smem_bytes, int bf16_io, int passes, int dq_blocks_per_sm,
+                       int dkv_blocks_per_sm) {
   const cudaError_t err = check_args(B, T, H, D);
-  return err == cudaSuccess ? check_plan(rows_per_block, threads, smem_bytes) : err;
+  return err == cudaSuccess ? check_plan(rows_per_block, threads, smem_bytes, bf16_io, passes,
+                                         dq_blocks_per_sm, dkv_blocks_per_sm)
+                            : err;
 }
 
 // the kernels' shared memory set, then the fold's tensor map
@@ -577,16 +743,14 @@ cudaError_t prepare(CUtensorMap* tm, const void* fold, int B, int T, int H) {
   return err == cudaSuccess ? fold_map(tm, fold, B, H, T) : err;
 }
 
-template <typename IO>
-int occupancy(int dkv, int* blocks_per_sm) {
-  cudaError_t err = configure();
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <typename IO, int Passes>
+cudaError_t occupancy_of(int dkv, int* blocks_per_sm) {
   if (dkv) {
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_bwd_dkv_bf16_kernel<IO>, kThreads, kSmemBytes));
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_bwd_dkv_bf16_kernel<IO, Passes>, kThreads, kSmemBytes);
   }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_bwd_dq_bf16_kernel<IO>, kThreads, kSmemBytes));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_bwd_dq_bf16_kernel<IO, Passes>, kThreads, kSmemBytes);
 }
 
 }  // namespace
@@ -597,8 +761,8 @@ int occupancy(int dkv, int* blocks_per_sm) {
 // H, T] contiguous; lengths: int32 [B]. Writes fold: bf16 [4, B * H, T64,
 // 64] (q, k, v, dO folded head-major, T64 = T rounded up to 64; zeros at t
 // >= T and, for k and v, at t >= lengths[b]) and ld: f32 [2, B * H, T64]
-// (LSE, Di; zeros at t >= T), both 16-byte aligned. Returns
-// cudaGetLastError().
+// (LSE, Di; zeros at t >= T), both 16-byte aligned. The same for every
+// flavour of the kernels. Returns cudaGetLastError().
 extern "C" int nomad_flash_attention_bwd_bf16_fold(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* di, const void* lengths, void* fold, void* ld, int B, int T, int H, int D,
@@ -614,51 +778,59 @@ extern "C" int nomad_flash_attention_bwd_bf16_fold(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2b on the prologue's fold and ld; lengths: int32 [B]; dq: [B, T, H, 64]
-// contiguous, f32 (bf16_io = 0) or bf16 (1). The launch plan
+// K2b (passes = 1) or K2-bf16 (passes = 3, bf16_io = 1) on the prologue's
+// fold and ld; lengths: int32 [B]; dq: [B, T, H, 64] contiguous, f32
+// (bf16_io = 0) or bf16 (1). The launch plan
 // (ops/flash_attention.py::flash_bwd_bf16_launch_plan): rows per block,
-// threads and dynamic shared memory, checked against the kernel's own.
-// Returns cudaGetLastError().
+// threads, dynamic shared memory and the blocks per SM the kernel is built
+// for, checked against the kernel's own. Returns cudaGetLastError().
 extern "C" int nomad_flash_attention_bwd_bf16_dq(const void* fold, const void* ld,
                                                  const void* lengths, void* dq, int B, int T,
                                                  int H, int D, int rows_per_block, int threads,
-                                                 int smem_bytes, float scale, int bf16_io,
-                                                 void* stream) {
-  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes);
+                                                 int smem_bytes, int blocks_per_sm, float scale,
+                                                 int bf16_io, int passes, void* stream) {
+  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes, bf16_io, passes,
+                               blocks_per_sm, -1);
   if (err != cudaSuccess || B == 0 || T == 0 || H == 0) return err;
   CUtensorMap tm;
   err = prepare(&tm, fold, B, T, H);
   if (err != cudaSuccess) return err;
-  return launch_dq(tm, ld, lengths, dq, B, T, H, scale, bf16_io,
+  return launch_dq(tm, ld, lengths, dq, B, T, H, scale, bf16_io, passes,
                    static_cast<cudaStream_t>(stream));
 }
 
-// K3b, as K2b; dk, dv: [B, T, H, 64] contiguous, f32 or bf16.
+// K3b or K3-bf16, as K2b; dk, dv: [B, T, H, 64] contiguous, f32 or bf16.
 extern "C" int nomad_flash_attention_bwd_bf16_dkv(const void* fold, const void* ld,
                                                   const void* lengths, void* dk, void* dv, int B,
                                                   int T, int H, int D, int rows_per_block,
-                                                  int threads, int smem_bytes, float scale,
-                                                  int bf16_io, void* stream) {
-  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes);
+                                                  int threads, int smem_bytes, int blocks_per_sm,
+                                                  float scale, int bf16_io, int passes,
+                                                  void* stream) {
+  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes, bf16_io, passes,
+                               -1, blocks_per_sm);
   if (err != cudaSuccess || B == 0 || T == 0 || H == 0) return err;
   CUtensorMap tm;
   err = prepare(&tm, fold, B, T, H);
   if (err != cudaSuccess) return err;
-  return launch_dkv(tm, ld, lengths, dk, dv, B, T, H, scale, bf16_io,
+  return launch_dkv(tm, ld, lengths, dk, dv, B, T, H, scale, bf16_io, passes,
                     static_cast<cudaStream_t>(stream));
 }
 
 // The whole backward in one call, as the port's wrapper runs it: the
-// prologue, K2b and K3b on one stream, one tensor map for both (the
-// arguments of the three entries above). Returns the first error.
+// prologue, then K2b and K3b (passes = 1) or K2-bf16 and K3-bf16 (passes =
+// 3, bf16_io = 1) on one stream, one tensor map for both (the arguments of
+// the three entries above, each kernel's blocks per SM). Returns the first
+// error.
 extern "C" int nomad_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* di, const void* lengths, void* fold, void* ld, void* dq, void* dk, void* dv,
     int B, int T, int H, int D, long long sqb, long long sqt, long long sqh, long long skb,
     long long skt, long long skh, long long svb, long long svt, long long svh, long long sdb,
-    long long sdt, long long sdh, int rows_per_block, int threads, int smem_bytes, float scale,
-    int bf16_io, void* stream) {
-  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes);
+    long long sdt, long long sdh, int rows_per_block, int threads, int smem_bytes,
+    int dq_blocks_per_sm, int dkv_blocks_per_sm, float scale, int bf16_io, int passes,
+    void* stream) {
+  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes, bf16_io, passes,
+                               dq_blocks_per_sm, dkv_blocks_per_sm);
   if (err != cudaSuccess || B == 0 || T == 0 || H == 0) return err;
   CUtensorMap tm;
   err = prepare(&tm, fold, B, T, H);
@@ -668,20 +840,27 @@ extern "C" int nomad_flash_attention_bwd_bf16(
   auto fold_run = bf16_io ? launch_fold<__nv_bfloat16> : launch_fold<float>;
   fold_run(q, k, v, dout, lse, di, lengths, fold, ld, B, T, H, st, s);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_dq(tm, ld, lengths, dq, B, T, H, scale, bf16_io, s);
   if (err == cudaSuccess) {
-    err = launch_dkv(tm, ld, lengths, dk, dv, B, T, H, scale, bf16_io, s);
+    err = launch_dq(tm, ld, lengths, dq, B, T, H, scale, bf16_io, passes, s);
+  }
+  if (err == cudaSuccess) {
+    err = launch_dkv(tm, ld, lengths, dk, dv, B, T, H, scale, bf16_io, passes, s);
   }
   return static_cast<int>(err);
 }
 
-// Resident blocks per SM of K2b (dkv = 0) or K3b (dkv = 1), of their f32
-// (bf16_io = 0) or bf16 (1) I/O flavour, at their dynamic shared memory; 0
-// if it cannot run.
-extern "C" int nomad_flash_attention_bwd_bf16_occupancy(int dkv, int bf16_io,
+// Resident blocks per SM of K2b or K2-bf16 (dkv = 0) or K3b or K3-bf16 (dkv
+// = 1) in a flavour (bf16_io, passes) the entries take, at their dynamic
+// shared memory; 0 if it cannot run.
+extern "C" int nomad_flash_attention_bwd_bf16_occupancy(int dkv, int bf16_io, int passes,
                                                         int* blocks_per_sm) {
-  return bf16_io ? occupancy<__nv_bfloat16>(dkv, blocks_per_sm)
-                 : occupancy<float>(dkv, blocks_per_sm);
+  if (!flavour_ok(bf16_io, passes)) return cudaErrorInvalidValue;
+  const cudaError_t err = configure();
+  if (err != cudaSuccess) return err;
+  auto run = passes == 3 ? occupancy_of<__nv_bfloat16, 3>
+             : bf16_io   ? occupancy_of<__nv_bfloat16, 1>
+                         : occupancy_of<float, 1>;
+  return static_cast<int>(run(dkv, blocks_per_sm));
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by K4b (fused_attention_bf16.cu)
-// and K2b + K3b (flash_attention_bwd_bf16.cu): mbarriers, TMA copies into
-// shared memory, the 128-byte swizzle that TMA writes and wgmma reads, the
-// wgmma products of a 64-row tile with f32 accumulators, and the host's
-// tensor maps.
+// and K2b + K3b, K2-bf16 + K3-bf16 (flash_attention_bwd_bf16.cu):
+// mbarriers, TMA copies into shared memory, the 128-byte swizzle that TMA
+// writes and wgmma reads, the wgmma products of a 64-row tile with f32
+// accumulators, the bf16 splits of f32 operands, and the host's tensor
+// maps.
 //
 // Every tile here is bf16, 64 values (128 bytes) a row, in the 128-byte
 // swizzle: 16-byte chunk j of row r sits at chunk j ^ (r % 8), and a tile
@@ -32,6 +33,23 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   const float2 f = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// a and b split into three bf16 planes: hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid), each pair packed as pack_bf16 packs it. Both
+// differences are exact in f32, and hi + mid + lo == x exactly wherever
+// the last remainder's bits lie on bf16's grid (|x| >= 2^-110, or 0): 24
+// significant bits in three planes of 8 (ops/precision.py::split3_bf16)
+__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 fh = __bfloat1622float2(h);
+  const float ra = a - fh.x, rb = b - fh.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 fm = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(ra - fm.x, rb - fm.y);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -209,9 +227,10 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a, uint64_
 }
 
 // the same with A from registers (bf16 pairs in mma.sync's m16n8k16 A
-// layout per warp) and B MN-major (N contiguous in shared memory)
+// layout per warp) and B MN-major (N contiguous in shared memory); with
+// accumulate = 0, D = A . B
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b) {
+                                                uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -226,7 +245,7 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // ---- host side: tensor maps ----

@@ -24,10 +24,15 @@ tensors, ``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
 Every kernel also takes bf16 tensors (bf16 activations in the block
 stack, where the TPU kernels read bf16 blocks through ``astype(float32)``
 and store in the inputs' dtype): the bf16-I/O flavours of K1b, K2b and K3b
-(the trainer's ``fast_bf16``) and of K1, K2 and K3 (bf16 activations at a
-"highest" or "high" attention island), built from the same templates,
-return O, dQ, dK and dV in bf16, each the f32-I/O flavour's output on the
-upcast inputs rounded once; LSE and Di stay f32.
+(the trainer's ``fast_bf16``) and of K1 (bf16 activations at a "highest"
+or "high" attention island), built from the same templates, return O, dQ,
+dK and dV in bf16, each the f32-I/O flavour's output on the upcast inputs
+rounded once; LSE and Di stay f32. The "highest" and "high" backward on
+bf16 tensors is K2-bf16 and K3-bf16, K2b/K3b's template on the tensor
+cores with S and dP in one bf16 pass and dQ, dK and dV in three passes on
+bf16 planes of dS and P (``split3_bf16``): every product f32-exact, as the
+f32 flavour's, but summed in the tensor core's order, so its outputs lie
+within one bf16 step of the f32 flavour's rounded once, not on them.
 """
 
 from __future__ import annotations
@@ -63,11 +68,14 @@ _LD_S = BLOCK_K + 4
 # resident 64-row bf16 tiles and a ring of BWD_BF16_STAGES stages of two
 # streamed tiles (K3b's with 64 LSE and Di values) in dynamic shared
 # memory, aligned by hand to 1,024 bytes. Blocks per SM: what the kernels
-# are compiled for (K3b holds four accumulators, K2b three). Their
-# prologue folds q, k, v and dO to bf16 [B*H, T64, 64] (T64: T rounded up
-# to BWD_BF16_ROWS) and LSE and Di to f32 [B*H, T64].
+# are compiled for (K3b holds four accumulators, K2b three; K2-bf16 and
+# K3-bf16, the same blocks at three passes, also hold the bf16 planes of
+# dS (and P) and a stage accumulator). Their prologue folds q, k, v and dO
+# to bf16 [B*H, T64, 64] (T64: T rounded up to BWD_BF16_ROWS) and LSE and
+# Di to f32 [B*H, T64].
 BWD_BF16_ROWS, BWD_BF16_THREADS, BWD_BF16_STAGES = 64, 160, 3
 BWD_BF16_BLOCKS_PER_SM = {"dq": 3, "dkv": 2}
+BWD_HIGHEST_BF16_BLOCKS_PER_SM = {"dq": 2, "dkv": 1}
 BWD_BF16_SMEM_BYTES = (2 + 2 * BWD_BF16_STAGES) * BWD_BF16_ROWS * HEAD_DIM * 2 \
     + 2 * BWD_BF16_STAGES * BWD_BF16_ROWS * 4 + (2 * BWD_BF16_STAGES + 1) * 8 + 1024
 
@@ -83,8 +91,10 @@ FWD_BF16_SMEM_BYTES = (1 + 2 * FWD_BF16_STAGES) * FWD_BF16_ROWS * HEAD_DIM * 2 \
 
 # Launches of K1, K1b and its prologue (the forward fold), K2, K3, K2b, K3b
 # and K2b/K3b's prologue (the backward fold), of the bf16-I/O flavours of
-# K1b, K2b, K3b and the folds (``*_bf16_io``) and of K1, K2 and K3
-# (``*_f32_bf16_io``), since each count was last set to 0.
+# K1b, K2b, K3b and the folds (``*_bf16_io``; the backward fold's counts
+# the calls of K2-bf16/K3-bf16 too) and of K1, K2 and K3 at "highest"
+# (``*_f32_bf16_io``: K1-bf16, K2-bf16, K3-bf16), since each count was last
+# set to 0.
 launches = 0
 launches_fwd_fold_bf16 = 0
 launches_fwd_fold_bf16_io = 0
@@ -199,18 +209,23 @@ def flash_bwd_launch_plan(t: int, b: int, h: int) -> dict:
             for kernel in ("dq", "dkv")}
 
 
-def flash_bwd_bf16_launch_plan(t: int, b: int, h: int) -> dict:
-    """K2b's and K3b's launches ({"dq": ..., "dkv": ...}): one block of 160
-    threads per 64-row tile (K2b: query rows, K3b: key rows) of the folded
-    length ``t_pad`` (t rounded up to 64), head and batch row; the dynamic
-    shared memory, the ring's stages and the blocks per SM they are built
-    for. The C launchers check rows, threads and shared memory against
-    their own rule."""
+def flash_bwd_bf16_launch_plan(t: int, b: int, h: int, precision: str = "default") -> dict:
+    """The launches ({"dq": ..., "dkv": ...}) of K2b and K3b ("default": one
+    bf16 pass a product) or of K2-bf16 and K3-bf16 ("highest", "high": the
+    same blocks at three passes on bf16 planes of dS and P): one block of
+    160 threads per 64-row tile (dQ: query rows, dK/dV: key rows) of the
+    folded length ``t_pad`` (t rounded up to 64), head and batch row; the
+    dynamic shared memory, the ring's stages, the passes of dQ, dK and dV
+    and the blocks per SM the kernels are built for. The C launchers check
+    rows, threads, shared memory and blocks per SM against their own
+    rule."""
+    one_pass = is_bf16(precision)
+    blocks = BWD_BF16_BLOCKS_PER_SM if one_pass else BWD_HIGHEST_BF16_BLOCKS_PER_SM
     t_pad = -(-t // BWD_BF16_ROWS) * BWD_BF16_ROWS
     return {kernel: {"grid": (t_pad // BWD_BF16_ROWS, h, b), "threads": BWD_BF16_THREADS,
                      "rows_per_block": BWD_BF16_ROWS, "smem_bytes": BWD_BF16_SMEM_BYTES,
                      "stages": BWD_BF16_STAGES, "t_pad": t_pad,
-                     "blocks_per_sm": BWD_BF16_BLOCKS_PER_SM[kernel]}
+                     "passes": 1 if one_pass else 3, "blocks_per_sm": blocks[kernel]}
             for kernel in ("dq", "dkv")}
 
 
@@ -484,22 +499,22 @@ def _lib_bwd():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, outs in ((lib.nomad_flash_attention_bwd_dq, 1), (lib.nomad_flash_attention_bwd_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, i, p]
+            fn.argtypes = [p] * (7 + outs) + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
             fn.restype = ctypes.c_int
     occ = lib.nomad_flash_attention_bwd_occupancy
     if occ.argtypes is None:
-        occ.argtypes, occ.restype = [i, i, i, ctypes.POINTER(i)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, i, ctypes.POINTER(i)], ctypes.c_int
     return lib
 
 
-def flash_bwd_occupancy(kernel: str, rows_per_block: int, bf16_io: bool = False) -> int:
-    """Blocks of K2 (``kernel="dq"``) or K3 (``"dkv"``), or of their
-    bf16-I/O flavour with ``bf16_io``, resident on one SM for a plan of
-    ``rows_per_block`` rows, at its shared memory (the card)."""
+def flash_bwd_occupancy(kernel: str, rows_per_block: int) -> int:
+    """Blocks of K2 (``kernel="dq"``) or K3 (``"dkv"``) resident on one SM
+    for a plan of ``rows_per_block`` rows, at its shared memory (the
+    card)."""
     lib = _lib_bwd()
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_bwd_occupancy(
-        int(kernel == "dkv"), rows_per_block, int(bf16_io), ctypes.byref(blocks)),
+        int(kernel == "dkv"), rows_per_block, ctypes.byref(blocks)),
         "flash backward occupancy")
     return blocks.value
 
@@ -532,42 +547,43 @@ def _launch_bwd(kernel, q, k, v, do, lse, di, lengths, outs, what):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in outs), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / d**0.5, plan["rows_per_block"], plan["smem_bytes"], int(q.dtype == torch.bfloat16),
+        1.0 / d**0.5, plan["rows_per_block"], plan["smem_bytes"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, what)
 
 
+def _check_f32(q) -> None:
+    if q.dtype != torch.float32:
+        raise TypeError(f"K2 and K3 take float32 tensors, got {q.dtype}: bf16 ones at "
+                        "\"highest\" run K2-bf16 and K3-bf16 (_bwd_bf16)")
+
+
 def _bwd_dq_kernel(q, k, v, do, lse, di, lengths):
-    """K2 on arguments prepared by ``_bwd_args``: dQ [B, T, H, D] in q's
-    dtype (f32, or bf16 for the bf16-I/O flavour)."""
+    """K2 on f32 arguments prepared by ``_bwd_args``: dQ [B, T, H, D]."""
+    _check_f32(q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
     _launch_bwd("dq", q, k, v, do, lse, di, lengths, (dq,),
                 "flash attention dQ kernel launch")
-    global launches_bwd_dq, launches_bwd_dq_f32_bf16_io
-    if q.dtype == torch.bfloat16:
-        launches_bwd_dq_f32_bf16_io += 1
-    else:
-        launches_bwd_dq += 1
+    global launches_bwd_dq
+    launches_bwd_dq += 1
     return dq
 
 
 def _bwd_dkv_kernel(q, k, v, do, lse, di, lengths):
-    """K3 on arguments prepared by ``_bwd_args``: (dK, dV) [B, T, H, D] in
-    q's dtype."""
+    """K3 on f32 arguments prepared by ``_bwd_args``: (dK, dV) [B, T, H,
+    D]."""
+    _check_f32(q)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
     _launch_bwd("dkv", q, k, v, do, lse, di, lengths, (dk, dv),
                 "flash attention dK/dV kernel launch")
-    global launches_bwd_dkv, launches_bwd_dkv_f32_bf16_io
-    if q.dtype == torch.bfloat16:
-        launches_bwd_dkv_f32_bf16_io += 1
-    else:
-        launches_bwd_dkv += 1
+    global launches_bwd_dkv
+    launches_bwd_dkv += 1
     return dk, dv
 
 
@@ -580,26 +596,30 @@ def _lib_bwd_bf16():
         fold.restype = ctypes.c_int
     whole = lib.nomad_flash_attention_bwd_bf16
     if whole.argtypes is None:
-        whole.argtypes = [p] * 12 + [i] * 4 + [ll] * 12 + [i] * 3 + [ctypes.c_float, i, p]
+        whole.argtypes = [p] * 12 + [i] * 4 + [ll] * 12 + [i] * 5 + [ctypes.c_float, i, i, p]
         whole.restype = ctypes.c_int
     for fn, outs in ((lib.nomad_flash_attention_bwd_bf16_dq, 1),
                      (lib.nomad_flash_attention_bwd_bf16_dkv, 2)):
         if fn.argtypes is None:
-            fn.argtypes = [p] * (3 + outs) + [i] * 7 + [ctypes.c_float, i, p]
+            fn.argtypes = [p] * (3 + outs) + [i] * 8 + [ctypes.c_float, i, i, p]
             fn.restype = ctypes.c_int
     occ = lib.nomad_flash_attention_bwd_bf16_occupancy
     if occ.argtypes is None:
-        occ.argtypes, occ.restype = [i, i, ctypes.POINTER(i)], ctypes.c_int
+        occ.argtypes, occ.restype = [i, i, i, ctypes.POINTER(i)], ctypes.c_int
     return lib
 
 
-def flash_bwd_bf16_occupancy(kernel: str, bf16_io: bool = False) -> int:
-    """Blocks of K2b (``kernel="dq"``) or K3b (``"dkv"``), or of their
-    bf16-I/O flavour with ``bf16_io``, resident on one SM (the card)."""
+def flash_bwd_bf16_occupancy(kernel: str, bf16_io: bool = False,
+                             precision: str = "default") -> int:
+    """Blocks of K2b (``kernel="dq"``) or K3b (``"dkv"``), of their
+    bf16-I/O flavour with ``bf16_io``, or at ``precision`` "highest" or
+    "high" of K2-bf16 or K3-bf16 (bf16 I/O only), resident on one SM (the
+    card)."""
     lib = _lib_bwd_bf16()
     blocks = ctypes.c_int(0)
+    passes = 1 if is_bf16(precision) else 3
     _build.check(lib, lib.nomad_flash_attention_bwd_bf16_occupancy(
-        int(kernel == "dkv"), int(bf16_io), ctypes.byref(blocks)),
+        int(kernel == "dkv"), int(bf16_io), passes, ctypes.byref(blocks)),
         "bf16 flash backward occupancy")
     return blocks.value
 
@@ -627,19 +647,33 @@ def _check_bwd_bf16_workspace(q, workspace) -> None:
                          f"{list(want[0][0])} and float32 {list(want[1][0])} on {q.device}")
 
 
-def _count_bwd_bf16(kernels, bf16_io: bool) -> None:
+def _bwd_bf16_passes(q, precision: str) -> int:
+    """1 (K2b/K3b) at "default"; 3 (K2-bf16/K3-bf16) at "highest" or
+    "high", which take bf16 tensors only (f32 ones run K2/K3)."""
+    passes = 1 if is_bf16(precision) else 3
+    if passes == 3 and q.dtype != torch.bfloat16:
+        raise TypeError(f"K2-bf16 and K3-bf16 take bfloat16 tensors, got {q.dtype}: "
+                        f"float32 ones at {precision!r} run K2 and K3")
+    return passes
+
+
+def _count_bwd_bf16(kernels, bf16_io: bool, passes: int = 1) -> None:
     """One launch more on the counter of each of ``kernels`` ("fold", "dq",
-    "dkv") in its I/O flavour."""
+    "dkv") in its flavour: K2b/K3b's I/O flavours, or at three passes
+    K2-bf16/K3-bf16's (``*_f32_bf16_io``); the fold's by its I/O alone."""
     for kernel in kernels:
-        globals()[f"launches_bwd_{kernel}_bf16" + ("_io" if bf16_io else "")] += 1
+        if passes == 3 and kernel != "fold":
+            globals()[f"launches_bwd_{kernel}_f32_bf16_io"] += 1
+        else:
+            globals()[f"launches_bwd_{kernel}_bf16" + ("_io" if bf16_io else "")] += 1
 
 
 def _bwd_bf16_fold(q, k, v, do, lse, di, lengths, workspace=None):
-    """K2b/K3b's prologue on arguments prepared by ``_bwd_args``: q, k, v
-    and dO rounded to bf16 (copied, for bf16 inputs) and folded as
-    ``fold_bf16_ref`` folds them, k and v zero past each bound; LSE and Di
-    padded with zeros. Writes into ``workspace`` (``_bwd_bf16_workspace``)
-    when it is given; returns it."""
+    """The backward prologue of K2b/K3b and K2-bf16/K3-bf16 on arguments
+    prepared by ``_bwd_args``: q, k, v and dO rounded to bf16 (copied, for
+    bf16 inputs) and folded as ``fold_bf16_ref`` folds them, k and v zero
+    past each bound; LSE and Di padded with zeros. Writes into
+    ``workspace`` (``_bwd_bf16_workspace``) when it is given; returns it."""
     b, t, h, d = q.shape
     bf16_io = q.dtype == torch.bfloat16
     if workspace is None:
@@ -659,68 +693,75 @@ def _bwd_bf16_fold(q, k, v, do, lse, di, lengths, workspace=None):
     return workspace
 
 
-def _bwd_bf16_kernel(kernel, q, workspace, lengths):
-    """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) alone, on
-    the prologue's ``workspace`` for q's shape; outputs [B, T, H, D] in q's
-    dtype (f32, or bf16 for the bf16-I/O flavour)."""
+def _bwd_bf16_kernel(kernel, q, workspace, lengths, precision="default"):
+    """K2b (``kernel="dq"``: (dQ,)) or K3b (``"dkv"``: (dK, dV)) alone, or
+    at ``precision`` "highest" or "high" K2-bf16 or K3-bf16, on the
+    prologue's ``workspace`` for q's shape; outputs [B, T, H, D] in q's
+    dtype (f32, or bf16 for the bf16-I/O flavours)."""
     b, t, h, d = q.shape
     bf16_io = q.dtype == torch.bfloat16
+    passes = _bwd_bf16_passes(q, precision)
     _check_bwd_bf16_workspace(q, workspace)
     outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                  for _ in range(1 if kernel == "dq" else 2))
     if q.numel() == 0:
         return outs
-    plan = flash_bwd_bf16_launch_plan(t, b, h)[kernel]
+    plan = flash_bwd_bf16_launch_plan(t, b, h, precision)[kernel]
     lib = _lib_bwd_bf16()
     err = getattr(lib, f"nomad_flash_attention_bwd_bf16_{kernel}")(
         *(x.data_ptr() for x in workspace), lengths.data_ptr(), *(x.data_ptr() for x in outs),
         b, t, h, d, plan["rows_per_block"], plan["threads"], plan["smem_bytes"],
-        1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
+        plan["blocks_per_sm"], 1.0 / d**0.5, int(bf16_io), passes,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, f"bf16 flash attention {'dQ' if kernel == 'dq' else 'dK/dV'} "
                  "kernel launch")
-    _count_bwd_bf16((kernel,), bf16_io)
+    _count_bwd_bf16((kernel,), bf16_io, passes)
     return outs
 
 
-def _bwd_bf16(q, k, v, do, lse, di, lengths):
-    """The prologue, K2b and K3b in one C call on arguments prepared by
+def _bwd_bf16(q, k, v, do, lse, di, lengths, precision="default"):
+    """The prologue, then K2b and K3b (``precision`` "default") or K2-bf16
+    and K3-bf16 ("highest", "high"), in one C call on arguments prepared by
     ``_bwd_args``, as ``flash_attention_bwd`` runs them: (dQ, dK, dV) in
     q's dtype. One call into C and one tensor map for both kernels: at the
     loss crop the host's work, not the card's, sets the pace."""
     b, t, h, d = q.shape
     bf16_io = q.dtype == torch.bfloat16
+    passes = _bwd_bf16_passes(q, precision)
     outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     if q.numel() == 0:
         return outs
     workspace = _bwd_bf16_workspace(q)
-    plan = flash_bwd_bf16_launch_plan(t, b, h)["dq"]
+    plans = flash_bwd_bf16_launch_plan(t, b, h, precision)
+    plan = plans["dq"]
     lib = _lib_bwd_bf16()
     err = lib.nomad_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in workspace),
         *(x.data_ptr() for x in outs), b, t, h, d, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *do.stride()[:3], plan["rows_per_block"], plan["threads"],
-        plan["smem_bytes"], 1.0 / d**0.5, int(bf16_io),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        plan["smem_bytes"], plan["blocks_per_sm"], plans["dkv"]["blocks_per_sm"], 1.0 / d**0.5,
+        int(bf16_io), passes, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "bf16 flash attention backward launch")
-    _count_bwd_bf16(("fold", "dq", "dkv"), bf16_io)
+    _count_bwd_bf16(("fold", "dq", "dkv"), bf16_io, passes)
     return outs
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, lengths, precision="highest"):
     """Gradients (dQ, dK, dV) of ``mha_flash``'s O for the cotangent dO,
-    from the saved O and LSE, in q's dtype. On CUDA tensors K2 and K3
-    ("highest", "high") or K2b and K3b ("default"), each on f32 or bf16
-    I/O, on CPU tensors the plain version of the same flavour."""
+    from the saved O and LSE, in q's dtype. On CUDA tensors K2b and K3b
+    ("default", f32 or bf16 I/O), K2 and K3 ("highest", "high" on f32
+    tensors) or K2-bf16 and K3-bf16 ("highest", "high" on bf16 tensors);
+    on CPU tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
     do, di, lengths = _bwd_args(q, k, v, o, lse, do, lengths)
-    if is_bf16(precision):
-        return _bwd_bf16(q, k, v, do, lse, di, lengths)
+    if is_bf16(precision) or q.dtype == torch.bfloat16:
+        return _bwd_bf16(q, k, v, do, lse, di, lengths, precision)
     dq = _bwd_dq_kernel(q, k, v, do, lse, di, lengths)
     dk, dv = _bwd_dkv_kernel(q, k, v, do, lse, di, lengths)
     return dq, dk, dv
@@ -730,9 +771,9 @@ class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, lengths, precision="highest")`` -> O
     [B, T, H, D], masked attention differentiable in q, k, v (lengths int32
     [B] gets no gradient): ``mha_flash`` forward (K1, or K1b for
-    "default", on the card), ``flash_attention_bwd`` backward (K2 + K3, or
-    K2b + K3b for "default", on the card); the plain versions of both on
-    the CPU."""
+    "default", on the card), ``flash_attention_bwd`` backward (K2 + K3,
+    K2-bf16 + K3-bf16 on bf16 tensors, or K2b + K3b for "default", on the
+    card); the plain versions of both on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, precision="highest"):

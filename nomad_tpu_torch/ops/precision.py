@@ -102,6 +102,26 @@ def split_bf16(a: torch.Tensor) -> tuple:
     return hi, round_bf16(a - hi)
 
 
+# K2-bf16 and K3-bf16 (csrc/flash_attention_bwd_bf16.cu) split dS and P
+# scaled by this power of two: every f32 value below 2^112 in magnitude,
+# subnormals included, then splits exactly
+SPLIT3_SCALE = 2.0 ** 16
+
+
+def split3_bf16(x: torch.Tensor) -> tuple:
+    """(hi, mid, lo) of an f32 x as the backward kernels' register split
+    (``csrc/hopper.cuh::split3_bf16``): hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each returned as an f32 tensor holding bf16
+    values. Both differences are exact in f32, and hi + mid + lo == x
+    exactly wherever x's last bit lies on bf16's grid, |x| >= 2^-110 or
+    x = 0: 24 significant bits in three planes of 8. The kernels split x
+    times SPLIT3_SCALE, which puts every f32 value there."""
+    hi = round_bf16(x)
+    r = x - hi
+    mid = round_bf16(r)
+    return hi, mid, round_bf16(r - mid)
+
+
 def matmul_high3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b of f32 tensors as the TPU kernel's ``_dot`` at "high3"
     (``nomad_tpu/ops/fused_attention.py:79-90``): three DEFAULT passes on

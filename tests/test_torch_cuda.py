@@ -1085,9 +1085,10 @@ def test_bf16_io_flash_kernels_are_the_f32_flavour_rounded(cuda, b, t, lengths):
 
 
 def test_f32_kernels_refuse_bf16(cuda):
-    """K1, K2 and K3 (f32 products) take bf16 tensors through their
-    bf16-I/O flavour (their own launch counters, never K1b's); they refuse
-    float16 and q, k and v of mixed dtypes with TypeError."""
+    """K1 and the backward at "highest" (f32 products) take bf16 tensors
+    through K1's bf16-I/O flavour and K2-bf16/K3-bf16 (their own launch
+    counters, never K1b's); they refuse float16 and q, k and v of mixed
+    dtypes with TypeError."""
     q = torch.randn(1, 10, 2, 64, device=cuda, dtype=torch.bfloat16)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
     lse = torch.zeros(1, 2, 10, device=cuda)
@@ -1109,15 +1110,76 @@ def test_f32_kernels_refuse_bf16(cuda):
     assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1, 0, 0)
 
 
+BF16_STEP = 2.0 ** -7  # one bf16 step, relative to a value's magnitude (upper bound)
+BWD_F32_REL, BWD_NOISE = 1e-4, 1e-4  # f32 sums in two orders; an output that is noise
+
+
+def bf16_step(x):
+    """One bf16 step at each |x| (8 significant bits), in f32."""
+    mag = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads):
+    """K2-bf16's and K3-bf16's gradients (the "highest" backward on bf16
+    tensors, f32-exact products summed in the tensor core's order), each
+    (a) element within one bf16 step (at the larger of the two) beyond
+    1e-4 of max |g| of the f32 flavour's on the upcast inputs, rounded once
+    (both sum f32-exact products, in two orders); (b) within one bf16 step
+    (2^-7 of each output's max) plus 1e-4 of it of their plain version on
+    the same bf16 inputs; (c) no further from the exact float64 gradient
+    than 1.5 x the plain version's distance + 1e-6 + one bf16 step of the
+    output; (d) a rerun the same bits, and NaN past each bound changing no
+    valid row (every dQ row, dK and dV below each bound). An output that
+    is rounding noise (max |g| <= 1e-4: dQ and dK with one key) is held by
+    (c) alone. Returns the share of elements that differ from (a)'s
+    rounded f32 flavour."""
+    bf = torch.bfloat16
+    up = [x.float() for x in (q, k, v)]
+    grads32 = flash_attention.flash_attention_bwd(*up, o.float(), lse, do.float(), lens,
+                                                  "highest")
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens, "highest")
+    exact = attention_bwd_f64(*up, do.float(), lens)
+    shares = []
+    for ours, g32, ref, x in zip(grads, grads32, refs, exact):
+        assert ours.dtype == bf and torch.isfinite(ours).all()
+        g32b = g32.to(bf)
+        diff = (ours.float() - g32b.float()).abs()
+        gmax = g32.abs().max().item()
+        if gmax > BWD_NOISE:
+            step = bf16_step(torch.maximum(ours.float().abs(), g32b.float().abs()))
+            assert (diff <= step + BWD_F32_REL * gmax).all()  # (a)
+            scale = ref.float().abs().max().item()
+            assert (ours.float() - ref.float()).abs().max().item() <= (  # (b)
+                BF16_STEP + BWD_F32_REL) * scale
+        shares.append((ours != g32b).float().mean().item())
+        err = (ours.double() - x).abs().max().item()  # (c)
+        err_plain = (ref.double() - x).abs().max().item()
+        assert err <= 1.5 * err_plain + 1e-6 + BF16_STEP * x.abs().max().item(), (err, err_plain)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))  # (d)
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        k2[i, n:] = float("nan")
+        v2[i, n:] = float("nan")
+    dq2, dk2, dv2 = flash_attention.flash_attention_bwd(q, k2, v2, o, lse, do, lens, "highest")
+    assert torch.equal(dq2, grads[0])
+    for i, n in enumerate(lens.tolist()):
+        assert torch.equal(dk2[i, :n], grads[1][i, :n]) and torch.equal(dv2[i, :n], grads[2][i, :n])
+        assert not dk2[i, n:].any() and not dv2[i, n:].any()
+    return shares
+
+
 @pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
                                        (65, [65, 64, 1, 0])])
 def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
-    """K1's, K2's and K3's bf16-I/O flavours ("highest" on bf16 tensors):
-    O, dQ, dK and dV bf16, each the f32-I/O flavour's output on the upcast
-    inputs rounded once, bit for bit, LSE equal; within one bf16 step
-    (2^-7 of each output's max) plus 1e-4 of it of their plain version on
-    the same bf16 inputs; a rerun the same bits; NaN past each bound
-    changes no valid row."""
+    """K1's bf16-I/O flavour ("highest" on bf16 tensors): O bf16, the
+    f32-I/O flavour's O on the upcast inputs rounded once, bit for bit, LSE
+    equal; within one bf16 step (2^-7 of max |O|) plus 1e-4 of it of its
+    plain version on the same bf16 inputs; a rerun the same bits; NaN past
+    each bound changes no valid row. The backward, K2-bf16 and K3-bf16 on
+    the tensor cores, sums in another order than the f32 flavour and is
+    held by ``assert_highest_bf16_backward`` instead of bit equality."""
     g = torch.Generator().manual_seed(t)
     bf = torch.bfloat16
     b = len(lengths)
@@ -1128,16 +1190,10 @@ def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
     grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
     up = [x.float() for x in (q, k, v)]
     o32, lse32 = flash_attention.mha_flash(*up, lens, "highest")
-    grads32 = flash_attention.flash_attention_bwd(*up, o.float(), lse, do.float(), lens,
-                                                  "highest")
     assert o.dtype == bf and torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32)
-    for ours, theirs in zip(grads, grads32):
-        assert ours.dtype == bf and torch.equal(ours, theirs.to(bf))
     ro, _ = flash_attention.flash_attention_ref(q, k, v, lens, "highest")
-    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, lse, do, lens, "highest")
-    for ours, ref in zip((o, *grads), (ro, *refs)):
-        scale = ref.float().abs().max().item()
-        assert (ours.float() - ref.float()).abs().max().item() <= (2.0**-7 + 1e-4) * scale
+    scale = ro.float().abs().max().item()
+    assert (o.float() - ro.float()).abs().max().item() <= (2.0**-7 + 1e-4) * scale
     again = flash_attention.mha_flash(q, k, v, lens, "highest")[0]
     assert torch.equal(again, o)
     k2, v2 = k.clone(), v.clone()
@@ -1146,6 +1202,81 @@ def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
         v2[i, n:] = float("nan")
     o2, _ = flash_attention.mha_flash(q, k2, v2, lens, "highest")
     assert torch.equal(o2, o)
+    assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 257])
+def test_highest_bf16_backward_tile_and_ring_edges(cuda, t):
+    """K2-bf16 and K3-bf16 at every edge of their 64-row blocks and tiles
+    and of their 3-stage ring (3, 4 and 5 tiles, the last one ragged), a
+    full, a ragged, a 1-key and a 0-key row: by
+    ``assert_highest_bf16_backward``'s rules, zero gradients for the 0-key
+    row, and one launch each of K2-bf16, K3-bf16 and the bf16 prologue
+    (its counter is K2b-bf16's: one kernel), none of K2, K3, K2b or K3b."""
+    lengths = [t, max(t // 2, 1), 1, 0]
+    g = torch.Generator().manual_seed(t + 11)
+    bf = torch.bfloat16
+    q, k, v = torch.randn(4, t, 3, 4, 64, generator=g).to(cuda).to(bf).unbind(2)
+    do = torch.randn(4, t, 4, 64, generator=g).to(cuda).to(bf)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "highest")
+    names = ("launches_bwd_dq_f32_bf16_io", "launches_bwd_dkv_f32_bf16_io",
+             "launches_bwd_fold_bf16_io", "launches_bwd_dq", "launches_bwd_dkv",
+             "launches_bwd_dq_bf16_io", "launches_bwd_dkv_bf16_io", "launches_bwd_fold_bf16")
+    before = [getattr(flash_attention, n) for n in names]
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+    torch.cuda.synchronize()
+    assert [getattr(flash_attention, n) - c for n, c in zip(names, before)] == [1, 1, 1] + [0] * 5
+    assert all(not x[3].any() for x in grads)
+    assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads)
+
+
+def test_highest_bf16_backward_one_call_is_the_kernels_alone(cuda):
+    """``flash_attention_bwd``'s one C call at "highest" on bf16 tensors
+    (the prologue, K2-bf16, K3-bf16) gives the bits of the three kernels
+    launched one at a time; a workspace made for another shape is refused,
+    and so are f32 tensors (they run K2 and K3) and a flavour the launch
+    plan does not claim."""
+    g = torch.Generator().manual_seed(6)
+    b, t, h, lengths = 4, 193, 2, [193, 100, 1, 0]
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(b, t, h, 64, generator=g).to(cuda).to(bf) for _ in range(4))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "highest")
+    ours = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+    do_, di, lens_ = flash_attention._bwd_args(q, k, v, o, lse, do, lens)
+    ws = flash_attention._bwd_bf16_fold(q, k, v, do_, lse, di, lens_)
+    alone = (*flash_attention._bwd_bf16_kernel("dq", q, ws, lens_, "highest"),
+             *flash_attention._bwd_bf16_kernel("dkv", q, ws, lens_, "highest"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(ours, alone))
+    with pytest.raises(ValueError, match="workspace"):
+        flash_attention._bwd_bf16_kernel("dkv", q[:, :128], ws, lens_, "highest")
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention._bwd_bf16_kernel("dq", q.float(), ws, lens_, "highest")
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention._bwd_dq_kernel(q, k, v, do_, lse, di, lens_)
+    # the C launcher checks the plan's blocks per SM against the kernel's own
+    lib = flash_attention._lib_bwd_bf16()
+    plan = flash_attention.flash_bwd_bf16_launch_plan(t, b, h, "highest")["dq"]
+    dq = torch.empty_like(q)
+    err = lib.nomad_flash_attention_bwd_bf16_dq(
+        *(x.data_ptr() for x in ws), lens_.data_ptr(), dq.data_ptr(), b, t, h, 64,
+        plan["rows_per_block"], plan["threads"], plan["smem_bytes"], plan["blocks_per_sm"] + 1,
+        0.125, 1, 3, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+def test_highest_bf16_backward_occupancy(cuda):
+    """K2-bf16 keeps 2 blocks on an SM and K3-bf16 1: what their launch
+    plan claims (K2b/K3b's blocks, with the planes of dS and P and a stage
+    accumulator in registers); the f32 I/O is no flavour of theirs."""
+    for kernel, plan in flash_attention.flash_bwd_bf16_launch_plan(499, 24, 12, "highest").items():
+        assert plan["passes"] == 3
+        assert flash_attention.flash_bwd_bf16_occupancy(kernel, True, "highest") >= (
+            plan["blocks_per_sm"]), kernel
+        with pytest.raises(RuntimeError, match="occupancy"):
+            flash_attention.flash_bwd_bf16_occupancy(kernel, False, "highest")
 
 
 @pytest.mark.parametrize("prec", ["highest", "default", "high"])

@@ -199,25 +199,31 @@ Phases, each fatal on failure:
      ``eval_audio_quality``; step times, enqueue, peak memory and profiles
      beside "fast"'s in the same run;
  14. bf16 activations on every attention path: the bf16-I/O flavours of
-     K4, K4h and K4b (at [96, 511] with lengths to 499, [32, 50], a ragged
-     [8, 1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511,
-     1023, 1024}), of K1 (at [96, 511], [24, 499], [32, 50], a ragged [8, 4095]
-     and every edge T in {1, 15, 16, 17, 63, 64, 65, 511, 127, 128, 129,
-     191, 192, 193, 257}) and K2-bf16 + K3-bf16 (the "highest" backward on
-     bf16 tensors, K2b/K3b's template at three passes; the same, but [96,
-     511]), each case with a full, a ragged, a 1-key and a 0-key row, under
-     phase 13's rules (bit-equal to the f32-I/O flavour on the upcast
-     inputs rounded once; K2-bf16 and K3-bf16, summing in the tensor
-     core's order, within one bf16 step of it, the share of elements that
-     differ reported, and their one C call the bits of the prologue and
-     the kernels launched alone; plain version and float64 plus one bf16
-     step; garbage past each bound; a rerun the same bits), timed in turns
+     K4h and K4b and K4-bf16 ("highest" on a bf16 x, K4h's template at six
+     passes) (at [96, 511] with lengths to 499, [32, 50], a ragged [8,
+     1024] and every plan edge T in {1, 15, 16, 17, 63, 64, 65, 511,
+     1023, 1024}), K1-bf16 (the "highest" forward on bf16 tensors, K1b's
+     template with three planes of P; at [96, 511], [24, 499], [32, 50], a
+     ragged [8, 4095] and every edge T in {1, 15, 16, 17, 63, 64, 65, 511,
+     127, 128, 129, 191, 192, 193, 257}) and K2-bf16 + K3-bf16 (the
+     "highest" backward on bf16 tensors, K2b/K3b's template at three
+     passes; the same, but [96, 511]), each case with a full, a ragged, a
+     1-key and a 0-key row, under phase 13's rules (K4h's and K4b's
+     bit-equal to the f32-I/O flavour on the upcast inputs rounded once;
+     K4-bf16, K1-bf16, K2-bf16 and K3-bf16, summing in the tensor core's
+     order, within one bf16 step of it beyond 1e-4 of its max, the share
+     of elements that differ reported, K1-bf16's LSE no further from
+     float64 than K1's x 1.5 + 1e-6, K4-bf16's three weight planes and
+     K1-bf16's prologue bit-equal to their plain versions, and each one C
+     call the bits of the prologue and the kernels launched alone; plain
+     version and float64 plus one bf16 step; garbage past each bound; a
+     rerun the same bits), timed in turns
      with the f32-I/O flavour and beside the plain version and the
      PyTorch calls of each flavour's function (bf16 calls at "default";
      f32 calls on the upcasts at "highest"; K2-bf16 + K3-bf16's call with
-     its prologue at [32, 50], [24, 499] and [8, 4095], against the bound
-     of their passes on the bf16 tensor cores, the f32-FMA bound beside
-     it, and the error of the P they recompute: the forward's LSE and the
+     its prologue at [32, 50], [24, 499] and [8, 4095]; K1-bf16, K4-bf16,
+     K2-bf16 and K3-bf16 against the bound of their passes on the bf16
+     tensor cores, the f32-FMA bound beside it, and the error of the P they recompute: the forward's LSE and the
      one-pass scores against float64); then on phase 9's
      seeded BASE state dict ``Wav2Vec2Config.fast(encoder_dtype=bf16,
      attention_impl="fused_qkv")`` on phase 4's 108 files (K4b-bf16 12, K5
@@ -435,6 +441,11 @@ BWD_NOISE = 1e-4
 # K2's and K3's bf16-I/O flavour (f32 products) against their plain version
 # on the same bf16 inputs, before the bf16 step: f32 sums in two orders
 BWD_F32_PLAIN_REL = 1e-4
+# K1-bf16's and K4-bf16's O (f32-exact products on the tensor cores)
+# against the f32 flavour's rounded once: one bf16 step beyond this share of
+# the f32 flavour's max |O| (two f32 orders: an element whose sum cancelled
+# carries its terms' rounding)
+FWD_F32_PLAIN_REL = 1e-4
 # phase 14's loss steps: fewer warm steps timed than phase 5's, to keep the
 # phase near a minute
 BF16_PATH_LOSS_STEPS = 3
@@ -528,13 +539,19 @@ def card_info() -> str:
 # ---------------- phase 2: build ----------------
 
 # kernels whose ptxas lines the spill check must find, by source: the
-# K1b, K2b/K3b, K2-bf16/K3-bf16, K4b and K4h prologues and kernels (each
-# flavour a template instance; K4b's pass count 1, K4h's 3, K2b/K3b's 1 and
-# K2-bf16/K3-bf16's 3 on bf16 I/O, as the mangled names give them)
+# K1b, K1-bf16, K2b/K3b, K2-bf16/K3-bf16, K4b, K4h and K4-bf16 prologues and
+# kernels (each flavour a template instance; K4b's pass count 1, K4h's 3,
+# K4-bf16's 6 and their prologues' planes 1, 2 and 3; K1b's, K2b/K3b's 1
+# and K1-bf16's, K2-bf16/K3-bf16's 3 on bf16 I/O, as the mangled names give
+# them)
 PTXAS_ENTRIES = {
     "fused_attention_bf16": ("fused_qkv_fwd_bf16_kernelILi1E", "fused_qkv_fwd_bf16_kernelILi3E",
-                             "pack_kernelILb0E", "pack_kernelILb1E"),
-    "flash_attention_bf16": ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel"),
+                             "fused_qkv_fwd_bf16_kernelILi6E", "pack_kernelILi1E",
+                             "pack_kernelILi2E", "pack_kernelILi3E"),
+    "flash_attention_bf16": ("flash_fwd_bf16_kernelIfLi1E",
+                             "flash_fwd_bf16_kernelI13__nv_bfloat16Li1E",
+                             "flash_fwd_bf16_kernelI13__nv_bfloat16Li3E",
+                             "flash_fwd_fold_bf16_kernel"),
     "flash_attention_bwd_bf16": ("flash_bwd_dq_bf16_kernelIfLi1E", "flash_bwd_dkv_bf16_kernelIfLi1E",
                                  "flash_bwd_dq_bf16_kernelI13__nv_bfloat16Li1E",
                                  "flash_bwd_dkv_bf16_kernelI13__nv_bfloat16Li1E",
@@ -572,17 +589,18 @@ def build_kernels() -> None:
     # resident blocks per SM (and K4's clusters on the card) at each
     # kernel's shared memory, from the CUDA occupancy API
     occ = {"flash_attention_fwd": {"blocks_per_sm": flash_attention.flash_occupancy(),
-                                   "smem_bytes": flash_attention.FLASH_SMEM_BYTES},
-           "flash_attention_f32_bf16io_fwd": {
-               "blocks_per_sm": flash_attention.flash_occupancy(bf16_io=True),
-               "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
-    plan = flash_attention.flash_bf16_launch_plan(511, 1, 12)
-    for io, name in ((False, "flash_attention_bf16_fwd"), (True, "flash_attention_bf16io_fwd")):
-        blocks = flash_attention.flash_bf16_occupancy(bf16_io=io)
+                                   "smem_bytes": flash_attention.FLASH_SMEM_BYTES}}
+    # K1b in both I/O flavours; K1-bf16 ("highest", three planes of P)
+    for prec, io, name in (("default", False, "flash_attention_bf16_fwd"),
+                           ("default", True, "flash_attention_bf16io_fwd"),
+                           ("highest", True, "flash_attention_f32_bf16io_fwd")):
+        plan = flash_attention.flash_bf16_launch_plan(511, 1, 12, prec)
+        blocks = flash_attention.flash_bf16_occupancy(bf16_io=io, precision=prec)
         occ[name] = {"blocks_per_sm": blocks, "plan_blocks_per_sm": plan["blocks_per_sm"],
-                     "smem_bytes": plan["smem_bytes"], "stages": plan["stages"]}
+                     "smem_bytes": plan["smem_bytes"], "stages": plan["stages"],
+                     "passes": plan["passes"]}
         if blocks < plan["blocks_per_sm"]:
-            fail(f"K1b ({name}): {blocks} blocks per SM, the plan claims "
+            fail(f"K1b's template ({name}): {blocks} blocks per SM, the plan claims "
                  f"{plan['blocks_per_sm']}")
     for t in (50, 499):  # K2/K3's plans: 32-row blocks up to T = 64, 64-row beyond
         for kernel, plan in flash_attention.flash_bwd_launch_plan(t, 1, 12).items():
@@ -610,17 +628,23 @@ def build_kernels() -> None:
                                ("highest", True, "fused_qkv_attention_f32_bf16io_fwd"),
                                ("high", False, "fused_qkv_attention_high3_fwd"),
                                ("high", True, "fused_qkv_attention_high3_bf16io_fwd")):
-            plan = fused_attention.fused_launch_plan(t, 1, 12, prec)
+            plan = fused_attention.fused_launch_plan(t, 1, 12, prec, io)
             blocks, clusters = fused_attention.fused_occupancy(t, prec, io)
             occ[f"{name}_T{t}"] = {
                 "cluster": plan.cluster, "tensors_per_block": plan.tensors_per_block,
                 "blocks_per_sm": blocks, "clusters_on_card": clusters,
                 "smem_bytes": plan.smem_bytes, "threads": plan.threads}
-            # K4h: its planes fill the shared memory of one block an SM
+            # K4h and K4-bf16: their planes fill the shared memory of one
+            # block an SM
             if prec == "high" and (blocks < fused_attention.FUSED_HIGH3_BLOCKS_PER_SM
                                    or clusters < 1):
                 fail(f"K4h ({name}) at cluster {plan.cluster}: {blocks} blocks per SM (built for "
                      f"{fused_attention.FUSED_HIGH3_BLOCKS_PER_SM}), {clusters} clusters")
+            if prec == "highest" and io and (
+                    blocks < fused_attention.FUSED_HIGHEST_BF16_BLOCKS_PER_SM or clusters < 1):
+                fail(f"K4-bf16 ({name}) at cluster {plan.cluster}: {blocks} blocks per SM (built "
+                     f"for {fused_attention.FUSED_HIGHEST_BF16_BLOCKS_PER_SM}), {clusters} "
+                     "clusters")
     # K4b at every cluster size of its plan: 3 (T <= 64), then 2 .. 16
     for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
         for io, name in ((False, "fused_qkv_attention_bf16_fwd"),
@@ -667,11 +691,13 @@ def check_layernorm(rows: int, width: int, g: torch.Generator) -> dict:
 
 
 def flash_bound(b: int, t: int, h: int, d: int, lengths: torch.Tensor,
-                peak_flops: float = F32_FLOPS, io_bytes: int = 4) -> tuple[float, str]:
+                peak_flops: float = F32_FLOPS, io_bytes: int = 4,
+                pv_passes: int = 1) -> tuple[float, str]:
     """All T query rows are written; keys past lengths[b] are never read.
-    q, k, v and O take ``io_bytes`` an element, LSE and lengths 4."""
+    q, k, v and O take ``io_bytes`` an element, LSE and lengths 4. S is one
+    product, P . V ``pv_passes`` (K1-bf16's three planes of P: 3)."""
     keys = int(lengths.sum())
-    flops = 4.0 * h * d * t * keys
+    flops = 2.0 * (1 + pv_passes) * h * d * t * keys
     nbytes = io_bytes * (2 * b * t * h * d + 2 * keys * h * d) + 4.0 * (b * h * t + b)
     return bound(nbytes, flops, peak_flops)
 
@@ -931,7 +957,7 @@ def check_fused_high3(b: int, t: int, lengths: list, g: torch.Generator, timed: 
     finite; a 0-key row 0; NaN past each bound the same bits in every
     valid row, 123.0 there every row finite and the valid rows the same
     bits; a rerun the same bits; the prologue's split packed weights and
-    split x bit-equal to ``pack_weights_ref(..., high3=True)`` and
+    split x bit-equal to ``pack_weights_ref(..., planes=2)`` and
     ``split_bf16``. ``timed``: the plain version and the yardstick, f32
     ``F.linear`` + SDPA (``fused_yardstick``: the same function computed
     more precisely; no PyTorch call computes bf16 x 3)."""
@@ -973,7 +999,7 @@ def check_fused_high3(b: int, t: int, lengths: list, g: torch.Generator, timed: 
     workspace = fused_attention._bf16_workspace(x, h, planes=2)
     fused_attention._launch("high", x, *params, lens, h, workspace=workspace)
     checks["split_planes"] = torch.equal(
-        workspace[0], fused_attention.pack_weights_ref(*params[0::2], h, high3=True)) and \
+        workspace[0], fused_attention.pack_weights_ref(*params[0::2], h, planes=2)) and \
         torch.equal(workspace[1], torch.cat(prec_ops.split_bf16(x)).to(torch.bfloat16))
     del workspace
     if not all(checks.values()):
@@ -1116,6 +1142,9 @@ def check_csvs(out: Path, what: str) -> np.ndarray:
 # kernel name -> layer of the model, first match wins (cuDNN's implicit-GEMM
 # convolutions carry "gemm" in their names too, so convolutions go first)
 KERNEL_GROUPS = (
+    # K1-bf16 ("highest" on bf16 tensors: three planes of P), then K1b-bf16;
+    # K1-bf16's prologue is K1b-bf16's and goes there
+    ("flash_attention_f32_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16, 3",)),
     ("flash_attention_bf16io_fwd", ("flash_fwd_bf16_kernel<__nv_bfloat16",
                                     "flash_fwd_fold_bf16_kernel<__nv_bfloat16")),
     # K2-bf16/K3-bf16 ("highest" on bf16 tensors: three passes), then K2b/K3b-bf16
@@ -1127,9 +1156,11 @@ KERNEL_GROUPS = (
     ("layernorm_fwd_bf16io", ("layernorm_fwd_kernel<__nv_bfloat16",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_bf16_fwd", ("flash_fwd_bf16_kernel", "flash_fwd_fold_bf16_kernel")),
-    # K4h (K4b's template at 3 passes) and K4b, each with its prologue
-    ("fused_qkv_attention_high3_fwd", ("fused_qkv_fwd_bf16_kernel<3", "pack_kernel<true")),
-    ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel", "pack_kernel<false")),
+    # K4-bf16 and K4h (K4b's template at 6 and 3 passes) and K4b, each with
+    # its prologue (3, 2 and 1 planes)
+    ("fused_qkv_attention_f32_bf16io_fwd", ("fused_qkv_fwd_bf16_kernel<6", "pack_kernel<3")),
+    ("fused_qkv_attention_high3_fwd", ("fused_qkv_fwd_bf16_kernel<3", "pack_kernel<2")),
+    ("fused_qkv_attention_bf16_fwd", ("fused_qkv_fwd_bf16_kernel", "pack_kernel<1")),
     ("fused_qkv_attention_fwd", ("fused_qkv_fwd_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("flash_attention_bwd_bf16", ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
@@ -1249,8 +1280,9 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
     """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. The
     backward fold runs once per backward call of K2b/K3b or K2-bf16/K3-bf16:
     once per K2b launch, in K2b's flavour, and once per K2-bf16 launch
-    (``k2_io``), in the bf16 one; K1b's (the forward fold) once per K1b
-    launch."""
+    (``k2_io``), in the bf16 one; the forward fold once per K1b launch, in
+    its flavour, and once per K1-bf16 launch (``k1_io``), in the bf16
+    one."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
@@ -1265,7 +1297,7 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "fused_qkv_attention_high3_fwd": k4h, "fused_qkv_attention_high3_bf16io_fwd": k4h_io,
             "flash_attention_bwd_fold_bf16": k2b,
             "flash_attention_bwd_fold_bf16io": k2b_io + k2_io,
-            "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io}
+            "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io + k1_io}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
@@ -2610,17 +2642,18 @@ def attention_f64(q, k, v, lengths):
     return torch.einsum("bhqk,bkhd->bqhd", p, vd)
 
 
-def k1b_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor, io_bytes: int) -> dict:
+def k1b_bounds(b: int, t: int, h: int, d: int, lengths: torch.Tensor, io_bytes: int,
+               pv_passes: int = 1) -> dict:
     """K1b's prologue and kernel, each against what it moves: the prologue
     reads the valid rows of k and v once and writes the fold (bf16 [2, B*H,
     T64, D]) once; the kernel reads q, the fold's valid rows and lengths and
     writes O and LSE, and does the work's operations on the bf16 tensor
-    cores."""
+    cores: S in one pass, P . V in ``pv_passes`` (K1-bf16: 3)."""
     t_pad = -(-t // 64) * 64
     keys = int(lengths.long().clamp(0, t).sum())
     fold = bound(io_bytes * 2 * keys * h * d + 2 * 2 * b * h * t_pad * d, 0.0)
     kernel = bound(2 * io_bytes * b * t * h * d + 2 * 2 * keys * h * d + 4.0 * (b * h * t + b),
-                   4.0 * h * d * t * keys, BF16_FLOPS)
+                   2.0 * (1 + pv_passes) * h * d * t * keys, BF16_FLOPS)
     return {"fold": fold, "kernel": kernel}
 
 
@@ -2630,17 +2663,18 @@ def fold_fwd_plain(k, v, lengths) -> torch.Tensor:
     return torch.stack([flash_attention.fold_bf16_ref(x, lengths, True) for x in (k, v)])
 
 
-def check_fold_fwd(q, k, v, lengths, timed: bool) -> dict:
-    """K1b's prologue through its wrapper against ``fold_fwd_plain`` on the
-    card, bit for bit; the kernel alone on that fold against the one call
-    (``mha_flash``), bit for bit; with ``timed``, the prologue's and the
-    kernel's times, each beside the bound of what it moves, and the
-    prologue's plain version's. Returns {"fold": ..., "kernel": ...}."""
+def check_fold_fwd(q, k, v, lengths, timed: bool, prec: str = "default") -> dict:
+    """K1b's (``prec`` "default") or K1-bf16's ("highest") prologue through
+    its wrapper against ``fold_fwd_plain`` on the card, bit for bit; the
+    kernel alone on that fold against the one call (``mha_flash``), bit for
+    bit; with ``timed``, the prologue's and the kernel's times, each beside
+    the bound of what it moves, and the prologue's plain version's. Returns
+    {"fold": ..., "kernel": ...}."""
     b, t, h, d = q.shape
     ws = flash_attention._flash_bf16_fold(q, k, v, lengths)
     ref = fold_fwd_plain(k, v, lengths)
-    alone = flash_attention._flash_bf16_body(q, ws, lengths)
-    call = flash_attention.mha_flash(q, k, v, lengths, "default")
+    alone = flash_attention._flash_bf16_body(q, ws, lengths, prec)
+    call = flash_attention.mha_flash(q, k, v, lengths, prec)
     torch.cuda.synchronize()
     if not torch.equal(ws, ref):
         fail(f"flash bf16 prologue [{b}, {t}, {h}, {d}] ({q.dtype}): its fold differs from "
@@ -2648,7 +2682,8 @@ def check_fold_fwd(q, k, v, lengths, timed: bool) -> dict:
     if not (torch.equal(alone[0], call[0]) and torch.equal(alone[1], call[1])):
         fail(f"flash bf16 [{b}, {t}, {h}, {d}] ({q.dtype}): the kernel alone on the prologue's "
              f"fold differs from the one call's bits")
-    bounds = k1b_bounds(b, t, h, d, lengths, q.element_size())
+    bounds = k1b_bounds(b, t, h, d, lengths, q.element_size(),
+                        flash_attention.flash_bf16_launch_plan(t, b, h, prec)["passes"])
     res = {"fold": {"max_abs_err": 0.0, "bit_equal": True, "bound_ms": bounds["fold"][0],
                     "bound_by": bounds["fold"][1], "library_ms": None},
            "kernel": {"bound_ms": bounds["kernel"][0], "bound_by": bounds["kernel"][1]}}
@@ -2657,8 +2692,8 @@ def check_fold_fwd(q, k, v, lengths, timed: bool) -> dict:
         res["fold"]["ms"] = time_ms(
             lambda: flash_attention._flash_bf16_fold(q, k, v, lengths, ws), iters)
         res["fold"]["plain_ms"] = time_ms(lambda: fold_fwd_plain(k, v, lengths), 5)
-        res["kernel"]["ms"] = time_ms(lambda: flash_attention._flash_bf16_body(q, ws, lengths),
-                                      iters)
+        res["kernel"]["ms"] = time_ms(
+            lambda: flash_attention._flash_bf16_body(q, ws, lengths, prec), iters)
     return res
 
 
@@ -3852,35 +3887,57 @@ def check_layernorm_bf16io(rows: int, width: int, g: torch.Generator) -> dict:
     return res
 
 
+def near_one_step(x, y32, rel: float) -> tuple[bool, dict]:
+    """A bf16 output x of a "highest" flavour on the tensor cores (K1-bf16,
+    K4-bf16, K2-bf16, K3-bf16) against the f32 flavour's y32 (K1, K4, K2,
+    K3 on the upcast inputs) rounded once: whether every element lies
+    within one bf16 step (at the larger of the two) beyond ``rel`` of
+    max |y32| (both sum f32-exact products, in two orders: an element that
+    cancelled carries its terms' rounding); the share of elements whose
+    bits differ, the share more than one step apart and the largest
+    distance in steps."""
+    yb = y32.to(torch.bfloat16)
+    diff = (x.float() - yb.float()).abs()
+    step = bf16_ulp_of(torch.maximum(x.float().abs(), yb.float().abs()))
+    near = bool((diff <= step + rel * y32.abs().max().item()).all())
+    return near, {"share_differ": (x != yb).float().mean().item(),
+                  "share_beyond_one_step": (diff > step).float().mean().item(),
+                  "max_steps": (diff / step).max().item()}
+
+
 def near_f32_flavour(outs, outs32) -> tuple[bool, dict]:
     """K2-bf16's and K3-bf16's (dQ, dK, dV) against the f32 flavour's (K2
-    and K3 on the upcast inputs) rounded once: whether every element lies
-    within one bf16 step (at the larger of the two) beyond BWD_F32_PLAIN_REL
-    of the f32 flavour's max |g| (both sum f32-exact products, in two
-    orders: an element that cancelled carries its terms' rounding); per
-    output the share of elements whose bits differ, the share more than
-    one step apart and the largest distance in steps. An output that is
+    and K3 on the upcast inputs) rounded once, each by ``near_one_step`` at
+    BWD_F32_PLAIN_REL of the f32 flavour's max |g|. An output that is
     rounding noise on both sides (max |g| <= BWD_NOISE: dQ and dK with one
     key, analytically 0) is held by the float64 rule alone."""
     near, info = True, {}
     for n, x, y in zip(("dq", "dk", "dv"), outs, outs32):
-        yb = y.to(torch.bfloat16)
-        diff = (x.float() - yb.float()).abs()
-        step = bf16_ulp_of(torch.maximum(x.float().abs(), yb.float().abs()))
-        gmax = y.abs().max().item()
-        if gmax > BWD_NOISE:
-            near &= bool((diff <= step + BWD_F32_PLAIN_REL * gmax).all())
-        info[n] = {"share_differ": (x != yb).float().mean().item(),
-                   "share_beyond_one_step": (diff > step).float().mean().item(),
-                   "max_steps": (diff / step).max().item(), "noise": gmax <= BWD_NOISE}
+        ok, info[n] = near_one_step(x, y, BWD_F32_PLAIN_REL)
+        info[n]["noise"] = y.abs().max().item() <= BWD_NOISE
+        near &= ok or info[n]["noise"]
     return near, info
+
+
+def lse_gaps(q, k, lse, lse32, n: int) -> tuple[float, float]:
+    """For one batch row of bf16 q, k with n valid keys: max |LSE - LSE_f64|
+    of K1-bf16's LSE and of the f32 flavour's (K1 on the upcast inputs),
+    LSE_f64 the log-sum-exp of the exact scores (0, 0 for a row with no
+    key: both give -1e30)."""
+    if n == 0:
+        return 0.0, 0.0
+    d = q.shape[3]
+    qh, kh = q[0].transpose(0, 1).double(), k[0, :n].transpose(0, 1).double()
+    exact = torch.logsumexp(torch.einsum("hqd,hkd->hqk", qh, kh) / d**0.5, dim=-1)
+    return ((lse[0].double() - exact).abs().max().item(),
+            (lse32[0].double() - exact).abs().max().item())
 
 
 def recompute_gap(q, k, lse, n: int) -> tuple[float, float]:
     """How far the P = exp(S / sqrt(D) - LSE) that K2-bf16 and K3-bf16
     recompute lies from the exact softmax, for one batch row of bf16 q, k
     with n valid keys: max |LSE - LSE_f64| of the forward's saved LSE
-    (K1-bf16: f32 FMA order) and max |S - S_f64| / sqrt(D) of the scores in
+    (K1-bf16: the tensor core's order) and max |S - S_f64| / sqrt(D) of the scores in
     one bf16 pass with f32 sums (cuBLAS's bmm standing in for the kernels'
     wgmma: the products are exact, the order of the sum differs)."""
     if n == 0:
@@ -3899,17 +3956,20 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
                        bwd: bool = True, kernel_times: bool = True,
                        prec: str = "default") -> dict:
     """K1b's bf16-I/O flavour and, with ``bwd``, K2b's and K3b's (through
-    ``flash_attention_bwd``), or at ``prec`` "highest" those of K1 and
-    K2-bf16 and K3-bf16, on bf16 q, k, v (views of one [B, T, 3, H, D]
-    buffer) and dO, NaN in k and v past each bound: O bit-equal to the
-    f32-I/O flavour's on the upcast inputs rounded once (LSE equal), and so
-    are K2b's and K3b's gradients; K2-bf16's and K3-bf16's (the f32
-    flavour's products on the tensor cores, summed in another order) each
-    within one bf16 step of the f32 flavour's rounded once, beyond
-    BWD_F32_PLAIN_REL of its max |g| (two f32 orders: an element that
-    cancelled carries its terms' rounding), the share of elements that
-    differ reported, and the one C call the bits of the prologue and the
-    two kernels launched alone; the same bits as with finite values past
+    ``flash_attention_bwd``), or at ``prec`` "highest" K1-bf16, K2-bf16
+    and K3-bf16, on bf16 q, k, v (views of one [B, T, 3, H, D] buffer) and
+    dO, NaN in k and v past each bound: K1b's O bit-equal to the f32-I/O
+    flavour's on the upcast inputs rounded once (LSE equal), and so are
+    K2b's and K3b's gradients; K1-bf16's O, K2-bf16's and K3-bf16's
+    gradients (the f32 flavour's products on the tensor cores, summed in
+    another order) each within one bf16 step of the f32 flavour's (K1, K2,
+    K3 on the upcast inputs) rounded once, beyond FWD_F32_PLAIN_REL of its
+    max |O| and BWD_F32_PLAIN_REL of its max |g| (two f32 orders: an
+    element that cancelled carries its terms' rounding), the share of
+    elements that differ reported, K1-bf16's LSE no further from float64
+    than K1's x 1.5 + 1e-6; the prologue's fold bit-equal to its plain
+    version and the one C call the bits of the prologue and the kernels
+    launched alone; the same bits as with finite values past
     the bound, and on a rerun; a 0-key row O = 0, LSE = -1e30, zero
     gradients; dK = dV = 0 past each bound; against the plain version on
     the same bf16 inputs and float64: |O - O_f64| <= 1.5 x the plain
@@ -3924,13 +3984,13 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     kernels and their f32-I/O flavour; ``timed``: the plain version and the
     yardstick, SDPA (its gradient) on the bf16 tensors at "default", on
     their f32 upcasts at "highest", too. At "highest" the bounds count
-    K2-bf16's and K3-bf16's passes on the bf16 tensor cores and the bytes
-    of the fold they read; the f32-FMA bound of the f32 flavour's work
-    beside them."""
+    K1-bf16's (S one pass, P . V three), K2-bf16's and K3-bf16's passes on
+    the bf16 tensor cores and the bytes of the fold they read; the f32-FMA
+    bound of the f32 flavour's work beside them."""
     h, d = 12, 64
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
-    tags = ("K1b", "K2b", "K3b") if bf16_ops else ("K1", "K2-bf16", "K3-bf16")
+    tags = ("K1b", "K2b", "K3b") if bf16_ops else ("K1-bf16", "K2-bf16", "K3-bf16")
     plain_rel = BWD_BF16_PLAIN_REL if bf16_ops else BWD_F32_PLAIN_REL
     plain_norm = BWD_BF16_PLAIN_NORM if bf16_ops else BWD_F32_PLAIN_REL
     peak = BF16_FLOPS if bf16_ops else F32_FLOPS
@@ -3949,14 +4009,20 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     again = flash_attention.mha_flash(q, k, v, lens, prec)
     torch.cuda.synchronize()
     checks = {"dtype": o.dtype == bf and lse.dtype == torch.float32,
-              "bit_equal_f32_flavour": torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32),
               "nan_past_bound_changes_nothing": torch.equal(o, o_fin) and torch.equal(lse, lse_fin),
               "rerun_same_bits": torch.equal(o, again[0]) and torch.equal(lse, again[1]),
               "finite": bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
               "zero_key_rows": all(bool((o[i] == 0).all() and (lse[i] == flash_attention.NEG_INF)
                                         .all()) for i, n in enumerate(lengths) if n == 0)}
-    del o32, lse32, o_fin, lse_fin, again
+    near_fwd = None
+    if bf16_ops:  # one bf16 body: the f32 flavour's bits, rounded once
+        checks["bit_equal_f32_flavour"] = torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32)
+    else:  # K1-bf16: the tensor core's order, within one bf16 step
+        near, near_fwd = near_one_step(o, o32, FWD_F32_PLAIN_REL)
+        checks["within_one_bf16_step_of_f32_flavour"] = near
+    del o_fin, lse_fin, again
     err = err_f64 = err_plain_f64 = err_lse = lse_gap = s_gap = 0.0
+    lse_f64 = lse32_f64 = 0.0
     excess = float("-inf")
     for i in range(b):  # one batch row at a time: [1, H, T, T] in float64
         sl = slice(i, i + 1)
@@ -3969,30 +4035,46 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         err = max(err, (o[sl].float() - ro.float()).abs().max().item())
         err_f64, err_plain_f64 = max(err_f64, e), max(err_plain_f64, ep)
         err_lse = max(err_lse, (lse[sl] - rlse).abs().max().item())
+        if not bf16_ops:
+            gaps = lse_gaps(q[sl], k[sl], lse[sl], lse32[sl], lengths[i])
+            lse_f64, lse32_f64 = max(lse_f64, gaps[0]), max(lse32_f64, gaps[1])
         if bwd and not bf16_ops:
             gaps = recompute_gap(q[sl], k[sl], lse[sl], lengths[i])
             lse_gap, s_gap = max(lse_gap, gaps[0]), max(s_gap, gaps[1])
         del ro, rlse, exact
     checks["vs_plain_and_f64"] = excess <= 0 and err_lse <= TOL_FLASH
+    del o32, lse32
     res = {"shape": [b, t, h, d], "lengths": lengths, "lengths_sum": int(lens.sum()),
            "fwd": {"max_abs_err": err, "max_abs_err_vs_f64": err_f64,
                    "plain_max_abs_err_vs_f64": err_plain_f64, "lse_max_abs_err": err_lse}}
+    if not bf16_ops:
+        checks["lse_vs_f64_within_f32_flavour"] = lse_f64 <= 1.5 * lse32_f64 + 1e-6
+        res["fwd"] |= {"vs_f32_flavour": near_fwd, "lse_max_abs_err_vs_f64": lse_f64,
+                       "f32_flavour_lse_max_abs_err_vs_f64": lse32_f64,
+                       "ratio_to_plain_vs_f64": err_f64 / max(err_plain_f64, 1e-30)}
     if bwd and not bf16_ops:
         res["recompute"] = {"lse_max_abs_err_vs_f64": lse_gap, "scores_max_abs_err_vs_f64": s_gap}
-    b_ms, b_by = flash_bound(b, t, h, d, lens, peak, io_bytes=2)
+    # K1b: one pass a product; K1-bf16: S one pass and P . V three on the
+    # bf16 tensor cores, the f32 flavour's FMA work beside
+    b_ms, b_by = flash_bound(b, t, h, d, lens, BF16_FLOPS, io_bytes=2,
+                             pv_passes=1 if bf16_ops else 3)
     res["fwd"] |= {"bound_ms": b_ms, "bound_by": b_by}
+    if not bf16_ops:
+        res["fwd"] |= dict(zip(("f32_fma_bound_ms", "f32_fma_bound_by"),
+                               flash_bound(b, t, h, d, lens, F32_FLOPS, io_bytes=2)))
     iters = 10 if t > 1024 else 30
     up_c = [x.contiguous() for x in up]  # the f32-I/O flavour's inputs, for its times
-    if bf16_ops:  # K1b's prologue: both flavours fold to the same bits
-        parts = check_fold_fwd(q, k, v, lens, kernel_times)
-        res["fwd_fold"] = parts["fold"]
-        res["fwd"] |= {f"kernel_{f}": v for f, v in parts["kernel"].items()}
-        ws32 = flash_attention._flash_bf16_fold(*up_c, lens)
-        checks["fwd_fold_bit_equal_f32_flavour"] = torch.equal(
-            flash_attention._flash_bf16_fold(q, k, v, lens), ws32)
-        if kernel_times:
-            res["fwd_fold"]["f32_io_ms"] = time_ms(
-                lambda: flash_attention._flash_bf16_fold(*up_c, lens, ws32), iters)
+    # the prologue (both I/O flavours fold to the same bits) and the kernel
+    # alone on its fold, the one call's bits
+    parts = check_fold_fwd(q, k, v, lens, kernel_times, prec)
+    res["fwd_fold"] = parts["fold"]
+    res["fwd"] |= {f"kernel_{f}": v for f, v in parts["kernel"].items()}
+    ws32 = flash_attention._flash_bf16_fold(*up_c, lens)
+    checks["fwd_fold_bit_equal_f32_flavour"] = torch.equal(
+        flash_attention._flash_bf16_fold(q, k, v, lens), ws32)
+    if kernel_times:
+        res["fwd_fold"]["f32_io_ms"] = time_ms(
+            lambda: flash_attention._flash_bf16_fold(*up_c, lens, ws32), iters)
     if kernel_times:
         res["fwd"]["ms"], res["fwd"]["f32_io_ms"] = time_pair_ms(
             lambda: flash_attention.mha_flash(q, k, v, lens, prec),
@@ -4140,14 +4222,26 @@ def check_flash_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         fail(f"flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] lengths {lengths[:4]}...: {checks}; "
              f"fwd {res['fwd']}; bwd {[res.get(k) for k in ('dq', 'dkv')]}")
     fwd = res["fwd"]
-    line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
-            f"{'' if bf16_ops else 'O '}bf16(f32 flavour) bit-equal, NaN past the bound changes "
-            f"nothing; {tags[0]} O vs plain max|d| "
-            f"{fwd['max_abs_err']:.3g}, vs f64 {fwd['max_abs_err_vs_f64']:.3g} (plain "
-            f"{fwd['plain_max_abs_err_vs_f64']:.3g})")
+    if bf16_ops:
+        line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
+                f"bf16(f32 flavour) bit-equal, NaN past the bound changes nothing; ")
+    else:
+        near = fwd["vs_f32_flavour"]
+        line = (f"  flash bf16 I/O {prec} [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: "
+                f"NaN past the bound changes nothing; {tags[0]} O vs bf16(f32 flavour): share "
+                f"differing {near['share_differ']:.3g}, at most {near['max_steps']:.3g} bf16 "
+                f"steps; |LSE - LSE_f64| {fwd['lse_max_abs_err_vs_f64']:.3g} (K1's "
+                f"{fwd['f32_flavour_lse_max_abs_err_vs_f64']:.3g}); ")
+    line += (f"{tags[0]} O vs plain max|d| "
+             f"{fwd['max_abs_err']:.3g}, vs f64 {fwd['max_abs_err_vs_f64']:.3g} (plain "
+             f"{fwd['plain_max_abs_err_vs_f64']:.3g})")
     if kernel_times:
         line += (f"; {tags[0]} {fwd['ms']:.4f} ms (f32 I/O {fwd['f32_io_ms']:.4f}, bound "
-                 f"{b_ms:.4f} {b_by})")
+                 f"{b_ms:.4f} {b_by}")
+        if not bf16_ops:
+            line += f", f32-FMA bound {fwd['f32_fma_bound_ms']:.4f}"
+        line += (f"; kernel alone {fwd['kernel_ms']:.4f}, prologue "
+                 f"{res['fwd_fold']['ms']:.4f})")
     if bwd:
         rel = max(res["dq"]["max_rel_err"], res["dkv"]["max_rel_err"])
         norm = max(res["dq"]["norm_rel_err"], res["dkv"]["norm_rel_err"])
@@ -4367,10 +4461,15 @@ def fused_f64_of(x, params, lengths, heads: int, rounded: bool) -> torch.Tensor:
 
 def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed: bool,
                        prec: str, kernel_time: bool = True) -> dict:
-    """K4's (``prec`` "highest"), K4h's ("high") or K4b's ("default")
+    """K4-bf16 (``prec`` "highest") or K4h's ("high") or K4b's ("default")
     bf16-I/O flavour on a bf16 x at unit scale, zero past each bound, with
-    the f32 weights at the seeded init's scale: O bf16, bit-equal to the
-    f32-I/O flavour's on the upcast x rounded once; a 0-key row O = 0;
+    the f32 weights at the seeded init's scale: O bf16, K4h's and K4b's
+    bit-equal to the f32-I/O flavour's on the upcast x rounded once,
+    K4-bf16's (K4's products on the tensor cores, summed in another order)
+    within one bf16 step of K4's on the upcast x rounded once, beyond
+    FWD_F32_PLAIN_REL of its max |O|, the share of elements that differ
+    reported, and its prologue's three weight planes bit-equal to
+    ``pack_weights_ref(..., planes=3)``; a 0-key row O = 0;
     against the plain version on the same bf16 x and float64
     (``fused_f64_of``): |O - O_f64| <= 1.5 x the plain version's + 1.5
     bf16 steps at its max + 1e-6 (phase 13's rule for outputs rounded
@@ -4381,11 +4480,14 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     function in library calls: at "default" ``F.linear`` of x with the
     rounded weights and SDPA on bf16, at "highest" the f32 product of the
     upcast x with the f32 weights (TF32 off) and f32 SDPA, and at "high"
-    the same (no PyTorch call computes bf16 x 3)."""
+    the same (no PyTorch call computes bf16 x 3). At "highest" the bound
+    counts K4-bf16's passes on the bf16 tensor cores (3 for the
+    projections, 6 for each attention product); the f32-FMA bound of K4's
+    work beside it."""
     h, dm = 12, 768
     bf = torch.bfloat16
     bf16_ops = prec_ops.is_bf16(prec)
-    tag = {"highest": "K4", "high": "K4h", "default": "K4b"}[prec]
+    tag = {"highest": "K4-bf16", "high": "K4h", "default": "K4b"}[prec]
     x = torch.randn(b, t, dm, generator=g)
     params = [a.to(DEV) for _ in range(3) for a in (
         torch.randn(dm, dm, generator=g) / dm**0.5, 0.1 * torch.randn(dm, generator=g))]
@@ -4402,10 +4504,22 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
     o32 = kernel(x32)
     ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, h, prec)
     torch.cuda.synchronize()
-    checks = {"dtype": o.dtype == bf, "bit_equal_f32_flavour": torch.equal(o, o32.to(bf)),
-              "finite": bool(torch.isfinite(o).all()),
+    checks = {"dtype": o.dtype == bf, "finite": bool(torch.isfinite(o).all()),
               "zero_key_rows": all(bool((o[i] == 0).all()) for i, n in enumerate(lengths)
                                    if n == 0)}
+    near_info = None
+    if prec == "highest":  # K4-bf16: the tensor core's order, within one bf16 step
+        checks["within_one_bf16_step_of_f32_flavour"], near_info = near_one_step(
+            o, o32, FWD_F32_PLAIN_REL)
+        ws = fused_attention._bf16_workspace(x, h, planes=3)
+        alone = fused_attention._launch(prec, x, *params, lens, h, workspace=ws)
+        torch.cuda.synchronize()
+        checks["prologue_packs_three_planes"] = torch.equal(
+            ws[0], fused_attention.pack_weights_ref(*params[0::2], h, planes=3))
+        checks["workspace_call_same_bits"] = torch.equal(alone, o)
+        del ws, alone
+    else:  # one body on the same bits: the f32 flavour's, rounded once
+        checks["bit_equal_f32_flavour"] = torch.equal(o, o32.to(bf))
     del o32
     err = (o.float() - ref.float()).abs().max().item()
     err_f64 = err_plain_f64 = 0.0
@@ -4427,14 +4541,19 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
              f"max|O - O_f64| {err_f64:.3g} beyond 1.5 x the plain version's "
              f"{err_plain_f64:.3g} + 1.5 bf16 steps + 1e-6 by {excess:.3g}")
     del ref
-    if prec == "high":  # three bf16 passes, two for the projections of a bf16 x
-        b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS, x_bytes=2, passes=(2, 3))
-    else:
-        b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS if bf16_ops else F32_FLOPS,
-                                 x_bytes=2)
+    # the passes on the bf16 tensor cores: K4h three, two for the
+    # projections of a bf16 x; K4-bf16 three for the projections and six for
+    # each attention product
+    passes = {"high": (2, 3), "highest": (3, 6), "default": (1, 1)}[prec]
+    b_ms, b_by = fused_bound(b, t, h, dm, lens, BF16_FLOPS, x_bytes=2, passes=passes)
     res = {"shape": [b, t, dm], "heads": h, "lengths_sum": int(lens.sum()),
            "max_abs_err": err, "max_abs_err_vs_f64": err_f64,
            "plain_max_abs_err_vs_f64": err_plain_f64, "bound_ms": b_ms, "bound_by": b_by}
+    if prec == "highest":
+        res |= dict(zip(("f32_fma_bound_ms", "f32_fma_bound_by"),
+                        fused_bound(b, t, h, dm, lens, F32_FLOPS, x_bytes=2)))
+        res |= {"vs_f32_flavour": near_info,
+                "ratio_to_plain_vs_f64": err_f64 / max(err_plain_f64, 1e-30)}
     if kernel_time:
         x32c = x32.contiguous()
         res["ms"], res["f32_io_ms"] = time_pair_ms(kernel, lambda: kernel(x32c), 20)
@@ -4459,8 +4578,12 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
         res["plain_ms"] = time_ms(lambda: fused_attention.fused_qkv_attention_ref(
             x, *params, lens, h, prec), 5)
         res["library_ms"] = time_ms(library, 10)
-    print(f"  fused bf16 I/O {prec} [{b}, {t}, {dm}] keys {int(lens.sum())}: bf16(f32 flavour) "
-          f"bit-equal, garbage past the bound changes no valid row; {tag} O vs plain max|d| "
+    vs_f32 = ("bf16(f32 flavour) bit-equal" if near_info is None else
+              f"vs bf16(f32 flavour): share differing {near_info['share_differ']:.3g}, at most "
+              f"{near_info['max_steps']:.3g} bf16 steps, three weight planes bit-equal to "
+              f"pack_weights_ref, f32-FMA bound {res['f32_fma_bound_ms']:.4f}")
+    print(f"  fused bf16 I/O {prec} [{b}, {t}, {dm}] keys {int(lens.sum())}: {vs_f32}, "
+          f"garbage past the bound changes no valid row; {tag} O vs plain max|d| "
           f"{err:.3g}, vs f64 {err_f64:.3g} (plain {err_plain_f64:.3g}); {tag} "
           f"{res.get('ms', float('nan')):.4f} ms (f32 I/O {res.get('f32_io_ms', float('nan')):.4f})"
           f"  plain {res.get('plain_ms', float('nan')):.4f}  F.linear + sdpa "
@@ -4470,14 +4593,14 @@ def check_fused_bf16io(b: int, t: int, lengths: list, g: torch.Generator, timed:
 
 
 def check_bf16_paths_shapes() -> None:
-    """The six bf16-I/O flavours at their paths' shapes: K4, K4h and K4b at
-    the scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key row), the
-    loss crop [32, 50], a ragged [8, 1024] and every plan edge; K1 at [96,
-    511], [24, 499] (with K2-bf16 and K3-bf16: the loss on 10 s clips) and a
-    ragged [8, 4095] (with them, timed); K2-bf16 and K3-bf16 at the loss
-    crop [32, 50] too; K1, K2-bf16 and K3-bf16 untimed at every tile edge
-    and every edge of the 3-stage ring; each edge with a full, a ragged, a
-    1-key and a 0-key row."""
+    """The six bf16-I/O flavours at their paths' shapes: K4-bf16, K4h and
+    K4b at the scoring shape [96, 511] (lengths to 499, a 1-key and a 0-key
+    row), the loss crop [32, 50], a ragged [8, 1024] and every plan edge;
+    K1-bf16 at [96, 511], [24, 499] (with K2-bf16 and K3-bf16: the loss on
+    10 s clips) and a ragged [8, 4095] (with them, timed); K2-bf16 and
+    K3-bf16 at the loss crop [32, 50] too; K1-bf16, K2-bf16 and K3-bf16
+    untimed at every tile edge and every edge of the 4- and 3-stage rings;
+    each edge with a full, a ragged, a 1-key and a 0-key row."""
     g = torch.Generator().manual_seed(14)
     rng = np.random.default_rng(14)
 
@@ -4673,8 +4796,9 @@ def fused_fast_bf16_steps(card: str, cfg: dict, batch, init: dict) -> dict:
 
 
 def run_bf16_paths(card: str) -> None:
-    """Phase 14: the bf16-I/O flavours of K4, K4h, K4b, K1, K2 and K3 against
-    their f32-I/O flavour, their plain version and float64 at their shapes;
+    """Phase 14: K4-bf16, the bf16-I/O flavours of K4h and K4b, K1-bf16,
+    K2-bf16 and K3-bf16 against their f32-I/O flavour, their plain version
+    and float64 at their shapes;
     then on phase 12's and 13's seeded BASE state dicts the scoring path
     ``fast(encoder_dtype=bf16, attention_impl="fused_qkv")`` (the main
     path), "balanced" with ``fused_qkv`` and BASE on bf16 activations; the
@@ -4682,7 +4806,7 @@ def run_bf16_paths(card: str) -> None:
     trainer's fast_bf16 on the fused path."""
     report.setdefault("launches", {})
     t_phase = time.perf_counter()
-    print("bf16 paths: the bf16-I/O flavours of K4, K4h, K4b, K1, K2 and K3 vs their f32-I/O "
+    print("bf16 paths: K4-bf16, K4h-bf16, K4b-bf16, K1-bf16, K2-bf16 and K3-bf16 vs their f32 "
           "flavour and plain versions:", flush=True)
     check_bf16_paths_shapes()
     sd = SHARED.get("sd")
@@ -5534,13 +5658,13 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:222"),
         ("layernorm_fwd_bf16io", "nomad_tpu_torch/csrc/layernorm.cu",
          "nomad_tpu/ops/layernorm.py:31"),
-        ("fused_qkv_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention.cu",
+        ("fused_qkv_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("fused_qkv_attention_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
         ("fused_qkv_attention_high3_bf16io_fwd", "nomad_tpu_torch/csrc/fused_attention_bf16.cu",
          "nomad_tpu/ops/fused_attention.py:93"),
-        ("flash_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
+        ("flash_attention_f32_bf16io_fwd", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:37"),
         ("flash_attention_bwd_dq_f32_bf16io", "nomad_tpu_torch/csrc/flash_attention_bwd_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:182"),

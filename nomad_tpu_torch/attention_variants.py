@@ -1,7 +1,7 @@
 """Where the attention kernels spend their time on the card: diagnostic
 variants.
 
-    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k4h,k1,k1b,k23,k23b,k23io]
+    python -m nomad_tpu_torch.attention_variants [--kernels k4,k4b,k4h,k4io,k1,k1b,k1io,k23,k23b,k23io]
 
 Builds copies of ``csrc/fused_attention.cu``, ``csrc/fused_attention_bf16.cu``,
 ``csrc/flash_attention.cu``, ``csrc/flash_attention_bf16.cu``,
@@ -76,10 +76,24 @@ name; all by default):
   name only, in a checkout of that source: ``--kernels
   k1b,k1bmma_no_stage,k1bmma_stage_only,k1bmma_no_branch``): the staging
   skipped, the products and exp skipped, and exp2f of every element with
-  the mask a select.
+  the mask a select;
+* the "highest" forward on bf16 tensors, through the port's own wrappers
+  on bf16 inputs: ``k1io`` (``flash_attention.mha_flash`` at "highest" at
+  [96, 511], [24, 499], a ragged [8, 4095] and [32, 50]: K1-bf16 with its
+  prologue here, the f32-FMA K1 on bf16 I/O in a checkout from before it)
+  and ``k4io`` (``fused_attention.fused_qkv_mha`` at "highest" at the
+  fused shapes: K4-bf16 with its prologue here, the f32-FMA K4 on bf16
+  I/O before it), so ``--kernels k1io,k4io`` in both checkouts times the
+  two in turns; the call's time, its host time and each kernel's device
+  time (``fold``/``pack``: a prologue, ``kernel``); by name only,
+  ``k1iov_overlap_one_block``: K1-bf16 with the next tile's softmax
+  while P . V is in flight, built for 1 block an SM (the registers it
+  needs), and ``k4iov_phase1``, ``k4iov_phase2`` and
+  ``k4iov_phase2_no_copy``, K4-bf16's projections alone, its key loop
+  alone and that loop without its copies of the peers' key tiles.
 
-K4 and K1 are called through their C entries with ``bf16_io`` 0 (the f32
-flavours), K2 + K3 through theirs (f32 only). K4b goes through the port's own wrapper
+K4 and K1 are called through their C entries (the f32 flavours), K2 + K3
+through theirs (f32 only). K4b goes through the port's own wrapper
 (``fused_attention.fused_qkv_mha`` at "default", on f32 and on bf16 x)
 with the variant's library in place of the real one, so a checkout whose
 K4b takes other arguments (an older one, say, to time the parent's kernel
@@ -116,7 +130,7 @@ VARIANTS = {
     "k4_phase1_no_cluster": ("fused_attention.cu", [
         ("attend_keys(qs, len,", "attend_keys(qs, 0,"),
         ("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
-        ("if (max_active_clusters<IO>(cluster) == 0) return", "if (false) return")]),
+        ("if (max_active_clusters(cluster) == 0) return", "if (false) return")]),
     "k4b": ("fused_attention_bf16.cu", []),
     "k4b_phase1": ("fused_attention_bf16.cu", [
         ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;")]),
@@ -234,6 +248,29 @@ VARIANTS = {
          "      wgmma_wait<0>();\n"
          "      fence_regs(dpt);\n"
          "      issue_nn3(part, pp, sm.ring[j].b);\n")]),
+    # the "highest" forward on bf16 tensors through its wrappers; in a
+    # checkout from before K1-bf16/K4-bf16 they run the f32-FMA K1/K4 and
+    # these libraries go unused
+    "k1io": ("flash_attention_bf16.cu", []),
+    "k1iov_overlap_one_block": ("flash_attention_bf16.cu", [
+        ("constexpr int kMinBlocks3 = 2;", "constexpr int kMinBlocks3 = 1;"),
+        ("attention_wgmma.cuh", "static constexpr bool kSerial = SPasses == 1 && VPasses == 3;",
+         "static constexpr bool kSerial = false;")]),
+    "k4io": ("fused_attention_bf16.cu", []),
+    # K4-bf16's projections alone (the key loop over no key) and its key
+    # loop alone (no projection; the slots hold garbage)
+    "k4iov_phase1": ("fused_attention_bf16.cu", [
+        ("const int tiles = (len + kRows - 1) / kRows;", "const int tiles = 0;")]),
+    "k4iov_phase2": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {")]),
+    # ... and without its copies of the peers' key tiles past the first two
+    # (the sums are wrong), which prices them
+    "k4iov_phase2_no_copy": ("fused_attention_bf16.cu", [
+        ("if (split_rows) {", "if (false) {"),
+        ("} else if (rank == 0 || len > 0) {", "} else if (false) {"),
+        ("[&](int t) { if (t + 2 < tiles) copy(t + 2, sm.u.p2.kv[(t + 2) % 3]); },",
+         "[&](int) {},")]),
     "k23": ("flash_attention_bwd.cu", []),
     "k23_two_blocks": ("flash_attention_bwd.cu", [
         ("kMinBlocks = 3;", "kMinBlocks = 2;"),
@@ -248,7 +285,7 @@ VARIANTS = {
 }
 K1_SMEM = {"k1": flash_attention.FLASH_SMEM_BYTES, "k1_two_blocks": 113664}
 HEADERS = ("attention_tile.cuh", "attention_bwd_tile.cuh", "hopper.cuh", "attention_wgmma.cuh")
-GROUPS = ("k4", "k4b", "k4h", "k1", "k1b", "k23", "k23b", "k23io")  # --kernels: a variant's group is its name's first word
+GROUPS = ("k4", "k4b", "k4h", "k4io", "k1", "k1b", "k1io", "k23", "k23b", "k23io")  # --kernels: a variant's group is its name's first word
 
 
 def build(picked) -> dict:
@@ -332,10 +369,10 @@ def time_fused(libs, shapes, dev, stream, out) -> None:
         o = torch.empty(b, t, h, 64, device=dev)
         for name in [v for v in VARIANTS if v.split("_")[0] == "k4" and v in libs]:
             fn = libs[name].nomad_fused_qkv_attention_fwd
-            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 5 + [p]
+            fn.argtypes = [p] * 9 + [i] * 4 + [ll] * 3 + [ctypes.c_float] + [i] * 4 + [p]
             args = (x.data_ptr(), *(a.data_ptr() for a in params), lengths.data_ptr(),
                     o.data_ptr(), b, t, h, dm, *o.stride()[:3], 0.125, plan.cluster,
-                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, 0, stream)
+                    plan.rows_per_block, plan.tensors_per_block, plan.smem_bytes, stream)
             if fn(*args):
                 raise RuntimeError(f"{name} [{b}, {t}]: launch refused")
             out["ms"][f"{name} [{b}, {t}, {dm}]"] = time_ms(lambda: fn(*args))
@@ -347,6 +384,17 @@ def time_fused(libs, shapes, dev, stream, out) -> None:
                     with library("fused_attention_bf16", libs[name]):
                         out["ms"][key] = time_ms(lambda: fused_attention.fused_qkv_mha(
                             xi, *params, lengths, h, prec))
+        # "highest" on a bf16 x: K4-bf16 here, K4's bf16-I/O flavour before it
+        xb = x.to(torch.bfloat16)
+        for name in [v for v in VARIANTS if v.split("_")[0] in ("k4io", "k4iov") and v in libs]:
+            with library("fused_attention_bf16", libs[name]):
+                def call():
+                    return fused_attention.fused_qkv_mha(xb, *params, lengths, h, "highest")
+                key = f"{name} [{b}, {t}, {dm}] bf16_io 1"
+                out["ms"][key] = time_ms(call)
+                out["host_ms"][key] = host_ms(call, 20)
+                out["ms_by_kernel"][key] = profiled_parts(
+                    call, {"pack": ("pack_kernel",), "kernel": ("fused_qkv_fwd",)})
 
 
 def host_ms(fn, iters: int, rounds: int = 9) -> float:
@@ -424,10 +472,12 @@ def time_flash_bf16(libs, dev, out) -> None:
     """K1b's variants that were built (``k1b``, ``k1bmma_*``), in both I/O
     flavours, through the port's own wrapper (``flash_attention.mha_flash``
     at "default", so an older checkout's kernel runs as its wrapper calls
-    it) at the paths' shapes: the call's time (CUDA events, any prologue
+    it), and K1-bf16's (``k1io*``, at "highest" on bf16 tensors alone) at
+    the paths' shapes: the call's time (CUDA events, any prologue
     included), its host time and each kernel's device time under
     torch.profiler (``fold``: a prologue; ``kernel``: the attention)."""
-    names = [v for v in VARIANTS if v.split("_")[0] in ("k1b", "k1bmma", "k1bw") and v in libs]
+    names = [v for v in VARIANTS if v.split("_")[0] in ("k1b", "k1bmma", "k1bw", "k1io", "k1iov")
+             and v in libs]
     g = torch.Generator().manual_seed(3)
     rng = np.random.default_rng(3)
     h = 12
@@ -441,14 +491,18 @@ def time_flash_bf16(libs, dev, out) -> None:
         for io in (torch.float32, torch.bfloat16):
             qi, ki, vi = (x.to(io) for x in (q, k, v))
             for name in names:
+                # K1-bf16 ("highest"): bf16 tensors only (f32 ones run K1)
+                prec = "highest" if name.startswith("k1io") else "default"
+                if prec == "highest" and io == torch.float32:
+                    continue
                 with library("flash_attention_bf16", libs[name]):
                     def call():
-                        return flash_attention.mha_flash(qi, ki, vi, lengths, "default")
+                        return flash_attention.mha_flash(qi, ki, vi, lengths, prec)
                     key = f"{name} [{b}, {t}, {h}, 64] bf16_io {int(io == torch.bfloat16)}"
                     out["ms"][key] = time_ms(call, 10 if t > 1024 else 30)
                     out["host_ms"][key] = host_ms(call, 10 if t > 1024 else 50)
                     out["ms_by_kernel"][key] = profiled_parts(
-                        call, {"fold": ("fold",), "kernel": ("flash_fwd_bf16",)})
+                        call, {"fold": ("fold",), "kernel": ("flash_fwd",)})
 
 
 def main() -> None:
@@ -488,10 +542,10 @@ def main() -> None:
         o, lse = torch.empty(b, t, h, 64, device=dev), torch.empty(b, h, t, device=dev)
         for name in k1:
             fn = libs[name].nomad_flash_attention_fwd
-            fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, i, p]
+            fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 12 + [ctypes.c_float, i, p]
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
                     lse.data_ptr(), b, t, h, 64, *q.stride()[:3], *k.stride()[:3],
-                    *v.stride()[:3], *o.stride()[:3], 0.125, K1_SMEM[name], 0, stream)
+                    *v.stride()[:3], *o.stride()[:3], 0.125, K1_SMEM[name], stream)
             if fn(*args):
                 raise RuntimeError(f"{name}: launch refused")
             out["ms"][f"{name} [{b}, {t}, {h}, 64]"] = time_ms(lambda: fn(*args))

@@ -1,9 +1,7 @@
 // The key loop shared by K1 (flash_attention.cu) and K4
 // (fused_attention.cu): masked online-softmax attention of a tile of 64
 // query rows against the first `len` keys of one (batch, head), head width
-// 64, float32, on a block of 4 warps. The tile computes in f32 whatever
-// the kernels' I/O type: their bf16-I/O flavours widen bf16 inputs on the
-// way into shared memory (load4) and round each output once (store4).
+// 64, float32, on a block of 4 warps.
 //
 // A register-tiled SIMT attention tile. Each warp owns 16 query rows; each
 // thread owns 4 of them (rows w*16 + lane/8 + 4i) and, of every 32-key
@@ -25,7 +23,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace nomad {
@@ -72,28 +69,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four consecutive elements as floats: one 16-byte f32 load, or one 8-byte
-// bf16 load widened exactly.
+// Four consecutive elements: one 16-byte load.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 
-// Four consecutive outputs: as f32, or each rounded once to nearest-even
-// bf16 (8 bytes).
+// Four consecutive outputs: one 16-byte store.
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                                            *reinterpret_cast<const unsigned*>(&hi));
 }
 
 __device__ __forceinline__ float row_max8(float x) {
@@ -215,7 +198,7 @@ __device__ __forceinline__ void attend_keys(const float* __restrict__ qs, int le
 
 // Writes the 4 x 8 share of O (normalised by 1/l; 0 for a row with no
 // valid key) for the rows r < rows of the tile: row r goes to out(r), a
-// pointer to its 64 outputs (f32, 16-byte aligned, or bf16, 8-byte).
+// pointer to its 64 outputs (f32, 16-byte aligned).
 template <class Out>
 __device__ __forceinline__ void write_rows(const RowState& st, int rows, Out&& out) {
   const int c0 = tile_col0();

@@ -33,20 +33,11 @@
 //     attend over the valid keys like any row). A row with no valid key
 //     (lengths[b] == 0) gets O = 0 and LSE = -1e30.
 //
-// Two I/O flavours from one template: q, k, v and O in f32, or in bf16
-// (bf16 activations at a "highest" or "high" attention island, where the
-// TPU kernel reads bf16 blocks through astype(float32), :50, :67-68, and
-// stores O in q's dtype, :76, :101). The bf16 flavour widens q, k and v on
-// the way into the same f32 shared-memory tiles (8-byte loads; K and V by
-// plain loads and stores, since cp.async cannot convert) and rounds O once
-// from acc / l; LSE stays f32. The arithmetic is the f32 flavour's, so its
-// O is the f32 flavour's on the upcast inputs, rounded once, bit for bit.
+// f32 tensors only: bf16 ones at "highest" or "high" run K1-bf16
+// (flash_attention_bf16.cu, the same products on the tensor cores).
 // Launches on the caller's stream and allocates nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -66,11 +57,10 @@ struct Smem {
 constexpr int kSmemBytes = sizeof(Smem);
 constexpr int kMinBlocks = 3;  // per SM: 3 x 62,464 bytes of shared memory
 
-template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-flash_fwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
-                 const IO* __restrict__ v, const int* __restrict__ lengths,
-                 IO* __restrict__ o, float* __restrict__ lse, int T, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ lengths,
+                 float* __restrict__ o, float* __restrict__ lse, int T, int H,
                  long long sqb, long long sqt, long long sqh,
                  long long skb, long long skt, long long skh,
                  long long svb, long long svt, long long svh,
@@ -96,43 +86,19 @@ flash_fwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
     *reinterpret_cast<float4*>(&sm.q[r][4 * c]) = a;
   }
 
-  const IO* kb = k + b * skb + h * skh;
-  const IO* vb = v + b * svb + h * svh;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
   auto stage = [&](int j, float (*ks)[kLd], float (*vs)[kLd]) {
     constexpr int kPer = kBK * (kD / 4) / kThreads;
-    if constexpr (std::is_same_v<IO, float>) {
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int idx = tid + e * kThreads;
-        const int r = idx / (kD / 4);
-        const int c = idx % (kD / 4);
-        const int key = j * kBK + r;
-        const bool ok = key < len;
-        nomad::cp_async16(&ks[r][4 * c], ok ? kb + key * skt + 4 * c : kb, ok ? 16 : 0);
-        nomad::cp_async16(&vs[r][4 * c], ok ? vb + key * svt + 4 * c : vb, ok ? 16 : 0);
-      }
-    } else {  // widened on the way: every load in flight before the first store
-      float4 kx[kPer], vx[kPer];
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int idx = tid + e * kThreads;
-        const int r = idx / (kD / 4);
-        const int c = idx % (kD / 4);
-        const int key = j * kBK + r;
-        kx[e] = vx[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (key < len) {
-          kx[e] = nomad::load4(kb + key * skt + 4 * c);
-          vx[e] = nomad::load4(vb + key * svt + 4 * c);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int idx = tid + e * kThreads;
-        const int r = idx / (kD / 4);
-        const int c = idx % (kD / 4);
-        *reinterpret_cast<float4*>(&ks[r][4 * c]) = kx[e];
-        *reinterpret_cast<float4*>(&vs[r][4 * c]) = vx[e];
-      }
+    for (int e = 0; e < kPer; ++e) {
+      const int idx = tid + e * kThreads;
+      const int r = idx / (kD / 4);
+      const int c = idx % (kD / 4);
+      const int key = j * kBK + r;
+      const bool ok = key < len;
+      nomad::cp_async16(&ks[r][4 * c], ok ? kb + key * skt + 4 * c : kb, ok ? 16 : 0);
+      nomad::cp_async16(&vs[r][4 * c], ok ? vb + key * svt + 4 * c : vb, ok ? 16 : 0);
     }
   };
   nomad::RowState st;
@@ -154,19 +120,14 @@ flash_fwd_kernel(const IO* __restrict__ q, const IO* __restrict__ k,
 cudaError_t configure() {  // dynamic shared memory above 48 KB, once
   static bool done = false;
   if (!done) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(flash_fwd_kernel<__nv_bfloat16>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    }
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return err;
     done = true;
   }
   return cudaSuccess;
 }
 
-template <typename IO>
 void launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
             void* lse, int B, int T, int H,
             long long sqb, long long sqt, long long sqh,
@@ -174,17 +135,17 @@ void launch(const void* q, const void* k, const void* v, const void* lengths, vo
             long long svb, long long svt, long long svh,
             long long sob, long long sot, long long soh, float scale, cudaStream_t stream) {
   const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<IO><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const IO*>(q), static_cast<const IO*>(k), static_cast<const IO*>(v),
-      static_cast<const int*>(lengths), static_cast<IO*>(o), static_cast<float*>(lse), T, H,
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(lengths), static_cast<float*>(o), static_cast<float*>(lse), T, H,
       sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale);
 }
 
 }  // namespace
 
-// q, k, v, o: [B, T, H, 64] with unit stride on the last axis, f32
-// (bf16_io = 0; the other strides, in elements, multiples of 4) or bf16
-// (bf16_io = 1; multiples of 8), 16-byte aligned; lengths: int32 [B]; lse:
+// q, k, v, o: f32 [B, T, H, 64] with unit stride on the last axis (the
+// other strides, in elements, multiples of 4), 16-byte aligned; lengths:
+// int32 [B]; lse:
 // f32 [B, H, T] contiguous. smem_bytes: the wrapper's plan
 // (ops/flash_attention.py::flash_launch_plan), checked against the
 // kernel's. Returns cudaGetLastError().
@@ -194,8 +155,7 @@ extern "C" int nomad_flash_attention_fwd(
     long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh,
-    long long sob, long long sot, long long soh, float scale, int smem_bytes, int bf16_io,
-    void* stream) {
+    long long sob, long long sot, long long soh, float scale, int smem_bytes, void* stream) {
   if (D != kD || B < 0 || T < 0 || H < 0 || B > 65535 || H > 65535 ||
       smem_bytes != kSmemBytes) {
     return cudaErrorInvalidValue;
@@ -203,25 +163,17 @@ extern "C" int nomad_flash_attention_fwd(
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   const cudaError_t err = configure();
   if (err != cudaSuccess) return err;
-  auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
-  run(q, k, v, lengths, o, lse, B, T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
-      sob, sot, soh, scale, static_cast<cudaStream_t>(stream));
+  launch(q, k, v, lengths, o, lse, B, T, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot,
+         soh, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks of K1 per SM at its shared memory (0 if it cannot run),
-// of its f32 (bf16_io = 0) or bf16 (1) I/O flavour.
-extern "C" int nomad_flash_attention_fwd_occupancy(int bf16_io, int* blocks_per_sm) {
-  cudaError_t err = configure();
+// Resident blocks of K1 per SM at its shared memory (0 if it cannot run).
+extern "C" int nomad_flash_attention_fwd_occupancy(int* blocks_per_sm) {
+  const cudaError_t err = configure();
   if (err != cudaSuccess) return err;
-  if (bf16_io) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_fwd_kernel<__nv_bfloat16>, kThreads, kSmemBytes);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_fwd_kernel<float>,
-                                                        kThreads, kSmemBytes);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_fwd_kernel, kThreads, kSmemBytes));
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

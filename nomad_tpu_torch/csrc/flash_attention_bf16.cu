@@ -1,6 +1,8 @@
-// Masked multi-head attention forward, single-pass bf16 products with f32
-// accumulation and an f32 softmax, head width 64 (kernel K1b), fed by a
-// prologue kernel that folds K and V to bf16 once per call.
+// Masked multi-head attention forward on the tensor cores, head width 64:
+// kernel K1b, single-pass bf16 products with f32 accumulation and an f32
+// softmax, and from the same template K1-bf16, the f32-exact flavour on
+// bf16 tensors; both fed by a prologue kernel that folds K and V to bf16
+// once per call.
 //
 // Replaces nomad_tpu/ops/flash_attention.py::_flash_kernel at its own
 // default precision (jax.lax.Precision.DEFAULT, :55-61), the flavour that
@@ -61,6 +63,28 @@
 //     with no valid key (lengths[b] == 0) gets O = 0 and LSE = -1e30. No
 //     atomics: a rerun gives the same bits. A wait on an mbarrier that
 //     outlasts ~2 s traps instead of holding the card.
+//
+// K1-bf16 (VPasses = 3) replaces the same TPU kernel at HIGHEST on bf16
+// blocks (:50, :67-68 read them through astype(float32); :55-61 multiply
+// at HIGHEST; O in q's dtype, :76, :101), the flavour that bf16
+// activations at a "highest" or "high" attention island run: every
+// product of the f32 algorithm on the upcast inputs, in f32, O rounded
+// once to bf16 at the end. A product of two bf16 values is exact in f32,
+// so S = bf16(q) / 8 . bf16(k) is K1b's one pass (q / 8 is exact): only
+// the order of its f32 sum differs from the f32 flavour's. P stays f32:
+// each tile's p is scaled by 2^16 (exact) and split in registers into
+// three bf16 planes (hopper.cuh::split3_bf16, whose sum is the scaled p
+// exactly), and P . V is three passes against the bf16 V tile into a
+// zeroed accumulator of the tile's own, added to O's in f32 once they
+// complete (attention_wgmma.cuh, AttnPasses<1, 3>); l is the sum of the
+// unrounded p, LSE stays f32 and O = acc / 2^16 / l is rounded once. The
+// prologue, the ring and the bounds are K1b's; the planes and the tile's
+// accumulator take registers, so it runs 2 blocks an SM (K1b: 3), and the
+// next tile's scores and softmax wait for the tile's P . V (K1b overlaps
+// them): together they outgrew the 168 registers a thread of 2 blocks an
+// SM may have, and the other block keeps the tensor cores busy meanwhile.
+// bf16 I/O only: the f32 flavour of "highest" stays K1 (flash_attention.cu,
+// f32 FMA).
 // Launches on the caller's stream and allocates nothing: the caller hands
 // in the fold's buffer.
 
@@ -85,6 +109,7 @@ constexpr int kConsumers = 4;                    // warps of the consumer warpgr
 constexpr int kThreads = 32 * (kConsumers + 1);  // and one producer warp
 constexpr int kStages = 4;                       // the ring
 constexpr int kMinBlocks = 3;                    // per SM (__launch_bounds__): <= 136 registers
+constexpr int kMinBlocks3 = 2;                   // K1-bf16: <= 168 registers
 constexpr int kTile = kRows * kD;                // bf16 values of a tile
 constexpr uint32_t kTileBytes = kTile * 2;       // 8 KB
 constexpr int kFoldThreads = 256;
@@ -125,12 +150,15 @@ flash_fwd_fold_bf16_kernel(const IO* __restrict__ k, const IO* __restrict__ v,
 
 // ---- the kernel ----
 
-template <typename IO>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <typename IO, int VPasses>
+__global__ void __launch_bounds__(kThreads, VPasses == 1 ? kMinBlocks : kMinBlocks3)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm, const IO* __restrict__ q,
                       const int* __restrict__ lengths, IO* __restrict__ o,
                       float* __restrict__ lse, int T, int T64, long long sqb, long long sqt,
                       long long sqh, long long sob, long long sot, long long soh, float scale) {
+  static_assert(VPasses == 1 || (VPasses == 3 && std::is_same_v<IO, __nv_bfloat16>),
+                "one bf16 pass, or three planes of P on bf16 I/O");
+  using P = AttnPasses<1, VPasses>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (((base + 1023) & ~1023u) - base));
@@ -205,10 +233,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm, const IO* __restri
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float m[2] = {kAttnNegInf, kAttnNegInf};
   float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-  attend_tiles(
-      acc, m, l, sw128_desc(smem_u32(sm.q)), tiles, len,
-      [&](int t) -> const KeyTile& { return sm.ring[t % kStages]; },
-      [&](int t) { mbar_wait(&sm.full[t % kStages], (t / kStages) & 1); }, [](int) {},
+  const uint64_t dq[3] = {sw128_desc(smem_u32(sm.q)), 0, 0};
+  attend_tiles<1, VPasses>(
+      acc, m, l, dq, tiles, len, [&](int t) -> const KeyTile& { return sm.ring[t % kStages]; },
+      [&](int t) { mbar_wait(&sm.full[t % kStages], (t / kStages) & 1); }, NoHook(), NoHook(),
       [&](int t) {  // a stage the producer refills: one arrival a warp
         if (t + kStages < tiles && lane == 0) mbar_arrive(&sm.empty[t % kStages]);
       });
@@ -225,7 +253,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm, const IO* __restri
     IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float a = acc[4 * j + 2 * i] * inv, bb = acc[4 * j + 2 * i + 1] * inv;
+      float a = acc[4 * j + 2 * i], bb = acc[4 * j + 2 * i + 1];
+      if constexpr (P::kPlanes3) {  // the planes' scale, exactly
+        a *= P::kOScale;
+        bb *= P::kOScale;
+      }
+      a *= inv;
+      bb *= inv;
       if constexpr (std::is_same_v<IO, float>) {
         *reinterpret_cast<float2*>(orow + 8 * j + 2 * c) = make_float2(a, bb);
       } else {
@@ -264,10 +298,14 @@ cudaError_t check_plan(int rows_per_block, int threads, int smem_bytes, int stag
 cudaError_t configure() {
   static bool done = false;
   if (!done) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<float>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<float, 1>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<__nv_bfloat16>,
+      err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<__nv_bfloat16, 1>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<__nv_bfloat16, 3>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     }
     if (err != cudaSuccess) return err;
@@ -296,21 +334,38 @@ void launch_fold(const void* k, const void* v, const void* lengths, void* fold, 
       padded(T));
 }
 
-template <typename IO>
+template <typename IO, int VPasses>
 void launch_kernel(const CUtensorMap& tm, const void* q, const void* lengths, void* o, void* lse,
                    int B, int T, int H, const long long (&st)[6], float scale,
                    cudaStream_t stream) {
   const dim3 grid(padded(T) / kRows, H, B);
-  flash_fwd_bf16_kernel<IO><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_bf16_kernel<IO, VPasses><<<grid, kThreads, kSmemBytes, stream>>>(
       tm, static_cast<const IO*>(q), static_cast<const int*>(lengths), static_cast<IO*>(o),
       static_cast<float*>(lse), T, padded(T), st[0], st[1], st[2], st[3], st[4], st[5], scale);
 }
 
-// what the kernel's entries check: the arguments and the caller's plan
+// what the kernel's entries check: the arguments, the caller's plan and
+// its flavour (passes 1: K1b, f32 or bf16 I/O; 3: K1-bf16, bf16 I/O only)
 cudaError_t check_call(int B, int T, int H, int D, int rows_per_block, int threads,
-                       int smem_bytes, int stages) {
+                       int smem_bytes, int stages, int passes, int bf16_io) {
+  if (!(passes == 1 || (passes == 3 && bf16_io))) return cudaErrorInvalidValue;
   const cudaError_t err = check_args(B, T, H, D);
   return err == cudaSuccess ? check_plan(rows_per_block, threads, smem_bytes, stages) : err;
+}
+
+template <typename IO, int VPasses>
+cudaError_t occupancy_of(int* blocks_per_sm) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_fwd_bf16_kernel<IO, VPasses>, kThreads, kSmemBytes);
+}
+
+using KernelLaunch = void (*)(const CUtensorMap&, const void*, const void*, void*, void*, int,
+                              int, int, const long long (&)[6], float, cudaStream_t);
+
+// the kernel of a flavour that check_call accepted
+KernelLaunch kernel_launch(int passes, int bf16_io) {
+  if (passes == 3) return launch_kernel<__nv_bfloat16, 3>;
+  return bf16_io ? launch_kernel<__nv_bfloat16, 1> : launch_kernel<float, 1>;
 }
 
 }  // namespace
@@ -339,20 +394,22 @@ extern "C" int nomad_flash_attention_bf16_fwd_fold(const void* k, const void* v,
 // the other strides even, 8-byte aligned); lse: f32 [B, H, T] contiguous.
 // The launch plan (ops/flash_attention.py::flash_bf16_launch_plan): rows
 // per block, threads, dynamic shared memory and the ring's stages,
-// checked against the kernel's own. Returns cudaGetLastError().
+// checked against the kernel's own. passes: 1, K1b; 3, K1-bf16 (the
+// three planes of P; bf16 I/O only). Returns cudaGetLastError().
 extern "C" int nomad_flash_attention_bf16_fwd_kernel(
     const void* q, const void* fold, const void* lengths, void* o, void* lse, int B, int T, int H,
     int D, long long sqb, long long sqt, long long sqh, long long sob, long long sot,
     long long soh, int rows_per_block, int threads, int smem_bytes, int stages, float scale,
-    int bf16_io, void* stream) {
-  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes, stages);
+    int bf16_io, int passes, void* stream) {
+  cudaError_t err =
+      check_call(B, T, H, D, rows_per_block, threads, smem_bytes, stages, passes, bf16_io);
   if (err != cudaSuccess || B == 0 || T == 0 || H == 0) return err;
   CUtensorMap tm;
   err = prepare(&tm, fold, B, T, H);
   if (err != cudaSuccess) return err;
   const long long st[6] = {sqb, sqt, sqh, sob, sot, soh};
-  auto run = bf16_io ? launch_kernel<__nv_bfloat16> : launch_kernel<float>;
-  run(tm, q, lengths, o, lse, B, T, H, st, scale, static_cast<cudaStream_t>(stream));
+  kernel_launch(passes, bf16_io)(tm, q, lengths, o, lse, B, T, H, st, scale,
+                                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,8 +421,9 @@ extern "C" int nomad_flash_attention_bf16_fwd(
     void* lse, int B, int T, int H, int D, long long sqb, long long sqt, long long sqh,
     long long skb, long long skt, long long skh, long long svb, long long svt, long long svh,
     long long sob, long long sot, long long soh, int rows_per_block, int threads, int smem_bytes,
-    int stages, float scale, int bf16_io, void* stream) {
-  cudaError_t err = check_call(B, T, H, D, rows_per_block, threads, smem_bytes, stages);
+    int stages, float scale, int bf16_io, int passes, void* stream) {
+  cudaError_t err =
+      check_call(B, T, H, D, rows_per_block, threads, smem_bytes, stages, passes, bf16_io);
   if (err != cudaSuccess || B == 0 || T == 0 || H == 0) return err;
   CUtensorMap tm;
   err = prepare(&tm, fold, B, T, H);
@@ -377,22 +435,22 @@ extern "C" int nomad_flash_attention_bf16_fwd(
   fold_run(k, v, lengths, fold, B, T, H, kv, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto run = bf16_io ? launch_kernel<__nv_bfloat16> : launch_kernel<float>;
-  run(tm, q, lengths, o, lse, B, T, H, qo, scale, s);
+  kernel_launch(passes, bf16_io)(tm, q, lengths, o, lse, B, T, H, qo, scale, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks of K1b per SM (0 if it cannot run), of its f32 (bf16_io =
-// 0) or bf16 (1) I/O flavour, at its dynamic shared memory.
-extern "C" int nomad_flash_attention_bf16_fwd_occupancy(int bf16_io, int* blocks_per_sm) {
+// Resident blocks per SM (0 if it cannot run) at the dynamic shared memory
+// of K1b (passes = 1) in its f32 (bf16_io = 0) or bf16 (1) I/O flavour, or
+// of K1-bf16 (passes = 3, bf16_io = 1).
+extern "C" int nomad_flash_attention_bf16_fwd_occupancy(int bf16_io, int passes,
+                                                        int* blocks_per_sm) {
+  if (!(passes == 1 || (passes == 3 && bf16_io))) return cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bf16_io) {
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, flash_fwd_bf16_kernel<__nv_bfloat16>, kThreads, kSmemBytes));
-  }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_fwd_bf16_kernel<float>, kThreads, kSmemBytes));
+  auto run = passes == 3 ? occupancy_of<__nv_bfloat16, 3>
+             : bf16_io   ? occupancy_of<__nv_bfloat16, 1>
+                         : occupancy_of<float, 1>;
+  return static_cast<int>(run(blocks_per_sm));
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -53,23 +53,12 @@
 //     softmax, so garbage in padded rows of x changes no valid row. No
 //     atomics: the results are deterministic.
 //
-// Two I/O flavours from one template: x and O in f32, or in bf16 (bf16
-// activations at a "highest" or "high" island, where the TPU kernel reads
-// the bf16 x block through astype(float32), :111, :118, and stores O in
-// x's dtype, :131). The weights and biases stay f32 in both, as the JAX
-// package hands the kernel the raw f32 parameters. The bf16 flavour copies
-// x's slices as bf16 by cp.async (half the bytes) and widens each element
-// exactly where phase 1 reads it; the projections, K and V stay f32 and
-// phase 2 is unchanged; O is rounded once from acc / l. The arithmetic is
-// the f32 flavour's, so its O is the f32 flavour's on the upcast x,
-// rounded once, bit for bit.
+// An f32 x only: a bf16 x at "highest" runs K4-bf16
+// (fused_attention_bf16.cu, the same products on the tensor cores).
 // Launches on the caller's stream and allocates nothing.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -108,12 +97,11 @@ struct Smem {
 constexpr int kSmemBytes = sizeof(Smem);
 static_assert(kRows == kBQ, "a chunk is one query tile");
 
-// Rows r0 .. r0+63 of xb ([T, DM], row-major, f32 or bf16) times the 64
-// head rows of each of the NT weights w[n] ([DM_out, DM]), plus bias[n],
-// times sc[n], into slot[n]. Rows past T read as 0. A bf16 x slice lands in
-// the first half of each staged row's bytes. Every thread calls it alike.
-template <int NT, typename XT>
-__device__ __forceinline__ void project(const XT* __restrict__ xb,
+// Rows r0 .. r0+63 of xb ([T, DM], row-major) times the 64 head rows of
+// each of the NT weights w[n] ([DM_out, DM]), plus bias[n], times sc[n],
+// into slot[n]. Rows past T read as 0. Every thread calls it alike.
+template <int NT>
+__device__ __forceinline__ void project(const float* __restrict__ xb,
                                         const float* const (&w)[NT],
                                         const float* const (&bias)[NT], const float (&sc)[NT],
                                         int r0, int T, int DM, int h, ProjSmem& ps,
@@ -132,16 +120,15 @@ __device__ __forceinline__ void project(const XT* __restrict__ xb,
 #pragma unroll
     for (int n = 0; n < NT * 4; ++n) acc[i][n] = 0.f;
   }
-  constexpr int kXVec = 16 / sizeof(XT);  // x elements per 16-byte copy
   auto issue = [&](int k0, int buf) {
 #pragma unroll
-    for (int e = 0; e < kRows * (kS / kXVec) / kThreads; ++e) {
+    for (int e = 0; e < kRows * (kS / 4) / kThreads; ++e) {
       const int idx = tid + e * kThreads;
-      const int row = idx / (kS / kXVec);
-      const int c = idx % (kS / kXVec);
+      const int row = idx / (kS / 4);
+      const int c = idx % (kS / 4);
       const bool ok = r0 + row < T;
-      nomad::cp_async16(reinterpret_cast<XT*>(xs_at(buf)[row]) + kXVec * c,
-                        ok ? xb + static_cast<long long>(r0 + row) * DM + k0 + kXVec * c : xb,
+      nomad::cp_async16(&xs_at(buf)[row][4 * c],
+                        ok ? xb + static_cast<long long>(r0 + row) * DM + k0 + 4 * c : xb,
                         ok ? 16 : 0);
     }
 #pragma unroll
@@ -174,7 +161,7 @@ __device__ __forceinline__ void project(const XT* __restrict__ xb,
       float4 a[8];
       float4 bw[NT * 4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = nomad::load4(reinterpret_cast<const XT*>(xs[ty + 8 * i]) + kk);
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(&xs[ty + 8 * i][kk]);
 #pragma unroll
       for (int n = 0; n < NT * 4; ++n) {
         bw[n] = *reinterpret_cast<const float4*>(&ws[(n / 4) * kD + tx + 16 * (n % 4)][kk]);
@@ -202,13 +189,12 @@ __device__ __forceinline__ void project(const XT* __restrict__ xb,
   }
 }
 
-template <typename IO>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_qkv_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ wq,
+fused_qkv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wq,
                      const float* __restrict__ bq, const float* __restrict__ wk,
                      const float* __restrict__ bk, const float* __restrict__ wv,
                      const float* __restrict__ bv, const int* __restrict__ lengths,
-                     IO* __restrict__ o, int T, int DM, int tensors,
+                     float* __restrict__ o, int T, int DM, int tensors,
                      long long sob, long long sot, long long soh, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -220,7 +206,7 @@ fused_qkv_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ wq,
   const int len = min(max(lengths[b], 0), T);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const IO* xb = x + static_cast<long long>(b) * T * DM;
+  const float* xb = x + static_cast<long long>(b) * T * DM;
   const bool split_rows = tensors == 3;
 
   // phase 1: this block's projections into its own shared memory
@@ -294,22 +280,15 @@ fused_qkv_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ wq,
   cluster.sync();  // peers have finished reading this block's slots
 }
 
-template <typename IO>
-cudaError_t configure_kernel() {
-  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_kernel<IO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_qkv_fwd_kernel<IO>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return err;
-}
-
 cudaError_t configure(int cluster) {
   static bool done = false;
   if (!done) {
-    cudaError_t err = configure_kernel<float>();
-    if (err == cudaSuccess) err = configure_kernel<__nv_bfloat16>();
+    cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(fused_qkv_fwd_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
     if (err != cudaSuccess) return err;
     done = true;
   }
@@ -332,43 +311,40 @@ cudaLaunchConfig_t launch_config(int cluster, int H, int B, cudaStream_t stream,
   return cfg;
 }
 
-// Clusters of `cluster` blocks of one flavour that fit on the card at once
-// (cached; 0 means the launch cannot run).
-template <typename IO>
+// Clusters of `cluster` blocks that fit on the card at once (cached; 0
+// means the launch cannot run).
 int max_active_clusters(int cluster) {
   static int cache[kMaxCluster + 1] = {};
   if (cache[cluster] == 0) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = launch_config(cluster, 1, 1, nullptr, &attr);
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_kernel<IO>, &cfg) != cudaSuccess) n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, fused_qkv_fwd_kernel, &cfg) != cudaSuccess) n = 0;
     cache[cluster] = n > 0 ? n : -1;
   }
   return cache[cluster] > 0 ? cache[cluster] : 0;
 }
 
-template <typename IO>
 cudaError_t launch(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
                    const void* wv, const void* bv, const void* lengths, void* o, int B, int T,
                    int H, int DM, long long sob, long long sot, long long soh, float scale,
                    int cluster, int tensors, cudaStream_t stream) {
-  if (max_active_clusters<IO>(cluster) == 0) return cudaErrorInvalidConfiguration;
+  if (max_active_clusters(cluster) == 0) return cudaErrorInvalidConfiguration;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(cluster, H, B, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_kernel<IO>, static_cast<const IO*>(x),
+  return cudaLaunchKernelEx(&cfg, fused_qkv_fwd_kernel, static_cast<const float*>(x),
                             static_cast<const float*>(wq), static_cast<const float*>(bq),
                             static_cast<const float*>(wk), static_cast<const float*>(bk),
                             static_cast<const float*>(wv), static_cast<const float*>(bv),
-                            static_cast<const int*>(lengths), static_cast<IO*>(o), T, DM,
+                            static_cast<const int*>(lengths), static_cast<float*>(o), T, DM,
                             tensors, sob, sot, soh, scale);
 }
 
 }  // namespace
 
-// x: [B, T, DM] contiguous, DM = H * 64, f32 (bf16_io = 0) or bf16
-// (bf16_io = 1); wq, wk, wv: [DM, DM] f32 contiguous (nn.Linear's [out,
-// in]); bq, bk, bv: [DM] f32; lengths: int32 [B]; o: [B, T, H, 64] in x's
-// type, addressed through its strides (in elements; unit stride on the
+// x: f32 [B, T, DM] contiguous, DM = H * 64; wq, wk, wv: [DM, DM] f32
+// contiguous (nn.Linear's [out, in]); bq, bk, bv: [DM] f32; lengths: int32
+// [B]; o: f32 [B, T, H, 64], addressed through its strides (in elements; unit stride on the
 // last axis, the others whole 16-byte words, 16-byte aligned). T <= 1024.
 // The launch plan (ops/fused_attention.py::fused_launch_plan): cluster
 // blocks per (batch, head) along grid x, rows per block, tensors per block
@@ -380,7 +356,7 @@ extern "C" int nomad_fused_qkv_attention_fwd(
     const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
     const void* wv, const void* bv, const void* lengths, void* o, int B, int T, int H, int DM,
     long long sob, long long sot, long long soh, float scale, int cluster, int rows,
-    int tensors, int smem_bytes, int bf16_io, void* stream) {
+    int tensors, int smem_bytes, void* stream) {
   if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
   }
@@ -393,28 +369,21 @@ extern "C" int nomad_fused_qkv_attention_fwd(
   }
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
-  auto run = bf16_io ? launch<__nv_bfloat16> : launch<float>;
-  err = run(x, wq, bq, wk, bk, wv, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
+  err = launch(x, wq, bq, wk, bk, wv, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
             tensors, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
-// Occupancy of K4 (its f32, bf16_io = 0, or bf16 I/O flavour) at a cluster
-// size: resident blocks per SM and clusters on the card at once.
-extern "C" int nomad_fused_qkv_attention_fwd_occupancy(int cluster, int bf16_io,
-                                                       int* blocks_per_sm, int* clusters) {
+// Occupancy of K4 at a cluster size: resident blocks per SM and clusters
+// on the card at once.
+extern "C" int nomad_fused_qkv_attention_fwd_occupancy(int cluster, int* blocks_per_sm,
+                                                       int* clusters) {
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
-  if (bf16_io) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fused_qkv_fwd_kernel<__nv_bfloat16>, kThreads, kSmemBytes);
-    *clusters = max_active_clusters<__nv_bfloat16>(cluster);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_qkv_fwd_kernel<float>,
-                                                        kThreads, kSmemBytes);
-    *clusters = max_active_clusters<float>(cluster);
-  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_qkv_fwd_kernel,
+                                                      kThreads, kSmemBytes);
+  *clusters = max_active_clusters(cluster);
   return static_cast<int>(err);
 }
 

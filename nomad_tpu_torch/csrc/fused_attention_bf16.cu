@@ -1,11 +1,12 @@
 // Projection-fused masked multi-head attention on the bf16 tensor cores,
 // f32 accumulation and softmax, head width 64: kernel K4b, one bf16 pass
-// per product, and kernel K4h, three bf16 passes per product ("high3").
+// per product, kernel K4h, three bf16 passes per product ("high3"), and
+// kernel K4-bf16, the f32-exact products on a bf16 x ("highest").
 //
 // Replaces nomad_tpu/ops/fused_attention.py::_fused_kernel in
-// mode="default" (K4b) and mode="high3" (K4h) (_dot, :65-90; launched by
-// _fused_call at :148). K4 (fused_attention.cu) is its f32 flavour
-// ("highest").
+// mode="default" (K4b), mode="high3" (K4h) and mode="highest" on a bf16 x
+// (K4-bf16) (_dot, :65-90; launched by _fused_call at :148). K4
+// (fused_attention.cu) is its f32 flavour ("highest" on an f32 x).
 //   * K4b, the flavour that fused_qkv runs at a "default" encoder island
 //     (the "fast" recipe): for each (batch b, head h), K_h = bf16(x) .
 //     bf16(Wk_h) + bk and V_h likewise, q = (bf16(x) . bf16(Wq_h) + bq) /
@@ -117,12 +118,34 @@
 //     mbarrier that outlasts ~2 s traps, so that a lost copy fails the
 //     launch instead of holding the card.
 //
-// K4b and K4h are one body templated on the pass count (1 or 3), and each
-// has two I/O flavours from the template on O's type: x and O in f32 (x
-// rounded, or split, by the prologue), or in bf16 (bf16 activations with
-// fused_qkv, where the TPU kernel reads the bf16 x block through
-// astype(float32), :111, :118, and stores O in x's dtype, :131). The
-// weights and biases are f32 in both; O is rounded once from acc / l.
+// K4-bf16 (Passes = 6), the TPU kernel at "highest" on a bf16 x (bf16
+// activations at a "highest" island with fused_qkv; the TPU kernel reads
+// the bf16 x block through astype(float32), :111, :118, multiplies at
+// HIGHEST and stores O in x's dtype, :131): every product of the f32
+// algorithm on the upcast x, O rounded once. Its prologue splits the f32
+// weights times 2^16 (exact) into three bf16 planes (hopper.cuh::
+// split3_bf16: hi + mid + lo is the scaled weight exactly), [3, H, 192,
+// DM]; x is bf16, so each projection is three exact passes, x . W_lo +
+// x . W_mid + x . W_hi, each ring stage's passes summed apart and added in
+// f32 (K4h's rule), then scaled back, the bias added in f32 and Q scaled
+// by 1/8. The epilogue splits Q, K and V times 2^16 into three planes each
+// (K and V past the bound 0 in every plane). The key loop takes S in the
+// six passes of XLA's bf16 x 6 decomposition of HIGHEST (the terms it
+// drops are under 2^-24 relative) and P, split in registers into three
+// planes, times V in the same six (attention_wgmma.cuh, AttnPasses<6, 6>),
+// each tile's P . V summed apart. Its budget: a 64-wide stage of x and
+// three weight planes is 80 KB, so the ring holds 2 stages; phase 2's Q, K,
+// V and three key tiles in three planes are 216 KB (222,240 bytes with the
+// barriers and the alignment), 1 block an SM; a key tile of 48 KB would
+// take 96 registers a thread to hold, so it is copied from the peer in
+// pieces while the products of the tile two before are in flight.
+//
+// K4b, K4h and K4-bf16 are one body templated on the pass count (1, 3 or
+// 6), and K4b and K4h have two I/O flavours from the template on O's type:
+// x and O in f32 (x rounded, or split, by the prologue), or in bf16 (bf16
+// activations with fused_qkv, where the TPU kernel reads the bf16 x block
+// through astype(float32), :111, :118, and stores O in x's dtype, :131).
+// The weights and biases are f32 in all; O is rounded once from acc / l.
 // Launches on the caller's stream and allocates nothing: the caller hands
 // in the packed weights' and the rounded x's buffers.
 
@@ -149,29 +172,39 @@ constexpr int kConsumers = 4;           // warps of the consumer warpgroup
 constexpr int kThreads = 32 * (kConsumers + 1);  // and one producer warp
 constexpr int kRows = 64;               // rows of a chunk = query rows of a block = keys of a tile
 constexpr int kK = 64;                  // model-axis values per stage: one 128-byte swizzle row
-constexpr int kStages = 3;              // the ring
 constexpr int kBox = 8;                 // rows of a swizzle atom (1,024 bytes): the least TMA box
 constexpr int kHeadRows = 3 * kD;       // packed weight rows per head
 constexpr int kMaxT = 1024;
 constexpr int kMaxCluster = kMaxT / kRows;  // 16: past the portable 8
+constexpr float kSplitScale = AttnPasses<6, 6>::kSplitScale;  // K4-bf16's planes: 2^16
+
+template <int XPlanes, int WPlanes>
+struct Stage {
+  __nv_bfloat16 x[XPlanes][kRows * kK];      // 8 KB a plane: the chunk's x rows
+  __nv_bfloat16 w[WPlanes][kHeadRows * kK];  // 24 KB a plane: the head's weight rows (or
+                                             // one tensor's 64)
+};
 
 // K4b (Passes = 1): one bf16 plane of every operand, 2 blocks an SM. K4h
 // (Passes = 3): a hi and a lo plane, 1 block an SM (two of its 197,680
-// bytes do not fit the SM's 228 KB).
+// bytes do not fit the SM's 228 KB). K4-bf16 (Passes = 6): the weights and
+// Q, K, V in three planes, x (bf16) in one; a 64-wide stage of three
+// weight planes is 80 KB, so the ring holds 2 stages (3 would be 240 KB, a
+// block may have 227 KB), and phase 2's Q, K, V and three key tiles in
+// three planes, 216 KB, outgrow the ring's 160 KB: 222,240 bytes, 1 block
+// an SM.
 template <int Passes>
 struct Flavour {
-  static_assert(Passes == 1 || Passes == 3, "one bf16 pass, or high3's three");
-  static constexpr int kPlanes = Passes == 1 ? 1 : 2;
+  static_assert(Passes == 1 || Passes == 3 || Passes == 6,
+                "one bf16 pass, high3's three, or highest's six");
+  static constexpr int kPlanes = Passes == 1 ? 1 : Passes == 3 ? 2 : 3;
   static constexpr int kMinBlocks = Passes == 1 ? 2 : 1;  // per SM (__launch_bounds__)
-  using Tile = std::conditional_t<Passes == 1, KeyTile, KeyTileHL>;
+  static constexpr int kStages = Passes == 6 ? 2 : 3;     // the ring
+  using Tile = std::conditional_t<Passes == 1, KeyTile,
+                                  std::conditional_t<Passes == 3, KeyTileHL, KeyTile3>>;
+  using Ring = Stage<Passes == 6 ? 1 : kPlanes, kPlanes>;
 };
 
-template <int Planes>
-struct Stage {
-  __nv_bfloat16 x[Planes][kRows * kK];      // 8 KB a plane: the chunk's x rows
-  __nv_bfloat16 w[Planes][kHeadRows * kK];  // 24 KB a plane: the head's weight rows (or
-                                            // one tensor's 64)
-};
 template <int Passes>
 struct Phase2 {
   // this block's projected rows as bf16, 64 rows of 128 bytes in the
@@ -184,22 +217,26 @@ struct Phase2 {
 template <int Passes>
 struct Smem {
   union {
-    Stage<Flavour<Passes>::kPlanes> ring[kStages];  // phase 1
-    Phase2<Passes> p2;                              // from phase 1's epilogue on
+    typename Flavour<Passes>::Ring ring[Flavour<Passes>::kStages];  // phase 1
+    Phase2<Passes> p2;  // from phase 1's epilogue on
   } u;
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  uint64_t full[Flavour<Passes>::kStages];
+  uint64_t empty[Flavour<Passes>::kStages];
 };
 // the ring's tiles start on 1,024-byte boundaries (the swizzle atom); the
 // dynamic shared memory is aligned by hand, hence the extra 1,024 bytes
 template <int Passes>
 constexpr int kSmemBytes = sizeof(Smem<Passes>) + 1024;
-static_assert(sizeof(Stage<1>) % 1024 == 0 && sizeof(Stage<2>) % 1024 == 0, "swizzle atoms");
-static_assert(sizeof(Phase2<1>) <= sizeof(Stage<1>) * kStages &&
-                  sizeof(Phase2<3>) <= sizeof(Stage<2>) * kStages,
+static_assert(sizeof(Stage<1, 1>) % 1024 == 0 && sizeof(Stage<2, 2>) % 1024 == 0 &&
+                  sizeof(Stage<1, 3>) % 1024 == 0,
+              "swizzle atoms");
+static_assert(sizeof(Phase2<1>) <= sizeof(Stage<1, 1>) * Flavour<1>::kStages &&
+                  sizeof(Phase2<3>) <= sizeof(Stage<2, 2>) * Flavour<3>::kStages,
               "phase 2 fits in the ring");
 static_assert(kSmemBytes<1> == 99376, "ops/fused_attention.py::FUSED_BF16_SMEM_BYTES");
 static_assert(kSmemBytes<3> == 197680, "ops/fused_attention.py::FUSED_HIGH3_SMEM_BYTES");
+static_assert(kSmemBytes<6> == 222240, "ops/fused_attention.py::FUSED_HIGHEST_BF16_SMEM_BYTES");
+static_assert(kSmemBytes<6> <= 232448, "a block's shared memory on an H100");
 
 // ---- wgmma (the helpers in hopper.cuh) ----
 
@@ -254,10 +291,13 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[NT * kD / 2], uint64_t a, 
 // ---- the prologue: weights packed once, f32 x rounded ----
 
 // Row 192 h + 64 n + r of wp is row 64 h + r of tensor n (wq, wk, wv),
-// rounded to bf16; then xr = bf16(x) when x is given. kSplit (K4h): the lo
-// parts, bf16(a - bf16(a)), go into a second plane after each, 3 DM^2
-// elements on in wp and 8 x_units in xr. 8 values a thread and step.
-template <bool kSplit>
+// rounded to bf16; then xr = bf16(x) when x is given. Planes = 2 (K4h):
+// the lo parts, bf16(a - bf16(a)), go into a second plane after each, 3
+// DM^2 elements on in wp and 8 x_units in xr. Planes = 3 (K4-bf16, a bf16
+// x: the weights alone): the weights times 2^16 (exact) split into hi,
+// mid and lo planes (split3_bf16), 3 DM^2 elements apart. 8 values a
+// thread and step.
+template <int Planes>
 __global__ void pack_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
                             const float* __restrict__ wv, __nv_bfloat16* __restrict__ wp, int DM,
                             const float* __restrict__ x, __nv_bfloat16* __restrict__ xr,
@@ -287,7 +327,16 @@ __global__ void pack_kernel(const float* __restrict__ wq, const float* __restric
     }
     const float4 a = *reinterpret_cast<const float4*>(src);
     const float4 b = *reinterpret_cast<const float4*>(src + 4);
-    if constexpr (kSplit) {
+    if constexpr (Planes == 3) {
+      uint4 hi, mid, lo;
+      split3_bf16(a.x * kSplitScale, a.y * kSplitScale, hi.x, mid.x, lo.x);
+      split3_bf16(a.z * kSplitScale, a.w * kSplitScale, hi.y, mid.y, lo.y);
+      split3_bf16(b.x * kSplitScale, b.y * kSplitScale, hi.z, mid.z, lo.z);
+      split3_bf16(b.z * kSplitScale, b.w * kSplitScale, hi.w, mid.w, lo.w);
+      *reinterpret_cast<uint4*>(dst) = hi;
+      *reinterpret_cast<uint4*>(dst + plane) = mid;
+      *reinterpret_cast<uint4*>(dst + 2 * plane) = lo;
+    } else if constexpr (Planes == 2) {
       uint4 hi, lo;
       split_bf16(a.x, a.y, hi.x, lo.x);
       split_bf16(a.z, a.w, hi.y, lo.y);
@@ -318,6 +367,7 @@ __device__ __forceinline__ void produce_ring(const CUtensorMap* tm_x, const CUte
                                              Smem<Passes>& sm, bool along_t, int rank, int parts,
                                              int b, int h, int r0, int steps, int w_box) {
   constexpr int kPlanes = Flavour<Passes>::kPlanes;
+  constexpr int kStages = Flavour<Passes>::kStages;
   const uint16_t mask = parts > 1 ? static_cast<uint16_t>((1u << parts) - 1) : 0;
   const uint32_t stage_bytes =
       2 * kK * (along_t ? XPlanes * kRows + kPlanes * kHeadRows : kPlanes * kD + XPlanes * kRows);
@@ -355,8 +405,10 @@ __device__ __forceinline__ void produce_ring(const CUtensorMap* tm_x, const CUte
 // (a cluster along T, `along_t`), or NT = 1, tensor kinds[0] of them (Q of
 // a chunk with no valid key, or tensor `rank` of rows 0 .. 63 for T <= 64),
 // plus the bias in f32, times `scale` for Q, stored as bf16 into the slot
-// of its kind (K4h: split into its two planes); rows of K and V at t >= len
-// are stored as 0. `parts` blocks of the cluster (ranks 0 .. parts - 1)
+// of its kind (K4h: split into its two planes; K4-bf16: the projections
+// come times 2^16 from the weights' planes, are scaled back (exact), and
+// the f32 value times 2^16 is split into three planes); rows of K and V at
+// t >= len are stored as 0. `parts` blocks of the cluster (ranks 0 .. parts - 1)
 // take part in the ring: each issues its share of the shared tiles to all
 // of them. The producer warp issues the copies; the consumer warpgroup
 // multiplies and writes the slots.
@@ -366,6 +418,7 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
                                         const int (&kinds)[NT], float scale, bool along_t,
                                         int rank, int parts, int b, int h, int r0, int len,
                                         int DM, int w_box) {
+  constexpr int kStages = Flavour<Passes>::kStages;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -399,6 +452,27 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
       if (s >= 1 && s - 1 + kStages < steps && lane < parts) {
         mbar_arrive_cluster(&sm.empty[(s - 1) % kStages], lane);
       }
+    } else if constexpr (Passes == 6) {
+      // x . W_lo, x . W_mid, x . W_hi (the small terms first; each product
+      // exact: x is bf16 and the planes sum to W 2^16) into a stage's own
+      // sum, added to acc in f32 once complete, as K4h's passes
+      float part[NT * kD / 2];
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int n = 2; n >= 0; --n) {
+        const uint64_t dw = sw128_desc(smem_u32(sm.u.ring[j].w[n]));
+#pragma unroll
+        for (int kk = 0; kk < kK / 16; ++kk) {
+          wgmma_tile<NT>(part, da + 2 * kk, dw + 2 * kk, n < 2 || kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // stage s has been read: release its slot in every block
+      fence_regs(part);
+      if (s + kStages < steps && lane < parts) mbar_arrive_cluster(&sm.empty[j], lane);
+#pragma unroll
+      for (int i = 0; i < NT * kD / 2; ++i) acc[i] += part[i];
     } else {
       // the three passes k-step by k-step (hi.hi, hi.lo, lo.hi) into a
       // stage's own sum, added to acc in f32 once complete. The tensor
@@ -441,11 +515,22 @@ __device__ __forceinline__ void project(const CUtensorMap* tm_x, const CUtensorM
     for (int i = 0; i < 2; ++i) {
       const int row = 16 * warp + g + 8 * i;
       const bool zero = kind != 0 && r0 + row >= len;
-      const float v0 = (acc[4 * jt + 2 * i] + b0) * sc;
-      const float v1 = (acc[4 * jt + 2 * i + 1] + b1) * sc;
+      float a0 = acc[4 * jt + 2 * i], a1 = acc[4 * jt + 2 * i + 1];
+      if constexpr (Passes == 6) {  // the weights' planes' scale, exactly
+        a0 *= 1.f / kSplitScale;
+        a1 *= 1.f / kSplitScale;
+      }
+      const float v0 = (a0 + b0) * sc;
+      const float v1 = (a1 + b1) * sc;
       const int at = sw128(row, col);
       if constexpr (Passes == 1) {
         *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][0][at]) = zero ? 0u : pack_bf16(v0, v1);
+      } else if constexpr (Passes == 6) {
+        uint32_t hi = 0u, mid = 0u, lo = 0u;
+        if (!zero) split3_bf16(v0 * kSplitScale, v1 * kSplitScale, hi, mid, lo);
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][0][at]) = hi;
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][1][at]) = mid;
+        *reinterpret_cast<uint32_t*>(&sm.u.p2.slot[kind][2][at]) = lo;
       } else {
         uint32_t hi = 0u, lo = 0u;
         if (!zero) split_bf16(v0, v1, hi, lo);
@@ -466,6 +551,7 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
                           const int* __restrict__ lengths, IO* __restrict__ o, int T, int DM,
                           int tensors, int w_box, long long sob, long long sot, long long soh,
                           float scale) {
+  static_assert(Passes != 6 || std::is_same_v<IO, __nv_bfloat16>, "K4-bf16: a bf16 x");
   using Tile = typename Flavour<Passes>::Tile;
   constexpr int kPlanes = Flavour<Passes>::kPlanes;
   // K4h splits an f32 x into two planes; a bf16 x is its own hi plane
@@ -493,7 +579,7 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int parts = split_rows || len > 0 ? blocks : 1;
 
   if (tid == 0) {
-    for (int j = 0; j < kStages; ++j) {
+    for (int j = 0; j < Flavour<Passes>::kStages; ++j) {
       mbar_init(&sm.full[j], 1);
       mbar_init(&sm.empty[j], kConsumers * parts);  // each consumer warp of each block in the ring
     }
@@ -519,33 +605,27 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   // phase 2, the consumer warpgroup: the key loop over the cluster's K and
   // V. Tile k (keys 64k .. 64k + 63) is read from the block that projected
-  // it through distributed shared memory into registers two tiles ahead,
-  // then stored into slot k % 3 of the block's own tiles; the scores of
-  // tile k + 1 and their softmax run while P . V of tile k is in flight
+  // it through distributed shared memory and stored into slot k % 3 of the
+  // block's own tiles two tiles ahead: K4b and K4h load it into registers
+  // at the start of iteration k - 2 and store it once that iteration's P .
+  // V has completed; K4-bf16, whose 48 KB tile would take 96 registers a
+  // thread, copies it in pieces while iteration k - 2's products are in
+  // flight. The scores of tile k + 1 and their softmax run while P . V of
+  // tile k is in flight
   const int tiles = (len + kRows - 1) / kRows;
   if (warp < kConsumers) {
     constexpr int kPer = sizeof(Tile) / 16 / (32 * kConsumers);  // 16-byte pieces a thread
     const int ct = tid;  // consumer thread 0 .. 127
-    uint4 held[kPer];
     // tile `tile`'s K and V (each in its planes), as they lie (the swizzle
     // is the same in every block), or for T <= 64 K from block 1 and V
     // from block 2
-    auto fetch = [&](int tile) {
-      const uint4* kp = reinterpret_cast<const uint4*>(
+    const auto peer_k = [&](int tile) {
+      return reinterpret_cast<const uint4*>(
           cluster.map_shared_rank(sm.u.p2.slot[1][0], split_rows ? tile : 1));
-      const uint4* vp = reinterpret_cast<const uint4*>(
-          cluster.map_shared_rank(sm.u.p2.slot[2][0], split_rows ? tile : 2));
-#pragma unroll
-      for (int e = 0; e < kPer / 2; ++e) {
-        held[e] = kp[ct + e * 32 * kConsumers];
-        held[kPer / 2 + e] = vp[ct + e * 32 * kConsumers];
-      }
     };
-    auto stash = [&](Tile& kt) {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) reinterpret_cast<uint4*>(&kt)[ct + e * 32 * kConsumers] = held[e];
-      // read next by wgmma (the async proxy)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const auto peer_v = [&](int tile) {
+      return reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(sm.u.p2.slot[2][0], split_rows ? tile : 2));
     };
     const bool active = split_rows ? rank * kRows + 16 * warp < T
                                    : warp % 3 == rank && 16 * warp < T;
@@ -554,38 +634,95 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
     float m[2] = {kAttnNegInf, kAttnNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
-    const uint64_t dq = sw128_desc(smem_u32(sm.u.p2.slot[0][0]));
-    const uint64_t dq_lo = sw128_desc(smem_u32(sm.u.p2.slot[0][kPlanes - 1]));
-
-    if (tiles > 0) {
-      if (!split_rows && rank != 0) {  // T <= 64: Q (its planes) from block 0
-        const uint4* qp = reinterpret_cast<const uint4*>(
-            cluster.map_shared_rank(sm.u.p2.slot[0][0], 0));
+    // Q's planes: K4h's hi and lo, K4-bf16's hi, mid and lo
+    const uint64_t dq[3] = {sw128_desc(smem_u32(sm.u.p2.slot[0][0])),
+                            sw128_desc(smem_u32(sm.u.p2.slot[0][Passes == 6 ? 1 : kPlanes - 1])),
+                            sw128_desc(smem_u32(sm.u.p2.slot[0][kPlanes - 1]))};
+    if (tiles > 0 && !split_rows && rank != 0) {  // T <= 64: Q (its planes) from block 0
+      const uint4* qp = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(sm.u.p2.slot[0][0], 0));
 #pragma unroll
-        for (int e = 0; e < kPer / 2; ++e) {
-          reinterpret_cast<uint4*>(sm.u.p2.slot[0][0])[ct + e * 32 * kConsumers] =
-              qp[ct + e * 32 * kConsumers];
-        }
+      for (int e = 0; e < kPer / 2; ++e) {
+        reinterpret_cast<uint4*>(sm.u.p2.slot[0][0])[ct + e * 32 * kConsumers] =
+            qp[ct + e * 32 * kConsumers];
       }
-      fetch(0);
-      stash(sm.u.p2.kv[0]);
-      if (tiles > 1) {
-        fetch(1);
-        stash(sm.u.p2.kv[1]);
-      }
-      consumers_sync();
     }
     // the shared key loop (attention_wgmma.cuh): tiles `tile` and `tile + 1`
     // are in place when iteration `tile` starts; tile + 2 is fetched during
-    // it and stored once tile's P . V has completed
-    attend_tiles<Passes>(
-        acc, m, l, dq, tiles, len, [&](int t) -> const Tile& { return sm.u.p2.kv[t % 3]; },
-        [](int) {}, [&](int t) { if (t + 2 < tiles) fetch(t + 2); },
-        [&](int t) {
-          if (t + 2 < tiles) stash(sm.u.p2.kv[(t + 2) % 3]);  // t - 1's slot, read by all
-          consumers_sync();  // t + 2 is in place; t is no longer read
-        },
-        dq_lo);
+    // it and stored once tile's P . V has completed (K4-bf16: copied while
+    // its products are in flight; slot (tile + 2) % 3 held tile - 1, which
+    // no warp reads past the barrier that ended iteration tile - 1)
+    const auto at = [&](int t) -> const Tile& { return sm.u.p2.kv[t % 3]; };
+    if constexpr (Passes == 6) {
+      // the tile straight into kt, 4 pieces of K and 4 of V in flight at a
+      // time
+      auto copy = [&](int tile, Tile& kt) {
+        const uint4* kp = peer_k(tile);
+        const uint4* vp = peer_v(tile);
+        uint4* dst = reinterpret_cast<uint4*>(&kt);
+#pragma unroll
+        for (int e0 = 0; e0 < kPer / 2; e0 += 4) {
+          uint4 kx[4], vx[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            kx[e] = kp[ct + (e0 + e) * 32 * kConsumers];
+            vx[e] = vp[ct + (e0 + e) * 32 * kConsumers];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dst[ct + (e0 + e) * 32 * kConsumers] = kx[e];
+            dst[ct + (kPer / 2 + e0 + e) * 32 * kConsumers] = vx[e];
+          }
+        }
+        // read next by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      };
+      static_assert((kPer / 2) % 4 == 0, "whole rounds of the copy");
+      if (tiles > 0) {
+        copy(0, sm.u.p2.kv[0]);
+        if (tiles > 1) copy(1, sm.u.p2.kv[1]);
+        consumers_sync();
+      }
+      attend_tiles<6, 6>(
+          acc, m, l, dq, tiles, len, at, NoHook(), NoHook(),
+          [&](int t) { if (t + 2 < tiles) copy(t + 2, sm.u.p2.kv[(t + 2) % 3]); },
+          [&](int) { consumers_sync(); });  // t + 2 is in place; t is no longer read
+    } else {
+      uint4 held[kPer];
+      auto fetch = [&](int tile) {
+        const uint4* kp = peer_k(tile);
+        const uint4* vp = peer_v(tile);
+#pragma unroll
+        for (int e = 0; e < kPer / 2; ++e) {
+          held[e] = kp[ct + e * 32 * kConsumers];
+          held[kPer / 2 + e] = vp[ct + e * 32 * kConsumers];
+        }
+      };
+      auto stash = [&](Tile& kt) {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          reinterpret_cast<uint4*>(&kt)[ct + e * 32 * kConsumers] = held[e];
+        }
+        // read next by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      };
+      if (tiles > 0) {
+        fetch(0);
+        stash(sm.u.p2.kv[0]);
+        if (tiles > 1) {
+          fetch(1);
+          stash(sm.u.p2.kv[1]);
+        }
+        consumers_sync();
+      }
+      attend_tiles<Passes, Passes>(
+          acc, m, l, dq, tiles, len, at, NoHook(),
+          [&](int t) { if (t + 2 < tiles) fetch(t + 2); }, NoHook(),
+          [&](int t) {
+            if (t + 2 < tiles) stash(sm.u.p2.kv[(t + 2) % 3]);  // t - 1's slot, read by all
+            consumers_sync();  // t + 2 is in place; t is no longer read
+          });
+    }
 
     if (active) {
       const float totals[2] = {quad_sum(l[0]), quad_sum(l[1])};
@@ -598,7 +735,13 @@ fused_qkv_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         IO* orow = o + b * sob + static_cast<long long>(t) * sot + h * soh;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
-          const float o0 = acc[4 * jj + 2 * i] * inv, o1 = acc[4 * jj + 2 * i + 1] * inv;
+          float o0 = acc[4 * jj + 2 * i], o1 = acc[4 * jj + 2 * i + 1];
+          if constexpr (Passes == 6) {  // P's and V's planes' scales, exactly
+            o0 *= AttnPasses<6, 6>::kOScale / kSplitScale;
+            o1 *= AttnPasses<6, 6>::kOScale / kSplitScale;
+          }
+          o0 *= inv;
+          o1 *= inv;
           if constexpr (std::is_same_v<IO, float>) {
             *reinterpret_cast<float2*>(orow + 8 * jj + 2 * c) = make_float2(o0, o1);
           } else {
@@ -633,6 +776,7 @@ cudaError_t configure(int cluster) {
     if (err == cudaSuccess) err = configure_kernel<1, __nv_bfloat16>();
     if (err == cudaSuccess) err = configure_kernel<3, float>();
     if (err == cudaSuccess) err = configure_kernel<3, __nv_bfloat16>();
+    if (err == cudaSuccess) err = configure_kernel<6, __nv_bfloat16>();
     if (err != cudaSuccess) return err;
     done = true;
   }
@@ -687,14 +831,28 @@ cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const void*
                             static_cast<IO*>(o), T, DM, tensors, w_box, sob, sot, soh, scale);
 }
 
-// The C entries' body for K4b (Passes = 1) or K4h (Passes = 3).
+// The launch of a flavour and I/O: K4-bf16 takes a bf16 x only (its
+// entry checks)
+template <int Passes>
+auto launcher(int bf16_io) {
+  if constexpr (Passes == 6) {
+    (void)bf16_io;
+    return launch<6, __nv_bfloat16>;
+  } else {
+    return bf16_io ? launch<Passes, __nv_bfloat16> : launch<Passes, float>;
+  }
+}
+
+// The C entries' body for K4b (Passes = 1), K4h (Passes = 3) or K4-bf16
+// (Passes = 6, bf16 x only).
 template <int Passes>
 int fused_fwd(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
               const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr,
               int B, int T, int H, int DM, long long sob, long long sot, long long soh,
               float scale, int cluster, int rows, int tensors, int threads, int smem_bytes,
               int bf16_io, void* stream) {
-  if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535) {
+  if (B < 0 || T < 0 || H < 0 || DM != H * kD || T > kMaxT || B > 65535 || H > 65535 ||
+      (Passes == 6 && !bf16_io)) {
     return cudaErrorInvalidValue;
   }
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
@@ -708,7 +866,8 @@ int fused_fwd(const void* x, const void* wq, const void* bq, const void* wk, con
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* xb = bf16_io ? x : xr;
-  // planes: K4h's W in two, an f32 x in two (its bf16 x in one)
+  // planes: K4h's W in two, an f32 x in two (its bf16 x in one); K4-bf16's
+  // W in three
   const int w_planes = Flavour<Passes>::kPlanes;
   const int x_planes = Passes == 3 && !bf16_io ? 2 : 1;
   CUtensorMap tm_x, tm_w;
@@ -730,14 +889,13 @@ int fused_fwd(const void* x, const void* wq, const void* bq, const void* wk, con
   const long long x_units = bf16_io ? 0 : static_cast<long long>(B) * T * DM / 8;
   const long long units = 3ll * DM * DM / 8 + x_units;
   const int grid = static_cast<int>(std::min<long long>((units + 255) / 256, 4096));
-  pack_kernel<(Passes == 3)><<<grid, 256, 0, s>>>(
+  pack_kernel<Flavour<Passes>::kPlanes><<<grid, 256, 0, s>>>(
       static_cast<const float*>(wq), static_cast<const float*>(wk),
       static_cast<const float*>(wv), static_cast<__nv_bfloat16*>(wp), DM,
       bf16_io ? nullptr : static_cast<const float*>(x), static_cast<__nv_bfloat16*>(xr), x_units);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto run = bf16_io ? launch<Passes, __nv_bfloat16> : launch<Passes, float>;
-  err = run(tm_x, tm_w, bq, bk, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
+  err = launcher<Passes>(bf16_io)(tm_x, tm_w, bq, bk, bv, lengths, o, B, T, H, DM, sob, sot, soh, scale, cluster,
             tensors, w_box, s);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
@@ -747,7 +905,12 @@ template <int Passes>
 int occupancy(int cluster, int bf16_io, int* blocks_per_sm, int* clusters) {
   cudaError_t err = configure(cluster);
   if (err != cudaSuccess) return err;
-  if (bf16_io) {
+  if constexpr (Passes == 6) {  // bf16 x only
+    if (!bf16_io) return cudaErrorInvalidValue;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_qkv_fwd_bf16_kernel<6, __nv_bfloat16>, kThreads, kSmemBytes<6>);
+    *clusters = max_active_clusters<6, __nv_bfloat16>(cluster);
+  } else if (bf16_io) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, fused_qkv_fwd_bf16_kernel<Passes, __nv_bfloat16>, kThreads,
         kSmemBytes<Passes>);
@@ -799,8 +962,22 @@ extern "C" int nomad_fused_qkv_attention_high3_fwd(
                       scale, cluster, rows, tensors, threads, smem_bytes, bf16_io, stream);
 }
 
-// Occupancy of K4b or K4h (its f32, bf16_io = 0, or bf16 I/O flavour) at a
-// cluster size: resident blocks per SM and clusters on the card at once.
+// K4-bf16, the same arguments as K4b's entry on a bf16 x (bf16_io = 1; 0
+// is refused) but for its buffer's planes: wp a bf16 [3, H * 192, DM]
+// buffer (the hi, mid and lo planes of the packed weights times 2^16); xr
+// ignored; the plan at precision "highest" on a bf16 x.
+extern "C" int nomad_fused_qkv_attention_highest_fwd(
+    const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
+    const void* wv, const void* bv, const void* lengths, void* o, void* wp, void* xr, int B,
+    int T, int H, int DM, long long sob, long long sot, long long soh, float scale, int cluster,
+    int rows, int tensors, int threads, int smem_bytes, int bf16_io, void* stream) {
+  return fused_fwd<6>(x, wq, bq, wk, bk, wv, bv, lengths, o, wp, xr, B, T, H, DM, sob, sot, soh,
+                      scale, cluster, rows, tensors, threads, smem_bytes, bf16_io, stream);
+}
+
+// Occupancy of K4b, K4h (each in its f32, bf16_io = 0, or bf16 I/O
+// flavour) or K4-bf16 (bf16_io = 1) at a cluster size: resident blocks per
+// SM and clusters on the card at once.
 extern "C" int nomad_fused_qkv_attention_bf16_fwd_occupancy(int cluster, int bf16_io,
                                                             int* blocks_per_sm, int* clusters) {
   return occupancy<1>(cluster, bf16_io, blocks_per_sm, clusters);
@@ -809,6 +986,11 @@ extern "C" int nomad_fused_qkv_attention_bf16_fwd_occupancy(int cluster, int bf1
 extern "C" int nomad_fused_qkv_attention_high3_fwd_occupancy(int cluster, int bf16_io,
                                                              int* blocks_per_sm, int* clusters) {
   return occupancy<3>(cluster, bf16_io, blocks_per_sm, clusters);
+}
+
+extern "C" int nomad_fused_qkv_attention_highest_fwd_occupancy(int cluster, int bf16_io,
+                                                               int* blocks_per_sm, int* clusters) {
+  return occupancy<6>(cluster, bf16_io, blocks_per_sm, clusters);
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -6,11 +6,12 @@ one card.
     cd <other checkout> && python -c "import runpy; runpy.run_path(
         '<this checkout>/nomad_tpu_torch/kernel_digests.py', run_name='__main__')" > other.json
 
-Runs K1 and K1b (O and LSE), K2 + K3 (f32 tensors at "highest"),
-K2-bf16 + K3-bf16 (bf16 tensors at "highest") and K2b + K3b (dQ, dK, dV)
-through ``mha_flash`` and ``flash_attention_bwd``, and K4, K4b and K4h through
-``fused_qkv_mha`` (at "highest", "default" and "high"), on f32 and on
-bf16 inputs made from one seed, at the
+Runs K1, K1-bf16 and K1b (O and LSE), K2 + K3 (f32 tensors at
+"highest"), K2-bf16 + K3-bf16 (bf16 tensors at "highest") and K2b + K3b
+(dQ, dK, dV) through ``mha_flash`` and ``flash_attention_bwd``, and K4,
+K4-bf16, K4b and K4h through ``fused_qkv_mha`` (at "highest" on f32 and
+on bf16 x, "default" and "high"), on f32 and on bf16 inputs made from one
+seed, at the
 scoring shape [96, 511], the loss crop [32, 50] and a ragged [8, 1024],
 each with a 0-key row (ragged rows and a 1-key row at [96, 511] and
 [8, 1024]). Prints one JSON object

@@ -62,9 +62,10 @@ dropout and the mask, as the JAX package casts it; the products are bf16
 in and out (``ops/precision.py``), GELU, dropout, the residual adds and
 the masks run in bf16, the block LayerNorms are K5's bf16-I/O flavour and
 the attention the bf16-I/O flavour of its island's kernels (K1b, K2b and
-K3b at "default", K1, K2 and K3 at "high" or "highest"; f32 statistics
-and softmax inside). The fused path takes the bf16-I/O flavour of K4b,
-K4h or K4 and, as the JAX package hands its fused path the raw f32
+K3b at "default", K1-bf16, K2-bf16 and K3-bf16 at "high" or "highest";
+f32 statistics and softmax inside). The fused path takes the bf16-I/O
+flavour of K4b or K4h, or K4-bf16 at "highest", and, as the JAX package
+hands its fused path the raw f32
 parameters, the f32 products of ``precision.linear_raw_weights`` around
 it. The two LayerNorms outside the stack stay f32, and the heads pool
 in f32. Every island and every ``attention_impl`` takes it.

@@ -1,12 +1,14 @@
-"""Masked attention with LSE: kernels K1 and K1b (forward), K2 (dQ) and K3
-(dK, dV) beside their plain PyTorch versions.
+"""Masked attention with LSE: kernels K1, K1-bf16 and K1b (forward), K2
+(dQ) and K3 (dK, dV) beside their plain PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.flash_attention``. ``mha_flash`` launches
-K1 (``csrc/flash_attention.cu``, f32: the "highest" and "high" flavours)
-or K1b (``csrc/flash_attention_bf16.cu``, the TPU kernel's own "default"
-flavour: bf16 products, f32 accumulation and softmax; its prologue folds
-k and v to bf16 once per call, ``fold_bf16_ref``) on CUDA tensors and
-computes the plain version of the same flavour on CPU tensors. Both take
+K1 (``csrc/flash_attention.cu``, f32: the "highest" and "high" flavours on
+f32 tensors), K1-bf16 (``csrc/flash_attention_bf16.cu``, the same flavours
+on bf16 tensors, on the tensor cores) or K1b (the same source, the TPU
+kernel's own "default" flavour: bf16 products, f32 accumulation and
+softmax; the prologue of both folds k and v to bf16 once per call,
+``fold_bf16_ref``) on CUDA tensors and computes the plain version of the
+same flavour on CPU tensors. Both take
 q/k/v as [B, T, H, D] and the valid key count per batch row, and return O
 [B, T, H, D] and LSE = m + log(l) [B, H, T] in f32. Every query row is
 defined and finite, padded rows included; a row with no valid key gives
@@ -21,18 +23,20 @@ tensors, ``flash_attention_bwd_ref`` of the same flavour on CPU tensors.
 ``FlashAttention`` is the differentiable form, one
 ``torch.autograd.Function`` over both.
 
-Every kernel also takes bf16 tensors (bf16 activations in the block
+Every flavour also takes bf16 tensors (bf16 activations in the block
 stack, where the TPU kernels read bf16 blocks through ``astype(float32)``
 and store in the inputs' dtype): the bf16-I/O flavours of K1b, K2b and K3b
-(the trainer's ``fast_bf16``) and of K1 (bf16 activations at a "highest"
-or "high" attention island), built from the same templates, return O, dQ,
+(the trainer's ``fast_bf16``), built from the same templates, return O, dQ,
 dK and dV in bf16, each the f32-I/O flavour's output on the upcast inputs
-rounded once; LSE and Di stay f32. The "highest" and "high" backward on
-bf16 tensors is K2-bf16 and K3-bf16, K2b/K3b's template on the tensor
-cores with S and dP in one bf16 pass and dQ, dK and dV in three passes on
-bf16 planes of dS and P (``split3_bf16``): every product f32-exact, as the
-f32 flavour's, but summed in the tensor core's order, so its outputs lie
-within one bf16 step of the f32 flavour's rounded once, not on them.
+rounded once; LSE and Di stay f32. The "highest" and "high" flavours on
+bf16 tensors (bf16 activations at a "highest" or "high" attention island)
+run on the tensor cores: K1-bf16, K1b's template with S in one bf16 pass
+and P . V in three passes on bf16 planes of P, and K2-bf16 and K3-bf16,
+K2b/K3b's template with S and dP in one bf16 pass and dQ, dK and dV in
+three passes on bf16 planes of dS and P (``split3_bf16``): every product
+f32-exact, as the f32 flavour's, but summed in the tensor core's order, so
+their outputs lie within one bf16 step of the f32 flavour's rounded once,
+not on them.
 """
 
 from __future__ import annotations
@@ -86,15 +90,18 @@ BWD_BF16_SMEM_BYTES = (2 + 2 * BWD_BF16_STAGES) * BWD_BF16_ROWS * HEAD_DIM * 2 \
 # per SM: what the kernel is built for. Its prologue folds k and v to bf16
 # [2, B*H, T64, 64] (T64: T rounded up to FWD_BF16_ROWS).
 FWD_BF16_ROWS, FWD_BF16_THREADS, FWD_BF16_STAGES, FWD_BF16_BLOCKS_PER_SM = 64, 160, 4, 3
+# K1-bf16, the same block at three planes of P: their registers, the tile's
+# own P . V accumulator and the next tile's f32 P hold it to 2 an SM
+FWD_HIGHEST_BF16_BLOCKS_PER_SM = 2
 FWD_BF16_SMEM_BYTES = (1 + 2 * FWD_BF16_STAGES) * FWD_BF16_ROWS * HEAD_DIM * 2 \
     + 2 * FWD_BF16_STAGES * 8 + 1024
 
 # Launches of K1, K1b and its prologue (the forward fold), K2, K3, K2b, K3b
 # and K2b/K3b's prologue (the backward fold), of the bf16-I/O flavours of
-# K1b, K2b, K3b and the folds (``*_bf16_io``; the backward fold's counts
-# the calls of K2-bf16/K3-bf16 too) and of K1, K2 and K3 at "highest"
-# (``*_f32_bf16_io``: K1-bf16, K2-bf16, K3-bf16), since each count was last
-# set to 0.
+# K1b, K2b, K3b and the folds (``*_bf16_io``; the forward fold's counts the
+# calls of K1-bf16 too, the backward fold's those of K2-bf16/K3-bf16) and
+# of the "highest" flavours on bf16 tensors (``*_f32_bf16_io``: K1-bf16,
+# K2-bf16, K3-bf16), since each count was last set to 0.
 launches = 0
 launches_fwd_fold_bf16 = 0
 launches_fwd_fold_bf16_io = 0
@@ -229,16 +236,21 @@ def flash_bwd_bf16_launch_plan(t: int, b: int, h: int, precision: str = "default
             for kernel in ("dq", "dkv")}
 
 
-def flash_bf16_launch_plan(t: int, b: int, h: int) -> dict:
-    """K1b's launch: one block of 160 threads per 64 query rows of the
+def flash_bf16_launch_plan(t: int, b: int, h: int, precision: str = "default") -> dict:
+    """The launch of K1b ("default": one bf16 pass a product) or of
+    K1-bf16 ("highest", "high": the same block with P . V in three passes
+    on bf16 planes of P): one block of 160 threads per 64 query rows of the
     folded length ``t_pad`` (t rounded up to 64), head and batch row; the
-    dynamic shared memory, the ring's stages and the blocks per SM it is
-    built for. The C launcher checks rows, threads, shared memory and
-    stages against its own rule."""
+    dynamic shared memory, the ring's stages, the passes of P . V and the
+    blocks per SM it is built for. The C launcher checks rows, threads,
+    shared memory and stages against its own rule."""
+    one_pass = is_bf16(precision)
     t_pad = -(-t // FWD_BF16_ROWS) * FWD_BF16_ROWS
     return {"grid": (t_pad // FWD_BF16_ROWS, h, b), "threads": FWD_BF16_THREADS,
             "rows_per_block": FWD_BF16_ROWS, "smem_bytes": FWD_BF16_SMEM_BYTES,
-            "stages": FWD_BF16_STAGES, "t_pad": t_pad, "blocks_per_sm": FWD_BF16_BLOCKS_PER_SM}
+            "stages": FWD_BF16_STAGES, "t_pad": t_pad, "passes": 1 if one_pass else 3,
+            "blocks_per_sm": FWD_BF16_BLOCKS_PER_SM if one_pass
+            else FWD_HIGHEST_BF16_BLOCKS_PER_SM}
 
 
 def fold_bf16_ref(x, lengths, zero_past_bound: bool) -> torch.Tensor:
@@ -263,19 +275,18 @@ def _lib():
     fn = lib.nomad_flash_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         occ = lib.nomad_flash_attention_fwd_occupancy
-        occ.argtypes, occ.restype = [i, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
-def flash_occupancy(bf16_io: bool = False) -> int:
-    """Blocks of K1 (its bf16-I/O flavour with ``bf16_io``) resident on
-    one SM at its shared memory (the card)."""
+def flash_occupancy() -> int:
+    """Blocks of K1 resident on one SM at its shared memory (the card)."""
     lib = _lib()
     blocks = ctypes.c_int(0)
-    _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(int(bf16_io), ctypes.byref(blocks)),
+    _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(ctypes.byref(blocks)),
                  "flash attention occupancy")
     return blocks.value
 
@@ -325,21 +336,23 @@ def _lib_bf16():
         for fn, args in ((lib.nomad_flash_attention_bf16_fwd_fold,
                           [p] * 4 + [i] * 4 + [ll] * 6 + [i, p]),
                          (lib.nomad_flash_attention_bf16_fwd_kernel,
-                          [p] * 5 + [i] * 4 + [ll] * 6 + [i] * 4 + [f, i, p]),
+                          [p] * 5 + [i] * 4 + [ll] * 6 + [i] * 4 + [f, i, i, p]),
                          (lib.nomad_flash_attention_bf16_fwd_occupancy,
-                          [i, ctypes.POINTER(i)]),
-                         (whole, [p] * 7 + [i] * 4 + [ll] * 12 + [i] * 4 + [f, i, p])):
+                          [i, i, ctypes.POINTER(i)]),
+                         (whole, [p] * 7 + [i] * 4 + [ll] * 12 + [i] * 4 + [f, i, i, p])):
             fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
 
 
-def flash_bf16_occupancy(bf16_io: bool = False) -> int:
-    """Blocks of K1b (its bf16-I/O flavour with ``bf16_io``) resident on
-    one SM at its dynamic shared memory (the card)."""
+def flash_bf16_occupancy(bf16_io: bool = False, precision: str = "default") -> int:
+    """Blocks of K1b (its bf16-I/O flavour with ``bf16_io``) or, at
+    ``precision`` "highest" or "high", of K1-bf16 (bf16 I/O only) resident
+    on one SM at its dynamic shared memory (the card)."""
     lib = _lib_bf16()
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_bf16_fwd_occupancy(
-        int(bf16_io), ctypes.byref(blocks)), "bf16 flash attention occupancy")
+        int(bf16_io), 1 if is_bf16(precision) else 3, ctypes.byref(blocks)),
+        "bf16 flash attention occupancy")
     return blocks.value
 
 
@@ -365,10 +378,24 @@ def _check_flash_bf16_workspace(q, workspace) -> None:
                          f"{list(shape)} on {q.device}")
 
 
-def _count_fwd_bf16(kernels, bf16_io: bool) -> None:
+def _fwd_bf16_passes(q, precision: str) -> int:
+    """1 (K1b) at "default"; 3 (K1-bf16) at "highest" or "high", which
+    takes bf16 tensors only (f32 ones run K1)."""
+    passes = 1 if is_bf16(precision) else 3
+    if passes == 3 and q.dtype != torch.bfloat16:
+        raise TypeError(f"K1-bf16 takes bfloat16 tensors, got {q.dtype}: float32 ones at "
+                        f"{precision!r} run K1")
+    return passes
+
+
+def _count_fwd_bf16(kernels, bf16_io: bool, passes: int = 1) -> None:
     """One launch more on the counter of each of ``kernels`` ("fold",
-    "kernel": K1b itself) in its I/O flavour."""
+    "kernel") in its flavour: K1b's I/O flavours, or at three passes
+    K1-bf16's (``launches_f32_bf16_io``); the fold's by its I/O alone."""
     for kernel in kernels:
+        if kernel == "kernel" and passes == 3:
+            globals()["launches_f32_bf16_io"] += 1
+            continue
         name = "launches_fwd_fold_bf16" if kernel == "fold" else "launches_bf16"
         globals()[name + ("_io" if bf16_io else "")] += 1
 
@@ -403,61 +430,67 @@ def _flash_bf16_outputs(q):
             torch.empty((b, h, t), dtype=torch.float32, device=q.device))
 
 
-def _flash_bf16_body(q, workspace, lengths):
-    """K1b alone on its prologue's ``workspace`` for q's shape: (O in q's
-    dtype, LSE f32)."""
+def _flash_bf16_body(q, workspace, lengths, precision="default"):
+    """K1b alone, or at ``precision`` "highest" or "high" K1-bf16, on its
+    prologue's ``workspace`` for q's shape: (O in q's dtype, LSE f32)."""
     b, t, h, d = q.shape
+    passes = _fwd_bf16_passes(q, precision)
     _check_flash_bf16_workspace(q, workspace)
     o, lse = _flash_bf16_outputs(q)
     if o.numel() == 0:
         return o, lse
     bf16_io = q.dtype == torch.bfloat16
-    plan = flash_bf16_launch_plan(t, b, h)
+    plan = flash_bf16_launch_plan(t, b, h, precision)
     lib = _lib_bf16()
     err = lib.nomad_flash_attention_bf16_fwd_kernel(
         q.data_ptr(), workspace.data_ptr(), lengths.contiguous().data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, t, h, d, *q.stride()[:3], *o.stride()[:3], plan["rows_per_block"],
-        plan["threads"], plan["smem_bytes"], plan["stages"], 1.0 / d**0.5, int(bf16_io),
+        plan["threads"], plan["smem_bytes"], plan["stages"], 1.0 / d**0.5, int(bf16_io), passes,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "bf16 flash attention kernel launch")
-    _count_fwd_bf16(("kernel",), bf16_io)
+    _count_fwd_bf16(("kernel",), bf16_io, passes)
     return o, lse
 
 
-def _flash_bf16_kernel(q, k, v, lengths):
+def _flash_bf16_kernel(q, k, v, lengths, precision="default"):
     """K1b: the "default" flavour on the tensor cores (bf16 operands, f32
     accumulation and softmax), the same inputs and outputs as K1; on bf16
-    q, k and v its bf16-I/O flavour, O in bf16. The prologue and the kernel
-    in one C call, one tensor map: at the loss crop the host's work, not
-    the card's, sets the pace."""
+    q, k and v its bf16-I/O flavour, O in bf16. At ``precision``
+    "highest" or "high" K1-bf16 (bf16 q, k and v only): K1's products on
+    the tensor cores, P . V in three passes on planes of P. The prologue
+    and the kernel in one C call, one tensor map: at the loss crop the
+    host's work, not the card's, sets the pace."""
     b, t, h, d = q.shape
     _check_inputs(q, k, v, lengths)
+    passes = _fwd_bf16_passes(q, precision)
     o, lse = _flash_bf16_outputs(q)
     if o.numel() == 0:
         return o, lse
     bf16_io = q.dtype == torch.bfloat16
     lengths = lengths.contiguous()
     workspace = _flash_bf16_workspace(q)
-    plan = flash_bf16_launch_plan(t, b, h)
+    plan = flash_bf16_launch_plan(t, b, h, precision)
     lib = _lib_bf16()
     err = lib.nomad_flash_attention_bf16_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), workspace.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         plan["rows_per_block"], plan["threads"], plan["smem_bytes"], plan["stages"],
-        1.0 / d**0.5, int(bf16_io), torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / d**0.5, int(bf16_io), passes, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "bf16 flash attention launch")
-    _count_fwd_bf16(("fold", "kernel"), bf16_io)
+    _count_fwd_bf16(("fold", "kernel"), bf16_io, passes)
     return o, lse
 
 
 def _flash_kernel(q, k, v, lengths):
-    """K1: the f32 flavour ("highest", "high"); on bf16 q, k and v its
-    bf16-I/O flavour, O in bf16."""
+    """K1: the f32 flavour ("highest", "high") on f32 q, k and v (bf16 ones
+    run K1-bf16)."""
     b, t, h, d = q.shape
     _check_inputs(q, k, v, lengths)
-    bf16_io = q.dtype == torch.bfloat16
+    if q.dtype != torch.float32:
+        raise TypeError(f"K1 takes float32 tensors, got {q.dtype}: bf16 ones at \"highest\" "
+                        "run K1-bf16 (_flash_bf16_kernel)")
     lengths = lengths.contiguous()
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -468,29 +501,27 @@ def _flash_kernel(q, k, v, lengths):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, t, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / d**0.5, flash_launch_plan(t, b, h)["smem_bytes"], int(bf16_io),
+        1.0 / d**0.5, flash_launch_plan(t, b, h)["smem_bytes"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash attention kernel launch")
-    global launches, launches_f32_bf16_io
-    if bf16_io:
-        launches_f32_bf16_io += 1
-    else:
-        launches += 1
+    global launches
+    launches += 1
     return o, lse
 
 
 def mha_flash(q, k, v, lengths, precision="highest"):
     """Attention on [B, T, H, D] with lengths int32 [B] valid keys per
     batch row -> (O [B, T, H, D] in q's dtype, LSE f32 [B, H, T]). On CUDA
-    tensors K1 ("highest", "high") or K1b ("default"), each on f32 or bf16
-    I/O, on CPU tensors the plain version of the same flavour."""
+    tensors K1b ("default", f32 or bf16 I/O), K1 ("highest", "high" on f32
+    tensors) or K1-bf16 ("highest", "high" on bf16 tensors); on CPU
+    tensors the plain version of the same flavour."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lengths, precision)
     if q.device.type != "cuda":
         raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
-    if is_bf16(precision):
-        return _flash_bf16_kernel(q, k, v, lengths)
+    if is_bf16(precision) or q.dtype == torch.bfloat16:
+        return _flash_bf16_kernel(q, k, v, lengths, precision)
     return _flash_kernel(q, k, v, lengths)
 
 

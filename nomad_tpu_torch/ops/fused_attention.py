@@ -1,13 +1,16 @@
-"""Projection-fused attention: kernels K4, K4b and K4h beside their plain
-PyTorch versions.
+"""Projection-fused attention: kernels K4, K4-bf16, K4b and K4h beside
+their plain PyTorch versions.
 
 Counterpart of ``nomad_tpu.ops.fused_attention``. ``fused_qkv_mha``
 launches, by precision, one of the TPU kernel's three modes on CUDA
-tensors: at "highest" K4 (``csrc/fused_attention.cu``, f32), at "high"
-K4h (``csrc/fused_attention_bf16.cu``, the TPU kernel's "high3": each of
-the five products three bf16 passes on hi/lo splits of its operands, f32
-accumulation), at "default" K4b (the same source, one bf16 pass a
-product); the softmax is f32 in all three. On CPU tensors it computes the
+tensors: at "highest" K4 (``csrc/fused_attention.cu``, f32) on an f32 x
+and K4-bf16 (``csrc/fused_attention_bf16.cu``, the same f32-exact
+products on the tensor cores: three bf16 planes of the weights, and of Q,
+K, V and P, six passes a product in the key loop) on a bf16 x, at "high"
+K4h (the same source, the TPU kernel's "high3": each of the five products
+three bf16 passes on hi/lo splits of its operands, f32 accumulation), at
+"default" K4b (the same source, one bf16 pass a product); the softmax is
+f32 in all. On CPU tensors it computes the
 plain version of the same precision: the q/k/v projections of every head
 and masked softmax attention in one call, from the hidden states x [B, T,
 D_model] and the projections' weights in ``nn.Linear``'s [out, in]
@@ -26,10 +29,12 @@ sublayer, out-projection included (``precision.linear``); beyond
 ``MAX_FUSED_T`` frames it takes the unfused composition with K1 or K1b,
 the JAX package's own shape rule.
 
-On a bf16 x (bf16 activations in the block stack) K4, K4h and K4b run
-their bf16-I/O flavours: x is read as bf16, the weights and biases stay
-f32, O comes back in bf16, each the f32-I/O flavour's O on the upcast x
-rounded once. The JAX package hands its fused path the raw f32 parameters, so the
+On a bf16 x (bf16 activations in the block stack) K4h and K4b run their
+bf16-I/O flavours: x is read as bf16, the weights and biases stay f32, O
+comes back in bf16, each the f32-I/O flavour's O on the upcast x rounded
+once; at "highest" K4-bf16 computes K4's products in the tensor core's
+order, so its O lies within one bf16 step of K4's on the upcast x rounded
+once, not on it. The JAX package hands its fused path the raw f32 parameters, so the
 out-projection, the backward's q/k/v recompute and the fallback beyond
 ``MAX_FUSED_T`` take ``precision.linear_raw_weights`` there (an f32
 product of the upcast x, one rounding), not flax's bf16 ``nn.Dense``.
@@ -82,8 +87,21 @@ FUSED_BF16_BLOCKS_PER_SM = 2
 _HIGH3_PLANES = 2
 FUSED_HIGH3_SMEM_BYTES = _HIGH3_PLANES * _BF16_RING_BYTES + 8 * 2 * _BF16_STAGES + 1024
 FUSED_HIGH3_BLOCKS_PER_SM = 1
+# K4-bf16's (the same source at six passes, "highest" on a bf16 x): the
+# weights in three planes and x in one, so a 64-wide stage is 80 KB and the
+# ring holds 2 (3 would be 240 KB); phase 2's Q, K and V of the chunk and
+# three K + V tiles, each in three planes (216 KB), outgrow the ring and
+# set the size; 1 block an SM
+_HIGHEST_PLANES, _HIGHEST_STAGES = 3, 2
+_HIGHEST_RING_BYTES = 2 * _HIGHEST_STAGES * (ROWS_PER_BLOCK + _HIGHEST_PLANES * _BF16_HEAD_ROWS) \
+    * _BF16_SLICE
+_HIGHEST_PHASE2_BYTES = 2 * _HIGHEST_PLANES * (3 + 3 * 2) * ROWS_PER_BLOCK * HEAD_DIM
+FUSED_HIGHEST_BF16_SMEM_BYTES = max(_HIGHEST_RING_BYTES, _HIGHEST_PHASE2_BYTES) \
+    + 8 * 2 * _HIGHEST_STAGES + 1024
+FUSED_HIGHEST_BF16_BLOCKS_PER_SM = 1
 
-# Launches of K4, K4b and K4h, and of their bf16-I/O flavours, since each
+# Launches of K4, K4b and K4h, of K4b's and K4h's bf16-I/O flavours and of
+# K4-bf16 (``launches_f32_bf16_io``: "highest" on a bf16 x), since each
 # count was last set to 0.
 launches = 0
 launches_bf16 = 0
@@ -132,13 +150,14 @@ class FusedPlan:
         return [(r0, min(self.t, r0 + self.rows_per_block))]
 
 
-def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> FusedPlan:
-    """The launch of ``precision``'s kernel (K4 at "highest", K4h at
-    "high", K4b at "default") for x [b, t, 64 h]: the cluster size, rows
-    per block, tensors per block, grid (cluster, h, b), dynamic shared
-    memory and threads a block. The three kernels split a (batch, head)
-    alike and differ in shared memory and threads. The C launcher checks
-    each against the kernel's own rule."""
+def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest",
+                      bf16_x: bool = False) -> FusedPlan:
+    """The launch of ``precision``'s kernel (K4 at "highest", K4-bf16 at
+    "highest" with ``bf16_x``, K4h at "high", K4b at "default") for x [b,
+    t, 64 h]: the cluster size, rows per block, tensors per block, grid
+    (cluster, h, b), dynamic shared memory and threads a block. The kernels
+    split a (batch, head) alike and differ in shared memory and threads.
+    The C launcher checks each against the kernel's own rule."""
     prec_ops.check(precision)
     if not 1 <= t <= MAX_FUSED_T:
         raise ValueError(f"fused kernel: T = {t} outside 1 .. {MAX_FUSED_T}")
@@ -149,6 +168,8 @@ def fused_launch_plan(t: int, b: int, h: int, precision: str = "highest") -> Fus
     smem, threads = {"highest": (FUSED_SMEM_BYTES, THREADS),
                      "high": (FUSED_HIGH3_SMEM_BYTES, FUSED_BF16_THREADS),
                      "default": (FUSED_BF16_SMEM_BYTES, FUSED_BF16_THREADS)}[precision]
+    if precision == "highest" and bf16_x:
+        smem, threads = FUSED_HIGHEST_BF16_SMEM_BYTES, FUSED_BF16_THREADS
     return FusedPlan(t, cluster, ROWS_PER_BLOCK, tensors, (cluster, h, b), smem, threads)
 
 
@@ -216,39 +237,47 @@ def fused_qkv_attention_ref(x, wq, bq, wk, bk, wv, bv, lengths, heads, precision
     return o.to(x.dtype)
 
 
-# the library and C entry of each precision's kernel: K4 (f32), K4h (bf16 x
-# 3) and K4b (bf16), each in f32 or bf16 I/O; K4h and K4b are one template
-_KERNELS = {"highest": ("fused_attention", "nomad_fused_qkv_attention_fwd"),
-            "high": ("fused_attention_bf16", "nomad_fused_qkv_attention_high3_fwd"),
-            "default": ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
+# the library and C entry of each kernel by (precision, bf16 x): K4 (f32
+# FMA, an f32 x), K4-bf16 (bf16 x 6, a bf16 x), K4h (bf16 x 3) and K4b
+# (bf16), K4h and K4b in f32 or bf16 I/O; K4-bf16, K4h and K4b are one
+# template
+_KERNELS = {("highest", False): ("fused_attention", "nomad_fused_qkv_attention_fwd"),
+            ("highest", True): ("fused_attention_bf16", "nomad_fused_qkv_attention_highest_fwd"),
+            ("high", False): ("fused_attention_bf16", "nomad_fused_qkv_attention_high3_fwd"),
+            ("high", True): ("fused_attention_bf16", "nomad_fused_qkv_attention_high3_fwd"),
+            ("default", False): ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd"),
+            ("default", True): ("fused_attention_bf16", "nomad_fused_qkv_attention_bf16_fwd")}
 
 
-def _lib(precision: str = "highest"):
-    source, entry = _KERNELS[precision]
+def _lib(precision: str = "highest", bf16_x: bool = False):
+    source, entry = _KERNELS[precision, bf16_x]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # K4b and K4h also take the buffers of their packed weights and
-        # rounded x, and their threads a block
-        tc = precision != "highest"
+        # K4-bf16, K4b and K4h also take the buffers of their packed
+        # weights and rounded x, their threads a block and x's type
+        tc = source == "fused_attention_bf16"
         fn.argtypes = [p] * (11 if tc else 9) + [i] * 4 + [ll] * 3 + [ctypes.c_float] + (
-            [i] * (6 if tc else 5) + [p])
+            [i] * (6 if tc else 4) + [p])
         fn.restype = ctypes.c_int
         occ = getattr(lib, f"{entry}_occupancy")
-        occ.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        occ.argtypes = [i] * (2 if tc else 1) + [ctypes.POINTER(i), ctypes.POINTER(i)]
         occ.restype = ctypes.c_int
     return lib
 
 
 def fused_occupancy(t: int, precision: str = "highest", bf16_io: bool = False) -> tuple:
-    """(blocks of ``precision``'s kernel, K4, K4h or K4b, or of its bf16-I/O
-    flavour with ``bf16_io``, resident on one SM, clusters resident on the
-    card) for the cluster size of T frames (the card)."""
-    lib = _lib(precision)
+    """(blocks of ``precision``'s kernel, K4 (K4-bf16 with ``bf16_io``),
+    K4h or K4b (their bf16-I/O flavours with ``bf16_io``), resident on one
+    SM, clusters resident on the card) for the cluster size of T frames (the
+    card)."""
+    lib = _lib(precision, bf16_io)
+    source, entry = _KERNELS[precision, bf16_io]
     blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    err = getattr(lib, f"{_KERNELS[precision][1]}_occupancy")(
-        fused_launch_plan(t, 1, 1, precision).cluster, int(bf16_io), ctypes.byref(blocks),
+    io = (int(bf16_io),) if source == "fused_attention_bf16" else ()
+    err = getattr(lib, f"{entry}_occupancy")(
+        fused_launch_plan(t, 1, 1, precision, bf16_io).cluster, *io, ctypes.byref(blocks),
         ctypes.byref(clusters))
     _build.check(lib, err, "fused attention occupancy")
     return blocks.value, clusters.value
@@ -281,29 +310,34 @@ def _check_inputs(x, params, lengths, heads):
         raise ValueError(f"fused kernel: lengths must be int32 [{b}] on {x.device}")
 
 
-def pack_weights_ref(wq, wk, wv, heads: int, high3: bool = False) -> torch.Tensor:
+def pack_weights_ref(wq, wk, wv, heads: int, planes: int = 1) -> torch.Tensor:
     """The plain version of K4b's prologue: the q/k/v weights ([out, in])
     rounded to bf16 and packed head-major, [H * 3 * hd, D], rows 3 hd h ..
     3 hd h + hd - 1 head h's rows of wq, then of wk, then of wv: the JAX
     package's ``per_head_w`` ([H, D, hd] of the [in, out] weights), each
-    head's slice transposed, stacked over the three. ``high3``: K4h's, the
-    hi plane, then the lo plane (``precision.split_bf16``), [2 H * 3 hd,
-    D]."""
+    head's slice transposed, stacked over the three. ``planes`` 2: K4h's,
+    the hi plane, then the lo plane (``precision.split_bf16``), [2 H * 3
+    hd, D]. ``planes`` 3: K4-bf16's, the weights times
+    ``precision.SPLIT3_SCALE`` split into their hi, mid and lo planes
+    (``precision.split3_bf16``, whose sum is the scaled weight exactly),
+    [3 H * 3 hd, D]."""
     dm = wq.shape[1]
     hd = dm // heads
     w = torch.stack([w.view(heads, hd, dm) for w in (wq, wk, wv)], dim=1).reshape(
         heads * 3 * hd, dm)
-    if high3:
+    if planes == 3:
+        return torch.cat(prec_ops.split3_bf16(w * prec_ops.SPLIT3_SCALE)).to(torch.bfloat16)
+    if planes == 2:
         return torch.cat(prec_ops.split_bf16(w)).to(torch.bfloat16)
     return w.to(torch.bfloat16)
 
 
 def _bf16_workspace(x, heads, planes: int = 1):
-    """K4b's (``planes`` 1) or K4h's (2) buffers, written by its prologue:
-    the packed weights (``pack_weights_ref``'s layout, K4h's two planes one
-    after the other) and, for an f32 x, x rounded to bf16 (K4h: [2, B, T,
-    D], its hi and its lo plane; None for a bf16 x, which the kernel reads
-    as it is)."""
+    """K4b's (``planes`` 1), K4h's (2) or K4-bf16's (3) buffers, written by
+    its prologue: the packed weights (``pack_weights_ref``'s layout, the
+    planes one after the other) and, for an f32 x, x rounded to bf16 (K4h:
+    [2, B, T, D], its hi and its lo plane; None for a bf16 x, which the
+    kernel reads as it is)."""
     b, t, dm = x.shape
     wp = torch.empty((planes * heads * _BF16_HEAD_ROWS, dm), dtype=torch.bfloat16,
                      device=x.device)
@@ -312,39 +346,54 @@ def _bf16_workspace(x, heads, planes: int = 1):
     return wp, xr
 
 
+def _planes(precision, bf16_x: bool) -> int:
+    """The bf16 planes of the packed weights of ``precision``'s kernel on a
+    bf16 (``bf16_x``) or f32 x: K4b 1, K4h 2, K4-bf16 3; 0 for K4, which
+    packs nothing."""
+    if precision == "highest":
+        return 3 if bf16_x else 0
+    return _HIGH3_PLANES if precision == "high" else 1
+
+
 def _launch(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads, workspace=None):
-    """``precision``'s kernel, K4, K4h or K4b (its bf16-I/O flavour on a
-    bf16 x) on inputs that pass ``_check_inputs``: O [B, T, H, hd] in x's
-    dtype, written through its strides and handed out head-major as a
-    view, so the out-projection reads it as [B, T, D] with no copy. K4b and
-    K4h write their prologue's buffers into ``workspace``
-    (``_bf16_workspace``) when it is given."""
+    """``precision``'s kernel on x's type, K4 or K4-bf16, K4h or K4b (its
+    bf16-I/O flavour on a bf16 x) on inputs that pass ``_check_inputs``: O
+    [B, T, H, hd] in x's dtype, written through its strides and handed out
+    head-major as a view, so the out-projection reads it as [B, T, D] with
+    no copy. K4-bf16, K4b and K4h write their prologue's buffers into
+    ``workspace`` (``_bf16_workspace``) when it is given."""
     params = {"wq": wq, "bq": bq, "wk": wk, "bk": bk, "wv": wv, "bv": bv}
     _check_inputs(x, params, lengths, heads)
     b, t, dm = x.shape
+    bf16_x = x.dtype == torch.bfloat16
     o = torch.empty((b, t, heads, HEAD_DIM), dtype=x.dtype, device=x.device)
     if o.numel() == 0:
         return o.transpose(1, 2)
     lengths = lengths.contiguous()
-    plan = fused_launch_plan(t, b, heads, precision)
-    buffers, threads = (), ()
-    if precision != "highest":
-        planes = _HIGH3_PLANES if precision == "high" else 1
+    plan = fused_launch_plan(t, b, heads, precision, bf16_x)
+    buffers, tail = (), ()
+    planes = _planes(precision, bf16_x)
+    if planes:
         workspace = workspace or _bf16_workspace(x, heads, planes)
         buffers = tuple(0 if a is None else a.data_ptr() for a in workspace)
-        threads = (plan.threads,)
-    lib = _lib(precision)
-    err = getattr(lib, _KERNELS[precision][1])(
+    lib = _lib(precision, bf16_x)
+    source, entry = _KERNELS[precision, bf16_x]
+    if source == "fused_attention_bf16":
+        tail = (plan.threads, plan.smem_bytes, int(bf16_x))
+    else:
+        tail = (plan.smem_bytes,)
+    err = getattr(lib, entry)(
         x.data_ptr(), *(a.data_ptr() for a in params.values()), lengths.data_ptr(),
         o.data_ptr(), *buffers, b, t, heads, dm, *o.stride()[:3], 1.0 / HEAD_DIM**0.5,
-        plan.cluster, plan.rows_per_block, plan.tensors_per_block, *threads, plan.smem_bytes,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        plan.cluster, plan.rows_per_block, plan.tensors_per_block, *tail,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, f"fused attention kernel launch at {precision!r}")
     return o.transpose(1, 2)
 
 
-# each kernel's launch counters: (f32 x, bf16 x)
+# each kernel's launch counters: (f32 x, bf16 x); "highest" on a bf16 x is
+# K4-bf16
 _COUNTERS = {"highest": ("launches", "launches_f32_bf16_io"),
              "high": ("launches_high3", "launches_high3_bf16_io"),
              "default": ("launches_bf16", "launches_bf16_io")}
@@ -352,10 +401,12 @@ _COUNTERS = {"highest": ("launches", "launches_f32_bf16_io"),
 
 def _run_kernel(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads):
     """``_launch`` of ``precision``'s kernel, counted by its flavour's
-    counter: K4 ("highest", f32 FMA), K4h ("high", the TPU kernel's
-    "high3" on the tensor cores, its prologue splitting the weights and an
-    f32 x) or K4b ("default", its prologue rounding them); on a bf16 x
-    each kernel's bf16-I/O flavour."""
+    counter: K4 ("highest" on an f32 x, f32 FMA), K4-bf16 ("highest" on a
+    bf16 x: its prologue splits the weights into three planes, the products
+    on the tensor cores), K4h ("high", the TPU kernel's "high3" on the
+    tensor cores, its prologue splitting the weights and an f32 x) or K4b
+    ("default", its prologue rounding them); on a bf16 x K4h's and K4b's
+    bf16-I/O flavours."""
     o = _launch(precision, x, wq, bq, wk, bk, wv, bv, lengths, heads)
     counter = _COUNTERS[precision][int(x.dtype == torch.bfloat16)]
     globals()[counter] += 1

@@ -986,7 +986,7 @@ def test_high3_fused_kernel_matches_ref(cuda, t, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_high3_fused_prologue_splits_the_operands(cuda, dtype):
     """K4h's prologue writes the packed weights' hi and lo planes bit-equal
-    to ``pack_weights_ref(..., high3=True)`` and, for an f32 x, x's planes
+    to ``pack_weights_ref(..., planes=2)`` and, for an f32 x, x's planes
     bit-equal to ``precision.split_bf16``; a bf16 x needs no copy."""
     x, params = _fused_inputs(cuda, 2, 70, 2, 24)
     x = x.to(dtype)
@@ -994,7 +994,7 @@ def test_high3_fused_prologue_splits_the_operands(cuda, dtype):
     wp, xr = fused_attention._bf16_workspace(x, 2, planes=2)
     fused_attention._launch("high", x, *params, lens, 2, workspace=(wp, xr))
     torch.cuda.synchronize()
-    assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2, high3=True))
+    assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2, planes=2))
     assert (xr is None) == (dtype == torch.bfloat16)
     if xr is not None:
         assert torch.equal(xr, torch.cat(prec_ops.split_bf16(x)).to(torch.bfloat16))
@@ -1085,9 +1085,9 @@ def test_bf16_io_flash_kernels_are_the_f32_flavour_rounded(cuda, b, t, lengths):
 
 
 def test_f32_kernels_refuse_bf16(cuda):
-    """K1 and the backward at "highest" (f32 products) take bf16 tensors
-    through K1's bf16-I/O flavour and K2-bf16/K3-bf16 (their own launch
-    counters, never K1b's); they refuse float16 and q, k and v of mixed
+    """The forward and the backward at "highest" (f32 products) take bf16
+    tensors through K1-bf16 and K2-bf16/K3-bf16 (their own launch counters,
+    never K1b's or K1's); they refuse float16 and q, k and v of mixed
     dtypes with TypeError."""
     q = torch.randn(1, 10, 2, 64, device=cuda, dtype=torch.bfloat16)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
@@ -1170,39 +1170,143 @@ def assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads):
     return shares
 
 
-@pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
-                                       (65, [65, 64, 1, 0])])
-def test_f32_flash_bf16_io_flavours_bit_equal(cuda, t, lengths):
-    """K1's bf16-I/O flavour ("highest" on bf16 tensors): O bf16, the
-    f32-I/O flavour's O on the upcast inputs rounded once, bit for bit, LSE
-    equal; within one bf16 step (2^-7 of max |O|) plus 1e-4 of it of its
-    plain version on the same bf16 inputs; a rerun the same bits; NaN past
-    each bound changes no valid row. The backward, K2-bf16 and K3-bf16 on
-    the tensor cores, sums in another order than the f32 flavour and is
-    held by ``assert_highest_bf16_backward`` instead of bit equality."""
-    g = torch.Generator().manual_seed(t)
+FWD_F32_REL = 1e-4  # K1-bf16 and K4-bf16 against the f32 flavour: two f32 orders
+
+
+def assert_near_f32_flavour(o, o32):
+    """Every element of a "highest" bf16 forward's O (K1-bf16, K4-bf16)
+    within one bf16 step (at the larger of the two) beyond 1e-4 of max |O|
+    of the f32 flavour's O on the upcast inputs, rounded once: both sum
+    f32-exact products, in two orders. Returns the share of elements that
+    differ."""
+    o32b = o32.to(torch.bfloat16)
+    diff = (o.float() - o32b.float()).abs()
+    step = bf16_step(torch.maximum(o.float().abs(), o32b.float().abs()))
+    assert (diff <= step + FWD_F32_REL * o32.abs().max().item()).all()
+    return (o != o32b).float().mean().item()
+
+
+def lse_f64(q, k, lengths):
+    """The exact log-sum-exp of q's scores over each row's valid keys, in
+    float64 [B, H, T]; -1e30 for a row with no key."""
+    b, t, h, d = q.shape
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() / d**0.5, k.double())
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    out = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(out), out, torch.full_like(out, flash_attention.NEG_INF))
+
+
+def check_highest_bf16_flash(cuda, lengths, t, h, seed, bwd=True):
+    """K1-bf16 ("highest" on bf16 tensors: K1's products on the tensor
+    cores): O bf16 within one bf16 step of K1's on the upcast inputs
+    rounded once beyond 1e-4 of its max |O| (``assert_near_f32_flavour``),
+    LSE no further from float64 than K1's x 1.5 + 1e-6, O no further from
+    exact f64 attention than 1.5 x the plain version's distance + 1.5 bf16
+    steps of its max + 1e-6; one launch of K1-bf16 and of the bf16
+    prologue, none of K1, K1b; a 0-key row O = 0 and LSE = -1e30; a rerun
+    the same bits; NaN past each bound changes no row. With ``bwd`` the
+    backward, K2-bf16 and K3-bf16, by ``assert_highest_bf16_backward``.
+    Returns the share of O's elements that differ from K1's rounded."""
+    g = torch.Generator().manual_seed(seed)
     bf = torch.bfloat16
     b = len(lengths)
-    q, k, v = torch.randn(b, t, 3, 4, 64, generator=g).to(cuda).to(bf).unbind(2)
-    do = torch.randn(b, t, 4, 64, generator=g).to(cuda).to(bf)
+    q, k, v = torch.randn(b, t, 3, h, 64, generator=g).to(cuda).to(bf).unbind(2)
+    do = torch.randn(b, t, h, 64, generator=g).to(cuda).to(bf)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    names = ("launches_f32_bf16_io", "launches_fwd_fold_bf16_io", "launches", "launches_bf16",
+             "launches_bf16_io", "launches_fwd_fold_bf16")
+    before = [getattr(flash_attention, n) for n in names]
     o, lse = flash_attention.mha_flash(q, k, v, lens, "highest")
-    grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+    torch.cuda.synchronize()
+    assert [getattr(flash_attention, n) - c for n, c in zip(names, before)] == [1, 1, 0, 0, 0, 0]
+    assert o.dtype == bf and torch.isfinite(o).all() and torch.isfinite(lse).all()
     up = [x.float() for x in (q, k, v)]
     o32, lse32 = flash_attention.mha_flash(*up, lens, "highest")
-    assert o.dtype == bf and torch.equal(o, o32.to(bf)) and torch.equal(lse, lse32)
+    share = assert_near_f32_flavour(o, o32)
+    exact_lse = lse_f64(*up[:2], lens)
+    gap, gap32 = ((x.double() - exact_lse).abs().max().item() for x in (lse, lse32))
+    assert gap <= 1.5 * gap32 + 1e-6, (gap, gap32)
     ro, _ = flash_attention.flash_attention_ref(q, k, v, lens, "highest")
-    scale = ro.float().abs().max().item()
-    assert (o.float() - ro.float()).abs().max().item() <= (2.0**-7 + 1e-4) * scale
-    again = flash_attention.mha_flash(q, k, v, lens, "highest")[0]
-    assert torch.equal(again, o)
+    exact = attention_f64(*up, lens)
+    err, err_plain = ((x.double() - exact).abs().max().item() for x in (o, ro))
+    assert err <= 1.5 * err_plain + 1.5 * BF16_STEP * exact.abs().max().item() + 1e-6
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not o[i].any() and (lse[i] == flash_attention.NEG_INF).all()
+    again = flash_attention.mha_flash(q, k, v, lens, "highest")
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
     k2, v2 = k.clone(), v.clone()
     for i, n in enumerate(lengths):
         k2[i, n:] = float("nan")
         v2[i, n:] = float("nan")
-    o2, _ = flash_attention.mha_flash(q, k2, v2, lens, "highest")
-    assert torch.equal(o2, o)
-    assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads)
+    o2, lse2 = flash_attention.mha_flash(q, k2, v2, lens, "highest")
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    if bwd:
+        grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, lens, "highest")
+        assert_highest_bf16_backward(q, k, v, o, lse, do, lens, grads)
+    return share
+
+
+@pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
+                                       (65, [65, 64, 1, 0])])
+def test_highest_bf16_flash_within_one_step_of_f32_flavour(cuda, t, lengths):
+    """K1-bf16, the "highest" forward on bf16 tensors on the tensor cores
+    (K1's products, summed in the tensor core's order), and its backward,
+    K2-bf16 and K3-bf16, by ``check_highest_bf16_flash``'s rules: within
+    one bf16 step of the f32 flavour rounded once, near float64, a rerun
+    the same bits, NaN past each bound changing nothing."""
+    check_highest_bf16_flash(cuda, lengths, t, 4, t)
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 511] + K1B_RING_EDGES)
+def test_highest_bf16_flash_tile_and_ring_edges(cuda, t):
+    """K1-bf16 at every edge of its 16-row warp tiles, 64-row blocks and
+    64-key tiles and of its ring of 4 (K, V) stages, a full, a ragged, a
+    1-key and a 0-key row, by ``check_highest_bf16_flash``'s rules."""
+    check_highest_bf16_flash(cuda, [t, max(t // 2, 1), 1, 0], t, 4, 800 + t, bwd=False)
+
+
+def test_highest_bf16_flash_one_call_is_the_prologue_and_kernel_alone(cuda):
+    """``mha_flash``'s one C call at "highest" on bf16 tensors (the
+    prologue, K1-bf16) gives the bits of the two launched one at a time,
+    on a fold bit-equal to ``fold_bf16_ref``'s; f32 tensors are refused
+    (they run K1), and so is a plan of another flavour's blocks."""
+    g = torch.Generator().manual_seed(9)
+    b, t, h, lengths = 4, 257, 3, [257, 130, 1, 0]
+    q, k, v = (torch.randn(b, t, h, 64, generator=g).to(cuda).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention.mha_flash(q, k, v, lens, "highest")
+    ws = flash_attention._flash_bf16_fold(q, k, v, lens)
+    before = flash_attention.launches_f32_bf16_io
+    alone = flash_attention._flash_bf16_body(q, ws, lens, "highest")
+    torch.cuda.synchronize()
+    assert flash_attention.launches_f32_bf16_io == before + 1
+    for n, x in enumerate((k, v)):
+        assert torch.equal(ws[n], flash_attention.fold_bf16_ref(x, lens, True)), n
+    assert torch.equal(alone[0], o) and torch.equal(alone[1], lse)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention._flash_bf16_body(q.float(), ws, lens, "highest")
+    lib = flash_attention._lib_bf16()
+    plan = flash_attention.flash_bf16_launch_plan(t, b, h, "highest")
+    for bad in ({"passes": 3, "bf16_io": 0}, {"passes": 2, "bf16_io": 1}):
+        err = lib.nomad_flash_attention_bf16_fwd_kernel(
+            q.data_ptr(), ws.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h,
+            64, *q.stride()[:3], *o.stride()[:3], plan["rows_per_block"], plan["threads"],
+            plan["smem_bytes"], plan["stages"], 0.125, bad["bf16_io"], bad["passes"],
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
+
+
+def test_highest_bf16_flash_occupancy(cuda):
+    """K1-bf16 keeps on an SM the 2 blocks its launch plan claims (K1b's
+    block with three planes of P); the f32 I/O is no flavour of its."""
+    plan = flash_attention.flash_bf16_launch_plan(511, 96, 12, "highest")
+    assert plan["passes"] == 3 and plan["blocks_per_sm"] == 2
+    assert flash_attention.flash_bf16_occupancy(True, "highest") >= plan["blocks_per_sm"]
+    with pytest.raises(RuntimeError, match="occupancy"):
+        flash_attention.flash_bf16_occupancy(False, "highest")
 
 
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 257])
@@ -1279,22 +1383,22 @@ def test_highest_bf16_backward_occupancy(cuda):
             flash_attention.flash_bwd_bf16_occupancy(kernel, False, "highest")
 
 
-@pytest.mark.parametrize("prec", ["highest", "default", "high"])
+@pytest.mark.parametrize("prec", ["default", "high"])
 @pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
                                        (1024, [1024, 700, 1])])
 def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
-    """K4's ("highest"), K4h's ("high") and K4b's ("default") bf16-I/O
-    flavours on a bf16 x with the f32 weights: O bf16, the f32-I/O flavour's O on the upcast x
+    """K4h's ("high") and K4b's ("default") bf16-I/O flavours on a bf16 x
+    with the f32 weights: O bf16, the f32-I/O flavour's O on the upcast x
     rounded once, bit for bit, counted by their own launch counters; within
     one bf16 step (2^-7 of max |O|) plus the f32-I/O flavour's own
     tolerance of their plain version; a 0-key row O = 0; garbage past each
-    bound changes no valid row."""
+    bound changes no valid row. "highest" on a bf16 x, K4-bf16, sums in
+    another order than its f32 flavour: ``check_highest_bf16_fused``."""
     x, params = _fused_inputs(cuda, len(lengths), t, 2, t + 1)
     bf = torch.bfloat16
     x = x.to(bf)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    counter = {"default": "launches_bf16_io", "highest": "launches_f32_bf16_io",
-               "high": "launches_high3_bf16_io"}[prec]
+    counter = {"default": "launches_bf16_io", "high": "launches_high3_bf16_io"}[prec]
     before = getattr(fused_attention, counter)
     o = fused_attention.fused_qkv_mha(x, *params, lens, 2, prec)
     torch.cuda.synchronize()
@@ -1313,6 +1417,95 @@ def test_fused_bf16_io_flavours_bit_equal(cuda, prec, t, lengths):
     o_bad = fused_attention.fused_qkv_mha(x_bad, *params, lens, 2, prec)
     for i, n in enumerate(lengths):
         assert torch.equal(o_bad[i, :, :n], o[i, :, :n])
+
+
+def check_highest_bf16_fused(cuda, lengths, t, seed):
+    """K4-bf16 ("highest" on a bf16 x: K4's products on the tensor cores,
+    three planes of the weights and of Q, K, V and P) on a bf16 x, zero
+    past each bound: one launch on its counter (none of K4, K4h, K4b); O
+    bf16 within one bf16 step of K4's on the upcast x rounded once beyond
+    1e-4 of its max |O| (``assert_near_f32_flavour``); no further from
+    ``fused_f64_unrounded`` than 1.5 x the plain version's distance + 1.5
+    bf16 steps of its max + 1e-6; a 0-key row O = 0; a rerun the same bits;
+    NaN past each bound changes no valid row, 123.0 there leaves every row
+    finite. Returns the share of elements that differ from K4's rounded."""
+    x, params = _fused_inputs(cuda, len(lengths), t, 2, seed)
+    for i, n in enumerate(lengths):
+        x[i, n:] = 0.0
+    x = x.to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    names = ("launches_f32_bf16_io", "launches", "launches_high3_bf16_io", "launches_bf16_io")
+    before = [getattr(fused_attention, n) for n in names]
+    o = fused_attention.fused_qkv_mha(x, *params, lens, 2, "highest")
+    torch.cuda.synchronize()
+    assert [getattr(fused_attention, n) - c for n, c in zip(names, before)] == [1, 0, 0, 0]
+    assert o.shape == (len(lengths), 2, t, 64) and o.dtype == torch.bfloat16
+    assert torch.isfinite(o).all()
+    o32 = fused_attention.fused_qkv_mha(x.float(), *params, lens, 2, "highest")
+    share = assert_near_f32_flavour(o, o32)
+    ref = fused_attention.fused_qkv_attention_ref(x, *params, lens, 2, "highest")
+    exact = fused_f64_unrounded(x.float(), params, lens, 2)
+    err, err_plain = ((a.double() - exact).abs().max().item() for a in (o, ref))
+    assert err <= 1.5 * err_plain + 1.5 * BF16_STEP * exact.abs().max().item() + 1e-6
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not o[i].any()
+    assert torch.equal(fused_attention.fused_qkv_mha(x, *params, lens, 2, "highest"), o)
+    for fill, whole in ((float("nan"), False), (123.0, True)):
+        dirty = x.clone()
+        for i, n in enumerate(lengths):
+            dirty[i, n:] = fill
+        got = fused_attention.fused_qkv_mha(dirty, *params, lens, 2, "highest")
+        assert not whole or torch.isfinite(got).all()
+        for i, n in enumerate(lengths):
+            assert torch.equal(got[i, :, :n], o[i, :, :n]), (fill, i)
+    return share
+
+
+@pytest.mark.parametrize("t,lengths", [(50, [50, 31, 1, 0]), (511, [511, 499, 64, 0]),
+                                       (1024, [1024, 700, 1])])
+def test_highest_bf16_fused_within_one_step_of_f32_flavour(cuda, t, lengths):
+    """K4-bf16 at the paths' lengths by ``check_highest_bf16_fused``'s
+    rules: within one bf16 step of K4 on the upcast x rounded once, near
+    float64, a rerun the same bits, garbage past each bound changing no
+    valid row."""
+    check_highest_bf16_fused(cuda, lengths, t, t + 1)
+
+
+@pytest.mark.parametrize("t", [1, 50, 63, 64, 65, 127, 128, 129, 511, 512, 1023, 1024])
+def test_highest_bf16_fused_cluster_edges(cuda, t):
+    """K4-bf16 at every edge of its plan (the 3-block cluster up to 64
+    frames, clusters of 2 .. 16 blocks along T, the last chunk ragged) and
+    of its 64-key tiles: a full, a ragged, a 1-key and a 0-key row."""
+    check_highest_bf16_fused(cuda, [t, max(t // 2, 1), 1, 0], t, 900 + t)
+
+
+def test_highest_bf16_fused_prologue_splits_the_weights(cuda):
+    """K4-bf16's prologue writes the three planes of the packed weights
+    bit-equal to ``pack_weights_ref(..., planes=3)``, a bf16 x needs no
+    copy, and the call on that workspace gives the wrapper's bits; an f32
+    x at "highest" runs K4 (no planes)."""
+    x, params = _fused_inputs(cuda, 2, 70, 2, 25)
+    x = x.to(torch.bfloat16)
+    lens = torch.tensor([70, 33], dtype=torch.int32, device=cuda)
+    wp, xr = fused_attention._bf16_workspace(x, 2, planes=3)
+    o = fused_attention._launch("highest", x, *params, lens, 2, workspace=(wp, xr))
+    torch.cuda.synchronize()
+    assert xr is None and wp.shape == (3 * 2 * 192, 128)
+    assert torch.equal(wp, fused_attention.pack_weights_ref(*params[0::2], 2, planes=3))
+    assert torch.equal(o, fused_attention.fused_qkv_mha(x, *params, lens, 2, "highest"))
+    assert fused_attention._planes("highest", False) == 0
+
+
+def test_highest_bf16_fused_occupancy(cuda):
+    """K4-bf16 keeps the 1 block per SM it is built for (222,240 bytes of
+    shared memory) at every cluster size of its plan, and each size fits on
+    the card; its f32 I/O is K4."""
+    for t in [50] + [64 * c for c in range(2, fused_attention.MAX_CLUSTER + 1)]:
+        blocks, clusters = fused_attention.fused_occupancy(t, "highest", True)
+        assert blocks >= fused_attention.FUSED_HIGHEST_BF16_BLOCKS_PER_SM and clusters >= 1, (
+            t, blocks, clusters)
+    assert fused_attention.fused_occupancy(511, "highest", False)[0] >= 2
 
 
 # ---------------- the mesh at world size 1, over NCCL ----------------

@@ -4,7 +4,8 @@ differentiate.
     python3 chip_smoke.py [--only-scoring | --only-loss | --only-train | --only-se |
                            --only-serve | --only-precision | --only-grad-modes |
                            --only-fused-modes | --only-fast-bf16 | --only-bf16-paths |
-                           --only-large-scale | --only-wire-and-tools | --only-high3]
+                           --only-large-scale | --only-wire-and-tools | --only-high3 |
+                           --only-config-fields]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -277,6 +278,19 @@ Phases, each fatal on failure:
      subset copied, and the triplet recipe's step on the generated
      ``train.csv`` with remat "full" and "dots" (K5 50 each; loss and
      gradients within 1e-6, time, peak);
+ 17. the JAX package's config fields that the port took last, at full
+     BASE width on phase 9's seeded weights and phase 4's 108 files: the
+     tail split (blocks 8-11 at "default": K1 x 8 and K1b x 4 a batch; on
+     ``fused_qkv`` K4h x 8 and K4b x 4), its control (the head at
+     "default", the tail at "high": K1b x 8, K1 x 4), ``matmul_precision=
+     "default"`` (K1b x 12), the attention, fc2 and feature-projection
+     islands at "default" (K1b x 12) and ``dtype=bfloat16`` (K1-bf16 x 12,
+     K5-bf16 x 26 at widths 512 and 768): the launches of each block and
+     of the pass against CONFIG_FIELD_CASES, warm device passes, the peak,
+     the embeddings against the config's plain path by phase 12's rule,
+     the pairwise delta against "exact" (reported); then ``dtype=bfloat16``'s
+     loss at 24 x 160,000 samples against its plain path by phase 10's
+     rule;
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -295,7 +309,7 @@ phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14,
 1, 2 and 16, ``--only-high3`` phases 1 and 2, phase 3's K4h checks and
 the K4h-bf16 checks of phase 14 at the scoring shape, phase 4 and phase
 5's fused loss (the paths that drive K4h), each ending with the report
-line.
+line. ``--only-config-fields`` runs phases 1, 2 and 17.
 """
 
 from __future__ import annotations
@@ -1641,7 +1655,7 @@ def signed_grad(nomad: Nomad, est: torch.Tensor, clean: torch.Tensor,
 def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
                   batch: int, samples: int, mode: str = "exact", params=None,
                   plain_impl: str | None = None, steps: int = LOSS_STEPS,
-                  attribute: bool = False) -> None:
+                  attribute: bool = False, plain_kw: dict | None = None) -> None:
     """One loss path on ``batch`` seeded clips of ``samples`` samples: its
     launch counts per step (``want``), loss and gradient against the plain
     path of the same precision ``mode``, forward(x, x) == 0, warm step
@@ -1656,7 +1670,8 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     else Nomad's seeded init. ``plain_impl``: the plain path's
     ``attention_impl`` in a bf16 mode (else the mode's own), or
     "fused_qkv" at "exact" (the fused kernel's plain version, else
-    ``mha_ref``); ``steps``:
+    ``mha_ref``); ``plain_kw``: other fields of the plain path's config
+    (``dtype``); ``steps``:
     warm steps timed. ``attribute``: the gap with K1b alone, then K5 alone,
     swapped for its plain version too, and the share of the gap each swap
     closes (beside K2b/K3b's)."""
@@ -1706,7 +1721,7 @@ def run_loss_path(card: str, key: str, config: Wav2Vec2Config, want: dict,
     sd = nomad.model.state_dict()
     signs = layer_signs(nomad, est.detach(), clean)
     plain = Nomad(device="cuda", params=sd, config=plain_config(
-        mode, **({"attention_impl": plain_impl} if plain_impl else {})))
+        mode, **({"attention_impl": plain_impl} if plain_impl else {}), **(plain_kw or {})))
     with plain_flash(mode, impl=plain_impl):
         est_p = est.detach().clone().requires_grad_()
         loss_p = plain.forward(est_p, clean)
@@ -5537,6 +5552,139 @@ def run_wire_and_tools(card: str) -> None:
     report["wire_and_tools"] = out
 
 
+# ---------------- phase 17: the rest of the JAX package's Wav2Vec2Config ----------------
+
+# name: (the config's fields, the attention kernel of each of the 12 blocks
+# in one batch's forward, the LayerNorm kernel): the first five are rungs
+# of scripts/precision_ladder.py and scripts/precision_sweep.py
+CONFIG_FIELD_CASES = {
+    "tail4": (dict(encoder_tail_start=8, encoder_tail_precision="default"),
+              ["k1"] * 8 + ["k1b"] * 4, "k5"),
+    "tail4_fused": (dict(encoder_tail_start=8, encoder_tail_precision="default",
+                         attention_impl="fused_qkv"), ["k4h"] * 8 + ["k4b"] * 4, "k5"),
+    "head_default_tail_high": (dict(encoder_precision="default", encoder_tail_start=8,
+                                    encoder_tail_precision="high"),
+                               ["k1b"] * 8 + ["k1"] * 4, "k5"),
+    "matmul_default": (dict(matmul_precision="default"), ["k1b"] * 12, "k5"),
+    "finer_islands": (dict(attn_precision="default", ffn2_precision="default",
+                           featproj_precision="default"), ["k1b"] * 12, "k5"),
+    "dtype_bf16": (dict(dtype=torch.bfloat16), ["k1_io"] * 12, "k5_io"),
+}
+
+
+@contextlib.contextmanager
+def launches_by_layer(model: NomadModel):
+    """The launches each block of ``model`` makes, one dict a call, read by
+    hooks around each block's forward (the counters are the wrappers',
+    counted on the host at each launch)."""
+    layers = model.backbone.encoder.layers
+    calls: list = [[] for _ in layers]
+    start: dict = {}
+    hooks = []
+    for i, layer in enumerate(layers):
+        hooks.append(layer.register_forward_pre_hook(
+            lambda m, args, i=i: start.__setitem__(i, read_launches())))
+        hooks.append(layer.register_forward_hook(
+            lambda m, args, out, i=i: calls[i].append(
+                {k: v - start[i][k] for k, v in read_launches().items()})))
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def config_field_case(card: str, name: str, sd: dict, waves: list, exact_emb: torch.Tensor,
+                      exact_plain: torch.Tensor) -> dict:
+    """One configuration of phase 17 on phase 4's decoded files: the
+    launches of one device pass, block by block and in all, against
+    CONFIG_FIELD_CASES; three warm device passes and the peak; the
+    embeddings against the same config's plain path (its attention kernels'
+    own plain versions, plain LayerNorm) by phase 12's rule; the pairwise
+    delta against the "exact" kernel path's, reported."""
+    fields, attn, ln = CONFIG_FIELD_CASES[name]
+    total_s = (N_NMR + N_DEG) * SECONDS
+    config = Wav2Vec2Config.base(**fields)
+    leftover_gb = settled_allocated_gb()
+    nomad = Nomad(device="cuda", config=config, params=sd)
+    torch.cuda.synchronize()
+    reset_launches()
+    with launches_by_layer(nomad.model) as by_layer:
+        emb = nomad.engine.embed_waves_device(waves)
+        torch.cuda.synchronize()
+    counts = read_launches()
+    batches = len(by_layer[0])
+    report["launches"][f"config_fields_{name}"] = counts
+    layer_want = [launches_want(**{kernel: 1, ln: 2}) for kernel in attn]
+    outside = launches_want(**{ln: 2})  # feature_layer_norm and the encoder's LayerNorm
+    want = {k: batches * (outside[k] + sum(w[k] for w in layer_want)) for k in outside}
+    bad = [(i, j) for i, per_call in enumerate(by_layer) for j, c in enumerate(per_call)
+           if c != layer_want[i]]
+    if counts != want or batches == 0 or bad:
+        fail(f"{name}: launch counts {counts} for {batches} batches (want {want}); "
+             f"blocks off their table (block, batch): {bad}")
+    torch.cuda.reset_peak_memory_stats()
+    emb, passes = timed_passes(nomad, waves)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del nomad
+    with plain_flash("default"):
+        plain = Nomad(device="cuda", config=dataclasses.replace(config, layernorm_impl="ref"),
+                      params=sd)
+        plain_emb = plain.engine.embed_waves_device(waves)
+    del plain
+    pass_s = float(np.median(passes))
+    res = {"fields": {k: str(v) for k, v in fields.items()}, "batches": batches,
+           "launches_per_block": [{k: v for k, v in w.items() if v} for w in layer_want],
+           "pass_s": passes, "wav_s_per_s_pass": total_s / pass_s, "peak_mem_gb": peak_gb,
+           "leftover_mem_gb": leftover_gb, "own_peak_mem_gb": peak_gb - leftover_gb,
+           "pairwise_delta_vs_exact": pairwise_delta(emb, exact_emb, slice(N_NMR, None),
+                                                     slice(0, N_NMR)),
+           "card": card}
+    print(f"config fields {name}: {batches} batches, blocks {attn[0]} x "
+          f"{attn.count(attn[0])}" + (f", {attn[-1]} x {attn.count(attn[-1])}"
+                                      if attn[-1] != attn[0] else "")
+          + f" each with {ln} x 2, launches {counts}; device pass {pass_s:.3f} s = "
+          f"{total_s / pass_s:.1f} wav-s/s; own peak {res['own_peak_mem_gb']:.5f} GB; pairwise "
+          f"delta vs exact {res['pairwise_delta_vs_exact']:.3g}  [{card}]", flush=True)
+    res |= bf16_path_vs_plain(f"config fields {name}", emb, plain_emb, exact_plain)
+    return res
+
+
+def run_config_fields(card: str) -> None:
+    """Phase 17: the JAX package's config fields that the port took last
+    (``matmul_precision``, the attention, FFN and feature-projection
+    islands, the encoder tail split, ``dtype``) at full BASE width on phase
+    9's seeded weights and phase 4's 108 files, each configuration of
+    CONFIG_FIELD_CASES through ``config_field_case``; then ``dtype=bf16``'s
+    loss at 24 x 160,000 samples (K1-bf16 24, K2-bf16 12, K3-bf16 12,
+    K5-bf16 52 a step) against its plain path by phase 10's rule."""
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    sd = SHARED.get("sd")
+    if sd is None:  # phase 17 alone: Nomad's seeded init, as phase 9 makes it
+        sd = init_weights(NomadModel(Wav2Vec2Config.base(), emb_dim=256), seed=0).state_dict()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_config_fields_") as tmp:
+        nmr, deg = write_wavs(Path(tmp))
+        exact = Nomad(device="cuda", params=sd)
+        paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+        waves = exact.engine.load_waves([str(p) for p in paths])
+        exact_emb = exact.engine.embed_waves_device(waves)
+        del exact
+        exact_plain = Nomad(device="cuda", config=plain_config(), params=sd)
+        exact_plain_emb = exact_plain.engine.embed_waves_device(waves)
+        del exact_plain
+        for name in CONFIG_FIELD_CASES:
+            out[name] = config_field_case(card, name, sd, waves, exact_emb, exact_plain_emb)
+    run_loss_path(card, "loss_path_10s_dtype_bf16", Wav2Vec2Config.base(dtype=torch.bfloat16),
+                  launches_want(k1_io=24, k2_io=12, k3_io=12, k5_io=52), LOSS10_BATCH,
+                  LOSS10_SAMPLES, "exact_bf16", sd, plain_impl="kernel",
+                  steps=BF16_PATH_LOSS_STEPS, plain_kw={"dtype": torch.bfloat16})
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["config_fields"] = out
+    print(f"config fields: phase 17 took {out['phase_s']:.1f} s", flush=True)
+
+
 def run_high3(card: str) -> None:
     """``--only-high3``: K4h against its plain version at its shapes (phase
     3's checks) and its bf16-I/O flavour at the scoring shape (phase 14's),
@@ -5589,6 +5737,8 @@ def main() -> None:
                       help="phases 1 and 15 only; ends with the report line")
     only.add_argument("--only-wire-and-tools", action="store_true",
                       help="phases 1, 2 and 16 only; ends with the report line")
+    only.add_argument("--only-config-fields", action="store_true",
+                      help="phases 1, 2 and 17 only; ends with the report line")
     only.add_argument("--only-high3", action="store_true",
                       help="phases 1 and 2, K4h's checks, phase 4 and the fused loss only; "
                            "ends with the report line")
@@ -5607,6 +5757,7 @@ def main() -> None:
              "only_bf16_paths": lambda card: (build_kernels(), run_bf16_paths(card)),
              "only_large_scale": run_large_scale,
              "only_wire_and_tools": lambda card: (build_kernels(), run_wire_and_tools(card)),
+             "only_config_fields": lambda card: (build_kernels(), run_config_fields(card)),
              "only_high3": lambda card: (build_kernels(), run_high3(card))}
     for flag, phase in alone.items():
         if getattr(args, flag):
@@ -5628,6 +5779,7 @@ def main() -> None:
     run_bf16_paths(card)
     run_large_scale(card)
     run_wire_and_tools(card)
+    run_config_fields(card)
 
     rows = []
     for name, src, replaces in (

@@ -19,6 +19,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops import precision as prec_ops
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, masked_mean
 
 
@@ -47,7 +48,16 @@ class NomadModel(nn.Module):
         return masked_mean(res["x"].to(torch.float32), lengths)
 
     def _embed(self, head, res):
-        return l2_normalize(head(torch.relu(self._pool(res))).to(torch.float32))
+        """The head on the f32 pool, then L2 normalize in f32. Under
+        ``dtype=bfloat16`` the head is the JAX package's
+        ``nn.Dense(dtype=bfloat16)`` (bf16 operands, bf16 out,
+        ``precision.linear``), cast to f32 before the norm."""
+        x = torch.relu(self._pool(res))
+        if self.config.dtype == torch.bfloat16:
+            e = prec_ops.linear(x.to(torch.bfloat16), head.weight, head.bias, "high")
+        else:
+            e = head(x)
+        return l2_normalize(e.to(torch.float32))
 
     def forward(self, wav, lengths=None, deterministic: bool = True, generator=None,
                 rows=None):

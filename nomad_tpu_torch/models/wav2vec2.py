@@ -24,7 +24,7 @@ takes on the card:
                   (``csrc/flash_attention.cu``), K2 + K3 backward; at an
                   attention island of "default" K1b, K2b + K3b.
   * 'fused_qkv' — projections and attention in one kernel up to 1,024
-                  frames, the out-projection one product: at an encoder
+                  frames, the out-projection one product: at an attention
                   island of "high" K4h (``csrc/fused_attention_bf16.cu``,
                   the TPU kernel's "high3"), at "highest" K4
                   (``csrc/fused_attention.cu``, f32), the backward
@@ -38,14 +38,18 @@ takes on the card:
 Every LayerNorm is K5 with ``layernorm_impl`` 'kernel', the plain version
 with 'ref'.
 
-Precision islands, as the JAX package places them: the conv frontend
-and ``post_extract_proj`` at ``frontend_prec``, the positional conv at
-``posconv_prec``; in each block the attention products at
-``attn_score_prec`` (K1b on the card at "default"), fc1 at ``ffn1_prec``,
-the q/k/v/out projections and fc2 at ``encoder_prec``. The fused path
-runs its whole attention sublayer (projections, both attention products,
-out-projection) at ``encoder_prec``, as the JAX package's fused kernel
-has one mode ("balanced" keeps K4h, the "high" of "exact").
+Precision islands, as the JAX package places and resolves them from the
+root ``matmul_precision``: the conv frontend at ``frontend_prec``,
+``post_extract_proj`` at ``featproj_prec``, the positional conv at
+``posconv_prec``; in each block the q/k/v/out projections at
+``attn_prec``, the attention products at ``attn_score_prec`` (K1b on the
+card at "default"), fc1 at ``ffn1_prec`` and fc2 at ``ffn2_prec``. The
+fused path runs its whole attention sublayer (projections, both attention
+products, out-projection) at ``attn_prec``, as the JAX package's fused
+kernel has one mode ("balanced" keeps K4h, the "high" of "exact"). The
+tail split (``encoder_tail_start``, ``encoder_tail_precision``) gives
+every block from the tail's start on one island for all four; each block
+resolves its islands once, when it is built.
 ``ops/precision.py`` says what each value means on the card; "high" and
 "highest" are f32 ("exact") but inside the fused kernel, where "high"
 is the TPU kernel's "high3".
@@ -69,6 +73,17 @@ hands its fused path the raw f32
 parameters, the f32 products of ``precision.linear_raw_weights`` around
 it. The two LayerNorms outside the stack stay f32, and the heads pool
 in f32. Every island and every ``attention_impl`` takes it.
+
+``dtype=torch.bfloat16`` (the JAX package's ``dtype``) runs the whole
+backbone on bf16 activations, and the stack too unless ``encoder_dtype``
+says otherwise: the waveform is rounded to bf16 at the input, each
+convolution takes bf16 and gives bf16 (``precision.conv1d``: the f32
+convolution of the upcast operands rounded once, the bias added in bf16),
+the GroupNorm keeps f32 statistics and rounds its output once, GELU and
+the masks run in bf16, both LayerNorms outside the stack are K5's
+bf16-I/O flavour, the feature projection is a bf16 product, and the
+scoring heads are flax's bf16 ``nn.Dense`` on the f32 pool, cast to f32
+before the L2 norm.
 
 Training (``deterministic=False``) applies dropout where the JAX package
 does: after ``post_extract_proj``, after the encoder LayerNorm, on the
@@ -114,9 +129,13 @@ SEED_BOUND = 1 << 62  # seeds drawn for the frontend's and each block's masks
 # and conv_general_dilated (every overload: mm.dtype is the bf16 product)
 _aten = torch.ops.aten
 DOT_OPS = frozenset((_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm, _aten.convolution))
-# the islands' fields, outermost first
-ISLAND_FIELDS = ("frontend_precision", "encoder_precision", "attn_score_precision",
-                 "ffn1_precision", "posconv_precision")
+# the islands' fields, outermost first (the root, ``matmul_precision``,
+# takes no None)
+ISLAND_FIELDS = ("frontend_precision", "encoder_precision", "attn_precision", "ffn_precision",
+                 "attn_score_precision", "ffn1_precision", "ffn2_precision",
+                 "posconv_precision", "featproj_precision")
+PRECISION_FIELDS = ("matmul_precision",) + ISLAND_FIELDS + ("encoder_tail_precision",)
+DTYPES = (torch.float32, torch.bfloat16)
 # the JAX package's recipes (nomad_tpu/models/wav2vec2.py:191-226):
 # "balanced" (round-4 recipe C1) runs the positional conv, the attention
 # products and fc1 in one bf16 pass; "fast" the whole encoder, with the
@@ -142,6 +161,12 @@ class Wav2Vec2Config:
     dropout: float = 0.1  # residual and input dropout (fairseq ``dropout``)
     attention_dropout: float = 0.1
     activation_dropout: float = 0.0
+    # fairseq BASE pretrains with layerdrop 0.05; 0 here, and anything else
+    # is refused, as the JAX package refuses it
+    layerdrop: float = 0.0
+    # activation dtype of the whole backbone: torch.float32 or
+    # torch.bfloat16 (the JAX package's ``dtype``; see the module docstring)
+    dtype: torch.dtype = torch.float32
     # no autograd through the conv frontend (a frozen convnet): it runs
     # under no_grad, its output detached
     frontend_stop_gradient: bool = False
@@ -152,7 +177,7 @@ class Wav2Vec2Config:
     remat_policy: str = "full"
     # 'kernel': the flash-attention / LayerNorm kernels (their plain
     # versions on the CPU). 'fused_qkv' (attention only): the
-    # projection-fused kernel K4h (K4b at a "default" encoder island, K4
+    # projection-fused kernel K4h (K4b at a "default" attention island, K4
     # at "highest").
     # 'ref': the plain versions everywhere, for holding the kernel paths
     # against them on the card.
@@ -160,41 +185,81 @@ class Wav2Vec2Config:
     layernorm_impl: str = "kernel"
     # precision of the products and convolutions, per island as in the JAX
     # package: "highest" | "high" (f32 on the card) | "default" (one bf16
-    # pass); ops/precision.py maps them. None inherits the enclosing
-    # island; the frontend and the encoder are "high". The islands that
-    # the "balanced" and "fast" recipes set, and only those, are ported.
+    # pass); ops/precision.py maps them. ``matmul_precision`` is the root;
+    # an island's None inherits the enclosing island.
+    matmul_precision: str = "high"
     frontend_precision: str | None = None  # conv frontend, feature projection, pos-conv
     encoder_precision: str | None = None  # every product of the blocks
+    attn_precision: str | None = None  # q/k/v/out projections and the attention's products
+    ffn_precision: str | None = None  # fc1 and fc2
     attn_score_precision: str | None = None  # the attention's two products
     ffn1_precision: str | None = None
+    ffn2_precision: str | None = None
     posconv_precision: str | None = None
-    # activation dtype inside the block stack: None (f32) or torch.bfloat16
-    # (the trainer's fast_bf16); see the module docstring
+    featproj_precision: str | None = None  # post_extract_proj
+    # the blocks with index >= encoder_tail_start run every product at
+    # encoder_tail_precision (replacing their attention and FFN islands);
+    # -1 (or no tail precision) disables the split. Not with remat.
+    encoder_tail_start: int = -1
+    encoder_tail_precision: str | None = None
+    # activation dtype inside the block stack: None (``dtype``'s),
+    # torch.float32 or torch.bfloat16 (the trainer's fast_bf16); see the
+    # module docstring
     encoder_dtype: torch.dtype | None = None
 
     @property
     def block_dtype(self) -> torch.dtype:
-        return self.encoder_dtype or torch.float32
+        return self.encoder_dtype if self.encoder_dtype is not None else self.dtype
 
     @property
     def frontend_prec(self):
-        return self.frontend_precision or "high"
+        return self.frontend_precision or self.matmul_precision
 
     @property
     def encoder_prec(self):
-        return self.encoder_precision or "high"
+        return self.encoder_precision or self.matmul_precision
+
+    @property
+    def attn_prec(self):
+        return self.attn_precision or self.encoder_prec
+
+    @property
+    def ffn_prec(self):
+        return self.ffn_precision or self.encoder_prec
 
     @property
     def attn_score_prec(self):
-        return self.attn_score_precision or self.encoder_prec
+        return self.attn_score_precision or self.attn_prec
 
     @property
     def ffn1_prec(self):
-        return self.ffn1_precision or self.encoder_prec
+        return self.ffn1_precision or self.ffn_prec
+
+    @property
+    def ffn2_prec(self):
+        return self.ffn2_precision or self.ffn_prec
 
     @property
     def posconv_prec(self):
         return self.posconv_precision or self.frontend_prec
+
+    @property
+    def featproj_prec(self):
+        return self.featproj_precision or self.frontend_prec
+
+    @property
+    def tail_split(self) -> bool:
+        return self.encoder_tail_start >= 0 and self.encoder_tail_precision is not None
+
+    def layer_islands(self, index: int) -> dict:
+        """The islands of block ``index``: its attention projections'
+        (``attn``), the attention's two products (``score``), fc1's and
+        fc2's. A block of the tail takes ``encoder_tail_precision`` for all
+        four (the JAX package's ``prec_override``)."""
+        tail = self.encoder_tail_precision if (
+            self.tail_split and index >= self.encoder_tail_start) else None
+        return {"attn": tail or self.attn_prec, "score": tail or self.attn_score_prec,
+                "ffn1": tail or self.ffn1_prec, "ffn2": tail or self.ffn2_prec}
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
@@ -215,11 +280,27 @@ class Wav2Vec2Config:
             raise ValueError(
                 f"remat_policy must be one of {REMAT_POLICIES}, got {self.remat_policy!r}"
             )
-        for name in ISLAND_FIELDS:
-            prec_ops.check(getattr(self, name), name, allow_none=True)
-        if self.encoder_dtype not in (None, torch.bfloat16):
-            raise ValueError(f"encoder_dtype must be None or torch.bfloat16, got "
+        for name in PRECISION_FIELDS:
+            prec_ops.check(getattr(self, name), name, allow_none=name != "matmul_precision")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {self.dtype!r}")
+        if self.encoder_dtype is not None and self.encoder_dtype not in DTYPES:
+            raise ValueError(f"encoder_dtype must be None, torch.float32 or torch.bfloat16, got "
                              f"{self.encoder_dtype!r}")
+        # the JAX package's refusals, with its exception types
+        if self.layerdrop:
+            raise NotImplementedError(
+                f"layerdrop {self.layerdrop!r} is not implemented (a documented divergence, "
+                "as in the JAX package); set layerdrop=0")
+        if self.tail_split:
+            if self.remat:
+                raise NotImplementedError(
+                    "encoder_tail_precision with remat=True is not supported: the tail split "
+                    "is a scoring-path feature, as in the JAX package")
+            if self.encoder_tail_start >= self.num_layers:
+                raise ValueError(
+                    f"encoder_tail_start {self.encoder_tail_start} >= num_layers "
+                    f"{self.num_layers}: the tail split selects no layer; set -1 to disable")
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
@@ -305,7 +386,9 @@ class MaskedGroupNorm(nn.Module):
     (inference/no-grad mode, or nothing requiring a gradient) it
     normalises x IN PLACE: at the scoring shape it is 6.4 GB, and its
     caller owns it. When a gradient is wanted it computes out of place
-    with the same arithmetic, since autograd saved x for the products."""
+    with the same arithmetic, since autograd saved x for the products.
+    A bf16 x is normalised in an f32 copy (f32 statistics) and the output
+    rounded once to bf16, as the JAX package's ``MaskedGroupNorm``."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -314,6 +397,8 @@ class MaskedGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, lengths=None):
+        dtype = x.dtype
+        x = x.to(torch.float32)
         inplace = not torch.is_grad_enabled() or not (
             x.requires_grad or self.weight.requires_grad or self.bias.requires_grad
         )
@@ -335,14 +420,14 @@ class MaskedGroupNorm(nn.Module):
             x.mul_(rstd).mul_(w).add_(b)
             if lengths is not None:
                 x.mul_(mask.transpose(1, 2))
-            return x
+            return x.to(dtype)
         x = x * rstd * w + b
-        return x if lengths is None else x * mask.transpose(1, 2)
+        return (x if lengths is None else x * mask.transpose(1, 2)).to(dtype)
 
 
 class ConvFeatureEncoder(nn.Module):
     """fairseq ConvFeatureExtractionModel, mode='default'. [B, T] waveform
-    -> ([B, T', C] features, frame lengths)."""
+    -> ([B, T', C] features in ``dtype``, frame lengths)."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -357,7 +442,7 @@ class ConvFeatureEncoder(nn.Module):
 
     def forward(self, wav, lengths=None):
         cfg = self.config
-        x = wav.to(torch.float32)[:, None, :]  # [B, 1, T]
+        x = wav.to(cfg.dtype)[:, None, :]  # [B, 1, T]
         l = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
             conv = getattr(self, f"conv_{i}")
@@ -412,11 +497,14 @@ def _generator(seed, device):
 class EncoderLayer(nn.Module):
     """Post-LN transformer block (fairseq TransformerSentenceEncoderLayer,
     layer_norm_first=False); padded frames re-zeroed after the block.
-    ``seed`` None is deterministic; an int seeds the block's dropout masks."""
+    ``seed`` None is deterministic; an int seeds the block's dropout masks.
+    ``index``, the block's place in the stack, selects its islands
+    (``Wav2Vec2Config.layer_islands``: the tail split is static)."""
 
-    def __init__(self, config: Wav2Vec2Config):
+    def __init__(self, config: Wav2Vec2Config, index: int):
         super().__init__()
         self.config = config
+        self.islands = config.layer_islands(index)
         d = config.hidden_size
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
@@ -429,15 +517,15 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm(d, eps, impl)
 
     def forward(self, x, key_mask=None, seed=None, rows=None):
-        cfg = self.config
+        cfg, isl = self.config, self.islands
         b, t, d = x.shape
         h = cfg.num_heads
         g = _generator(seed, x.device)
         attn_dropout = g is not None and cfg.attention_dropout > 0.0
         if cfg.attention_impl == "fused_qkv" and not attn_dropout:
             # the fused kernel has one mode for the whole attention
-            # sublayer, from the projections' island as in the JAX package
-            # (attn_score_prec does not subdivide it): "default" is K4b,
+            # sublayer, from the attention island as in the JAX package
+            # (the score island does not subdivide it): "default" is K4b,
             # "high" K4h (the TPU kernel's "high3": bf16 x 3), "highest" the
             # f32 K4. The same parameters as the unfused path: one
             # state_dict loads both
@@ -445,23 +533,23 @@ class EncoderLayer(nn.Module):
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
                 self.k_proj.bias, self.v_proj.weight, self.v_proj.bias,
                 self.out_proj.weight, self.out_proj.bias, key_mask=key_mask, heads=h,
-                precision=cfg.encoder_prec,
+                precision=isl["attn"],
             )
         else:
-            q, k, v = (prec_ops.linear(x, p.weight, p.bias, cfg.encoder_prec).view(b, t, h, d // h)
+            q, k, v = (prec_ops.linear(x, p.weight, p.bias, isl["attn"]).view(b, t, h, d // h)
                        for p in (self.q_proj, self.k_proj, self.v_proj))
             if attn_dropout:
                 attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g,
-                                   precision=cfg.attn_score_prec, rows=rows)
+                                   precision=isl["score"], rows=rows)
             else:
                 attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
-                           precision=cfg.attn_score_prec)
+                           precision=isl["score"])
             attn = prec_ops.linear(attn.reshape(b, t, d), self.out_proj.weight,
-                                   self.out_proj.bias, cfg.encoder_prec)
+                                   self.out_proj.bias, isl["attn"])
         x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g, rows))
-        y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, cfg.ffn1_prec)
+        y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, isl["ffn1"])
         y = dropout(F.gelu(y), cfg.activation_dropout, g, rows)
-        y = prec_ops.linear(y, self.fc2.weight, self.fc2.bias, cfg.encoder_prec)
+        y = prec_ops.linear(y, self.fc2.weight, self.fc2.bias, isl["ffn2"])
         x = self.final_layer_norm(x + dropout(y, cfg.dropout, g, rows))
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
@@ -480,7 +568,7 @@ class TransformerEncoder(nn.Module):
         self.layer_norm = LayerNorm(
             config.hidden_size, config.layer_norm_eps, config.layernorm_impl
         )
-        self.layers = nn.ModuleList(EncoderLayer(config) for _ in range(config.num_layers))
+        self.layers = nn.ModuleList(EncoderLayer(config, i) for i in range(config.num_layers))
 
     def forward(self, x, frame_lengths=None, generator=None, seeds=None, rows=None):
         """``generator``: the input dropout's (None: deterministic);
@@ -545,7 +633,7 @@ class Wav2Vec2Model(nn.Module):
         else:
             feats, frame_lengths = self.feature_encoder(wav, lengths)
         p = self.post_extract_proj
-        x = prec_ops.linear(self.feature_layer_norm(feats), p.weight, p.bias, cfg.frontend_prec)
+        x = prec_ops.linear(self.feature_layer_norm(feats), p.weight, p.bias, cfg.featproj_prec)
         x = dropout(x, cfg.dropout, g, rows)
         if frame_lengths is not None:
             x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)

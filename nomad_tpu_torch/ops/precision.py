@@ -59,6 +59,13 @@ are cuBLAS ``mm`` with a bf16 output (f32 accumulation, split-K reduced in
 f32: ``api.set_exact_precision``); the plain version is the f32 product of
 the exactly converted operands, rounded once.
 
+A bf16 activation makes a convolution bf16 in and out too, as flax's
+``nn.Conv(dtype=bfloat16)`` is (``conv1d``, ``_Conv1dBF16IO``, the
+JAX package's ``dtype``): the f32 convolution of the upcast bf16
+operands, rounded once, the bias added in bf16; its gradients are the
+transposes of that, each rounded once to bf16. The JAX package computes
+its convolutions outside any Pallas kernel; the port's are cuDNN's.
+
 The projection-fused attention on a bf16 x computes another product
 (``linear_raw_weights``, ``_LinearRawWeights``): the JAX package hands the
 fused path the raw f32 parameters, so x is promoted to f32 and multiplied
@@ -319,9 +326,50 @@ def linear(x, weight, bias, prec):
     return y if bias is None else y + bias
 
 
+class _Conv1dBF16IO(torch.autograd.Function):
+    """flax ``nn.Conv(dtype=bfloat16)`` on a bf16 x [B, C, T] with the f32
+    weight and bias (or None): y = bf16(bf16(conv(x, bf16(W))) + bf16(b)),
+    the convolution summed in f32 (cuDNN's f32 convolution of the upcast
+    operands on the card, TF32 off) and rounded once. Its gradients are
+    JAX's transposes: dX = bf16(conv^T(dY, bf16(W))), dW = bf16(conv_W(X,
+    dY)) and db = bf16(sum dY), each summed in f32 and rounded once, and
+    handed back to the f32 parameters as those bf16 values."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, groups):
+        wf = weight.to(torch.bfloat16).float()
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              wf if ctx.needs_input_grad[0] else None)
+        ctx.conv = (stride, padding, 1, groups)
+        ctx.shapes = (x.shape, weight.shape)
+        ctx.has_bias = bias is not None
+        y = F.conv1d(x.float(), wf, None, stride, padding, 1, groups).to(torch.bfloat16)
+        return y if bias is None else y + bias.to(torch.bfloat16)[:, None]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, wf = ctx.saved_tensors
+        g = dy.to(torch.bfloat16).float()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv1d_input(ctx.shapes[0], wf, g, *ctx.conv).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv1d_weight(x.float(), ctx.shapes[1], g, *ctx.conv)
+            dw = round_bf16(dw)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = round_bf16(g.sum(dim=(0, 2)))
+        return dx, dw, db, None, None, None
+
+
 def conv1d(x, weight, bias, prec, stride=1, padding=0, groups=1):
     """``F.conv1d`` at island precision ``prec``: x [B, C, T]; stride,
-    padding and groups as F.conv1d's."""
+    padding and groups as F.conv1d's. A bf16 x gives a bf16 output at any
+    island (``_Conv1dBF16IO``: its operands are bf16 values, so one bf16
+    pass, "high"'s three and "highest"'s f32 give the same sums)."""
+    if x.dtype == torch.bfloat16:
+        check(prec)
+        return _Conv1dBF16IO.apply(x, weight, bias, stride, padding, groups)
     if not is_bf16(prec):
         return F.conv1d(x, weight, bias, stride=stride, padding=padding, groups=groups)
     return _Conv1dBF16.apply(x, weight, bias, stride, padding, groups)

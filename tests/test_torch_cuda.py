@@ -1625,3 +1625,79 @@ def test_remat_dots_on_the_card(cuda):
     assert abs(loss_d - loss_f) <= 1e-6 * abs(loss_f)
     for name, g in grads_f.items():
         torch.testing.assert_close(grads_d[name], g, rtol=1e-6, atol=1e-7, msg=name)
+
+
+# ---------------- the config fields of the JAX package that the port took last ----------------
+
+
+def _layer_launches(model, wav, lengths, counters):
+    """The launches each block of ``model`` makes in one forward pass, as
+    tuples of the ``counters`` ((module, name) pairs), read around each
+    block's forward; and the pass's totals."""
+    read = lambda: tuple(getattr(mod, name) for mod, name in counters)  # noqa: E731
+    start, per_layer = {}, []
+    hooks = []
+    for i, layer in enumerate(model.backbone.encoder.layers):
+        hooks.append(layer.register_forward_pre_hook(
+            lambda m, a, i=i: start.__setitem__(i, read())))
+        hooks.append(layer.register_forward_hook(
+            lambda m, a, o, i=i: per_layer.append(
+                tuple(x - y for x, y in zip(read(), start[i])))))
+    before = read()
+    with torch.inference_mode():
+        emb = model(wav, lengths)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert torch.isfinite(emb).all()
+    return per_layer, tuple(x - y for x, y in zip(read(), before))
+
+
+@pytest.mark.parametrize("impl", ["kernel", "fused_qkv"])
+def test_tail_split_launches_each_block_s_kernel(cuda, impl):
+    """BASE with blocks 8-11 at "default" (``encoder_tail_start=8``) on a
+    short input: on the K1 path K1 in blocks 0-7 and K1b in 8-11; on the
+    fused path K4h in 0-7 and K4b in 8-11; two K5 launches in each."""
+    g = torch.Generator().manual_seed(8)
+    wav = (0.3 * torch.randn(2, 16000, generator=g)).to(cuda)
+    lengths = torch.tensor([16000, 9000]).to(cuda)
+    cfg = Wav2Vec2Config.base(encoder_tail_start=8, encoder_tail_precision="default",
+                              attention_impl=impl)
+    model = init_weights(NomadModel(cfg, emb_dim=16), seed=3).to(cuda).eval()
+    if impl == "kernel":
+        counters = ((flash_attention, "launches"), (flash_attention, "launches_bf16"))
+    else:
+        counters = ((fused_attention, "launches_high3"), (fused_attention, "launches_bf16"))
+    counters += ((layernorm, "launches"),)
+    per_layer, total = _layer_launches(model, wav, lengths, counters)
+    assert per_layer == [(1, 0, 2)] * 8 + [(0, 1, 2)] * 4
+    assert total == (8, 4, 26)
+
+
+def test_dtype_bf16_launches_bf16_io_flavours(cuda):
+    """``dtype=bfloat16`` on a short BASE input: K5's bf16-I/O flavour at
+    width 512 (the feature LayerNorm) and 768 (the encoder's and the
+    blocks'), K1-bf16 in every block, no f32 K5 or K1."""
+    g = torch.Generator().manual_seed(9)
+    wav = (0.3 * torch.randn(2, 16000, generator=g)).to(cuda)
+    lengths = torch.tensor([16000, 9000]).to(cuda)
+    model = init_weights(NomadModel(Wav2Vec2Config.base(dtype=torch.bfloat16), emb_dim=16),
+                         seed=3).to(cuda).eval()
+    widths = []
+    real = layernorm._layer_norm_kernel
+
+    def spy(x, *args):
+        widths.append((x.shape[-1], x.dtype))
+        return real(x, *args)
+
+    layernorm._layer_norm_kernel = spy
+    try:
+        per_layer, total = _layer_launches(
+            model, wav, lengths, ((flash_attention, "launches_f32_bf16_io"),
+                                  (layernorm, "launches_bf16_io"), (layernorm, "launches"),
+                                  (flash_attention, "launches")))
+    finally:
+        layernorm._layer_norm_kernel = real
+    assert per_layer == [(1, 2, 0, 0)] * 12 and total == (12, 26, 0, 0)
+    assert widths[:2] == [(512, torch.bfloat16), (768, torch.bfloat16)]
+    assert set(widths[2:]) == {(768, torch.bfloat16)}

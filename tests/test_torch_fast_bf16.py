@@ -374,15 +374,18 @@ def test_fast_bf16_resolves_as_jax(size):
 def test_the_refusals_name_roadmap():
     """The two former refusals construct now: bf16 activations with
     ``fused_qkv`` (K4's and K4b's bf16-I/O flavours) and with an attention
-    island other than "default" (K1's, K2's and K3's), on every impl; any
-    dtype other than bf16 still raises ValueError."""
+    island other than "default" (K1's, K2's and K3's), on every impl; a
+    dtype other than bf16 and f32 still raises ValueError (f32, the JAX
+    package's f32 stack under a bf16 ``dtype``, constructs)."""
     for islands in ({}, FAST_ISLANDS, {**FAST_ISLANDS, "attn_score_precision": "highest"}):
         for impl in ("kernel", "fused_qkv", "ref"):
             cfg = Wav2Vec2Config.tiny(**islands, encoder_dtype=BF16, attention_impl=impl)
             assert cfg.block_dtype == BF16 and cfg.attention_impl == impl
-    for dtype in (torch.float16, torch.float32):
+    for dtype in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="encoder_dtype"):
             Wav2Vec2Config.tiny(**FAST_ISLANDS, encoder_dtype=dtype)
+    cfg = Wav2Vec2Config.tiny(**FAST_ISLANDS, dtype=BF16, encoder_dtype=torch.float32)
+    assert cfg.block_dtype == torch.float32
 
 
 # ---------------- (6, 7) the trainer ----------------

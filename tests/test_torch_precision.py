@@ -40,7 +40,8 @@ from nomad_tpu_torch.training import Training
 torch.set_num_threads(2)
 EMB = 16
 LENGTHS = [1900, 1333, 800]
-RESOLVED = ("frontend_prec", "encoder_prec", "attn_score_prec", "ffn1_prec", "posconv_prec")
+RESOLVED = ("frontend_prec", "encoder_prec", "attn_prec", "ffn_prec", "attn_score_prec",
+            "ffn1_prec", "ffn2_prec", "posconv_prec", "featproj_prec", "tail_split")
 JAX_PRECISION = {"DEFAULT": "default", "HIGH": "high", "HIGHEST": "highest"}
 # the port's "balanced"/"fast" embeddings vs the JAX package's (f32 on the
 # CPU) on the tiny config: measured 1.38e-3 (balanced) and 2.16e-3 (fast)
@@ -120,12 +121,15 @@ def port_embed(sd, cfg, wav, lengths):
         return model.eval()(torch.from_numpy(wav), torch.from_numpy(lengths).long()).numpy()
 
 
-def jax_products(jaxpr):
+def jax_products(jaxpr, tail_start=-1, step=None):
     """(site, precision) of every dot_general and convolution in a JAX
     trace, in order: ("conv", (k, in / groups, out)), ("dot", in, out),
     ("attn",) for a product of 4-D operands (the attention's two count as
-    one and must agree). A scan's body counts once per step; the head's
-    products (2-D operands, pinned "high") are left out."""
+    one and must agree). A scan is unrolled, its body walked once per
+    step; inside it, the tail split's ``cond`` takes the branch the layer
+    index selects: below ``tail_start`` the head's (``lax.cond``'s true
+    branch, index 1 under its boolean predicate), else the tail's (index
+    0). The head's products (2-D operands, pinned "high") are left out."""
     out = []
     for eqn in jaxpr.eqns:
         name = eqn.primitive.name
@@ -147,11 +151,18 @@ def jax_products(jaxpr):
             else:
                 out.append((site, prec, 1))
             continue
+        if name == "scan":
+            for i in range(eqn.params["length"]):
+                out += jax_products(eqn.params["jaxpr"].jaxpr, tail_start, i)
+            continue
+        if name == "cond":
+            branch = eqn.params["branches"][1 if step < tail_start else 0]
+            out += jax_products(branch.jaxpr, tail_start, step)
+            continue
         for value in eqn.params.values():
             sub = getattr(value, "jaxpr", value)
             if hasattr(sub, "eqns"):
-                body = jax_products(sub)
-                out += body * (eqn.params["length"] if name == "scan" else 1)
+                out += jax_products(sub, tail_start, step)
     return out
 
 
@@ -180,7 +191,36 @@ def port_products(monkeypatch, model, wav, lengths):
     return calls
 
 
-PLACEMENT_CASES = CASES + [(mode, PRECISION_ISLANDS[mode]) for mode in ("balanced", "fast")]
+# the tail split (the last block at "default"), its control (the head at
+# "default", the tail at "high": scripts/precision_ladder.py's) and the root
+TAIL_CASES = [("tail_default", dict(encoder_tail_start=1, encoder_tail_precision="default")),
+              ("head_default_tail_high", dict(encoder_precision="default", encoder_tail_start=1,
+                                              encoder_tail_precision="high"))]
+PLACEMENT_CASES = (CASES + [(mode, PRECISION_ISLANDS[mode]) for mode in ("balanced", "fast")]
+                   + TAIL_CASES + [(f"matmul_{p}", {"matmul_precision": p})
+                                   for p in ("default", "highest")])
+
+
+def jax_trace_products(params, kw, wav, lengths):
+    """``jax_products`` of the JAX model's forward pass under config ``kw``."""
+    jmodel = JaxNomadModel(JaxConfig.tiny(**kw), emb_dim=EMB)
+    return jax_products(jax.make_jaxpr(lambda p: jmodel.apply(
+        p, jnp.asarray(wav), jnp.asarray(lengths)))(params).jaxpr,
+        kw.get("encoder_tail_start", -1))
+
+
+def test_jax_products_takes_the_tail_branch(bridged):
+    """The walk of the tail split's ``cond`` against precisions written out
+    by hand: the frontend's 3 convs, the feature projection and the
+    positional conv at "high"; block 0 (the head) q/k/v "high", the
+    attention "highest", out, fc1 and fc2 "high"; block 1 (the tail) all 7
+    at "default"."""
+    params, _, wav, lengths = bridged
+    kw = dict(attn_score_precision="highest", encoder_tail_start=1,
+              encoder_tail_precision="default")
+    got = [prec for _, prec, _ in jax_trace_products(params, kw, wav, lengths)]
+    want = ["high"] * 5 + ["high"] * 3 + ["highest"] + ["high"] * 3 + ["default"] * 7
+    assert got == [{p} for p in want]
 
 
 @pytest.mark.parametrize("name,kw", PLACEMENT_CASES, ids=[c[0] for c in PLACEMENT_CASES])
@@ -190,9 +230,7 @@ def test_islands_placed_as_in_jax(bridged, monkeypatch, name, kw):
     the same product in its trace (jaxpr precision of each dot_general and
     conv_general_dilated): the same sites, in the same order."""
     params, sd, wav, lengths = bridged
-    jmodel = JaxNomadModel(JaxConfig.tiny(**kw), emb_dim=EMB)
-    theirs = jax_products(jax.make_jaxpr(lambda p: jmodel.apply(
-        p, jnp.asarray(wav), jnp.asarray(lengths)))(params).jaxpr)
+    theirs = jax_trace_products(params, kw, wav, lengths)
     model = NomadModel(Wav2Vec2Config.tiny(**kw), emb_dim=EMB)
     model.load_state_dict(sd)
     ours = port_products(monkeypatch, model.eval(), wav, lengths)

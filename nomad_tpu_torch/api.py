@@ -64,6 +64,7 @@ from .ops import cdist
 from .parallel.mesh import barrier, device_for, is_main
 from .scoring.csvio import ResultTable, build_result_tables, write_results
 from .scoring.engine import EmbeddingEngine, list_dir_files
+from .utils.profiling import GLOBAL, profiling_active, timed
 
 W2V_FILENAME = "wav2vec_small.pt"
 NOMAD_FILENAME = "nomad_best_model.pt"
@@ -200,14 +201,37 @@ class Nomad:
 
     def score_matrix(self, nmr_paths, test_paths) -> np.ndarray:
         """Raw distances [len(test_paths), len(nmr_paths)], f32: one engine
-        pass over both sets, cdist on the device, one copy back."""
+        pass over both sets, cdist on the device, one copy back. While
+        profiling, the wait for the device's embeddings is a span of its own
+        (``engine.device_wait``; else cdist's ``nonzero`` waits for them),
+        and the engine's batches' device times enter the span log."""
         emb = self.engine.embed_files_device(list(nmr_paths) + list(test_paths))
+        if profiling_active():
+            with timed("engine.device_wait"):
+                if emb.is_cuda:
+                    torch.cuda.current_stream(emb.device).synchronize()
+            GLOBAL.resolve()
         nmr_emb = emb[: len(nmr_paths)]
         test_emb = emb[len(nmr_paths):]
-        return cdist(test_emb, nmr_emb).cpu().numpy()
+        dist = cdist(test_emb, nmr_emb)
+        with timed("predict.d2h", nbytes=dist.numel() * dist.element_size()):
+            return dist.cpu().numpy()
 
     def predict(self, mode="dir", nmr="data/nmr-data", deg="data/test-data",
                 results_path=None):
+        with timed("predict"):
+            with timed("predict.resolve"):
+                nmr_paths, test_paths = self._predict_paths(mode, nmr, deg, results_path)
+            distance_matrix = self.score_matrix(nmr_paths, test_paths)
+            with timed("predict.tables"):
+                avg, dm = build_result_tables(test_paths, nmr_paths, distance_matrix)
+            if is_main(self.mesh):
+                with timed("predict.write_results"):
+                    write_results(avg, dm, results_path)
+            return avg, dm
+
+    def _predict_paths(self, mode, nmr, deg, results_path) -> tuple[list, list]:
+        """``predict``'s argument checks, then both sets' paths."""
         if nmr is None:
             raise Exception("missing nmr argument (non-matching reference path)")
         if deg is None:
@@ -232,12 +256,7 @@ class Nomad:
         print(f"Compute non-matching reference embeddings from {nmr}")
         nmr_paths = self._resolve_paths(nmr)
         print(f"Compute degraded embeddings from {deg}")
-        test_paths = self._resolve_paths(deg)
-        distance_matrix = self.score_matrix(nmr_paths, test_paths)
-        avg, dm = build_result_tables(test_paths, nmr_paths, distance_matrix)
-        if is_main(self.mesh):
-            write_results(avg, dm, results_path)
-        return avg, dm
+        return nmr_paths, self._resolve_paths(deg)
 
     # ---------------- differentiable loss ----------------
 

@@ -79,7 +79,7 @@ from ..models.heads import NomadModel
 from ..models.wav2vec2 import feature_frame_lengths
 from ..ops import wirecodec
 from ..parallel.mesh import device_for, gather_rows
-from ..utils.profiling import timed
+from ..utils.profiling import GLOBAL, timed
 
 MIN_BUCKET = 4096  # samples (~0.26 s); below this, padding waste is noise
 # ~96 files x 10 s per batch: the JAX package's steady batch for the 10 s
@@ -340,8 +340,9 @@ class EmbeddingEngine:
     def _host_batch(self, bsz: int, blen: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
         """Empty host batch and lengths, pinned when the device is CUDA."""
         pin = self.device.type == "cuda"
-        return (torch.empty((bsz, blen), dtype=dtype, pin_memory=pin),
-                torch.empty((bsz,), dtype=torch.int64, pin_memory=pin))
+        with timed("engine.host_batch"):
+            return (torch.empty((bsz, blen), dtype=dtype, pin_memory=pin),
+                    torch.empty((bsz,), dtype=torch.int64, pin_memory=pin))
 
     def _assemble(self, waves, i16able, chunk, bsz, blen):
         """Padded host batch (this rank's rows) + lengths from decoded
@@ -392,6 +393,7 @@ class EmbeddingEngine:
         nbytes = host.numel() * host.element_size()
         sent = nbytes if frame is None else frame.numel() * frame.element_size()
         with timed("engine.submit", items=rows, nbytes=sent):
+            stop = GLOBAL.device_timer(self.device)  # None unless profiling on CUDA
             if frame is None:
                 wav = host.to(self.device, non_blocking=True)
             else:
@@ -400,6 +402,9 @@ class EmbeddingEngine:
             if wav.dtype == torch.int16:
                 wav = wav.to(torch.float32) / PCM16_SCALE
             emb = getattr(self.model, self.method)(wav, lengths.to(self.device, non_blocking=True))
+            if stop is not None:
+                stop("engine.batch", rows=rows, bsz=host.shape[0], blen=host.shape[1],
+                     samples=int(lengths[:rows].sum()))
         if self.serialize_pipeline and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.batches += 1
@@ -456,7 +461,8 @@ class EmbeddingEngine:
         n = len(waves)
         if n == 0:
             return self._empty()
-        chunks = self.plan([len(w) for w in waves])
+        with timed("engine.plan", items=n):
+            chunks = self.plan([len(w) for w in waves])
         with ThreadPoolExecutor(max_workers=8) as ex:
             i16able = list(ex.map(wave_i16able, waves))
         outs = []
@@ -554,16 +560,18 @@ class EmbeddingEngine:
         probed: the Python path runs."""
         if not native.available():
             return None
-        infos = [native.native_probe(p) for p in paths]
+        with timed("engine.probe", items=len(paths)):
+            infos = [native.native_probe(p) for p in paths]
         if any(info is None for info in infos):
             return None
-        rates = [info[0] for info in infos]
-        i16 = [sr == TARGET_SR and ch == 1 and bits == 16 and not is_float and not is_flac
-               for sr, _frames, ch, bits, is_float, is_flac in infos]
         trim_sec = TRIM_SEC if trim else 0
-        limit = TARGET_SR * trim_sec if trim else math.inf
-        chunks = self.plan([min(predicted_length(sr, frames), limit)
-                            for sr, frames, *_ in infos], groups=rates)
+        with timed("engine.plan", items=len(paths)):
+            rates = [info[0] for info in infos]
+            i16 = [sr == TARGET_SR and ch == 1 and bits == 16 and not is_float and not is_flac
+                   for sr, _frames, ch, bits, is_float, is_flac in infos]
+            limit = TARGET_SR * trim_sec if trim else math.inf
+            chunks = self.plan([min(predicted_length(sr, frames), limit)
+                                for sr, frames, *_ in infos], groups=rates)
         outs = []
         with torch.inference_mode():
             for chunk, bsz, blen in chunks:
@@ -587,16 +595,18 @@ class EmbeddingEngine:
                             expect_sr=0 if sr == TARGET_SR else sr, num_threads=IO_THREADS,
                             quantize_i16=self.quantize_transfer, out=batch[:k],
                             lengths=lengths[:k])
-                for row, i in enumerate(rows):
-                    if errs[row] != 0:  # a file the C++ path refused: decode it in Python
-                        w = load_processing(paths[i], trim=trim)[0][:blen]
-                        if batch.dtype == np.int16:
-                            w = np.clip(np.round(w * PCM16_SCALE), -32768, 32767).astype(np.int16)
-                        batch[row] = 0
-                        batch[row, : len(w)] = w
-                        lengths[row] = len(w)
-                batch[k:] = batch[k - 1]
-                lengths[k:] = lengths[k - 1]
+                with timed("engine.host_batch"):
+                    for row, i in enumerate(rows):
+                        if errs[row] != 0:  # a file the C++ path refused: decode it in Python
+                            w = load_processing(paths[i], trim=trim)[0][:blen]
+                            if batch.dtype == np.int16:
+                                w = np.clip(np.round(w * PCM16_SCALE), -32768,
+                                            32767).astype(np.int16)
+                            batch[row] = 0
+                            batch[row, : len(w)] = w
+                            lengths[row] = len(w)
+                    batch[k:] = batch[k - 1]
+                    lengths[k:] = lengths[k - 1]
                 outs.append(self._submit(host, lengths_t, self._kept(chunk, host),
                                          native_ingest=True, frame=self._encode_batch(host)))
             return self._collect(chunks, outs, len(paths))

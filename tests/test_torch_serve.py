@@ -275,7 +275,7 @@ def test_smoke_runner_scores_a_directory_pair(tiny_params, tree, tmp_path, monke
     assert list(Path("results-csv").iterdir())
 
 
-def test_profiling_spans_trace_and_synth_match_jax(tmp_path):
+def test_profiling_spans_trace_and_synth_match_jax():
     from nomad_tpu.utils.profiling import Stopwatch as JaxStopwatch
     from nomad_tpu.utils.synth import speech_like as jax_speech_like
     from nomad_tpu_torch.utils import profiling, synth
@@ -291,14 +291,13 @@ def test_profiling_spans_trace_and_synth_match_jax(tmp_path):
     got, want = ours.stats(), theirs.stats()
     assert list(got) == list(want) == ["a", "b"]
     assert all(set(got[k]) == set(want[k]) for k in want)
-    assert got["a"]["count"] == 2 and got["a"]["total_s"] >= 0.01 and "count" in ours.report()
+    assert got["a"]["count"] == 2 and got["a"]["total_s"] >= 0.01 and ours.events() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with ours.span("c", items=2):
+            torch.ones(8).sum()
+    assert [(r["name"], r["parent"], r["items"]) for r in ours.events()] == [("c", None, 2)]
     ours.reset()
-    assert ours.stats() == {}
-    with profiling.trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert list((tmp_path / "trace").iterdir())
-    with profiling.trace(None):  # a no-op
-        pass
+    assert ours.stats() == {} and ours.events() == []
     for dtype in (np.int16, np.float32):
         for a, b in zip(synth.speech_like(3, 0.5, dtype=dtype), jax_speech_like(3, 0.5, dtype=dtype)):
             assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -1,13 +1,15 @@
-"""Batched, length-bucketed embedding engine (counterpart of
-``nomad_tpu.scoring.engine``).
+"""Batched embedding engine, its batches planned around the files' own
+lengths (counterpart of ``nomad_tpu.scoring.engine``).
 
-  * Files are decoded on the host (thread pool, numpy), sorted by length
-    and grouped into quantized length buckets (``bucket_length``). Each
-    bucket runs as [B, T] batches sized by a sample budget
-    (``batch_size_for``); per-item lengths drive the model's exact masking,
-    so padded batched embeddings equal unpadded batch-1 ones.
-  * A short final batch is padded by repeating its last row, and the extra
-    rows are dropped: a few batch shapes, exact results.
+  * Files are sorted by length and cut into [B, T] batches of consecutive
+    files (``plan``): each batch is as long as its longest file rounded up
+    to ``MIN_BUCKET`` samples and holds its own files, within a sample
+    budget; the cuts minimise the padded samples plus a fixed cost a batch
+    (``BATCH_COST_SAMPLES``). The JAX engine quantizes lengths to buckets
+    and batch sizes to a grid because XLA compiles each new shape; PyTorch
+    compiles nothing per shape, so the port plans by lengths. Per-item
+    lengths drive the model's exact masking, so padded batched embeddings
+    equal unpadded batch-1 ones.
   * PCM16 batches ship as int16 from pinned host memory (half the bytes of
     f32) with ``non_blocking`` copies, and are dequantized /32768 on the
     device, exactly. Embeddings stay on the device: ``embed_waves_device``
@@ -40,9 +42,9 @@
   * ``mesh`` (a ``parallel.data_mesh``): data parallelism over the ranks
     of a process group, as the JAX engine shards its batches over the
     "data" axis. Every rank makes the same ``embed_*`` call on the same
-    inputs (SPMD) and plans the same batches, each a multiple of the world
-    size n (no snap to 32; the tail to the next multiple, as
-    ``nomad_tpu/scoring/engine.py:1326-1331``). A rank decodes, copies and
+    inputs (SPMD) and plans the same batches, each rounded up to a
+    multiple of the world size n by pad rows that repeat its last file
+    (dropped from the result). A rank decodes, copies and
     embeds only its b/n rows of each batch; one ``all_gather`` at the end
     of the call gives every rank the whole [N, emb] in input order. The
     engine runs on the rank's device (``cuda:<local rank>`` or the CPU);
@@ -82,9 +84,16 @@ from ..parallel.mesh import device_for, gather_rows
 from ..utils.profiling import GLOBAL, timed
 
 MIN_BUCKET = 4096  # samples (~0.26 s); below this, padding waste is noise
-# ~96 files x 10 s per batch: the JAX package's steady batch for the 10 s
-# bucket (163,840 padded samples), kept so both packages batch alike
+# The JAX package's steady batch, ~96 files x 10 s (163,840 padded samples):
+# the most samples a batch holds, which bounds the activations' memory
 DEFAULT_BATCH_SAMPLE_BUDGET = 96 * 163_840
+# A batch's fixed device time in padded samples: the plan's cost of one more
+# batch. On an H100 (700 W, f32 "exact" BASE), a batch's device time (196
+# batches of one directory-scoring run, [1..96] x [24,576..393,216] samples)
+# fits 4.21 ms + 29.21 ms per million samples (R^2 0.967): 4.21 / 29.21e-6 =
+# 144,193 samples, rounded. From 50,000 to 800,000 the plan sends 1.02-1.06
+# samples a real one on that run's files.
+BATCH_COST_SAMPLES = 150_000
 MAX_BATCH = 256
 PCM16_SCALE = 32768.0
 IO_THREADS = 16  # host decode threads
@@ -272,65 +281,83 @@ class EmbeddingEngine:
         per_item = 3 * cfg.num_heads * frames * frames * 4
         return max(1, REF_ATTN_SCORE_BYTES_BUDGET // per_item)
 
-    def batch_size_for(self, length: int, remaining: Optional[int] = None) -> int:
-        b = max(1, self.batch_sample_budget // max(length, 1))
-        b = min(b, MAX_BATCH, self._attn_batch_cap(length))
+    def _row_cap(self, blen: int) -> int:
+        """Most rows a batch of ``blen`` samples may hold: the sample budget,
+        ``MAX_BATCH`` and the plain path's attention buffers; under a mesh a
+        multiple of the world size, at least one row a rank."""
+        b = max(1, self.batch_sample_budget // max(blen, 1))
+        b = min(b, MAX_BATCH, self._attn_batch_cap(blen))
         if self.world is not None:
-            # a multiple of the mesh: no snap, the tail to the next multiple
-            n = self.world
-            b = max(n, (b // n) * n)
-            if remaining is not None and remaining < b:
-                b = max(n, ((remaining + n - 1) // n) * n)
-            return b
-        # snap down to a multiple of 32 (powers of two below that)
-        if b >= 32:
-            b = (b // 32) * 32
-        else:
-            b = 1 << int(math.floor(math.log2(b)))
-        if remaining is not None and remaining < b:
-            # tail batch: smallest grid size covering the remainder
-            if remaining > 32:
-                b = ((remaining + 31) // 32) * 32
-            else:
-                b = 1 << max(0, (remaining - 1)).bit_length()
+            b = max(self.world, (b // self.world) * self.world)
         return b
 
-    def _chunk_batches(self, n_items: int, blen: int) -> list:
-        """Padded batch sizes for a bucket of n_items files: full batches,
-        then one right-sized tail."""
-        full = self.batch_size_for(blen)
-        sizes = []
-        left = n_items
-        while left > 0:
-            b = min(self.batch_size_for(blen, remaining=left), full)
-            sizes.append(b)
-            left -= min(b, left)
-        return sizes
+    def _padded_rows(self, rows: int) -> int:
+        """A batch of ``rows`` files as sent: under a mesh, rounded up to a
+        multiple of the world size."""
+        return rows if self.world is None else rows + (-rows) % self.world
+
+    def batch_size_for(self, length: int) -> int:
+        """The full batch at ``length`` samples that ``prewarm`` warms, the
+        JAX engine's: the row cap, snapped down to a multiple of 32 (powers
+        of two below that) without a mesh."""
+        b = self._row_cap(length)
+        if self.world is not None:
+            return b
+        return (b // 32) * 32 if b >= 32 else 1 << (b.bit_length() - 1)
 
     def plan(self, lengths: Sequence[int], groups: Optional[Sequence] = None) -> list:
-        """[(indices, padded batch size, bucket length)] in run order:
-        buckets shortest first, files sorted by length inside them. With
-        ``groups`` (one key per file), files of different keys never share
-        a batch."""
-        order = sorted(range(len(lengths)), key=lambda i: lengths[i])
-        buckets: dict[tuple, list[int]] = {}
-        for i in order:
-            key = (bucket_length(lengths[i]), groups[i] if groups is not None else 0)
-            buckets.setdefault(key, []).append(i)
+        """[(indices, padded batch size, batch length)] in run order,
+        shortest batches first. The files, sorted by length (stably), are
+        cut into batches of consecutive files (``_cuts``), each as long as
+        its longest file rounded up to ``MIN_BUCKET``. With ``groups`` (one
+        key per file), files of different keys never share a batch."""
+        lengths = np.asarray(lengths, dtype=np.int64)
+        members: dict = {}
+        for i, key in enumerate(groups if groups is not None else [0] * len(lengths)):
+            members.setdefault(key, []).append(i)
         chunks = []
-        for (blen, _), idxs in sorted(buckets.items()):
-            start = 0
-            for bsz in self._chunk_batches(len(idxs), blen):
-                take = min(bsz, len(idxs) - start)
-                chunks.append((idxs[start : start + take], bsz, blen))
-                start += take
+        for key in sorted(members):
+            idx = np.asarray(members[key])
+            idx = idx[np.argsort(lengths[idx], kind="stable")]
+            blens = np.maximum(-(-lengths[idx] // MIN_BUCKET), 1) * MIN_BUCKET
+            for start, stop in self._cuts(blens):
+                chunks.append((idx[start:stop].tolist(), self._padded_rows(stop - start),
+                               int(blens[stop - 1])))
+        chunks.sort(key=lambda c: c[2])  # stable: groups in key order at one length
         return chunks
+
+    def _cuts(self, blens: np.ndarray) -> list:
+        """(start, stop) of each batch over files sorted by length, whose
+        lengths rounded up to the grid are ``blens``: the cuts that minimise
+        the samples sent (padded rows x batch length) plus
+        ``BATCH_COST_SAMPLES`` a batch, within each batch's row cap. A
+        dynamic programme over the last file of a batch: the best plan up to
+        file j is the best, over the batch's first file i within the cap,
+        of the best plan up to i plus the batch i..j-1."""
+        n = len(blens)
+        caps = {b: self._row_cap(b) for b in np.unique(blens).tolist()}
+        most = max(caps.values(), default=1)
+        # rows sent by batches of most, most - 1, ..., 1 files: [most - r:] ends at r
+        rows = np.array([self._padded_rows(r) for r in range(most, 0, -1)], dtype=np.int64)
+        sent = {b: rows * b for b in caps}
+        best = np.zeros(n + 1, dtype=np.int64)
+        first = [0] * (n + 1)
+        for j, b in enumerate(blens.tolist(), 1):
+            lo = max(0, j - caps[b])
+            cost = best[lo:j] + sent[b][most - (j - lo):]
+            k = int(cost.argmin())
+            best[j] = cost[k] + BATCH_COST_SAMPLES
+            first[j] = lo + k
+        cuts, j = [], n
+        while j > 0:
+            cuts.append((first[j], j))
+            j = first[j]
+        return cuts[::-1]
 
     def _rank_rows(self, chunk, bsz: int) -> list:
         """The files of this rank's rows of a padded batch of ``bsz``: the
-        chunk itself without a mesh (its pad rows are filled by copy);
-        under one, rank r's b/n rows of the chunk followed by pad rows that
-        repeat its last file."""
+        chunk itself without a mesh; under one, rank r's b/n rows of the
+        chunk followed by pad rows that repeat its last file."""
         if self.world is None:
             return list(chunk)
         rows = list(chunk) + [chunk[-1]] * (bsz - len(chunk))
@@ -345,11 +372,11 @@ class EmbeddingEngine:
                     torch.empty((bsz,), dtype=torch.int64, pin_memory=pin))
 
     def _assemble(self, waves, i16able, chunk, bsz, blen):
-        """Padded host batch (this rank's rows) + lengths from decoded
-        waveforms; pad rows repeat the last file."""
+        """Padded host batch (this rank's rows, ``_rank_rows``) + lengths
+        from decoded waveforms."""
         is_i16 = all(i16able[i] for i in chunk)
         rows = self._rank_rows(chunk, bsz)
-        host, lengths_t = self._host_batch(bsz // (self.world or 1), blen,
+        host, lengths_t = self._host_batch(len(rows), blen,
                                            torch.int16 if is_i16 else torch.float32)
         batch, lengths = host.numpy(), lengths_t.numpy()
         batch.fill(0)
@@ -361,8 +388,6 @@ class EmbeddingEngine:
                 w = w.astype(np.float32) / PCM16_SCALE
             batch[row, : len(w)] = w
             lengths[row] = len(w)
-        batch[len(rows):] = batch[len(rows) - 1]
-        lengths[len(rows):] = lengths[len(rows) - 1]
         return host, lengths_t, self._encode_batch(host)
 
     def _encode_batch(self, host: torch.Tensor) -> Optional[torch.Tensor]:
@@ -385,11 +410,11 @@ class EmbeddingEngine:
         out.numpy()[...] = frame.view(np.int32)
         return out
 
-    def _submit(self, host: torch.Tensor, lengths: torch.Tensor, rows: int,
-                native_ingest: bool, frame: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _submit(self, host: torch.Tensor, lengths: torch.Tensor, native_ingest: bool,
+                frame: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Copy a host batch to the device, or its wire-codec ``frame`` and
-        decode it there, and embed it; the first ``rows`` embeddings (the
-        rest are padding)."""
+        decode it there, and embed it: one embedding a row."""
+        rows = host.shape[0]
         nbytes = host.numel() * host.element_size()
         sent = nbytes if frame is None else frame.numel() * frame.element_size()
         with timed("engine.submit", items=rows, nbytes=sent):
@@ -403,8 +428,8 @@ class EmbeddingEngine:
                 wav = wav.to(torch.float32) / PCM16_SCALE
             emb = getattr(self.model, self.method)(wav, lengths.to(self.device, non_blocking=True))
             if stop is not None:
-                stop("engine.batch", rows=rows, bsz=host.shape[0], blen=host.shape[1],
-                     samples=int(lengths[:rows].sum()))
+                stop("engine.batch", rows=rows, bsz=rows, blen=host.shape[1],
+                     samples=int(lengths.sum()))
         if self.serialize_pipeline and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.batches += 1
@@ -416,7 +441,7 @@ class EmbeddingEngine:
             self.transfer["codec_hits"] += 1
             self.transfer["codec_saved_bytes"] += nbytes - sent
         self.transfer["native_batches" if native_ingest else "python_batches"] += 1
-        return emb[:rows]
+        return emb
 
     def _collect(self, chunks, outs: list, n: int) -> torch.Tensor:
         """The batches' embeddings back in input order: one stack of row
@@ -445,12 +470,6 @@ class EmbeddingEngine:
             start += s
         return whole
 
-    def _kept(self, chunk, host: torch.Tensor) -> int:
-        """The rows of a submitted batch that ``_collect`` reads: the
-        chunk's files without a mesh; under one every row of the rank's
-        share, which the gather needs."""
-        return len(chunk) if self.mesh is None else host.shape[0]
-
     def _empty(self) -> torch.Tensor:
         width = self.model.emb_dim if self.method == "forward" else self.model.config.hidden_size
         return torch.zeros((0, width), device=self.device)
@@ -470,10 +489,9 @@ class EmbeddingEngine:
             futures = [
                 ex.submit(self._assemble, waves, i16able, *job) for job in chunks
             ]
-            for (chunk, _bsz, _blen), fut in zip(chunks, futures):
+            for fut in futures:
                 host, lengths, frame = fut.result()
-                outs.append(self._submit(host, lengths, self._kept(chunk, host),
-                                         native_ingest=False, frame=frame))
+                outs.append(self._submit(host, lengths, native_ingest=False, frame=frame))
             return self._collect(chunks, outs, n)
 
     def embed_waves(self, waves: Sequence[np.ndarray]) -> np.ndarray:
@@ -492,8 +510,8 @@ class EmbeddingEngine:
             for sec in durations:
                 blen = bucket_length(int(round(float(sec) * TARGET_SR)))
                 full = self.batch_size_for(blen)
-                for bsz in sorted({self.batch_size_for(blen, remaining=min(t, full))
-                                   for t in PREWARM_TAILS} | {full}):
+                for bsz in sorted({self._padded_rows(min(t, full)) for t in PREWARM_TAILS}
+                                  | {full}):
                     bsz //= self.world or 1  # a rank's share
                     wav = torch.zeros((bsz, blen), device=self.device)
                     lengths = torch.full((bsz,), blen, dtype=torch.int64, device=self.device)
@@ -577,24 +595,23 @@ class EmbeddingEngine:
             for chunk, bsz, blen in chunks:
                 is_i16 = all(i16[i] for i in chunk)
                 rows = self._rank_rows(chunk, bsz)
-                k = len(rows)
                 host, lengths_t = self._host_batch(
-                    bsz // (self.world or 1), blen,
+                    len(rows), blen,
                     torch.int16 if is_i16 or self.quantize_transfer else torch.float32)
                 batch, lengths = host.numpy(), lengths_t.numpy()
                 chunk_paths = [paths[i] for i in rows]
-                with timed("engine.native_ingest", items=k):
+                with timed("engine.native_ingest", items=len(rows)):
                     if is_i16:
                         _, _, errs = native.native_load_batch_i16(
                             chunk_paths, blen, TARGET_SR, trim_sec, IO_THREADS,
-                            out=batch[:k], lengths=lengths[:k])
+                            out=batch, lengths=lengths)
                     else:
                         sr = rates[chunk[0]]
                         _, _, errs = native.native_load_batch(
                             chunk_paths, blen, TARGET_SR, trim_sec,
                             expect_sr=0 if sr == TARGET_SR else sr, num_threads=IO_THREADS,
-                            quantize_i16=self.quantize_transfer, out=batch[:k],
-                            lengths=lengths[:k])
+                            quantize_i16=self.quantize_transfer, out=batch,
+                            lengths=lengths)
                 with timed("engine.host_batch"):
                     for row, i in enumerate(rows):
                         if errs[row] != 0:  # a file the C++ path refused: decode it in Python
@@ -605,10 +622,8 @@ class EmbeddingEngine:
                             batch[row] = 0
                             batch[row, : len(w)] = w
                             lengths[row] = len(w)
-                    batch[k:] = batch[k - 1]
-                    lengths[k:] = lengths[k - 1]
-                outs.append(self._submit(host, lengths_t, self._kept(chunk, host),
-                                         native_ingest=True, frame=self._encode_batch(host)))
+                outs.append(self._submit(host, lengths_t, native_ingest=True,
+                                         frame=self._encode_batch(host)))
             return self._collect(chunks, outs, len(paths))
 
 

@@ -1,7 +1,7 @@
 """Large-scale scoring (counterpart of ``nomad_tpu.scoring.large_scale``):
 BASELINE config 4, ~10k degraded utterances x ~100 NMRs.
 
-  1. Embeddings: the bucketed engine, over a ``data`` mesh when a process
+  1. Embeddings: the engine, over a ``data`` mesh when a process
      group of more than one rank runs (each rank embeds 1/n of every
      batch; the engine's gather gives every rank all of them).
   2. The distance matrix, rows (degraded) by columns (NMR), on a 2-D

@@ -208,11 +208,13 @@ def test_engine_native_path_orders_rows_as_python(lib, tmp_path, monkeypatch):
     tio.write_wav(paths[0], w, 16000, bits=16)
     tenc.write_flac(paths[1], w, 16000)
     tio.write_wav(paths[2], w[:5000], 16000, bits=16)
-    eng = EmbeddingEngine(RowStats(), torch.device("cpu"))
+    # a budget of two 10 s rows keeps the short file out of the long files' batch
+    budget = 2 * 163_840
+    eng = EmbeddingEngine(RowStats(), torch.device("cpu"), batch_sample_budget=budget)
     got = eng.embed_files(paths)
     assert eng.transfer_stats()["native_batches"] == eng.batches == 2
     assert list(got[:, 1]) == [160_777, 160_777, 5000]
     monkeypatch.setattr(native, "available", lambda: False)
-    py = EmbeddingEngine(RowStats(), torch.device("cpu"))
+    py = EmbeddingEngine(RowStats(), torch.device("cpu"), batch_sample_budget=budget)
     np.testing.assert_array_equal(py.embed_files(paths), got)
     assert py.transfer_stats()["python_batches"] == py.batches == 2

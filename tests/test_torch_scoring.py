@@ -149,6 +149,9 @@ def test_write_results_byte_identical(tmp_path):
 
 
 def test_batch_plan_matches_jax(tiny_params):
+    """What the port's plan still shares with the JAX engine's: the length
+    buckets (training's pad target) and the full batch ``prewarm`` warms.
+    The port cuts its batches by the files' own lengths (``test_plan_*``)."""
     jeng = jengine.EmbeddingEngine(
         JaxNomadModel(JaxConfig.base(attention_impl="pallas")), params={}
     )
@@ -159,10 +162,6 @@ def test_batch_plan_matches_jax(tiny_params):
         assert tengine.bucket_length(n) == jengine.bucket_length(n)
         blen = jengine.bucket_length(n)
         assert teng.batch_size_for(blen) == jeng.batch_size_for(blen)
-        for left in (1, 2, 7, 31, 33, 95, 97, 200):
-            assert teng.batch_size_for(blen, remaining=left) == jeng.batch_size_for(blen, remaining=left)
-        for items in (1, 5, 96, 100, 250):
-            assert teng._chunk_batches(items, blen) == jeng._chunk_batches(items, blen)
     assert teng.batch_size_for(163840) == 96
     # the plain attention path caps long buckets by its [B, H, T', T'] buffers
     model.config = Wav2Vec2Config.base(attention_impl="ref")
@@ -177,13 +176,121 @@ def test_engine_pads_with_last_row_and_keeps_order():
     waves = [(0.2 * rng.standard_normal(n)).astype(np.float32) for n in (900, 3000, 5000, 1200)]
     waves[1] = np.rint(waves[1] * 32768).astype(np.int16)  # the int16 path
     plan = eng.plan([len(w) for w in waves])
-    # bucket 4096: 3 files in a batch of 4 (one pad row); bucket 8192: 1
-    assert [(len(c), b) for c, b, _ in plan] == [(3, 4), (1, 1)]
+    # 4,096 samples: 3 files, no pad row; 8,192: 1 (all 4 at 8,192 pass the budget)
+    assert [(len(c), b) for c, b, _ in plan] == [(3, 3), (1, 1)]
     emb = eng.embed_waves(waves)
     with torch.inference_mode():
         for i, w in enumerate(waves):
             x = torch.from_numpy(w.astype(np.float32) / (32768.0 if w.dtype == np.int16 else 1.0))
             np.testing.assert_allclose(emb[i], model(x[None]).numpy()[0], atol=1e-5, rtol=0)
+
+
+def _bucketed_plan(eng, lengths, groups=None) -> list:
+    """The plan the engine had before it planned by lengths (the JAX
+    engine's): lengths in buckets of 4 steps an octave, full batches snapped
+    to multiples of 32 (powers of two below), tails to a grid; under a mesh
+    multiples of the world size. The yardstick of the padding."""
+    n = eng.world
+
+    def size(length, remaining=None):
+        b = min(max(1, eng.batch_sample_budget // length), tengine.MAX_BATCH,
+                eng._attn_batch_cap(length))
+        if n is not None:
+            b = max(n, (b // n) * n)
+            return b if remaining is None or remaining >= b else max(n, -(-remaining // n) * n)
+        b = (b // 32) * 32 if b >= 32 else 1 << (b.bit_length() - 1)
+        if remaining is not None and remaining < b:
+            b = -(-remaining // 32) * 32 if remaining > 32 else 1 << (remaining - 1).bit_length()
+        return b
+
+    buckets: dict = {}
+    for i in sorted(range(len(lengths)), key=lambda i: lengths[i]):
+        key = (tengine.bucket_length(lengths[i]), groups[i] if groups is not None else 0)
+        buckets.setdefault(key, []).append(i)
+    chunks = []
+    for (blen, _), idxs in sorted(buckets.items()):
+        while idxs:
+            b = min(size(blen, remaining=len(idxs)), size(blen))
+            chunks.append((idxs[:b], b, blen))
+            idxs = idxs[b:]
+    return chunks
+
+
+def _cell_lengths() -> list:
+    """The ``score-corpus`` cell's file lengths, drawn as its mix draws them
+    (``benchmark/traffic/audio.py::sizes``, sizes_seed 4321 + group)."""
+    groups = ((1000, (1.5, 20.0)), (20, (20.0, 24.0)), (100, (2.0, 4.0)))
+    return np.concatenate([
+        (np.random.default_rng(4321 + g).uniform(*secs, size=count) * 16000).astype(int)
+        for g, (count, secs) in enumerate(groups)]).tolist()
+
+
+PLAN_CASES = {
+    # name: (lengths, groups, sample budget, attention_impl)
+    "cell": (_cell_lengths(), None, None, "kernel"),
+    "equal": ([160_000] * 300, None, None, "kernel"),
+    "one": ([12_345], None, None, "kernel"),
+    "single_rows": (np.random.default_rng(1).integers(8_193, 16_385, 9).tolist(), None,
+                    4 * 4096, "kernel"),
+    "two_rates": (np.random.default_rng(2).integers(2_000, 300_000, 400).tolist(),
+                  np.random.default_rng(3).choice([16_000, 44_100], 400).tolist(), None,
+                  "kernel"),
+    "ref_attention": (np.random.default_rng(4).integers(640_000, 1_280_000, 60).tolist(), None,
+                      None, "ref"),
+}
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_invariants(case, world):
+    """The plan by lengths, at each world size (the engine's plan reads
+    only the world size): every file in one batch, the limits held, each
+    batch as long as its longest file on the grid and padded only to the
+    world size, shortest batches first, and never more samples sent than
+    the bucketed plan's."""
+    lengths, groups, budget, impl = PLAN_CASES[case]
+    model = NomadModel(Wav2Vec2Config.tiny())
+    model.config = Wav2Vec2Config.base(attention_impl=impl)  # only the config feeds the plan
+    eng = tengine.EmbeddingEngine(model, torch.device("cpu"),
+                                  batch_sample_budget=budget or tengine.DEFAULT_BATCH_SAMPLE_BUDGET)
+    eng.world = None if world == 1 else world
+    plan = eng.plan(lengths, groups)
+    assert sorted(i for chunk, _, _ in plan for i in chunk) == list(range(len(lengths)))
+    for chunk, bsz, blen in plan:
+        longest = max(lengths[i] for i in chunk)
+        assert blen % tengine.MIN_BUCKET == 0 and longest <= blen < longest + tengine.MIN_BUCKET
+        assert bsz % world == 0 and 0 <= bsz - len(chunk) < world
+        cap = min(eng.batch_sample_budget // blen, tengine.MAX_BATCH, eng._attn_batch_cap(blen))
+        assert bsz <= max(world, cap - cap % world)
+        if groups is not None:
+            assert len({groups[i] for i in chunk}) == 1
+    assert [blen for _, _, blen in plan] == sorted(blen for _, _, blen in plan)
+    if case == "ref_attention":  # the attention buffers, not the budget, bind
+        assert any(eng._attn_batch_cap(blen) < eng.batch_sample_budget // blen
+                   for _, _, blen in plan)
+    sent = sum(bsz * blen for _, bsz, blen in plan)
+    assert sent <= sum(bsz * blen for _, bsz, blen in _bucketed_plan(eng, lengths, groups))
+    if case == "cell" and world == 1:
+        assert sent / sum(lengths) <= 1.06
+
+
+def test_plan_embeds_match_batch1():
+    """Batches cut by length, with files either side of grid points, embed
+    each file as it embeds alone."""
+    rng = np.random.default_rng(11)
+    model = NomadModel(Wav2Vec2Config.tiny(), emb_dim=EMB)
+    init_weights(model, seed=2).eval()
+    eng = tengine.EmbeddingEngine(model, torch.device("cpu"), batch_sample_budget=5 * 8192)
+    sizes = (8193, 4095, 4097, 8192, 4096, 8191, 12288, 500, 4000, 12289)
+    waves = [(0.2 * rng.standard_normal(n)).astype(np.float32) for n in sizes]
+    plan = eng.plan(sizes)
+    assert len(plan) > 1 and any(len(c) > 1 for c, _, _ in plan)
+    assert any(len({tengine.bucket_length(sizes[i]) for i in c}) > 1 for c, _, _ in plan)
+    emb = eng.embed_waves(waves)
+    with torch.inference_mode():
+        for i, w in enumerate(waves):
+            np.testing.assert_allclose(emb[i], model(torch.from_numpy(w)[None]).numpy()[0],
+                                       atol=1e-5, rtol=0)
 
 
 def test_wav_and_resample_copies_bit_identical(tmp_path):

@@ -5,7 +5,7 @@ differentiate.
                            --only-serve | --only-precision | --only-grad-modes |
                            --only-fused-modes | --only-fast-bf16 | --only-bf16-paths |
                            --only-large-scale | --only-wire-and-tools | --only-high3 |
-                           --only-config-fields]
+                           --only-config-fields | --only-wavlm]
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -291,6 +291,19 @@ Phases, each fatal on failure:
      the pairwise delta against "exact" (reported); then ``dtype=bfloat16``'s
      loss at 24 x 160,000 samples against its plain path by phase 10's
      rule;
+ 18. WavLM Large (``Wav2Vec2Config.wavlm_large()``, benchmark/weights.py's
+     seeded weights at the published widths): K1r (K1 with the gated
+     relative-position bias) against its plain version at K1's tolerance
+     at [8, 1023] and [4, 2000] with ragged lengths down to no key and at
+     [8, 149], 16 heads of 64, timed beside K1 in turns, its plain version,
+     SDPA with the bias as a float mask and its bound
+     (``benchmark/counts_wavlm.k1r_bound``); ``Nomad.predict`` on 4 files
+     of 20-40 s and 2 NMRs with the launches read around a warm call (K1r
+     24 and K5 57 a batch, no K1; each block K1r 1, K5 2), the embeddings
+     against ``benchmark/reference/wavlm.py`` file by file and batch-1
+     against the padded batches, a profiled device pass; the loss with its
+     gradient on 4 crops of 48,000 samples (K1r 48 and K5 114 a step, the
+     backward the plain recompute) against the reference;
 and last (phase 11) the kernels' JSON line, the card line, and the last
 line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, without a CUDA card or outside a
@@ -309,7 +322,8 @@ phases 1, 2 and 13, ``--only-bf16-paths`` phases 1, 2 and 14,
 1, 2 and 16, ``--only-high3`` phases 1 and 2, phase 3's K4h checks and
 the K4h-bf16 checks of phase 14 at the scoring shape, phase 4 and phase
 5's fused loss (the paths that drive K4h), each ending with the report
-line. ``--only-config-fields`` runs phases 1, 2 and 17.
+line. ``--only-config-fields`` runs phases 1, 2 and 17, ``--only-wavlm``
+phases 1 and 18, prints K1r's kernels line and ends with the report line.
 """
 
 from __future__ import annotations
@@ -1259,6 +1273,7 @@ def reset_launches() -> None:
     fused_attention.launches_high3 = fused_attention.launches_high3_bf16_io = 0
     flash_attention.launches_bwd_fold_bf16 = flash_attention.launches_bwd_fold_bf16_io = 0
     flash_attention.launches_fwd_fold_bf16 = flash_attention.launches_fwd_fold_bf16_io = 0
+    flash_attention.launches_rel = 0
 
 
 def read_launches() -> dict:
@@ -1285,18 +1300,19 @@ def read_launches() -> dict:
             "flash_attention_bwd_fold_bf16": flash_attention.launches_bwd_fold_bf16,
             "flash_attention_bwd_fold_bf16io": flash_attention.launches_bwd_fold_bf16_io,
             "flash_attention_fwd_fold_bf16": flash_attention.launches_fwd_fold_bf16,
-            "flash_attention_fwd_fold_bf16io": flash_attention.launches_fwd_fold_bf16_io}
+            "flash_attention_fwd_fold_bf16io": flash_attention.launches_fwd_fold_bf16_io,
+            "flash_attention_rel_fwd": flash_attention.launches_rel}
 
 
 def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
                   k1b_io=0, k2b_io=0, k3b_io=0, k5_io=0, k1_io=0, k2_io=0, k3_io=0, k4_io=0,
-                  k4b_io=0, k4h=0, k4h_io=0) -> dict:
+                  k4b_io=0, k4h=0, k4h_io=0, k1r=0) -> dict:
     """Launch counts by kernel; ``*_io``: the bf16-I/O flavours. The
     backward fold runs once per backward call of K2b/K3b or K2-bf16/K3-bf16:
     once per K2b launch, in K2b's flavour, and once per K2-bf16 launch
     (``k2_io``), in the bf16 one; the forward fold once per K1b launch, in
     its flavour, and once per K1-bf16 launch (``k1_io``), in the bf16
-    one."""
+    one. ``k1r``: K1r, K1 with WavLM's relative-position bias."""
     return {"flash_attention_fwd": k1, "flash_attention_bf16_fwd": k1b,
             "flash_attention_bwd_dq": k2, "flash_attention_bwd_dkv": k3,
             "flash_attention_bwd_dq_bf16": k2b, "flash_attention_bwd_dkv_bf16": k3b,
@@ -1311,7 +1327,8 @@ def launches_want(k1=0, k2=0, k3=0, k4=0, k5=0, k1b=0, k2b=0, k3b=0, k4b=0,
             "fused_qkv_attention_high3_fwd": k4h, "fused_qkv_attention_high3_bf16io_fwd": k4h_io,
             "flash_attention_bwd_fold_bf16": k2b,
             "flash_attention_bwd_fold_bf16io": k2b_io + k2_io,
-            "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io + k1_io}
+            "flash_attention_fwd_fold_bf16": k1b, "flash_attention_fwd_fold_bf16io": k1b_io + k1_io,
+            "flash_attention_rel_fwd": k1r}
 
 
 def mode_config(mode: str = "exact", **kw) -> Wav2Vec2Config:
@@ -5710,6 +5727,298 @@ def run_scoring_k1(card: str) -> None:
         run_main_path(card, tmp, nmr, deg)
 
 
+# ---------------- phase 18: WavLM Large (K1r) ----------------
+
+WAVLM_CONFIG = ROOT / "benchmark" / "configs" / "nomad-wavlm-large.json"
+# phase 18's files: the longform cells' lengths (20-40 s, T' 1,000-2,000)
+# and NMR lengths (2-4 s); the loss on 4 crops of 48,000 samples (T' = 149)
+WAVLM_DEG_SECONDS, WAVLM_NMR_SECONDS = (21.3, 27.9, 33.1, 39.6), (2.4, 3.7)
+WAVLM_LOSS_BATCH, WAVLM_LOSS_SAMPLES, WAVLM_SEED = 4, 48_000, 18
+# K5 a WavLM forward: after each of the 7 convolutions, the feature
+# LayerNorm, 2 a block, the encoder's after the stack
+WAVLM_K5 = 7 + 1 + 2 * 24 + 1
+
+
+def check_flash_rel(b: int, t: int, lengths: list, g: torch.Generator, timed: bool) -> dict:
+    """K1r at WavLM's 16 heads of 64 against its plain version
+    (``flash_attention_ref`` with ``relative_bias``) row by row, at K1's
+    tolerance, with one launch on its own counter and none on K1's; the
+    kernel's time, K1's on the same q, k, v, and with ``timed`` the plain
+    version's and SDPA's with the bias and the key mask as one float mask
+    (expanded outside the timing)."""
+    from benchmark import counts_wavlm
+
+    h, d = 16, 64
+    q, k, v = torch.randn(b, t, 3, h, d, generator=g).to(DEV).unbind(2)
+    gate = (1.0 + 2.0 * torch.rand(b, h, t, generator=g)).to(DEV)
+    table = (0.3 * torch.randn(h, 2 * t - 1, generator=g)).to(DEV)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    before = (flash_attention.launches_rel, flash_attention.launches)
+    o, lse = flash_attention.mha_flash_rel(q, k, v, gate, table, lens)
+    torch.cuda.synchronize()
+    if (flash_attention.launches_rel, flash_attention.launches) != (before[0] + 1, before[1]):
+        fail(f"flash rel [{b}, {t}]: counters {before} -> "
+             f"{(flash_attention.launches_rel, flash_attention.launches)} (want K1r + 1)")
+    err = 0.0
+    for i in range(b):
+        ro, rlse = flash_attention.flash_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i:i + 1],
+            bias=flash_attention.relative_bias(gate[i:i + 1], table))
+        err = max(err, (o[i:i + 1] - ro).abs().max().item(),
+                  (lse[i:i + 1] - rlse).abs().max().item())
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    if not finite or err > TOL_FLASH:
+        fail(f"flash rel [{b}, {t}, {h}, {d}] finite={finite} max|d| {err:.3g} > {TOL_FLASH}")
+    b_ms, b_by = counts_wavlm.k1r_bound(b, t, h, d, int(lens.sum()))
+    res = {"shape": [b, t, h, d], "lengths_sum": int(lens.sum()), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by}
+    res["ms"], res["k1_ms"] = time_pair_ms(
+        lambda: flash_attention.mha_flash_rel(q, k, v, gate, table, lens),
+        lambda: flash_attention.mha_flash(q, k, v, lens), 10)
+    if timed:
+        res["plain_ms"] = time_ms(lambda: flash_attention.flash_attention_ref(
+            q, k, v, lens, bias=flash_attention.relative_bias(gate, table)), 3)
+        valid = torch.arange(t, device=DEV)[None, :] < lens[:, None]
+        mask = flash_attention.relative_bias(gate, table) + torch.where(
+            valid, 0.0, float("-inf"))[:, None, None, :]
+        mask[lens == 0] = 0.0  # a row with no key: SDPA's NaN, not what is timed
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        res["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 5)
+        del mask
+    print(f"  flash rel [{b}, {t}, {h}, {d}] keys {int(lens.sum())}: max|d| {err:.3g}  "
+          f"K1r {res['ms']:.4f} ms  K1 {res['k1_ms']:.4f}  "
+          f"plain {res.get('plain_ms', float('nan')):.4f}  "
+          f"sdpa {res.get('library_ms', float('nan')):.4f}  bound {b_ms:.4f} ({b_by})",
+          flush=True)
+    return res
+
+
+def wavlm_config(**kw) -> Wav2Vec2Config:
+    """``Wav2Vec2Config.wavlm_large`` at "exact", after checking that the
+    benchmark's configuration file holds its widths."""
+    w = json.loads(WAVLM_CONFIG.read_text())["wavlm"]
+    cfg = Wav2Vec2Config.wavlm_large(**kw)
+    have = {"conv_dim": list(cfg.conv_dim), "conv_kernel": list(cfg.conv_kernel),
+            "conv_stride": list(cfg.conv_stride), "hidden_size": cfg.hidden_size,
+            "num_layers": cfg.num_layers, "num_heads": cfg.num_heads, "ffn_dim": cfg.ffn_dim,
+            "pos_conv_kernel": cfg.pos_conv_kernel, "pos_conv_groups": cfg.pos_conv_groups,
+            "num_buckets": cfg.relative_position_buckets,
+            "max_bucket_distance": wav2vec2.MAX_RELATIVE_DISTANCE}
+    off = {key: (v, w[key]) for key, v in have.items() if w[key] != v}
+    if off:
+        fail(f"Wav2Vec2Config.wavlm_large() against {WAVLM_CONFIG.name}: {off}")
+    return cfg
+
+
+def write_wavlm_wavs(root: Path) -> tuple[str, str, float]:
+    rng = np.random.default_rng(WAVLM_SEED)
+    dirs = []
+    for sub, seconds in (("nmr", WAVLM_NMR_SECONDS), ("deg", WAVLM_DEG_SECONDS)):
+        p = root / sub
+        p.mkdir()
+        for i, sec in enumerate(seconds):
+            x = speech_like(rng, int(sec * SR), 0.005 if sub == "nmr" else (0.01, 0.1))
+            write_wav(str(p / f"{sub}_{i:03d}.wav"), x, SR, bits=16)
+        dirs.append(str(p))
+    return dirs[0], dirs[1], float(sum(WAVLM_DEG_SECONDS) + sum(WAVLM_NMR_SECONDS))
+
+
+def run_wavlm_loss(card: str, sd: dict, w: dict) -> None:
+    """WavLM's loss with its gradient at full width: K1r in both forwards
+    (24 each), ``FlashAttentionRel``'s backward (the plain recompute, no K2
+    or K3), held against the benchmark's reference on the card (loss; the
+    gradient under the step's own |.| signs, as phase 5's rule)."""
+    from benchmark.reference import wavlm as ref_wavlm
+
+    rng = np.random.default_rng(WAVLM_SEED)
+    clean = torch.from_numpy(np.stack([speech_like(rng, WAVLM_LOSS_SAMPLES, 0.005)
+                                       for _ in range(WAVLM_LOSS_BATCH)])).to(DEV)
+    est = (clean + 0.03 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(
+        WAVLM_SEED)).to(DEV)).requires_grad_()
+    nomad = Nomad(device="cuda", config=wavlm_config(), emb_dim=256, params=sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = nomad.forward(est, clean)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = read_launches()
+    report["launches"]["wavlm_loss_step"] = counts
+    want = launches_want(k1r=2 * 24, k5=2 * WAVLM_K5)
+    if counts != want:
+        fail(f"wavlm loss step: launch counts {counts} (want {want})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad, value = est.grad.detach().clone(), loss.item()
+    ref_loss, ref_grad = ref_wavlm.loss_and_grad(sd, w, est.detach(), clean,
+                                                 rows=WAVLM_LOSS_BATCH)
+    # the reference's gradient under the step's own signs of |.| (an element
+    # within rounding of 0 may take the other sign in the other order)
+    signs = layer_signs(nomad, est.detach(), clean)
+    e = est.detach().clone().requires_grad_()
+    with torch.no_grad():
+        ref_clean = ref_wavlm.loss_layers(sd, w, clean)
+        flips = sum(int((s_ != torch.sign(a - c)).sum()) for s_, a, c in zip(
+            signs, ref_wavlm.loss_layers(sd, w, est.detach()), ref_clean))
+    sum((s_ * (a - c)).mean() for s_, a, c in zip(
+        signs, ref_wavlm.loss_layers(sd, w, e), ref_clean)).backward()
+    d_loss = abs(value - ref_loss) / abs(ref_loss)
+    d_grad = (grad - ref_grad).abs().max().item() / ref_grad.abs().max().item()
+    d_grad_signs = (grad - e.grad).abs().max().item() / e.grad.abs().max().item()
+    res = {"batch": WAVLM_LOSS_BATCH, "samples": WAVLM_LOSS_SAMPLES, "loss": value,
+           "ref_loss": ref_loss, "loss_rel": d_loss, "grad_rel_max": d_grad,
+           "grad_rel_max_same_signs": d_grad_signs, "sign_flips": flips,
+           "step_s_cold": step_s, "peak_mem_gb": peak_gb, "card": card}
+    report["wavlm_loss"] = res
+    print(f"wavlm loss: {WAVLM_LOSS_BATCH} x {WAVLM_LOSS_SAMPLES} samples, loss {value:.8g} vs "
+          f"reference {ref_loss:.8g} (rel {d_loss:.3g} <= {TOL_LOSS_REL}), gradient "
+          f"max|d|/max|g| {d_grad:.3g}, under the same signs {d_grad_signs:.3g} (<= "
+          f"{TOL_GRAD_REL}; {flips} signs of |.| differ), launches "
+          f"K1r {counts['flash_attention_rel_fwd']} K5 {counts['layernorm_fwd']}, first step "
+          f"{step_s:.2f} s, peak {peak_gb:.3f} GB  [{card}]", flush=True)
+    if (d_loss > TOL_LOSS_REL or d_grad_signs > TOL_GRAD_REL
+            or (flips == 0 and d_grad > TOL_GRAD_REL) or not np.isfinite(value)):
+        fail(f"wavlm loss against the reference: loss rel {d_loss:.3g}, gradient {d_grad:.3g} "
+             f"({d_grad_signs:.3g} under the same signs)")
+
+
+def run_wavlm(card: str) -> None:
+    """Phase 18: WavLM Large (``Wav2Vec2Config.wavlm_large``, seeded weights
+    of ``benchmark/weights.py`` at the published widths). K1r against its
+    plain version at its scoring shapes; ``Nomad.predict`` on 4 files of
+    20-40 s against 2 NMRs with the launches read around a warm call (K1r
+    24 and K5 57 a batch, block by block K1r 1 and K5 2, no K1), its
+    embeddings against the benchmark's reference file by file and batch-1
+    against the padded batches, a profiled device pass; then the loss with
+    its gradient (``run_wavlm_loss``)."""
+    from benchmark import weights
+    from benchmark.reference import wavlm as ref_wavlm
+
+    report.setdefault("launches", {})
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(WAVLM_SEED)
+    print("wavlm: K1r vs its plain version on the card:", flush=True)
+    report["kernels"]["flash_attention_rel_fwd"] = {
+        # the cell's T' with ragged rows down to 1 key and none, and its longest
+        "main": check_flash_rel(8, 1023, [1023, 1000, 977, 640, 513, 64, 1, 0], g, True),
+        "long": check_flash_rel(4, 2000, [2000, 1999, 1357, 1024], g, True),
+        "loss": check_flash_rel(8, 149, [149] * 8, g, False),
+    }
+    conf = json.loads(WAVLM_CONFIG.read_text())
+    w = conf["wavlm"]
+    leftover_gb = settled_allocated_gb()
+    sd = weights.seeded(ref_wavlm.param_shapes(w, conf["emb_dim"]), WAVLM_SEED, DEV)
+    nomad = Nomad(device="cuda", config=wavlm_config(), emb_dim=conf["emb_dim"], params=sd)
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="nomad_wavlm_") as tmp:
+        nmr, deg, total_s = write_wavlm_wavs(Path(tmp))
+        res_dir = Path(tmp) / "out"
+        res_dir.mkdir()
+        t0 = time.perf_counter()
+        nomad.predict("dir", nmr, deg, str(res_dir))
+        out["predict_cold_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches0 = nomad.engine.batches
+        reset_launches()
+        with launches_by_layer(nomad.model) as by_layer:
+            t0 = time.perf_counter()
+            nomad.predict("dir", nmr, deg, str(res_dir))
+            torch.cuda.synchronize()
+            out["predict_warm_s"] = time.perf_counter() - t0
+        counts = read_launches()
+        batches = nomad.engine.batches - batches0
+        report["launches"]["wavlm_scoring"] = counts
+        want = launches_want(k1r=24 * batches, k5=WAVLM_K5 * batches)
+        block_want = launches_want(k1r=1, k5=2)
+        bad = [(i, j) for i, per in enumerate(by_layer) for j, c in enumerate(per)
+               if c != block_want]
+        if counts != want or batches == 0 or bad:
+            fail(f"wavlm scoring: launch counts {counts} for {batches} batches (want {want}); "
+                 f"blocks off (block, batch): {bad}")
+        print(f"wavlm scoring: warm predict of {total_s:.1f} s of audio in "
+              f"{out['predict_warm_s']:.3f} s, {batches} batches, launches K1r "
+              f"{counts['flash_attention_rel_fwd']} (24 a batch) K5 {counts['layernorm_fwd']} "
+              f"({WAVLM_K5} a batch) K1 {counts['flash_attention_fwd']}", flush=True)
+        paths = sorted(Path(nmr).iterdir()) + sorted(Path(deg).iterdir())
+        waves = nomad.engine.load_waves([str(p) for p in paths])
+        emb, passes = timed_passes(nomad, waves)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile_run(lambda: nomad.engine.embed_waves_device(waves), "wavlm_profile")
+        with torch.no_grad():
+            # read_wav gives [1, samples]: one file, its own batch
+            ref = torch.cat([ref_wavlm.embed(sd, w, torch.from_numpy(
+                np.asarray(read_wav(str(p))[0], np.float32)).to(DEV)) for p in paths])
+        d_ref = (emb - ref).abs().max().item()
+        d_b1 = max((nomad.engine.embed_waves_device([waves[i]])[0] - emb[i]).abs().max().item()
+                   for i in range(len(waves)))
+    out |= {"files": len(paths), "audio_s": total_s, "batches": batches, "pass_s": passes,
+            "wav_s_per_s_pass": total_s / float(np.median(passes)), "peak_mem_gb": peak_gb,
+            "leftover_mem_gb": leftover_gb, "emb_vs_reference": d_ref, "batch1_vs_padded": d_b1}
+    print(f"wavlm scoring: device pass {float(np.median(passes)):.3f} s = "
+          f"{out['wav_s_per_s_pass']:.1f} wav-s/s, peak {peak_gb:.3f} GB; embeddings vs the "
+          f"reference max|d| {d_ref:.3g} (<= {TOL_REF_PATH}), batch-1 vs padded {d_b1:.3g} "
+          f"(<= {TOL_BATCH1})  [{card}]", flush=True)
+    if not torch.isfinite(emb).all() or d_ref > TOL_REF_PATH or d_b1 > TOL_BATCH1:
+        fail(f"wavlm embeddings: vs the reference {d_ref:.3g}, batch-1 {d_b1:.3g}")
+    del nomad, waves
+    settled_allocated_gb()
+    run_wavlm_loss(card, sd, w)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["wavlm"] = out
+    print(f"wavlm: phase 18 took {out['phase_s']:.1f} s", flush=True)
+
+
+def kernel_row(name: str, src: str, replaces: str) -> dict:
+    """The kernels line's row of one kernel: its checks' worst error, its
+    main shape's times and bound, its launches on every path."""
+    k = report["kernels"][name]
+    m = k["main"]
+    by_path = {path: c[name] for path, c in report["launches"].items()}
+    row = {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(v["max_abs_err"] for v in k.values()),
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+    }
+    if "train" in k:  # K2/K3, K2b/K3b: the loss crop above, [24, 499] (10 s clips) beside it
+        row |= {f"train_{f}": k["train"][f]
+                for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    if "f32_io_ms" in m:  # a bf16-I/O flavour: its f32-I/O flavour's time beside it
+        row["f32_io_ms"] = m["f32_io_ms"]
+    # K2b/K3b: the pair through its wrapper, in turns with library_ms, and
+    # the work's bound
+    row |= {f: m[f] for f in ("pair_ms", "pair_bound_ms") if f in m}
+    row |= {f"train_{f}": k["train"][f] for f in ("pair_ms", "pair_bound_ms")
+            if f in k.get("train", {})}
+    # K1b: the kernel alone beside the call, both yardsticks' turns; K1r:
+    # K1's time on the same inputs, in turns
+    row |= {f: m[f] for f in ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
+                              "library_casts_inside_ms", "call_in_turns_ms",
+                              "call_in_turns_inside_ms", "k1_ms") if f in m}
+    return row
+
+
+def print_kernels(rows: list) -> None:
+    print("kernels: " + "; ".join(
+        f"{r['name']} max|d| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+        f"plain {r['plain_ms']:.4f})" for r in rows))
+    print(json.dumps({"kernels": rows}))
+
+
+K1R_ROW = ("flash_attention_rel_fwd", "nomad_tpu_torch/csrc/flash_attention.cu",
+           "none: no TPU source")
+
+
+def run_wavlm_alone(card: str) -> None:
+    """``--only-wavlm``: phase 18, then K1r's row of the kernels line."""
+    run_wavlm(card)
+    print_kernels([kernel_row(*K1R_ROW)])
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description="Smoke run of nomad_tpu_torch on one CUDA card")
     only = parser.add_mutually_exclusive_group()
@@ -5739,6 +6048,8 @@ def main() -> None:
                       help="phases 1, 2 and 16 only; ends with the report line")
     only.add_argument("--only-config-fields", action="store_true",
                       help="phases 1, 2 and 17 only; ends with the report line")
+    only.add_argument("--only-wavlm", action="store_true",
+                      help="phases 1 and 18 only; ends with the report and kernels lines")
     only.add_argument("--only-high3", action="store_true",
                       help="phases 1 and 2, K4h's checks, phase 4 and the fused loss only; "
                            "ends with the report line")
@@ -5758,7 +6069,8 @@ def main() -> None:
              "only_large_scale": run_large_scale,
              "only_wire_and_tools": lambda card: (build_kernels(), run_wire_and_tools(card)),
              "only_config_fields": lambda card: (build_kernels(), run_config_fields(card)),
-             "only_high3": lambda card: (build_kernels(), run_high3(card))}
+             "only_high3": lambda card: (build_kernels(), run_high3(card)),
+             "only_wavlm": run_wavlm_alone}
     for flag, phase in alone.items():
         if getattr(args, flag):
             phase(card)
@@ -5780,6 +6092,7 @@ def main() -> None:
     run_large_scale(card)
     run_wire_and_tools(card)
     run_config_fields(card)
+    run_wavlm(card)
 
     rows = []
     for name, src, replaces in (
@@ -5833,40 +6146,14 @@ def main() -> None:
          "nomad_tpu/ops/flash_attention.py:143"),
         ("flash_attention_fwd_fold_bf16io", "nomad_tpu_torch/csrc/flash_attention_bf16.cu",
          "nomad_tpu/ops/flash_attention.py:143"),
+        K1R_ROW,
     ):
-        k = report["kernels"][name]
-        m = k["main"]
-        by_path = {path: c[name] for path, c in report["launches"].items()}
-        row = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(v["max_abs_err"] for v in k.values()),
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        }
-        if "train" in k:  # K2/K3, K2b/K3b: the loss crop above, [24, 499] (10 s clips) beside it
-            row |= {f"train_{f}": k["train"][f]
-                    for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        if "f32_io_ms" in m:  # a bf16-I/O flavour: its f32-I/O flavour's time beside it
-            row["f32_io_ms"] = m["f32_io_ms"]
-        # K2b/K3b: the pair through its wrapper, in turns with library_ms, and
-        # the work's bound
-        row |= {f: m[f] for f in ("pair_ms", "pair_bound_ms") if f in m}
-        row |= {f"train_{f}": k["train"][f] for f in ("pair_ms", "pair_bound_ms")
-                if f in k.get("train", {})}
-        # K1b: the kernel alone beside the call, both yardsticks' turns
-        row |= {f: m[f] for f in ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
-                                  "library_casts_inside_ms", "call_in_turns_ms",
-                                  "call_in_turns_inside_ms") if f in m}
-        rows.append(row)
+        rows.append(kernel_row(name, src, replaces))
     unlaunched = [r["name"] for r in rows if r["launches"] == 0]
     if unlaunched:
         fail(f"kernels no path launched: {unlaunched}")
     print("report: " + json.dumps(report, default=float))
-    print("kernels: " + "; ".join(
-        f"{r['name']} max|d| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
-        for r in rows))
-    print(json.dumps({"kernels": rows}))
+    print_kernels(rows)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

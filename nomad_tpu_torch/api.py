@@ -20,6 +20,9 @@ d loss / d estimate back to the caller's tensor. The weights stay frozen.
     that the scoring head is random; else a seeded init with a loud warning
     (scores then differ from the published model). After a ``.pt`` load
     the cache is written, in the JAX layout, so either package reads it.
+    Those files hold wav2vec 2.0 BASE's layout: a config of another layout
+    (``Wav2Vec2Config.wavlm_large()``) refuses them and takes its weights
+    as ``params``.
   * Precision: ``'exact'`` (the default), f32 with TF32 off for both
     cuBLAS matmuls and cuDNN convolutions (the cuDNN flag defaults to on
     and would reach the conv frontend). ``'balanced'`` and ``'fast'`` build
@@ -145,12 +148,18 @@ class Nomad:
         ``wav2vec_small.pt``, a seeded init. A ``.pt`` overlays the seeded
         init (the lossnet head, quirk Q7, keeps it) and writes the cache."""
         cache = os.path.join(self.weights_dir, CACHE_FILENAME)
+        nomad_path = os.path.join(self.weights_dir, NOMAD_FILENAME)
+        w2v_path = os.path.join(self.weights_dir, W2V_FILENAME)
+        found = [p for p in (cache, nomad_path, w2v_path) if os.path.isfile(p)]
+        if found and self.config.arch != "wav2vec2":
+            raise ValueError(
+                f"{found[0]} holds wav2vec 2.0 BASE weights (the only checkpoints the converter "
+                f"reads), and this config's arch is {self.config.arch!r}: pass its weights as "
+                "params= instead of half-loading these")
         if os.path.isfile(cache):
             with np.load(cache) as flat:
                 return jax_to_state_dict(dict(flat))
         init_weights(model, seed=0)
-        nomad_path = os.path.join(self.weights_dir, NOMAD_FILENAME)
-        w2v_path = os.path.join(self.weights_dir, W2V_FILENAME)
         ckpt = next((p for p in (nomad_path, w2v_path) if os.path.isfile(p)), None)
         if ckpt is None:
             warnings.warn(

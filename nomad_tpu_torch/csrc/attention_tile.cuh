@@ -15,6 +15,10 @@
 // memory, K4 from its cluster's shared memory. expf, not __expf, to stay
 // within f32 rounding of the plain versions; no tensor cores ("exact").
 //
+// A caller may add a bias to the scores before the online softmax
+// (`Bias`, K1r's relative-position bias); the default `NoBias` compiles
+// to nothing, so K1's and K4's code is as it was.
+//
 // The loop stops at `len`, so masked keys are never read: a NaN in a
 // padded row of k or v cannot reach a valid row. Inside the last tile the
 // keys past the bound are zero-filled in shared memory by `stage` and get
@@ -49,6 +53,12 @@ struct RowState {
   float acc[4][8];
   float m[4];
   float l[4];
+};
+
+// No score bias: the loop's `if constexpr` drops the hook.
+struct NoBias {
+  static constexpr bool kOn = false;
+  __device__ void operator()(int, float (&)[4][kKT]) const {}
 };
 
 // Row i of the calling thread within the 64-row tile, and its first output
@@ -96,10 +106,13 @@ __device__ __forceinline__ float row_sum8(float x) {
 // tiles k, v ([kBK][kLd]), zeros past len, with plain stores or cp.async
 // (committed here). Every thread of the block calls it with the same len;
 // a warp with `active` false only loads and waits (its rows belong to no
-// output), which keeps the barriers whole.
-template <class Stage>
+// output), which keeps the barriers whole. With `Bias::kOn`, bias(j, s)
+// adds to the thread's 4 x kKT scores of tile j (keys tx + 8 jj of rows
+// tile_row(i)) after the product and before the mask.
+template <class Stage, class Bias = NoBias>
 __device__ __forceinline__ void attend_keys(const float* __restrict__ qs, int len, bool active,
-                                            Stage&& stage, KeyTiles& kt, RowState& st) {
+                                            Stage&& stage, KeyTiles& kt, RowState& st,
+                                            const Bias& bias = Bias{}) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -145,6 +158,7 @@ __device__ __forceinline__ void attend_keys(const float* __restrict__ qs, int le
           }
         }
       }
+      if constexpr (Bias::kOn) bias(j, s);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float mx = st.m[i];

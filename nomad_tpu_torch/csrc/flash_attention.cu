@@ -36,8 +36,24 @@
 // f32 tensors only: bf16 ones at "highest" or "high" run K1-bf16
 // (flash_attention_bf16.cu, the same products on the tensor cores).
 // Launches on the caller's stream and allocates nothing.
+//
+// K1r (flash_fwd_kernel<true>; added for WavLM, no TPU source) is K1's
+// template with its bias flag on: WavLM's gated relative-position bias,
+// s_ij = (q_i / sqrt(D)) . k_j + g[b, h, i] * r[h, j - i + T - 1], added to
+// each score after the product (rounded as two operations, the product
+// and the sum, as the plain version computes it) and before the mask. g
+// [B, H, T] takes one register per query row; of r [H, 2T - 1] a 64 x 32
+// tile reads the 95 offsets -(63) .. 31 around key tile j's first key
+// less the query tile's first row, staged by 4-byte cp.async beside the
+// K/V tile (zero outside the table) and double-buffered with it. The
+// bias adds ~2 operations a score to K1's 256 (bound: operations, as
+// K1), and 95 floats of shared memory a key tile. K1's own instantiation
+// (flash_fwd_kernel<false>) compiles without the hook (NoBias) and reads
+// neither g nor r: its bits are as before.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -50,23 +66,62 @@ using nomad::kLd;
 using nomad::kNegInf;
 using nomad::kThreads;
 
+// the window of r a 64-query x 32-key tile reads: offsets j - i from
+// -(kBQ - 1) to kBK - 1, 95 values in a 96-float slot
+constexpr int kWin = kBQ + kBK;
+
 struct Smem {
   float q[kBQ][kLd];
   nomad::KeyTiles kt;
 };
+struct SmemRel {
+  float q[kBQ][kLd];
+  nomad::KeyTiles kt;
+  float win[2][kWin];
+};
 constexpr int kSmemBytes = sizeof(Smem);
-constexpr int kMinBlocks = 3;  // per SM: 3 x 62,464 bytes of shared memory
+constexpr int kSmemRelBytes = sizeof(SmemRel);
+constexpr int kMinBlocks = 3;  // per SM: 3 x 62,464 bytes of shared memory (K1r 63,232)
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// K1r's bias on a thread's scores of key tile j: g_i * r[offset], the
+// offset's window slot kc - r + 63 for key column kc and tile row r.
+struct RelBias {
+  static constexpr bool kOn = true;
+  const float (*win)[kWin];
+  float g[4];
+  __device__ __forceinline__ void operator()(int j, float (&s)[4][nomad::kKT]) const {
+    const float* w = win[j & 1];
+    const int tx = threadIdx.x & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int base = tx - nomad::tile_row(i) + kBQ - 1;
+#pragma unroll
+      for (int jj = 0; jj < nomad::kKT; ++jj) {
+        s[i][jj] = __fadd_rn(s[i][jj], __fmul_rn(g[i], w[base + 8 * jj]));
+      }
+    }
+  }
+};
+
+// K1 (kRel false: g and rtab, which is r, are not read) and K1r.
+template <bool kRel>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ lengths,
+                 const float* __restrict__ v, const float* __restrict__ g,
+                 const float* __restrict__ rtab, const int* __restrict__ lengths,
                  float* __restrict__ o, float* __restrict__ lse, int T, int H,
                  long long sqb, long long sqt, long long sqh,
                  long long skb, long long skt, long long skh,
                  long long svb, long long svt, long long svh,
                  long long sob, long long sot, long long soh, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  auto& sm = *reinterpret_cast<std::conditional_t<kRel, SmemRel, Smem>*>(smem_raw);
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -100,9 +155,28 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       nomad::cp_async16(&ks[r][4 * c], ok ? kb + key * skt + 4 * c : kb, ok ? 16 : 0);
       nomad::cp_async16(&vs[r][4 * c], ok ? vb + key * svt + 4 * c : vb, ok ? 16 : 0);
     }
+    if constexpr (kRel) {
+      if (tid < kWin - 1) {  // offset j*kBK - q0 - 63 + tid, column + T - 1 of r
+        const float* rb = rtab + static_cast<long long>(h) * (2 * T - 1);
+        const int col = j * kBK - q0 - (kBQ - 1) + tid + T - 1;
+        const bool ok = col >= 0 && col <= 2 * T - 2;
+        cp_async4(&sm.win[j & 1][tid], ok ? rb + col : rb, ok ? 4 : 0);
+      }
+    }
   };
   nomad::RowState st;
-  nomad::attend_keys(&sm.q[0][0], len, q0 + (tid >> 5) * 16 < T, stage, sm.kt, st);
+  const bool active = q0 + (tid >> 5) * 16 < T;
+  if constexpr (kRel) {
+    RelBias bias{sm.win, {}};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = q0 + nomad::tile_row(i);
+      bias.g[i] = t < T ? g[(static_cast<long long>(b) * H + h) * T + t] : 0.f;
+    }
+    nomad::attend_keys(&sm.q[0][0], len, active, stage, sm.kt, st, bias);
+  } else {
+    nomad::attend_keys(&sm.q[0][0], len, active, stage, sm.kt, st);
+  }
 
   nomad::write_rows(st, T - q0, [&](int r) { return o + b * sob + (q0 + r) * sot + h * soh; });
   if ((tid & 7) == 0) {
@@ -117,11 +191,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-cudaError_t configure() {  // dynamic shared memory above 48 KB, once
+template <class Kernel>
+cudaError_t configure(Kernel kernel, int smem_bytes) {  // dynamic shared memory above 48 KB
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+cudaError_t configure() {  // K1's, once
   static bool done = false;
   if (!done) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    const cudaError_t err = configure(flash_fwd_kernel<false>, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    done = true;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t configure_rel() {  // K1r's, once
+  static bool done = false;
+  if (!done) {
+    const cudaError_t err = configure(flash_fwd_kernel<true>, kSmemRelBytes);
     if (err != cudaSuccess) return err;
     done = true;
   }
@@ -135,9 +223,10 @@ void launch(const void* q, const void* k, const void* v, const void* lengths, vo
             long long svb, long long svt, long long svh,
             long long sob, long long sot, long long soh, float scale, cudaStream_t stream) {
   const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_kernel<false><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(lengths), static_cast<float*>(o), static_cast<float*>(lse), T, H,
+      nullptr, nullptr, static_cast<const int*>(lengths), static_cast<float*>(o),
+      static_cast<float*>(lse), T, H,
       sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, scale);
 }
 
@@ -173,7 +262,40 @@ extern "C" int nomad_flash_attention_fwd_occupancy(int* blocks_per_sm) {
   const cudaError_t err = configure();
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_fwd_kernel, kThreads, kSmemBytes));
+      blocks_per_sm, flash_fwd_kernel<false>, kThreads, kSmemBytes));
+}
+
+// K1r: as nomad_flash_attention_fwd, with g f32 [B, H, T] and r f32
+// [H, 2T - 1], both contiguous; smem_bytes the wrapper's plan for K1r.
+extern "C" int nomad_flash_attention_rel_fwd(
+    const void* q, const void* k, const void* v, const void* g, const void* r,
+    const void* lengths, void* o, void* lse, int B, int T, int H, int D,
+    long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh,
+    long long svb, long long svt, long long svh,
+    long long sob, long long sot, long long soh, float scale, int smem_bytes, void* stream) {
+  if (D != kD || B < 0 || T < 0 || H < 0 || B > 65535 || H > 65535 ||
+      smem_bytes != kSmemRelBytes) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+  const cudaError_t err = configure_rel();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  flash_fwd_kernel<true><<<grid, kThreads, kSmemRelBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(r), static_cast<const int*>(lengths),
+      static_cast<float*>(o), static_cast<float*>(lse), T, H, sqb, sqt, sqh, skb, skt, skh, svb,
+      svt, svh, sob, sot, soh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks of K1r per SM at its shared memory (0 if it cannot run).
+extern "C" int nomad_flash_attention_rel_fwd_occupancy(int* blocks_per_sm) {
+  const cudaError_t err = configure_rel();
+  if (err != cudaSuccess) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_fwd_kernel<true>, kThreads, kSmemRelBytes));
 }
 
 extern "C" const char* nomad_cuda_error_string(int err) {

@@ -6,7 +6,8 @@ one card.
     cd <other checkout> && python -c "import runpy; runpy.run_path(
         '<this checkout>/nomad_tpu_torch/kernel_digests.py', run_name='__main__')" > other.json
 
-Runs K1, K1-bf16 and K1b (O and LSE), K2 + K3 (f32 tensors at
+Runs K1, K1-bf16 and K1b (O and LSE), K1r (O and LSE, f32, with a seeded
+gate and bias table), K2 + K3 (f32 tensors at
 "highest"), K2-bf16 + K3-bf16 (bf16 tensors at "highest") and K2b + K3b
 (dQ, dK, dV) through ``mha_flash`` and ``flash_attention_bwd``, and K4,
 K4-bf16, K4b and K4h through ``fused_qkv_mha`` (at "highest" on f32 and
@@ -56,6 +57,14 @@ def cases(dev: torch.device) -> dict:
             torch.randn(WIDTH, WIDTH, generator=g) / WIDTH**0.5,
             0.1 * torch.randn(WIDTH, generator=g))]
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        gr = torch.Generator().manual_seed(2027 + t)  # the other cases' draws stay as they were
+        gate = (1.0 + 2.0 * torch.rand(b, HEADS, t, generator=gr)).to(dev)
+        table = (0.3 * torch.randn(HEADS, 2 * t - 1, generator=gr)).to(dev)
+        try:
+            out[f"flash_rel_fwd_T{t}"] = digest(flash_attention.mha_flash_rel(
+                q, k, v, gate, table, lengths))
+        except (AttributeError, TypeError, ValueError, RuntimeError) as err:
+            out[f"flash_rel_fwd_T{t}"] = f"refused: {err}"
         for io in (torch.float32, torch.bfloat16):
             qi, ki, vi, doi, xi = (a.to(io) for a in (q, k, v, do, x))
             for prec in ("highest", "default"):

@@ -1,11 +1,36 @@
 """wav2vec 2.0 BASE backbone in PyTorch (counterpart of
-``nomad_tpu.models.wav2vec2``).
+``nomad_tpu.models.wav2vec2``), and WavLM Large on the same modules.
 
 Architecture: a 7-layer strided conv feature encoder (512 channels, no
 bias, a GroupNorm(512) after layer 0 only, GELU after every layer; total
 stride 320), LayerNorm(512) + Linear 512->768, a grouped positional conv
 (k=128, groups=16) + GELU added to its input, LayerNorm, then 12 post-LN
 transformer blocks (d=768, 12 heads, FFN 3072, GELU).
+
+``Wav2Vec2Config.wavlm_large()`` (Chen et al., arXiv:2110.13900; Hugging
+Face ``microsoft/wavlm-large``) sets ``arch="wavlm"``, which changes three
+things at once:
+
+  * the frontend (fairseq ``extractor_mode="layer_norm"``): a LayerNorm
+    over the 512 channels of every frame after each convolution (K5 on
+    [frames, 512] rows), then GELU; no GroupNorm.
+  * pre-LN blocks (fairseq ``layer_norm_first``): x + attn(LN(x)), then
+    x + ffn(LN(x)); the encoder LayerNorm comes after the stack, not before
+    it, so the pooled ``x`` is LN(layers[-1]).
+  * the gated relative-position bias over ``relative_position_buckets``
+    buckets, the last of each sign starting at MAX_RELATIVE_DISTANCE
+    frames. Block 0 holds a bucket embedding E [buckets, H]; once a
+    forward, the offsets j - i (key minus query) of the batch's length map
+    to buckets (``relative_position_bucket``, float32 as the published
+    code) and to a table r[h, j - i] = E[bucket(j - i), h] (span
+    ``model.rel_bias``), which every block shares. Each block gates it per query row from its
+    normalised input u: p = W_g u_h + b_g (a Linear(head_dim, 8) per head
+    slice), a = sigmoid(p0+..+p3), b = sigmoid(p4+..+p7), gate = a (b c_h -
+    1) + 2, and adds gate_i r[h, j - i] to each score (K1r on the card).
+    The bias depends on j - i alone, so padded batches keep batch-1's
+    embeddings. The fused path, a "default" attention-score island on the
+    kernel path and bf16 activations have no kernel flavour with the bias
+    and are refused; the plain path ('ref') takes every island.
 
 Exact masking, as in the JAX package: files are padded to bucket lengths
 and batched, and the padded compute stays equal to the unpadded one. Conv
@@ -108,6 +133,7 @@ ranks apply the single-process step's masks.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -118,10 +144,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import precision as prec_ops
 from ..ops.attention import dropout, mha, mha_dropout
+from ..ops.flash_attention import relative_bias
 from ..ops.fused_attention import fused_qkv_attention
 from ..ops.layernorm import layer_norm
+from ..utils.profiling import timed
 
 ATTENTION_IMPLS = ("kernel", "fused_qkv", "ref")
+ARCHS = ("wav2vec2", "wavlm")
+# WavLM's offset (frames) at which the last bucket of each sign starts
+# (fairseq ``max_distance``, Hugging Face ``max_bucket_distance``)
+MAX_RELATIVE_DISTANCE = 800
 LAYERNORM_IMPLS = ("kernel", "ref")
 REMAT_POLICIES = ("full", "dots")
 SEED_BOUND = 1 << 62  # seeds drawn for the frontend's and each block's masks
@@ -206,6 +238,11 @@ class Wav2Vec2Config:
     # torch.float32 or torch.bfloat16 (the trainer's fast_bf16); see the
     # module docstring
     encoder_dtype: torch.dtype | None = None
+    # the structure (module docstring): "wav2vec2" (BASE's) or "wavlm" (a
+    # layer-norm frontend, pre-LN blocks and the gated relative-position
+    # bias over relative_position_buckets buckets, which only "wavlm" reads)
+    arch: str = "wav2vec2"
+    relative_position_buckets: int = 320
 
     @property
     def block_dtype(self) -> torch.dtype:
@@ -301,10 +338,47 @@ class Wav2Vec2Config:
                 raise ValueError(
                     f"encoder_tail_start {self.encoder_tail_start} >= num_layers "
                     f"{self.num_layers}: the tail split selects no layer; set -1 to disable")
+        self._check_wavlm()
+
+    def _check_wavlm(self) -> None:
+        """``arch`` and the buckets, and refusals of what no kernel flavour
+        of the WavLM structure exists for."""
+        if self.arch not in ARCHS:
+            raise ValueError(f"arch must be one of {ARCHS}, got {self.arch!r}")
+        if self.arch != "wavlm":
+            return
+        buckets = self.relative_position_buckets
+        if buckets < 4 or buckets % 2 or MAX_RELATIVE_DISTANCE <= buckets // 4:
+            raise ValueError(
+                f"relative_position_buckets must be an even number >= 4 whose quarter lies "
+                f"below {MAX_RELATIVE_DISTANCE}, got {buckets}")
+        if self.attention_impl == "fused_qkv":
+            raise NotImplementedError(
+                "attention_impl='fused_qkv' with WavLM's relative-position bias: the fused "
+                "kernels (K4, K4h, K4b) take no score bias; use 'kernel' (K1r) or 'ref'")
+        scores = {self.layer_islands(i)["score"] for i in range(self.num_layers)}
+        if self.attention_impl == "kernel" and not scores <= {"high", "highest"}:
+            raise NotImplementedError(
+                f"attention-score island(s) {sorted(scores)} with WavLM's relative-position bias "
+                "on the kernel path: only K1r, K1's f32 flavour, takes the bias (a K1b "
+                "flavour with it is not written); use 'high'/'highest' or attention_impl='ref'")
+        if torch.bfloat16 in (self.dtype, self.encoder_dtype):
+            raise NotImplementedError(
+                "dtype/encoder_dtype bfloat16 with arch='wavlm' (layer-norm frontend, pre-LN "
+                "blocks, relative-position bias): its kernels have float32 flavours only")
 
     @classmethod
     def base(cls, **kw) -> "Wav2Vec2Config":
         return cls(**kw)
+
+    @classmethod
+    def wavlm_large(cls, **kw) -> "Wav2Vec2Config":
+        """WavLM Large (``microsoft/wavlm-large``'s ``config.json``): the
+        BASE frontend's convolutions with a LayerNorm after each, hidden
+        1024, 24 pre-LN blocks of 16 heads of 64, FFN 4096, the positional
+        conv 128/16, 320 relative-position buckets up to 800 frames."""
+        return cls(**(dict(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=4096,
+                           arch="wavlm", relative_position_buckets=320) | kw))
 
     @classmethod
     def balanced(cls, **kw) -> "Wav2Vec2Config":
@@ -346,6 +420,20 @@ def feature_frame_lengths(lengths, config: Wav2Vec2Config):
     for k, s in zip(config.conv_kernel, config.conv_stride):
         l = (l - k) // s + 1
     return l
+
+
+def relative_position_bucket(delta, num_buckets: int):
+    """WavLM's bucket of each key-minus-query offset in ``delta`` (an int
+    tensor): half the buckets for keys after the query; within each half,
+    offsets under a quarter of the buckets exactly, the rest on a log scale
+    up to MAX_RELATIVE_DISTANCE. float32, as the published code computes it, so
+    that the rounding at the log scale's edges is the same."""
+    half = num_buckets // 2
+    exact = half // 2
+    dist = delta.abs()
+    log = torch.log(dist.clamp(min=exact).float() / exact) / math.log(MAX_RELATIVE_DISTANCE / exact)
+    large = torch.clamp((exact + log * (half - exact)).to(torch.long), max=half - 1)
+    return (delta > 0).to(torch.long) * half + torch.where(dist < exact, dist, large)
 
 
 def _time_mask(length: int, lengths, dtype):
@@ -426,8 +514,10 @@ class MaskedGroupNorm(nn.Module):
 
 
 class ConvFeatureEncoder(nn.Module):
-    """fairseq ConvFeatureExtractionModel, mode='default'. [B, T] waveform
-    -> ([B, T', C] features in ``dtype``, frame lengths)."""
+    """fairseq ConvFeatureExtractionModel, mode 'default' (a GroupNorm
+    after conv 0) or 'layer_norm' (a LayerNorm over the channels of each
+    frame after every conv, ``layer_norm_<i>``). [B, T] waveform -> ([B, T',
+    C] features in ``dtype``, frame lengths)."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -437,8 +527,11 @@ class ConvFeatureEncoder(nn.Module):
             zip(config.conv_dim, config.conv_kernel, config.conv_stride)
         ):
             setattr(self, f"conv_{i}", nn.Conv1d(c_in, dim, k, stride=s, bias=False))
+            if config.arch == "wavlm":
+                setattr(self, f"layer_norm_{i}", LayerNorm(dim, 1e-5, config.layernorm_impl))
             c_in = dim
-        self.group_norm = MaskedGroupNorm(config.conv_dim[0], eps=1e-5)
+        if config.arch == "wav2vec2":
+            self.group_norm = MaskedGroupNorm(config.conv_dim[0], eps=1e-5)
 
     def forward(self, wav, lengths=None):
         cfg = self.config
@@ -449,6 +542,16 @@ class ConvFeatureEncoder(nn.Module):
             x = prec_ops.conv1d(x, conv.weight, None, cfg.frontend_prec, stride=s)
             if l is not None:
                 l = (l - k) // s + 1
+            if cfg.arch == "wavlm":
+                # frames as rows for K5, one statement a step so that an
+                # inference pass holds two of the layer's activations at once
+                x = x.transpose(1, 2).contiguous()
+                x = getattr(self, f"layer_norm_{i}")(x)
+                x = F.gelu(x)
+                if l is not None:  # the LayerNorm of a zero frame is its shift
+                    x.mul_(_time_mask(x.shape[1], l, x.dtype))
+                x = x.transpose(1, 2)
+                continue
             if i == 0:
                 x = self.group_norm(x, l)
             x = F.gelu(x)
@@ -495,11 +598,14 @@ def _generator(seed, device):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer block (fairseq TransformerSentenceEncoderLayer,
-    layer_norm_first=False); padded frames re-zeroed after the block.
-    ``seed`` None is deterministic; an int seeds the block's dropout masks.
-    ``index``, the block's place in the stack, selects its islands
-    (``Wav2Vec2Config.layer_islands``: the tail split is static)."""
+    """Transformer block (fairseq TransformerSentenceEncoderLayer): post-LN,
+    or pre-LN with ``arch="wavlm"``; padded frames re-zeroed after the
+    block. ``seed`` None is deterministic; an int seeds the block's dropout
+    masks. ``index``, the block's place in the stack, selects its islands
+    (``Wav2Vec2Config.layer_islands``: the tail split is static). In
+    WavLM the block holds its gate
+    (``gru_rel_pos_linear``, ``gru_rel_pos_const``) and block 0 the bucket
+    embedding (``rel_attn_embed``)."""
 
     def __init__(self, config: Wav2Vec2Config, index: int):
         super().__init__()
@@ -515,12 +621,51 @@ class EncoderLayer(nn.Module):
         eps, impl = config.layer_norm_eps, config.layernorm_impl
         self.self_attn_layer_norm = LayerNorm(d, eps, impl)
         self.final_layer_norm = LayerNorm(d, eps, impl)
+        if config.arch == "wavlm":
+            self.gru_rel_pos_linear = nn.Linear(d // config.num_heads, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(config.num_heads))
+            if index == 0:
+                self.rel_attn_embed = nn.Embedding(config.relative_position_buckets,
+                                                   config.num_heads)
 
-    def forward(self, x, key_mask=None, seed=None, rows=None):
+    def _gate(self, u):
+        """The relative bias's gate [B, H, T] from the block's normalised
+        input u [B, T, D]: a (b c_h - 1) + 2, a and b the sigmoids of the
+        sums of the two halves of W_g u_h + b_g."""
+        b, t, d = u.shape
+        h = self.config.num_heads
+        lin = self.gru_rel_pos_linear
+        p = prec_ops.linear(u.view(b, t, h, d // h), lin.weight, lin.bias, self.islands["attn"])
+        ga, gb = torch.sigmoid(p.view(b, t, h, 2, 4).sum(-1)).unbind(-1)
+        return (ga * (gb * self.gru_rel_pos_const - 1.0) + 2.0).transpose(1, 2).contiguous()
+
+    def forward(self, x, key_mask=None, seed=None, rows=None, table=None):
+        """``table``: the relative bias's [H, 2T - 1] table, or None."""
+        cfg = self.config
+        g = _generator(seed, x.device)
+        if cfg.arch == "wavlm":
+            attn = self._attention(self.self_attn_layer_norm(x), key_mask, g, rows, table)
+            x = x + dropout(attn, cfg.dropout, g, rows)
+            x = x + dropout(self._ffn(self.final_layer_norm(x), g, rows), cfg.dropout, g, rows)
+        else:
+            attn = self._attention(x, key_mask, g, rows, table)
+            x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g, rows))
+            x = self.final_layer_norm(x + dropout(self._ffn(x, g, rows), cfg.dropout, g, rows))
+        if key_mask is not None:
+            x = x * key_mask.to(x.dtype)[:, :, None]
+        return x
+
+    def _ffn(self, x, g, rows):
+        isl = self.islands
+        y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, isl["ffn1"])
+        y = dropout(F.gelu(y), self.config.activation_dropout, g, rows)
+        return prec_ops.linear(y, self.fc2.weight, self.fc2.bias, isl["ffn2"])
+
+    def _attention(self, x, key_mask, g, rows, table):
+        """The attention sublayer on its input x, out-projected."""
         cfg, isl = self.config, self.islands
         b, t, d = x.shape
         h = cfg.num_heads
-        g = _generator(seed, x.device)
         attn_dropout = g is not None and cfg.attention_dropout > 0.0
         if cfg.attention_impl == "fused_qkv" and not attn_dropout:
             # the fused kernel has one mode for the whole attention
@@ -529,37 +674,32 @@ class EncoderLayer(nn.Module):
             # "high" K4h (the TPU kernel's "high3": bf16 x 3), "highest" the
             # f32 K4. The same parameters as the unfused path: one
             # state_dict loads both
-            attn = fused_qkv_attention(
+            return fused_qkv_attention(
                 x, self.q_proj.weight, self.q_proj.bias, self.k_proj.weight,
                 self.k_proj.bias, self.v_proj.weight, self.v_proj.bias,
                 self.out_proj.weight, self.out_proj.bias, key_mask=key_mask, heads=h,
                 precision=isl["attn"],
             )
+        q, k, v = (prec_ops.linear(x, p.weight, p.bias, isl["attn"]).view(b, t, h, d // h)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        rel = None if table is None else (self._gate(x), table)
+        if attn_dropout:
+            attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g,
+                               precision=isl["score"], rows=rows,
+                               bias=None if rel is None else relative_bias(*rel))
         else:
-            q, k, v = (prec_ops.linear(x, p.weight, p.bias, isl["attn"]).view(b, t, h, d // h)
-                       for p in (self.q_proj, self.k_proj, self.v_proj))
-            if attn_dropout:
-                attn = mha_dropout(q, k, v, key_mask, cfg.attention_dropout, g,
-                                   precision=isl["score"], rows=rows)
-            else:
-                attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
-                           precision=isl["score"])
-            attn = prec_ops.linear(attn.reshape(b, t, d), self.out_proj.weight,
-                                   self.out_proj.bias, isl["attn"])
-        x = self.self_attn_layer_norm(x + dropout(attn, cfg.dropout, g, rows))
-        y = prec_ops.linear(x, self.fc1.weight, self.fc1.bias, isl["ffn1"])
-        y = dropout(F.gelu(y), cfg.activation_dropout, g, rows)
-        y = prec_ops.linear(y, self.fc2.weight, self.fc2.bias, isl["ffn2"])
-        x = self.final_layer_norm(x + dropout(y, cfg.dropout, g, rows))
-        if key_mask is not None:
-            x = x * key_mask.to(x.dtype)[:, :, None]
-        return x
+            attn = mha(q, k, v, key_mask=key_mask, impl=cfg.attention_impl,
+                       precision=isl["score"], rel=rel)
+        return prec_ops.linear(attn.reshape(b, t, d), self.out_proj.weight, self.out_proj.bias,
+                               isl["attn"])
 
 
 class TransformerEncoder(nn.Module):
-    """pos-conv + LayerNorm + the post-LN blocks; returns the list of the
-    blocks' outputs, each [B, T, C] in ``block_dtype`` (fairseq
-    ``layer_results``)."""
+    """pos-conv + LayerNorm + the post-LN blocks, or with
+    ``arch="wavlm"`` pos-conv + the pre-LN blocks + LayerNorm; returns
+    the list of the blocks' outputs, each [B, T, C] in ``block_dtype``
+    (fairseq ``layer_results``), and the encoder's output (the last
+    block's, or its LayerNorm in WavLM)."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -569,38 +709,63 @@ class TransformerEncoder(nn.Module):
             config.hidden_size, config.layer_norm_eps, config.layernorm_impl
         )
         self.layers = nn.ModuleList(EncoderLayer(config, i) for i in range(config.num_layers))
+        self._buckets: dict = {}  # (T', device) -> the offsets' buckets
+
+    def relative_table(self, t: int, device):
+        """The relative bias's table [H, 2t - 1] for offsets j - i from
+        -(t - 1) up: block 0's bucket embedding gathered at each offset's
+        bucket (buckets computed once per length and device)."""
+        with timed("model.rel_bias"):
+            key = (t, str(device))
+            idx = self._buckets.get(key)
+            if idx is None:
+                cfg = self.config
+                idx = relative_position_bucket(torch.arange(1 - t, t),
+                                               cfg.relative_position_buckets).to(device)
+                self._buckets[key] = idx
+            return self.layers[0].rel_attn_embed.weight.index_select(0, idx).t().contiguous()
 
     def forward(self, x, frame_lengths=None, generator=None, seeds=None, rows=None):
         """``generator``: the input dropout's (None: deterministic);
         ``seeds``: one per block, or None; ``rows``: a data-parallel rank's
         rows of the global batch, or None."""
+        cfg = self.config
         key_mask = None
         if frame_lengths is not None:
             key_mask = torch.arange(x.shape[1], device=x.device)[None, :] < frame_lengths[:, None]
             x = x * key_mask.to(x.dtype)[:, :, None]
-        x = dropout(self.layer_norm(x + self.pos_conv(x)), self.config.dropout, generator, rows)
+        x = x + self.pos_conv(x)
+        wavlm = cfg.arch == "wavlm"
+        x = dropout(x if wavlm else self.layer_norm(x), cfg.dropout, generator, rows)
         if key_mask is not None:
             x = x * key_mask.to(x.dtype)[:, :, None]
-        x = x.to(self.config.block_dtype)
-        remat = self.config.remat and torch.is_grad_enabled()
+        x = x.to(cfg.block_dtype)
+        table = self.relative_table(x.shape[1], x.device) if wavlm else None
+        remat = cfg.remat and torch.is_grad_enabled()
         outs = []
         for i, layer in enumerate(self.layers):
             seed = None if seeds is None else seeds[i]
             if remat:
                 # the block seeds its own generator, so the recompute draws
                 # the same masks without the default generators' states
-                kw = {"context_fn": _dots_context} if self.config.remat_policy == "dots" else {}
-                x = checkpoint(layer, x, key_mask, seed, rows, use_reentrant=False,
+                kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+                x = checkpoint(layer, x, key_mask, seed, rows, table, use_reentrant=False,
                                preserve_rng_state=False, **kw)
             else:
-                x = layer(x, key_mask, seed, rows)
+                x = layer(x, key_mask, seed, rows, table)
             outs.append(x)
-        return outs
+        if wavlm:
+            x = self.layer_norm(x)
+            if key_mask is not None:
+                x = x * key_mask.to(x.dtype)[:, :, None]
+        return outs, x
 
 
 class Wav2Vec2Model(nn.Module):
     """Full backbone. Returns a dict with
-      'x'             — final block output [B, T', C] (== layers[-1])
+      'x'             — the encoder's output [B, T', C]: the last block's
+                        (layers[-1]) for post-LN blocks, its LayerNorm for
+                        pre-LN ones (``arch="wavlm"``)
       'layers'        — list of the num_layers block outputs [B, T', C]
       'frame_lengths' — [B] valid frame counts (None when lengths is None)
     """
@@ -637,5 +802,5 @@ class Wav2Vec2Model(nn.Module):
         x = dropout(x, cfg.dropout, g, rows)
         if frame_lengths is not None:
             x = x * _time_mask(x.shape[1], frame_lengths, x.dtype)
-        layers = self.encoder(x, frame_lengths, g, seeds, rows)
-        return {"x": layers[-1], "layers": layers, "frame_lengths": frame_lengths}
+        layers, x = self.encoder(x, frame_lengths, g, seeds, rows)
+        return {"x": x, "layers": layers, "frame_lengths": frame_lengths}

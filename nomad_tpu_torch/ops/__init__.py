@@ -4,10 +4,13 @@ from .attention import dropout, mha, mha_dropout, mha_ref
 from .distance import cdist, cdist_diag
 from .flash_attention import (
     FlashAttention,
+    FlashAttentionRel,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_ref,
     mha_flash,
+    mha_flash_rel,
+    relative_bias,
 )
 from .fused_attention import (
     FusedQKVAttention,
@@ -19,6 +22,7 @@ from .layernorm import layer_norm, layer_norm_bwd_ref, layer_norm_ref
 
 __all__ = [
     "FlashAttention",
+    "FlashAttentionRel",
     "FusedQKVAttention",
     "cdist",
     "cdist_diag",
@@ -35,5 +39,7 @@ __all__ = [
     "mha",
     "mha_dropout",
     "mha_flash",
+    "mha_flash_rel",
     "mha_ref",
+    "relative_bias",
 ]

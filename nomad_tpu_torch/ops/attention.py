@@ -27,6 +27,12 @@ outside any Pallas kernel, and so does the port.
 
 q is pre-scaled by 1/sqrt(head_dim) before QK^T, as in torch
 ``F.multi_head_attention_forward``.
+
+WavLM's gated relative-position bias (``rel``: a gate [B, H, T] and a
+table [H, 2T - 1], ``flash_attention.relative_bias``) is added to every
+score after QK^T and before the key mask: the plain paths take its [B, H,
+T, T] expansion as ``bias``; ``kernel`` runs K1r
+(``flash_attention.FlashAttentionRel``), at "highest" or "high" only.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .flash_attention import FlashAttention
+from .flash_attention import FlashAttention, FlashAttentionRel, relative_bias
 from .precision import is_bf16, matmul_bf16
 
 NEG_INF = -1e9  # additive key mask; exp underflows to exactly 0 in f32
@@ -96,42 +102,45 @@ def _attend(weights, v, precision):
     return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
 
 
-def _softmax_weights(q, k, key_mask, precision):
+def _softmax_weights(q, k, key_mask, precision, bias=None):
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = _scores(q * scale, k, precision).to(torch.float32)
+    if bias is not None:
+        scores = scores + bias
     if key_mask is not None:
         add = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         scores = scores + add[:, None, None, :]
     return torch.softmax(scores, dim=-1)
 
 
-def mha_ref(q, k, v, key_mask=None, precision="highest"):
+def mha_ref(q, k, v, key_mask=None, precision="highest", bias=None):
     """Attention on [B, T, H, D]; key_mask: optional bool [B, T], True =
-    valid key. Differentiable. precision "default" rounds the operands of
+    valid key; bias: an optional f32 score bias broadcast to [B, H, T, T].
+    Differentiable. precision "default" rounds the operands of
     both products to bf16, and those of their gradients' products. The
     softmax runs in f32; the weights and the output take v's dtype, as
     ``mha_xla``'s ``.astype(v.dtype)``."""
-    weights = _softmax_weights(q, k, key_mask, precision).to(v.dtype)
+    weights = _softmax_weights(q, k, key_mask, precision, bias).to(v.dtype)
     return _attend(weights, v, precision).to(v.dtype)
 
 
 def mha_dropout(q, k, v, key_mask, rate: float, generator, precision="highest",
-                rows: Optional[BatchRows] = None):
+                rows: Optional[BatchRows] = None, bias=None):
     """``mha_ref`` with dropout on the softmax weights after the key mask
     (fairseq's placement): where(keep, w / (1 - rate), 0). ``rows``: as
     ``dropout``'s."""
-    weights = dropout(_softmax_weights(q, k, key_mask, precision), rate, generator,
+    weights = dropout(_softmax_weights(q, k, key_mask, precision, bias), rate, generator,
                       rows).to(v.dtype)
     return _attend(weights, v, precision).to(v.dtype)
 
 
-def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest"):
+def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest", rel=None):
     """impl 'kernel' | 'ref'; precision 'highest' | 'high' (f32) | 'default'
     (bf16 products: K1b on the card). The kernel reads key_mask as the
     prefix mask the model builds (arange(T) < lengths), i.e. as valid key
-    counts."""
+    counts. ``rel``: (gate, table) of the relative-position bias, or None."""
     if impl == "ref":
-        return mha_ref(q, k, v, key_mask, precision)
+        return mha_ref(q, k, v, key_mask, precision, None if rel is None else relative_bias(*rel))
     if impl != "kernel":
         raise ValueError(f"unknown attention impl {impl!r}: expected 'kernel' or 'ref'")
     b, t = q.shape[:2]
@@ -139,4 +148,6 @@ def mha(q, k, v, key_mask=None, impl: str = "kernel", precision: str = "highest"
         lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
     else:
         lengths = key_mask.sum(dim=-1, dtype=torch.int32)
+    if rel is not None:
+        return FlashAttentionRel.apply(q, k, v, *rel, lengths, precision)
     return FlashAttention.apply(q, k, v, lengths, precision)

@@ -37,6 +37,18 @@ three passes on bf16 planes of dS and P (``split3_bf16``): every product
 f32-exact, as the f32 flavour's, but summed in the tensor core's order, so
 their outputs lie within one bf16 step of the f32 flavour's rounded once,
 not on them.
+
+K1r (``csrc/flash_attention.cu``'s ``flash_fwd_kernel<true>``, K1's template
+with its bias flag on) is K1 with WavLM's gated relative-position bias added
+to each score before the online softmax: s_ij = (q_i / sqrt(D)) . k_j +
+g_i * r[h, j - i], from a gate g [B, H, T] (one value a query row) and a
+table r [H, 2T - 1] over the offsets j - i = -(T - 1) .. T - 1
+(``relative_bias`` expands the pair into the plain [B, H, T, T] bias that
+``flash_attention_ref`` takes). f32 only. ``FlashAttentionRel`` is its
+differentiable form; until the backward kernels K2 and K3 gain the bias too,
+its backward recomputes the plain version under autograd, which gives dQ,
+dK, dV, dg_i = sum_j dS_ij r[h, j - i] and the table's gradient (and through
+the caller's gather, the bucket embedding's).
 """
 
 from __future__ import annotations
@@ -57,6 +69,11 @@ BLOCK_Q, BLOCK_K, THREADS = 64, 32, 128
 _LD, _LD_P = HEAD_DIM + 4, BLOCK_K + 8
 KEY_TILES_BYTES = 4 * (2 * 2 * BLOCK_K * _LD + BLOCK_Q * _LD_P)
 FLASH_SMEM_BYTES = 4 * BLOCK_Q * _LD + KEY_TILES_BYTES
+# K1r's block also stages, beside each K/V tile, the window of the bias
+# table that a 64-query x 32-key tile reads: offsets -(BLOCK_Q - 1) ..
+# BLOCK_K - 1, 95 values in a 96-float slot, double-buffered
+REL_WINDOW = BLOCK_Q + BLOCK_K
+FLASH_REL_SMEM_BYTES = FLASH_SMEM_BYTES + 4 * 2 * REL_WINDOW
 
 # K2's and K3's tiles (csrc/attention_bwd_tile.cuh): a block of 128 threads
 # holds 64 rows (32 when T <= BWD_SMALL_T, which fills the card at the loss
@@ -118,13 +135,27 @@ launches_bwd_dkv_bf16_io = 0
 launches_f32_bf16_io = 0
 launches_bwd_dq_f32_bf16_io = 0
 launches_bwd_dkv_f32_bf16_io = 0
+launches_rel = 0  # K1r
 
 
-def flash_attention_ref(q, k, v, lengths, precision="highest"):
+def relative_bias(gate, table):
+    """The additive score bias [B, H, T, T] of a gate [B, H, T] and a table
+    [H, 2T - 1] of offsets j - i (key minus query) from -(T - 1) up:
+    bias[b, h, i, j] = gate[b, h, i] * table[h, j - i + T - 1], one rounded
+    product an element."""
+    t = gate.shape[-1]
+    pos = torch.arange(t, device=gate.device)
+    return gate[..., None] * table[:, pos[None, :] - pos[:, None] + t - 1]
+
+
+def flash_attention_ref(q, k, v, lengths, precision="highest", bias=None):
     """What ``_flash_kernel`` computes, unfolded: scores of q/sqrt(D)
     against keys t < lengths[b] (the others set to -1e30, never added to),
     softmax in f32, O = P.V / l and LSE = m + log(l). Keys past the bound
-    are zeroed before the product, so a NaN there cannot reach O.
+    are zeroed before the product, so a NaN there cannot reach O. ``bias``
+    (f32, broadcast to [B, H, T, T]) is added to each score after the
+    product and before the mask: K1r's plain version with
+    ``relative_bias``.
 
     ``precision`` "highest" or "high": f32 products. "default", the TPU
     kernel's single pass (``nomad_tpu/ops/flash_attention.py:63-77``):
@@ -137,6 +168,8 @@ def flash_attention_ref(q, k, v, lengths, precision="highest"):
     valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]  # [B, T]
     qf = rnd(q.to(torch.float32) * (1.0 / d**0.5))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, rnd(k.to(torch.float32)))
+    if bias is not None:
+        s = s + bias
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -194,11 +227,12 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, precision="highest"):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_launch_plan(t: int, b: int, h: int) -> dict:
+def flash_launch_plan(t: int, b: int, h: int, rel: bool = False) -> dict:
     """K1's grid (one block per 64-query tile, head and batch row) and its
-    dynamic shared memory, which the C launcher checks against its own."""
-    return {"grid": (-(-t // BLOCK_Q), h, b), "threads": THREADS,
-            "rows_per_block": BLOCK_Q, "smem_bytes": FLASH_SMEM_BYTES}
+    dynamic shared memory, which the C launcher checks against its own;
+    with ``rel``, K1r's (K1's and the bias's double-buffered windows)."""
+    return {"grid": (-(-t // BLOCK_Q), h, b), "threads": THREADS, "rows_per_block": BLOCK_Q,
+            "smem_bytes": FLASH_REL_SMEM_BYTES if rel else FLASH_SMEM_BYTES}
 
 
 def flash_bwd_launch_plan(t: int, b: int, h: int) -> dict:
@@ -271,14 +305,19 @@ def fold_bf16_ref(x, lengths, zero_past_bound: bool) -> torch.Tensor:
 
 
 def _lib():
+    """K1's and K1r's library, the entries' types set once."""
     lib = _build.load("flash_attention")
     fn = lib.nomad_flash_attention_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        occ = lib.nomad_flash_attention_fwd_occupancy
-        occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        lib.nomad_flash_attention_rel_fwd.argtypes = [p] * 8 + [i] * 4 + [ll] * 12 + [
+            ctypes.c_float, i, p]
+        for entry in (fn, lib.nomad_flash_attention_rel_fwd):
+            entry.restype = ctypes.c_int
+        for occ in (lib.nomad_flash_attention_fwd_occupancy,
+                    lib.nomad_flash_attention_rel_fwd_occupancy):
+            occ.argtypes, occ.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
     return lib
 
 
@@ -288,6 +327,15 @@ def flash_occupancy() -> int:
     blocks = ctypes.c_int(0)
     _build.check(lib, lib.nomad_flash_attention_fwd_occupancy(ctypes.byref(blocks)),
                  "flash attention occupancy")
+    return blocks.value
+
+
+def flash_rel_occupancy() -> int:
+    """Blocks of K1r resident on one SM at its shared memory (the card)."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _build.check(lib, lib.nomad_flash_attention_rel_fwd_occupancy(ctypes.byref(blocks)),
+                 "relative flash attention occupancy")
     return blocks.value
 
 
@@ -508,6 +556,60 @@ def _flash_kernel(q, k, v, lengths):
     global launches
     launches += 1
     return o, lse
+
+
+def _check_rel(q, gate, table) -> None:
+    """K1r's gate [B, H, T] and table [H, 2T - 1]: contiguous f32 on q's
+    device."""
+    b, t, h, _ = q.shape
+    for name, x, shape in (("gate", gate, (b, h, t)), ("table", table, (h, 2 * t - 1))):
+        if (x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(f"flash kernel: {name} must be contiguous float32 {list(shape)} "
+                             f"on {q.device}")
+
+
+def _flash_rel_kernel(q, k, v, gate, table, lengths):
+    """K1r: K1 with the gated relative-position bias, f32 tensors only."""
+    b, t, h, d = q.shape
+    _check_inputs(q, k, v, lengths)
+    if q.dtype != torch.float32:
+        raise TypeError(f"K1r takes float32 tensors, got {q.dtype}: no bf16 flavour has the "
+                        "relative-position bias")
+    _check_rel(q, gate, table)
+    lengths = lengths.contiguous()
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = _lib()
+    err = lib.nomad_flash_attention_rel_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(), table.data_ptr(),
+        lengths.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        1.0 / d**0.5, flash_launch_plan(t, b, h, rel=True)["smem_bytes"],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "relative flash attention kernel launch")
+    global launches_rel
+    launches_rel += 1
+    return o, lse
+
+
+def mha_flash_rel(q, k, v, gate, table, lengths, precision="highest"):
+    """``mha_flash`` with the gated relative-position bias (gate [B, H, T],
+    table [H, 2T - 1]): K1r on CUDA tensors ("highest" or "high" on f32
+    tensors, the only flavour it has), on CPU tensors the plain version of
+    any flavour with ``relative_bias``."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, lengths, precision, relative_bias(gate, table))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel runs on CUDA tensors, got {q.device}")
+    if is_bf16(precision):
+        raise NotImplementedError(
+            f"K1r has no {precision!r} flavour: only K1's f32 one takes the relative-position "
+            "bias (a K1b flavour with it is not written)")
+    return _flash_rel_kernel(q, k, v, gate, table, lengths)
 
 
 def mha_flash(q, k, v, lengths, precision="highest"):
@@ -819,3 +921,30 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths, ctx.precision)
         return dq, dk, dv, None, None
+
+
+class FlashAttentionRel(torch.autograd.Function):
+    """``FlashAttentionRel.apply(q, k, v, gate, table, lengths,
+    precision="highest")`` -> O [B, T, H, D]: ``mha_flash_rel`` forward (K1r
+    on the card), differentiable in q, k, v, the gate and the table. The
+    backward recomputes the plain version (``flash_attention_ref`` with
+    ``relative_bias``) under autograd: the stand-in until K2 and K3 take
+    the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gate, table, lengths, precision="highest"):
+        o, _ = mha_flash_rel(q, k, v, gate, table, lengths, precision)
+        ctx.save_for_backward(q, k, v, gate, table, lengths)
+        ctx.precision = precision
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, gate, table, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_(True) for x in (q, k, v, gate, table)]
+            o, _ = flash_attention_ref(*args[:3], lengths, ctx.precision,
+                                       relative_bias(*args[3:]))
+            grads = torch.autograd.grad(o, args, do)
+        return (*grads, None, None)

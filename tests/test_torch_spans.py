@@ -75,6 +75,14 @@ def tiny_nomad():
 
 
 @pytest.fixture(scope="module")
+def tiny_wavlm():
+    return _seeded_nomad(Wav2Vec2Config.wavlm_large(
+        conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2), hidden_size=64,
+        num_layers=2, num_heads=4, ffn_dim=128, pos_conv_kernel=16, pos_conv_groups=4,
+        relative_position_buckets=32), "cpu")
+
+
+@pytest.fixture(scope="module")
 def wav_tree(tmp_path_factory):
     return _wavs(tmp_path_factory.mktemp("spans"), 5, (0.3, 0.1, 0.5), seed=25)
 
@@ -237,3 +245,36 @@ def test_engine_batches_device_time_is_the_traces_busy_time(tmp_path, monkeypatc
     assert idle.get("engine.probe", 0) > 0 and idle.get("predict.write_results", 0) > 0, seen
     assert idle.get("python", 0) < 0.05 * sum(idle.values()), seen
     assert np.array_equal(plain[1].values, traced[1].values)
+
+
+def test_rel_bias_span_with_the_profiler_off_keeps_only_its_aggregate(tiny_wavlm, tiny_nomad,
+                                                                      no_tracing):
+    """One ``model.rel_bias`` a WavLM forward, none a BASE one; with the
+    profiler off no range, event or log record; the CPU's plain attention
+    launches no K1r."""
+    from nomad_tpu_torch.ops import flash_attention
+
+    profiling.GLOBAL.reset()
+    launches = flash_attention.launches_rel
+    wav = torch.zeros(2, 4000)
+    with torch.no_grad():
+        tiny_wavlm.model(wav)
+        tiny_wavlm.model(wav[:, :3000])
+        tiny_nomad.model(wav)
+    stats = profiling.GLOBAL.stats()
+    assert stats["model.rel_bias"]["count"] == 2 and profiling.GLOBAL.events() == []
+    assert flash_attention.launches_rel == launches
+
+
+def test_rel_bias_span_under_the_profiler_in_predict(tiny_wavlm, wav_tree, tmp_path):
+    """In a traced ``predict`` each engine batch's forward builds its bias
+    table once, inside ``engine.submit``, as a range on the trace's clock."""
+    tiny_wavlm.predict("dir", *wav_tree, results_path=_results(tmp_path, "warm"))
+    profiling.GLOBAL.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tiny_wavlm.predict("dir", *wav_tree, results_path=_results(tmp_path, "traced"))
+    log = profiling.GLOBAL.events()
+    rel = [r for r in log if r["name"] == "model.rel_bias"]
+    assert len(rel) == tiny_wavlm.engine.transfer_stats()["batches"] // 2 > 0
+    assert all(r["parent"] == "engine.submit" and r["end_ns"] > r["start_ns"] for r in rel)
+    assert len(_user_ranges(prof, {"model.rel_bias"})) == len(rel)
